@@ -1,0 +1,423 @@
+// Flash-attention backward for Hopper (sm_90a), plain C interface for ctypes.
+// Two templates, each built with and without the frame mask:
+//
+//  * dKV: K2 `_flash_bwd_dkv_kernel` (mmpl_tpu/ops/attention.py:373) and,
+//    masked, K5 `_masked_bwd_dkv_kernel` (:783).  One block owns 64 keys of
+//    one (b, head) and loops over the query tiles (the grid of :552 with
+//    its sequential axis moved inside the block): per tile it recomputes
+//    P^T = exp(scale * K Q^T - lse) from the saved lse, and accumulates
+//    dV += P^T dO and dK += scale * dS^T Q with dS^T = P^T o (V dO^T - delta).
+//  * dQ: K3 `_flash_bwd_dq_kernel` (:417) and, masked, K6
+//    `_masked_bwd_dq_kernel` (:821).  One block owns 64 query rows and loops
+//    over the key tiles: dQ += scale * dS K (the grid of :577).
+//
+// Each block owns its outputs, so no atomics and no second pass.  p is 0
+// where the mask forbids the pair, past the ragged edges and on rows whose
+// lse is -inf (rows that saw no key: the guard of `_masked_p`, :771-780).
+// The mask is read from the per-token frame ids and the [F, F] table, and
+// the tile table (0 skip, 1 test pairs, 2 all allowed) skips whole tiles,
+// as in flash_fwd.cu.  delta = rowsum(dO o O) comes in computed (the plain
+// torch op of attention.py:527).
+//
+// Numerics: bf16/fp16 operands on the tensor cores (mma.sync m16n8k16) with
+// fp32 accumulation.  p and dS are rounded to the input type before their
+// products (dV, and dK / dQ); dP, p before rounding, and every accumulator
+// stay fp32.  The TPU kernels run the dO and dS products in fp32
+// (:393, :403-409): a known difference, measured in ROADMAP.md Queue 3.
+// fp32 inputs take an FMA path in the same template and fragment layout.
+//
+// Layout: q, do, dq [B, Lq, N, D]; k, v, dk, dv [B, Lk, N, D], all through
+// element strides with a contiguous head dim; lse and delta contiguous
+// [B, N, Lq] fp32.  64-bit offsets throughout.
+//
+// What bounds it on an H100: operations.  dKV does four products per tile
+// (S, dP, dV, dK: 8*B*N*Lq*Lk*D FLOPs), dQ three (S, dP, dQ: 6*...), times
+// the admitted share of tiles when masked; the bytes are B*N*(Lq+Lk)*D
+// elements in and out, far below the ridge at the training shapes.  The
+// design keeps all four products on the tensor cores with the scores, the
+// probabilities and both accumulators in registers: each warp owns 16 rows
+// (keys for dKV, queries for dQ), the S^T / dP^T accumulator fragments are
+// re-packed in place as the A operand of the next product, and the block
+// double-buffers the streamed tiles (Q and dO for dKV, K and V for dQ) with
+// cp.async.  It is the simple version: no wgmma, no TMA, no warp
+// specialisation, and dKV and dQ each recompute S.
+
+#include "flash_common.cuh"
+
+namespace {
+
+using namespace mmpl;
+
+struct Strides {
+  long long qb, ql, qh, kb, kl, kh, vb, vl, vh, db, dl, dh;  // q, k, v, dO
+  long long ab, al, ah, cb, cl, ch;                          // dK / dQ, dV
+};
+
+// Shared memory: two resident tiles, two streamed tiles in two stages,
+// the streamed rows' lse, delta (and frame ids), and (fp32 only) the
+// per-warp P rows of the FMA path.
+template <typename T, int kD>
+struct BwdSmem {
+  static constexpr size_t tiles = sizeof(T) * 6 * Pitch<T, kD>::tile;
+  static constexpr size_t rows = 2 * TILE * (2 * sizeof(float) + sizeof(int));
+  static constexpr size_t bytes =
+      tiles + rows + (Pitch<T, kD>::kFloat ? sizeof(float) * TILE * Pitch<T, kD>::pld : 0);
+};
+
+// dK, dV for 64 keys; streams the admitted query tiles.
+template <typename T, int kD, bool kMasked>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     T* __restrict__ dk, T* __restrict__ dv, int Lq, int Lk, int N,
+                     int D, Strides st, float scale, FrameMask mask) {
+  constexpr bool kFloat = Pitch<T, kD>::kFloat;
+  constexpr int TL = Pitch<T, kD>::tile;
+  constexpr int DT = kD / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + TL;
+  auto Qs = [&](int stage) { return Ks + (2 + stage) * TL; };
+  auto Ds = [&](int stage) { return Ks + (4 + stage) * TL; };
+  float* lse_s = reinterpret_cast<float*>(smem + BwdSmem<T, kD>::tiles);  // [2][TILE]
+  float* dl_s = lse_s + 2 * TILE;                                        // [2][TILE]
+  int* qf_s = reinterpret_cast<int*>(dl_s + 2 * TILE);                   // [2][TILE]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int k0 = blockIdx.x * TILE;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const T* qg = q + b * st.qb + h * st.qh;
+  const T* kg = k + b * st.kb + h * st.kh;
+  const T* vg = v + b * st.vb + h * st.vh;
+  const T* dg = dout + b * st.db + h * st.dh;
+  const float* lse_g = lse + (b * N + h) * (long long)Lq;
+  const float* dl_g = delta + (b * N + h) * (long long)Lq;
+
+  const int nqb = (Lq + TILE - 1) / TILE;
+  // the tile table's column of this key tile, walked down the query tiles
+  const unsigned char* tcol = kMasked ? mask.tiles + blockIdx.x : nullptr;
+  int kfr[2] = {-1, -1};  // frame ids of this thread's two key rows
+  if (kMasked) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = k0 + warp * 16 + g + 8 * i;
+      kfr[i] = row < Lk ? mask.kf[row] : -1;
+    }
+  }
+  // lse (-inf past Lq), delta and the frame ids of query tile `qb`
+  auto load_rows = [&](int stage, int qb) {
+    if (threadIdx.x < TILE) {
+      const int row = qb * TILE + threadIdx.x;
+      const bool in = row < Lq;
+      lse_s[stage * TILE + threadIdx.x] = in ? lse_g[row] : -INFINITY;
+      dl_s[stage * TILE + threadIdx.x] = in ? dl_g[row] : 0.f;
+      if (kMasked) qf_s[stage * TILE + threadIdx.x] = in ? mask.qf[row] : 0;
+    }
+  };
+
+  int qb = next_tile<kMasked>(tcol, mask.nkt, 0, nqb);
+  load_tile<T, kD>(Ks, kg, st.kl, k0, Lk, D);
+  load_tile<T, kD>(Vs, vg, st.vl, k0, Lk, D);
+  if (qb < nqb) {
+    load_tile<T, kD>(Qs(0), qg, st.ql, qb * TILE, Lq, D);
+    load_tile<T, kD>(Ds(0), dg, st.dl, qb * TILE, Lq, D);
+    load_rows(0, qb);
+  }
+  cp_async_commit();
+
+  float dk_acc[DT][4] = {};  // key rows g, g + 8
+  float dv_acc[DT][4] = {};
+
+  for (int stage = 0; qb < nqb; stage ^= 1) {
+    const int nxt = next_tile<kMasked>(tcol, mask.nkt, qb + 1, nqb);
+    if (nxt < nqb) {
+      load_tile<T, kD>(Qs(stage ^ 1), qg, st.ql, nxt * TILE, Lq, D);
+      load_tile<T, kD>(Ds(stage ^ 1), dg, st.dl, nxt * TILE, Lq, D);
+      load_rows(stage ^ 1, nxt);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Qt = Qs(stage);
+    const T* Dt = Ds(stage);
+    const float* lse_t = lse_s + stage * TILE;
+    const float* dl_t = dl_s + stage * TILE;
+    const int* qf_t = qf_s + stage * TILE;
+
+    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 64 queries
+    float s[8][4], dp[8][4];
+    if constexpr (kFloat) {
+      fma_abt<kD>(s, Ks, warp * 16, Qt, D);
+      fma_abt<kD>(dp, Vs, warp * 16, Dt, D);
+    } else {
+      mma_abt<T, kD>(s, Ks, warp * 16, Qt);
+      mma_abt<T, kD>(dp, Vs, warp * 16, Dt);
+    }
+
+    const bool test_pairs = kMasked && tcol[(long long)qb * mask.nkt] != 2;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);  // query within the tile
+        const float ls = lse_t[col];
+        bool ok = ls != -INFINITY;
+        if (test_pairs) {
+          const int kf = kfr[e >> 1];
+          ok = ok && kf >= 0 && mask.fm[(long long)qf_t[col] * mask.F + kf] != 0;
+        }
+        const float p = ok ? expf(s[j][e] * scale - ls) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - dl_t[col]);  // dS^T
+      }
+    }
+
+    // dV += P^T dO, dK += dS^T Q (scale applied at the end)
+    if constexpr (kFloat) {
+      float* Pw = reinterpret_cast<float*>(smem + BwdSmem<T, kD>::tiles + BwdSmem<T, kD>::rows) +
+                  warp * 16 * Pitch<T, kD>::pld;
+      fma_pb<kD>(dv_acc, s, Dt, Pw);
+      fma_pb<kD>(dk_acc, dp, Qt, Pw);
+    } else {
+      mma_pb<T, kD>(dv_acc, s, Dt);
+      mma_pb<T, kD>(dk_acc, dp, Qt);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+    qb = nxt;
+  }
+  cp_async_wait<0>();  // the K/V copies when the mask admitted no tile
+
+  const int row0 = k0 + warp * 16 + g;
+  store_rows<T, kD>(dk + b * st.ab + h * st.ah, st.al, row0, Lk, D, dk_acc, scale, scale);
+  store_rows<T, kD>(dv + b * st.cb + h * st.ch, st.cl, row0, Lk, D, dv_acc, 1.f, 1.f);
+}
+
+// dQ for 64 query rows; streams the admitted key tiles.
+template <typename T, int kD, bool kMasked>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    T* __restrict__ dq, int Lq, int Lk, int N, int D, Strides st,
+                    float scale, FrameMask mask) {
+  constexpr bool kFloat = Pitch<T, kD>::kFloat;
+  constexpr int TL = Pitch<T, kD>::tile;
+  constexpr int DT = kD / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ds = Qs + TL;
+  auto Ks = [&](int stage) { return Qs + (2 + stage) * TL; };
+  auto Vs = [&](int stage) { return Qs + (4 + stage) * TL; };
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int q0 = blockIdx.x * TILE;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const T* qg = q + b * st.qb + h * st.qh;
+  const T* kg = k + b * st.kb + h * st.kh;
+  const T* vg = v + b * st.vb + h * st.vh;
+  const T* dg = dout + b * st.db + h * st.dh;
+
+  const int nkb = (Lk + TILE - 1) / TILE;
+  const unsigned char* trow = kMasked ? mask.tiles + (long long)blockIdx.x * mask.nkt : nullptr;
+  float ls[2], dl[2];
+  const unsigned char* fmrow[2] = {nullptr, nullptr};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + g + 8 * i;
+    const bool in = row < Lq;
+    ls[i] = in ? lse[(b * N + h) * (long long)Lq + row] : -INFINITY;
+    dl[i] = in ? delta[(b * N + h) * (long long)Lq + row] : 0.f;
+    if (kMasked && in) fmrow[i] = mask.fm + (long long)mask.qf[row] * mask.F;
+  }
+
+  int kb = next_tile<kMasked>(trow, 1, 0, nkb);
+  load_tile<T, kD>(Qs, qg, st.ql, q0, Lq, D);
+  load_tile<T, kD>(Ds, dg, st.dl, q0, Lq, D);
+  if (kb < nkb) {
+    load_tile<T, kD>(Ks(0), kg, st.kl, kb * TILE, Lk, D);
+    load_tile<T, kD>(Vs(0), vg, st.vl, kb * TILE, Lk, D);
+  }
+  cp_async_commit();
+
+  float dq_acc[DT][4] = {};  // query rows g, g + 8
+
+  for (int stage = 0; kb < nkb; stage ^= 1) {
+    const int nxt = next_tile<kMasked>(trow, 1, kb + 1, nkb);
+    if (nxt < nkb) {
+      load_tile<T, kD>(Ks(stage ^ 1), kg, st.kl, nxt * TILE, Lk, D);
+      load_tile<T, kD>(Vs(stage ^ 1), vg, st.vl, nxt * TILE, Lk, D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Kt = Ks(stage);
+    const T* Vt = Vs(stage);
+
+    // S = Q K^T and dP = dO V^T for this warp's 16 queries x 64 keys
+    float s[8][4], dp[8][4];
+    if constexpr (kFloat) {
+      fma_abt<kD>(s, Qs, warp * 16, Kt, D);
+      fma_abt<kD>(dp, Ds, warp * 16, Vt, D);
+    } else {
+      mma_abt<T, kD>(s, Qs, warp * 16, Kt);
+      mma_abt<T, kD>(dp, Ds, warp * 16, Vt);
+    }
+
+    const int kvalid = Lk - kb * TILE;
+    const bool test_pairs = kMasked && trow[kb] != 2;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);  // key within the tile
+        const int i = e >> 1;
+        bool ok = col < kvalid && ls[i] != -INFINITY;
+        if (test_pairs) ok = ok && fmrow[i] != nullptr && fmrow[i][mask.kf[kb * TILE + col]] != 0;
+        const float p = ok ? expf(s[j][e] * scale - ls[i]) : 0.f;
+        dp[j][e] = p * (dp[j][e] - dl[i]);  // dS
+      }
+    }
+
+    // dQ += dS K (scale applied at the end)
+    if constexpr (kFloat) {
+      float* Pw = reinterpret_cast<float*>(smem + BwdSmem<T, kD>::tiles + BwdSmem<T, kD>::rows) +
+                  warp * 16 * Pitch<T, kD>::pld;
+      fma_pb<kD>(dq_acc, dp, Kt, Pw);
+    } else {
+      mma_pb<T, kD>(dq_acc, dp, Kt);
+    }
+    __syncthreads();
+    kb = nxt;
+  }
+  cp_async_wait<0>();
+
+  store_rows<T, kD>(dq + b * st.ab + h * st.ah, st.al, q0 + warp * 16 + g, Lq, D, dq_acc,
+                    scale, scale);
+}
+
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *out0, *out1;  // dK, dV (dkv) or dQ (dq)
+  int B, Lq, Lk, N, D;
+  Strides st;
+  float scale;
+  FrameMask mask;
+};
+
+template <typename T, int kD, bool kMasked, bool kDKV>
+int launch(const Args& a, cudaStream_t stream) {
+  const int bytes = (int)BwdSmem<T, kD>::bytes;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* d = static_cast<const T*>(a.dout);
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* dl = static_cast<const float*>(a.delta);
+  cudaError_t err;
+  if constexpr (kDKV) {
+    auto fn = flash_bwd_dkv_kernel<T, kD, kMasked>;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((a.Lk + TILE - 1) / TILE, a.N, a.B);
+    fn<<<grid, THREADS, bytes, stream>>>(q, k, v, d, lse, dl, static_cast<T*>(a.out0),
+                                         static_cast<T*>(a.out1), a.Lq, a.Lk, a.N, a.D, a.st,
+                                         a.scale, a.mask);
+  } else {
+    auto fn = flash_bwd_dq_kernel<T, kD, kMasked>;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((a.Lq + TILE - 1) / TILE, a.N, a.B);
+    fn<<<grid, THREADS, bytes, stream>>>(q, k, v, d, lse, dl, static_cast<T*>(a.out0), a.Lq,
+                                         a.Lk, a.N, a.D, a.st, a.scale, a.mask);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool kMasked, bool kDKV>
+int dispatch(int dtype, const Args& a, void* stream) {
+  if (a.D <= 0 || a.D > 128 || a.D % 8) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool narrow = a.D <= 64;
+  switch (dtype) {
+    case 0:
+      return narrow ? launch<float, 64, kMasked, kDKV>(a, s) : launch<float, 128, kMasked, kDKV>(a, s);
+    case 1:
+      return narrow ? launch<__nv_bfloat16, 64, kMasked, kDKV>(a, s)
+                    : launch<__nv_bfloat16, 128, kMasked, kDKV>(a, s);
+    case 2:
+      return narrow ? launch<__half, 64, kMasked, kDKV>(a, s) : launch<__half, 128, kMasked, kDKV>(a, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+FrameMask make_mask(const void* qf, const void* kf, const void* fm, const void* tiles, int F,
+                    int Lk) {
+  return FrameMask{static_cast<const int*>(qf), static_cast<const int*>(kf),
+                   static_cast<const unsigned char*>(fm),
+                   static_cast<const unsigned char*>(tiles), F, (Lk + TILE - 1) / TILE};
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Strides are in elements,
+// (batch, row, head) for q, k, v, dO, then the outputs.  Returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int mmpl_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse, const void* delta,
+                                  void* dk, void* dv, int B, int Lq, int Lk, int N, int D,
+                                  const long long* strides, float scale, void* stream) {
+  Args a{q, k, v, dout, lse, delta, dk, dv, B, Lq, Lk, N, D, {}, scale, FrameMask{}};
+  a.st = *reinterpret_cast<const Strides*>(strides);
+  return dispatch<false, true>(dtype, a, stream);
+}
+
+extern "C" int mmpl_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse, const void* delta,
+                                 void* dq, int B, int Lq, int Lk, int N, int D,
+                                 const long long* strides, float scale, void* stream) {
+  Args a{q, k, v, dout, lse, delta, dq, nullptr, B, Lq, Lk, N, D, {}, scale, FrameMask{}};
+  a.st = *reinterpret_cast<const Strides*>(strides);
+  return dispatch<false, false>(dtype, a, stream);
+}
+
+// The masked entries take the frame ids, table and tile table of
+// mmpl_flash_masked_fwd (flash_fwd.cu) after the outputs.
+extern "C" int mmpl_flash_masked_bwd_dkv(int dtype, const void* q, const void* k,
+                                         const void* v, const void* dout, const void* lse,
+                                         const void* delta, void* dk, void* dv,
+                                         const void* qf, const void* kf, const void* fm,
+                                         const void* tiles, int F, int B, int Lq, int Lk,
+                                         int N, int D, const long long* strides, float scale,
+                                         void* stream) {
+  Args a{q, k, v, dout, lse, delta, dk, dv, B, Lq, Lk, N, D, {}, scale,
+         make_mask(qf, kf, fm, tiles, F, Lk)};
+  a.st = *reinterpret_cast<const Strides*>(strides);
+  return dispatch<true, true>(dtype, a, stream);
+}
+
+extern "C" int mmpl_flash_masked_bwd_dq(int dtype, const void* q, const void* k,
+                                        const void* v, const void* dout, const void* lse,
+                                        const void* delta, void* dq, const void* qf,
+                                        const void* kf, const void* fm, const void* tiles,
+                                        int F, int B, int Lq, int Lk, int N, int D,
+                                        const long long* strides, float scale,
+                                        void* stream) {
+  Args a{q, k, v, dout, lse, delta, dq, nullptr, B, Lq, Lk, N, D, {}, scale,
+         make_mask(qf, kf, fm, tiles, F, Lk)};
+  a.st = *reinterpret_cast<const Strides*>(strides);
+  return dispatch<true, false>(dtype, a, stream);
+}

@@ -1,6 +1,7 @@
-"""Wan DiT layers for the planned-window serving path.
+"""Wan DiT layers for the planned-window serving path and training.
 
-Port of the parts of `mmpl_tpu/models/dit.py` that the FPS pipeline runs.
+Port of the parts of `mmpl_tpu/models/dit.py` that the FPS pipeline and the
+teacher-forcing trainer run.
 Parameters live in `nn.Module`s whose names mirror the JAX parameter tree
 (`blocks.<i>.self_attn.qkv.weight`, ...), so `utils/jax_params.py` maps one
 onto the other.  Linear weights are torch-style [out, in].  Layers are
@@ -11,7 +12,10 @@ plain functions over those modules, as in the JAX package:
   * the AdaLN modulation runs in fp32, `modulate`/`gate` cast shift, scale
     and gate to the activation dtype.
 
-The model is inference-only: parameters do not require gradients.
+Parameters do not require gradients unless a trainer turns them on
+(`training/diffusion.py`).  `call_with` runs a layer function over a cast
+copy of a module's parameters (the trainer's bf16 trunk over fp32
+masters), and `remat` recomputes a block in the backward pass.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
 from ..ops.rope import apply_rope, apply_rope_split, split_rope_permutation
@@ -122,6 +127,44 @@ def empty_dit(cfg, fused: bool = False, dtype=torch.bfloat16,
               device="cpu") -> WanDiT:
     """Allocated, uninitialised parameters (fill by init or load)."""
     return WanDiT(cfg, fused, dtype, device="meta").to_empty(device=device)
+
+
+class _Bound(nn.Module):
+    """`forward(fn, ...)` = fn(module, ...), so that `functional_call` can
+    run any layer function over substituted parameters."""
+
+    def __init__(self, module: nn.Module):
+        super().__init__()
+        self.m = module
+
+    def forward(self, fn, *args, **kwargs):
+        return fn(self.m, *args, **kwargs)
+
+
+def call_with(module: nn.Module, params: Dict[str, torch.Tensor], fn,
+              *args, **kwargs):
+    """fn(module, *args, **kwargs) with the module's parameters replaced by
+    `params` (names as in `named_parameters`) for the call; gradients flow
+    back to whatever `params` were made from."""
+    return torch.func.functional_call(
+        _Bound(module), {f"m.{k}": v for k, v in params.items()},
+        (fn,) + args, kwargs)
+
+
+def cast_params(module: nn.Module, dtype: torch.dtype
+                ) -> Dict[str, torch.Tensor]:
+    """The module's floating parameters cast to `dtype` (differentiable)."""
+    return {n: p.to(dtype) if p.is_floating_point() else p
+            for n, p in module.named_parameters()}
+
+
+def remat(fn: Callable[[torch.Tensor], torch.Tensor],
+          x: torch.Tensor) -> torch.Tensor:
+    """fn(x) whose activations are recomputed in the backward pass instead
+    of kept (per-block rematerialisation, the role of `remat_layer`
+    without `offload`); fn must read what it closes over identically when
+    it is run again."""
+    return checkpoint(fn, x, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------

@@ -1,25 +1,30 @@
-"""Causal FPS Wan DiT: the MMPL planned-KV-cache forward (inference).
+"""Causal FPS Wan DiT: the MMPL planned-KV-cache forward (inference) and the
+teacher-forcing training forward.
 
-Port of the inference branch of `mmpl_tpu/models/fps_dit.py`.  The KV
+Port of `mmpl_tpu/models/fps_dit.py` (`fps_forward_group`'s inference
+branch and `fps_forward_train`).  The KV
 cache is a dict of [num_layers, B, SLOTS, S, N*d] tensors (SLOTS = 15
 frame slots, S = tokens per frame, heads merged in the minor dim, as in
 the JAX package so both caches compare like with like).  Visibility is a
 gather of whole frame slots; attention over the gathered set needs no
 mask.  The cached K carries RoPE in the fused projection's split-half
-channel layout.
+channel layout.  Training needs no cache: its self-attention runs the
+frame-masked kernels over the whole [clean | noisy] sequence.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..core.geometry import GroupSchedule, KV_CACHE_SLOTS
-from ..ops.attention import attention
+from ..ops.attention import attention, frame_masked_attention, tile_table
 from ..ops.rope import rope_table
-from .dit import (WanDiT, block_forward, head_forward, linear, patchify,
-                  qkv_project, time_embed, unpatchify)
+from .dit import (WanDiT, block_forward, call_with, cast_params, embed_text,
+                  head_forward, linear, patchify, precompute_context_kv,
+                  qkv_project, remat, time_embed, unpatchify)
 
 
 def init_kv_cache(cfg, batch_size: int, tokens_per_frame: int,
@@ -100,3 +105,96 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
 
     x = head_forward(model.head, cfg, x, e, G)
     return unpatchify(x, G, grid, cfg.patch_size, cfg.out_dim)
+
+
+def fps_forward_train(model: WanDiT, cfg, noisy: torch.Tensor,
+                      t: torch.Tensor, context: torch.Tensor, frame_mask,
+                      clean_x: Optional[torch.Tensor] = None,
+                      aug_t: Optional[torch.Tensor] = None,
+                      compute_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """Training forward with teacher forcing (no KV cache).
+
+    noisy [B, F, C, H, W]; t / aug_t [B, F]; context [B, T, text_dim];
+    frame_mask [F, F] or, with `clean_x`, [2F, 2F] bool.  With `clean_x`
+    the token sequence is [clean | noisy], the clean half with the time
+    embedding of `aug_t` (zeros if None), RoPE positions repeated per half,
+    and the head sees only the noisy half.  Returns the flow
+    [B, F, C_out, H, W].
+
+    Self-attention runs `frame_masked_attention` (K4 forward, K5 / K6
+    backward on CUDA; the plain versions on the CPU) with frame ids
+    repeat(arange(frames), S); its tile table is built once here for every
+    layer.  Cross-attention runs `attention` (K1 / K2 / K3).  Each block
+    is recomputed in the backward pass (`dit.remat`).
+    The forward reads the parameters cast to `compute_dtype` (default: the
+    masters' own dtype; the bf16 trunk over fp32 masters, grads flowing
+    back through the cast): the embeddings and the head here, each block's
+    inside its recomputed step.  The activations follow `noisy`'s dtype.
+    """
+    dtype = compute_dtype or next(model.parameters()).dtype
+    outer = {n: p.to(dtype) for n, p in model.named_parameters()
+             if not n.startswith("blocks.")}
+    return call_with(model, outer, _forward_train, cfg, noisy, t, context,
+                     frame_mask, clean_x, aug_t, dtype)
+
+
+def _forward_train(model, cfg, noisy, t, context, frame_mask, clean_x,
+                   aug_t, dtype):
+    B, Fr, C, H, W = noisy.shape
+    grid = (H // cfg.patch_size[1], W // cfg.patch_size[2])
+    S = grid[0] * grid[1]
+    n, d = cfg.num_heads, cfg.dim // cfg.num_heads
+    device = noisy.device
+
+    x = patchify(model.patch_embedding, noisy, cfg.patch_size)
+    e_noisy, e0 = time_embed(model, cfg, t)
+    num_seq_frames = Fr
+    if clean_x is not None:
+        xc = patchify(model.patch_embedding, clean_x, cfg.patch_size)
+        if aug_t is None:
+            aug_t = torch.zeros_like(t)
+        _, e0_clean = time_embed(model, cfg, aug_t)
+        x = torch.cat([xc, x], dim=1)
+        e0 = torch.cat([e0_clean, e0], dim=1)
+        num_seq_frames = 2 * Fr
+    fm = torch.as_tensor(frame_mask, dtype=torch.bool, device=device)
+    if tuple(fm.shape) != (num_seq_frames, num_seq_frames):
+        raise ValueError(f"frame mask {tuple(fm.shape)} for "
+                         f"{num_seq_frames} sequence frames")
+
+    cos_np, sin_np = rope_table(tuple(range(Fr)), grid[0], grid[1], d)
+    reps = num_seq_frames // Fr     # RoPE positions repeat per half
+    cos = torch.as_tensor(np.concatenate([cos_np] * reps), device=device)
+    sin = torch.as_tensor(np.concatenate([sin_np] * reps), device=device)
+
+    ids = torch.arange(num_seq_frames, dtype=torch.int32,
+                       device=device).repeat_interleave(S)
+    tiles = tile_table(ids, ids, fm)
+
+    ctx = embed_text(model, context.to(x.dtype))
+    # reads the blocks' masters; `linear` and `rms_norm` cast each weight to
+    # the activations' dtype, the same rounding as `cast_params`
+    ctx_kv = precompute_context_kv(model, cfg, ctx)
+
+    def block_fn(blk, x, ckv):
+        def self_attn_fn(xm):
+            L = xm.shape[1]
+            q, k, v = qkv_project(blk.self_attn, xm, n, d, cos, sin)
+            out = frame_masked_attention(q, k, v, ids, ids, fm, tiles=tiles)
+            return linear(blk.self_attn.o, out.reshape(B, L, -1))
+        return block_forward(blk, cfg, x, e0, self_attn_fn, ckv,
+                             num_seq_frames)
+
+    for blk, ckv in zip(model.blocks, ctx_kv):
+        # the block casts its own parameters, so that the backward's
+        # recomputation, which runs after this forward has returned, reads
+        # the same cast values
+        step = lambda x, blk=blk, ckv=ckv: call_with(
+            blk, cast_params(blk, dtype), block_fn, x, ckv)
+        x = remat(step, x)
+
+    if clean_x is not None:
+        x = x[:, x.shape[1] // 2:]
+    x = head_forward(model.head, cfg, x, e_noisy, Fr)
+    return unpatchify(x, Fr, grid, cfg.patch_size, cfg.out_dim)

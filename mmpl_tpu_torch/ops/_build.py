@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels with nvcc and bind them with ctypes.
 
 Each `csrc/<name>.cu` compiles on its own into `build/kernels/<name>-<hash>.so`
-(the hash covers the source and the flags), at first use, for `sm_90a`.
+(the hash covers the source, the shared `csrc/*.cuh` headers and the
+flags), at first use, for `sm_90a`.
 The libraries expose plain C functions; pointers and the stream are passed
 as `c_void_p`, and every function returns `cudaGetLastError()` after its
 launch.  Nothing here runs when the module is imported.
@@ -24,12 +25,25 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+#: the masked entries' frame ids, frame table and tile table, then F
+_MASK = [_P, _P, _P, _P, _I]
 
-#: C signatures, by source name
+#: C signatures, by source name.  The backward entries take their 18
+#: strides as a pointer to a `long long` array.
 SIGNATURES = {
     "flash_fwd": {
         "mmpl_flash_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
                           + [_L] * 12 + [_F, _P],
+        "mmpl_flash_masked_fwd": [_I, _P, _P, _P, _P, _P] + _MASK
+                                 + [_I] * 5 + [_L] * 12 + [_F, _P],
+    },
+    "flash_bwd": {
+        "mmpl_flash_bwd_dkv": [_I] + [_P] * 8 + [_I] * 5 + [_P, _F, _P],
+        "mmpl_flash_bwd_dq": [_I] + [_P] * 7 + [_I] * 5 + [_P, _F, _P],
+        "mmpl_flash_masked_bwd_dkv": [_I] + [_P] * 8 + _MASK + [_I] * 5
+                                     + [_P, _F, _P],
+        "mmpl_flash_masked_bwd_dq": [_I] + [_P] * 7 + _MASK + [_I] * 5
+                                    + [_P, _F, _P],
     },
 }
 
@@ -55,6 +69,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -1,4 +1,5 @@
-"""Flow-matching scheduler tables and `add_noise` (the anchor reseed).
+"""Flow-matching scheduler tables, `add_noise` (the anchor reseed and the
+training noise) and the training loss weight.
 
 Port of `mmpl_tpu/schedulers/flow_match.py`: the sigma/timestep tables are
 fp64 numpy on the host, stored fp32; lookups pick the nearest timestep
@@ -70,3 +71,14 @@ class FlowMatchScheduler:
         sigma = sigma.reshape(sigma.shape + (1,) * (original_samples.ndim - 1))
         out = (1 - sigma) * original_samples.float() + sigma * noise.float()
         return out.to(noise.dtype)
+
+    def training_weight(self, timestep: torch.Tensor) -> torch.Tensor:
+        """Per-timestep loss weight of the nearest table timestep, one per
+        entry (`set_timesteps(training=True)` first)."""
+        if self.linear_timesteps_weights is None:
+            raise ValueError("set_timesteps(training=True) first")
+        ts = torch.as_tensor(self.timesteps, device=timestep.device)
+        w = torch.as_tensor(self.linear_timesteps_weights,
+                            device=timestep.device)
+        t = timestep.reshape(-1).float()
+        return w[torch.argmin(torch.abs(ts[:, None] - t[None, :]), dim=0)]

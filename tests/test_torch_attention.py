@@ -75,7 +75,7 @@ def test_cpu_dispatch_runs_plain_and_counts_no_launch():
     q, k, v = map(torch.from_numpy, _qkv(33, 65, 24, seed=5))
     out = ta.attention(q, k, v)
     torch.testing.assert_close(out, ta.flash_attention_plain(q, k, v)[0])
-    assert ta.launch_counts == {"flash_fwd": 0}
+    assert set(ta.launch_counts.values()) == {0}
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

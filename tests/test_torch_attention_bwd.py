@@ -1,0 +1,205 @@
+"""Port parity: the differentiable flash attention (K1-K3) and the
+frame-masked attention (K4-K6) on the CPU, where the port runs their plain
+versions through the same `autograd.Function`s, against the Pallas kernels
+in interpret mode and against torch autograd through a dense forward."""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mmpl_tpu.ops.attention import (flash_attention_vjp as j_flash_vjp,
+                                    frame_masked_attention as j_masked)
+from mmpl_tpu.training import masks as jmasks
+from mmpl_tpu_torch.ops import attention as ta
+from mmpl_tpu_torch.training import masks as tmasks
+
+
+def _arrays(shapes, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _torch_grads(fn, q, k, v, w):
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = fn(qt, kt, vt)
+    (out * torch.from_numpy(w)).sum().backward()
+    return out.detach().numpy(), [x.grad.numpy() for x in (qt, kt, vt)]
+
+
+def _jax_grads(fn, q, k, v, w):
+    loss = lambda *a: jnp.sum(fn(*a) * w)
+    args = tuple(map(jnp.asarray, (q, k, v)))
+    return (np.asarray(fn(*args)),
+            [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(*args)])
+
+
+def _close(got, want, atol, rtol=0.0):
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g, w, atol=atol, rtol=rtol,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("lq,lk", [(64, 64), (100, 200)])
+def test_flash_attention_and_grads_match_pallas_vjp(lq, lk):
+    B, N, D = 1, 2, 64
+    q, w = _arrays([(B, lq, N, D)] * 2, seed=lq)
+    k, v = _arrays([(B, lk, N, D)] * 2, seed=lk + 1)
+    o_w, g_w = _jax_grads(
+        lambda a, b, c: j_flash_vjp(a, b, c, None, 128, 128, True), q, k, v, w)
+    o_g, g_g = _torch_grads(ta.flash_attention, q, k, v, w)
+    np.testing.assert_allclose(o_g, o_w, atol=2e-5)
+    _close(g_g, g_w, atol=5e-4, rtol=5e-4)
+
+
+def _masked_case(name):
+    """(frame mask, q ids, kv ids, B, N, D) as in tests/test_models.py."""
+    if name == "teacher_forcing":        # 10 frames of 4 tokens
+        fm = jmasks.teacher_forcing_frame_mask(5, num_frame_per_block=1)
+        ids = np.repeat(np.arange(10), 4)
+        return fm, ids, ids, 1, 2, 64
+    if name == "ragged":                 # L = 15, not a block multiple
+        fm = np.tril(np.ones((3, 3), bool))
+        ids = np.repeat(np.arange(3), 5)
+        return fm, ids, ids, 1, 1, 64
+    fm = jmasks.teacher_forcing_frame_mask(3, 1)     # grads case, 6 x 8
+    ids = np.repeat(np.arange(6), 8)
+    return fm, ids, ids, 1, 2, 64
+
+
+@pytest.mark.parametrize("case", ["teacher_forcing", "ragged", "grads"])
+def test_frame_masked_attention_and_grads_match_pallas(case):
+    fm, qi, ki, B, N, D = _masked_case(case)
+    q, w = _arrays([(B, len(qi), N, D)] * 2, seed=3)
+    k, v = _arrays([(B, len(ki), N, D)] * 2, seed=4)
+    o_w, g_w = _jax_grads(
+        lambda a, b, c: j_masked(a, b, c, qi, ki, fm, block_q=128,
+                                 block_k=128, interpret=True), q, k, v, w)
+    o_g, g_g = _torch_grads(
+        lambda a, b, c: ta.frame_masked_attention(a, b, c, qi, ki, fm),
+        q, k, v, w)
+    np.testing.assert_allclose(o_g, o_w, atol=2e-5)
+    _close(g_g, g_w, atol=5e-4, rtol=5e-4)
+
+
+def test_fully_masked_frame_gives_zero_output_and_grads():
+    fm = np.tril(np.ones((4, 4), bool))
+    fm[2, :] = False                     # frame 2 sees nothing
+    ids = np.repeat(np.arange(4), 6)
+    q, k, v, w = _arrays([(2, 24, 3, 16)] * 4, seed=5)
+    o, lse = ta.frame_masked_attention_plain(
+        *map(torch.from_numpy, (q, k, v)), ids, ids, fm)
+    rows = ids == 2
+    assert torch.all(o[:, rows] == 0)
+    assert torch.all(lse[:, :, rows] == -math.inf)
+    assert torch.isfinite(lse[:, :, ~rows]).all()
+    _, (dq, dk, dv) = _torch_grads(
+        lambda a, b, c: ta.frame_masked_attention(a, b, c, ids, ids, fm),
+        q, k, v, w)
+    assert np.all(dq[:, rows] == 0) and np.isfinite(dq).all()
+    # keys of frame 3 are seen by no query (the mask is lower-triangular
+    # and row 3 is frame 3's own), so only the diagonal reaches them
+    assert np.isfinite(dk).all() and np.isfinite(dv).all()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_custom_backward_matches_autograd_of_the_dense_forward(masked):
+    fm = tmasks.fps_forcing_frame_mask([0, 0, 1, 1, 2, 2])
+    ids = np.repeat(np.arange(12), 5)
+    q, k, v, w = _arrays([(2, 60, 2, 24)] * 4, seed=6)
+    tok = torch.from_numpy(tmasks.expand_frame_mask(fm, 5))[None, None]
+    if masked:
+        fn = lambda a, b, c: ta.frame_masked_attention(a, b, c, ids, ids, fm)
+        ref = lambda a, b, c: ta.dense_attention(a, b, c, mask=tok)
+    else:
+        fn, ref = ta.flash_attention, ta.dense_attention
+    o_g, g_g = _torch_grads(fn, q, k, v, w)
+    o_w, g_w = _torch_grads(ref, q, k, v, w)
+    np.testing.assert_allclose(o_g, o_w, atol=1e-5)
+    _close(g_g, g_w, atol=2e-5, rtol=1e-5)
+
+
+def test_plain_backward_chunks_rows_without_changing_the_result(monkeypatch):
+    fm = np.tril(np.ones((5, 5), bool))
+    ids = np.repeat(np.arange(5), 7)
+    q, k, v, do = map(torch.from_numpy, _arrays([(2, 35, 3, 16)] * 4, 7))
+    o, lse = ta.frame_masked_attention_plain(q, k, v, ids, ids, fm)
+    delta = (do * o).sum(-1).permute(0, 2, 1).contiguous()
+    whole = ta.frame_masked_attention_bwd_plain(q, k, v, do, lse, delta,
+                                                ids, ids, fm)
+    monkeypatch.setattr(ta, "_PLAIN_SCORE_BYTES", 4 * 2 * 3 * 35 * 6)
+    chunked = ta.frame_masked_attention_bwd_plain(q, k, v, do, lse, delta,
+                                                  ids, ids, fm)
+    for a, b in zip(chunked, whole):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+
+
+def test_tile_table_marks_skipped_partial_and_full_tiles():
+    # 3 frames of 100 tokens; frame 1 sees frames 0 and 1, frame 0 only 0,
+    # frame 2 sees nothing
+    fm = np.array([[1, 0, 0], [1, 1, 0], [0, 0, 0]], bool)
+    ids = torch.as_tensor(np.repeat(np.arange(3), 100), dtype=torch.int32)
+    got = ta.tile_table(ids, ids, torch.from_numpy(fm)).numpy()
+    # tile rows/cols over tokens [0,64) [64,128) [128,192) [192,256) [256,300)
+    tok = tmasks.expand_frame_mask(fm, 100)
+    want = np.zeros((5, 5), np.uint8)
+    for i in range(5):
+        for j in range(5):
+            blk = tok[64 * i:64 * (i + 1), 64 * j:64 * (j + 1)]
+            want[i, j] = 2 if blk.all() else (1 if blk.any() else 0)
+    np.testing.assert_array_equal(got, want)
+    assert {0, 1, 2} <= set(np.unique(got))
+
+
+@pytest.mark.parametrize("wrapper", ["masked_fwd", "bwd_dkv", "bwd_dq",
+                                     "masked_bwd_dq"])
+def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
+    q, k, v, do = map(torch.from_numpy, _arrays([(1, 16, 2, 8)] * 4, 9))
+    ids = torch.zeros(16, dtype=torch.int32)
+    mask = (ids, ids, torch.ones((1, 1), dtype=torch.bool))
+    tiles = ta.tile_table(*mask)
+    lse = torch.zeros((1, 2, 16))
+    calls = {
+        "masked_fwd": lambda: ta.flash_fwd_cuda(q, k, v, None, mask, tiles),
+        "bwd_dkv": lambda: ta.flash_bwd_dkv_cuda(q, k, v, do, lse, lse),
+        "bwd_dq": lambda: ta.flash_bwd_dq_cuda(q, k, v, do, lse, lse),
+        "masked_bwd_dq": lambda: ta.flash_bwd_dq_cuda(
+            q, k, v, do, lse, lse, None, mask, tiles),
+    }
+    ta.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        calls[wrapper]()
+    assert set(ta.launch_counts.values()) == {0}
+
+
+@pytest.mark.parametrize("bad", [("q", 2), ("kv", 2), ("q", -1)])
+@pytest.mark.parametrize("call", ["masked_attention", "tile_table", "plain"])
+def test_frame_ids_outside_the_mask_are_refused(bad, call):
+    """The kernels index the [F, F] table with the ids unchecked, so the
+    table's builder and the plain versions refuse ids outside [0, F)."""
+    q, k, v = map(torch.from_numpy, _arrays([(1, 16, 2, 8)] * 3, 10))
+    side, value = bad
+    q_ids = torch.zeros(16, dtype=torch.int32)
+    kv_ids = torch.ones(16, dtype=torch.int32)
+    (q_ids if side == "q" else kv_ids)[5] = value
+    fm = torch.ones((2, 2), dtype=torch.bool)
+    calls = {
+        "masked_attention": lambda: ta.frame_masked_attention(
+            q, k, v, q_ids, kv_ids, fm),
+        "tile_table": lambda: ta.tile_table(q_ids, kv_ids, fm),
+        "plain": lambda: ta.frame_masked_attention_plain(
+            q, k, v, q_ids, kv_ids, fm),
+    }
+    with pytest.raises(ValueError, match=r"outside \[0, 2\)"):
+        calls[call]()
+
+
+def test_no_grad_and_inference_calls_bypass_autograd():
+    q, k, v = map(torch.from_numpy, _arrays([(1, 16, 2, 8)] * 3, 8))
+    with torch.inference_mode():
+        out = ta.flash_attention(q, k, v)
+    torch.testing.assert_close(out, ta.flash_attention_plain(q, k, v)[0])
+    assert out.grad_fn is None
