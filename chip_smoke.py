@@ -15,22 +15,33 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      teacher-forcing self-attention shape (42 frames x 1560 tokens), and
      ragged shapes with a frame that sees nothing, against the plain
      versions and SDPA (memory-efficient backend) with the token mask;
-  5. cli: the port's serving CLI in smoke mode (tiny config, fp32, 2
-     windows);
-  6. window: the 1.3B model (30 layers, random weights, non-zero head) at
+  5. kernel_int8: Q and P2 (csrc/int8_gemm.cu) against their plain
+     versions at the 1.3B window's projection shapes, one VAE im2col
+     shape, a ragged shape and fp32 activations: codes, scales and int32
+     accumulators exactly, outputs within 1 ulp; kernel / plain /
+     torch._int_mm / bf16 matmul times and the card's bound;
+  6. cli, cli_int8: the port's serving CLI in smoke mode (tiny config,
+     fp32, 2 windows), then again with --quantize auto --quantize-cache
+     --quantize-vae;
+  7. window: the 1.3B model (30 layers, random weights, non-zero head) at
      480x832 in bf16, two bridged windows at 4 sampling steps, with exact
-     K1 launch counts;
-  7. profile: one group-3 solver forward under torch.profiler (device time
-     by kernel, the device's idle share);
-  8. train_cli: `python -m mmpl_tpu_torch.train --smoke --steps 3` in this
+     K1 launch counts; profile: one group-3 solver forward under
+     torch.profiler (device time by kernel, the device's idle share);
+  8. window_int8, profile_int8: the same windows from the same seeds with
+     int8 projections (W8A8), the int8 KV cache and the int8 VAE decoder,
+     with exact K1 / Q / P2 launch counts, the cache's bytes, and the
+     latents' and frames' distance from the bf16 windows; quant_parity:
+     the tiny model's int8 fp32 window (and a small int8 decode) on the
+     card against the CPU's plain path;
+  9. train_cli: `python -m mmpl_tpu_torch.train --smoke --steps 3` in this
      process, with exact launch counts; train_parity: one fp32 loss and
      its gradients of the tiny model on the card against the CPU's plain
      path;
-  9. train: teacher forcing of the 1.3B model (30 layers, 21 latent frames
+  10. train: teacher forcing of the 1.3B model (30 layers, 21 latent frames
      at 60x104, bf16 trunk over fp32 masters, AdamW, EMA), one warm-up and
      two timed steps with exact launch counts; train_profile: one step
      under torch.profiler;
- 10. the kernels line, then the final device line.
+ 11. the kernels line, then the final device line.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ from mmpl_tpu_torch.core.geometry import T2V_CLEAN_STEPS         # noqa: E402
 from mmpl_tpu_torch.models import dit, vae                       # noqa: E402
 from mmpl_tpu_torch.ops import _build                            # noqa: E402
 from mmpl_tpu_torch.ops import attention as attn                 # noqa: E402
+from mmpl_tpu_torch.ops import quant                             # noqa: E402
 from mmpl_tpu_torch.pipelines.fps_inference import \
     CausalFPSInferencePipeline                                    # noqa: E402
 from mmpl_tpu_torch.training import masks                        # noqa: E402
@@ -71,6 +83,8 @@ OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+#: H100 SXM dense int8 tensor-core peak (NVIDIA data sheet), ops/s
+PEAK_INT8 = 1979e12
 
 #: (label, B, N, D, Lq, Lk, dtype): the 1.3B main path's K1 calls (the four
 #: t2v self-attention groups and text cross-attention), the training
@@ -110,6 +124,29 @@ MASKED_SHAPES = [
     ("d24_f32_blind", 2, 4, 24, "blind", 130, torch.float32),
 ]
 MASKED_MAIN = "tf_self"
+
+#: P2 / Q shapes: (label, M, K, N, activation dtype or None, output
+#: dtype).  M = 6240, 21840, 18720: the tokens of group 0, group 1 and
+#: groups 2/3 of the 1.3B window times the CFG pair; (K, N): the fused
+#: qkv, o (and cross-attention q / o), ffn.fc1, ffn.fc2.  "vae_96ch" is
+#: the im2col of one 480x832 frame through a 96-channel 3x3x3 decoder
+#: conv (per-tensor activation codes made outside Q, sx = 1); "smoke_f32"
+#: the tiny model's fp32 qkv.
+INT8_SHAPES = [
+    (f"g{g}_{name}", M, K, N, torch.bfloat16, torch.bfloat16)
+    for g, M in (("0", 6240), ("1", 21840), ("23", 18720))
+    for name, K, N in (("qkv", 1536, 4608), ("o", 1536, 1536),
+                       ("fc1", 1536, 8960), ("fc2", 8960, 1536))
+] + [
+    ("vae_96ch", 480 * 832, 96 * 27, 96, None, torch.bfloat16),
+    ("ragged", 1000, 96, 200, torch.bfloat16, torch.bfloat16),
+    ("smoke_f32", 224, 96, 288, torch.float32, torch.float32),
+]
+INT8_MAIN = "g23_fc1"      # P2's main shape: group 3's ffn.fc1
+Q_MAIN = "g23_fc2"         # Q's: group 3's ffn.fc2 input (18720 x 8960)
+
+#: projections per layer that run W8A8 under quantize="int8"
+W8A8_PER_LAYER = 6
 
 #: forward tolerances (as K1) and gradient tolerances, ||got - plain|| /
 #: ||plain|| per dq / dk / dv
@@ -437,6 +474,96 @@ def phase_kernel_masked():
     return rows
 
 
+def _ulps(got, want) -> int:
+    """Largest distance in units in the last place between two bf16 or
+    fp32 tensors of the same signs (their bit patterns as integers)."""
+    view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return (got.view(view).long() - want.view(view).long()).abs().max().item()
+
+
+def _esize(dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def phase_kernel_int8():
+    """Q (per-token codes) and P2 (int8 product, rescale epilogue) against
+    their plain versions, and their times beside the library's."""
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for label, M, K, N, act, out in INT8_SHAPES:
+        w = torch.randn((N, K), generator=gen, device="cuda")
+        wq, sw = quant.quantize_weight(w)
+        row = {"phase": "kernel_int8", "shape": label, "M": M, "K": K,
+               "N": N, "act": str(act).replace("torch.", ""),
+               "out": str(out).replace("torch.", "")}
+        if act is None:
+            xq = torch.randint(-127, 128, (M, K), generator=gen,
+                               device="cuda", dtype=torch.int8)
+            sx, sw = None, sw * 0.01
+            x = xq.to(torch.bfloat16)
+        else:
+            x = (3 * torch.randn((M, K), generator=gen, device="cuda")).to(act)
+            xq, sx = quant.quantize_rows_cuda(x)
+            pq, psx = quant.quantize_rows_plain(x)
+            torch.cuda.synchronize()
+            row["q_codes_equal"] = bool(torch.equal(xq, pq))
+            row["q_scales_equal"] = bool(torch.equal(sx, psx))
+            row["q_max_abs_err"] = max(
+                (xq.int() - pq.int()).abs().max().item(),
+                (sx - psx).abs().max().item())
+            check(row["q_codes_equal"] and row["q_scales_equal"], row)
+            del pq, psx
+        acc = quant.int8_gemm_cuda(xq, wq, None, None, torch.int32)
+        pacc = quant.int8_gemm_plain(xq, wq, None, None, torch.int32)
+        torch.cuda.synchronize()
+        row["acc_equal"] = bool(torch.equal(acc, pacc))
+        row["acc_max_abs"] = pacc.abs().max().item()
+        check(row["acc_equal"], row)
+        del acc, pacc
+        y = quant.int8_gemm_cuda(xq, wq, sx, sw, out)
+        py = quant.int8_gemm_plain(xq, wq, sx, sw, out)
+        torch.cuda.synchronize()
+        row["out_max_ulps"] = _ulps(y, py)
+        row["max_abs_err"] = (y.float() - py.float()).abs().max().item()
+        check(row["out_max_ulps"] <= 1, row)
+        del y, py
+        row["ms"] = time_ms(lambda: quant.int8_gemm_cuda(xq, wq, sx, sw, out))
+        row["plain_ms"] = time_ms(
+            lambda: quant.int8_gemm_plain(xq, wq, sx, sw, out), max_reps=5)
+        ops = 2.0 * M * N * K
+        nbytes = M * K + N * K + 4 * N + M * N * _esize(out) + (
+            4 * M if sx is not None else 0)
+        t_ops, t_bytes = ops / PEAK_INT8, nbytes / PEAK_BYTES
+        row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
+        row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        row["tops"] = ops / row["ms"] / 1e9
+
+        def library():      # the yardstick only: the port never calls it
+            yl = torch._int_mm(xq, wq.t()).float()
+            if sx is not None:
+                yl = yl * sx[:, None]
+            return (yl * sw[None, :]).to(out)
+        try:
+            row["library_ms"] = time_ms(library)
+        except RuntimeError as exc:
+            row["library_ms"] = None
+            row["library_error"] = str(exc).splitlines()[0][:200]
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        row["bf16_matmul_ms"] = time_ms(lambda: torch.matmul(xb, wb.t()))
+        del xb, wb
+        if act is not None:
+            row["q_ms"] = time_ms(lambda: quant.quantize_rows_cuda(x))
+            row["q_plain_ms"] = time_ms(lambda: quant.quantize_rows_plain(x),
+                                        max_reps=5)
+            row["q_bound_ms"] = 1e3 * (M * K * (_esize(act) + 1) + 4 * M
+                                       ) / PEAK_BYTES
+        emit(row)
+        rows[label] = row
+        del x, xq, w, wq
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_cli():
     os.makedirs(OUT_DIR, exist_ok=True)
     from mmpl_tpu_torch.utils import video_io
@@ -469,7 +596,72 @@ def phase_cli():
     check(launches == expected, (launches, expected))
 
 
-def phase_window(steps: int = 4):
+def phase_cli_int8():
+    """The serving CLI in smoke mode with every int8 flag: auto policy
+    (its probe forwards launch P2 too), int8 cache, int8 VAE decoder.
+    Every W8A8 product is one Q and one P2; each commit forward adds a Q
+    for k and one for v per layer; the VAE adds one P2 per im2col
+    chunk."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    from mmpl_tpu_torch.utils import video_io
+    written = {}
+    original = video_io.write_video
+
+    def capture(path, frames, fps=16):
+        written["frames"] = frames
+        return original(path, frames, fps)
+
+    video_io.write_video = capture
+    quant.reset_launch_counts()
+    vae.int8_conv_counts.update(convs=0, chunks=0)
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["--model", "smoke", "--duration", "2",
+                       "--sampling-steps", "4", "--device", "cuda",
+                       "--quantize", "auto", "--quantize-cache",
+                       "--quantize-vae",
+                       "--output", os.path.join(OUT_DIR, "smoke_int8.mp4")])
+    finally:
+        video_io.write_video = original
+    counts = dict(quant.launch_counts)
+    frames = written["frames"]
+    emit({"phase": "cli_int8", "rc": rc, "seconds": time.perf_counter() - t0,
+          "frames_shape": list(frames.shape), "dtype": str(frames.dtype),
+          "launches": counts, "vae_int8": dict(vae.int8_conv_counts),
+          "auto_policy": dit.last_auto_quantize_report.get("policy"),
+          "auto_mixed_rel_err":
+              dit.last_auto_quantize_report.get("mixed_rel_err")})
+    check(rc == 0, f"cli exit code {rc}")
+    check(frames.shape == (157, 64, 64, 3) and str(frames.dtype) == "uint8",
+          (frames.shape, frames.dtype))
+    check(counts["quantize_rows"] > 0 and vae.int8_conv_counts["convs"] > 0,
+          (counts, vae.int8_conv_counts))
+    # tiny config: 2 layers; Q also codes k and v in each commit forward
+    cache_q = 2 * 2 * sum(WINDOW_COMMITS)
+    check(counts["int8_gemm"] == counts["quantize_rows"] - cache_q
+          + vae.int8_conv_counts["chunks"], (counts, vae.int8_conv_counts))
+
+
+def _window_forwards(steps: int) -> int:
+    """DiT forwards of the two bridged windows: window 0 runs 4 groups of
+    `steps` solver forwards and 3 commits, window 1 commits its 2 bridged
+    latent frames (group 0) and runs 3 groups and their commits."""
+    return (4 * steps + 3) + (3 * steps + 3)
+
+
+#: commit forwards (the cache writes) of the two bridged windows: groups
+#: 0-2 of window 0, the bridge commit and groups 1-2 of window 1
+WINDOW_COMMITS = (3, 3)
+
+
+def _run_windows(phase, steps, quantize=None, quantize_cache=False,
+                 quantize_vae=False):
+    """Two bridged 1.3B windows at 480x832 in bf16 from the same seeds
+    (model 0, head 99, VAE 1, text 2 / 3, noise 100), with the int8
+    options asked for.  Returns (pipe, cond, uncond, rows, latents,
+    frames, caches): per-window rows, latents on the host, frames, and
+    each KV cache's {name: (dtype, bytes)}."""
+    from mmpl_tpu_torch.pipelines import fps_inference
     cfg = WAN_CONFIGS["t2v-1.3B"]
     dev = torch.device("cuda")
     g = lambda s: torch.Generator(device=dev).manual_seed(s)
@@ -477,59 +669,257 @@ def phase_window(steps: int = 4):
     model = dit.randomize_head(
         dit.init_dit_params(cfg, g(0), torch.bfloat16, dev), g(99))
     vae_model = vae.init_vae_params(g(1), torch.float32, dev)
+    if quantize_vae:
+        vae.quantize_vae_decoder(vae_model)
     cond, uncond = cli.random_text_context(cfg, dev)
     pipe = CausalFPSInferencePipeline(cfg, model, sampling_steps=steps,
+                                      quantize=quantize,
+                                      quantize_cache=quantize_cache,
                                       dtype=torch.bfloat16)
     pipe.sync_timing = True
     torch.cuda.synchronize()
-    emit({"phase": "window_init", "seconds": time.perf_counter() - t0})
+    emit({"phase": f"{phase}_init", "seconds": time.perf_counter() - t0})
 
-    windows = []
+    rows, latents, frames_out, caches = [], [], [], []
+    counted = {}        # launches and int8 convs up to the previous window
 
-    def on_window(win, latents, frames, seconds):
-        lat = latents.float()
+    def counts_now():
+        return {"flash_fwd": attn.launch_counts["flash_fwd"],
+                **quant.launch_counts,
+                **{f"vae_int8_{k}": v for k, v in vae.int8_conv_counts.items()}}
+
+    def on_window(win, lat, frames, seconds):
+        lat = lat.float()
         finite = bool(torch.isfinite(lat).all().item())
         std = lat.std().item()
         new_frames = 21 if win == 0 else 19
-        row = {"phase": "window", "window": win, "seconds": seconds,
+        now = counts_now()
+        row = {"phase": phase, "window": win, "seconds": seconds,
                "new_latent_frames": new_frames,
                "latent_frames_per_s": new_frames / seconds,
                "latents_finite": finite, "latents_std": std,
-               "frames_shape": list(frames.shape)}
+               "frames_shape": list(frames.shape),
+               "launches": {k: v - counted.get(k, 0) for k, v in now.items()}}
+        counted.update(now)
         for key, val in pipe.phase_times.items():
             if key.endswith("_steps_s"):
                 row[key.replace("_steps_s", "_ms_per_step")] = \
                     1e3 * val / steps
             else:
                 row[key.replace("_s", "_ms")] = 1e3 * val
-        emit(row)
-        windows.append(row)
+        rows.append(row)
+        latents.append(lat.cpu())
+        frames_out.append(frames)
         check(finite and std > 1e-3, row)
         check(frames.shape == (1, 81, 480, 832, 3), frames.shape)
 
+    def capture(*args, **kwargs):
+        cache = make_cache(*args, **kwargs)
+        caches.append({k: (str(v.dtype).replace("torch.", ""),
+                           v.numel() * v.element_size())
+                       for k, v in cache.items()})
+        return cache
+
+    make_cache = fps_inference.init_kv_cache
+    fps_inference.init_kv_cache = capture
     attn.reset_launch_counts()
+    quant.reset_launch_counts()
+    vae.int8_conv_counts.update(convs=0, chunks=0)
     torch.cuda.reset_peak_memory_stats()
-    full = cli.run_windows(pipe, vae_model, cond, uncond, 2, (60, 104),
-                           g(100), on_window)
+    try:
+        full = cli.run_windows(pipe, vae_model, cond, uncond, 2, (60, 104),
+                               g(100), on_window)
+    finally:
+        fps_inference.init_kv_cache = make_cache
+    check(full[0].shape == (157, 480, 832, 3) and str(full.dtype) == "uint8",
+          (full.shape, full.dtype))
+    return pipe, cond, uncond, rows, latents, frames_out, caches
+
+
+def phase_window(steps: int = 4):
+    """The bf16 windows: the serving path's K1 launches, exactly."""
+    pipe, cond, uncond, rows, latents, frames, _ = _run_windows(
+        "window", steps)
     launches = attn.launch_counts["flash_fwd"]
-    per_forward = 2 * cfg.num_layers
-    expected = per_forward * ((4 * steps + 3) + (3 * steps + 3))
+    expected = 2 * pipe.cfg.num_layers * _window_forwards(steps)
+    for row in rows:
+        emit(row)
     emit({"phase": "window_total", "flash_fwd_launches": launches,
           "expected_launches": expected,
           "max_memory_allocated_gib":
-              torch.cuda.max_memory_allocated() / 2**30,
-          "frames_shape": list(full[0].shape), "dtype": str(full.dtype)})
+              torch.cuda.max_memory_allocated() / 2**30})
     check(launches == expected, (launches, expected))
-    check(full[0].shape == (157, 480, 832, 3) and str(full.dtype) == "uint8",
-          (full.shape, full.dtype))
-    return launches, pipe, cond, uncond
+    return launches, pipe, cond, uncond, (rows, latents, frames)
 
 
-def phase_profile(pipe, cond, uncond, top: int = 12):
+def _psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+def phase_window_int8(bf16, steps: int = 4):
+    """The same two windows with W8A8 projections, the int8 KV cache and
+    the int8 VAE decoder.  Launches, exactly: Q and P2 once per W8A8
+    projection (6 per layer and forward: 3x the K1 count), Q once more
+    for k and once for v per layer in each commit forward, P2 once more
+    per im2col chunk of an int8 conv (counted per window); the cache int8
+    with its bytes; the latents and frames against the bf16 windows'
+    (reported, not gated)."""
+    pipe, cond, uncond, rows, latents, frames, caches = _run_windows(
+        "window_int8", steps, quantize="int8", quantize_cache=True,
+        quantize_vae=True)
+    cfg = pipe.cfg
+    k1 = attn.launch_counts["flash_fwd"]
+    counts = dict(quant.launch_counts)
+    chunks = dict(vae.int8_conv_counts)
+    per_window = [(4 * steps + 3, WINDOW_COMMITS[0]),
+                  (3 * steps + 3, WINDOW_COMMITS[1])]
+    for row, (forwards, commits) in zip(rows, per_window):
+        got = row["launches"]
+        w8a8 = W8A8_PER_LAYER * cfg.num_layers * forwards
+        want = {"flash_fwd": 2 * cfg.num_layers * forwards,
+                "quantize_rows": w8a8 + 2 * cfg.num_layers * commits,
+                "int8_gemm": w8a8 + got["vae_int8_chunks"]}
+        check({k: got[k] for k in want} == want, (row["window"], got, want))
+    forwards = _window_forwards(steps)
+    cache_q = 2 * cfg.num_layers * sum(WINDOW_COMMITS)
+    expected = {"flash_fwd": 2 * cfg.num_layers * forwards,
+                "quantize_rows": W8A8_PER_LAYER * cfg.num_layers * forwards
+                + cache_q}
+    expected["int8_gemm"] = (expected["quantize_rows"] - cache_q
+                             + chunks["chunks"])
+    b_rows, b_lat, b_frames = bf16
+    for row, lat, fr, blat, bfr, brow in zip(rows, latents, frames, b_lat,
+                                              b_frames, b_rows):
+        row["latents_rel_err_vs_bf16"] = (
+            (lat - blat).norm() / blat.norm()).item()
+        row["latents_cosine_vs_bf16"] = torch.nn.functional.cosine_similarity(
+            lat.reshape(1, -1).double(), blat.reshape(1, -1).double()).item()
+        row["frames_psnr_db_vs_bf16"] = _psnr(fr, bfr)
+        row["bf16_seconds"] = brow["seconds"]
+        emit(row)
+    L, B2, S, D = cfg.num_layers, 2, 60 * 104 // 4, cfg.dim
+    from mmpl_tpu_torch.core.geometry import KV_CACHE_SLOTS
+    tokens = L * B2 * KV_CACHE_SLOTS * S
+    want_bytes = {"k": tokens * D, "v": tokens * D, "k_scale": 4 * tokens,
+                  "v_scale": 4 * tokens}
+    got_bytes = {k: b for k, (_, b) in caches[0].items()}
+    got_dtypes = {k: d for k, (d, _) in caches[0].items()}
+    emit({"phase": "window_int8_total", "launches": counts,
+          "flash_fwd_launches": k1, "expected_launches": expected,
+          "vae_int8": chunks, "kv_cache_dtypes": got_dtypes,
+          "kv_cache_bytes": got_bytes, "expected_kv_cache_bytes": want_bytes,
+          "kv_cache_gb": sum(got_bytes.values()) / 1e9,
+          "max_memory_allocated_gib":
+              torch.cuda.max_memory_allocated() / 2**30})
+    check(k1 == expected["flash_fwd"], (k1, expected))
+    check(counts == {"int8_gemm": expected["int8_gemm"],
+                     "quantize_rows": expected["quantize_rows"]},
+          (counts, expected))
+    check(counts["quantize_rows"] == 3 * k1 + cache_q, (counts, k1))
+    check(chunks["convs"] > 0, chunks)
+    check(len(caches) == 2 and all(c == caches[0] for c in caches), caches)
+    check(got_dtypes == {"k": "int8", "v": "int8", "k_scale": "float32",
+                         "v_scale": "float32"}, got_dtypes)
+    check(got_bytes == want_bytes, (got_bytes, want_bytes))
+    return {"flash_fwd": k1, **counts}, pipe, cond, uncond
+
+
+def phase_quant_parity(steps: int = 4):
+    """The tiny model's int8 window (W8A8, int8 cache), fp32, on the card
+    against the CPU's plain path from the same weights, noise and reseed
+    noise; and a small int8 VAE decode.  The int8 window is chaotic in
+    the last bit: a code flips where an fp32 difference (here the order
+    of sums) crosses a rounding boundary, and CFG amplifies it; this phase
+    measures how far one fp32 ulp of the noise moves the card's own int8
+    window.  Gates: the float window within 1e-4; the int8 window within
+    1e-2 (about 5x that sensitivity) and nearer the CPU's int8 window than
+    the card's float window is; the int8 decode within 0.1 (rel, as
+    tests/test_torch_quant_vae.py holds the two packages) and nearer the
+    CPU's int8 decode than the card's float decode is, so that a card
+    path that skipped int8 fails.  One bidirectional forward, free of the
+    window's amplification, separates the two by far more: its int8 output
+    within 1e-3 of the CPU's and within a tenth of the float forward's
+    distance from it."""
+    import copy
+
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    cfg = tiny_test_config()
+    model = dit.randomize_head(dit.init_dit_params(
+        cfg, torch.Generator().manual_seed(0), torch.float32),
+        torch.Generator().manual_seed(99))
+    rng = np.random.default_rng(11)
+    noise = rng.standard_normal((1, 21, 16, 4, 4)).astype(np.float32)
+    cond, uncond = (rng.standard_normal((1, cfg.text_len, cfg.text_dim))
+                    .astype(np.float32) for _ in range(2))
+    from mmpl_tpu_torch.core.geometry import t2v_plan
+    reseed = {gi: rng.standard_normal((1, len(g.reseed), 16, 4, 4)).astype(
+        np.float32) for gi, g in enumerate(t2v_plan().groups) if g.reseed}
+
+    def window(dev, quantize, noise_np=noise):
+        pipe = CausalFPSInferencePipeline(
+            cfg, copy.deepcopy(model).to(dev), sampling_steps=steps,
+            quantize=quantize, quantize_cache=quantize is not None,
+            dtype=torch.float32)
+        t = lambda a: torch.from_numpy(a).to(dev)
+        return pipe.inference(t(noise_np), t(cond), t(uncond),
+                              reseed_noise={k: t(v) for k, v in
+                                            reseed.items()}).cpu()
+
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    quant.reset_launch_counts()
+    float_gpu = window("cuda", None)
+    row = {"phase": "quant_parity", "steps": steps,
+           "float_rel_err": rel(float_gpu, window("cpu", None))}
+    got, want = window("cuda", "int8"), window("cpu", "int8")
+    row["int8_launches"] = dict(quant.launch_counts)
+    row["int8_rel_err"] = rel(got, want)
+    row["card_float_vs_cpu_int8_rel"] = rel(float_gpu, want)
+    row["int8_finite"] = bool(torch.isfinite(got).all())
+    row["int8_card_ulp_sensitivity"] = rel(
+        window("cuda", "int8", np.nextafter(noise, np.float32(np.inf))), got)
+    float_vae = vae.init_vae_params(torch.Generator().manual_seed(1))
+    vae_model = vae.quantize_vae_decoder(copy.deepcopy(float_vae))
+    z = torch.from_numpy(rng.standard_normal((1, 2, 16, 4, 4)).astype(
+        np.float32))
+    px_cpu = vae.decode_streaming(vae_model, z)
+    px_gpu = vae.decode_streaming(vae_model.to("cuda"), z.cuda()).cpu()
+    px_float = vae.decode_streaming(float_vae.to("cuda"), z.cuda()).cpu()
+    row["int8_decode_rel_err"] = rel(px_gpu, px_cpu)
+    row["card_float_decode_vs_cpu_int8_rel"] = rel(px_float, px_cpu)
+
+    fwd_rng = np.random.default_rng(12)
+    lat = fwd_rng.standard_normal((1, 3, 16, 8, 8)).astype(np.float32)
+
+    def forward(dev, quantize):
+        m = dit.apply_quantize(dit.fuse_qkv_params(
+            copy.deepcopy(model).to(dev), num_heads=cfg.num_heads), quantize)
+        to = lambda a: torch.from_numpy(a).to(dev)
+        with torch.inference_mode():
+            return dit.dit_forward(m, cfg, to(lat), torch.full(
+                (1,), 500.0, device=dev), to(cond)).cpu()
+
+    fwd_cpu = forward("cpu", "int8")
+    row["int8_forward_rel_err"] = rel(forward("cuda", "int8"), fwd_cpu)
+    row["card_float_forward_vs_cpu_int8_rel"] = rel(forward("cuda", None),
+                                                    fwd_cpu)
+    emit(row)
+    check(row["float_rel_err"] <= 1e-4, row)
+    check(row["int8_finite"] and row["int8_rel_err"] <= 1e-2, row)
+    check(row["int8_rel_err"] < row["card_float_vs_cpu_int8_rel"], row)
+    check(row["int8_launches"]["quantize_rows"] > 0, row)
+    check(row["int8_decode_rel_err"] <= 0.1, row)
+    check(row["int8_decode_rel_err"]
+          < row["card_float_decode_vs_cpu_int8_rel"], row)
+    check(row["int8_forward_rel_err"] <= 1e-3 and row["int8_forward_rel_err"]
+          < 0.1 * row["card_float_forward_vs_cpu_int8_rel"], row)
+
+
+def phase_profile(pipe, cond, uncond, top: int = 12, phase="profile"):
     """One group-3 solver forward (the heaviest step) under torch.profiler:
-    device time by kernel, K1's share, and the device's idle share of the
-    synchronised wall time.  Reports what it sees; the numbers are read by
-    PERF.md's time breakdown, not checked."""
+    device time by kernel, K1's (and P2's and Q's) share, and the device's
+    idle share of the synchronised wall time.  Reports what it sees; the
+    numbers are read by PERF.md's time breakdown, not checked."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -540,7 +930,7 @@ def phase_profile(pipe, cond, uncond, top: int = 12):
     dev = cond.device
     ctx_kv2 = pipe.prepare_context(cond, uncond)
     cache = init_kv_cache(pipe.cfg, 2, 60 * 104 // 4, KV_CACHE_SLOTS,
-                          torch.bfloat16, dev)
+                          torch.bfloat16, dev, quantize=pipe.quantize_cache)
     lat = torch.randn((1, schedule.num_frames, 16, 60, 104), device=dev,
                       generator=torch.Generator(device=dev).manual_seed(7))
 
@@ -560,13 +950,18 @@ def phase_profile(pipe, cond, uncond, top: int = 12):
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    k1_ms = sum(e.self_device_time_total for e in kernels
-                if "flash_fwd_kernel" in e.key) / 1e3
-    emit({"phase": "profile", "what": "group3 solver forward, 30 layers",
+    by_name = lambda name: sum(e.self_device_time_total for e in kernels
+                               if name in e.key) / 1e3
+    k1_ms = by_name("flash_fwd_kernel")
+    p2_ms, q_ms = by_name("int8_gemm_kernel"), by_name("quantize_rows_kernel")
+    emit({"phase": phase, "what": "group3 solver forward, 30 layers",
           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
           "flash_fwd_ms": k1_ms,
           "flash_fwd_share_of_busy": k1_ms / busy_ms if busy_ms else None,
+          "int8_gemm_ms": p2_ms, "quantize_rows_ms": q_ms,
+          "int8_share_of_busy": (p2_ms + q_ms) / busy_ms if busy_ms
+          else None,
           "top_kernels": [{"name": e.key[:90], "calls": e.count,
                            "ms": e.self_device_time_total / 1e3}
                           for e in kernels[:top]]})
@@ -782,10 +1177,12 @@ def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
             "library_ms": library_ms, **extra}
 
 
-def kernels_line(smi, rows, bwd, masked, window_launches, train_counts):
-    """The six kernels at their main-path shapes: K1 at group 3 of the
+def kernels_line(smi, rows, bwd, masked, int8, window_launches,
+                 int8_launches, train_counts):
+    """The eight kernels at their main-path shapes: K1 at group 3 of the
     serving window, K2 / K3 at the training cross-attention, K4-K6 at the
-    training self-attention.  `launches` sums the paths each runs on."""
+    training self-attention, P2 at group 3's ffn.fc1 and Q at group 3's
+    ffn.fc2 input.  `launches` sums the paths each runs on."""
     fwd_src = "mmpl_tpu_torch/csrc/flash_fwd.cu"
     bwd_src = "mmpl_tpu_torch/csrc/flash_bwd.cu"
     k1 = rows[MAIN_SHAPE]
@@ -796,11 +1193,14 @@ def kernels_line(smi, rows, bwd, masked, window_launches, train_counts):
                 "(flash_attention_bwd_plain; SDPA's backward)")
     out = [_entry(
         "flash_fwd", fwd_src, "mmpl_tpu/ops/attention.py:324",
-        window_launches + train_counts["flash_fwd"],
+        window_launches + int8_launches["flash_fwd"]
+        + train_counts["flash_fwd"],
         max(r["o_max_abs_err"] for r in rows.values()), k1["ms"],
         k1["plain_ms"], k1["bound_ms"], k1["bound_by"], k1["library_ms"],
         at=MAIN_SHAPE, launches_by_path={
-            "window": window_launches, "train": train_counts["flash_fwd"]},
+            "window": window_launches,
+            "window_int8": int8_launches["flash_fwd"],
+            "train": train_counts["flash_fwd"]},
         shapes={k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
                                       "library_ms", "o_max_abs_err")}
                 for k, r in rows.items()})]
@@ -830,6 +1230,35 @@ def kernels_line(smi, rows, bwd, masked, window_launches, train_counts):
             pair_share=m["pair_share"], tile_share=m["tile_share"],
             library=("SDPA, memory-efficient backend, token-level bool mask"
                      + ("" if part == "fwd" else "; " + bwd_note))))
+    int8_src = "mmpl_tpu_torch/csrc/int8_gemm.cu"
+    p2, q = int8[INT8_MAIN], int8[Q_MAIN]
+    out.append(_entry(
+        "int8_gemm", int8_src,
+        "tools/pallas_int8_mm_probe.py:38 (_mm_s8_kernel, pallas_call :49) "
+        "and :61 (_mm_s8_kloop_kernel, pallas_call :82)",
+        int8_launches["int8_gemm"],
+        max(r["max_abs_err"] for r in int8.values()), p2["ms"],
+        p2["plain_ms"], p2["bound_ms"], p2["bound_by"], p2["library_ms"],
+        at=INT8_MAIN, bf16_matmul_ms=p2["bf16_matmul_ms"], tops=p2["tops"],
+        max_ulps=max(r["out_max_ulps"] for r in int8.values()),
+        accumulators_exact=all(r["acc_equal"] for r in int8.values()),
+        library="torch._int_mm + the same epilogue",
+        shapes={k: {f: r.get(f) for f in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms", "bf16_matmul_ms",
+                                          "tops", "out_max_ulps")}
+                for k, r in int8.items()}))
+    out.append(_entry(
+        "quantize_rows", int8_src,
+        "mmpl_tpu/ops/quant.py:49-52 (per-token codes, fused by XLA)",
+        int8_launches["quantize_rows"],
+        max(r["q_max_abs_err"] for r in int8.values() if "q_ms" in r),
+        q["q_ms"], q["q_plain_ms"],
+        q["q_bound_ms"], "bytes", None, at=Q_MAIN,
+        codes_and_scales_exact=all(
+            r["q_codes_equal"] and r["q_scales_equal"]
+            for r in int8.values() if "q_codes_equal" in r),
+        shapes={k: {f: r[f] for f in ("q_ms", "q_plain_ms", "q_bound_ms")}
+                for k, r in int8.items() if "q_ms" in r}))
     for e in out:
         e["card"] = smi
     return {"kernels": out}
@@ -841,16 +1270,24 @@ def main() -> int:
     rows = phase_kernel()
     bwd = phase_kernel_bwd()
     masked = phase_kernel_masked()
+    int8 = phase_kernel_int8()
     phase_cli()
-    window_launches, pipe, cond, uncond = phase_window()
+    phase_cli_int8()
+    window_launches, pipe, cond, uncond, bf16 = phase_window()
     phase_profile(pipe, cond, uncond)
     del pipe, cond, uncond
     torch.cuda.empty_cache()
+    int8_launches, pipe, cond, uncond = phase_window_int8(bf16)
+    phase_profile(pipe, cond, uncond, phase="profile_int8")
+    del pipe, cond, uncond, bf16
+    torch.cuda.empty_cache()
+    phase_quant_parity()
     phase_train_cli()
     phase_train_parity()
     train_counts, step = phase_train()
     phase_train_profile(step)
-    emit(kernels_line(smi, rows, bwd, masked, window_launches, train_counts))
+    emit(kernels_line(smi, rows, bwd, masked, int8, window_launches,
+                      int8_launches, train_counts))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -9,6 +9,9 @@ checkpoint it runs random weights and random text embeddings ("smoke" is
 the tiny config at 64x64).
 
     python -m mmpl_tpu_torch.cli --model smoke --duration 2 --sampling-steps 4
+
+`--quantize int8|int8wo|auto`, `--quantize-cache` and `--quantize-vae` run
+the int8 projections, the int8 KV cache and the int8 VAE decoder.
 """
 
 from __future__ import annotations
@@ -28,9 +31,6 @@ LATER_SLICES = {
     "wan_dir": "Slice A item 10 (checkpoint ingestion)",
     "use_ema": "Slice A item 10 (checkpoint ingestion)",
     "image": "Slice D (i2v)",
-    "quantize": "Slice B (int8 projections)",
-    "quantize_cache": "Slice B (int8 projections)",
-    "quantize_vae": "Slice B (int8 projections)",
     "mesh": "Slice F (multi-device)",
     "preview": "Slice C (few-step production path)",
     "taehv_path": "Slice C (few-step production path)",
@@ -59,12 +59,23 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--output", default="output.mp4")
     p.add_argument("--save-latents", default=None)
+    p.add_argument("--quantize", default=None,
+                   choices=["int8", "int8wo", "auto"],
+                   help="int8 block projections (ops/quant.py): int8 = W8A8 "
+                        "through the int8 kernel, int8wo = weight-only W8A16, "
+                        "auto = W8A8 or W8A16 per projection from a probe of "
+                        "the loaded weights")
+    p.add_argument("--quantize-cache", action="store_true",
+                   help="int8 KV cache with per-token scales (half the "
+                        "bytes of the window's largest resident)")
+    p.add_argument("--quantize-vae", action="store_true",
+                   help="int8 W8A8 VAE decoder convs "
+                        "(models/vae.quantize_vae_decoder)")
     # flags of later slices: parsed so that they can be refused by name
     for flag in ("--checkpoint-path", "--wan-dir", "--image", "--mesh",
-                 "--preview", "--taehv-path", "--quantize"):
+                 "--preview", "--taehv-path"):
         p.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    for flag in ("--use-ema", "--quantize-cache", "--quantize-vae",
-                 "--profile"):
+    for flag in ("--use-ema", "--profile"):
         p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     for dest, where in LATER_SLICES.items():
@@ -164,6 +175,8 @@ def main(argv=None) -> int:
         torch.bfloat16, device)
     vae_model = vae.init_vae_params(
         torch.Generator(device=device).manual_seed(1), torch.float32, device)
+    if args.quantize_vae:
+        vae.quantize_vae_decoder(vae_model)
     cond, uncond = random_text_context(cfg, device)
     print(f"model init: {time.time() - t0:.1f}s", file=sys.stderr)
 
@@ -171,7 +184,8 @@ def main(argv=None) -> int:
     pipe = CausalFPSInferencePipeline(
         cfg, model, sampling_steps=args.sampling_steps,
         timestep_shift=args.timestep_shift,
-        guidance_scale=args.guidance_scale,
+        guidance_scale=args.guidance_scale, quantize=args.quantize,
+        quantize_cache=args.quantize_cache,
         dtype=torch.float32 if smoke else torch.bfloat16)
 
     all_latents = []

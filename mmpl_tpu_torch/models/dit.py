@@ -7,7 +7,8 @@ Parameters live in `nn.Module`s whose names mirror the JAX parameter tree
 onto the other.  Linear weights are torch-style [out, in].  Layers are
 plain functions over those modules, as in the JAX package:
 
-  * `linear` casts the weight to the activation dtype;
+  * `linear` casts the weight to the activation dtype, or runs the int8
+    product of a `QuantLinear` (`quantize_params`, `ops/quant.py`);
   * norms compute in fp32 and cast back;
   * the AdaLN modulation runs in fp32, `modulate`/`gate` cast shift, scale
     and gate to the activation dtype.
@@ -20,7 +21,9 @@ masters), and `remat` recomputes a block in the backward pass.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import sys
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -29,7 +32,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
-from ..ops.rope import apply_rope, apply_rope_split, split_rope_permutation
+from ..ops.quant import QuantLinear
+from ..ops.rope import (apply_rope, apply_rope_split, split_rope_permutation,
+                        window_rope_table)
 
 
 class Affine(nn.Module):
@@ -252,11 +257,145 @@ def fuse_qkv_params(model: WanDiT, num_heads: int) -> WanDiT:
 
 
 # ---------------------------------------------------------------------------
+# int8 projections (ops/quant.py)
+# ---------------------------------------------------------------------------
+
+#: the block projections that quantise; cross-attention k/v run once per
+#: window (`precompute_context_kv`) and stay float, as do attention, the
+#: norms, AdaLN, the head and the embeddings
+AUTO_QUANT_TARGETS = ("self_attn.qkv", "self_attn.o", "cross_attn.q",
+                      "cross_attn.o", "ffn.fc1", "ffn.fc2")
+
+#: report of the most recent `auto_quantize` (policy and measured errors)
+last_auto_quantize_report: dict = {}
+
+
+def _target_slots(model: WanDiT, policy: Dict[str, str]):
+    """(parent module, attribute, mode) of each float block projection that
+    `policy` ({target: "int8" | "int8wo"}) names; a target the blocks do
+    not have (qkv when not fused) is skipped."""
+    for blk in model.blocks:
+        for tgt, mode in policy.items():
+            mod, name = tgt.split(".")
+            parent = getattr(blk, mod)
+            if isinstance(getattr(parent, name, None), nn.Linear):
+                yield parent, name, mode
+
+
+@torch.no_grad()
+def quantize_params_mixed(model: WanDiT, policy: Dict[str, str]) -> WanDiT:
+    """Replace each projection that `policy` names by its `QuantLinear`
+    (W8A8 for "int8", W8A16 for "int8wo"), in place; the float weights are
+    dropped, not kept beside the codes."""
+    for parent, name, mode in list(_target_slots(model, policy)):
+        setattr(parent, name, QuantLinear.from_linear(
+            getattr(parent, name), weight_only=mode == "int8wo"))
+    return model
+
+
+def quantize_params(model: WanDiT, weight_only: bool = False) -> WanDiT:
+    """int8-quantise the block projections AUTO_QUANT_TARGETS (W8A8, or
+    W8A16 with `weight_only`), in place, once at load, after
+    `fuse_qkv_params`."""
+    mode = "int8wo" if weight_only else "int8"
+    return quantize_params_mixed(model, dict.fromkeys(AUTO_QUANT_TARGETS,
+                                                      mode))
+
+
+@contextlib.contextmanager
+def _quantized(model: WanDiT, policy: Dict[str, str]):
+    """The model with `policy` applied inside the block; the float
+    projections are put back on exit."""
+    saved = [(parent, name, getattr(parent, name))
+             for parent, name, _ in _target_slots(model, policy)]
+    try:
+        yield quantize_params_mixed(model, policy)
+    finally:
+        for parent, name, lin in saved:
+            setattr(parent, name, lin)
+
+
+@torch.no_grad()
+def auto_quantize(model: WanDiT, cfg, rel_threshold: float = 0.03,
+                  probe_frames: int = 3, probe_hw: Tuple[int, int] = (16, 16),
+                  seed: int = 0):
+    """Per-projection W8A8 / W8A16 policy from the loaded weights, applied
+    in place.
+
+    For each target, only that projection is quantised W8A8 and the
+    relative error of a bidirectional forward (`dit_forward`) on a small
+    random probe is measured; targets within `rel_threshold` run W8A8, the
+    rest W8A16.  A zero head (the reference init) would make every error
+    vacuous, so the probe then runs with a fixed random head, put back to
+    zero afterwards.  Returns (model, report); the report is also kept in
+    `last_auto_quantize_report`."""
+    global last_auto_quantize_report
+    dtype = model.blocks[0].modulation.dtype
+    device = model.blocks[0].modulation.device
+    gen = lambda s: torch.Generator(device=device).manual_seed(s)
+    head = model.head.head.weight
+    random_head = not bool(head.any())
+    hh, ww = probe_hw
+    x = torch.randn((1, probe_frames, cfg.in_dim, hh, ww), generator=gen(
+        seed + 1), device=device).to(dtype)
+    t = torch.full((1, probe_frames), 500.0, device=device)
+    ctx = torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen(
+        seed + 2), device=device).to(dtype)
+
+    def rel_err(policy):
+        with _quantized(model, policy):
+            got = dit_forward(model, cfg, x, t, ctx).double()
+        return ((got - ref).norm() / max(ref.norm().item(), 1e-12)).item()
+
+    try:
+        if random_head:
+            head.copy_(torch.randn(head.shape, generator=gen(99),
+                                   device=device) * 0.05)
+        ref = dit_forward(model, cfg, x, t, ctx).double()
+        policy, errs = {}, {}
+        for tgt in AUTO_QUANT_TARGETS:
+            if next(_target_slots(model, {tgt: "int8"}), None) is None:
+                continue
+            errs[tgt] = rel_err({tgt: "int8"})
+            policy[tgt] = "int8" if errs[tgt] <= rel_threshold else "int8wo"
+        mixed_rel = rel_err(policy)
+    finally:
+        if random_head:
+            head.zero_()
+    quantize_params_mixed(model, policy)
+    report = {"policy": policy, "per_target_rel_err": errs,
+              "mixed_rel_err": mixed_rel, "rel_threshold": rel_threshold,
+              "probed_with_random_head": random_head}
+    last_auto_quantize_report = report
+    print(f"auto-quantize: policy={policy} mixed_rel={mixed_rel:.4f} "
+          f"(threshold {rel_threshold})", file=sys.stderr, flush=True)
+    return model, report
+
+
+def apply_quantize(model: WanDiT, quantize: Optional[str],
+                   cfg=None) -> WanDiT:
+    """quantize in {None, "int8", "int8wo", "auto"}, in place; "auto" runs
+    `auto_quantize` (needs cfg)."""
+    if quantize is None:
+        return model
+    if quantize in ("int8", "int8wo"):
+        return quantize_params(model, weight_only=quantize == "int8wo")
+    if quantize == "auto":
+        if cfg is None:
+            raise ValueError("quantize='auto' needs the model cfg")
+        return auto_quantize(model, cfg)[0]
+    raise ValueError(f"quantize={quantize!r} (int8, int8wo or auto)")
+
+
+# ---------------------------------------------------------------------------
 # Primitive layers
 # ---------------------------------------------------------------------------
 
-def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    y = torch.matmul(x, lin.weight.to(x.dtype).t())
+def linear(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(lin, QuantLinear):
+        y = lin.matmul(x)
+    else:
+        y = torch.matmul(x, lin.weight.to(x.dtype).t())
     if lin.bias is not None:
         y = y + lin.bias.to(x.dtype)
     return y
@@ -446,3 +585,34 @@ def randomize_head(model: WanDiT, generator: torch.Generator,
         w.copy_(torch.randn(w.shape, generator=generator, device=w.device)
                 * std)
     return model
+
+
+# ---------------------------------------------------------------------------
+# Bidirectional forward
+# ---------------------------------------------------------------------------
+
+def dit_forward(model: WanDiT, cfg, latents: torch.Tensor, t: torch.Tensor,
+                context: torch.Tensor) -> torch.Tensor:
+    """The bidirectional Wan DiT (t2v): latents [B, F, C, H, W], t [B] or
+    [B, F], context [B, T, text_dim] -> flow [B, F, C_out, H, W].  Every
+    token attends every token of the window; RoPE runs at frames 0..F-1."""
+    B, Fr, C, H, W = latents.shape
+    grid = (H // cfg.patch_size[1], W // cfg.patch_size[2])
+    n, d = cfg.num_heads, cfg.dim // cfg.num_heads
+    x = patchify(model.patch_embedding, latents, cfg.patch_size)
+    if t.ndim == 1:
+        t = t[:, None]
+    e, e0 = time_embed(model, cfg, t.expand(B, Fr))
+    ctx_kv = precompute_context_kv(model, cfg,
+                                   embed_text(model, context.to(x.dtype)))
+    cos_np, sin_np = window_rope_table(Fr, grid[0], grid[1], d)
+    cos = torch.as_tensor(cos_np, device=x.device)
+    sin = torch.as_tensor(sin_np, device=x.device)
+
+    for blk, ckv in zip(model.blocks, ctx_kv):
+        def self_attn_fn(xm, sa=blk.self_attn):
+            q, k, v = qkv_project(sa, xm, n, d, cos, sin)
+            return linear(sa.o, attention(q, k, v).reshape(B, xm.shape[1], -1))
+        x = block_forward(blk, cfg, x, e0, self_attn_fn, ckv, Fr)
+    x = head_forward(model.head, cfg, x, e, Fr)
+    return unpatchify(x, Fr, grid, cfg.patch_size, cfg.out_dim)

@@ -8,8 +8,11 @@ frame slots, S = tokens per frame, heads merged in the minor dim, as in
 the JAX package so both caches compare like with like).  Visibility is a
 gather of whole frame slots; attention over the gathered set needs no
 mask.  The cached K carries RoPE in the fused projection's split-half
-channel layout.  Training needs no cache: its self-attention runs the
-frame-masked kernels over the whole [clean | noisy] sequence.
+channel layout.  An int8 cache (`init_kv_cache(quantize=True)`) keeps
+per-token f32 scales beside the codes: the gathered visible set is
+dequantised in the activation dtype, and the commit pass writes codes.
+Training needs no cache: its self-attention runs the frame-masked kernels
+over the whole [clean | noisy] sequence.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from ..core.geometry import GroupSchedule, KV_CACHE_SLOTS
 from ..ops.attention import attention, frame_masked_attention, tile_table
+from ..ops.quant import quantize_rows
 from ..ops.rope import rope_table
 from .dit import (WanDiT, block_forward, call_with, cast_params, embed_text,
                   head_forward, linear, patchify, precompute_context_kv,
@@ -29,14 +33,38 @@ from .dit import (WanDiT, block_forward, call_with, cast_params, embed_text,
 
 def init_kv_cache(cfg, batch_size: int, tokens_per_frame: int,
                   num_slots: int = KV_CACHE_SLOTS, dtype=torch.bfloat16,
-                  device="cpu") -> Dict[str, torch.Tensor]:
-    """Zeroed planned KV cache, layout [L, B, SLOTS, S, N*d]."""
+                  device="cpu", quantize: bool = False
+                  ) -> Dict[str, torch.Tensor]:
+    """Zeroed planned KV cache, layout [L, B, SLOTS, S, N*d].
+
+    quantize=True stores K/V as int8 with per-token f32 scales
+    `k_scale` / `v_scale` [L, B, SLOTS, S] (one scale across the merged
+    heads; the QK-norm keeps head magnitudes comparable): half the bytes
+    of the largest resident of the 50-step CFG window."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"KV cache dtype {dtype} (bf16 or f32 only)")
     n, d = cfg.num_heads, cfg.dim // cfg.num_heads
     shape = (cfg.num_layers, batch_size, num_slots, tokens_per_frame, n * d)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if not quantize:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device)}
+
+
+def _gather(kv_cache, name: str, li: int, slots: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """Layer li's visible slots of cache `name` [B, n_slots, S, N*d]; int8
+    codes are dequantised here, in `dtype` (scales cast to it first)."""
+    x = kv_cache[name][li].index_select(1, slots)
+    scale = kv_cache.get(f"{name}_scale")
+    if scale is None:
+        return x
+    return x.to(dtype) * scale[li].index_select(1, slots)[..., None].to(dtype)
 
 
 def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
@@ -55,7 +83,8 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
     its own slots, so the cache is constant through the solver loop; only
     the clean commit pass (`write_cache=True`) writes, and it writes the
     group's `write_slots` of `kv_cache` IN PLACE, once, after the layer
-    loop.  Append-mode groups never write.
+    loop (codes and scales for an int8 cache).  Append-mode groups never
+    write.
     """
     B, G, C, H, W = latents.shape
     assert G == schedule.num_frames, (G, schedule)
@@ -82,8 +111,8 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
             L = xm.shape[1]
             q, k, v = qkv_project(sa, xm, n, d, cos, sin)
             if other_slots:
-                ck = kv_cache["k"][li].index_select(1, vis_other)
-                cv = kv_cache["v"][li].index_select(1, vis_other)
+                ck = _gather(kv_cache, "k", li, vis_other, k.dtype)
+                cv = _gather(kv_cache, "v", li, vis_other, v.dtype)
                 kv_k = torch.cat([ck.reshape(B, -1, n, d), k], dim=1)
                 kv_v = torch.cat([cv.reshape(B, -1, n, d), v], dim=1)
             else:
@@ -99,9 +128,17 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
     if write:
         slots = torch.as_tensor(schedule.write_slots, dtype=torch.long,
                                 device=device)
-        for li, (k, v) in enumerate(own_kv):
-            kv_cache["k"][li].index_copy_(1, slots, k.to(kv_cache["k"].dtype))
-            kv_cache["v"][li].index_copy_(1, slots, v.to(kv_cache["v"].dtype))
+        for li, own in enumerate(own_kv):
+            for name, kv in zip(("k", "v"), own):
+                if f"{name}_scale" in kv_cache:
+                    # per-token codes: one launch of Q per layer and name
+                    codes, scale = quantize_rows(kv.reshape(-1, n * d)
+                                                 .contiguous())
+                    kv = codes.reshape(kv.shape)
+                    kv_cache[f"{name}_scale"][li].index_copy_(
+                        1, slots, scale.reshape(kv.shape[:-1]))
+                kv_cache[name][li].index_copy_(1, slots,
+                                               kv.to(kv_cache[name].dtype))
 
     x = head_forward(model.head, cfg, x, e, G)
     return unpatchify(x, G, grid, cfg.patch_size, cfg.out_dim)

@@ -1,10 +1,17 @@
 """Wan2.1 causal 3D video VAE (encode, decode, streaming decode).
 
-Port of `mmpl_tpu/models/vae.py` (f32/bf16; the int8 decoder waits).
+Port of `mmpl_tpu/models/vae.py` (f32, bf16 and the int8 decoder).
 Public functions keep the JAX package's [B, T, C, H, W] layout; inside,
 activations are torch's [B, C, T, H, W].  Parameters live in `nn.Module`s
 named after the JAX tree (`decoder.up.3.resample.weight`, ...), convs with
 torch-style OIDHW / OIHW weights.
+
+`quantize_vae_decoder` turns every decoder conv (and `conv2`) into int8
+codes with per-output-channel scales (`QuantConv`).  Such a conv quantises
+its input with one dynamic scale per tensor and runs as an im2col of the
+zero-padded codes through the int8 product P2 (`ops/quant.int8_gemm`, exact
+int32 accumulation, epilogue acc * (xs * s_w)), in row chunks of at most
+~1 GiB of im2col.
 
 Causal temporal convs pad 2*(kt//2) zero frames in front.  First-frame
 special cases: downsample3d passes frame 0 through and runs its stride-2
@@ -22,6 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.quant import amax_scale, int8_gemm, quantize_weight
 
 LATENT_MEAN = np.array([
     -0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653, -0.1517, 1.5508,
@@ -82,6 +91,51 @@ class Conv(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, *kernel, **kw))
         self.bias = nn.Parameter(torch.empty(cout, **kw))
+
+
+class QuantConv(nn.Module):
+    """int8 codes of a conv: `weight_q` int8 (OIDHW or OIHW), `scale` f32
+    [Cout] (per output channel) and the float `bias`.  `im2col_weight()`
+    keeps the codes as the im2col product's [Cout, K] matrix, built at
+    first use and again after `load_state_dict`."""
+
+    def __init__(self, shape: Tuple[int, ...], bias_dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.register_buffer("weight_q", torch.zeros(shape, dtype=torch.int8,
+                                                     device=device))
+        self.register_buffer("scale", torch.ones(shape[0], dtype=torch.float32,
+                                                 device=device))
+        self.bias = nn.Parameter(torch.zeros(shape[0], dtype=bias_dtype,
+                                             device=device),
+                                 requires_grad=False)
+        self.register_buffer("weight_im2col", None, persistent=False)
+        self.register_load_state_dict_post_hook(QuantConv._drop_im2col)
+
+    @staticmethod
+    def _drop_im2col(module: "QuantConv", _incompatible_keys) -> None:
+        module.weight_im2col = None
+
+    def im2col_weight(self) -> torch.Tensor:
+        """The codes as [Cout, K], K ordered (kt, kh, kw, C) like the
+        channels-last im2col of `_int8_conv`."""
+        if self.weight_im2col is None:
+            w = self.weight_q if self.weight_q.ndim == 5 \
+                else self.weight_q[:, :, None]
+            self.weight_im2col = w.permute(0, 2, 3, 4, 1).reshape(
+                w.shape[0], -1).contiguous()
+        return self.weight_im2col
+
+    @classmethod
+    @torch.no_grad()
+    def from_conv(cls, p: Conv) -> "QuantConv":
+        w = p.weight
+        q = cls(tuple(w.shape), p.bias.dtype, w.device)
+        codes, scale = quantize_weight(w.reshape(w.shape[0], -1))
+        q.weight_q.copy_(codes.reshape(w.shape))
+        q.scale.copy_(scale)
+        q.bias.copy_(p.bias)
+        return q
 
 
 class Gamma(nn.Module):
@@ -171,6 +225,20 @@ def empty_vae(dtype=torch.float32, device="cpu") -> WanVAE:
 
 
 @torch.no_grad()
+def quantize_vae_decoder(vae: WanVAE) -> WanVAE:
+    """int8-quantise every decoder conv and the post-latent `conv2`, in
+    place (W8A8: per-output-channel weight scales, per-tensor dynamic
+    activation scales); the encoder is untouched.  `decode` and
+    `decode_streaming` share the conv dispatch."""
+    for parent in [vae, *vae.decoder.modules()]:
+        for name, child in list(parent.named_children()):
+            if isinstance(child, Conv) and (parent is not vae
+                                            or name == "conv2"):
+                setattr(parent, name, QuantConv.from_conv(child))
+    return vae
+
+
+@torch.no_grad()
 def init_vae_params(generator: torch.Generator, dtype=torch.float32,
                     device="cpu") -> WanVAE:
     """Random VAE: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) conv weights and
@@ -200,12 +268,75 @@ def _add_bias(y: torch.Tensor, p: Conv) -> torch.Tensor:
     return y + p.bias.to(y.dtype)[None, :, None, None, None]
 
 
-def _conv3d(p: Conv, x: torch.Tensor, stride=(1, 1, 1),
-            t_pad=None) -> torch.Tensor:
+#: int8 convs run and the im2col row chunks (P2 launches on the card) they
+#: took, counted at the conv dispatch
+int8_conv_counts = {"convs": 0, "chunks": 0}
+
+#: bytes of int8 im2col one P2 call takes at most (~1 GiB)
+IM2COL_BYTES = 1 << 30
+
+
+def _quant_act(x: torch.Tensor):
+    """One dynamic int8 scale for the whole tensor: per-token scales do not
+    fit a conv, whose every output mixes kt*kh*kw positions."""
+    xf = x.float()
+    xs = amax_scale(xf.abs().amax())
+    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    return xq, xs
+
+
+def _row_blocks(To: int, Ho: int, row_bytes: int):
+    """(t0, t1, h0, h1) blocks of output rows whose im2col fits
+    IM2COL_BYTES: whole frames where a frame fits, else rows of one."""
+    frame = Ho * row_bytes
+    if frame <= IM2COL_BYTES:
+        step = IM2COL_BYTES // frame
+        for t0 in range(0, To, step):
+            yield t0, min(t0 + step, To), 0, Ho
+        return
+    step = max(1, IM2COL_BYTES // row_bytes)
+    for t0 in range(To):
+        for h0 in range(0, Ho, step):
+            yield t0, t0 + 1, h0, min(h0 + step, Ho)
+
+
+def _int8_conv(p: QuantConv, x: torch.Tensor, stride, pads) -> torch.Tensor:
+    """x [B, C, T, H, W] conv the int8 weight, zero pads (t front, h, w):
+    the exact integer conv of the codes as im2col products through P2.
+    The im2col is channels-last, K ordered (kt, kh, kw, C), so that its
+    copy moves whole runs of C codes."""
+    xq, xs = _quant_act(x)
+    Cout, Cin, *ks = p.weight_q.shape
+    kt, kh, kw = ks if len(ks) == 3 else (1, *ks)
+    t_pad, ph, pw = pads
+    xq = F.pad(xq, (pw, pw, ph, ph, t_pad, 0)).permute(0, 2, 3, 4, 1)
+    cols = xq.contiguous().unfold(1, kt, stride[0]).unfold(
+        2, kh, stride[1]).unfold(3, kw, stride[2]).permute(
+            0, 1, 2, 3, 5, 6, 7, 4)                 # [B,To,Ho,Wo,kt,kh,kw,C]
+    B, To, Ho, Wo = cols.shape[:4]
+    K = Cin * kt * kh * kw
+    wm = p.im2col_weight()
+    sw = xs * p.scale                      # the epilogue's acc * (xs * s_w)
+    out = torch.empty((B, To, Ho, Wo, Cout), dtype=x.dtype, device=x.device)
+    int8_conv_counts["convs"] += 1
+    for b in range(B):
+        for t0, t1, h0, h1 in _row_blocks(To, Ho, Wo * K):
+            a = cols[b, t0:t1, h0:h1].reshape(-1, K)
+            out[b, t0:t1, h0:h1] = int8_gemm(a, wm, None, sw, x.dtype).reshape(
+                t1 - t0, h1 - h0, Wo, Cout)
+            int8_conv_counts["chunks"] += 1
+    return out.permute(0, 4, 1, 2, 3)
+
+
+def _conv3d(p, x: torch.Tensor, stride=(1, 1, 1), t_pad=None) -> torch.Tensor:
     """Causal 3D conv: t_pad (default 2*(kt//2)) zero frames in front,
-    spatial SAME."""
-    kt, kh, kw = p.weight.shape[2:]
+    spatial SAME; int8 for a `QuantConv`."""
+    kt, kh, kw = (p.weight_q if isinstance(p, QuantConv)
+                  else p.weight).shape[2:]
     t_pad = 2 * (kt // 2) if t_pad is None else t_pad
+    if isinstance(p, QuantConv):
+        return _add_bias(_int8_conv(p, x, stride, (t_pad, kh // 2, kw // 2)),
+                         p)
     if t_pad:
         x = F.pad(x, (0, 0, 0, 0, t_pad, 0))
     y = F.conv3d(x, p.weight.to(x.dtype), stride=stride,
@@ -213,11 +344,15 @@ def _conv3d(p: Conv, x: torch.Tensor, stride=(1, 1, 1),
     return _add_bias(y, p)
 
 
-def _conv2d(p: Conv, x: torch.Tensor, stride: int = 1,
+def _conv2d(p, x: torch.Tensor, stride: int = 1,
             same: bool = True) -> torch.Tensor:
-    """Per-frame 2D conv, as a conv3d with a temporal extent of 1."""
-    kh, kw = p.weight.shape[2:]
+    """Per-frame 2D conv, as a conv3d with a temporal extent of 1; int8
+    for a `QuantConv`."""
+    kh, kw = (p.weight_q if isinstance(p, QuantConv)
+              else p.weight).shape[2:]
     pad = (0, kh // 2, kw // 2) if same else (0, 0, 0)
+    if isinstance(p, QuantConv):
+        return _add_bias(_int8_conv(p, x, (1, stride, stride), pad), p)
     y = F.conv3d(x, p.weight.to(x.dtype)[:, :, None],
                  stride=(1, stride, stride), padding=pad)
     return _add_bias(y, p)
@@ -474,7 +609,8 @@ def decode_to_frames(vae: WanVAE, latents: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Production decode: bf16 streaming decode to display-ready frames.
 
-    Weights and latents run in bf16 (weights are cast at each conv).
+    Weights and latents run in bf16 (weights are cast at each conv; an
+    int8 conv's scales stay f32).
     Returns (frames [B, T, H, W, 3] uint8, tail [B, 5, 3, H, W] fp32 in
     [-1, 1], the causal suffix the inter-window bridge re-encodes).
     """

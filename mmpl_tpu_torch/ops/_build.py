@@ -45,6 +45,10 @@ SIGNATURES = {
         "mmpl_flash_masked_bwd_dq": [_I] + [_P] * 7 + _MASK + [_I] * 5
                                     + [_P, _F, _P],
     },
+    "int8_gemm": {
+        "mmpl_int8_gemm": [_I] + [_P] * 5 + [_I] * 3 + [_P],
+        "mmpl_quantize_rows": [_I, _P, _P, _P, _I, _I, _P],
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -77,6 +77,12 @@ def apply_rope_split(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return torch.cat([re * c - im * s, re * s + im * c], dim=-1).to(out_dtype)
 
 
+def window_rope_table(num_frames: int, grid_h: int, grid_w: int,
+                      head_dim: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Table of a contiguous [0, num_frames) window (bidirectional DiT)."""
+    return rope_table(tuple(range(num_frames)), grid_h, grid_w, head_dim)
+
+
 def split_rope_permutation(num_heads: int, head_dim: int) -> np.ndarray:
     """Channel permutation from interleaved pairs to split-half layout, per
     head: new[i] = old[2i], new[D/2 + i] = old[2i + 1]."""

@@ -1,7 +1,6 @@
 """CausalFPSInferencePipeline: planned chunk-order denoising of one window.
 
-Port of `mmpl_tpu/pipelines/fps_inference.py` (single device, no
-quantization).  Behaviour:
+Port of `mmpl_tpu/pipelines/fps_inference.py` (single device).  Behaviour:
 
   * CFG runs as a batched pair: [cond; uncond] stacked on the batch axis,
     with separate cache halves;
@@ -11,7 +10,11 @@ quantization).  Behaviour:
   * fill groups re-seed their boundary frames from denoised anchors with the
     FlowMatch `add_noise` at `ddpm_timestep`, which resolves to sigma = 1.0.
     The reseed noise is a tensor drawn by `inference` from an explicit
-    `torch.Generator`, or handed in by the caller.
+    `torch.Generator`, or handed in by the caller;
+  * `quantize` ("int8" W8A8, "int8wo" W8A16, "auto" per projection) turns
+    the block projections into int8 codes at construction
+    (`dit.apply_quantize`), and `quantize_cache` keeps the KV cache in int8
+    with per-token scales (`fps_dit.init_kv_cache`).
 """
 
 from __future__ import annotations
@@ -23,8 +26,8 @@ import numpy as np
 import torch
 
 from ..core.geometry import ChunkPlan, GroupSchedule, KV_CACHE_SLOTS, t2v_plan
-from ..models.dit import (WanDiT, embed_text, fuse_qkv_params,
-                          precompute_context_kv)
+from ..models.dit import (WanDiT, apply_quantize, embed_text,
+                          fuse_qkv_params, precompute_context_kv)
 from ..models.fps_dit import fps_forward_group, init_kv_cache
 from ..schedulers.flow_match import FlowMatchScheduler
 from ..schedulers.unipc import FlowUniPC
@@ -39,12 +42,16 @@ class CausalFPSInferencePipeline:
                  num_train_timesteps: int = 1000,
                  reseed_seed: int = 0,
                  fuse_qkv: bool = True,
+                 quantize: Optional[str] = None,
+                 quantize_cache: bool = False,
                  dtype=torch.bfloat16):
         self.cfg = cfg
         if fuse_qkv:
             # one [3D, D] gemm per layer + split-half RoPE layout
             model = fuse_qkv_params(model, num_heads=cfg.num_heads)
-        self.model = model
+        # int8 projections, in place, after the fusion
+        self.model = apply_quantize(model, quantize, cfg)
+        self.quantize_cache = bool(quantize_cache)
         self.plan = plan or t2v_plan()
         self.guidance_scale = float(guidance_scale)
         self.dtype = dtype
@@ -166,7 +173,8 @@ class CausalFPSInferencePipeline:
         device = noise.device
         ctx_kv2 = self.prepare_context(cond_context, uncond_context)
         cache = init_kv_cache(self.cfg, 2 * B, H * W // 4, KV_CACHE_SLOTS,
-                              self.dtype, device)
+                              self.dtype, device,
+                              quantize=self.quantize_cache)
         n_init = 0 if initial_latent is None else initial_latent.shape[1]
         frame_pos = {f: (gi, pi)
                      for gi, g in enumerate(self.plan.groups)

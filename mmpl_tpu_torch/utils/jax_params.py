@@ -6,6 +6,10 @@ numpy's `bfloat16` extension type or any 2-byte view of it).  Conversions:
   * linear `kernel` [din, dout] -> `weight` [dout, din];
   * the DiT's stacked `blocks` leaves [L, ...] -> `blocks.<i>.*`;
   * conv `kernel` DHWIO -> OIDHW and HWIO -> OIHW;
+  * int8 codes of a quantised tree (`kernel_q`, `kernel_w8`) -> `weight_q`,
+    `weight_w8`, permuted as the float kernels are; their `scale` as it is.
+    Such a tree loads into a model quantised the same way
+    (`dit.quantize_params_mixed`, `vae.quantize_vae_decoder`);
   * fused (`self_attn.qkv`) and unfused (`self_attn.q/k/v`) self-attention
     both map one to one; build the DiT with the matching `fused` flag.
 
@@ -38,13 +42,18 @@ def _walk(tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
         yield prefix[:-1], tree
 
 
+#: JAX kernel names -> this package's weight names
+_KERNELS = {"kernel": "weight", "kernel_q": "weight_q",
+            "kernel_w8": "weight_w8"}
+
+
 def _leaf(path: str, a) -> Tuple[str, torch.Tensor]:
     t = to_tensor(a)
     head, _, name = path.rpartition(".")
-    if name != "kernel":
+    if name not in _KERNELS:
         return path, t
     perm = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}[t.ndim]
-    return f"{head}.weight", t.permute(*perm).contiguous()
+    return f"{head}.{_KERNELS[name]}", t.permute(*perm).contiguous()
 
 
 def dit_state_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:

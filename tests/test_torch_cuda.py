@@ -1,6 +1,7 @@
-"""K1-K6 (`mmpl_tpu_torch/csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`) on the
-card: agreement with their plain versions, the dispatch's launch counts,
-and what the wrappers refuse.
+"""K1-K6 (`mmpl_tpu_torch/csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`) and the
+int8 kernels P2 and Q (`csrc/int8_gemm.cu`) on the card: agreement with
+their plain versions, the dispatch's launch counts, and what the wrappers
+refuse.
 
 Needs an NVIDIA GPU and nvcc, not JAX; on the card run
 
@@ -185,3 +186,169 @@ def test_autograd_launches_each_kernel_once(cuda):
     assert ta.launch_counts == dict.fromkeys(ta.launch_counts, 1)
     for x in (q, k, v):
         assert x.grad is not None and torch.isfinite(x.grad.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# P2 and Q (csrc/int8_gemm.cu)
+# ---------------------------------------------------------------------------
+
+def _int8(shape, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-127, 128, shape).astype(
+        np.int8)).to(device)
+
+
+def _ulps(got, want):
+    """Largest distance in units in the last place (same-sign values)."""
+    view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return (got.view(view).long() - want.view(view).long()).abs().max().item()
+
+
+@pytest.mark.parametrize("m,k,n", [(1000, 96, 200), (129, 16, 3),
+                                   (300, 1552, 130), (64, 8960, 72)])
+def test_int8_gemm_accumulator_is_exact(cuda, m, k, n):
+    from mmpl_tpu_torch.ops import quant
+    a, b = _int8((m, k), 0, cuda), _int8((n, k), 1, cuda)
+    got = quant.int8_gemm_cuda(a, b, None, None, torch.int32)
+    want = quant.int8_gemm_plain(a, b, None, None, torch.int32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(1000, 96, 200), (77, 48, 31)])
+def test_w8a8_kernels_match_plain(cuda, act, out, m, k, n):
+    """Q's codes and scales exactly, P2's output within 1 ulp."""
+    from mmpl_tpu_torch.ops import quant
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)
+                         * 3).to(cuda, act)
+    x[5] = 0                                  # an all-zero row: s = 1e-12
+    w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)
+                         ).to(cuda)
+    wq, sw = quant.quantize_weight(w)
+    xq, sx = quant.quantize_rows_cuda(x)
+    pq, psx = quant.quantize_rows_plain(x)
+    assert torch.equal(xq, pq) and torch.equal(sx, psx)
+    assert not xq[5].any() and sx[5].item() == np.float32(1e-12)
+    got = quant.int8_gemm_cuda(xq, wq, sx, sw, out)
+    want = quant.int8_gemm_plain(xq, wq, sx, sw, out)
+    assert got.dtype == out and _ulps(got, want) <= 1
+
+
+@pytest.mark.parametrize("case", ["k_not_16", "a_float", "b_int16",
+                                  "a_strided", "b_transposed", "sx_f64",
+                                  "out_f16", "x_int8", "x_strided"])
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda, case):
+    from mmpl_tpu_torch.ops import quant
+    a, b = _int8((64, 96), 0, cuda), _int8((32, 96), 1, cuda)
+    sx = torch.ones(64, device=cuda)
+    sw = torch.ones(32, device=cuda)
+    x = torch.randn((64, 96), device=cuda)
+    calls = {
+        "k_not_16": lambda: quant.int8_gemm_cuda(a[:, :40].contiguous(),
+                                                 b[:, :40].contiguous(),
+                                                 sx, sw),
+        "a_float": lambda: quant.int8_gemm_cuda(a.float(), b, sx, sw),
+        "b_int16": lambda: quant.int8_gemm_cuda(a, b.to(torch.int16), sx, sw),
+        "a_strided": lambda: quant.int8_gemm_cuda(
+            _int8((64, 192), 3, cuda)[:, ::2], b, sx, sw),
+        "b_transposed": lambda: quant.int8_gemm_cuda(
+            a, _int8((96, 32), 4, cuda).t(), sx, sw),
+        "sx_f64": lambda: quant.int8_gemm_cuda(a, b, sx.double(), sw),
+        "out_f16": lambda: quant.int8_gemm_cuda(a, b, sx, sw, torch.float16),
+        "x_int8": lambda: quant.quantize_rows_cuda(a),
+        "x_strided": lambda: quant.quantize_rows_cuda(
+            torch.randn((64, 192), device=cuda)[:, :96]),
+    }
+    quant.reset_launch_counts()
+    with pytest.raises(ValueError):
+        calls[case]()
+    assert quant.launch_counts == {"int8_gemm": 0, "quantize_rows": 0}
+
+
+def test_linear_launches_q_and_p2_once_per_w8a8_call(cuda):
+    from mmpl_tpu_torch.models import dit
+    from mmpl_tpu_torch.ops import quant
+    lin = torch.nn.Linear(96, 200, device=cuda, dtype=torch.bfloat16)
+    x = torch.randn((2, 50, 96), device=cuda, dtype=torch.bfloat16)
+    q8 = quant.QuantLinear.from_linear(lin)
+    wo = quant.QuantLinear.from_linear(lin, weight_only=True)
+    quant.reset_launch_counts()
+    y = dit.linear(q8, x)
+    dit.linear(wo, x)
+    dit.linear(lin, x)
+    assert quant.launch_counts == {"int8_gemm": 1, "quantize_rows": 1}
+    assert y.shape == (2, 50, 200) and y.dtype == torch.bfloat16
+    ref = dit.linear(lin, x).float()
+    assert ((y.float() - ref).norm() / ref.norm()).item() < 0.02
+
+
+def test_int8_conv_launches_p2_once_per_chunk(cuda, monkeypatch):
+    """An int8 VAE conv on the card: one P2 launch per im2col chunk, and
+    the same fp32 output as the CPU's plain path (both exact)."""
+    from mmpl_tpu_torch.models import vae
+    from mmpl_tpu_torch.ops import quant
+    conv = vae.Conv(48, 32, (3, 3, 3))
+    torch.nn.init.uniform_(conv.weight, -0.1, 0.1)
+    torch.nn.init.uniform_(conv.bias, -0.1, 0.1)
+    q = vae.QuantConv.from_conv(conv)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 48, 3, 5, 6)).astype(np.float32))
+    want = vae._conv3d(q, x)
+    monkeypatch.setattr(vae, "IM2COL_BYTES", 2 * 6 * 48 * 27)
+    quant.reset_launch_counts()
+    vae.int8_conv_counts.update(convs=0, chunks=0)
+    got = vae._conv3d(q.to(cuda), x.to(cuda))
+    assert vae.int8_conv_counts == {"convs": 1, "chunks": 9}
+    assert quant.launch_counts == {"int8_gemm": 9, "quantize_rows": 0}
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def test_int8_cache_commit_launches_q_for_k_and_v_per_layer(cuda):
+    """The commit forward codes each layer's k and v with Q (two launches
+    per layer) and writes the same codes as the CPU's plain path, up to a
+    flip by one where the fp32 attention's order of sums differs."""
+    import copy
+
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    from mmpl_tpu_torch.core.geometry import KV_CACHE_SLOTS
+    from mmpl_tpu_torch.models import dit
+    from mmpl_tpu_torch.models.fps_dit import init_kv_cache
+    from mmpl_tpu_torch.ops import quant
+    from mmpl_tpu_torch.pipelines.fps_inference import (
+        CausalFPSInferencePipeline)
+    cfg = tiny_test_config()
+    model = dit.randomize_head(dit.init_dit_params(
+        cfg, torch.Generator().manual_seed(0), torch.float32),
+        torch.Generator().manual_seed(99))
+    rng = np.random.default_rng(6)
+    cond, uncond = (torch.from_numpy(rng.standard_normal(
+        (1, cfg.text_len, cfg.text_dim)).astype(np.float32))
+        for _ in range(2))
+    schedule = CausalFPSInferencePipeline(cfg, copy.deepcopy(model)
+                                          ).plan.groups[0]
+    lat = torch.from_numpy(rng.standard_normal(
+        (1, schedule.num_frames, 16, 4, 4)).astype(np.float32))
+    caches, counts = {}, {}
+    for dev in ("cpu", "cuda"):
+        pipe = CausalFPSInferencePipeline(cfg, copy.deepcopy(model).to(dev),
+                                          quantize_cache=True,
+                                          dtype=torch.float32)
+        cache = init_kv_cache(cfg, 2, 4, KV_CACHE_SLOTS, torch.float32, dev,
+                              quantize=True)
+        quant.reset_launch_counts()
+        with torch.inference_mode():
+            pipe._forward(schedule, pipe.prepare_context(
+                cond.to(dev), uncond.to(dev)), cache, lat.to(dev), 0.0, True)
+        caches[dev] = {k: v.cpu() for k, v in cache.items()}
+        counts[dev] = dict(quant.launch_counts)
+    assert counts["cpu"] == {"int8_gemm": 0, "quantize_rows": 0}
+    assert counts["cuda"] == {"int8_gemm": 0,
+                              "quantize_rows": 2 * cfg.num_layers}
+    got, want = caches["cuda"], caches["cpu"]
+    for name in ("k", "v"):
+        assert want[f"{name}_scale"].any()
+        assert (got[name].int() - want[name].int()).abs().max().item() <= 1
+        torch.testing.assert_close(got[f"{name}_scale"],
+                                   want[f"{name}_scale"], rtol=1e-4, atol=0)

@@ -138,8 +138,8 @@ def test_cli_cpu_run_writes_bridged_frames(monkeypatch, tmp_path):
 @pytest.mark.parametrize("flag,where", [
     (["--checkpoint-path", "x.pt"], "Slice A item 10"),
     (["--image", "x.png"], "Slice D"),
-    (["--quantize", "int8"], "Slice B"),
-    (["--quantize-cache"], "Slice B"),
+    (["--wan-dir", "wan"], "Slice A item 10"),
+    (["--taehv-path", "taew2_1.pth"], "Slice C"),
     (["--mesh", "dp=2"], "Slice F"),
     (["--preview", "p.mp4"], "Slice C"),
     (["--profile"], "Slice C"),
