@@ -41,7 +41,25 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      at 60x104, bf16 trunk over fp32 masters, AdamW, EMA), one warm-up and
      two timed steps with exact launch counts; train_profile: one step
      under torch.profiler;
- 11. the kernels line, then the final device line.
+  11. kernel_exp2: P1 (csrc/flash_fwd.cu, the exp2 probe's forward), its
+     four variants against the plain version at the probe's shape, the
+     few-step path's steady-state self-attention (4680 x 32760, where only
+     the variants with the pad test are defined), a ragged shape and fp32
+     at D = 24, beside K1 and SDPA; exp2_probe: the port's probe
+     (`python -m mmpl_tpu_torch.tools.exp2_probe`), P1's path;
+  12. cli_fewstep, cli_fewstep_int8: the serving CLI with the few-step
+     config (configs/self_forcing_dmd.yaml) in smoke mode, 2 windows, with
+     --profile and --preview, then with --quantize auto --quantize-cache,
+     exact K1 launch counts, 81 + 64 frames and the preview's frames;
+  13. fewstep: the few-step path of the 1.3B model at 480x832 in bf16, two
+     bridged windows through the CLI's run_windows, exact K1 launch counts
+     (2,100 and 1,800), the cache's bytes and a TAEHV preview block;
+     fewstep_rolling: 27 frames through a 21-frame ring (2 steady-state
+     blocks); profile_fewstep: one steady-state block forward under
+     torch.profiler; fewstep_parity: the tiny model's fp32 few-step runs
+     (static, with committed context, rolling) on the card against the
+     CPU's plain path;
+  14. the kernels line, then the final device line.
 """
 
 from __future__ import annotations
@@ -70,6 +88,7 @@ from mmpl_tpu_torch.models import dit, vae                       # noqa: E402
 from mmpl_tpu_torch.ops import _build                            # noqa: E402
 from mmpl_tpu_torch.ops import attention as attn                 # noqa: E402
 from mmpl_tpu_torch.ops import quant                             # noqa: E402
+from mmpl_tpu_torch.pipelines import causal_inference             # noqa: E402
 from mmpl_tpu_torch.pipelines.fps_inference import \
     CausalFPSInferencePipeline                                    # noqa: E402
 from mmpl_tpu_torch.training import masks                        # noqa: E402
@@ -96,10 +115,33 @@ K1_SHAPES = [
     ("group3_self", 2, 12, 128, 9360, 32760, torch.bfloat16),
     ("cross", 2, 12, 128, 9360, 512, torch.bfloat16),
     ("tf_cross", 1, 12, 128, 65520, 512, torch.bfloat16),
+    ("fewstep_self_hot", 1, 12, 128, 4680, 32760, torch.bfloat16),
+    ("fewstep_cross", 1, 12, 128, 4680, 512, torch.bfloat16),
     ("ragged", 2, 12, 128, 1000, 1300, torch.bfloat16),
     ("smoke_f32", 2, 4, 24, 130, 200, torch.float32),
 ]
 MAIN_SHAPE = "group3_self"
+
+#: P1 shapes, as K1_SHAPES: the JAX probe's shape, the few-step path's
+#: steady-state self-attention (Lk ragged for the 64-key tile), a ragged
+#: Lq with a tile-multiple Lk, a ragged Lk, and fp32 at the tiny head dim
+EXP2_SHAPES = [
+    ("probe", 2, 12, 128, 11264, 14336, torch.bfloat16),
+    ("fewstep_hot", 1, 12, 128, 4680, 32760, torch.bfloat16),
+    ("ragged_lq", 2, 12, 128, 1000, 1280, torch.bfloat16),
+    ("ragged_lk", 2, 12, 128, 1000, 1300, torch.bfloat16),
+    ("d24_f32", 2, 4, 24, 130, 192, torch.float32),
+]
+EXP2_MAIN = ("probe", "exp2")
+#: (name, use_exp2, mask_pad) of P1's variants
+EXP2_VARIANTS = (("exp+mask", False, True), ("exp", False, False),
+                 ("exp2+mask", True, True), ("exp2", True, False))
+
+#: the few-step run config and the 1.3B few-step windows' K1 launches:
+#: blocks x (4 steps + 1 commit) x 30 layers x (self + cross)
+FEWSTEP_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "configs", "self_forcing_dmd.yaml")
+FEWSTEP_K1 = (7 * 5 * 30 * 2, 6 * 5 * 30 * 2)
 
 #: K2 / K3 shapes, as K1_SHAPES: the 1.3B teacher-forcing step's
 #: cross-attention (65520 tokens over 512 text tokens), a ragged shape and
@@ -209,6 +251,7 @@ def attention_work(kind, B, N, D, Lq, Lk, dtype, share=1.0, mask_bytes=0):
     esize = torch.tensor([], dtype=dtype).element_size()
     mult, q_elems, k_elems, row_arrays = {
         "fwd": (4, 2, 2, 1),    # q, o | k, v | lse out
+        "fwd_o": (4, 2, 2, 0),  # P1: no lse
         "dkv": (8, 2, 4, 2),    # q, dO | k, v, dk, dv | lse, delta in
         "dq": (6, 3, 2, 2),     # q, dO, dq | k, v | lse, delta in
     }[kind]
@@ -564,27 +607,35 @@ def phase_kernel_int8():
     return rows
 
 
-def phase_cli():
-    os.makedirs(OUT_DIR, exist_ok=True)
+def _capture_writes():
+    """Record what the CLI hands `write_video` ({path: frames}); returns
+    (written, restore)."""
     from mmpl_tpu_torch.utils import video_io
     written = {}
     original = video_io.write_video
 
     def capture(path, frames, fps=16):
-        written["frames"] = frames
+        written[path] = frames
         return original(path, frames, fps)
 
     video_io.write_video = capture
+    return written, lambda: setattr(video_io, "write_video", original)
+
+
+def phase_cli():
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out = os.path.join(OUT_DIR, "smoke.mp4")
+    written, restore = _capture_writes()
     attn.reset_launch_counts()
     t0 = time.perf_counter()
     try:
         rc = cli.main(["--model", "smoke", "--duration", "2",
                        "--sampling-steps", "4", "--device", "cuda",
-                       "--output", os.path.join(OUT_DIR, "smoke.mp4")])
+                       "--output", out])
     finally:
-        video_io.write_video = original
+        restore()
     launches = attn.launch_counts["flash_fwd"]
-    frames = written["frames"]
+    frames = written[out]
     # tiny config: 2 layers x (self + cross) per forward; 19 + 15 forwards
     expected = 2 * 2 * (19 + 15)
     emit({"phase": "cli", "rc": rc, "seconds": time.perf_counter() - t0,
@@ -603,15 +654,8 @@ def phase_cli_int8():
     for k and one for v per layer; the VAE adds one P2 per im2col
     chunk."""
     os.makedirs(OUT_DIR, exist_ok=True)
-    from mmpl_tpu_torch.utils import video_io
-    written = {}
-    original = video_io.write_video
-
-    def capture(path, frames, fps=16):
-        written["frames"] = frames
-        return original(path, frames, fps)
-
-    video_io.write_video = capture
+    out = os.path.join(OUT_DIR, "smoke_int8.mp4")
+    written, restore = _capture_writes()
     quant.reset_launch_counts()
     vae.int8_conv_counts.update(convs=0, chunks=0)
     t0 = time.perf_counter()
@@ -619,12 +663,11 @@ def phase_cli_int8():
         rc = cli.main(["--model", "smoke", "--duration", "2",
                        "--sampling-steps", "4", "--device", "cuda",
                        "--quantize", "auto", "--quantize-cache",
-                       "--quantize-vae",
-                       "--output", os.path.join(OUT_DIR, "smoke_int8.mp4")])
+                       "--quantize-vae", "--output", out])
     finally:
-        video_io.write_video = original
+        restore()
     counts = dict(quant.launch_counts)
-    frames = written["frames"]
+    frames = written[out]
     emit({"phase": "cli_int8", "rc": rc, "seconds": time.perf_counter() - t0,
           "frames_shape": list(frames.shape), "dtype": str(frames.dtype),
           "launches": counts, "vae_int8": dict(vae.int8_conv_counts),
@@ -915,29 +958,13 @@ def phase_quant_parity(steps: int = 4):
           < 0.1 * row["card_float_forward_vs_cpu_int8_rel"], row)
 
 
-def phase_profile(pipe, cond, uncond, top: int = 12, phase="profile"):
-    """One group-3 solver forward (the heaviest step) under torch.profiler:
-    device time by kernel, K1's (and P2's and Q's) share, and the device's
-    idle share of the synchronised wall time.  Reports what it sees; the
-    numbers are read by PERF.md's time breakdown, not checked."""
+def _profile_step(step, what: str, phase: str, top: int = 12) -> dict:
+    """`step` once to warm up, then once under torch.profiler: device time
+    by kernel, the port kernels' shares and the device's idle share of the
+    synchronised wall time.  Reports what it sees; the numbers are read by
+    PERF.md's time breakdown, not checked."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from mmpl_tpu_torch.core.geometry import KV_CACHE_SLOTS
-    from mmpl_tpu_torch.models.fps_dit import init_kv_cache
-
-    schedule = pipe.plan.groups[3]
-    dev = cond.device
-    ctx_kv2 = pipe.prepare_context(cond, uncond)
-    cache = init_kv_cache(pipe.cfg, 2, 60 * 104 // 4, KV_CACHE_SLOTS,
-                          torch.bfloat16, dev, quantize=pipe.quantize_cache)
-    lat = torch.randn((1, schedule.num_frames, 16, 60, 104), device=dev,
-                      generator=torch.Generator(device=dev).manual_seed(7))
-
-    def step():
-        with torch.inference_mode():
-            pipe._forward(schedule, ctx_kv2, cache, lat, 500.0, False)
-
     step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -954,22 +981,49 @@ def phase_profile(pipe, cond, uncond, top: int = 12, phase="profile"):
                                if name in e.key) / 1e3
     k1_ms = by_name("flash_fwd_kernel")
     p2_ms, q_ms = by_name("int8_gemm_kernel"), by_name("quantize_rows_kernel")
-    emit({"phase": phase, "what": "group3 solver forward, 30 layers",
-          "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
-          "flash_fwd_ms": k1_ms,
-          "flash_fwd_share_of_busy": k1_ms / busy_ms if busy_ms else None,
-          "int8_gemm_ms": p2_ms, "quantize_rows_ms": q_ms,
-          "int8_share_of_busy": (p2_ms + q_ms) / busy_ms if busy_ms
-          else None,
-          "top_kernels": [{"name": e.key[:90], "calls": e.count,
-                           "ms": e.self_device_time_total / 1e3}
-                          for e in kernels[:top]]})
+    row = {"phase": phase, "what": what,
+           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+           "flash_fwd_ms": k1_ms,
+           "flash_fwd_share_of_busy": k1_ms / busy_ms if busy_ms else None,
+           "int8_gemm_ms": p2_ms, "quantize_rows_ms": q_ms,
+           "int8_share_of_busy": (p2_ms + q_ms) / busy_ms if busy_ms
+           else None,
+           "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in kernels[:top]]}
+    emit(row)
+    return row
+
+
+def phase_profile(pipe, cond, uncond, top: int = 12, phase="profile"):
+    """One group-3 solver forward (the heaviest step) under torch.profiler:
+    device time by kernel, K1's (and P2's and Q's) share, and the device's
+    idle share of the synchronised wall time."""
+    from mmpl_tpu_torch.core.geometry import KV_CACHE_SLOTS
+    from mmpl_tpu_torch.models.fps_dit import init_kv_cache
+
+    schedule = pipe.plan.groups[3]
+    dev = cond.device
+    ctx_kv2 = pipe.prepare_context(cond, uncond)
+    cache = init_kv_cache(pipe.cfg, 2, 60 * 104 // 4, KV_CACHE_SLOTS,
+                          torch.bfloat16, dev, quantize=pipe.quantize_cache)
+    lat = torch.randn((1, schedule.num_frames, 16, 60, 104), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(7))
+
+    def step():
+        with torch.inference_mode():
+            pipe._forward(schedule, ctx_kv2, cache, lat, 500.0, False)
+
+    _profile_step(step, "group3 solver forward, 30 layers", phase, top)
 
 
 def _train_launches(num_layers: int, steps: int) -> dict:
-    return {name: n * num_layers * steps
-            for name, n in TRAIN_LAUNCHES_PER_LAYER.items()}
+    """Every attention kernel's launches in `steps` training steps (0 for
+    the kernels training does not run)."""
+    return {**dict.fromkeys(attn.launch_counts, 0),
+            **{name: n * num_layers * steps
+               for name, n in TRAIN_LAUNCHES_PER_LAYER.items()}}
 
 
 def phase_train_cli(steps: int = 3):
@@ -1168,6 +1222,348 @@ def phase_train_profile(step, top: int = 14):
                           for e in kernels[:top]]})
 
 
+def phase_kernel_exp2():
+    """P1's four variants against their plain version at EXP2_SHAPES,
+    beside K1 and SDPA on the same inputs; where Lk is not a multiple of
+    the 64-key tile the variants without the pad test must be refused."""
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for label, B, N, D, Lq, Lk, dtype in EXP2_SHAPES:
+        q, k, v = (_rand(gen, dtype, B, L, N, D) for L in (Lq, Lk, Lk))
+        tol = FWD_TOL_F32 if dtype == torch.float32 else FWD_TOL
+        shape = {"B": B, "N": N, "D": D, "Lq": Lq, "Lk": Lk,
+                 "dtype": str(dtype).replace("torch.", "")}
+        bound_ms, bound_by = roofline(*attention_work(
+            "fwd_o", B, N, D, Lq, Lk, dtype), dtype)
+        k1_ms = time_ms(lambda: attn.flash_fwd_cuda(q, k, v))
+        lib_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
+        for name, use_exp2, mask_pad in EXP2_VARIANTS:
+            row = {"phase": "kernel_exp2", "kernel": "flash_exp2",
+                   "shape": label, "variant": name, **shape}
+            if not mask_pad and Lk % attn.TILE:
+                before = attn.launch_counts["flash_exp2"]
+                try:
+                    attn.flash_exp2_cuda(q, k, v, use_exp2, mask_pad)
+                    refused = False
+                except ValueError:
+                    refused = True
+                row["refused"] = refused and (
+                    attn.launch_counts["flash_exp2"] == before)
+                emit(row)
+                check(row["refused"], row)
+                continue
+            o = attn.flash_exp2_cuda(q, k, v, use_exp2, mask_pad)
+            po = attn.flash_attention_exp2_plain(q, k, v, use_exp2, mask_pad)
+            torch.cuda.synchronize()
+            err = (o.float() - po.float()).abs()
+            row.update(o_max_abs_err=err.max().item(),
+                       o_mean_abs_err=err.mean().item())
+            del o, po, err
+            row["ms"] = time_ms(
+                lambda: attn.flash_exp2_cuda(q, k, v, use_exp2, mask_pad))
+            row["plain_ms"] = time_ms(
+                lambda: attn.flash_attention_exp2_plain(q, k, v, use_exp2,
+                                                        mask_pad),
+                max_reps=5)
+            row.update(bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=lib_ms, k1_ms=k1_ms,
+                       tflops=4.0 * B * N * Lq * Lk * D / row["ms"] / 1e9)
+            emit(row)
+            rows[(label, name)] = row
+            check(row["o_max_abs_err"] <= tol["max"], row)
+            check(row["o_mean_abs_err"] <= tol["mean"], row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_exp2_probe():
+    """P1's path: the port's probe, `python -m
+    mmpl_tpu_torch.tools.exp2_probe`, in this process; its launches of P1
+    are what the kernels line counts."""
+    from mmpl_tpu_torch.tools import exp2_probe
+    attn.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = exp2_probe.run(exp2_probe.parse_args([]))
+    launches = attn.launch_counts["flash_exp2"]
+    for row in rows:
+        emit({"phase": "exp2_probe", **row})
+    emit({"phase": "exp2_probe_total", "seconds": time.perf_counter() - t0,
+          "flash_exp2_launches": launches})
+    check(launches > 0, launches)
+    check({(r["shape"], r["variant"]) for r in rows} >= {
+        ("probe", n) for n, _, _ in EXP2_VARIANTS}, rows)
+    return launches
+
+
+def phase_cli_fewstep():
+    """The serving CLI with the few-step config in smoke mode (tiny model,
+    fp32, 64x64): 2 windows of 7 and 6 blocks, 4 steps and a commit each,
+    with --profile and --preview; then with --quantize auto
+    --quantize-cache.  K1 counts exactly (auto's probe forwards add theirs),
+    81 + 64 frames, and the preview's frames: 9 for the first block, 12
+    for each later one (its MemBlock state runs on across windows)."""
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    os.makedirs(OUT_DIR, exist_ok=True)
+    layers = tiny_test_config().num_layers
+    for phase, extra in (("cli_fewstep", []),
+                         ("cli_fewstep_int8", ["--quantize", "auto",
+                                               "--quantize-cache"])):
+        out = os.path.join(OUT_DIR, f"{phase}.mp4")
+        prev = os.path.join(OUT_DIR, f"{phase}_preview.mp4")
+        written, restore = _capture_writes()
+        attn.reset_launch_counts()
+        quant.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(["--model", "smoke", "--config", FEWSTEP_CONFIG,
+                           "--duration", "2", "--profile", "--preview", prev,
+                           "--device", "cuda", "--output", out] + extra)
+        finally:
+            restore()
+        k1 = attn.launch_counts["flash_fwd"]
+        counts = dict(quant.launch_counts)
+        forwards = (7 + 6) * 5
+        expected = 2 * layers * forwards
+        if extra:
+            report = dit.last_auto_quantize_report
+            expected += 2 * layers * (2 + len(report["per_target_rel_err"]))
+        row = {"phase": phase, "rc": rc, "seconds": time.perf_counter() - t0,
+               "frames_shape": list(written[out].shape),
+               "preview_shape": list(written[prev].shape),
+               "flash_fwd_launches": k1, "expected_flash_fwd": expected,
+               "int8_launches": counts}
+        emit(row)
+        check(rc == 0, row)
+        check(written[out].shape == (81 + 64, 64, 64, 3)
+              and written[out].dtype == np.uint8, row)
+        check(written[prev].shape == (9 + 12 * 12, 64, 64, 3)
+              and written[prev].dtype == np.uint8, row)
+        check(k1 == expected, row)
+        if extra:
+            cache_q = 2 * layers * (7 + 6)    # k and v per commit forward
+            check(counts["quantize_rows"] > cache_q and counts["int8_gemm"]
+                  == counts["quantize_rows"] - cache_q, row)
+
+
+def _fewstep_pipe(model, **kw):
+    """The 1.3B few-step pipeline of the few-step run config, built as the
+    CLI builds it, in bf16."""
+    from mmpl_tpu_torch.core.config import load_config
+    run_cfg = load_config(FEWSTEP_CONFIG, os.path.join(
+        os.path.dirname(FEWSTEP_CONFIG), "default_config.yaml"))
+    return cli.few_step_pipeline(WAN_CONFIGS["t2v-1.3B"], model, run_cfg,
+                                 run_cfg["timestep_shift"],
+                                 dtype=torch.bfloat16, **kw)
+
+
+def _cache_bytes(cache) -> dict:
+    return {k: v.numel() * v.element_size() for k, v in cache.items()}
+
+
+def phase_fewstep():
+    """Two bridged few-step windows of the 1.3B model at 480x832 in bf16
+    (random weights from seeds: model 0, head 99, VAE 1, text 2, noise 100)
+    through the CLI's run_windows with --profile's synchronised block
+    times: K1 launches per window exactly, the cache's bytes, window
+    seconds, latent-frames/s and peak memory; then the TAEHV preview of
+    one block at this geometry."""
+    from mmpl_tpu_torch.models.taehv import init_taehv_params
+    from mmpl_tpu_torch.utils.preview import TaehvPreviewer
+    cfg = WAN_CONFIGS["t2v-1.3B"]
+    dev = torch.device("cuda")
+    g = lambda s: torch.Generator(device=dev).manual_seed(s)
+    t0 = time.perf_counter()
+    model = dit.randomize_head(
+        dit.init_dit_params(cfg, g(0), torch.bfloat16, dev), g(99))
+    vae_model = vae.init_vae_params(g(1), torch.float32, dev)
+    cond, uncond = cli.random_text_context(cfg, dev)
+    pipe = _fewstep_pipe(model)
+    torch.cuda.synchronize()
+    emit({"phase": "fewstep_init", "seconds": time.perf_counter() - t0,
+          "denoising_step_list": list(pipe.denoising_step_list)})
+
+    rows, caches, first_block = [], [], []
+    counted = {"k1": 0}
+    make_cache = causal_inference.init_kv_cache
+
+    def capture(*args, **kwargs):
+        cache = make_cache(*args, **kwargs)
+        caches.append(_cache_bytes(cache))
+        return cache
+
+    def on_window(win, lat, frames, seconds):
+        lat = lat.float()
+        k1 = attn.launch_counts["flash_fwd"]
+        blocks = pipe.last_profile.blocks
+        row = {"phase": "fewstep", "window": win, "seconds": seconds,
+               "new_latent_frames": lat.shape[1],
+               "latent_frames_per_s": lat.shape[1] / seconds,
+               "block_ms": [1e3 * b for b in blocks],
+               "diffusion_s": pipe.last_profile.phases[
+                   "Diffusion generation"],
+               "vae_decode_s": pipe.last_profile.phases.get("VAE decoding"),
+               "latents_finite": bool(torch.isfinite(lat).all().item()),
+               "latents_std": lat.std().item(),
+               "frames_shape": list(frames.shape),
+               "flash_fwd_launches": k1 - counted["k1"],
+               "expected_flash_fwd": FEWSTEP_K1[win]}
+        counted["k1"] = k1
+        rows.append(row)
+        emit(row)
+        if win == 0:
+            first_block.append(lat[:, :6].clone())
+        check(row["latents_finite"] and row["latents_std"] > 1e-3, row)
+        check(row["flash_fwd_launches"] == FEWSTEP_K1[win], row)
+        check(frames.shape == (1, 81 if win == 0 else 69, 480, 832, 3), row)
+
+    causal_inference.init_kv_cache = capture
+    attn.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        full = cli.run_windows(pipe, vae_model, cond, uncond, 2, (60, 104),
+                               g(100), on_window, profile=True)
+    finally:
+        causal_inference.init_kv_cache = make_cache
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del vae_model
+    torch.cuda.empty_cache()
+    want_bytes = 30 * 21 * 1560 * 1536 * 2
+    total = {"phase": "fewstep_total", "frames_shape": list(full.shape),
+             "flash_fwd_launches": attn.launch_counts["flash_fwd"],
+             "kv_cache_bytes": caches[0], "kv_cache_gb":
+             sum(caches[0].values()) / 1e9,
+             "max_memory_allocated_gib": peak}
+    emit(total)
+    check(full.shape == (1, 81 + 64, 480, 832, 3), total)
+    check(len(caches) == 2 and all(
+        c == {"k": want_bytes, "v": want_bytes} for c in caches), caches)
+
+    # the CLI's previewer (fp32) and, beside it, the same weights in bf16
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        previewer = TaehvPreviewer(init_taehv_params(g(7), device=dev),
+                                   dtype=dtype)
+        for lo in (0, 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames = previewer(first_block[0][:, lo:lo + 3])
+            times[f"{str(dtype)[6:]}_{'first' if lo == 0 else 'next'}"
+                  "_block_s"] = time.perf_counter() - t0
+            check(frames.shape == (1, 9 if lo == 0 else 12, 480, 832, 3)
+                  and frames.dtype == np.uint8, frames.shape)
+    emit({"phase": "fewstep_preview", **times, "frames_per_block": [9, 12]})
+    return pipe.model, cond, rows, total
+
+
+def phase_fewstep_rolling(model, cond):
+    """27 frames through a 21-slot ring: 7 static blocks, then 2
+    steady-state blocks at 4680 x 32760, each of which evicts one block by
+    a slot permutation (the JAX package rotates every cache leaf).  K1
+    launches exactly; the steady-state blocks' ms beside the last static
+    block's, which attends to as many keys; peak memory."""
+    dev = cond.device
+    g = lambda s: torch.Generator(device=dev).manual_seed(s)
+    pipe = _fewstep_pipe(model, max_attention_frames=21)
+    noise = torch.randn((1, 27, 16, 60, 104), generator=g(101), device=dev)
+    attn.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = pipe.inference(noise, cond, generator=g(102), profile=True)
+    seconds = time.perf_counter() - t0
+    blocks = [1e3 * b for b in pipe.last_profile.blocks]
+    cache_bytes = 30 * 21 * 1560 * 1536 * 2 * 2
+    row = {"phase": "fewstep_rolling", "seconds": seconds,
+           "block_ms": blocks, "static_block6_ms": blocks[6],
+           "steady_state_block_ms": blocks[7:],
+           "flash_fwd_launches": attn.launch_counts["flash_fwd"],
+           "expected_flash_fwd": 9 * 5 * 30 * 2,
+           "slot_order": pipe.slot_order,
+           "kv_cache_bytes": cache_bytes,
+           "jax_eviction_copy_ms_at_peak_bytes":
+               1e3 * 2 * cache_bytes / PEAK_BYTES,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30,
+           "latents_finite": bool(torch.isfinite(out).all().item())}
+    emit(row)
+    check(row["flash_fwd_launches"] == row["expected_flash_fwd"], row)
+    check(tuple(out.shape) == (1, 27, 16, 60, 104) and row["latents_finite"],
+          row)
+    check(pipe.slot_order == list(range(6, 21)) + list(range(6)), row)
+    return pipe
+
+
+def phase_profile_fewstep(pipe, cond):
+    """One steady-state block forward (4680 queries over 32760 keys, 30
+    layers) under torch.profiler."""
+    from mmpl_tpu_torch.models.fps_dit import init_kv_cache
+    from mmpl_tpu_torch.ops.rope import dynamic_rope_table
+    dev = cond.device
+    ctx = pipe.prepare_context(cond)
+    cache = init_kv_cache(pipe.cfg, 1, 1560, 21, torch.bfloat16, dev)
+    sched = pipe._rolling_schedule(3, list(range(21)))
+    rope = dynamic_rope_table(21, 3, 30, 52, 128, device=dev)
+    lat = torch.randn((1, 3, 16, 60, 104), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(8))
+
+    def step():
+        with torch.inference_mode():
+            pipe._forward(sched, ctx, cache, lat, 500.0, False, rope)
+
+    _profile_step(step, "few-step steady-state block forward, 4680 x 32760, "
+                  "30 layers", "profile_fewstep", top=14)
+
+
+def phase_fewstep_parity():
+    """The tiny model's fp32 few-step runs on the card against the CPU's
+    plain path, from the same weights, noise and re-noising draws: a
+    static window (2 blocks), a run after one committed context block, and
+    a rolling run (12 frames through a 6-slot ring).  Each is gated by a
+    sensitivity measured here: how far one fp32 ulp of the noise moves the
+    card's own run (at most 100 times that, and 1e-4)."""
+    import copy
+
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    cfg = tiny_test_config()
+    model = dit.randomize_head(dit.init_dit_params(
+        cfg, torch.Generator().manual_seed(0), torch.float32),
+        torch.Generator().manual_seed(99))
+    rng = np.random.default_rng(13)
+    cond = rng.standard_normal((1, cfg.text_len, cfg.text_dim)).astype(
+        np.float32)
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    row = {"phase": "fewstep_parity"}
+    for case, F, n_init, kw in (("static", 6, 0, {}),
+                                ("context", 3, 3, {}),
+                                ("rolling", 12, 0,
+                                 {"max_attention_frames": 6})):
+        noise = rng.standard_normal((1, F, 16, 4, 4)).astype(np.float32)
+        init = rng.standard_normal((1, n_init, 16, 4, 4)).astype(np.float32)
+        sn = [rng.standard_normal((1, 1, 3, 16, 4, 4)).astype(np.float32)
+              for _ in range(F // 3)]
+
+        def run(dev, noise_np=noise):
+            pipe = causal_inference.CausalInferencePipeline(
+                cfg, copy.deepcopy(model).to(dev),
+                denoising_step_list=(1000, 500), dtype=torch.float32, **kw)
+            t = lambda a: torch.from_numpy(a).to(dev)
+            return pipe.inference(
+                t(noise_np), t(cond),
+                initial_latent=t(init) if n_init else None,
+                step_noise=[t(a) for a in sn]).cpu()
+
+        card = run("cuda")
+        row[f"{case}_rel_err"] = rel(card, run("cpu"))
+        row[f"{case}_ulp_sensitivity"] = rel(
+            run("cuda", np.nextafter(noise, np.float32(np.inf))), card)
+        row[f"{case}_gate"] = min(1e-4, 100 * row[f"{case}_ulp_sensitivity"])
+    emit(row)
+    for case in ("static", "context", "rolling"):
+        check(row[f"{case}_rel_err"] <= row[f"{case}_gate"], row)
+
+
 def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
            bound_ms, bound_by, library_ms, **extra):
     return {"name": name, "route": "cuda", "source": source,
@@ -1178,11 +1574,13 @@ def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
 
 
 def kernels_line(smi, rows, bwd, masked, int8, window_launches,
-                 int8_launches, train_counts):
-    """The eight kernels at their main-path shapes: K1 at group 3 of the
+                 int8_launches, train_counts, exp2, exp2_launches,
+                 fewstep_launches):
+    """The nine kernels at their main-path shapes: K1 at group 3 of the
     serving window, K2 / K3 at the training cross-attention, K4-K6 at the
-    training self-attention, P2 at group 3's ffn.fc1 and Q at group 3's
-    ffn.fc2 input.  `launches` sums the paths each runs on."""
+    training self-attention, P2 at group 3's ffn.fc1, Q at group 3's
+    ffn.fc2 input and P1 (its exp2 variant without the pad test) at the
+    probe's shape.  `launches` sums the paths each runs on."""
     fwd_src = "mmpl_tpu_torch/csrc/flash_fwd.cu"
     bwd_src = "mmpl_tpu_torch/csrc/flash_bwd.cu"
     k1 = rows[MAIN_SHAPE]
@@ -1194,13 +1592,13 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
     out = [_entry(
         "flash_fwd", fwd_src, "mmpl_tpu/ops/attention.py:324",
         window_launches + int8_launches["flash_fwd"]
-        + train_counts["flash_fwd"],
+        + train_counts["flash_fwd"] + sum(fewstep_launches.values()),
         max(r["o_max_abs_err"] for r in rows.values()), k1["ms"],
         k1["plain_ms"], k1["bound_ms"], k1["bound_by"], k1["library_ms"],
         at=MAIN_SHAPE, launches_by_path={
             "window": window_launches,
             "window_int8": int8_launches["flash_fwd"],
-            "train": train_counts["flash_fwd"]},
+            "train": train_counts["flash_fwd"], **fewstep_launches},
         shapes={k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
                                       "library_ms", "o_max_abs_err")}
                 for k, r in rows.items()})]
@@ -1259,6 +1657,17 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
             for r in int8.values() if "q_codes_equal" in r),
         shapes={k: {f: r[f] for f in ("q_ms", "q_plain_ms", "q_bound_ms")}
                 for k, r in int8.items() if "q_ms" in r}))
+    p1 = exp2[EXP2_MAIN]
+    out.append(_entry(
+        "flash_exp2", fwd_src,
+        "tools/exp2_probe.py:42 (_fwd_kernel, pallas_call :95)",
+        exp2_launches, max(r["o_max_abs_err"] for r in exp2.values()),
+        p1["ms"], p1["plain_ms"], p1["bound_ms"], p1["bound_by"],
+        p1["library_ms"], at=f"{EXP2_MAIN[0]} ({EXP2_MAIN[1]} variant)",
+        k1_ms=p1["k1_ms"], library="SDPA (default backend)",
+        variants={f"{lbl}/{name}": {f: r[f] for f in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "k1_ms",
+            "o_max_abs_err")} for (lbl, name), r in exp2.items()}))
     for e in out:
         e["card"] = smi
     return {"kernels": out}
@@ -1286,8 +1695,24 @@ def main() -> int:
     phase_train_parity()
     train_counts, step = phase_train()
     phase_train_profile(step)
+    del step
+    torch.cuda.empty_cache()
+    exp2 = phase_kernel_exp2()
+    exp2_launches = phase_exp2_probe()
+    phase_cli_fewstep()
+    model, cond, fewstep_rows, _ = phase_fewstep()
+    pipe = phase_fewstep_rolling(model, cond)
+    rolling_k1 = attn.launch_counts["flash_fwd"]
+    phase_profile_fewstep(pipe, cond)
+    del model, pipe, cond
+    torch.cuda.empty_cache()
+    phase_fewstep_parity()
+    fewstep_launches = {"fewstep": sum(r["flash_fwd_launches"]
+                                       for r in fewstep_rows),
+                        "fewstep_rolling": rolling_k1}
     emit(kernels_line(smi, rows, bwd, masked, int8, window_launches,
-                      int8_launches, train_counts))
+                      int8_launches, train_counts, exp2, exp2_launches,
+                      fewstep_launches))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,5 +1,5 @@
 // Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
-// One template, two kernels:
+// One template body, three kernels:
 //
 //  * K1, unmasked.  Replaces the TPU kernel `_flash_fwd_kernel`
 //    (mmpl_tpu/ops/attention.py:324, launched by `_flash_vjp_fwd_impl`):
@@ -11,9 +11,21 @@
 //    two one-hot matmuls (:716-722).  A tile that the tile table marks 0 is
 //    never loaded; one marked 2 (every frame pair allowed) skips the
 //    per-element test.  A row that sees no key gets O = 0 and lse = -inf.
+//  * P1, the exp2 probe.  Replaces `_fwd_kernel` (tools/exp2_probe.py:42,
+//    launched through `variant` :85 at :95): K1 with two compile-time
+//    choices, kExp2 (log2(e) folded into the scale on the host, exp2f for
+//    both alpha and p, :54, :64-66) and kPadMask (keep or drop the
+//    per-element col < Lk test; dropping it is only defined when Lk is a
+//    multiple of the 64-key tile, which the wrapper enforces), and it
+//    writes O only: the probe kernel has no lse output.  The probe's grid
+//    floors Lq / block_q and Lk / block_k (:92); here a ragged Lq is
+//    handled as in K1, and a ragged Lk only with the pad test on.
 //
-// Both keep an online softmax in fp32 (m, l, acc), round P to the input
-// type before the PV product, and write O in the input type and
+// K1 and K4 are the body's (exp, pad test, lse) instantiation, unmasked and
+// masked; P1's four variants are its unmasked, lse-less ones.
+//
+// All keep an online softmax in fp32 (m, l, acc), round P to the input
+// type before the PV product, and write O in the input type and (K1, K4)
 // lse = m + log(l) in fp32 (l == 0 guarded as on the TPU; in K4 the
 // shift/alpha guards of attention.py:750-752 keep a row that has seen only
 // masked scores at m = -inf without NaNs).
@@ -36,7 +48,9 @@
 // re-packed in place as the A operand of PV), and the block double-buffers
 // the 64-key K/V tiles with cp.async so the next admitted tile loads while
 // the current one is multiplied.  It is the simple version: no wgmma, no
-// TMA, no warp specialisation.
+// TMA, no warp specialisation.  P1's exp2 saves one multiply per score
+// next to the two products' 2*D multiply-adds, so on this card its gain can
+// only show where the exponentials, not the tensor cores, are the limit.
 //
 // One block: 64 query rows of one (b, head), 4 warps.  The head dim is
 // padded to the compile-time width kD (64 or 128) with zeros in shared
@@ -63,12 +77,17 @@ struct Strides {
   long long qb, ql, qh, kb, kl, kh, vb, vl, vh, ob, ol, oh;
 };
 
-template <typename T, int kD, bool kMasked>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Lq, int Lk, int N, int D,
-                 Strides st, float scale, FrameMask mask) {
+template <bool kExp2>
+__device__ __forceinline__ float softmax_exp(float x) {
+  return kExp2 ? exp2f(x) : expf(x);
+}
+
+template <typename T, int kD, bool kMasked, bool kExp2, bool kPadMask, bool kLse>
+__device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T* __restrict__ k,
+                                               const T* __restrict__ v, T* __restrict__ o,
+                                               float* __restrict__ lse, int Lq, int Lk, int N,
+                                               int D, const Strides& st, float scale,
+                                               const FrameMask& mask) {
   constexpr bool kFloat = Pitch<T, kD>::kFloat;
   constexpr int LD = Pitch<T, kD>::ld;
   constexpr int TL = Pitch<T, kD>::tile;
@@ -165,7 +184,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + 2 * t + (e & 1);
-        bool ok = col < kvalid;
+        bool ok = !kPadMask || col < kvalid;
         if (test_pairs) {
           const unsigned char* fr = fmrow[e >> 1];
           ok = ok && fr != nullptr && fr[mask.kf[kb * TILE + col]] != 0;
@@ -185,7 +204,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // the unmasked kernel holds a valid key, and there the guard cost 8%
       // of K1's time at the serving shapes on an H100
       shift[i] = kMasked && m_new == -INFINITY ? 0.f : m_new;
-      alpha[i] = m[i] == -INFINITY ? 0.f : expf(m[i] - shift[i]);
+      alpha[i] = m[i] == -INFINITY ? 0.f : softmax_exp<kExp2>(m[i] - shift[i]);
       m[i] = m_new;
     }
     float psum[2] = {0.f, 0.f};
@@ -193,7 +212,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - shift[e >> 1]);  // exp(-inf) = 0
+        const float p = softmax_exp<kExp2>(s[j][e] - shift[e >> 1]);  // exp(-inf) = 0
         s[j][e] = p;
         psum[e >> 1] += p;
       }
@@ -228,11 +247,32 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float lsafe = l[i] == 0.f ? 1.f : l[i];
     inv[i] = 1.f / lsafe;
     const int row = q0 + warp * 16 + g + 8 * i;
-    if (row < Lq && t == 0)
+    if (kLse && row < Lq && t == 0)
       lse[(b * N + h) * (long long)Lq + row] =
           m[i] == -INFINITY ? -INFINITY : m[i] + logf(lsafe);
   }
   store_rows<T, kD>(og, st.ol, q0 + warp * 16 + g, Lq, D, acc, inv[0], inv[1]);
+}
+
+// K1 (kMasked false) and K4 (true).
+template <typename T, int kD, bool kMasked>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Lq, int Lk, int N, int D,
+                 Strides st, float scale, FrameMask mask) {
+  flash_fwd_body<T, kD, kMasked, false, true, true>(q, k, v, o, lse, Lq, Lk, N, D, st, scale,
+                                                    mask);
+}
+
+// P1: `scale` already holds log2(e) when kExp2.
+template <typename T, int kD, bool kExp2, bool kPadMask>
+__global__ void __launch_bounds__(THREADS)
+flash_exp2_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o, int Lq, int Lk,
+                  int N, int D, Strides st, float scale) {
+  flash_fwd_body<T, kD, false, kExp2, kPadMask, false>(q, k, v, o, nullptr, Lq, Lk, N, D, st,
+                                                       scale, FrameMask{});
 }
 
 template <typename T, int kD, bool kMasked>
@@ -271,6 +311,39 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, void* o, vo
   }
 }
 
+template <typename T, int kD, bool kExp2, bool kPadMask>
+int launch_exp2(const void* q, const void* k, const void* v, void* o, int B, int Lq, int Lk,
+                int N, int D, const Strides& st, float scale, cudaStream_t stream) {
+  const int bytes = (int)FwdSmem<T, kD>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_exp2_kernel<T, kD, kExp2, kPadMask>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Lq + TILE - 1) / TILE, N, B);
+  flash_exp2_kernel<T, kD, kExp2, kPadMask><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), Lq, Lk, N, D, st, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int kD>
+int exp2_variant(bool use_exp2, bool mask_pad, const void* q, const void* k, const void* v,
+                 void* o, int B, int Lq, int Lk, int N, int D, const Strides& st, float scale,
+                 cudaStream_t s) {
+  if (use_exp2)
+    return mask_pad ? launch_exp2<T, kD, true, true>(q, k, v, o, B, Lq, Lk, N, D, st, scale, s)
+                    : launch_exp2<T, kD, true, false>(q, k, v, o, B, Lq, Lk, N, D, st, scale, s);
+  return mask_pad ? launch_exp2<T, kD, false, true>(q, k, v, o, B, Lq, Lk, N, D, st, scale, s)
+                  : launch_exp2<T, kD, false, false>(q, k, v, o, B, Lq, Lk, N, D, st, scale, s);
+}
+
+template <typename T>
+int exp2_width(bool use_exp2, bool mask_pad, const void* q, const void* k, const void* v,
+               void* o, int B, int Lq, int Lk, int N, int D, const Strides& st, float scale,
+               cudaStream_t s) {
+  return D <= 64 ? exp2_variant<T, 64>(use_exp2, mask_pad, q, k, v, o, B, Lq, Lk, N, D, st, scale, s)
+                 : exp2_variant<T, 128>(use_exp2, mask_pad, q, k, v, o, B, Lq, Lk, N, D, st, scale, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Strides are in elements.
@@ -306,4 +379,28 @@ extern "C" int mmpl_flash_masked_fwd(int dtype, const void* q, const void* k,
                        static_cast<const unsigned char*>(tiles), F, (Lk + TILE - 1) / TILE};
   return dispatch<true>(dtype, q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask,
                         static_cast<cudaStream_t>(stream));
+}
+
+// P1.  use_exp2 / mask_pad select the variant; with mask_pad == 0, Lk must
+// be a multiple of 64.  Writes O only.
+extern "C" int mmpl_flash_exp2(int dtype, const void* q, const void* k, const void* v,
+                               void* o, int use_exp2, int mask_pad, int B, int Lq, int Lk,
+                               int N, int D, long long sqb, long long sql, long long sqh,
+                               long long skb, long long skl, long long skh, long long svb,
+                               long long svl, long long svh, long long sob, long long sol,
+                               long long soh, float scale, void* stream) {
+  if (D <= 0 || D > 128 || D % 8 || (!mask_pad && Lk % TILE)) return (int)cudaErrorInvalidValue;
+  const Strides st{sqb, sql, sqh, skb, skl, skh, svb, svl, svh, sob, sol, soh};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return exp2_width<float>(use_exp2, mask_pad, q, k, v, o, B, Lq, Lk, N, D, st, scale, s);
+    case 1:
+      return exp2_width<__nv_bfloat16>(use_exp2, mask_pad, q, k, v, o, B, Lq, Lk, N, D, st, scale,
+                                       s);
+    case 2:
+      return exp2_width<__half>(use_exp2, mask_pad, q, k, v, o, B, Lq, Lk, N, D, st, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -17,7 +17,7 @@ over the whole [clean | noisy] sequence.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,12 +71,16 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
                       t: torch.Tensor, ctx_kv: List[Dict[str, torch.Tensor]],
                       kv_cache: Dict[str, torch.Tensor],
                       schedule: GroupSchedule,
-                      write_cache: bool = False) -> torch.Tensor:
+                      write_cache: bool = False,
+                      rope_cs: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                      = None) -> torch.Tensor:
     """One forward of the group's frames through the whole trunk.
 
     latents [B, G, C, H, W] (frames ascending as `schedule.frames`);
     t [B, G]; ctx_kv: per-layer cross-attention K/V.  Returns the flow
-    [B, G, C_out, H, W].
+    [B, G, C_out, H, W].  `rope_cs` (cos, sin) [G*S, d//2] overrides the
+    table of `schedule.frames` (the rolling cache's
+    `rope.dynamic_rope_table`).
 
     Self-attention runs over the cached frames visible to the group other
     than its own, plus the group's own in-flight K/V.  A group never reads
@@ -95,9 +99,12 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
 
     x = patchify(model.patch_embedding, latents, cfg.patch_size)
     e, e0 = time_embed(model, cfg, t)
-    cos_np, sin_np = rope_table(schedule.frames, grid[0], grid[1], d)
-    cos = torch.as_tensor(cos_np, device=device)
-    sin = torch.as_tensor(sin_np, device=device)
+    if rope_cs is not None:
+        cos, sin = rope_cs
+    else:
+        cos_np, sin_np = rope_table(schedule.frames, grid[0], grid[1], d)
+        cos = torch.as_tensor(cos_np, device=device)
+        sin = torch.as_tensor(sin_np, device=device)
 
     own = set(schedule.frames) if not schedule.append_mode else set()
     other_slots = [s for f, s in zip(schedule.visible_frames,

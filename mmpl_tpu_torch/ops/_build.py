@@ -36,6 +36,8 @@ SIGNATURES = {
                           + [_L] * 12 + [_F, _P],
         "mmpl_flash_masked_fwd": [_I, _P, _P, _P, _P, _P] + _MASK
                                  + [_I] * 5 + [_L] * 12 + [_F, _P],
+        "mmpl_flash_exp2": [_I, _P, _P, _P, _P, _I, _I] + [_I] * 5
+                           + [_L] * 12 + [_F, _P],
     },
     "flash_bwd": {
         "mmpl_flash_bwd_dkv": [_I] + [_P] * 8 + [_I] * 5 + [_P, _F, _P],

@@ -7,6 +7,9 @@ Port of `mmpl_tpu/ops/attention.py`.  Layout is [B, L, N, D] throughout.
     MMPL inference needs no mask (the planned visibility is a gather of
     whole frames, `models/fps_dit.py`); training's cross-attention runs it
     too.
+  * `flash_attention_exp2` is P1, the exp2 probe's forward (O only, exp or
+    exp2, with or without the in-kernel pad test); no path of the model
+    runs it, `mmpl_tpu_torch.tools.exp2_probe` measures it against K1.
   * `frame_masked_attention` is the training self-attention under a
     frame-granular mask (token i attends token j iff
     frame_mask[q_frame_ids[i], kv_frame_ids[j]]): K4 forward, K5 / K6
@@ -30,12 +33,15 @@ import torch
 #: launches of each hand-written kernel, counted where the launch succeeds
 launch_counts = {"flash_fwd": 0, "flash_masked_fwd": 0, "flash_bwd_dkv": 0,
                  "flash_bwd_dq": 0, "flash_masked_bwd_dkv": 0,
-                 "flash_masked_bwd_dq": 0}
+                 "flash_masked_bwd_dq": 0, "flash_exp2": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: rows of the kernels' Q, K and V tiles (csrc/flash_common.cuh TILE)
 TILE = 64
+
+#: log2(e), folded into P1's scale by its exp2 variants
+LOG2E = 1.4426950408889634
 
 #: bytes of fp32 scores the plain versions hold at once (~1 GiB)
 _PLAIN_SCORE_BYTES = 1 << 30
@@ -174,6 +180,45 @@ def frame_masked_attention_bwd_plain(q, k, v, do, lse, delta, q_frame_ids,
     mask = _as_mask(q_frame_ids, kv_frame_ids, frame_mask, q.device)
     _check_frame_ids(*mask)
     return _plain_bwd(q, k, v, do, lse, delta, _scale(q, scale), mask)
+
+
+def _check_mask_pad(Lk: int, mask_pad: bool) -> None:
+    if not mask_pad and Lk % TILE:
+        raise ValueError(f"flash_exp2: mask_pad=False needs Lk a multiple "
+                         f"of the {TILE}-key tile, got Lk={Lk} (the pad "
+                         f"test is what masks the last tile's keys)")
+
+
+def flash_attention_exp2_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, use_exp2: bool = True,
+                               mask_pad: bool = True,
+                               scale: Optional[float] = None
+                               ) -> torch.Tensor:
+    """The plain version of P1: O [B, Lq, N, D] in q's dtype.  fp32 scores
+    in query-row chunks, times scale (times log2(e) with `use_exp2`, then
+    exp2 in place of exp); P rounded to v's dtype before the PV product,
+    which accumulates in fp32, then divided by the fp32 row sum.
+    `mask_pad` changes nothing here (there is no padded tile) but is
+    refused where the kernel refuses it."""
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
+    _check_mask_pad(Lk, mask_pad)
+    sc = _scale(q, scale) * (LOG2E if use_exp2 else 1.0)
+    kf = k.float().permute(0, 2, 3, 1)                 # [B, N, D, Lk]
+    vf = v.float().permute(0, 2, 1, 3)                 # [B, N, Lk, D]
+    starts, rows = _row_chunks(B, N, Lq, Lk)
+    outs = []
+    for s in starts:
+        qc = q[:, s:s + rows].float().permute(0, 2, 1, 3)   # [B, N, r, D]
+        scores = torch.matmul(qc, kf) * sc
+        scores -= scores.amax(dim=-1, keepdim=True)
+        p = torch.exp2(scores) if use_exp2 else torch.exp(scores)
+        del scores
+        l = p.sum(dim=-1, keepdim=True)
+        lsafe = torch.where(l == 0, torch.ones_like(l), l)
+        pv = torch.matmul(p.to(v.dtype).float(), vf)
+        outs.append((pv / lsafe).permute(0, 2, 1, 3))
+    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +375,28 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+def flash_exp2_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    use_exp2: bool = True, mask_pad: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Launch P1 from `csrc/flash_fwd.cu` on CUDA tensors; operands as
+    `flash_fwd_cuda`.  Returns O; `mask_pad=False` needs Lk a multiple of
+    64."""
+    what = "flash_exp2"
+    _check_qkv(what, q, k, v)
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
+    _check_mask_pad(Lk, mask_pad)
+    sc = _scale(q, scale) * (LOG2E if use_exp2 else 1.0)
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if Lq == 0:
+        return o
+    _launch("flash_fwd", "mmpl_flash_exp2", what, q.device,
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), int(use_exp2), int(mask_pad), B, Lq, Lk, N, D,
+            *_strides(q, k, v, o), float(sc))
+    return o
+
+
 def _bwd_launch(part: str, q, k, v, do, lse, delta, outs, scale, mask,
                 tiles) -> None:
     """Launch the dKV (`part` = "dkv", outs = (dk, dv)) or dQ ("dq",
@@ -465,6 +532,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Differentiable unmasked attention: K1 forward, K2 / K3 backward."""
     return _attend(q, k, v, scale, None, None)
+
+
+def flash_attention_exp2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         use_exp2: bool = True, mask_pad: bool = True,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """P1: softmax attention, O only (no autograd), exp or exp2, with or
+    without the pad test on the last key tile.  The kernel on CUDA
+    tensors, its plain version on CPU tensors."""
+    if _device_check(q):
+        return flash_exp2_cuda(q, k, v, use_exp2, mask_pad, scale)
+    return flash_attention_exp2_plain(q, k, v, use_exp2, mask_pad, scale)
 
 
 def frame_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -83,6 +83,38 @@ def window_rope_table(num_frames: int, grid_h: int, grid_w: int,
     return rope_table(tuple(range(num_frames)), grid_h, grid_w, head_dim)
 
 
+def dynamic_rope_table(start_frame, num_frames: int, grid_h: int,
+                       grid_w: int, head_dim: int, device=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin [F*H*W, head_dim//2] fp32 tensors for frames
+    [start, start+F), the rolling cache's table: `start_frame` is an int or
+    a 0-d tensor (then its device is used).  As in the JAX package the
+    temporal band's angles and every cos/sin are computed in fp32 on the
+    device; the spatial angles are host constants, stored fp32."""
+    dt, dh, dw = band_dims(head_dim)
+    start = torch.as_tensor(start_frame, device=device)
+    device = start.device
+    ft = torch.as_tensor(_inv_freqs(dt).astype(np.float32), device=device)
+    f = start.float() + torch.arange(num_frames, dtype=torch.float32,
+                                     device=device)
+    ang_t = f[:, None] * ft[None, :]                             # [F, dt/2]
+    ang_h = np.einsum("h,c->hc", np.arange(grid_h, dtype=np.float64),
+                      _inv_freqs(dh))
+    ang_w = np.einsum("w,c->wc", np.arange(grid_w, dtype=np.float64),
+                      _inv_freqs(dw))
+    H, W = grid_h, grid_w
+    ang_s = np.concatenate([
+        np.broadcast_to(ang_h[:, None, :], (H, W, dh // 2)),
+        np.broadcast_to(ang_w[None, :, :], (H, W, dw // 2)),
+    ], axis=-1).reshape(H * W, (dh + dw) // 2).astype(np.float32)
+    ang_s = torch.as_tensor(ang_s, device=device)                # [S, ds/2]
+    F, S = num_frames, H * W
+    ang = torch.cat([ang_t[:, None, :].expand(F, S, dt // 2),
+                     ang_s[None].expand(F, S, (dh + dw) // 2)],
+                    dim=-1).reshape(F * S, head_dim // 2)
+    return torch.cos(ang), torch.sin(ang)
+
+
 def split_rope_permutation(num_heads: int, head_dim: int) -> np.ndarray:
     """Channel permutation from interleaved pairs to split-half layout, per
     head: new[i] = old[2i], new[D/2 + i] = old[2i + 1]."""

@@ -1,5 +1,6 @@
-"""Flow-matching scheduler tables, `add_noise` (the anchor reseed and the
-training noise) and the training loss weight.
+"""Flow-matching scheduler tables, `add_noise` (the anchor reseed, the
+training noise and the few-step re-noising), `convert_flow_pred_to_x0` and
+the training loss weight.
 
 Port of `mmpl_tpu/schedulers/flow_match.py`: the sigma/timestep tables are
 fp64 numpy on the host, stored fp32; lookups pick the nearest timestep
@@ -71,6 +72,15 @@ class FlowMatchScheduler:
         sigma = sigma.reshape(sigma.shape + (1,) * (original_samples.ndim - 1))
         out = (1 - sigma) * original_samples.float() + sigma * noise.float()
         return out.to(noise.dtype)
+
+    def convert_flow_pred_to_x0(self, flow_pred: torch.Tensor,
+                                xt: torch.Tensor,
+                                timestep: torch.Tensor) -> torch.Tensor:
+        """x0 = x_t - sigma_t * v, in fp32, returned in flow_pred's dtype."""
+        sigma = self.sigma_of(timestep)
+        sigma = sigma.reshape(sigma.shape + (1,) * (xt.ndim - 1))
+        out = xt.float() - sigma * flow_pred.float()
+        return out.to(flow_pred.dtype)
 
     def training_weight(self, timestep: torch.Tensor) -> torch.Tensor:
         """Per-timestep loss weight of the nearest table timestep, one per

@@ -11,7 +11,10 @@ numpy's `bfloat16` extension type or any 2-byte view of it).  Conversions:
     Such a tree loads into a model quantised the same way
     (`dit.quantize_params_mixed`, `vae.quantize_vae_decoder`);
   * fused (`self_attn.qkv`) and unfused (`self_attn.q/k/v`) self-attention
-    both map one to one; build the DiT with the matching `fused` flag.
+    both map one to one; build the DiT with the matching `fused` flag;
+  * TAEHV's per-layer lists (`init_taehv_params`-style) -> the upstream
+    `taew2_1.pth` names that `models.taehv.TAEHV` carries: a MemBlock's
+    `c0/c1/c2` -> `conv.0/2/4`, a TPool / TGrow kernel -> `conv`.
 
 This module reads numpy only; it never imports the JAX package.
 """
@@ -76,3 +79,29 @@ def vae_state_from_jax(tree) -> Dict[str, torch.Tensor]:
     """State dict of `models.vae.WanVAE` from `init_vae_params`-style
     params."""
     return dict(_leaf(path, a) for path, a in _walk(tree))
+
+
+#: a MemBlock's JAX conv names -> its upstream nn.Sequential indices
+_MEM_CONVS = {"c0": "conv.0", "c1": "conv.2", "c2": "conv.4", "skip": "skip"}
+
+
+def taehv_state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """State dict of `models.taehv.TAEHV` from `init_taehv_params`-style
+    params ({"encoder": [...], "decoder": [...]}, one entry per layout
+    row; conv kernels HWIO, the inverse of `convert_taehv`'s
+    (2, 3, 1, 0) transpose)."""
+    from ..models.taehv import DECODER_LAYOUT, ENCODER_LAYOUT
+    state = {}
+    for part, layout in (("encoder", ENCODER_LAYOUT),
+                         ("decoder", DECODER_LAYOUT)):
+        for i, (row, p) in enumerate(zip(layout, tree[part])):
+            for path, a in _walk(p):
+                head, _, leaf = path.rpartition(".")
+                if row[0] == "mem":
+                    head = _MEM_CONVS[head]
+                elif row[0] in ("tpool", "tgrow"):
+                    head = "conv"
+                k, t = _leaf(f"{part}.{i}." + (f"{head}." if head else "")
+                             + leaf, a)
+                state[k] = t
+    return state

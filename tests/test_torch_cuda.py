@@ -183,7 +183,10 @@ def test_autograd_launches_each_kernel_once(cuda):
     out = ta.frame_masked_attention(q, k, v, ids, ids, fm)
     out = out + ta.flash_attention(q, k, v)
     out.float().sum().backward()
-    assert ta.launch_counts == dict.fromkeys(ta.launch_counts, 1)
+    # the six kernels of the two autograd functions once each; P1 is no
+    # kernel of theirs
+    assert ta.launch_counts == {**dict.fromkeys(ta.launch_counts, 1),
+                                "flash_exp2": 0}
     for x in (q, k, v):
         assert x.grad is not None and torch.isfinite(x.grad.float()).all()
 
@@ -352,3 +355,76 @@ def test_int8_cache_commit_launches_q_for_k_and_v_per_layer(cuda):
         assert (got[name].int() - want[name].int()).abs().max().item() <= 1
         torch.testing.assert_close(got[f"{name}_scale"],
                                    want[f"{name}_scale"], rtol=1e-4, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# P1 (the exp2 probe's forward) and the few-step window
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("use_exp2", [False, True])
+@pytest.mark.parametrize("mask_pad", [True, False])
+@pytest.mark.parametrize("dtype,d,tol", [(torch.bfloat16, 128, 2e-2),
+                                         (torch.float32, 24, 1e-5)])
+def test_exp2_variants_match_plain_at_a_ragged_lq(cuda, use_exp2, mask_pad,
+                                                  dtype, d, tol):
+    """P1's four variants against their plain version (both round P to
+    the input type) at Lq = 1000 (ragged) and Lk = 1280 (a multiple of
+    64, so the variants without the pad test are defined)."""
+    q, k, v = _qkv(1000, 1280, d, dtype, cuda, seed=3)
+    ta.reset_launch_counts()
+    got = ta.flash_attention_exp2(q, k, v, use_exp2, mask_pad)
+    want = ta.flash_attention_exp2_plain(q, k, v, use_exp2, mask_pad)
+    torch.cuda.synchronize()
+    assert ta.launch_counts == {**dict.fromkeys(ta.launch_counts, 0),
+                                "flash_exp2": 1}
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_exp2_with_the_pad_test_matches_k1_at_a_ragged_lk(cuda):
+    q, k, v = _qkv(300, 1300, 128, torch.bfloat16, cuda, seed=4)
+    got = ta.flash_attention_exp2(q, k, v, use_exp2=True, mask_pad=True)
+    want = ta.flash_fwd_cuda(q, k, v)[0]
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def test_exp2_refuses_mask_pad_false_on_a_ragged_lk(cuda):
+    q, k, v = _qkv(64, 1300, 128, torch.bfloat16, cuda)
+    ta.reset_launch_counts()
+    with pytest.raises(ValueError, match="mask_pad=False"):
+        ta.flash_attention_exp2(q, k, v, mask_pad=False)
+    assert ta.launch_counts["flash_exp2"] == 0
+
+
+def test_few_step_window_on_the_card(cuda):
+    """A tiny fp32 few-step window (2 blocks, 2 steps) on the card against
+    the CPU's plain path from the same weights and draws, with its K1
+    launches: blocks x (steps + commit) x layers x (self + cross)."""
+    import copy
+
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    from mmpl_tpu_torch.models import dit
+    from mmpl_tpu_torch.pipelines.causal_inference import (
+        CausalInferencePipeline)
+    cfg = tiny_test_config()
+    model = dit.randomize_head(dit.init_dit_params(
+        cfg, torch.Generator().manual_seed(0), torch.float32),
+        torch.Generator().manual_seed(99))
+    rng = np.random.default_rng(7)
+    noise = torch.from_numpy(rng.standard_normal((1, 6, 16, 4, 4)).astype(
+        np.float32))
+    cond = torch.from_numpy(rng.standard_normal(
+        (1, cfg.text_len, cfg.text_dim)).astype(np.float32))
+    sn = [torch.from_numpy(rng.standard_normal((1, 1, 3, 16, 4, 4)).astype(
+        np.float32)) for _ in range(2)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pipe = CausalInferencePipeline(cfg, copy.deepcopy(model).to(dev),
+                                       denoising_step_list=(1000, 500),
+                                       dtype=torch.float32)
+        ta.reset_launch_counts()
+        out[dev] = pipe.inference(noise.to(dev), cond.to(dev),
+                                  step_noise=sn).cpu()
+    assert ta.launch_counts["flash_fwd"] == 2 * 3 * cfg.num_layers * 2
+    rel = ((out["cuda"] - out["cpu"]).norm() / out["cpu"].norm()).item()
+    assert rel <= 1e-4, rel

@@ -139,10 +139,7 @@ def test_cli_cpu_run_writes_bridged_frames(monkeypatch, tmp_path):
     (["--checkpoint-path", "x.pt"], "Slice A item 10"),
     (["--image", "x.png"], "Slice D"),
     (["--wan-dir", "wan"], "Slice A item 10"),
-    (["--taehv-path", "taew2_1.pth"], "Slice C"),
     (["--mesh", "dp=2"], "Slice F"),
-    (["--preview", "p.mp4"], "Slice C"),
-    (["--profile"], "Slice C"),
 ])
 def test_cli_refuses_flags_of_later_slices(flag, where, capsys):
     with pytest.raises(SystemExit) as e:
@@ -151,11 +148,77 @@ def test_cli_refuses_flags_of_later_slices(flag, where, capsys):
     assert where in capsys.readouterr().err
 
 
-def test_cli_refuses_few_step_config(capsys):
-    with pytest.raises(SystemExit):
-        cli.main(["--model", "smoke", "--device", "cpu", "--config",
-                  str(ROOT / "configs" / "self_forcing_dmd.yaml")])
-    assert "Slice C" in capsys.readouterr().err
+FEW_STEP = ["--config", str(ROOT / "configs" / "self_forcing_dmd.yaml")]
+
+
+@pytest.mark.parametrize("case", ["taehv_path", "preview", "profile"])
+def test_cli_slice_c_flags(case, tmp_path, monkeypatch, capsys):
+    """The flags of the few-step slice: --preview writes the TAEHV preview
+    of every block (here from a `taew2_1.pth`-style state dict given by
+    --taehv-path), and without a few-step config exits 2 as the JAX CLI
+    does; --profile on the planned-window pipeline times each window's
+    phases."""
+    written = {}
+
+    def fake_write(path, frames, fps=16):
+        written[path] = frames
+        return path
+
+    monkeypatch.setattr("mmpl_tpu_torch.utils.video_io.write_video",
+                        fake_write)
+    out, prev = str(tmp_path / "out.mp4"), str(tmp_path / "prev.mp4")
+    base = ["--model", "smoke", "--device", "cpu", "--output", out]
+    if case == "taehv_path":
+        from mmpl_tpu_torch.models.taehv import init_taehv_params
+        weights = tmp_path / "taew2_1.pth"
+        torch.save(init_taehv_params(torch.Generator().manual_seed(3))
+                   .state_dict(), weights)
+        rc = cli.main(base + FEW_STEP + ["--preview", prev, "--taehv-path",
+                                         str(weights)])
+        assert rc == 0
+        # 7 blocks of 3 latents: 9 frames, then 12 per block
+        assert written[prev].shape == (9 + 6 * 12, 64, 64, 3)
+        assert written[prev].dtype == np.uint8
+        assert written[out].shape == (81, 64, 64, 3)
+        assert "random TAEHV weights" not in capsys.readouterr().err
+    elif case == "preview":
+        assert cli.main(base + ["--preview", prev]) == 2
+        assert "requires the few-step pipeline" in capsys.readouterr().err
+        assert not written
+    else:
+        rc = cli.main(base + ["--sampling-steps", "1", "--profile"])
+        assert rc == 0
+        err = capsys.readouterr().err
+        assert "window 0: denoise" in err and "window 0: vae decode" in err
+        assert written[out].shape == (81, 64, 64, 3)
+
+
+@pytest.mark.parametrize("config,pipeline", [
+    ("self_forcing_dmd.yaml", "CausalInferencePipeline"),
+    ("default_config.yaml", "CausalFPSInferencePipeline")])
+def test_cli_selects_the_pipeline_by_the_config(config, pipeline,
+                                                monkeypatch):
+    """A config with denoising_step_list selects the few-step pipeline with
+    the config's blocks, context noise and warped steps; one without, the
+    planned-window pipeline."""
+    seen = {}
+
+    def fake_run_windows(pipe, *args, **kwargs):
+        seen["pipe"] = pipe
+        return np.zeros((1, 81, 64, 64, 3), np.uint8)
+
+    monkeypatch.setattr(cli, "run_windows", fake_run_windows)
+    monkeypatch.setattr("mmpl_tpu_torch.utils.video_io.write_video",
+                        lambda path, frames, fps=16: path)
+    assert cli.main(["--model", "smoke", "--device", "cpu", "--config",
+                     str(ROOT / "configs" / config)]) == 0
+    pipe = seen["pipe"]
+    assert type(pipe).__name__ == pipeline
+    if pipeline == "CausalInferencePipeline":
+        assert pipe.num_frame_per_block == 3 and pipe.context_noise == 0
+        assert pipe.denoising_step_list[0] == 1000.0
+        assert 750.0 < pipe.denoising_step_list[1] < 1000.0   # warped
+        assert pipe.dtype == torch.float32
 
 
 def test_cli_cuda_without_a_card_raises(monkeypatch):
