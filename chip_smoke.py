@@ -5,9 +5,16 @@
 Phases, each printing JSON lines as it goes (any failure exits non-zero):
   1. device and build: the card's name and power limit; nvcc builds every
      kernel from mmpl_tpu_torch/csrc;
-  2. kernel: K1 (csrc/flash_fwd.cu) against its plain PyTorch version at the
-     1.3B main path's attention shapes, with kernel / plain / SDPA times and
-     the card's bound;
+  2. kernel: K1 (csrc/flash_fwd.cu: bf16 / fp16 on the wgmma + TMA body of
+     csrc/flash_fwd_sm90.cuh, fp32 on the template body) against its plain
+     PyTorch version at the 1.3B main path's attention shapes, with the
+     body that ran (read from the profiler's kernel names), kernel / plain
+     / SDPA times and the card's bound; kernel_exp2: P1
+     (csrc/flash_fwd.cu, the exp2 probe's forward, on the same two
+     bodies), its four variants against the plain version at the probe's
+     shape, the few-step path's steady-state self-attention (4680 x 32760,
+     where only the variants with the pad test are defined), a ragged
+     shape and fp32 at D = 24, beside K1 and SDPA;
   3. kernel_bwd: K2 / K3 (csrc/flash_bwd.cu) at the training
      cross-attention shape, a ragged shape and D = 24, against the plain
      backward and SDPA's backward;
@@ -41,12 +48,8 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      at 60x104, bf16 trunk over fp32 masters, AdamW, EMA), one warm-up and
      two timed steps with exact launch counts; train_profile: one step
      under torch.profiler;
-  11. kernel_exp2: P1 (csrc/flash_fwd.cu, the exp2 probe's forward), its
-     four variants against the plain version at the probe's shape, the
-     few-step path's steady-state self-attention (4680 x 32760, where only
-     the variants with the pad test are defined), a ragged shape and fp32
-     at D = 24, beside K1 and SDPA; exp2_probe: the port's probe
-     (`python -m mmpl_tpu_torch.tools.exp2_probe`), P1's path;
+  11. exp2_probe: the port's probe (`python -m
+     mmpl_tpu_torch.tools.exp2_probe`), P1's path;
   12. cli_fewstep, cli_fewstep_int8: the serving CLI with the few-step
      config (configs/self_forcing_dmd.yaml) in smoke mode, 2 windows, with
      --profile and --preview, then with --quantize auto --quantize-cache,
@@ -68,6 +71,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -93,6 +97,7 @@ from mmpl_tpu_torch.pipelines.fps_inference import \
     CausalFPSInferencePipeline                                    # noqa: E402
 from mmpl_tpu_torch.training import masks                        # noqa: E402
 from mmpl_tpu_torch.utils.device import set_float32_precision   # noqa: E402
+from mmpl_tpu_torch.utils.profiling import port_kernel_of         # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -278,12 +283,70 @@ def phase_device():
     log = _build.build()
     for name in _build.SIGNATURES:
         info = log.get(name, {})
-        ptxas = [ln.strip() for ln in info.get("ptxas", "").splitlines()
-                 if "registers" in ln or "spill" in ln]
+        report = info.get("ptxas", "")
+        # C7512: ptxas serialised a kernel's wgmma for want of registers
         emit({"phase": "build", "kernel": name,
               "seconds": round(info.get("seconds", 0.0), 3),
-              "cached": name not in log, "ptxas": ptxas})
+              "cached": name not in log, "ptxas": _ptxas_lines(report),
+              "wgmma_serialized": report.count("C7512")})
     return smi
+
+
+def _ptxas_lines(report: str) -> list:
+    """One line per compiled kernel of `nvcc -Xptxas -v`'s report: the
+    kernel with its template arguments (mangled), its registers and its
+    spill stores."""
+    out, kernel, spill = [], "?", "?"
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            kernel, spill = _kernel_id(m.group(1)), "?"
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append(f"{kernel}: {m.group(1)} registers, {spill} bytes "
+                       f"spill stores")
+    return out
+
+
+def _kernel_id(mangled: str) -> str:
+    """`name<template arguments>` of a mangled `..._kernel` entry: its
+    identifier is the one whose length prefix reaches `_kernel` just
+    before the template arguments `I...E`."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):
+            end = m.end() + int(m.group()[i:])
+            args = re.match(r"I(\w*?)EEv", mangled[end:])
+            if mangled[m.end():end].endswith("_kernel") and args:
+                return f"{mangled[m.end():end]}<{args.group(1)}>"
+    return mangled
+
+
+def _launched(fn) -> list:
+    """The names of the device kernels that one call of `fn` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
+
+
+def _body(names, counter: str, dtype) -> str:
+    """Which flash-forward body ran `counter`'s one launch among `names`:
+    "wgmma" (csrc/flash_fwd_sm90.cuh) or "template" (the mma.sync / FMA
+    body of csrc/flash_fwd.cu).  bf16 / fp16 must run the first, fp32 the
+    second."""
+    mine = [n for n in names if port_kernel_of(n) == counter]
+    check(len(mine) == 1, (counter, names))
+    body = "wgmma" if "_sm90_kernel" in mine[0] else "template"
+    check(body == ("template" if dtype == torch.float32 else "wgmma"),
+          (counter, dtype, mine))
+    return body
 
 
 def phase_kernel():
@@ -293,7 +356,9 @@ def phase_kernel():
         q, k, v = (torch.randn((B, L, N, D), generator=gen, device="cuda",
                                dtype=torch.float32).to(dtype)
                    for L in (Lq, Lk, Lk))
-        o, lse = attn.flash_fwd_cuda(q, k, v)
+        out = []
+        names = _launched(lambda: out.append(attn.flash_fwd_cuda(q, k, v)))
+        (o, lse), = out
         po, plse = attn.flash_attention_plain(q, k, v)
         torch.cuda.synchronize()
         err = (o.float() - po.float()).abs()
@@ -301,6 +366,7 @@ def phase_kernel():
         row = {"phase": "kernel", "kernel": "flash_fwd", "shape": label,
                "B": B, "N": N, "D": D, "Lq": Lq, "Lk": Lk,
                "dtype": str(dtype).replace("torch.", ""),
+               "body": _body(names, "flash_fwd", dtype),
                "o_max_abs_err": err.max().item(),
                "o_mean_abs_err": err.mean().item(),
                "lse_max_abs_err": lerr.max().item(),
@@ -314,6 +380,7 @@ def phase_kernel():
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
         row["tflops"] = 4.0 * B * N * Lq * Lk * D / row["ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         emit(row)
         rows[label] = row
         if dtype == torch.float32:
@@ -977,10 +1044,10 @@ def _profile_step(step, what: str, phase: str, top: int = 12) -> dict:
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    by_name = lambda name: sum(e.self_device_time_total for e in kernels
-                               if name in e.key) / 1e3
-    k1_ms = by_name("flash_fwd_kernel")
-    p2_ms, q_ms = by_name("int8_gemm_kernel"), by_name("quantize_rows_kernel")
+    by_port = _by_port(kernels)
+    k1_ms = by_port.get("flash_fwd", 0.0)
+    p2_ms = by_port.get("int8_gemm", 0.0)
+    q_ms = by_port.get("quantize_rows", 0.0)
     row = {"phase": phase, "what": what,
            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
@@ -989,11 +1056,28 @@ def _profile_step(step, what: str, phase: str, top: int = 12) -> dict:
            "int8_gemm_ms": p2_ms, "quantize_rows_ms": q_ms,
            "int8_share_of_busy": (p2_ms + q_ms) / busy_ms if busy_ms
            else None,
+           "port_kernels_ms": by_port,
            "top_kernels": [{"name": e.key[:90], "calls": e.count,
                             "ms": e.self_device_time_total / 1e3}
                            for e in kernels[:top]]}
     emit(row)
+    # the serving forward runs K1 and no masked kernel
+    check(k1_ms > 0 and "flash_masked_fwd" not in by_port, row)
     return row
+
+
+def _by_port(kernels) -> dict:
+    """Device ms of each port kernel (by launch counter) among the
+    profiler's `kernels`; a Hopper-body kernel must book to K1 or P1."""
+    by_port = {}
+    for e in kernels:
+        name = port_kernel_of(e.key)
+        if "_sm90_kernel" in e.key:
+            check(name in ("flash_fwd", "flash_exp2"), e.key)
+        if name:
+            by_port[name] = by_port.get(name, 0.0) + \
+                e.self_device_time_total / 1e3
+    return by_port
 
 
 def phase_profile(pipe, cond, uncond, top: int = 12, phase="profile"):
@@ -1178,16 +1262,6 @@ def phase_train(timed_steps: int = 2):
     return counts, step
 
 
-def _kernel_of(key: str):
-    """The port kernel a profiler kernel name belongs to, or None."""
-    masked = ", true>" in key or "ELb1E" in key
-    for base in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
-        if f"{base}_kernel" in key:
-            return base.replace("flash_", "flash_masked_" if masked
-                                else "flash_")
-    return None
-
-
 def phase_train_profile(step, top: int = 14):
     """One 1.3B teacher-forcing step under torch.profiler: device time by
     kernel, the port kernels' shares and the device's idle share of the
@@ -1204,22 +1278,21 @@ def phase_train_profile(step, top: int = 14):
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    by_port = {}
-    for e in kernels:
-        name = _kernel_of(e.key)
-        if name:
-            by_port[name] = by_port.get(name, 0.0) + \
-                e.self_device_time_total / 1e3
-    emit({"phase": "train_profile",
-          "what": "one 1.3B teacher-forcing step, 30 layers",
-          "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
-          "port_kernels_ms": by_port,
-          "port_kernels_share_of_busy":
-              sum(by_port.values()) / busy_ms if busy_ms else None,
-          "top_kernels": [{"name": e.key[:90], "calls": e.count,
-                           "ms": e.self_device_time_total / 1e3}
-                          for e in kernels[:top]]})
+    by_port = _by_port(kernels)
+    row = {"phase": "train_profile",
+           "what": "one 1.3B teacher-forcing step, 30 layers",
+           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+           "port_kernels_ms": by_port,
+           "port_kernels_share_of_busy":
+               sum(by_port.values()) / busy_ms if busy_ms else None,
+           "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in kernels[:top]]}
+    emit(row)
+    # K1 (bf16 cross-attention) books to K1, and K4-K6 to themselves
+    check(by_port.get("flash_fwd", 0.0) > 0, row)
+    check(all(by_port.get(k, 0.0) > 0 for k in TRAIN_LAUNCHES_PER_LAYER), row)
 
 
 def phase_kernel_exp2():
@@ -1254,11 +1327,15 @@ def phase_kernel_exp2():
                 emit(row)
                 check(row["refused"], row)
                 continue
-            o = attn.flash_exp2_cuda(q, k, v, use_exp2, mask_pad)
+            out = []
+            names = _launched(lambda: out.append(
+                attn.flash_exp2_cuda(q, k, v, use_exp2, mask_pad)))
+            o, = out
             po = attn.flash_attention_exp2_plain(q, k, v, use_exp2, mask_pad)
             torch.cuda.synchronize()
             err = (o.float() - po.float()).abs()
-            row.update(o_max_abs_err=err.max().item(),
+            row.update(body=_body(names, "flash_exp2", dtype),
+                       o_max_abs_err=err.max().item(),
                        o_mean_abs_err=err.mean().item())
             del o, po, err
             row["ms"] = time_ms(
@@ -1269,7 +1346,8 @@ def phase_kernel_exp2():
                 max_reps=5)
             row.update(bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=lib_ms, k1_ms=k1_ms,
-                       tflops=4.0 * B * N * Lq * Lk * D / row["ms"] / 1e9)
+                       tflops=4.0 * B * N * Lq * Lk * D / row["ms"] / 1e9,
+                       bound_share=bound_ms / row["ms"])
             emit(row)
             rows[(label, name)] = row
             check(row["o_max_abs_err"] <= tol["max"], row)
@@ -1582,7 +1660,11 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
     ffn.fc2 input and P1 (its exp2 variant without the pad test) at the
     probe's shape.  `launches` sums the paths each runs on."""
     fwd_src = "mmpl_tpu_torch/csrc/flash_fwd.cu"
+    sm90_src = "mmpl_tpu_torch/csrc/flash_fwd_sm90.cuh"
     bwd_src = "mmpl_tpu_torch/csrc/flash_bwd.cu"
+    bodies = ("wgmma + TMA body (flash_fwd_sm90.cuh) for bf16 / fp16, "
+              "the template body of flash_fwd.cu for fp32; entry in "
+              "flash_fwd.cu")
     k1 = rows[MAIN_SHAPE]
     b, m = bwd[BWD_MAIN], masked[MASKED_MAIN]
     grad_err = lambda rs, parts: max(r[f"{p}_max_abs_err"]
@@ -1590,16 +1672,17 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
     bwd_note = ("plain_ms and library_ms compute dq, dk and dv in one call "
                 "(flash_attention_bwd_plain; SDPA's backward)")
     out = [_entry(
-        "flash_fwd", fwd_src, "mmpl_tpu/ops/attention.py:324",
+        "flash_fwd", sm90_src, "mmpl_tpu/ops/attention.py:324",
         window_launches + int8_launches["flash_fwd"]
         + train_counts["flash_fwd"] + sum(fewstep_launches.values()),
         max(r["o_max_abs_err"] for r in rows.values()), k1["ms"],
         k1["plain_ms"], k1["bound_ms"], k1["bound_by"], k1["library_ms"],
-        at=MAIN_SHAPE, launches_by_path={
+        at=MAIN_SHAPE, bodies=bodies, bound_share=k1["bound_share"],
+        launches_by_path={
             "window": window_launches,
             "window_int8": int8_launches["flash_fwd"],
             "train": train_counts["flash_fwd"], **fewstep_launches},
-        shapes={k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+        shapes={k: {f: r[f] for f in ("body", "ms", "plain_ms", "bound_ms",
                                       "library_ms", "o_max_abs_err")}
                 for k, r in rows.items()})]
     for name, part, line in (("flash_bwd_dkv", "dkv", 373),
@@ -1659,14 +1742,15 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                 for k, r in int8.items() if "q_ms" in r}))
     p1 = exp2[EXP2_MAIN]
     out.append(_entry(
-        "flash_exp2", fwd_src,
+        "flash_exp2", sm90_src,
         "tools/exp2_probe.py:42 (_fwd_kernel, pallas_call :95)",
         exp2_launches, max(r["o_max_abs_err"] for r in exp2.values()),
         p1["ms"], p1["plain_ms"], p1["bound_ms"], p1["bound_by"],
         p1["library_ms"], at=f"{EXP2_MAIN[0]} ({EXP2_MAIN[1]} variant)",
         k1_ms=p1["k1_ms"], library="SDPA (default backend)",
+        bodies=bodies, bound_share=p1["bound_share"],
         variants={f"{lbl}/{name}": {f: r[f] for f in (
-            "ms", "plain_ms", "bound_ms", "library_ms", "k1_ms",
+            "body", "ms", "plain_ms", "bound_ms", "library_ms", "k1_ms",
             "o_max_abs_err")} for (lbl, name), r in exp2.items()}))
     for e in out:
         e["card"] = smi
@@ -1677,6 +1761,9 @@ def main() -> int:
     set_float32_precision()
     smi = phase_device()
     rows = phase_kernel()
+    # before any long profiler session: after one (train_profile), the
+    # short sessions that read which body ran saw no device kernel
+    exp2 = phase_kernel_exp2()
     bwd = phase_kernel_bwd()
     masked = phase_kernel_masked()
     int8 = phase_kernel_int8()
@@ -1697,7 +1784,6 @@ def main() -> int:
     phase_train_profile(step)
     del step
     torch.cuda.empty_cache()
-    exp2 = phase_kernel_exp2()
     exp2_launches = phase_exp2_probe()
     phase_cli_fewstep()
     model, cond, fewstep_rows, _ = phase_fewstep()

@@ -41,6 +41,11 @@ struct FrameMask {
   int nkt;
 };
 
+// Element strides of the forward's q, k, v and o (batch, row, head).
+struct FwdStrides {
+  long long qb, ql, qh, kb, kl, kh, vb, vl, vh, ob, ol, oh;
+};
+
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {

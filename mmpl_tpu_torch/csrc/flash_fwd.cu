@@ -1,9 +1,9 @@
 // Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
-// One template body, three kernels:
+// Three kernels, two bodies:
 //
 //  * K1, unmasked.  Replaces the TPU kernel `_flash_fwd_kernel`
 //    (mmpl_tpu/ops/attention.py:324, launched by `_flash_vjp_fwd_impl`):
-//    O = softmax(scale * Q K^T) V per (batch, head).
+//    O = softmax(scale * Q K^T) V per (batch, head) and the natural-log lse.
 //  * K4, frame-masked.  Replaces `_masked_fwd_kernel` (attention.py:725,
 //    launched by `_masked_vjp_fwd_impl`): token i attends token j iff
 //    fm[qf[i], kf[j]].  The kernel reads the per-token frame ids and the
@@ -12,55 +12,55 @@
 //    never loaded; one marked 2 (every frame pair allowed) skips the
 //    per-element test.  A row that sees no key gets O = 0 and lse = -inf.
 //  * P1, the exp2 probe.  Replaces `_fwd_kernel` (tools/exp2_probe.py:42,
-//    launched through `variant` :85 at :95): K1 with two compile-time
-//    choices, kExp2 (log2(e) folded into the scale on the host, exp2f for
-//    both alpha and p, :54, :64-66) and kPadMask (keep or drop the
-//    per-element col < Lk test; dropping it is only defined when Lk is a
-//    multiple of the 64-key tile, which the wrapper enforces), and it
-//    writes O only: the probe kernel has no lse output.  The probe's grid
-//    floors Lq / block_q and Lk / block_k (:92); here a ragged Lq is
-//    handled as in K1, and a ragged Lk only with the pad test on.
+//    launched through `variant` :85 at :95): K1 with two choices, kExp2
+//    (log2(e) folded into the scale on the host, exp2 for both alpha and p,
+//    :54, :64-66) and kPadMask (keep or drop the per-element col < Lk test;
+//    dropping it is only defined when Lk is a multiple of 64, which the
+//    wrapper enforces), and it writes O only.  The probe's grid floors
+//    Lq / block_q and Lk / block_k (:92); here a ragged Lq is handled as in
+//    K1, and a ragged Lk only with the pad test on.
 //
-// K1 and K4 are the body's (exp, pad test, lse) instantiation, unmasked and
-// masked; P1's four variants are its unmasked, lse-less ones.
+// The bodies, by type:
+//
+//  * bf16 and fp16 K1 and P1 run `flash_fwd_sm90.cuh`: wgmma, TMA and warp
+//    specialisation, 128 query rows and 128-key tiles a block (its note
+//    says what bounds it and what the design does about it).  K1 takes its
+//    scale with log2(e) folded in and returns the lse in natural log.
+//  * K4 (every type) and fp32 K1 and P1 run the template body below: each
+//    of 4 warps owns 16 of a block's 64 query rows and holds its Q
+//    fragments, scores, probabilities and output accumulator in registers
+//    (mma.sync m16n8k16 for bf16/fp16 K4, a plain FMA path in the same
+//    fragment layout for fp32), and the block double-buffers the 64-key K/V
+//    tiles with cp.async.  fp32 is the smoke configuration: a TF32 wgmma
+//    could not meet its 1e-4 tolerance, so fp32 stays off the tensor cores.
+//    The body's fp32 K1 uses exp2 as the new one does (the same scale).
 //
 // All keep an online softmax in fp32 (m, l, acc), round P to the input
 // type before the PV product, and write O in the input type and (K1, K4)
-// lse = m + log(l) in fp32 (l == 0 guarded as on the TPU; in K4 the
-// shift/alpha guards of attention.py:750-752 keep a row that has seen only
-// masked scores at m = -inf without NaNs).
+// lse in fp32 (l == 0 guarded as on the TPU; in K4 the shift/alpha guards
+// of attention.py:750-752 keep a row that has seen only masked scores at
+// m = -inf without NaNs).
 //
 // Layout: q [B, Lq, N, D], k/v [B, Lk, N, D], o [B, Lq, N, D] read and
 // written through element strides (the head dim is contiguous); lse is a
 // contiguous [B, N, Lq] fp32 array.  The ragged Lq and Lk edges are masked
-// here (zero-filled rows, -inf scores), so the caller pads nothing.  All
-// offsets are 64-bit: one K of the 1.3B CFG cache holds 2.16e9 elements.
+// in the kernels, so the caller pads nothing.  All offsets are 64-bit: one
+// K of the 1.3B CFG cache holds 2.16e9 elements.
 //
-// What bounds it on an H100: operations.  The work is 4*B*N*Lq*Lk*D FLOPs
+// What bounds them on an H100: operations.  The work is 4*B*N*Lq*Lk*D FLOPs
 // (two products; for K4 times the admitted share of tiles) against
 // B*N*(2*Lq + 2*Lk)*D input/output elements; at the main path's shapes
 // (Lq, Lk >= 3120, D = 128) that is far above the card's ~295 FLOP/byte
-// ridge, so the tensor cores are the limit.  The design keeps the tensor
-// cores fed without a round trip through shared memory between the two
-// products: each warp owns 16 query rows, holds its Q fragments, its scores
-// S, its probabilities P and its output accumulator in registers (mma.sync
-// m16n8k16, bf16/fp16 in, fp32 accumulate; the S accumulator fragments are
-// re-packed in place as the A operand of PV), and the block double-buffers
-// the 64-key K/V tiles with cp.async so the next admitted tile loads while
-// the current one is multiplied.  It is the simple version: no wgmma, no
-// TMA, no warp specialisation.  P1's exp2 saves one multiply per score
-// next to the two products' 2*D multiply-adds, so on this card its gain can
-// only show where the exponentials, not the tensor cores, are the limit.
+// ridge, so the tensor cores are the limit.
 //
-// One block: 64 query rows of one (b, head), 4 warps.  The head dim is
-// padded to the compile-time width kD (64 or 128) with zeros in shared
-// memory (cp.async's src-size operand zero-fills the lanes past D, as it
-// does the rows past L), so every D that is a multiple of 8 up to 128
-// works for bf16/fp16 as for fp32.  fp32 inputs (the smoke configuration)
-// take a plain FMA path through the same template, in the same fragment
-// layout.
+// The template body's block: 64 query rows of one (b, head), 4 warps.  The
+// head dim is padded to the compile-time width kD (64 or 128) with zeros
+// in shared memory (cp.async's src-size operand zero-fills the lanes past
+// D, as it does the rows past L), so every D that is a multiple of 8 up to
+// 128 works.
 
 #include "flash_common.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -73,10 +73,6 @@ struct FwdSmem {
       (Pitch<T, kD>::kFloat ? sizeof(float) * TILE * Pitch<T, kD>::pld : 0);
 };
 
-struct Strides {
-  long long qb, ql, qh, kb, kl, kh, vb, vl, vh, ob, ol, oh;
-};
-
 template <bool kExp2>
 __device__ __forceinline__ float softmax_exp(float x) {
   return kExp2 ? exp2f(x) : expf(x);
@@ -86,7 +82,7 @@ template <typename T, int kD, bool kMasked, bool kExp2, bool kPadMask, bool kLse
 __device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T* __restrict__ k,
                                                const T* __restrict__ v, T* __restrict__ o,
                                                float* __restrict__ lse, int Lq, int Lk, int N,
-                                               int D, const Strides& st, float scale,
+                                               int D, const FwdStrides& st, float scale,
                                                const FrameMask& mask) {
   constexpr bool kFloat = Pitch<T, kD>::kFloat;
   constexpr int LD = Pitch<T, kD>::ld;
@@ -247,107 +243,148 @@ __device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T*
     const float lsafe = l[i] == 0.f ? 1.f : l[i];
     inv[i] = 1.f / lsafe;
     const int row = q0 + warp * 16 + g + 8 * i;
-    if (kLse && row < Lq && t == 0)
+    if (kLse && row < Lq && t == 0)  // natural log; m is in log2 units with exp2
       lse[(b * N + h) * (long long)Lq + row] =
-          m[i] == -INFINITY ? -INFINITY : m[i] + logf(lsafe);
+          m[i] == -INFINITY ? -INFINITY
+                            : kExp2 ? (m[i] + log2f(lsafe)) * 0.6931471805599453f
+                                    : m[i] + logf(lsafe);
   }
   store_rows<T, kD>(og, st.ol, q0 + warp * 16 + g, Lq, D, acc, inv[0], inv[1]);
 }
 
-// K1 (kMasked false) and K4 (true).
-template <typename T, int kD, bool kMasked>
+// K1 on the template body: fp32 only (bf16 / fp16 run sm90::launch);
+// `scale` holds log2(e).
+template <typename T, int kD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int Lq, int Lk, int N, int D,
-                 Strides st, float scale, FrameMask mask) {
-  flash_fwd_body<T, kD, kMasked, false, true, true>(q, k, v, o, lse, Lq, Lk, N, D, st, scale,
-                                                    mask);
+                 FwdStrides st, float scale) {
+  flash_fwd_body<T, kD, false, true, true, true>(q, k, v, o, lse, Lq, Lk, N, D, st, scale,
+                                                 FrameMask{});
 }
 
-// P1: `scale` already holds log2(e) when kExp2.
+// K4, every type.
+template <typename T, int kD>
+__global__ void __launch_bounds__(THREADS)
+flash_masked_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o,
+                        float* __restrict__ lse, int Lq, int Lk, int N, int D,
+                        FwdStrides st, float scale, FrameMask mask) {
+  flash_fwd_body<T, kD, true, false, true, true>(q, k, v, o, lse, Lq, Lk, N, D, st, scale,
+                                                 mask);
+}
+
+// P1 on the template body: fp32 only; `scale` holds log2(e) when kExp2.
 template <typename T, int kD, bool kExp2, bool kPadMask>
 __global__ void __launch_bounds__(THREADS)
 flash_exp2_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, int Lq, int Lk,
-                  int N, int D, Strides st, float scale) {
+                  int N, int D, FwdStrides st, float scale) {
   flash_fwd_body<T, kD, false, kExp2, kPadMask, false>(q, k, v, o, nullptr, Lq, Lk, N, D, st,
                                                        scale, FrameMask{});
 }
 
-template <typename T, int kD, bool kMasked>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int Lq, int Lk, int N, int D, const Strides& st, float scale,
-           const FrameMask& mask, cudaStream_t stream) {
-  const int bytes = (int)FwdSmem<T, kD>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, kD, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+template <typename Kernel, typename... Args>
+int launch_body(Kernel kernel, size_t bytes, int B, int Lq, int N, cudaStream_t stream,
+                Args... args) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Lq + TILE - 1) / TILE, N, B);
-  flash_fwd_kernel<T, kD, kMasked><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), Lq, Lk, N, D, st, scale, mask);
+  kernel<<<grid, THREADS, bytes, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
-template <bool kMasked>
-int dispatch(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
-             int B, int Lq, int Lk, int N, int D, const Strides& st, float scale,
-             const FrameMask& mask, cudaStream_t s) {
-  if (D <= 0 || D > 128 || D % 8) return (int)cudaErrorInvalidValue;
-  const bool narrow = D <= 64;
-  switch (dtype) {
-    case 0:
-      return narrow ? launch<float, 64, kMasked>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s)
-                    : launch<float, 128, kMasked>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
-    case 1:
-      return narrow ? launch<__nv_bfloat16, 64, kMasked>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s)
-                    : launch<__nv_bfloat16, 128, kMasked>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
-    case 2:
-      return narrow ? launch<__half, 64, kMasked>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s)
-                    : launch<__half, 128, kMasked>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+bool bad_head_dim(int D) { return D <= 0 || D > 128 || D % 8; }
+
+template <typename T, int kD>
+int fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Lq,
+            int Lk, int N, int D, const FwdStrides& st, float scale, cudaStream_t s) {
+  return launch_body(flash_fwd_kernel<T, kD>, FwdSmem<T, kD>::bytes, B, Lq, N, s,
+                     static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+                     Lq, Lk, N, D, st, scale);
+}
+
+template <typename T, int kD>
+int masked_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Lq,
+               int Lk, int N, int D, const FwdStrides& st, float scale, const FrameMask& mask,
+               cudaStream_t s) {
+  return launch_body(flash_masked_fwd_kernel<T, kD>, FwdSmem<T, kD>::bytes, B, Lq, N, s,
+                     static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+                     Lq, Lk, N, D, st, scale, mask);
+}
+
+template <typename T>
+int masked_width(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                 int Lq, int Lk, int N, int D, const FwdStrides& st, float scale,
+                 const FrameMask& mask, cudaStream_t s) {
+  return D <= 64 ? masked_fwd<T, 64>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s)
+                 : masked_fwd<T, 128>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
+}
+
+// K1 in bf16 / fp16 on the wgmma body.
+template <typename T>
+int fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Lq,
+             int Lk, int N, int D, const FwdStrides& st, float scale, cudaStream_t s) {
+  float* l = static_cast<float*>(lse);
+  return D <= 64
+             ? sm90::launch<T, 64, true, true, true>(q, k, v, o, l, B, Lq, Lk, N, D, st, scale, s)
+             : sm90::launch<T, 128, true, true, true>(q, k, v, o, l, B, Lq, Lk, N, D, st, scale,
+                                                      s);
 }
 
 template <typename T, int kD, bool kExp2, bool kPadMask>
-int launch_exp2(const void* q, const void* k, const void* v, void* o, int B, int Lq, int Lk,
-                int N, int D, const Strides& st, float scale, cudaStream_t stream) {
-  const int bytes = (int)FwdSmem<T, kD>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_exp2_kernel<T, kD, kExp2, kPadMask>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lq + TILE - 1) / TILE, N, B);
-  flash_exp2_kernel<T, kD, kExp2, kPadMask><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Lq, Lk, N, D, st, scale);
-  return (int)cudaGetLastError();
+int exp2_f32(const void* q, const void* k, const void* v, void* o, int B, int Lq, int Lk,
+             int N, int D, const FwdStrides& st, float scale, cudaStream_t s) {
+  return launch_body(flash_exp2_kernel<T, kD, kExp2, kPadMask>, FwdSmem<T, kD>::bytes, B, Lq,
+                     N, s, static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), static_cast<T*>(o), Lq, Lk, N, D, st, scale);
+}
+
+// One P1 variant at one width: the template body for fp32, the wgmma body
+// for bf16 / fp16.
+template <typename T, int kD, bool kExp2, bool kPadMask>
+int exp2_launch(const void* q, const void* k, const void* v, void* o, int B, int Lq, int Lk,
+                int N, int D, const FwdStrides& st, float scale, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value)
+    return exp2_f32<T, kD, kExp2, kPadMask>(q, k, v, o, B, Lq, Lk, N, D, st, scale, s);
+  else
+    return sm90::launch<T, kD, kExp2, kPadMask, false>(q, k, v, o, nullptr, B, Lq, Lk, N, D,
+                                                       st, scale, s);
 }
 
 template <typename T, int kD>
 int exp2_variant(bool use_exp2, bool mask_pad, const void* q, const void* k, const void* v,
-                 void* o, int B, int Lq, int Lk, int N, int D, const Strides& st, float scale,
-                 cudaStream_t s) {
+                 void* o, int B, int Lq, int Lk, int N, int D, const FwdStrides& st,
+                 float scale, cudaStream_t s) {
   if (use_exp2)
-    return mask_pad ? launch_exp2<T, kD, true, true>(q, k, v, o, B, Lq, Lk, N, D, st, scale, s)
-                    : launch_exp2<T, kD, true, false>(q, k, v, o, B, Lq, Lk, N, D, st, scale, s);
-  return mask_pad ? launch_exp2<T, kD, false, true>(q, k, v, o, B, Lq, Lk, N, D, st, scale, s)
-                  : launch_exp2<T, kD, false, false>(q, k, v, o, B, Lq, Lk, N, D, st, scale, s);
+    return mask_pad ? exp2_launch<T, kD, true, true>(q, k, v, o, B, Lq, Lk, N, D, st, scale, s)
+                    : exp2_launch<T, kD, true, false>(q, k, v, o, B, Lq, Lk, N, D, st, scale, s);
+  return mask_pad ? exp2_launch<T, kD, false, true>(q, k, v, o, B, Lq, Lk, N, D, st, scale, s)
+                  : exp2_launch<T, kD, false, false>(q, k, v, o, B, Lq, Lk, N, D, st, scale, s);
 }
 
 template <typename T>
 int exp2_width(bool use_exp2, bool mask_pad, const void* q, const void* k, const void* v,
-               void* o, int B, int Lq, int Lk, int N, int D, const Strides& st, float scale,
+               void* o, int B, int Lq, int Lk, int N, int D, const FwdStrides& st, float scale,
                cudaStream_t s) {
-  return D <= 64 ? exp2_variant<T, 64>(use_exp2, mask_pad, q, k, v, o, B, Lq, Lk, N, D, st, scale, s)
-                 : exp2_variant<T, 128>(use_exp2, mask_pad, q, k, v, o, B, Lq, Lk, N, D, st, scale, s);
+  return D <= 64
+             ? exp2_variant<T, 64>(use_exp2, mask_pad, q, k, v, o, B, Lq, Lk, N, D, st, scale, s)
+             : exp2_variant<T, 128>(use_exp2, mask_pad, q, k, v, o, B, Lq, Lk, N, D, st, scale,
+                                    s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Strides are in elements.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// sm90::kErrNoEncoder / kErrTensorMap (< 0) when a tensor map could not be
+// built.
+
+// K1.  `scale` holds log2(e) (exp2 softmax); lse comes back in natural log.
 extern "C" int mmpl_flash_fwd(int dtype, const void* q, const void* k,
                               const void* v, void* o, void* lse, int B, int Lq,
                               int Lk, int N, int D, long long sqb,
@@ -356,13 +393,25 @@ extern "C" int mmpl_flash_fwd(int dtype, const void* q, const void* k,
                               long long svl, long long svh, long long sob,
                               long long sol, long long soh, float scale,
                               void* stream) {
-  const Strides st{sqb, sql, sqh, skb, skl, skh, svb, svl, svh, sob, sol, soh};
-  return dispatch<false>(dtype, q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, FrameMask{},
-                         static_cast<cudaStream_t>(stream));
+  if (bad_head_dim(D)) return (int)cudaErrorInvalidValue;
+  const FwdStrides st{sqb, sql, sqh, skb, skl, skh, svb, svl, svh, sob, sol, soh};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return D <= 64 ? fwd_f32<float, 64>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, s)
+                     : fwd_f32<float, 128>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, s);
+    case 1:
+      return fwd_sm90<__nv_bfloat16>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, s);
+    case 2:
+      return fwd_sm90<__half>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K4.  qf [Lq] / kf [Lk] int32 frame ids in [0, F); fm [F, F] uint8; tiles
 // [ceil(Lq/64), ceil(Lk/64)] uint8 (0 skip, 1 test pairs, 2 all allowed).
+// `scale` is the natural one.
 extern "C" int mmpl_flash_masked_fwd(int dtype, const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      const void* qf, const void* kf, const void* fm,
@@ -373,12 +422,22 @@ extern "C" int mmpl_flash_masked_fwd(int dtype, const void* q, const void* k,
                                      long long svl, long long svh, long long sob,
                                      long long sol, long long soh, float scale,
                                      void* stream) {
-  const Strides st{sqb, sql, sqh, skb, skl, skh, svb, svl, svh, sob, sol, soh};
+  if (bad_head_dim(D)) return (int)cudaErrorInvalidValue;
+  const FwdStrides st{sqb, sql, sqh, skb, skl, skh, svb, svl, svh, sob, sol, soh};
   const FrameMask mask{static_cast<const int*>(qf), static_cast<const int*>(kf),
                        static_cast<const unsigned char*>(fm),
                        static_cast<const unsigned char*>(tiles), F, (Lk + TILE - 1) / TILE};
-  return dispatch<true>(dtype, q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask,
-                        static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return masked_width<float>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
+    case 1:
+      return masked_width<__nv_bfloat16>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
+    case 2:
+      return masked_width<__half>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // P1.  use_exp2 / mask_pad select the variant; with mask_pad == 0, Lk must
@@ -389,8 +448,8 @@ extern "C" int mmpl_flash_exp2(int dtype, const void* q, const void* k, const vo
                                long long skb, long long skl, long long skh, long long svb,
                                long long svl, long long svh, long long sob, long long sol,
                                long long soh, float scale, void* stream) {
-  if (D <= 0 || D > 128 || D % 8 || (!mask_pad && Lk % TILE)) return (int)cudaErrorInvalidValue;
-  const Strides st{sqb, sql, sqh, skb, skl, skh, svb, svl, svh, sob, sol, soh};
+  if (bad_head_dim(D) || (!mask_pad && Lk % TILE)) return (int)cudaErrorInvalidValue;
+  const FwdStrides st{sqb, sql, sqh, skb, skl, skh, svb, svl, svh, sob, sol, soh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

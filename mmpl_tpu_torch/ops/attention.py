@@ -6,10 +6,14 @@ Port of `mmpl_tpu/ops/attention.py`.  Layout is [B, L, N, D] throughout.
     (`csrc/flash_fwd.cu`) forward, K2 / K3 (`csrc/flash_bwd.cu`) backward.
     MMPL inference needs no mask (the planned visibility is a gather of
     whole frames, `models/fps_dit.py`); training's cross-attention runs it
-    too.
+    too.  In bf16 / fp16, K1 runs the Hopper body of
+    `csrc/flash_fwd_sm90.cuh` (wgmma, TMA, a producer warpgroup and two
+    consumer warpgroups, exp2 softmax); fp32 runs the mma.sync / FMA
+    template body of `flash_fwd.cu`.
   * `flash_attention_exp2` is P1, the exp2 probe's forward (O only, exp or
-    exp2, with or without the in-kernel pad test); no path of the model
-    runs it, `mmpl_tpu_torch.tools.exp2_probe` measures it against K1.
+    exp2, with or without the in-kernel pad test), on the same two bodies;
+    no path of the model runs it, `mmpl_tpu_torch.tools.exp2_probe`
+    measures it against K1.
   * `frame_masked_attention` is the training self-attention under a
     frame-granular mask (token i attends token j iff
     frame_mask[q_frame_ids[i], kv_frame_ids[j]]): K4 forward, K5 / K6
@@ -37,10 +41,13 @@ launch_counts = {"flash_fwd": 0, "flash_masked_fwd": 0, "flash_bwd_dkv": 0,
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-#: rows of the kernels' Q, K and V tiles (csrc/flash_common.cuh TILE)
+#: rows of the template body's Q, K and V tiles (csrc/flash_common.cuh
+#: TILE): the frame mask's tile table and P1's `mask_pad=False` contract
+#: are in these units (the Hopper body's 128-key tiles are right for any
+#: multiple of 64)
 TILE = 64
 
-#: log2(e), folded into P1's scale by its exp2 variants
+#: log2(e), folded into K1's scale and P1's by its exp2 variants
 LOG2E = 1.4426950408889634
 
 #: bytes of fp32 scores the plain versions hold at once (~1 GiB)
@@ -334,6 +341,11 @@ def _mask_args(what: str, mask, tiles, Lq: int, Lk: int, device):
             tiles.data_ptr(), fm.shape[0]]
 
 
+#: the Hopper body's own return codes (csrc/flash_fwd_sm90.cuh)
+_LAUNCH_ERRORS = {-1: "cuTensorMapEncodeTiled is not available",
+                  -2: "cuTensorMapEncodeTiled refused an operand's TMA map"}
+
+
 def _launch(lib_name: str, fn: str, counter: str, device, *args) -> None:
     from . import _build
     lib = _build.library(lib_name)
@@ -341,7 +353,8 @@ def _launch(lib_name: str, fn: str, counter: str, device, *args) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn)(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{counter} launch failed: CUDA error {rc}")
+        why = _LAUNCH_ERRORS.get(rc, f"CUDA error {rc}")
+        raise RuntimeError(f"{counter} launch failed: {why}")
     launch_counts[counter] += 1
 
 
@@ -353,7 +366,10 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `tiles`, K4) from `csrc/flash_fwd.cu` on CUDA tensors.
 
     q [B, Lq, N, D], k/v [B, Lk, N, D]; fp32, bf16 or fp16 with D a
-    multiple of 8 up to 128.  Returns (O, lse [B, N, Lq])."""
+    multiple of 8 up to 128.  Returns (O, lse [B, N, Lq]), lse in natural
+    log.  K1 takes its scale with log2(e) folded in (its softmax is exp2:
+    the Hopper body for bf16 / fp16, the template body for fp32); K4 takes
+    the natural scale."""
     what = "flash_fwd" if mask is None else "flash_masked_fwd"
     _check_qkv(what, q, k, v)
     B, Lq, N, D = q.shape
@@ -365,20 +381,22 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o, lse
     head = [_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr()]
-    tail = [B, Lq, Lk, N, D] + _strides(q, k, v, o) + [float(scale)]
+    tail = [B, Lq, Lk, N, D] + _strides(q, k, v, o)
     if mask is None:
-        _launch("flash_fwd", "mmpl_flash_fwd", what, q.device, *head, *tail)
+        _launch("flash_fwd", "mmpl_flash_fwd", what, q.device, *head, *tail,
+                float(scale * LOG2E))
     else:
         margs = _mask_args(what, mask, tiles, Lq, Lk, q.device)
         _launch("flash_fwd", "mmpl_flash_masked_fwd", what, q.device,
-                *head, *margs, *tail)
+                *head, *margs, *tail, float(scale))
     return o, lse
 
 
 def flash_exp2_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     use_exp2: bool = True, mask_pad: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Launch P1 from `csrc/flash_fwd.cu` on CUDA tensors; operands as
+    """Launch P1 from `csrc/flash_fwd.cu` on CUDA tensors (bf16 / fp16 on
+    the Hopper body, fp32 on the template body); operands as
     `flash_fwd_cuda`.  Returns O; `mask_pad=False` needs Lk a multiple of
     64."""
     what = "flash_exp2"

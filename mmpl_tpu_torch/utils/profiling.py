@@ -1,17 +1,59 @@
-"""Phase timing with the reference's report format.
+"""Phase timing with the reference's report format, and the port's kernels
+by profiler name.
 
 Port of `mmpl_tpu/utils/profiling.py:PhaseTimer`: named phases (init /
 diffusion / VAE) and per-block diffusion times, reported as the reference
 pipeline's `causal_inference.py:258-271` prints them.  `sync(device)`
-waits for the card before a host clock is read.
+waits for the card before a host clock is read.  `port_kernel_of` books a
+kernel name from `torch.profiler` to the port kernel (its launch counter's
+name in `ops.attention` / `ops.quant`) it belongs to.
 """
 
 from __future__ import annotations
 
+import re
 import sys
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
+
+
+#: the `__global__` functions of `csrc/`, by launch counter.  K1 and P1
+#: have a Hopper kernel (bf16 / fp16) and a template-body one (fp32); the
+#: backward templates take the frame mask as their last flag
+_KERNELS = {
+    "flash_fwd_sm90_kernel": "flash_fwd",
+    "flash_fwd_kernel": "flash_fwd",
+    "flash_masked_fwd_kernel": "flash_masked_fwd",
+    "flash_exp2_sm90_kernel": "flash_exp2",
+    "flash_exp2_kernel": "flash_exp2",
+    "flash_bwd_dkv_kernel": "flash_bwd_dkv",
+    "flash_bwd_dq_kernel": "flash_bwd_dq",
+    "int8_gemm_kernel": "int8_gemm",
+    "quantize_rows_kernel": "quantize_rows",
+}
+#: a kernel's identifier, demangled (`name<...>(...)`) or mangled
+#: (`<length>name` before its template arguments `I...E`)
+_KERNEL_RE = re.compile("|".join(
+    rf"(?<![A-Za-z0-9_]){k}(?=[<(])|{len(k)}{k}(?=[IE])" for k in _KERNELS))
+#: a backward template's mask flag, its last template argument
+_MASKED_RE = re.compile(r"<[^<>()]*, true>|I.*?Lb1E")
+
+
+def port_kernel_of(name: str) -> Optional[str]:
+    """The launch counter of the port kernel that a profiler kernel name
+    (mangled or demangled) belongs to, or None for any other kernel:
+    "flash_fwd" (K1), "flash_masked_fwd" (K4), "flash_exp2" (P1),
+    "flash_bwd_dkv" / "flash_masked_bwd_dkv" (K2 / K5), "flash_bwd_dq" /
+    "flash_masked_bwd_dq" (K3 / K6), "int8_gemm" (P2), "quantize_rows"
+    (Q)."""
+    m = _KERNEL_RE.search(name)
+    if m is None:
+        return None
+    counter = _KERNELS[m.group(0).lstrip("0123456789")]
+    if counter.startswith("flash_bwd") and _MASKED_RE.match(name, m.end()):
+        return counter.replace("flash_", "flash_masked_")
+    return counter
 
 
 def sync(device) -> None:

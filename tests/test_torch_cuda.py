@@ -93,6 +93,98 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, dtype, d):
 
 
 # ---------------------------------------------------------------------------
+# The Hopper body of K1 and P1 (csrc/flash_fwd_sm90.cuh): 128-key tiles,
+# so every residue of Lk mod 128, ragged Lq, D padded to 64 or 128
+# ---------------------------------------------------------------------------
+
+def _launched(fn):
+    """The names of the device kernels one call of `fn` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("lq", [1, 127, 1000])
+@pytest.mark.parametrize("lk", [1, 64, 100, 128, 192, 1300])
+def test_hopper_k1_matches_plain_at_every_key_residue(cuda, lq, lk):
+    """O and the natural-log lse against the plain version: Lk from a
+    single key to several tiles with every kind of last tile (1, 64, 100,
+    128 keys), Lq below, at and past one 128-row block."""
+    o_err, lse_err = _errors(*_qkv(lq, lk, 128, torch.bfloat16, cuda,
+                                   seed=lq + lk))
+    assert o_err <= 2e-2 and lse_err <= 1e-3, (o_err, lse_err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [24, 64, 96, 128])
+def test_hopper_k1_matches_plain_at_each_head_dim(cuda, dtype, d):
+    o_err, lse_err = _errors(*_qkv(1000, 1300, d, dtype, cuda, seed=d))
+    tol = 2e-2 if dtype == torch.bfloat16 else 5e-3
+    assert o_err <= tol and lse_err <= 1e-3, (o_err, lse_err)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.float16, 96),
+                                     (torch.bfloat16, 24)])
+def test_hopper_k1_reads_the_fused_qkv_in_place(cuda, dtype, d):
+    """q, k, v as views of one fused [B, L, 3 * N * D] projection (the
+    DiT's `.chunk(3, -1)`: a row stride of 3 * N * D), against the plain
+    version, lse included."""
+    qkv = torch.randn((2, 777, 3 * 4 * d), generator=torch.Generator(
+        device=cuda).manual_seed(d), device=cuda).to(dtype)
+    q, k, v = (x.unflatten(-1, (4, d)) for x in qkv.chunk(3, -1))
+    assert q.stride(1) == 3 * 4 * d
+    o_err, lse_err = _errors(q, k, v)
+    assert o_err <= 2e-2 and lse_err <= 1e-3, (o_err, lse_err)
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "flash_fwd_sm90"),
+                                        (torch.float16, "flash_fwd_sm90"),
+                                        (torch.float32, "flash_fwd_kernel")])
+def test_k1_runs_the_body_of_its_type(cuda, dtype, body):
+    """bf16 / fp16 K1 runs the Hopper kernel, fp32 the template body; the
+    profiler attribution books each to K1."""
+    from mmpl_tpu_torch.utils.profiling import port_kernel_of
+    q, k, v = _qkv(200, 300, 64, dtype, cuda)
+    names = _launched(lambda: ta.flash_fwd_cuda(q, k, v))
+    mine = [n for n in names if port_kernel_of(n) == "flash_fwd"]
+    assert len(mine) == 1 and body in mine[0], names
+
+
+@pytest.mark.parametrize("use_exp2", [False, True])
+def test_hopper_p1_without_the_pad_test_at_half_a_tile(cuda, use_exp2):
+    """Lk = 192 = 128 + 64: the last 128-key tile holds 64 keys, which
+    P1 without the pad test drops as a whole half."""
+    q, k, v = _qkv(300, 192, 128, torch.bfloat16, cuda, seed=5)
+    got = ta.flash_attention_exp2(q, k, v, use_exp2, mask_pad=False)
+    want = ta.flash_attention_exp2_plain(q, k, v, use_exp2, mask_pad=False)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("lk", [100, 1300])
+def test_backward_through_autograd_reads_the_hopper_lse(cuda, lk):
+    """K2 / K3 through `flash_attention`'s autograd, fed the lse the Hopper
+    K1 saved, against the plain backward fed the plain lse."""
+    q, k, v = _qkv(1000, lk, 128, torch.bfloat16, cuda, seed=6)
+    do = _qkv(1000, 1000, 128, torch.bfloat16, cuda, seed=7)[0]
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+    ta.flash_attention(qg, kg, vg).backward(do)
+    po, plse = ta.flash_attention_plain(q, k, v)
+    delta = (do.float() * po.float()).sum(-1).permute(0, 2, 1).contiguous()
+    want = ta.flash_attention_bwd_plain(q, k, v, do, plse, delta)
+    for g, w, name in zip((qg.grad, kg.grad, vg.grad), want,
+                          ("dq", "dk", "dv")):
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel(g, w) <= 1e-2, (name, _rel(g, w))
+
+
+# ---------------------------------------------------------------------------
 # K4-K6 and K2/K3
 # ---------------------------------------------------------------------------
 

@@ -1,0 +1,65 @@
+"""`utils.profiling.port_kernel_of`: the profiler's kernel names, mangled
+and demangled, booked to the port kernel (launch counter) they belong to.
+The names are those the card's build gives K1 (the Hopper body in bf16 /
+fp16, the template body in fp32), K4, P1 (both bodies) and K2/K3/K5/K6
+(the backward templates, whose last flag is the frame mask); a kernel of
+another library books to nothing."""
+
+import pytest
+
+from mmpl_tpu_torch.utils.profiling import port_kernel_of
+
+#: (kernel, launch counter, mangled name, demangled name)
+NAMES = [
+    ('K1 Hopper', 'flash_fwd',
+     '_ZN4mmpl4sm9021flash_fwd_sm90_kernelI13__nv_bfloat16Li128EEEv14CUtensorMap_stS3_S3_NS0_6ParamsE',
+     'void mmpl::sm90::flash_fwd_sm90_kernel<__nv_bfloat16, 128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::Params)'),
+    ('K1 fp32', 'flash_fwd',
+     '_ZN45_GLOBAL__N__176ec67e_12_flash_fwd_cu_c145cf2516flash_fwd_kernelIfLi64EEEvPKT_S3_S3_PS1_PfiiiiN4mmpl10FwdStridesEf',
+     'void (anonymous namespace)::flash_fwd_kernel<float, 64>(float const*, float const*, float const*, float*, float*, int, int, int, int, mmpl::FwdStrides, float)'),
+    ('K4', 'flash_masked_fwd',
+     '_ZN45_GLOBAL__N__176ec67e_12_flash_fwd_cu_c145cf2523flash_masked_fwd_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_PS2_PfiiiiN4mmpl10FwdStridesEfNS7_9FrameMaskE',
+     'void (anonymous namespace)::flash_masked_fwd_kernel<__nv_bfloat16, 128>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, int, int, int, int, mmpl::FwdStrides, float, mmpl::FrameMask)'),
+    ('P1 Hopper', 'flash_exp2',
+     '_ZN4mmpl4sm9022flash_exp2_sm90_kernelI6__halfLi64ELb1ELb0EEEv14CUtensorMap_stS3_S3_NS0_6ParamsE',
+     'void mmpl::sm90::flash_exp2_sm90_kernel<__half, 64, true, false>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::Params)'),
+    ('P1 fp32', 'flash_exp2',
+     '_ZN45_GLOBAL__N__176ec67e_12_flash_fwd_cu_c145cf2517flash_exp2_kernelIfLi64ELb1ELb1EEEvPKT_S3_S3_PS1_iiiiN4mmpl10FwdStridesEf',
+     'void (anonymous namespace)::flash_exp2_kernel<float, 64, true, true>(float const*, float const*, float const*, float*, int, int, int, int, mmpl::FwdStrides, float)'),
+    ('K2', 'flash_bwd_dkv',
+     '_ZN45_GLOBAL__N__3a7d91c2_12_flash_bwd_cu_5e0b14d720flash_bwd_dkv_kernelIfLi64ELb0EEEvPKT_S3_S3_S3_PKfS5_PS1_S6_iiiiNS_7StridesEfN4mmpl9FrameMaskE',
+     'void (anonymous namespace)::flash_bwd_dkv_kernel<float, 64, false>(float const*, float const*, float const*, float const*, float const*, float const*, float*, float*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
+    ('K3', 'flash_bwd_dq',
+     '_ZN45_GLOBAL__N__3a7d91c2_12_flash_bwd_cu_5e0b14d719flash_bwd_dq_kernelI13__nv_bfloat16Li128ELb0EEEvPKT_S4_S4_S4_PKfS6_PS2_iiiiNS_7StridesEfN4mmpl9FrameMaskE',
+     'void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, 128, false>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, float const*, float const*, __nv_bfloat16*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
+    ('K5', 'flash_masked_bwd_dkv',
+     '_ZN45_GLOBAL__N__3a7d91c2_12_flash_bwd_cu_5e0b14d720flash_bwd_dkv_kernelI13__nv_bfloat16Li128ELb1EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_iiiiNS_7StridesEfN4mmpl9FrameMaskE',
+     'void (anonymous namespace)::flash_bwd_dkv_kernel<__nv_bfloat16, 128, true>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, float const*, float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
+    ('K6', 'flash_masked_bwd_dq',
+     '_ZN45_GLOBAL__N__3a7d91c2_12_flash_bwd_cu_5e0b14d719flash_bwd_dq_kernelIfLi64ELb1EEEvPKT_S3_S3_S3_PKfS5_PS1_iiiiNS_7StridesEfN4mmpl9FrameMaskE',
+     'void (anonymous namespace)::flash_bwd_dq_kernel<float, 64, true>(float const*, float const*, float const*, float const*, float const*, float const*, float*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
+]
+
+CASES = ([(f"{k} {form}", name, want)
+          for k, want, mangled, demangled in NAMES
+          for form, name in (("mangled", mangled), ("demangled", demangled))]
+         + [("P2", "void (anonymous namespace)::int8_gemm_kernel<"
+             "__nv_bfloat16>(signed char const*, signed char const*, "
+             "float const*, float const*, __nv_bfloat16*, int, int, int)",
+             "int8_gemm"),
+            ("Q", "void (anonymous namespace)::quantize_rows_kernel<"
+             "__nv_bfloat16>(__nv_bfloat16 const*, signed char*, float*, "
+             "int, int)", "quantize_rows"),
+            ("library", "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize"
+             "128x128x64_warpgroupsize1x1x1_execute_segment_k_off_kernel"
+             "__5x_cublas", None),
+            ("elementwise", "void at::native::vectorized_elementwise_kernel"
+             "<4, at::native::FillFunctor<float>, std::array<char*, 1ul> >"
+             "(int, at::native::FillFunctor<float>, std::array<char*, 1ul>)",
+             None)])
+
+
+@pytest.mark.parametrize("what,name,want", CASES,
+                         ids=[c[0] for c in CASES])
+def test_port_kernel_of_books_each_kernel_to_its_counter(what, name, want):
+    assert port_kernel_of(name) == want, what
