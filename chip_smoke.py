@@ -15,13 +15,17 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      shape, the few-step path's steady-state self-attention (4680 x 32760,
      where only the variants with the pad test are defined), a ragged
      shape and fp32 at D = 24, beside K1 and SDPA;
-  3. kernel_bwd: K2 / K3 (csrc/flash_bwd.cu) at the training
-     cross-attention shape, a ragged shape and D = 24, against the plain
-     backward and SDPA's backward;
+  3. kernel_bwd: K2 / K3 (csrc/flash_bwd.cu: bf16 / fp16 on the wgmma +
+     TMA body of csrc/flash_bwd_sm90.cuh, with K2's query split and reduce
+     where it splits, fp32 on the template body) at the training
+     cross-attention shape in bf16 and fp16, the few-step steady-state
+     self-attention shape, a ragged shape and D = 24, against the plain
+     backward and SDPA's backward, with the body that ran and the split;
   4. kernel_masked: K4 / K5 / K6 under the fps-forcing mask at the 1.3B
      teacher-forcing self-attention shape (42 frames x 1560 tokens), and
      ragged shapes with a frame that sees nothing, against the plain
-     versions and SDPA (memory-efficient backend) with the token mask;
+     versions and SDPA (memory-efficient backend) with the token mask; K5
+     and K6 run the template body;
   5. kernel_int8: Q and P2 (csrc/int8_gemm.cu) against their plain
      versions at the 1.3B window's projection shapes, one VAE im2col
      shape, a ragged shape and fp32 activations: codes, scales and int32
@@ -78,8 +82,16 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# Keep CUPTI resident between torch.profiler sessions (the setting torch
+# itself uses with CUDA graphs).  With the default teardown and lazy
+# re-init, on the card's torch 2.11 / CUDA 12.8 only the first of many
+# short sessions recorded the device kernels (1 of 60; 59 of 60 with these
+# two), and the body checks below read one short session each.
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
+os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -149,10 +161,14 @@ FEWSTEP_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 FEWSTEP_K1 = (7 * 5 * 30 * 2, 6 * 5 * 30 * 2)
 
 #: K2 / K3 shapes, as K1_SHAPES: the 1.3B teacher-forcing step's
-#: cross-attention (65520 tokens over 512 text tokens), a ragged shape and
-#: the tiny configuration's head dim in bf16 and fp32
+#: cross-attention (65520 tokens over 512 text tokens) in bf16 and fp16,
+#: the few-step steady-state self-attention (the shape self-forcing
+#: training and the ring backward will run), a ragged shape and the tiny
+#: configuration's head dim in bf16 and fp32
 BWD_SHAPES = [
     ("tf_cross", 1, 12, 128, 65520, 512, torch.bfloat16),
+    ("tf_cross_f16", 1, 12, 128, 65520, 512, torch.float16),
+    ("fewstep_self_hot", 1, 12, 128, 4680, 32760, torch.bfloat16),
     ("ragged", 2, 12, 128, 1000, 1300, torch.bfloat16),
     ("d24_bf16", 2, 4, 24, 1000, 1300, torch.bfloat16),
     ("d24_f32", 2, 4, 24, 1000, 1300, torch.float32),
@@ -163,12 +179,14 @@ BWD_MAIN = "tf_cross"
 #: the fps-forcing mask of T2V_CLEAN_STEPS over [clean | noisy] 2 x 21
 #: frames of 1560 tokens (L = 65520, the 1.3B teacher-forcing step);
 #: "blind" is L = 1000 in frames of 130 under a block-causal mask where
-#: frame 1 sees nothing
+#: frame 1 sees nothing.  tf_self runs last: after its SDPA yardstick (a
+#: 4.3 GB token mask) the short profiler sessions that read the body lost
+#: every device record
 MASKED_SHAPES = [
-    ("tf_self", 1, 12, 128, "fps", 1560, torch.bfloat16),
     ("ragged_blind", 2, 12, 128, "blind", 130, torch.bfloat16),
     ("d24_bf16_blind", 2, 4, 24, "blind", 130, torch.bfloat16),
     ("d24_f32_blind", 2, 4, 24, "blind", 130, torch.float32),
+    ("tf_self", 1, 12, 128, "fps", 1560, torch.bfloat16),
 ]
 MASKED_MAIN = "tf_self"
 
@@ -199,7 +217,8 @@ W8A8_PER_LAYER = 6
 #: ||plain|| per dq / dk / dv
 FWD_TOL = {"max": 2e-2, "mean": 2e-3, "lse": 1e-3}
 FWD_TOL_F32 = {"max": 1e-4, "mean": 1e-4, "lse": 1e-4}
-GRAD_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+GRAD_REL_TOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2,
+                torch.float32: 1e-5}
 
 #: kernel launches of one teacher-forcing step per layer: with per-block
 #: recomputation the forward kernels run twice (forward, then again in the
@@ -324,27 +343,45 @@ def _kernel_id(mangled: str) -> str:
     return mangled
 
 
+#: profiler sessions that recorded no device kernel at all are run again
+#: after these pauses (s): even with CUPTI resident (above) a short session
+#: now and then loses every device record
+PROFILE_RETRY_PAUSES = (1.0, 2.0, 4.0)
+
+
 def _launched(fn) -> list:
-    """The names of the device kernels that one call of `fn` launches."""
+    """The names of the device kernels that one call of `fn` launches.
+    `fn` runs again (after a pause) while a session records no device
+    kernel at all; a caller keeps the result of its last call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA})
+    for pause in (0.0, *PROFILE_RETRY_PAUSES):
+        time.sleep(pause)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA})
+        if names:
+            return names
+    return names
 
 
 def _body(names, counter: str, dtype) -> str:
-    """Which flash-forward body ran `counter`'s one launch among `names`:
-    "wgmma" (csrc/flash_fwd_sm90.cuh) or "template" (the mma.sync / FMA
-    body of csrc/flash_fwd.cu).  bf16 / fp16 must run the first, fp32 the
-    second."""
+    """Which body ran `counter`'s launch among `names`: "wgmma" (the
+    `*_sm90_kernel` of csrc/flash_fwd_sm90.cuh or csrc/flash_bwd_sm90.cuh,
+    with K2's reduce kernel when the call split the queries) or "template"
+    (the mma.sync / FMA body of csrc/flash_fwd.cu or csrc/flash_bwd.cu, one
+    kernel).  bf16 / fp16 K1, P1, K2 and K3 must run the first; fp32 and
+    the masked K5 / K6 (`dtype` None) the second."""
     mine = [n for n in names if port_kernel_of(n) == counter]
-    check(len(mine) == 1, (counter, names))
-    body = "wgmma" if "_sm90_kernel" in mine[0] else "template"
-    check(body == ("template" if dtype == torch.float32 else "wgmma"),
+    main = [n for n in mine if "_reduce_kernel" not in n]
+    check(len(main) == 1 and len(mine) - len(main) <= 1, (counter, names))
+    body = "wgmma" if "_sm90_kernel" in main[0] else "template"
+    want = ("wgmma" if dtype in (torch.bfloat16, torch.float16)
+            else "template")
+    check(body == want and (body == "wgmma" or len(mine) == 1),
           (counter, dtype, mine))
     return body
 
@@ -358,7 +395,7 @@ def phase_kernel():
                    for L in (Lq, Lk, Lk))
         out = []
         names = _launched(lambda: out.append(attn.flash_fwd_cuda(q, k, v)))
-        (o, lse), = out
+        o, lse = out[-1]
         po, plse = attn.flash_attention_plain(q, k, v)
         torch.cuda.synchronize()
         err = (o.float() - po.float()).abs()
@@ -447,21 +484,34 @@ def _library_times(row, q, k, v, do, attn_mask=None):
 
 
 def phase_kernel_bwd():
-    """K2 (dK, dV) and K3 (dQ) against the plain backward."""
+    """K2 (dK, dV) and K3 (dQ) against the plain backward, with the body
+    that ran each (from the profiler's kernel names) and K2's query
+    split."""
     rows = {}
     gen = torch.Generator(device="cuda").manual_seed(1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, B, N, D, Lq, Lk, dtype in BWD_SHAPES:
         q, do = (_rand(gen, dtype, B, Lq, N, D) for _ in range(2))
         k, v = (_rand(gen, dtype, B, Lk, N, D) for _ in range(2))
         o, lse = attn.flash_fwd_cuda(q, k, v)
         delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
-        dk, dv = attn.flash_bwd_dkv_cuda(q, k, v, do, lse, delta)
-        dq = attn.flash_bwd_dq_cuda(q, k, v, do, lse, delta)
+        out = {}
+        names = _launched(lambda: out.update(
+            dkv=attn.flash_bwd_dkv_cuda(q, k, v, do, lse, delta),
+            dq=attn.flash_bwd_dq_cuda(q, k, v, do, lse, delta)))
+        (dk, dv), dq = out["dkv"], out["dq"]
         want = attn.flash_attention_bwd_plain(q, k, v, do, lse, delta)
         torch.cuda.synchronize()
+        splits = (1 if dtype == torch.float32
+                  else attn.bwd_query_splits(B, N, Lq, Lk, sms))
+        reduced = any("_reduce_kernel" in n for n in names)
         row = {"phase": "kernel_bwd", "kernel": "flash_bwd_dkv+flash_bwd_dq",
                "shape": label, "B": B, "N": N, "D": D, "Lq": Lq, "Lk": Lk,
-               "dtype": str(dtype).replace("torch.", "")}
+               "dtype": str(dtype).replace("torch.", ""),
+               "dkv_body": _body(names, "flash_bwd_dkv", dtype),
+               "dq_body": _body(names, "flash_bwd_dq", dtype),
+               "splits": splits, "reduce_ran": reduced}
+        check(reduced == (splits > 1), row)
         _grad_errors(row, (dq, dk, dv), want, dtype)
         del dq, dk, dv, want
         row["dkv_ms"] = time_ms(
@@ -475,6 +525,8 @@ def phase_kernel_bwd():
             row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = roofline(
                 *work, dtype)
             row[f"{part}_tflops"] = work[0] / row[f"{part}_ms"] / 1e9
+            row[f"{part}_bound_share"] = (row[f"{part}_bound_ms"]
+                                          / row[f"{part}_ms"])
         _library_times(row, q, k, v, do)
         emit(row)
         rows[label] = row
@@ -541,10 +593,16 @@ def phase_kernel_masked():
             check(row["blind_o_zero"] and row["blind_lse_neg_inf"], row)
         del po, plse, err
         delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
-        dk, dv = attn.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, None, mask,
-                                         tiles)
-        dq = attn.flash_bwd_dq_cuda(q, k, v, do, lse, delta, None, mask,
-                                    tiles)
+        out = {}
+        names = _launched(lambda: out.update(
+            dkv=attn.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, None, mask,
+                                        tiles),
+            dq=attn.flash_bwd_dq_cuda(q, k, v, do, lse, delta, None, mask,
+                                      tiles)))
+        (dk, dv), dq = out["dkv"], out["dq"]
+        # K5 / K6 keep the template body in every type
+        row["dkv_body"] = _body(names, "flash_masked_bwd_dkv", None)
+        row["dq_body"] = _body(names, "flash_masked_bwd_dq", None)
         want = attn.frame_masked_attention_bwd_plain(q, k, v, do, lse, delta,
                                                      *mask)
         torch.cuda.synchronize()
@@ -1068,12 +1126,14 @@ def _profile_step(step, what: str, phase: str, top: int = 12) -> dict:
 
 def _by_port(kernels) -> dict:
     """Device ms of each port kernel (by launch counter) among the
-    profiler's `kernels`; a Hopper-body kernel must book to K1 or P1."""
+    profiler's `kernels`; a Hopper-body kernel (K2's reduce included) must
+    book to K1, P1, K2 or K3, never to nothing or to a masked kernel."""
     by_port = {}
     for e in kernels:
         name = port_kernel_of(e.key)
-        if "_sm90_kernel" in e.key:
-            check(name in ("flash_fwd", "flash_exp2"), e.key)
+        if "_sm90_kernel" in e.key or "_reduce_kernel" in e.key:
+            check(name in ("flash_fwd", "flash_exp2", "flash_bwd_dkv",
+                           "flash_bwd_dq"), e.key)
         if name:
             by_port[name] = by_port.get(name, 0.0) + \
                 e.self_device_time_total / 1e3
@@ -1330,7 +1390,7 @@ def phase_kernel_exp2():
             out = []
             names = _launched(lambda: out.append(
                 attn.flash_exp2_cuda(q, k, v, use_exp2, mask_pad)))
-            o, = out
+            o = out[-1]
             po = attn.flash_attention_exp2_plain(q, k, v, use_exp2, mask_pad)
             torch.cuda.synchronize()
             err = (o.float() - po.float()).abs()
@@ -1655,7 +1715,8 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                  int8_launches, train_counts, exp2, exp2_launches,
                  fewstep_launches):
     """The nine kernels at their main-path shapes: K1 at group 3 of the
-    serving window, K2 / K3 at the training cross-attention, K4-K6 at the
+    serving window, K2 / K3 at the training cross-attention (and their
+    other shapes under `shapes`), K4-K6 at the
     training self-attention, P2 at group 3's ffn.fc1, Q at group 3's
     ffn.fc2 input and P1 (its exp2 variant without the pad test) at the
     probe's shape.  `launches` sums the paths each runs on."""
@@ -1685,15 +1746,27 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
         shapes={k: {f: r[f] for f in ("body", "ms", "plain_ms", "bound_ms",
                                       "library_ms", "o_max_abs_err")}
                 for k, r in rows.items()})]
+    bwd_sm90_src = "mmpl_tpu_torch/csrc/flash_bwd_sm90.cuh"
+    bwd_bodies = ("wgmma + TMA body (flash_bwd_sm90.cuh; K2 with its query "
+                  "split and reduce) for bf16 / fp16, the template body of "
+                  "flash_bwd.cu for fp32; entries in flash_bwd.cu")
     for name, part, line in (("flash_bwd_dkv", "dkv", 373),
                              ("flash_bwd_dq", "dq", 417)):
         out.append(_entry(
-            name, bwd_src, f"mmpl_tpu/ops/attention.py:{line}",
+            name, bwd_sm90_src, f"mmpl_tpu/ops/attention.py:{line}",
             train_counts[name],
             grad_err(bwd, ("dk", "dv") if part == "dkv" else ("dq",)),
             b[f"{part}_ms"], b["plain_ms"], b[f"{part}_bound_ms"],
             b[f"{part}_bound_by"], b.get("library_bwd_ms"), at=BWD_MAIN,
-            note=bwd_note))
+            sources=[bwd_sm90_src, bwd_src], bodies=bwd_bodies,
+            bound_share=b[f"{part}_bound_share"], note=bwd_note,
+            shapes={k: {"body": r[f"{part}_body"], "splits": r["splits"],
+                        "ms": r[f"{part}_ms"],
+                        "bound_ms": r[f"{part}_bound_ms"],
+                        "bound_share": r[f"{part}_bound_share"],
+                        "plain_ms": r["plain_ms"],
+                        "library_ms": r.get("library_bwd_ms")}
+                    for k, r in bwd.items()}))
     for name, part, line, plain, lib in (
             ("flash_masked_fwd", "fwd", 725, "plain_fwd_ms", "library_fwd_ms"),
             ("flash_masked_bwd_dkv", "dkv", 783, "plain_bwd_ms",

@@ -1,48 +1,52 @@
-// Flash-attention backward for Hopper (sm_90a), plain C interface for ctypes.
-// Two templates, each built with and without the frame mask:
+// Flash-attention backward, plain C interface for ctypes: the entries of
+// K2 / K3 and of their masked forms K5 / K6, and the mma.sync template body.
 //
-//  * dKV: K2 `_flash_bwd_dkv_kernel` (mmpl_tpu/ops/attention.py:373) and,
-//    masked, K5 `_masked_bwd_dkv_kernel` (:783).  One block owns 64 keys of
-//    one (b, head) and loops over the query tiles (the grid of :552 with
-//    its sequential axis moved inside the block): per tile it recomputes
-//    P^T = exp(scale * K Q^T - lse) from the saved lse, and accumulates
-//    dV += P^T dO and dK += scale * dS^T Q with dS^T = P^T o (V dO^T - delta).
-//  * dQ: K3 `_flash_bwd_dq_kernel` (:417) and, masked, K6
-//    `_masked_bwd_dq_kernel` (:821).  One block owns 64 query rows and loops
-//    over the key tiles: dQ += scale * dS K (the grid of :577).
+//  * K2, dK and dV: `_flash_bwd_dkv_kernel` (mmpl_tpu/ops/attention.py:373,
+//    pallas_call :553).  K3, dQ: `_flash_bwd_dq_kernel` (:417, :578).  In
+//    bf16 / fp16 both run the Hopper body of flash_bwd_sm90.cuh: TMA
+//    producer, wgmma consumers, warp specialisation, and for dK / dV a split
+//    of each key block's query loop over several blocks with a
+//    deterministic reduce when the key blocks alone would not fill the card
+//    (see that file).  fp32 runs the template below.
+//  * K5 / K6, the same under the frame mask: `_masked_bwd_dkv_kernel`
+//    (:783, :963) and `_masked_bwd_dq_kernel` (:821, :992).  They run the
+//    template below in every type, for now.
 //
-// Each block owns its outputs, so no atomics and no second pass.  p is 0
-// where the mask forbids the pair, past the ragged edges and on rows whose
-// lse is -inf (rows that saw no key: the guard of `_masked_p`, :771-780).
-// The mask is read from the per-token frame ids and the [F, F] table, and
-// the tile table (0 skip, 1 test pairs, 2 all allowed) skips whole tiles,
-// as in flash_fwd.cu.  delta = rowsum(dO o O) comes in computed (the plain
-// torch op of attention.py:527).
+// What bounds them on an H100: operations.  dKV does four products per
+// tile (S, dP, dV, dK: 8*B*N*Lq*Lk*D FLOPs), dQ three (S, dP, dQ: 6*...),
+// times the admitted share of tiles when masked; the bytes are
+// B*N*(Lq+Lk)*D elements in and out, far below the ridge at the training
+// shapes.  So both bodies keep the products on the tensor cores with the
+// scores, probabilities and accumulators in registers; the template is the
+// simple version (mma.sync, no TMA, no warp specialisation) that the
+// Hopper body replaced for K2 / K3 and will replace for K5 / K6.
 //
-// Numerics: bf16/fp16 operands on the tensor cores (mma.sync m16n8k16) with
-// fp32 accumulation.  p and dS are rounded to the input type before their
+// The template: one block of 4 warps owns 64 keys (dKV) or 64 query rows
+// (dQ) of one (b, head) and loops over the admitted tiles of the other
+// side, double-buffered with cp.async; per tile it recomputes
+// P = exp(scale * Q K^T - lse) from the saved lse, dS = P o (dO V^T -
+// delta), and accumulates dV += P^T dO and dK += scale * dS^T Q, or dQ +=
+// scale * dS K.  Each block owns its outputs: no atomics, no second pass.
+// p is 0 where the mask forbids the pair, past the ragged edges and on
+// rows whose lse is -inf (rows that saw no key: the guard of `_masked_p`,
+// :771-780).  The mask is read from the per-token frame ids and the
+// [F, F] table, and the tile table (0 skip, 1 test pairs, 2 all allowed)
+// skips whole tiles, as in flash_fwd.cu.  delta = rowsum(dO o O) comes in
+// computed (the plain torch op of mmpl_tpu_torch/ops/attention.py).
+//
+// Numerics, both bodies: bf16/fp16 operands on the tensor cores with fp32
+// accumulation.  p and dS are rounded to the input type before their
 // products (dV, and dK / dQ); dP, p before rounding, and every accumulator
 // stay fp32.  The TPU kernels run the dO and dS products in fp32
 // (:393, :403-409): a known difference, measured in ROADMAP.md Queue 3.
-// fp32 inputs take an FMA path in the same template and fragment layout.
+// fp32 inputs take an FMA path in the template's fragment layout.
 //
 // Layout: q, do, dq [B, Lq, N, D]; k, v, dk, dv [B, Lk, N, D], all through
 // element strides with a contiguous head dim; lse and delta contiguous
 // [B, N, Lq] fp32.  64-bit offsets throughout.
-//
-// What bounds it on an H100: operations.  dKV does four products per tile
-// (S, dP, dV, dK: 8*B*N*Lq*Lk*D FLOPs), dQ three (S, dP, dQ: 6*...), times
-// the admitted share of tiles when masked; the bytes are B*N*(Lq+Lk)*D
-// elements in and out, far below the ridge at the training shapes.  The
-// design keeps all four products on the tensor cores with the scores, the
-// probabilities and both accumulators in registers: each warp owns 16 rows
-// (keys for dKV, queries for dQ), the S^T / dP^T accumulator fragments are
-// re-packed in place as the A operand of the next product, and the block
-// double-buffers the streamed tiles (Q and dO for dKV, K and V for dQ) with
-// cp.async.  It is the simple version: no wgmma, no TMA, no warp
-// specialisation, and dKV and dQ each recompute S.
 
 #include "flash_common.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
@@ -371,18 +375,61 @@ FrameMask make_mask(const void* qf, const void* kf, const void* fm, const void* 
                    static_cast<const unsigned char*>(tiles), F, (Lk + TILE - 1) / TILE};
 }
 
+// bf16 / fp16 K2 or K3 on the Hopper body; D <= 128 was checked.
+template <typename T, bool kDKV>
+int launch_sm90(const Args& a, const long long* strides, void* ws, int splits,
+                cudaStream_t stream) {
+  const Strides& st = a.st;
+  const sm90::BwdParams p{a.out0, a.out1, static_cast<float*>(ws),
+                          static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+                          st.ab, st.al, st.ah, st.cb, st.cl, st.ch,
+                          a.B, a.Lq, a.Lk, a.N, a.D, splits,
+                          a.scale, a.scale * sm90::kLog2e};
+  if constexpr (kDKV)
+    return a.D <= 64 ? sm90::launch_dkv<T, 64>(a.q, a.k, a.v, a.dout, strides, p, stream)
+                     : sm90::launch_dkv<T, 128>(a.q, a.k, a.v, a.dout, strides, p, stream);
+  else
+    return a.D <= 64 ? sm90::launch_dq<T, 64>(a.q, a.k, a.v, a.dout, strides, p, stream)
+                     : sm90::launch_dq<T, 128>(a.q, a.k, a.v, a.dout, strides, p, stream);
+}
+
+// The unmasked entries: fp32 on the template, bf16 / fp16 on the Hopper
+// body.  `splits` > 1 (bf16 / fp16 dKV only) needs the fp32 workspace `ws`
+// of 2 * splits * B * N * Lk * D values.
+template <bool kDKV>
+int unmasked(int dtype, const Args& a, const long long* strides, void* ws, int splits,
+             void* stream) {
+  if (a.D <= 0 || a.D > 128 || a.D % 8 || splits < 1 || (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return splits == 1 ? dispatch<false, kDKV>(dtype, a, stream) : (int)cudaErrorInvalidValue;
+    case 1:
+      return launch_sm90<__nv_bfloat16, kDKV>(a, strides, ws, splits, s);
+    case 2:
+      return launch_sm90<__half, kDKV>(a, strides, ws, splits, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Strides are in elements,
 // (batch, row, head) for q, k, v, dO, then the outputs.  Returns
-// cudaGetLastError() after the launch (0 = launched).
+// cudaGetLastError() after the launch (0 = launched), or
+// sm90::kErrNoEncoder / kErrTensorMap (< 0) when a tensor map could not be
+// built.  `ws` / `splits`: the dKV query split of the Hopper body (ws may
+// be null with splits = 1).
 extern "C" int mmpl_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
-                                  void* dk, void* dv, int B, int Lq, int Lk, int N, int D,
-                                  const long long* strides, float scale, void* stream) {
+                                  void* dk, void* dv, void* ws, int splits, int B, int Lq,
+                                  int Lk, int N, int D, const long long* strides, float scale,
+                                  void* stream) {
   Args a{q, k, v, dout, lse, delta, dk, dv, B, Lq, Lk, N, D, {}, scale, FrameMask{}};
   a.st = *reinterpret_cast<const Strides*>(strides);
-  return dispatch<false, true>(dtype, a, stream);
+  return unmasked<true>(dtype, a, strides, ws, splits, stream);
 }
 
 extern "C" int mmpl_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
@@ -391,7 +438,7 @@ extern "C" int mmpl_flash_bwd_dq(int dtype, const void* q, const void* k, const 
                                  const long long* strides, float scale, void* stream) {
   Args a{q, k, v, dout, lse, delta, dq, nullptr, B, Lq, Lk, N, D, {}, scale, FrameMask{}};
   a.st = *reinterpret_cast<const Strides*>(strides);
-  return dispatch<false, false>(dtype, a, stream);
+  return unmasked<false>(dtype, a, strides, nullptr, 1, stream);
 }
 
 // The masked entries take the frame ids, table and tile table of

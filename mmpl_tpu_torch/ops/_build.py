@@ -29,7 +29,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _MASK = [_P, _P, _P, _P, _I]
 
 #: C signatures, by source name.  The backward entries take their 18
-#: strides as a pointer to a `long long` array.
+#: strides as a pointer to a `long long` array; the unmasked dKV entry
+#: takes the fp32 workspace and the number of query splits after dK, dV.
 SIGNATURES = {
     "flash_fwd": {
         "mmpl_flash_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
@@ -40,7 +41,7 @@ SIGNATURES = {
                            + [_L] * 12 + [_F, _P],
     },
     "flash_bwd": {
-        "mmpl_flash_bwd_dkv": [_I] + [_P] * 8 + [_I] * 5 + [_P, _F, _P],
+        "mmpl_flash_bwd_dkv": [_I] + [_P] * 9 + [_I] * 6 + [_P, _F, _P],
         "mmpl_flash_bwd_dq": [_I] + [_P] * 7 + [_I] * 5 + [_P, _F, _P],
         "mmpl_flash_masked_bwd_dkv": [_I] + [_P] * 8 + _MASK + [_I] * 5
                                      + [_P, _F, _P],

@@ -9,7 +9,11 @@ Port of `mmpl_tpu/ops/attention.py`.  Layout is [B, L, N, D] throughout.
     too.  In bf16 / fp16, K1 runs the Hopper body of
     `csrc/flash_fwd_sm90.cuh` (wgmma, TMA, a producer warpgroup and two
     consumer warpgroups, exp2 softmax); fp32 runs the mma.sync / FMA
-    template body of `flash_fwd.cu`.
+    template body of `flash_fwd.cu`.  The same holds for K2 / K3: bf16 /
+    fp16 run the Hopper body of `csrc/flash_bwd_sm90.cuh`, whose dKV splits
+    each key block's query loop over `bwd_query_splits` blocks where the key
+    blocks alone would not fill the card; fp32 runs the template body of
+    `flash_bwd.cu`.
   * `flash_attention_exp2` is P1, the exp2 probe's forward (O only, exp or
     exp2, with or without the in-kernel pad test), on the same two bodies;
     no path of the model runs it, `mmpl_tpu_torch.tools.exp2_probe`
@@ -29,8 +33,10 @@ one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from fractions import Fraction
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -53,10 +59,47 @@ LOG2E = 1.4426950408889634
 #: bytes of fp32 scores the plain versions hold at once (~1 GiB)
 _PLAIN_SCORE_BYTES = 1 << 30
 
+#: the Hopper backward's dKV block (keys) and the query tile it streams
+#: (csrc/flash_bwd_sm90.cuh kKeyBlock, kQueryTile)
+BWD_KEY_BLOCK = 128
+BWD_QUERY_TILE = 64
+#: the dKV query split's limits: splits, query tiles per split, and bytes of
+#: the fp32 partials (counted at the widest head dim, 128)
+BWD_MAX_SPLITS = 16
+BWD_MIN_SPLIT_TILES = 4
+BWD_MAX_WORKSPACE = 64 << 20
+
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def bwd_query_splits(B: int, N: int, Lq: int, Lk: int, sms: int) -> int:
+    """How many blocks share each key block's query loop in the Hopper dKV
+    kernel (K2 in bf16 / fp16).  1 where the key blocks, B * N *
+    ceil(Lk / 128), fill the card's `sms` SMs.  Else the s whose grid
+    finishes in the fewest waves per unit of work, ceil(blocks * s / sms) /
+    s (ties to the smaller s), with s <= BWD_MAX_SPLITS, at least
+    BWD_MIN_SPLIT_TILES query tiles a split, and the fp32 partials
+    (2 * s * B * N * Lk * 128 * 4 bytes) within BWD_MAX_WORKSPACE."""
+    blocks = B * N * -(-Lk // BWD_KEY_BLOCK)
+    tiles = -(-Lq // BWD_QUERY_TILE)
+    most = min(BWD_MAX_SPLITS, tiles // BWD_MIN_SPLIT_TILES,
+               BWD_MAX_WORKSPACE // max(1, 2 * B * N * Lk * 128 * 4))
+    if blocks >= sms or most < 2:
+        return 1
+    return min(range(1, most + 1),
+               key=lambda s: (Fraction(-(-blocks * s // sms), s), s))
+
+
+def bwd_split_rows(Lq: int, splits: int) -> List[Tuple[int, int]]:
+    """The query rows [start, end) of each split, as the dKV kernel deals
+    them: split z takes the query tiles [z * T // splits, (z + 1) * T //
+    splits) of the T = ceil(Lq / 64), the last one ragged."""
+    tiles = -(-Lq // BWD_QUERY_TILE)
+    edge = lambda z: min(z * tiles // splits * BWD_QUERY_TILE, Lq)
+    return [(edge(z), edge(z + 1)) for z in range(splits)]
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -415,10 +458,17 @@ def flash_exp2_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _bwd_launch(part: str, q, k, v, do, lse, delta, outs, scale, mask,
                 tiles) -> None:
     """Launch the dKV (`part` = "dkv", outs = (dk, dv)) or dQ ("dq",
-    outs = (dq,)) kernel of `csrc/flash_bwd.cu`, masked with `mask`."""
+    outs = (dq,)) kernel of `csrc/flash_bwd.cu`, masked with `mask`.  The
+    unmasked bf16 / fp16 dKV takes its query split (`bwd_query_splits`)
+    and, when it splits, an fp32 workspace for the partials."""
     masked = mask is not None
     what = "flash_masked_bwd" if masked else "flash_bwd"
     _check_qkv(what, q, k, v)
@@ -439,21 +489,30 @@ def _bwd_launch(part: str, q, k, v, do, lse, delta, outs, scale, mask,
         return
     margs = (_mask_args(what, mask, tiles, Lq, Lk, q.device) if masked
              else [])
+    split = []
+    if part == "dkv" and not masked:
+        splits = (1 if q.dtype == torch.float32 else bwd_query_splits(
+            B, N, Lq, Lk, _sm_count(q.device.index)))
+        ws = (torch.empty((2, splits, B, N, Lk, D), dtype=torch.float32,
+                          device=q.device) if splits > 1 else None)
+        split = [None if ws is None else ws.data_ptr(), splits]
     ins = [_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
            do.data_ptr(), lse.data_ptr(), delta.data_ptr()]
     strides = _strides(q, k, v, do, *outs) + [0] * 3 * (2 - len(outs))
     fn = f"mmpl_{what}_{part}"
     _launch("flash_bwd", fn, f"{what}_{part}", q.device, *ins,
-            *(x.data_ptr() for x in outs), *margs, B, Lq, Lk, N, D,
+            *(x.data_ptr() for x in outs), *split, *margs, B, Lq, Lk, N, D,
             (ctypes.c_longlong * 18)(*strides), float(_scale(q, scale)))
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale=None, mask=None,
                        tiles=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dKV kernel (K2, or K5 with `mask` and its `tiles`) from
-    `csrc/flash_bwd.cu`.  dO is read through its strides (the same rules
-    as q); lse and delta = rowsum(dO * O) are contiguous [B, N, Lq] fp32.
-    Returns (dk, dv), contiguous, in k's dtype."""
+    `csrc/flash_bwd.cu` (bf16 / fp16 K2: `csrc/flash_bwd_sm90.cuh`, with
+    its reduce in the same launch count when it splits the queries).  dO is
+    read through its strides (the same rules as q); lse and delta =
+    rowsum(dO * O) are contiguous [B, N, Lq] fp32.  Returns (dk, dv),
+    contiguous, in k's dtype."""
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     _bwd_launch("dkv", q, k, v, do, lse, delta, (dk, dv), scale, mask, tiles)

@@ -1,19 +1,30 @@
-"""K1 of this tree against K1 of another checkout, on one card, in turns.
+"""K1, or K2 and K3, of this tree against another checkout's, on one card,
+in turns.
 
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR
+    python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel bwd
 
 DIR holds another checkout of the repository (for example an earlier
 commit unpacked with `git archive`).  Its `mmpl_tpu_torch/csrc/flash_fwd.cu`
-is built with this tree's nvcc flags into `build/kernels/baseline-<hash>.so`
-and bound like this tree's (`mmpl_flash_fwd` keeps its signature).  A
-baseline without `flash_fwd_sm90.cuh` takes K1's natural scale, a newer
-one the scale with log2(e) folded in.  At each shape both K1s run on the
-same bf16 inputs in the order baseline, this tree, this tree, baseline;
-each time is the median of CUDA events over `--reps` calls after one
-warm-up call.  Each shape prints one JSON line: the four times, both
-kernels' largest difference from the plain version, SDPA's time on the
-same inputs (a yardstick the port never calls) and the card's bound.  The
-card's name and power limit come first.  It needs the card.
+(`--kernel fwd`, the default) or `flash_bwd.cu` (`--kernel bwd`) is built
+with this tree's nvcc flags into
+`build/kernels/baseline-<source>-<hash>.so` and bound by the sources it
+has: a baseline without `flash_fwd_sm90.cuh` takes
+K1's natural scale, a newer one the scale with log2(e) folded in; a
+baseline without `flash_bwd_sm90.cuh` has the dKV entry without the
+workspace and the query split (`OLD_DKV_SIGNATURE`), a newer one is given
+this tree's split.  At each shape both trees' kernels run on the same bf16
+inputs in the order baseline, this tree, this tree, baseline, both through
+the same ctypes call of their C entries (`call_k1`, `call_bwd`; not the
+wrapper, whose checks would add host time inside this tree's turns); each
+time is the median of CUDA events over `--reps` calls after one warm-up
+call.  Each
+shape prints one JSON line: the four times (per kernel for the backward),
+both trees' distance from the plain version, SDPA's time on the same inputs
+(its backward for `bwd`; a yardstick the port never calls) and the card's
+bound.  The card's name and power limit come first; for `fwd` a last line
+says whether each Hopper kernel (`*_sm90_kernel`) compiled to the same
+SASS in both trees (`cuobjdump -sass`).  It needs the card.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import argparse
 import ctypes
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 from pathlib import Path
@@ -31,7 +43,7 @@ import torch
 from ..ops import _build
 from ..ops import attention as attn
 
-#: (label, B, N, D, Lq, Lk): the serving window's group 1 and group 3
+#: (label, B, N, D, Lq, Lk) of K1: the serving window's group 1 and group 3
 #: self-attention, its text cross-attention, the few-step steady state
 SHAPES = {
     "group1_self": (2, 12, 128, 10920, 14040),
@@ -39,26 +51,48 @@ SHAPES = {
     "cross": (2, 12, 128, 9360, 512),
     "fewstep_self_hot": (1, 12, 128, 4680, 32760),
 }
+#: K2 / K3: the teacher-forcing cross-attention and the few-step steady
+#: state, the self-attention shape of self-forcing training and the ring
+BWD_SHAPES = {
+    "tf_cross": (1, 12, 128, 65520, 512),
+    "fewstep_self_hot": (1, 12, 128, 4680, 32760),
+}
 
 #: H100 SXM dense bf16 tensor-core peak and HBM rate (NVIDIA data sheet)
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: the dKV entry of the trees before the Hopper backward body
+OLD_DKV_SIGNATURE = [_I] + [_P] * 8 + [_I] * 5 + [_P, _F, _P]
+
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="K1 against another checkout's")
+    p = argparse.ArgumentParser(
+        description="K1, or K2 / K3, against another checkout's")
     p.add_argument("--baseline", required=True, type=Path,
                    help="root of the other checkout")
-    p.add_argument("--shapes", nargs="+", default=list(SHAPES),
-                   choices=list(SHAPES))
+    p.add_argument("--kernel", choices=["fwd", "bwd"], default="fwd",
+                   help="fwd: K1; bwd: K2 and K3")
+    p.add_argument("--shapes", nargs="+", default=None,
+                   choices=sorted({*SHAPES, *BWD_SHAPES}),
+                   help="default: every shape of the kernel")
     p.add_argument("--reps", type=int, default=10)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    table = SHAPES if args.kernel == "fwd" else BWD_SHAPES
+    if args.shapes is None:
+        args.shapes = list(table)
+    bad = [s for s in args.shapes if s not in table]
+    if bad:
+        p.error(f"--kernel {args.kernel} has no shape {bad}; "
+                f"choose from {list(table)}")
+    return args
 
 
-def baseline_csrc(root: Path) -> Path:
+def baseline_csrc(root: Path, source: str = "flash_fwd") -> Path:
     csrc = Path(root) / "mmpl_tpu_torch" / "csrc"
-    if not (csrc / "flash_fwd.cu").exists():
-        raise FileNotFoundError(f"no mmpl_tpu_torch/csrc/flash_fwd.cu "
+    if not (csrc / f"{source}.cu").exists():
+        raise FileNotFoundError(f"no mmpl_tpu_torch/csrc/{source}.cu "
                                 f"under {root}")
     return csrc
 
@@ -69,33 +103,58 @@ def baseline_takes_log2e(root: Path) -> bool:
     return (baseline_csrc(root) / "flash_fwd_sm90.cuh").exists()
 
 
-def build_baseline(root: Path) -> ctypes.CDLL:
-    """Build (once per source hash) and bind the baseline's K1 entry."""
-    csrc = baseline_csrc(root)
-    src = (csrc / "flash_fwd.cu").read_bytes() + b"".join(
+def baseline_splits_queries(root: Path) -> bool:
+    """Whether the baseline's dKV entry takes the workspace and the query
+    split (the Hopper backward's trees) or not (earlier trees)."""
+    return (baseline_csrc(root, "flash_bwd") / "flash_bwd_sm90.cuh").exists()
+
+
+def baseline_signatures(root: Path, source: str) -> dict:
+    """The entries of the baseline's `source` that the comparison calls,
+    with the C signatures its sources have."""
+    sigs = _build.SIGNATURES[source]
+    if source == "flash_fwd":
+        return {"mmpl_flash_fwd": sigs["mmpl_flash_fwd"]}
+    return {"mmpl_flash_bwd_dkv": (sigs["mmpl_flash_bwd_dkv"]
+                                   if baseline_splits_queries(root)
+                                   else OLD_DKV_SIGNATURE),
+            "mmpl_flash_bwd_dq": sigs["mmpl_flash_bwd_dq"]}
+
+
+def baseline_library(root: Path, source: str = "flash_fwd") -> Path:
+    """Where the baseline's `source` is built (keyed by its sources)."""
+    csrc = baseline_csrc(root, source)
+    src = (csrc / f"{source}.cu").read_bytes() + b"".join(
         p.read_bytes() for p in sorted(csrc.glob("*.cuh")))
     digest = hashlib.sha256(
         src + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _build.BUILD_DIR / f"baseline-{digest}.so"
+    return _build.BUILD_DIR / f"baseline-{source}-{digest}.so"
+
+
+def build_baseline(root: Path, source: str = "flash_fwd") -> ctypes.CDLL:
+    """Build (once per source hash) and bind the baseline's entries of
+    `source`."""
+    csrc = baseline_csrc(root, source)
+    out = baseline_library(root, source)
     if not out.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(".tmp")
         run = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                              str(tmp), str(csrc / "flash_fwd.cu")],
+                              str(tmp), str(csrc / f"{source}.cu")],
                              capture_output=True, text=True)
         if run.returncode:
             raise RuntimeError(f"nvcc failed for the baseline:\n"
                                f"{run.stdout}{run.stderr}")
         tmp.replace(out)
     lib = ctypes.CDLL(str(out))
-    lib.mmpl_flash_fwd.argtypes = \
-        _build.SIGNATURES["flash_fwd"]["mmpl_flash_fwd"]
-    lib.mmpl_flash_fwd.restype = ctypes.c_int
+    for fn, argtypes in baseline_signatures(root, source).items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
-def baseline_k1(lib, log2e: bool, q, k, v):
-    """The baseline's K1 on CUDA tensors: (O, lse)."""
+def call_k1(lib, log2e: bool, q, k, v):
+    """K1 of a built `flash_fwd` library on CUDA tensors: (O, lse)."""
     B, Lq, N, D = q.shape
     scale = D ** -0.5 * (attn.LOG2E if log2e else 1.0)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -106,8 +165,64 @@ def baseline_k1(lib, log2e: bool, q, k, v):
         D, *attn._strides(q, k, v, o), float(scale),
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"baseline K1 launch failed: CUDA error {rc}")
+        raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
     return o, lse
+
+
+def call_bwd(lib, splits_queries: bool, part: str, q, k, v, do, lse, delta):
+    """K2 ("dkv": (dk, dv)) or K3 ("dq": (dq,)) of a built `flash_bwd`
+    library on CUDA tensors; a library that splits the queries gets this
+    tree's split."""
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
+    like = (k, v) if part == "dkv" else (q,)
+    outs = tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for x in like)
+    split = []
+    if part == "dkv" and splits_queries:
+        splits = attn.bwd_query_splits(B, N, Lq, Lk,
+                                       attn._sm_count(q.device.index))
+        ws = (torch.empty((2, splits, B, N, Lk, D), dtype=torch.float32,
+                          device=q.device) if splits > 1 else None)
+        split = [None if ws is None else ws.data_ptr(), splits]
+    strides = attn._strides(q, k, v, do, *outs) + [0] * 3 * (2 - len(outs))
+    rc = getattr(lib, f"mmpl_flash_bwd_{part}")(
+        attn._DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        *(x.data_ptr() for x in outs), *split, B, Lq, Lk, N, D,
+        (ctypes.c_longlong * 18)(*strides), float(D ** -0.5),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{part} launch failed: CUDA error {rc}")
+    return outs
+
+
+def sass_by_kernel(path: Path) -> dict:
+    """{mangled kernel name: its SASS} of a built library, from the
+    cuobjdump beside nvcc."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                         text=True, check=True).stdout
+    kernels, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = []
+        elif name is not None:
+            kernels[name].append(line.strip())
+    return {k: "\n".join(v) for k, v in kernels.items()}
+
+
+def same_sass(base: Path, this: Path, pattern: str = "_sm90_kernel") -> dict:
+    """Which kernels matching `pattern` compiled to the same SASS in the
+    two libraries."""
+    a, b = sass_by_kernel(base), sass_by_kernel(this)
+    names = sorted(n for n in {*a, *b} if pattern in n)
+    return {"identical": [n for n in names if a.get(n) == b.get(n)],
+            "differ": [n for n in names if n in a and n in b
+                       and a[n] != b[n]],
+            "only_one_tree": [n for n in names if (n in a) != (n in b)]}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -124,15 +239,28 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def run(args) -> list:
+def _turns(base, this, reps: int) -> dict:
+    """Times in the order baseline, this, this, baseline, and the speedup
+    of the sums."""
+    t = [time_ms(f, reps) for f in (base, this, this, base)]
+    return {"baseline_ms": [t[0], t[3]], "this_ms": [t[1], t[2]],
+            "speedup": (t[0] + t[3]) / (t[1] + t[2])}
+
+
+def _card() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("flash_compare needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
+    return smi
+
+
+def run_fwd(args, smi: str) -> list:
     lib = build_baseline(args.baseline)
     log2e = baseline_takes_log2e(args.baseline)
+    mine = _build.library("flash_fwd")
     gen = torch.Generator(device="cuda").manual_seed(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
@@ -141,17 +269,14 @@ def run(args) -> list:
         q, k, v = (torch.randn((B, L, N, D), generator=gen, device="cuda")
                    .to(torch.bfloat16) for L in (Lq, Lk, Lk))
         po, _ = attn.flash_attention_plain(q, k, v)
-        base = lambda: baseline_k1(lib, log2e, q, k, v)
-        this = lambda: attn.flash_fwd_cuda(q, k, v)
+        base = lambda: call_k1(lib, log2e, q, k, v)
+        this = lambda: call_k1(mine, True, q, k, v)
         err = lambda f: (f()[0].float() - po.float()).abs().max().item()
-        row = {"shape": label, "B": B, "N": N, "D": D, "Lq": Lq, "Lk": Lk,
-               "baseline_max_abs_err": err(base),
+        row = {"kernel": "fwd", "shape": label, "B": B, "N": N, "D": D,
+               "Lq": Lq, "Lk": Lk, "baseline_max_abs_err": err(base),
                "this_max_abs_err": err(this)}
         del po
-        turns = [time_ms(f, args.reps) for f in (base, this, this, base)]
-        row["baseline_ms"] = [turns[0], turns[3]]
-        row["this_ms"] = [turns[1], turns[2]]
-        row["speedup"] = sum(row["baseline_ms"]) / sum(row["this_ms"])
+        row.update(_turns(base, this, args.reps))
         row["sdpa_ms"] = time_ms(lambda: sdpa(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
             args.reps)
@@ -164,7 +289,79 @@ def run(args) -> list:
         rows.append(row)
         del q, k, v
         torch.cuda.empty_cache()
+    sass = same_sass(baseline_library(args.baseline),
+                     _build._target("flash_fwd"))
+    print(json.dumps({"kernel": "fwd",
+                      "sass_identical": len(sass["identical"]), **sass,
+                      "card": smi}), flush=True)
     return rows
+
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+def run_bwd(args, smi: str) -> list:
+    lib = build_baseline(args.baseline, "flash_bwd")
+    new = baseline_splits_queries(args.baseline)
+    mine = _build.library("flash_bwd")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for label in args.shapes:
+        B, N, D, Lq, Lk = BWD_SHAPES[label]
+        q, do = (torch.randn((B, Lq, N, D), generator=gen, device="cuda")
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B, Lk, N, D), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        o, lse = attn.flash_fwd_cuda(q, k, v)
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+        want = dict(zip(("dq", "dk", "dv"), attn.flash_attention_bwd_plain(
+            q, k, v, do, lse, delta)))
+        args_ = (q, k, v, do, lse, delta)
+        calls = {
+            "dkv": (lambda: call_bwd(lib, new, "dkv", *args_),
+                    lambda: call_bwd(mine, True, "dkv", *args_)),
+            "dq": (lambda: call_bwd(lib, new, "dq", *args_),
+                   lambda: call_bwd(mine, True, "dq", *args_)),
+        }
+        row = {"kernel": "bwd", "shape": label, "B": B, "N": N, "D": D,
+               "Lq": Lq, "Lk": Lk,
+               "splits": attn.bwd_query_splits(
+                   B, N, Lq, Lk, attn._sm_count(q.device.index))}
+        for part, (base, this) in calls.items():
+            names = ("dk", "dv") if part == "dkv" else ("dq",)
+            for who, fn in (("baseline", base), ("this", this)):
+                row[f"{part}_{who}_rel_err"] = max(
+                    _rel(g, want[n]) for g, n in zip(fn(), names))
+            row.update({f"{part}_{k_}": x for k_, x in
+                        _turns(base, this, args.reps).items()})
+            mult = 8.0 if part == "dkv" else 6.0
+            flops = mult * B * N * Lq * Lk * D
+            elems = (2 * Lq + 4 * Lk) if part == "dkv" else (3 * Lq + 2 * Lk)
+            nbytes = 2 * B * N * D * elems + 8 * B * N * Lq
+            row[f"{part}_bound_ms"] = 1e3 * max(flops / PEAK_FLOPS,
+                                                nbytes / PEAK_BYTES)
+            row[f"{part}_this_tflops"] = (flops / min(row[f"{part}_this_ms"])
+                                          / 1e9)
+        del want
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+        row["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+            args.reps)
+        row["card"] = smi
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del q, k, v, do, o, lse, delta, qt, kt, vt, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run(args) -> list:
+    smi = _card()
+    return run_fwd(args, smi) if args.kernel == "fwd" else run_bwd(args, smi)
 
 
 def main(argv=None) -> int:

@@ -18,16 +18,21 @@ from typing import Dict, List, Optional
 import torch
 
 
-#: the `__global__` functions of `csrc/`, by launch counter.  K1 and P1
-#: have a Hopper kernel (bf16 / fp16) and a template-body one (fp32); the
-#: backward templates take the frame mask as their last flag
+#: the `__global__` functions of `csrc/`, by launch counter.  K1, P1, K2
+#: and K3 have a Hopper kernel (bf16 / fp16) and a template-body one
+#: (fp32); K2's Hopper launch adds its reduce when it splits the queries.
+#: The backward templates take the frame mask as their last flag (K5, K6);
+#: the Hopper backward kernels take no bool template argument
 _KERNELS = {
     "flash_fwd_sm90_kernel": "flash_fwd",
     "flash_fwd_kernel": "flash_fwd",
     "flash_masked_fwd_kernel": "flash_masked_fwd",
     "flash_exp2_sm90_kernel": "flash_exp2",
     "flash_exp2_kernel": "flash_exp2",
+    "flash_bwd_dkv_sm90_kernel": "flash_bwd_dkv",
+    "flash_bwd_dkv_reduce_kernel": "flash_bwd_dkv",
     "flash_bwd_dkv_kernel": "flash_bwd_dkv",
+    "flash_bwd_dq_sm90_kernel": "flash_bwd_dq",
     "flash_bwd_dq_kernel": "flash_bwd_dq",
     "int8_gemm_kernel": "int8_gemm",
     "quantize_rows_kernel": "quantize_rows",

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from mmpl_tpu.ops.attention import (flash_attention_vjp as j_flash_vjp,
+from mmpl_tpu.ops.attention import (_flash_bwd_impl as j_flash_bwd,
+                                    flash_attention_vjp as j_flash_vjp,
                                     frame_masked_attention as j_masked)
 from mmpl_tpu.training import masks as jmasks
 from mmpl_tpu_torch.ops import attention as ta
@@ -203,3 +204,78 @@ def test_no_grad_and_inference_calls_bypass_autograd():
         out = ta.flash_attention(q, k, v)
     torch.testing.assert_close(out, ta.flash_attention_plain(q, k, v)[0])
     assert out.grad_fn is None
+
+
+# ---------------------------------------------------------------------------
+# The dKV query split of the Hopper K2 (its planner and its reduce order)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lq,splits", [(64, 1), (300, 2), (900, 3),
+                                       (1000, 7), (4096, 16), (65520, 8),
+                                       (129, 5)])
+def test_split_rows_cover_every_query_tile_once(lq, splits):
+    rows = ta.bwd_split_rows(lq, splits)
+    assert len(rows) == splits
+    assert rows[0][0] == 0 and rows[-1][1] == lq
+    assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+    assert all(r0 % ta.BWD_QUERY_TILE == 0 and r0 <= r1 for r0, r1 in rows)
+    tile = ta.BWD_QUERY_TILE
+    dealt = [t for r0, r1 in rows for t in range(r0 // tile, -(-r1 // tile))]
+    assert dealt == list(range(-(-lq // tile)))   # the ragged last included
+
+
+@pytest.mark.parametrize("B,N,lq,lk,sms,split", [
+    (1, 12, 65520, 512, 132, True),       # the training cross-attention
+    (2, 12, 9360, 512, 132, True),        # the serving text cross-attention
+    (2, 2, 4096, 128, 132, True),
+    (1, 12, 4680, 32760, 132, False),     # the few-step steady state
+    (2, 12, 9360, 32760, 132, False),
+    (1, 12, 65520, 65520, 132, False),    # the training self-attention
+    (1, 1, 128, 64, 132, False),          # too few query tiles to split
+])
+def test_query_splits_fill_the_card_only_where_the_keys_do_not(B, N, lq, lk,
+                                                               sms, split):
+    s = ta.bwd_query_splits(B, N, lq, lk, sms)
+    blocks = B * N * -(-lk // ta.BWD_KEY_BLOCK)
+    if not split:
+        assert s == 1
+        return
+    assert 1 < s <= ta.BWD_MAX_SPLITS
+    # a full wave, or as near as the most splits allowed come
+    assert blocks * s >= min(sms, blocks * ta.BWD_MAX_SPLITS)
+    assert 2 * s * B * N * lk * 128 * 4 <= ta.BWD_MAX_WORKSPACE
+    assert -(-lq // ta.BWD_QUERY_TILE) // s >= ta.BWD_MIN_SPLIT_TILES
+
+
+def test_split_partials_summed_in_order_match_the_pallas_dkv():
+    """The split's arithmetic on the CPU: the plain backward over each
+    split's query rows, dK and dV summed in the reduce kernel's order
+    (split 0, 1, ...), against the JAX package's K2 (and K3) in interpret
+    mode fed the same lse and delta."""
+    B, N, D, lq, lk = 1, 2, 64, 900, 64
+    splits = ta.bwd_query_splits(B, N, lq, lk, sms=6)
+    assert splits == 3
+    q, do = _arrays([(B, lq, N, D)] * 2, seed=11)
+    k, v = _arrays([(B, lk, N, D)] * 2, seed=12)
+    qt, kt, vt, dot = map(torch.from_numpy, (q, k, v, do))
+    o, lse = ta.flash_attention_plain(qt, kt, vt)
+    delta = (dot * o).sum(-1).permute(0, 2, 1).contiguous()
+    dk = dv = 0
+    dqs = []
+    for r0, r1 in ta.bwd_split_rows(lq, splits):
+        dq_z, dk_z, dv_z = ta.flash_attention_bwd_plain(
+            qt[:, r0:r1], kt, vt, dot[:, r0:r1], lse[:, :, r0:r1],
+            delta[:, :, r0:r1])
+        dk, dv = dk + dk_z, dv + dv_z
+        dqs.append(dq_z)
+    # the Pallas kernels take [B, N, Lqp, *] padded with zero rows
+    pad = -(-lq // 128) * 128 - lq
+    rows = lambda x: np.pad(x, ((0, 0), (0, 0), (0, pad), (0, 0)))
+    dq_w, dk_w, dv_w = j_flash_bwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(rows(np.swapaxes(do, 1, 2))),
+        jnp.asarray(rows(lse.numpy()[..., None])),
+        jnp.asarray(rows(delta.numpy()[..., None])), D ** -0.5, 128, 128,
+        True)
+    _close([torch.cat(dqs, 1).numpy(), dk.numpy(), dv.numpy()],
+           [np.asarray(x) for x in (dq_w, dk_w, dv_w)], atol=5e-4, rtol=5e-4)

@@ -1,7 +1,8 @@
-"""K1-K6 (`mmpl_tpu_torch/csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`) and the
-int8 kernels P2 and Q (`csrc/int8_gemm.cu`) on the card: agreement with
-their plain versions, the dispatch's launch counts, and what the wrappers
-refuse.
+"""K1-K6 (`mmpl_tpu_torch/csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`, their
+Hopper bodies `csrc/flash_fwd_sm90.cuh` and `csrc/flash_bwd_sm90.cuh`) and
+the int8 kernels P2 and Q (`csrc/int8_gemm.cu`) on the card: agreement
+with their plain versions, the body each type runs, the dispatch's launch
+counts, and what the wrappers refuse.
 
 Needs an NVIDIA GPU and nvcc, not JAX; on the card run
 
@@ -10,11 +11,20 @@ Needs an NVIDIA GPU and nvcc, not JAX; on the card run
 Every test skips where there is no CUDA device.
 """
 
-import numpy as np
-import pytest
-import torch
+import os
 
-from mmpl_tpu_torch.ops import attention as ta
+# Keep CUPTI resident between the short torch.profiler sessions of the body
+# checks (`_launched`): with the default teardown and lazy re-init the
+# card's torch / CUPTI recorded the device kernels of only the first of
+# many.  Set before torch loads; it changes nothing on the CPU.
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
+os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from mmpl_tpu_torch.ops import attention as ta  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -98,15 +108,25 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, dtype, d):
 # ---------------------------------------------------------------------------
 
 def _launched(fn):
-    """The names of the device kernels one call of `fn` launches."""
+    """The names of the device kernels one call of `fn` launches.  A
+    session that records no device kernel at all runs again after a pause
+    (even with CUPTI resident a short session now and then loses every
+    device record)."""
+    import time
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+    for pause in (0.0, 1.0, 2.0, 4.0):
+        time.sleep(pause)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+        if names:
+            return names
+    return names
 
 
 @pytest.mark.parametrize("lq", [1, 127, 1000])
@@ -279,6 +299,154 @@ def test_autograd_launches_each_kernel_once(cuda):
     # kernel of theirs
     assert ta.launch_counts == {**dict.fromkeys(ta.launch_counts, 1),
                                 "flash_exp2": 0}
+    for x in (q, k, v):
+        assert x.grad is not None and torch.isfinite(x.grad.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# The Hopper body of K2 and K3 (csrc/flash_bwd_sm90.cuh): 128-key dKV
+# blocks over 64-query tiles, 128-query dQ blocks over 128-key tiles, the
+# dKV query split where the key blocks do not fill the card
+# ---------------------------------------------------------------------------
+
+def _bwd_inputs(lq, lk, d, dtype, cuda, seed=0, B=2, N=3):
+    q, k, v = _qkv(lq, lk, d, dtype, cuda, seed=seed, B=B, N=N)
+    do = _qkv(lq, lq, d, dtype, cuda, seed=seed + 1000, B=B, N=N)[0]
+    return q, k, v, do
+
+
+def _bwd_errors(q, k, v, do):
+    """(dq, dk, dv) of K2 / K3 and their relative errors against the plain
+    backward, both fed the lse of K1."""
+    o, lse = ta.flash_fwd_cuda(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    got = ta.flash_bwd_cuda(q, k, v, do, lse, delta)
+    want = ta.flash_attention_bwd_plain(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    for g, name in zip(got, ("dq", "dk", "dv")):
+        assert torch.isfinite(g.float()).all(), name
+    return got, [_rel(g, w) for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("lk", [64, 100, 127, 128, 129, 192, 255, 1300])
+def test_hopper_bwd_matches_plain_at_every_key_residue(cuda, lk):
+    """Lk at every kind of last 128-key tile (residues 0, 1, 64, 100, 127
+    of Lk mod 128; 64 is half a tile) against Lq = 1000, ragged for the
+    64-query and 128-query tiles."""
+    _, errs = _bwd_errors(*_bwd_inputs(1000, lk, 128, torch.bfloat16, cuda,
+                                       seed=lk))
+    assert max(errs) <= 1e-2, errs
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [24, 64, 128])
+def test_hopper_bwd_matches_plain_at_each_head_dim(cuda, dtype, d):
+    _, errs = _bwd_errors(*_bwd_inputs(1000, 1300, d, dtype, cuda, seed=d))
+    assert max(errs) <= 1e-2, errs
+
+
+def test_hopper_bwd_reads_views_in_place(cuda):
+    """q / k / v as views of one fused [B, L, 3 * N * D] projection and dO
+    as a strided view: against the plain version, and bit for bit against
+    the same call on contiguous copies."""
+    B, L, N, D = 2, 777, 4, 128
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn((B, L, 3 * N * D), generator=gen,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = (x.unflatten(-1, (N, D)) for x in qkv.chunk(3, -1))
+    do = torch.randn((B, L, N, 2, D), generator=gen,
+                     device=cuda).to(torch.bfloat16)[:, :, :, 1]
+    assert not (q.is_contiguous() or do.is_contiguous())
+    got, errs = _bwd_errors(q, k, v, do)
+    assert max(errs) <= 1e-2, errs
+    dense, _ = _bwd_errors(*(x.contiguous() for x in (q, k, v, do)))
+    for x, y in zip(got, dense):
+        torch.testing.assert_close(x, y, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("lq,lk,split", [(4096, 128, True),
+                                         (1000, 8192, False)])
+def test_hopper_dkv_with_the_query_split_on_and_off(cuda, lq, lk, split):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (ta.bwd_query_splits(2, 2, lq, lk, sms) > 1) is split
+    _, errs = _bwd_errors(*_bwd_inputs(lq, lk, 128, torch.bfloat16, cuda,
+                                       N=2))
+    assert max(errs) <= 1e-2, errs
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_split_dkv_gives_the_same_bits_on_every_call(cuda, dtype):
+    """The partials are summed in a fixed order, not with atomics."""
+    q, k, v, do = _bwd_inputs(3000, 200, 128, dtype, cuda, N=2)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ta.bwd_query_splits(2, 2, 3000, 200, sms) > 1
+    o, lse = ta.flash_fwd_cuda(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    first = ta.flash_bwd_dkv_cuda(q, k, v, do, lse, delta)
+    for _ in range(3):
+        for x, y in zip(ta.flash_bwd_dkv_cuda(q, k, v, do, lse, delta),
+                        first):
+            assert torch.equal(x, y)
+
+
+def test_hopper_bwd_padding_keys_stay_finite_under_a_very_negative_lse(cuda):
+    """Every score near -100 (q's first coordinate -1128, k's 1), so each
+    lse is near -93 and exp(-lse) overflows fp32: the keys past Lk, which
+    score 0, must be masked to p = 0 and not multiplied by 0."""
+    q, k, v, do = _bwd_inputs(1000, 1300, 128, torch.bfloat16, cuda, seed=9)
+    q[..., 0] = -1128.0
+    k[..., 0] = 1.0
+    _, lse = ta.flash_fwd_cuda(q, k, v)
+    assert lse.max().item() < -80, lse.max().item()
+    _, errs = _bwd_errors(q, k, v, do)
+    assert max(errs) <= 1e-2, errs
+
+
+@pytest.mark.parametrize("dtype,masked,body", [
+    (torch.bfloat16, False, "_sm90_kernel"),
+    (torch.float16, False, "_sm90_kernel"),
+    (torch.float32, False, "flash_bwd_d"),
+    (torch.bfloat16, True, "flash_bwd_d"),
+])
+def test_backward_runs_the_body_of_its_type(cuda, dtype, masked, body):
+    """bf16 / fp16 K2 / K3 run the Hopper kernels (K2 with its reduce where
+    it splits), fp32 and the masked K5 / K6 the template; the profiler
+    attribution books each to its own counter."""
+    from mmpl_tpu_torch.utils.profiling import port_kernel_of
+    q, k, v, do = _bwd_inputs(500, 300, 64, dtype, cuda)
+    mask = _mask(500, 100, cuda, blind=False) if masked else None
+    mask = (mask[0], mask[1][:300], mask[2]) if masked else None
+    tiles = ta.tile_table(*mask) if masked else None
+    o, lse = ta.flash_fwd_cuda(q, k, v, None, mask, tiles)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    prefix = "flash_masked_bwd" if masked else "flash_bwd"
+    names = _launched(lambda: ta.flash_bwd_cuda(q, k, v, do, lse, delta, None,
+                                                mask, tiles))
+    for part in ("dkv", "dq"):
+        mine = [n for n in names if port_kernel_of(n) == f"{prefix}_{part}"]
+        main = [n for n in mine if "_reduce_kernel" not in n]
+        assert len(main) == 1 and body in main[0], names
+        assert ("_sm90_kernel" in main[0]) is (body == "_sm90_kernel")
+        assert len(mine) - len(main) == (
+            part == "dkv" and body == "_sm90_kernel"
+            and ta.bwd_query_splits(2, 3, 500, 300, torch.cuda
+                                    .get_device_properties(cuda)
+                                    .multi_processor_count) > 1), names
+
+
+def test_autograd_launches_unmasked_k2_and_k3_once(cuda):
+    """At a shape where K2 splits the queries, one backward through
+    `flash_attention` counts one K2 launch (its reduce included) and one
+    K3 launch."""
+    q, k, v = (x.requires_grad_(True)
+               for x in _qkv(4096, 128, 128, torch.bfloat16, cuda, N=2))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ta.bwd_query_splits(2, 2, 4096, 128, sms) > 1
+    ta.reset_launch_counts()
+    ta.flash_attention(q, k, v).float().sum().backward()
+    assert ta.launch_counts == {**dict.fromkeys(ta.launch_counts, 0),
+                                "flash_fwd": 1, "flash_bwd_dkv": 1,
+                                "flash_bwd_dq": 1}
     for x in (q, k, v):
         assert x.grad is not None and torch.isfinite(x.grad.float()).all()
 

@@ -1,10 +1,12 @@
 """`mmpl_tpu_torch.tools.flash_compare` off the card: which scale a
-baseline checkout's K1 takes, what it refuses, and that it needs the card
-(its builds and times run only there)."""
+baseline checkout's K1 takes, which dKV signature its backward has, what
+it refuses, and that it needs the card (its builds and times run only
+there)."""
 
 import pytest
 import torch
 
+from mmpl_tpu_torch.ops import _build
 from mmpl_tpu_torch.tools import flash_compare
 
 
@@ -34,5 +36,46 @@ def test_compare_needs_the_card(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = flash_compare.parse_args(["--baseline", str(tmp_path),
                                      "--shapes", "cross"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flash_compare.run(args)
+
+
+@pytest.mark.parametrize("argv,kernel,shapes", [
+    ([], "fwd", list(flash_compare.SHAPES)),
+    (["--kernel", "bwd"], "bwd", ["tf_cross", "fewstep_self_hot"]),
+    (["--kernel", "bwd", "--shapes", "tf_cross"], "bwd", ["tf_cross"]),
+])
+def test_kernel_choice_parses_with_its_shapes(tmp_path, argv, kernel, shapes):
+    args = flash_compare.parse_args(["--baseline", str(tmp_path), *argv])
+    assert args.kernel == kernel and args.shapes == shapes
+
+
+def test_a_shape_of_the_other_kernel_is_refused(tmp_path):
+    with pytest.raises(SystemExit):
+        flash_compare.parse_args(["--baseline", str(tmp_path), "--kernel",
+                                  "bwd", "--shapes", "cross"])
+
+
+@pytest.mark.parametrize("hopper,dkv_args", [(False, 14), (True, 16)])
+def test_baseline_backward_is_bound_by_its_sources(tmp_path, hopper, dkv_args):
+    """A baseline without flash_bwd_sm90.cuh has the dKV entry of the
+    earlier trees (no workspace, no split); a newer one this tree's."""
+    names = ["flash_bwd.cu", "flash_common.cuh"] + (
+        ["flash_bwd_sm90.cuh"] if hopper else [])
+    root = _checkout(tmp_path, *names)
+    sigs = flash_compare.baseline_signatures(root, "flash_bwd")
+    dkv = sigs["mmpl_flash_bwd_dkv"]
+    assert len(dkv) == dkv_args + 3
+    new = _build.SIGNATURES["flash_bwd"]["mmpl_flash_bwd_dkv"]
+    assert (dkv == new) is hopper
+    assert (dkv == flash_compare.OLD_DKV_SIGNATURE) is (not hopper)
+    assert sigs["mmpl_flash_bwd_dq"] == \
+        _build.SIGNATURES["flash_bwd"]["mmpl_flash_bwd_dq"]
+
+
+def test_backward_compare_needs_the_card(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = flash_compare.parse_args(["--baseline", str(tmp_path),
+                                     "--kernel", "bwd"])
     with pytest.raises(RuntimeError, match="CUDA"):
         flash_compare.run(args)

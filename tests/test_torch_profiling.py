@@ -1,9 +1,11 @@
 """`utils.profiling.port_kernel_of`: the profiler's kernel names, mangled
 and demangled, booked to the port kernel (launch counter) they belong to.
 The names are those the card's build gives K1 (the Hopper body in bf16 /
-fp16, the template body in fp32), K4, P1 (both bodies) and K2/K3/K5/K6
-(the backward templates, whose last flag is the frame mask); a kernel of
-another library books to nothing."""
+fp16, the template body in fp32), K4, P1 (both bodies), K2/K3 (the Hopper
+backward in bf16 / fp16, K2's reduce kernel included, and the template in
+fp32) and K5/K6 (the backward templates, whose last flag is the frame
+mask); a kernel of another library books to nothing, and no Hopper
+backward kernel books to K5 or K6."""
 
 import pytest
 
@@ -32,6 +34,24 @@ NAMES = [
     ('K3', 'flash_bwd_dq',
      '_ZN45_GLOBAL__N__3a7d91c2_12_flash_bwd_cu_5e0b14d719flash_bwd_dq_kernelI13__nv_bfloat16Li128ELb0EEEvPKT_S4_S4_S4_PKfS6_PS2_iiiiNS_7StridesEfN4mmpl9FrameMaskE',
      'void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, 128, false>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, float const*, float const*, __nv_bfloat16*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
+    ('K2 Hopper', 'flash_bwd_dkv',
+     '_ZN4mmpl4sm9025flash_bwd_dkv_sm90_kernelI13__nv_bfloat16Li128EEEv14CUtensorMap_stS3_S3_S3_NS0_9BwdParamsE',
+     'void mmpl::sm90::flash_bwd_dkv_sm90_kernel<__nv_bfloat16, 128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::BwdParams)'),
+    ('K2 Hopper fp16', 'flash_bwd_dkv',
+     '_ZN4mmpl4sm9025flash_bwd_dkv_sm90_kernelI6__halfLi64EEEv14CUtensorMap_stS3_S3_S3_NS0_9BwdParamsE',
+     'void mmpl::sm90::flash_bwd_dkv_sm90_kernel<__half, 64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::BwdParams)'),
+    ('K2 reduce', 'flash_bwd_dkv',
+     '_ZN4mmpl4sm9027flash_bwd_dkv_reduce_kernelI13__nv_bfloat16EEvNS0_9BwdParamsE',
+     'void mmpl::sm90::flash_bwd_dkv_reduce_kernel<__nv_bfloat16>(mmpl::sm90::BwdParams)'),
+    ('K2 reduce fp16', 'flash_bwd_dkv',
+     '_ZN4mmpl4sm9027flash_bwd_dkv_reduce_kernelI6__halfEEvNS0_9BwdParamsE',
+     'void mmpl::sm90::flash_bwd_dkv_reduce_kernel<__half>(mmpl::sm90::BwdParams)'),
+    ('K3 Hopper', 'flash_bwd_dq',
+     '_ZN4mmpl4sm9024flash_bwd_dq_sm90_kernelI13__nv_bfloat16Li128EEEv14CUtensorMap_stS3_S3_S3_NS0_9BwdParamsE',
+     'void mmpl::sm90::flash_bwd_dq_sm90_kernel<__nv_bfloat16, 128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::BwdParams)'),
+    ('K3 Hopper fp16', 'flash_bwd_dq',
+     '_ZN4mmpl4sm9024flash_bwd_dq_sm90_kernelI6__halfLi64EEEv14CUtensorMap_stS3_S3_S3_NS0_9BwdParamsE',
+     'void mmpl::sm90::flash_bwd_dq_sm90_kernel<__half, 64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::BwdParams)'),
     ('K5', 'flash_masked_bwd_dkv',
      '_ZN45_GLOBAL__N__3a7d91c2_12_flash_bwd_cu_5e0b14d720flash_bwd_dkv_kernelI13__nv_bfloat16Li128ELb1EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_iiiiNS_7StridesEfN4mmpl9FrameMaskE',
      'void (anonymous namespace)::flash_bwd_dkv_kernel<__nv_bfloat16, 128, true>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, float const*, float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
