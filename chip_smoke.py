@@ -26,11 +26,17 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      ragged shapes with a frame that sees nothing, against the plain
      versions and SDPA (memory-efficient backend) with the token mask; K5
      and K6 run the template body;
-  5. kernel_int8: Q and P2 (csrc/int8_gemm.cu) against their plain
-     versions at the 1.3B window's projection shapes, one VAE im2col
-     shape, a ragged shape and fp32 activations: codes, scales and int32
-     accumulators exactly, outputs within 1 ulp; kernel / plain /
-     torch._int_mm / bf16 matmul times and the card's bound;
+  5. kernel_int8 (run before kernel_masked, whose large SDPA yardstick
+     leaves the short profiler sessions that read a body without their
+     records): Q (csrc/int8_gemm.cu) and P2 (the wgmma s8 + TMA body
+     of csrc/int8_gemm_sm90.cuh) against their plain versions at the 1.3B
+     window's projection shapes, the VAE's im2col shapes (96 channels, the
+     3-channel head, the 16-channel conv2, the decoder's first conv), a
+     ragged shape and fp32 activations: codes, scales and int32
+     accumulators exactly, outputs within 1 ulp, the same bits on a second
+     call; the body each ran (profiler names); device times of the kernel,
+     torch._int_mm + epilogue and the bf16 matmul, the plain version's and
+     the card's bound;
   6. cli, cli_int8: the port's serving CLI in smoke mode (tiny config,
      fp32, 2 windows), then again with --quantize auto --quantize-cache
      --quantize-vae;
@@ -41,7 +47,9 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
   8. window_int8, profile_int8: the same windows from the same seeds with
      int8 projections (W8A8), the int8 KV cache and the int8 VAE decoder,
      with exact K1 / Q / P2 launch counts, the cache's bytes, and the
-     latents' and frames' distance from the bf16 windows; quant_parity:
+     latents' and frames' distance from the bf16 windows;
+     profile_int8_vae: one int8 decode of a window under torch.profiler
+     (P2, im2col copies, activation codes, the rest); quant_parity:
      the tiny model's int8 fp32 window (and a small int8 decode) on the
      card against the CPU's plain path;
   9. train_cli: `python -m mmpl_tpu_torch.train --smoke --steps 3` in this
@@ -109,7 +117,8 @@ from mmpl_tpu_torch.pipelines.fps_inference import \
     CausalFPSInferencePipeline                                    # noqa: E402
 from mmpl_tpu_torch.training import masks                        # noqa: E402
 from mmpl_tpu_torch.utils.device import set_float32_precision   # noqa: E402
-from mmpl_tpu_torch.utils.profiling import port_kernel_of         # noqa: E402
+from mmpl_tpu_torch.utils.profiling import (device_kernels,      # noqa: E402
+                                            port_kernel_of, queued_ms)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -193,10 +202,13 @@ MASKED_MAIN = "tf_self"
 #: P2 / Q shapes: (label, M, K, N, activation dtype or None, output
 #: dtype).  M = 6240, 21840, 18720: the tokens of group 0, group 1 and
 #: groups 2/3 of the 1.3B window times the CFG pair; (K, N): the fused
-#: qkv, o (and cross-attention q / o), ffn.fc1, ffn.fc2.  "vae_96ch" is
-#: the im2col of one 480x832 frame through a 96-channel 3x3x3 decoder
-#: conv (per-tensor activation codes made outside Q, sx = 1); "smoke_f32"
-#: the tiny model's fp32 qkv.
+#: qkv, o (and cross-attention q / o), ffn.fc1, ffn.fc2.  The VAE's int8
+#: im2col products (per-tensor activation codes made outside Q, sx = 1):
+#: "vae_96ch" one 480x832 frame through a 96-channel 3x3x3 decoder conv,
+#: "vae_head" the same frame through the head conv (N = 3), "vae_conv2"
+#: the post-latent 1x1x1 conv of a window's 21 latent frames at 60x104
+#: (K = N = 16), "vae_conv1" the decoder's first conv of one latent frame
+#: (16 -> 384 channels, K = 432); "smoke_f32" the tiny model's fp32 qkv.
 INT8_SHAPES = [
     (f"g{g}_{name}", M, K, N, torch.bfloat16, torch.bfloat16)
     for g, M in (("0", 6240), ("1", 21840), ("23", 18720))
@@ -204,6 +216,9 @@ INT8_SHAPES = [
                        ("fc1", 1536, 8960), ("fc2", 8960, 1536))
 ] + [
     ("vae_96ch", 480 * 832, 96 * 27, 96, None, torch.bfloat16),
+    ("vae_head", 480 * 832, 96 * 27, 3, None, torch.bfloat16),
+    ("vae_conv2", 21 * 60 * 104, 16, 16, None, torch.bfloat16),
+    ("vae_conv1", 60 * 104, 16 * 27, 384, None, torch.bfloat16),
     ("ragged", 1000, 96, 200, torch.bfloat16, torch.bfloat16),
     ("smoke_f32", 224, 96, 288, torch.float32, torch.float32),
 ]
@@ -307,8 +322,23 @@ def phase_device():
         emit({"phase": "build", "kernel": name,
               "seconds": round(info.get("seconds", 0.0), 3),
               "cached": name not in log, "ptxas": _ptxas_lines(report),
-              "wgmma_serialized": report.count("C7512")})
+              "wgmma_serialized": report.count("C7512"),
+              "sm90_spill_store_bytes": _spill_bytes(report, "_sm90_kernel")})
     return smi
+
+
+def _spill_bytes(report: str, pattern: str) -> int:
+    """Spill-store bytes summed over the kernels of `nvcc -Xptxas -v`'s
+    report whose mangled name holds `pattern`."""
+    total, mine = 0, False
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            mine = pattern in m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and mine:
+            total += int(m.group(1))
+    return total
 
 
 def _ptxas_lines(report: str) -> list:
@@ -343,29 +373,11 @@ def _kernel_id(mangled: str) -> str:
     return mangled
 
 
-#: profiler sessions that recorded no device kernel at all are run again
-#: after these pauses (s): even with CUPTI resident (above) a short session
-#: now and then loses every device record
-PROFILE_RETRY_PAUSES = (1.0, 2.0, 4.0)
-
-
 def _launched(fn) -> list:
     """The names of the device kernels that one call of `fn` launches.
     `fn` runs again (after a pause) while a session records no device
     kernel at all; a caller keeps the result of its last call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for pause in (0.0, *PROFILE_RETRY_PAUSES):
-        time.sleep(pause)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = sorted({e.key for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA})
-        if names:
-            return names
-    return names
+    return sorted(device_kernels(fn))
 
 
 def _body(names, counter: str, dtype) -> str:
@@ -653,9 +665,40 @@ def _esize(dtype) -> int:
     return torch.tensor([], dtype=dtype).element_size()
 
 
+#: calls of one kernel_int8 timing (profiling.queued_ms)
+INT8_TIMED_CALLS = 10
+
+
+def _device_ms(fn, counter=None, reps: int = INT8_TIMED_CALLS):
+    """(device ms of one call, names of the kernels that book to
+    `counter`): the time of `reps` calls queued on the card
+    (profiling.queued_ms), free of the host's time around each launch; the
+    names from a torch.profiler session of `reps` calls (a session may
+    lose the records of its first few kernels)."""
+    names = [] if counter is None else [
+        n for n in device_kernels(fn, reps) if port_kernel_of(n) == counter]
+    return queued_ms(fn, reps), names
+
+
+def _int8_body(names, counter: str, K: int) -> str:
+    """The body that ran: P2 "wgmma" (`int8_gemm_sm90_kernel`); Q
+    "one_read" (`quantize_rows_sm90_kernel`) or, past the rows its
+    registers hold (quant.q_row_warps(K) = 0), "two_read"."""
+    check(len(names) == 1, (counter, names))
+    if counter == "int8_gemm":
+        check("int8_gemm_sm90_kernel" in names[0], names)
+        return "wgmma"
+    body = ("one_read" if "quantize_rows_sm90_kernel" in names[0]
+            else "two_read")
+    check(body == ("one_read" if quant.q_row_warps(K) else "two_read"),
+          (K, names))
+    return body
+
+
 def phase_kernel_int8():
     """Q (per-token codes) and P2 (int8 product, rescale epilogue) against
-    their plain versions, and their times beside the library's."""
+    their plain versions, the body each ran, and their device times
+    beside the library's."""
     rows = {}
     gen = torch.Generator(device="cuda").manual_seed(3)
     for label, M, K, N, act, out in INT8_SHAPES:
@@ -663,7 +706,8 @@ def phase_kernel_int8():
         wq, sw = quant.quantize_weight(w)
         row = {"phase": "kernel_int8", "shape": label, "M": M, "K": K,
                "N": N, "act": str(act).replace("torch.", ""),
-               "out": str(out).replace("torch.", "")}
+               "out": str(out).replace("torch.", ""),
+               "tile_n": quant.p2_tile_n(N)}
         if act is None:
             xq = torch.randint(-127, 128, (M, K), generator=gen,
                                device="cuda", dtype=torch.int8)
@@ -680,7 +724,11 @@ def phase_kernel_int8():
                 (xq.int() - pq.int()).abs().max().item(),
                 (sx - psx).abs().max().item())
             check(row["q_codes_equal"] and row["q_scales_equal"], row)
-            del pq, psx
+            again, again_s = quant.quantize_rows_cuda(x)
+            row["q_repeat_equal"] = bool(torch.equal(again, xq)
+                                         and torch.equal(again_s, sx))
+            check(row["q_repeat_equal"], row)
+            del pq, psx, again, again_s
         acc = quant.int8_gemm_cuda(xq, wq, None, None, torch.int32)
         pacc = quant.int8_gemm_plain(xq, wq, None, None, torch.int32)
         torch.cuda.synchronize()
@@ -694,8 +742,15 @@ def phase_kernel_int8():
         row["out_max_ulps"] = _ulps(y, py)
         row["max_abs_err"] = (y.float() - py.float()).abs().max().item()
         check(row["out_max_ulps"] <= 1, row)
+        row["repeat_equal"] = bool(torch.equal(
+            quant.int8_gemm_cuda(xq, wq, sx, sw, out), y))
+        check(row["repeat_equal"], row)
         del y, py
-        row["ms"] = time_ms(lambda: quant.int8_gemm_cuda(xq, wq, sx, sw, out))
+        row["ms"], names = _device_ms(
+            lambda: quant.int8_gemm_cuda(xq, wq, sx, sw, out), "int8_gemm")
+        row["body"] = _int8_body(names, "int8_gemm", K)
+        row["call_ms"] = time_ms(
+            lambda: quant.int8_gemm_cuda(xq, wq, sx, sw, out))
         row["plain_ms"] = time_ms(
             lambda: quant.int8_gemm_plain(xq, wq, sx, sw, out), max_reps=5)
         ops = 2.0 * M * N * K
@@ -704,6 +759,7 @@ def phase_kernel_int8():
         t_ops, t_bytes = ops / PEAK_INT8, nbytes / PEAK_BYTES
         row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
         row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         row["tops"] = ops / row["ms"] / 1e9
 
         def library():      # the yardstick only: the port never calls it
@@ -712,19 +768,24 @@ def phase_kernel_int8():
                 yl = yl * sx[:, None]
             return (yl * sw[None, :]).to(out)
         try:
-            row["library_ms"] = time_ms(library)
+            row["library_ms"] = _device_ms(library)[0]
         except RuntimeError as exc:
             row["library_ms"] = None
             row["library_error"] = str(exc).splitlines()[0][:200]
         xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
-        row["bf16_matmul_ms"] = time_ms(lambda: torch.matmul(xb, wb.t()))
+        row["bf16_matmul_ms"] = _device_ms(lambda: torch.matmul(xb, wb.t()))[0]
         del xb, wb
         if act is not None:
-            row["q_ms"] = time_ms(lambda: quant.quantize_rows_cuda(x))
+            row["q_ms"], names = _device_ms(
+                lambda: quant.quantize_rows_cuda(x), "quantize_rows")
+            row["q_body"] = _int8_body(names, "quantize_rows", K)
+            row["q_row_warps"] = quant.q_row_warps(K)
+            row["q_call_ms"] = time_ms(lambda: quant.quantize_rows_cuda(x))
             row["q_plain_ms"] = time_ms(lambda: quant.quantize_rows_plain(x),
                                         max_reps=5)
             row["q_bound_ms"] = 1e3 * (M * K * (_esize(act) + 1) + 4 * M
                                        ) / PEAK_BYTES
+            row["q_bound_share"] = row["q_bound_ms"] / row["q_ms"]
         emit(row)
         rows[label] = row
         del x, xq, w, wq
@@ -1115,6 +1176,10 @@ def _profile_step(step, what: str, phase: str, top: int = 12) -> dict:
            "int8_share_of_busy": (p2_ms + q_ms) / busy_ms if busy_ms
            else None,
            "port_kernels_ms": by_port,
+           "int8_kernels": {e.key[:90]: {"calls": e.count,
+                                         "ms": e.self_device_time_total / 1e3}
+                            for e in kernels if port_kernel_of(e.key) in
+                            ("int8_gemm", "quantize_rows")},
            "top_kernels": [{"name": e.key[:90], "calls": e.count,
                             "ms": e.self_device_time_total / 1e3}
                            for e in kernels[:top]]}
@@ -1127,17 +1192,75 @@ def _profile_step(step, what: str, phase: str, top: int = 12) -> dict:
 def _by_port(kernels) -> dict:
     """Device ms of each port kernel (by launch counter) among the
     profiler's `kernels`; a Hopper-body kernel (K2's reduce included) must
-    book to K1, P1, K2 or K3, never to nothing or to a masked kernel."""
+    book to K1, P1, K2, K3, P2 or Q, never to nothing or to a masked
+    kernel."""
     by_port = {}
     for e in kernels:
         name = port_kernel_of(e.key)
         if "_sm90_kernel" in e.key or "_reduce_kernel" in e.key:
             check(name in ("flash_fwd", "flash_exp2", "flash_bwd_dkv",
-                           "flash_bwd_dq"), e.key)
+                           "flash_bwd_dq", "int8_gemm", "quantize_rows"),
+                  e.key)
         if name:
             by_port[name] = by_port.get(name, 0.0) + \
                 e.self_device_time_total / 1e3
     return by_port
+
+
+def phase_profile_int8_vae(top: int = 12):
+    """One int8 `decode_to_frames` of a window (21 latent frames at 60x104
+    to 81 frames at 480x832; window_int8's int8 VAE decoder, from the same
+    seed) under torch.profiler: device time by kernel, the idle share, and
+    the split between P2, the im2col copies, the activation codes and the
+    copies of the products into the output (vae.INT8_CONV_RANGES: each
+    range's device time is that of the kernels launched inside it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    vae_model = vae.quantize_vae_decoder(vae.init_vae_params(
+        torch.Generator(device=dev).manual_seed(1), torch.float32, dev))
+    lat = torch.randn((1, 21, 16, 60, 104), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(8))
+    vae.decode_to_frames(vae_model, lat)      # the im2col weights, once
+    torch.cuda.synchronize()
+    quant.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        frames, _ = vae.decode_to_frames(vae_model, lat)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    ranges = vae.INT8_CONV_RANGES
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                      and e.key not in ranges
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    in_range = {r.split(".")[-1] + "_ms": sum(
+        e.device_time_total for e in events
+        if e.device_type == DeviceType.CPU and e.key == r) / 1e3
+        for r in ranges}
+    p2 = [e for e in kernels if port_kernel_of(e.key) == "int8_gemm"]
+    p2_ms = sum(e.self_device_time_total for e in p2) / 1e3
+    row = {"phase": "profile_int8_vae",
+           "what": "int8 decode_to_frames, 21 latent frames -> 81 at 480x832",
+           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+           "int8_gemm_ms": p2_ms, "int8_gemm_launches":
+               quant.launch_counts["int8_gemm"],
+           "int8_gemm_kernels": {e.key[:90]: e.count for e in p2},
+           **in_range,
+           "other_ms": busy_ms - p2_ms - sum(in_range.values()),
+           "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in kernels[:top]]}
+    emit(row)
+    check(tuple(frames.shape) == (1, 81, 480, 832, 3), frames.shape)
+    check(p2_ms > 0 and quant.launch_counts["int8_gemm"] > 0
+          and all("_sm90_kernel" in e.key for e in p2), row)
+    del vae_model, lat, frames
+    torch.cuda.empty_cache()
 
 
 def phase_profile(pipe, cond, uncond, top: int = 12, phase="profile"):
@@ -1159,7 +1282,12 @@ def phase_profile(pipe, cond, uncond, top: int = 12, phase="profile"):
         with torch.inference_mode():
             pipe._forward(schedule, ctx_kv2, cache, lat, 500.0, False)
 
-    _profile_step(step, "group3 solver forward, 30 layers", phase, top)
+    row = _profile_step(step, "group3 solver forward, 30 layers", phase, top)
+    if phase == "profile_int8":
+        # W8A8 runs P2's Hopper body and Q's one-read body (K = 1536, 8960)
+        names = list(row["int8_kernels"])
+        check(row["int8_gemm_ms"] > 0 and row["quantize_rows_ms"] > 0
+              and all("_sm90_kernel" in n for n in names), names)
 
 
 def _train_launches(num_layers: int, steps: int) -> dict:
@@ -1785,22 +1913,32 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
             library=("SDPA, memory-efficient backend, token-level bool mask"
                      + ("" if part == "fwd" else "; " + bwd_note))))
     int8_src = "mmpl_tpu_torch/csrc/int8_gemm.cu"
+    p2_src = "mmpl_tpu_torch/csrc/int8_gemm_sm90.cuh"
     p2, q = int8[INT8_MAIN], int8[Q_MAIN]
+    timing = (f"ms: device time of one call, {INT8_TIMED_CALLS} calls "
+              "queued on the card behind a spinning kernel between CUDA "
+              "events (library_ms and bf16_matmul_ms too); call_ms: CUDA "
+              "events around one call after a synchronise, the wrapper's "
+              "host time included")
     out.append(_entry(
-        "int8_gemm", int8_src,
+        "int8_gemm", p2_src,
         "tools/pallas_int8_mm_probe.py:38 (_mm_s8_kernel, pallas_call :49) "
         "and :61 (_mm_s8_kloop_kernel, pallas_call :82)",
         int8_launches["int8_gemm"],
         max(r["max_abs_err"] for r in int8.values()), p2["ms"],
         p2["plain_ms"], p2["bound_ms"], p2["bound_by"], p2["library_ms"],
-        at=INT8_MAIN, bf16_matmul_ms=p2["bf16_matmul_ms"], tops=p2["tops"],
+        at=INT8_MAIN, sources=[p2_src, int8_src],
+        bodies="wgmma s8 + TMA, persistent, warp-specialised "
+               "(int8_gemm_sm90.cuh); entry in int8_gemm.cu",
+        bf16_matmul_ms=p2["bf16_matmul_ms"], tops=p2["tops"],
+        bound_share=p2["bound_share"], timing=timing,
         max_ulps=max(r["out_max_ulps"] for r in int8.values()),
         accumulators_exact=all(r["acc_equal"] for r in int8.values()),
-        library="torch._int_mm + the same epilogue",
-        shapes={k: {f: r.get(f) for f in ("ms", "plain_ms", "bound_ms",
-                                          "library_ms", "bf16_matmul_ms",
-                                          "tops", "out_max_ulps")}
-                for k, r in int8.items()}))
+        library="torch._int_mm + the same epilogue (device time)",
+        shapes={k: {f: r.get(f) for f in (
+            "body", "tile_n", "ms", "call_ms", "plain_ms", "bound_ms",
+            "bound_share", "library_ms", "bf16_matmul_ms", "tops",
+            "out_max_ulps")} for k, r in int8.items()}))
     out.append(_entry(
         "quantize_rows", int8_src,
         "mmpl_tpu/ops/quant.py:49-52 (per-token codes, fused by XLA)",
@@ -1808,10 +1946,16 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
         max(r["q_max_abs_err"] for r in int8.values() if "q_ms" in r),
         q["q_ms"], q["q_plain_ms"],
         q["q_bound_ms"], "bytes", None, at=Q_MAIN,
+        bound_share=q["q_bound_share"], timing=timing,
+        bodies="one read: the row in registers, a warp or a block a row "
+               "(quantize_rows_sm90_kernel); two reads past 16,384 "
+               "elements (quantize_rows_kernel)",
         codes_and_scales_exact=all(
             r["q_codes_equal"] and r["q_scales_equal"]
             for r in int8.values() if "q_codes_equal" in r),
-        shapes={k: {f: r[f] for f in ("q_ms", "q_plain_ms", "q_bound_ms")}
+        shapes={k: {f: r[f] for f in ("q_body", "q_row_warps", "q_ms",
+                                      "q_call_ms", "q_plain_ms",
+                                      "q_bound_ms", "q_bound_share")}
                 for k, r in int8.items() if "q_ms" in r}))
     p1 = exp2[EXP2_MAIN]
     out.append(_entry(
@@ -1838,8 +1982,10 @@ def main() -> int:
     # short sessions that read which body ran saw no device kernel
     exp2 = phase_kernel_exp2()
     bwd = phase_kernel_bwd()
-    masked = phase_kernel_masked()
+    # before kernel_masked: after its 65520^2 SDPA yardstick the short
+    # sessions that read which body ran lost their device records
     int8 = phase_kernel_int8()
+    masked = phase_kernel_masked()
     phase_cli()
     phase_cli_int8()
     window_launches, pipe, cond, uncond, bf16 = phase_window()
@@ -1850,6 +1996,7 @@ def main() -> int:
     phase_profile(pipe, cond, uncond, phase="profile_int8")
     del pipe, cond, uncond, bf16
     torch.cuda.empty_cache()
+    phase_profile_int8_vae()
     phase_quant_parity()
     phase_train_cli()
     phase_train_parity()

@@ -1,206 +1,56 @@
 // int8 projections for Hopper (sm_90a), plain C interface for ctypes.  Two
 // kernels:
 //
-//  * P2, `int8_gemm_kernel`.  Replaces the TPU probe kernels `_mm_s8_kernel`
-//    (tools/pallas_int8_mm_probe.py:38, called at :49) and
-//    `_mm_s8_kloop_kernel` (:61, called at :82), the hand-written Pallas form
-//    of the s8 x s8 -> s32 dot that `w8a8_matmul` (mmpl_tpu/ops/quant.py:41)
-//    leaves to XLA.  C[m, n] = sum_k A[m, k] * B[n, k] in int32 (exact), then
-//    the epilogue out = (float(acc) * sx[m]) * sw[n] in that order, written as
-//    fp32 or bf16; or the int32 accumulator itself.  A is int8 [M, K]
-//    row-major (the per-token activation codes), B int8 [N, K] K-contiguous
-//    (torch's Linear layout: the col-major B operand of mma.sync, so neither
-//    operand needs a transpose).
-//  * Q, `quantize_rows_kernel`.  The per-token activation quantisation of
-//    quant.py:49-52 (XLA-fused on the TPU): s = max(amax_k |x| / 127, 1e-12),
-//    q = clip(rint(x / s), -127, 127), in fp32 with true divisions and
-//    round-half-even, so the codes equal the plain version's bit for bit.
+//  * P2, `int8_gemm_sm90_kernel` (csrc/int8_gemm_sm90.cuh): the int8
+//    product C = A B^T in exact int32 with the rescale epilogue, on wgmma
+//    s8 and TMA.  It replaces the TPU probe kernels `_mm_s8_kernel` and
+//    `_mm_s8_kloop_kernel` (tools/pallas_int8_mm_probe.py:38 and :61); the
+//    header says what bounds it and how it is built.
+//  * Q, the per-token activation quantisation of quant.py:49-52 (XLA-fused
+//    on the TPU): s = max(amax_k |x| / 127, 1e-12), q = clip(rint(x / s),
+//    -127, 127), in fp32 with true divisions and round-half-even, so the
+//    codes equal the plain version's bit for bit.
 //
-// What bounds P2 on an H100: operations at the main path's shapes.  The work
-// is 2*M*N*K int8 operations against M*K + N*K input bytes and M*N outputs;
-// at M = 18720, K = 1536, N = 8960 that is ~2,700 operations per byte,
-// far above the card's ~590 int8 operations per byte ridge (1,979 TOPS over
-// 3.35 TB/s).  The design is the simple one: a 128 x 128 block tile, 8 warps
-// each owning 64 x 32 of it with its int32 accumulators in registers
-// (mma.sync m16n8k32 s8.s8.s32, operands through ldmatrix), 64-byte K steps
-// double-buffered with cp.async, the ragged M, N and K edges zero-filled by
-// cp.async's src-size operand.  No wgmma, no TMA: mma.sync reaches only part
-// of Hopper's int8 rate, which is later work.  K must be a multiple of 16
-// (a 16-byte chunk is then all data or all padding).
-//
-// What bounds Q: bytes (one read of x, one write of the codes; the row is
-// read a second time from cache).  One warp owns one row and loads 16 bytes
-// per lane per step.
-
+// What bounds Q: bytes (one read of x, one write of the codes).  So the
+// row is read once: `quantize_rows_sm90_kernel` holds it in registers,
+// eight elements (one or two 16-byte loads) a slot and up to kSlots slots
+// a thread, reduces the amax over a warp (rows of up to 2,048 elements) or
+// a block of kRowWarps warps (up to 16,384, amax through shared memory),
+// and writes the codes from the registers with 8-byte stores.  The host
+// chooses the layout from K (ops/quant.py:q_row_warps).  A longer row
+// keeps `quantize_rows_kernel`, one warp a row that reads the row twice
+// (the second read from cache).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_common.cuh"
+#include "int8_gemm_sm90.cuh"
 
 namespace {
 
-constexpr int BM = 128;          // block rows (M)
-constexpr int BN = 128;          // block columns (N)
-constexpr int BK = 64;           // bytes of K per pipeline stage
-constexpr int GEMM_THREADS = 256;
-constexpr int LDS = BK + 16;     // shared-memory row pitch: ldmatrix rows in distinct banks
-constexpr int STAGE = (BM + BN) * LDS;
+constexpr int kSlots = 8;      // eight-element slots a thread holds
+constexpr int kRowWarps = 8;   // warps of a block that owns one row
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Rows [row0, row0 + 128) and bytes [k0, k0 + BK) of a row-major [R, K] int8
-// matrix into a [128, LDS] tile; rows past R and bytes past K read as zero.
-__device__ __forceinline__ void load_tile(int8_t* dst, const int8_t* src, int row0, int R,
-                                          int k0, int K) {
-  constexpr int CHUNKS = BK / 16;
-  for (int i = threadIdx.x; i < 128 * CHUNKS; i += GEMM_THREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i - r * CHUNKS) * 16;
-    const bool valid = row0 + r < R && k0 + c < K;
-    const int8_t* g = valid ? src + (long long)(row0 + r) * K + k0 + c : src;
-    mmpl::cp_async16(dst + r * LDS + c, g, valid);
+// Eight consecutive elements of a row, as loaded (16 or 32 bytes).
+template <typename T> struct Eight;
+template <> struct Eight<float> {
+  float4 lo, hi;
+  __device__ __forceinline__ void load(const float* p) {
+    lo = *reinterpret_cast<const float4*>(p);
+    hi = *reinterpret_cast<const float4*>(p + 4);
   }
-}
-
-template <typename Out> struct Epilogue;
-template <> struct Epilogue<float> {
-  static __device__ __forceinline__ float cvt(int acc, float a, float w) {
-    return (__int2float_rn(acc) * a) * w;
-  }
-  static __device__ __forceinline__ void store2(float* p, float x, float y) {
-    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  __device__ __forceinline__ void get(float (&v)[8]) const {
+    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
   }
 };
-template <> struct Epilogue<__nv_bfloat16> {
-  static __device__ __forceinline__ __nv_bfloat16 cvt(int acc, float a, float w) {
-    return __float2bfloat16((__int2float_rn(acc) * a) * w);
+template <> struct Eight<__nv_bfloat16> {
+  uint4 raw;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    raw = *reinterpret_cast<const uint4*>(p);
   }
-  static __device__ __forceinline__ void store2(__nv_bfloat16* p, __nv_bfloat16 x,
-                                                __nv_bfloat16 y) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(x, y);
-  }
-};
-template <> struct Epilogue<int> {
-  static __device__ __forceinline__ int cvt(int acc, float, float) { return acc; }
-  static __device__ __forceinline__ void store2(int* p, int x, int y) {
-    *reinterpret_cast<int2*>(p) = make_int2(x, y);
-  }
-};
-
-// One block: output rows [128 * blockIdx.x, +128), columns [128 * blockIdx.y,
-// +128).  Warp w owns rows 64 * (w / 4) and columns 32 * (w % 4) of the tile:
-// 4 x 4 m16n8 accumulator tiles.
-template <typename Out>
-__global__ void __launch_bounds__(GEMM_THREADS)
-    int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-                     const float* __restrict__ sx, const float* __restrict__ sw,
-                     Out* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(128) int8_t smem[2 * STAGE];
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wm = 64 * (warp / 4);
-  const int wn = 32 * (warp % 4);
-  const int mi = lane / 8;   // which 8x8 matrix this lane addresses for ldmatrix
-  const int r = lane % 8;
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-  const int steps = (K + BK - 1) / BK;
-  load_tile(smem, a, m0, M, 0, K);
-  load_tile(smem + BM * LDS, b, n0, N, 0, K);
-  mmpl::cp_async_commit();
-  for (int s = 0; s < steps; ++s) {
-    int8_t* cur = smem + (s & 1) * STAGE;
-    if (s + 1 < steps) {  // the next step into the other buffer, read last at s - 1
-      int8_t* nxt = smem + ((s + 1) & 1) * STAGE;
-      load_tile(nxt, a, m0, M, (s + 1) * BK, K);
-      load_tile(nxt + BM * LDS, b, n0, N, (s + 1) * BK, K);
-    }
-    mmpl::cp_async_commit();
-    mmpl::cp_async_wait<1>();
-    __syncthreads();
-    const int8_t* sa = cur;
-    const int8_t* sb = cur + BM * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK / 32; ++kk) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        mmpl::ldsm_x4(af[i], sa + (wm + 16 * i + r + 8 * (mi & 1)) * LDS + 32 * kk + 16 * (mi >> 1));
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {  // n8 tiles 2*jp, 2*jp + 1
-        uint32_t bf[4];
-        mmpl::ldsm_x4(bf, sb + (wn + 8 * (2 * jp + (mi >> 1)) + r) * LDS + 32 * kk + 16 * (mi & 1));
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          mma_s8(acc[i][2 * jp], af[i], bf[0], bf[1]);
-          mma_s8(acc[i][2 * jp + 1], af[i], bf[2], bf[3]);
-        }
-      }
-    }
-    __syncthreads();  // the buffer is refilled at step s + 1
-  }
-
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const bool pairs = (N % 2) == 0;  // two neighbouring outputs are 8-byte aligned
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm + 16 * i + g + 8 * h;
-      if (row >= M) continue;
-      const float av = sx ? sx[row] : 1.f;
-      Out* orow = out + (long long)row * N;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + wn + 8 * j + 2 * t;
-        if (col >= N) continue;
-        const float w0 = sw ? sw[col] : 1.f;
-        const Out y0 = Epilogue<Out>::cvt(acc[i][j][2 * h], av, w0);
-        if (col + 1 < N) {
-          const Out y1 = Epilogue<Out>::cvt(acc[i][j][2 * h + 1], av, sw ? sw[col + 1] : 1.f);
-          if (pairs) {
-            Epilogue<Out>::store2(orow + col, y0, y1);
-          } else {
-            orow[col] = y0;
-            orow[col + 1] = y1;
-          }
-        } else {
-          orow[col] = y0;
-        }
-      }
-    }
-  }
-}
-
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int n = 4;
-  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int n = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[8]) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+  __device__ __forceinline__ void get(float (&v)[8]) const {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = __bfloat1622float2(h[i]);
@@ -210,65 +60,133 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-// One warp per row of a contiguous x [M, K] (K a multiple of 16): the
-// row's amax, then its codes and scale.
+__device__ __forceinline__ float row_scale(float amax) { return fmaxf(amax / 127.f, 1e-12f); }
+
+// Eight codes, the lowest address in the low byte.
+__device__ __forceinline__ uint2 codes8(const float (&v)[8], float s) {
+  uint32_t w[2] = {0, 0};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int c = (int)fminf(fmaxf(rintf(v[e] / s), -127.f), 127.f);
+    w[e / 4] |= (uint32_t)(uint8_t)(int8_t)c << (8 * (e % 4));
+  }
+  return make_uint2(w[0], w[1]);
+}
+
+// Q in one read.  kWarps = 1: eight rows a block, a warp each; kWarps =
+// kRowWarps: one row a block.  Thread i of a row holds slots i, i + T, ...
+// (T threads a row), so a warp's loads and stores are contiguous.
+template <typename T, int kWarps>
+__global__ void __launch_bounds__(kWarps == 1 ? 256 : 32 * kWarps)
+    quantize_rows_sm90_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                              float* __restrict__ scale, int M, int K) {
+  constexpr int kThreads = 32 * kWarps;  // threads of a row
+  const int i = kWarps == 1 ? threadIdx.x % 32 : threadIdx.x;
+  const long long row =
+      kWarps == 1 ? (long long)blockIdx.x * 8 + threadIdx.x / 32 : (long long)blockIdx.x;
+  if (row >= M) return;  // whole warps (kWarps = 1); never with one row a block
+  const int slots = K / 8;
+  const T* xr = x + row * K;
+  Eight<T> held[kSlots];
+  float amax = 0.f;
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r) {
+    const int slot = i + r * kThreads;
+    if (slot < slots) {
+      held[r].load(xr + 8 * slot);
+      float v[8];
+      held[r].get(v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if constexpr (kWarps > 1) {
+    __shared__ float part[kWarps];
+    if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = amax;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) amax = fmaxf(amax, part[w]);
+  }
+  const float s = row_scale(amax);
+  if (i == 0) scale[row] = s;
+  int8_t* qr = q + row * K;
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r) {
+    const int slot = i + r * kThreads;
+    if (slot < slots) {
+      float v[8];
+      held[r].get(v);
+      *reinterpret_cast<uint2*>(qr + 8 * slot) = codes8(v, s);
+    }
+  }
+}
+
+// Q for rows longer than the one-read layouts hold: one warp a row, the
+// amax, then the codes from a second read.
 template <typename T>
 __global__ void quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                                      float* __restrict__ scale, int M, int K) {
-  constexpr int V = Vec<T>::n;
   const long long row = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= M) return;
   const T* xr = x + row * K;
   float amax = 0.f;
-  for (int k = V * lane; k < K; k += 32 * V) {
-    float v[V];
-    Vec<T>::load(xr + k, v);
+  for (int k = 8 * lane; k < K; k += 32 * 8) {
+    Eight<T> e;
+    e.load(xr + k);
+    float v[8];
+    e.get(v);
 #pragma unroll
-    for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(v[e]));
+    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float s = fmaxf(amax / 127.f, 1e-12f);
+  const float s = row_scale(amax);
   if (lane == 0) scale[row] = s;
   int8_t* qr = q + row * K;
-  for (int k = V * lane; k < K; k += 32 * V) {
-    float v[V];
-    Vec<T>::load(xr + k, v);
-    uint32_t w[V / 4];  // the codes, four to a word, lowest address in the low byte
-#pragma unroll
-    for (int i = 0; i < V / 4; ++i) {
-      w[i] = 0;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = (int)fminf(fmaxf(rintf(v[4 * i + e] / s), -127.f), 127.f);
-        w[i] |= (uint32_t)(uint8_t)(int8_t)c << (8 * e);
-      }
-    }
-    if constexpr (V == 8) {
-      *reinterpret_cast<uint2*>(qr + k) = make_uint2(w[0], w[1]);
-    } else {
-      *reinterpret_cast<uint32_t*>(qr + k) = w[0];
-    }
+  for (int k = 8 * lane; k < K; k += 32 * 8) {
+    Eight<T> e;
+    e.load(xr + k);
+    float v[8];
+    e.get(v);
+    *reinterpret_cast<uint2*>(qr + k) = codes8(v, s);
   }
 }
 
-template <typename Out>
-int launch_gemm(const void* a, const void* b, const void* sx, const void* sw, void* out, int M,
-                int N, int K, cudaStream_t stream) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  int8_gemm_kernel<Out><<<grid, GEMM_THREADS, 0, stream>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
-      static_cast<const float*>(sx), static_cast<const float*>(sw), static_cast<Out*>(out), M, N,
-      K);
-  return (int)cudaGetLastError();
+template <int BN>
+int launch_gemm(int out_dtype, const void* a, const void* b, const float* sx, const float* sw,
+                void* out, int M, int N, int K, cudaStream_t s) {
+  using mmpl::sm90::launch_int8_gemm;
+  switch (out_dtype) {
+    case 0:
+      return launch_int8_gemm<BN, float>(a, b, sx, sw, static_cast<float*>(out), M, N, K, s);
+    case 1:
+      return launch_int8_gemm<BN, __nv_bfloat16>(a, b, sx, sw,
+                                                 static_cast<__nv_bfloat16*>(out), M, N, K, s);
+    default:
+      return launch_int8_gemm<BN, int>(a, b, nullptr, nullptr, static_cast<int*>(out), M, N, K,
+                                       s);
+  }
 }
 
 template <typename T>
-int launch_quantize(const void* x, void* q, void* scale, int M, int K, cudaStream_t stream) {
-  constexpr int ROWS = 8;  // warps per block
-  quantize_rows_kernel<T><<<(M + ROWS - 1) / ROWS, 32 * ROWS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<int8_t*>(q), static_cast<float*>(scale), M, K);
+int launch_quantize(const void* xv, void* qv, void* sv, int M, int K, int warps,
+                    cudaStream_t stream) {
+  const T* x = static_cast<const T*>(xv);
+  int8_t* q = static_cast<int8_t*>(qv);
+  float* s = static_cast<float*>(sv);
+  switch (warps) {
+    case 1:
+      quantize_rows_sm90_kernel<T, 1><<<(M + 7) / 8, 256, 0, stream>>>(x, q, s, M, K);
+      break;
+    case kRowWarps:
+      quantize_rows_sm90_kernel<T, kRowWarps><<<M, 32 * kRowWarps, 0, stream>>>(x, q, s, M, K);
+      break;
+    default:
+      quantize_rows_kernel<T><<<(M + 7) / 8, 256, 0, stream>>>(x, q, s, M, K);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -276,38 +194,43 @@ int launch_quantize(const void* x, void* q, void* scale, int M, int K, cudaStrea
 
 // P2.  out_dtype: 0 = float32, 1 = bfloat16, 3 = int32 (the accumulator; sx
 // and sw unused).  sx may be null (1); a [M, K] and b [N, K] contiguous int8,
-// 16-byte aligned, K a multiple of 16; out contiguous [M, N].  Returns
-// cudaGetLastError() after the launch (0 = launched).
+// 16-byte aligned, K a multiple of 16; out contiguous [M, N].  bn: the tile
+// width, 256, 128, 64, 32 or 16 (ops/quant.py:p2_tile_n).  Returns 0 once
+// launched, else a cudaError_t or a negative tensor-map code.
 extern "C" int mmpl_int8_gemm(int out_dtype, const void* a, const void* b, const void* sx,
-                              const void* sw, void* out, int M, int N, int K, void* stream) {
+                              const void* sw, void* out, int M, int N, int K, int bn,
+                              void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16) return (int)cudaErrorInvalidValue;
-  if ((N + BN - 1) / BN > 65535) return (int)cudaErrorInvalidValue;
+  if (out_dtype != 0 && out_dtype != 1 && out_dtype != 3) return (int)cudaErrorInvalidValue;
+  if (out_dtype != 3 && !sw) return (int)cudaErrorInvalidValue;
+  const float* x = static_cast<const float*>(sx);
+  const float* w = static_cast<const float*>(sw);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (out_dtype) {
-    case 0:
-      if (!sw) return (int)cudaErrorInvalidValue;
-      return launch_gemm<float>(a, b, sx, sw, out, M, N, K, s);
-    case 1:
-      if (!sw) return (int)cudaErrorInvalidValue;
-      return launch_gemm<__nv_bfloat16>(a, b, sx, sw, out, M, N, K, s);
-    case 3:
-      return launch_gemm<int>(a, b, nullptr, nullptr, out, M, N, K, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+  switch (bn) {
+    case 256: return launch_gemm<256>(out_dtype, a, b, x, w, out, M, N, K, s);
+    case 128: return launch_gemm<128>(out_dtype, a, b, x, w, out, M, N, K, s);
+    case 64: return launch_gemm<64>(out_dtype, a, b, x, w, out, M, N, K, s);
+    case 32: return launch_gemm<32>(out_dtype, a, b, x, w, out, M, N, K, s);
+    case 16: return launch_gemm<16>(out_dtype, a, b, x, w, out, M, N, K, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // Q.  dtype: 0 = float32, 1 = bfloat16; x [M, K] and q int8 [M, K]
 // contiguous and 16-byte aligned, K a multiple of 16; scale fp32 [M].
+// warps: the layout (ops/quant.py:q_row_warps): 1 or 8 warps a row read
+// once, 0 the two-read loop; a one-read layout must hold the row.
 extern "C" int mmpl_quantize_rows(int dtype, const void* x, void* q, void* scale, int M, int K,
-                                  void* stream) {
+                                  int warps, void* stream) {
   if (M <= 0 || K <= 0 || K % 16) return (int)cudaErrorInvalidValue;
+  if (warps != 0 && warps != 1 && warps != kRowWarps) return (int)cudaErrorInvalidValue;
+  if (warps > 0 && K / 8 > 32 * warps * kSlots) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_quantize<float>(x, q, scale, M, K, s);
+      return launch_quantize<float>(x, q, scale, M, K, warps, s);
     case 1:
-      return launch_quantize<__nv_bfloat16>(x, q, scale, M, K, s);
+      return launch_quantize<__nv_bfloat16>(x, q, scale, M, K, warps, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

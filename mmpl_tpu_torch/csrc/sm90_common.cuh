@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA bodies of the
-// flash forward (flash_fwd_sm90.cuh: K1, P1) and backward
-// (flash_bwd_sm90.cuh: K2, K3): mbarriers, TMA loads, wgmma and its
-// shared-memory descriptors, setmaxnreg, and the host-side tensor maps.
+// flash forward (flash_fwd_sm90.cuh: K1, P1), the backward
+// (flash_bwd_sm90.cuh: K2, K3) and the int8 product (int8_gemm_sm90.cuh:
+// P2): mbarriers, TMA loads, wgmma and its shared-memory descriptors,
+// setmaxnreg, and the host-side tensor maps.
 //
 // Every operand tile lands in shared memory as [rows, 64 columns] boxes of
 // 16-bit values, 128 bytes a row, 128-byte swizzled, each box 1024-byte
@@ -70,6 +71,33 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, u
       "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(col), "r"(head), "r"(row),
       "r"(batch)
       : "memory");
+}
+
+// One [rows, 128 bytes] box of shared memory out to a (D, N, L, B) map
+// (elements outside the map are not written), in a bulk group of this
+// thread; the async proxy must see the box first (fence_async_smem).
+__device__ __forceinline__ void tma_store(const CUtensorMap& map, uint32_t src, int col,
+                                          int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(&map)),
+      "r"(src), "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's bulk groups still read shared
+// memory (kRead) or are still running at all.
+template <int N, bool kRead>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -376,10 +404,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The map's element type: int8 codes as unsigned bytes (the tensor maps
+// have no signed 8-bit type; the bits are moved unchanged).
+template <typename T>
+constexpr CUtensorMapDataType tensor_map_type() {
+  return std::is_same<T, __half>::value     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+         : std::is_same<T, int8_t>::value   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+         : std::is_same<T, float>::value    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : std::is_same<T, int>::value      ? CU_TENSOR_MAP_DATA_TYPE_INT32
+                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
 // [B, L, N, D] through element strides (sb, sl, sh) as the 4-D map (D, N,
-// L, B) with a (64, 1, rows, 1) box; a dimension of size 1 is never stepped
-// and gets a packed stride.  Rows past L and columns past D load as zeros.
-// 0 on success.
+// L, B) with a (128 bytes, 1, rows, 1) box: 64 16-bit values, 128 int8
+// codes or 32 32-bit values.  A dimension of size 1 is never stepped and gets a packed stride.
+// Rows past L and columns past D load as zeros.  0 on success.
 template <typename T>
 int encode(CUtensorMap* map, const void* ptr, int B, int L, int N, int D, long long sb,
            long long sl, long long sh, int rows = 128) {
@@ -390,11 +429,9 @@ int encode(CUtensorMap* map, const void* ptr, int B, int L, int N, int D, long l
   cuuint64_t strides[3] = {(cuuint64_t)sh * es, (cuuint64_t)sl * es, (cuuint64_t)sb * es};
   for (int i = 0; i < 3; ++i)
     if (dims[i + 1] == 1) strides[i] = i == 0 ? dims[0] * es : strides[i - 1] * dims[i];
-  const cuuint32_t box[4] = {kBox, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {128 / (cuuint32_t)es, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapDataType type = std::is_same<T, __half>::value
-                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapDataType type = tensor_map_type<T>();
   const CUresult rc = fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from ..ops.quant import amax_scale, int8_gemm, quantize_weight
 
@@ -275,6 +276,11 @@ int8_conv_counts = {"convs": 0, "chunks": 0}
 #: bytes of int8 im2col one P2 call takes at most (~1 GiB)
 IM2COL_BYTES = 1 << 30
 
+#: profiler ranges of an int8 conv's parts besides P2: the activation
+#: codes, the im2col copies, the copy of each product into the output
+INT8_CONV_RANGES = ("vae.int8_conv.quantize", "vae.int8_conv.im2col",
+                    "vae.int8_conv.scatter")
+
 
 def _quant_act(x: torch.Tensor):
     """One dynamic int8 scale for the whole tensor: per-token scales do not
@@ -305,14 +311,17 @@ def _int8_conv(p: QuantConv, x: torch.Tensor, stride, pads) -> torch.Tensor:
     the exact integer conv of the codes as im2col products through P2.
     The im2col is channels-last, K ordered (kt, kh, kw, C), so that its
     copy moves whole runs of C codes."""
-    xq, xs = _quant_act(x)
+    quantize, im2col, scatter = INT8_CONV_RANGES
+    with record_function(quantize):
+        xq, xs = _quant_act(x)
     Cout, Cin, *ks = p.weight_q.shape
     kt, kh, kw = ks if len(ks) == 3 else (1, *ks)
     t_pad, ph, pw = pads
-    xq = F.pad(xq, (pw, pw, ph, ph, t_pad, 0)).permute(0, 2, 3, 4, 1)
-    cols = xq.contiguous().unfold(1, kt, stride[0]).unfold(
-        2, kh, stride[1]).unfold(3, kw, stride[2]).permute(
-            0, 1, 2, 3, 5, 6, 7, 4)                 # [B,To,Ho,Wo,kt,kh,kw,C]
+    with record_function(im2col):
+        xq = F.pad(xq, (pw, pw, ph, ph, t_pad, 0)).permute(0, 2, 3, 4, 1)
+        cols = xq.contiguous().unfold(1, kt, stride[0]).unfold(
+            2, kh, stride[1]).unfold(3, kw, stride[2]).permute(
+                0, 1, 2, 3, 5, 6, 7, 4)             # [B,To,Ho,Wo,kt,kh,kw,C]
     B, To, Ho, Wo = cols.shape[:4]
     K = Cin * kt * kh * kw
     wm = p.im2col_weight()
@@ -321,9 +330,11 @@ def _int8_conv(p: QuantConv, x: torch.Tensor, stride, pads) -> torch.Tensor:
     int8_conv_counts["convs"] += 1
     for b in range(B):
         for t0, t1, h0, h1 in _row_blocks(To, Ho, Wo * K):
-            a = cols[b, t0:t1, h0:h1].reshape(-1, K)
-            out[b, t0:t1, h0:h1] = int8_gemm(a, wm, None, sw, x.dtype).reshape(
-                t1 - t0, h1 - h0, Wo, Cout)
+            with record_function(im2col):
+                a = cols[b, t0:t1, h0:h1].reshape(-1, K)
+            y = int8_gemm(a, wm, None, sw, x.dtype)
+            with record_function(scatter):
+                out[b, t0:t1, h0:h1] = y.reshape(t1 - t0, h1 - h0, Wo, Cout)
             int8_conv_counts["chunks"] += 1
     return out.permute(0, 4, 1, 2, 3)
 

@@ -30,7 +30,8 @@ _MASK = [_P, _P, _P, _P, _I]
 
 #: C signatures, by source name.  The backward entries take their 18
 #: strides as a pointer to a `long long` array; the unmasked dKV entry
-#: takes the fp32 workspace and the number of query splits after dK, dV.
+#: takes the fp32 workspace and the number of query splits after dK, dV;
+#: P2 takes its tile width and Q its layout before the stream.
 SIGNATURES = {
     "flash_fwd": {
         "mmpl_flash_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
@@ -49,8 +50,8 @@ SIGNATURES = {
                                     + [_P, _F, _P],
     },
     "int8_gemm": {
-        "mmpl_int8_gemm": [_I] + [_P] * 5 + [_I] * 3 + [_P],
-        "mmpl_quantize_rows": [_I, _P, _P, _P, _I, _I, _P],
+        "mmpl_int8_gemm": [_I] + [_P] * 5 + [_I] * 4 + [_P],
+        "mmpl_quantize_rows": [_I, _P, _P, _P, _I, _I, _I, _P],
     },
 }
 

@@ -13,14 +13,16 @@ the divisions are true divisions (no reciprocal), as `quant.py` writes
 them, so the codes equal the eager JAX package's bit for bit (a jitted
 XLA program divides by 127 through its reciprocal: ROADMAP, Queue 3).
 
-Two hand-written kernels in `csrc/int8_gemm.cu`:
+Two hand-written kernels, entered through `csrc/int8_gemm.cu`:
 
   * P2, `int8_gemm`: int8 [M, K] x int8 [N, K] -> int32 accumulator, with
-    the rescale epilogue; it replaces the TPU probe kernels
-    `_mm_s8_kernel` / `_mm_s8_kloop_kernel` (tools/pallas_int8_mm_probe.py)
-    and the XLA s8 dot of `w8a8_matmul`;
+    the rescale epilogue, on wgmma s8 + TMA (`csrc/int8_gemm_sm90.cuh`);
+    it replaces the TPU probe kernels `_mm_s8_kernel` /
+    `_mm_s8_kloop_kernel` (tools/pallas_int8_mm_probe.py) and the XLA s8
+    dot of `w8a8_matmul`.  Its tile width comes from `p2_tile_n`;
   * Q, `quantize_rows`: per-row amax, then codes and scales in one kernel
-    (`quant.py:49-52`, fused by XLA on the TPU).
+    that reads each row once (`quant.py:49-52`, fused by XLA on the TPU);
+    its layout comes from `q_row_warps`.
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain version.  The plain int8 product is exact: float
@@ -45,6 +47,38 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 3}
 #: activation dtypes Q takes, output dtypes P2 writes
 ACT_DTYPES = (torch.float32, torch.bfloat16)
 OUT_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+
+
+#: P2's tile widths (output columns of a tile), each a wgmma width that
+#: csrc/int8_gemm_sm90.cuh instantiates
+P2_TILE_N = (256, 128, 64, 32, 16)
+#: elements one thread of Q's one-read body holds (8 slots of 8), and the
+#: warps of its block-per-row layout (csrc/int8_gemm.cu: kSlots, kRowWarps)
+Q_THREAD_ELEMS = 64
+Q_ROW_WARPS = 8
+
+
+def p2_tile_n(N: int) -> int:
+    """P2's tile width for N output columns.  Up to 256 columns, the
+    narrowest tile that covers them: one tile a row panel, so A is read
+    once, and a narrow N (the VAE's 96 channels, its head's 3) wastes
+    little of the tensor cores.  Wider, 256 or 128, whichever pads N less
+    (256 on a tie: fewer passes over A)."""
+    if N <= 0:
+        raise ValueError(f"p2_tile_n: N = {N}")
+    if N <= P2_TILE_N[0]:
+        return min(t for t in P2_TILE_N if t >= N)
+    return min(P2_TILE_N[:2], key=lambda t: (-(-N // t) * t, -t))
+
+
+def q_row_warps(K: int) -> int:
+    """Q's layout for rows of K elements: 1 (a warp a row holds up to 2,048
+    elements in registers), Q_ROW_WARPS (a block a row, up to 16,384), or 0
+    for longer rows, which take the loop that reads a row twice."""
+    for warps in (1, Q_ROW_WARPS):
+        if K <= 32 * warps * Q_THREAD_ELEMS:
+            return warps
+    return 0
 
 
 def reset_launch_counts() -> None:
@@ -172,7 +206,7 @@ def quantize_rows_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if M:
         _launch("mmpl_quantize_rows", "quantize_rows", x.device,
                 _DTYPE_CODES[x.dtype], x.data_ptr(), q.data_ptr(),
-                s.data_ptr(), M, K)
+                s.data_ptr(), M, K, q_row_warps(K))
     return q, s
 
 
@@ -204,7 +238,8 @@ def int8_gemm_cuda(a: torch.Tensor, b: torch.Tensor,
         _launch("mmpl_int8_gemm", "int8_gemm", a.device,
                 _DTYPE_CODES[out_dtype], a.data_ptr(), b.data_ptr(),
                 sx.data_ptr() if scaled and sx is not None else None,
-                sw.data_ptr() if scaled else None, out.data_ptr(), M, N, K)
+                sw.data_ptr() if scaled else None, out.data_ptr(), M, N, K,
+                p2_tile_n(N))
     return out
 
 

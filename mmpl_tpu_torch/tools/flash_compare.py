@@ -1,8 +1,9 @@
-"""K1, or K2 and K3, of this tree against another checkout's, on one card,
-in turns.
+"""K1, K2 and K3, or P2 and Q, of this tree against another checkout's, on
+one card, in turns.
 
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel bwd
+    python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel int8
 
 DIR holds another checkout of the repository (for example an earlier
 commit unpacked with `git archive`).  Its `mmpl_tpu_torch/csrc/flash_fwd.cu`
@@ -24,7 +25,18 @@ both trees' distance from the plain version, SDPA's time on the same inputs
 (its backward for `bwd`; a yardstick the port never calls) and the card's
 bound.  The card's name and power limit come first; for `fwd` a last line
 says whether each Hopper kernel (`*_sm90_kernel`) compiled to the same
-SASS in both trees (`cuobjdump -sass`).  It needs the card.
+SASS in both trees (`cuobjdump -sass`).
+
+`--kernel int8` builds the baseline's `int8_gemm.cu` (bound by the old
+signatures, without P2's tile width and Q's layout, when it has no
+`int8_gemm_sm90.cuh`) and times P2 (bf16 out) and Q at `INT8_SHAPES` the
+same way, but by device time (`utils.profiling.queued_ms`: `--reps`
+calls queued on the card behind a spinning kernel): a call of either
+lasts little longer than the host's time around its launch.  Both trees'
+outputs are held against the plain versions.  Its last lines say, for
+`flash_fwd.cu` and `flash_bwd.cu`, whether K1, P1, K2 and K3 compiled to
+the same SASS in both trees (the Hopper helpers that P2 shares live in
+`sm90_common.cuh`).  It needs the card.
 """
 
 from __future__ import annotations
@@ -42,6 +54,8 @@ import torch
 
 from ..ops import _build
 from ..ops import attention as attn
+from ..ops import quant
+from ..utils.profiling import queued_ms
 
 #: (label, B, N, D, Lq, Lk) of K1: the serving window's group 1 and group 3
 #: self-attention, its text cross-attention, the few-step steady state
@@ -58,28 +72,47 @@ BWD_SHAPES = {
     "fewstep_self_hot": (1, 12, 128, 4680, 32760),
 }
 
-#: H100 SXM dense bf16 tensor-core peak and HBM rate (NVIDIA data sheet)
+#: P2 and Q: (M, K, N, activations quantised by Q): the serving window's
+#: group-3 ffn.fc1 and ffn.fc2, group 0's o, and the VAE's 96-channel
+#: im2col product of one 480x832 frame (codes made outside Q)
+INT8_SHAPES = {
+    "g23_fc1": (18720, 1536, 8960, True),
+    "g23_fc2": (18720, 8960, 1536, True),
+    "g0_o": (6240, 1536, 1536, True),
+    "vae_96ch": (480 * 832, 96 * 27, 96, False),
+}
+TABLES = {"fwd": SHAPES, "bwd": BWD_SHAPES, "int8": INT8_SHAPES}
+
+#: H100 SXM dense bf16 and int8 tensor-core peaks and HBM rate (NVIDIA
+#: data sheet)
 PEAK_FLOPS = 989e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the dKV entry of the trees before the Hopper backward body
 OLD_DKV_SIGNATURE = [_I] + [_P] * 8 + [_I] * 5 + [_P, _F, _P]
+#: the int8 entries of the trees before the Hopper P2 (no tile width, no
+#: Q layout)
+OLD_INT8_SIGNATURES = {
+    "mmpl_int8_gemm": [_I] + [_P] * 5 + [_I] * 3 + [_P],
+    "mmpl_quantize_rows": [_I, _P, _P, _P, _I, _I, _P],
+}
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="K1, or K2 / K3, against another checkout's")
+        description="K1, K2 / K3 or P2 / Q against another checkout's")
     p.add_argument("--baseline", required=True, type=Path,
                    help="root of the other checkout")
-    p.add_argument("--kernel", choices=["fwd", "bwd"], default="fwd",
-                   help="fwd: K1; bwd: K2 and K3")
+    p.add_argument("--kernel", choices=sorted(TABLES), default="fwd",
+                   help="fwd: K1; bwd: K2 and K3; int8: P2 and Q")
     p.add_argument("--shapes", nargs="+", default=None,
-                   choices=sorted({*SHAPES, *BWD_SHAPES}),
+                   choices=sorted({k for t in TABLES.values() for k in t}),
                    help="default: every shape of the kernel")
     p.add_argument("--reps", type=int, default=10)
     args = p.parse_args(argv)
-    table = SHAPES if args.kernel == "fwd" else BWD_SHAPES
+    table = TABLES[args.kernel]
     if args.shapes is None:
         args.shapes = list(table)
     bad = [s for s in args.shapes if s not in table]
@@ -109,12 +142,21 @@ def baseline_splits_queries(root: Path) -> bool:
     return (baseline_csrc(root, "flash_bwd") / "flash_bwd_sm90.cuh").exists()
 
 
+def baseline_has_hopper_int8(root: Path) -> bool:
+    """Whether the baseline's P2 is the Hopper body, whose entries take
+    P2's tile width and Q's layout (or the earlier `mma.sync` one)."""
+    return (baseline_csrc(root, "int8_gemm") / "int8_gemm_sm90.cuh").exists()
+
+
 def baseline_signatures(root: Path, source: str) -> dict:
     """The entries of the baseline's `source` that the comparison calls,
     with the C signatures its sources have."""
     sigs = _build.SIGNATURES[source]
     if source == "flash_fwd":
         return {"mmpl_flash_fwd": sigs["mmpl_flash_fwd"]}
+    if source == "int8_gemm":
+        return (dict(sigs) if baseline_has_hopper_int8(root)
+                else dict(OLD_INT8_SIGNATURES))
     return {"mmpl_flash_bwd_dkv": (sigs["mmpl_flash_bwd_dkv"]
                                    if baseline_splits_queries(root)
                                    else OLD_DKV_SIGNATURE),
@@ -197,6 +239,37 @@ def call_bwd(lib, splits_queries: bool, part: str, q, k, v, do, lse, delta):
     return outs
 
 
+def call_p2(lib, hopper: bool, a, b, sx, sw):
+    """P2 of a built `int8_gemm` library, bf16 out; a Hopper library gets
+    this tree's tile width."""
+    M, K = a.shape
+    N = b.shape[0]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+    rc = lib.mmpl_int8_gemm(
+        1, a.data_ptr(), b.data_ptr(), None if sx is None else sx.data_ptr(),
+        sw.data_ptr(), out.data_ptr(), M, N, K,
+        *([quant.p2_tile_n(N)] if hopper else []),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"P2 launch failed: CUDA error {rc}")
+    return out
+
+
+def call_q(lib, hopper: bool, x):
+    """Q of a built `int8_gemm` library: (codes, scales); a Hopper library
+    gets this tree's layout."""
+    M, K = x.shape
+    q = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    s = torch.empty((M,), dtype=torch.float32, device=x.device)
+    rc = lib.mmpl_quantize_rows(
+        quant._DTYPE_CODES[x.dtype], x.data_ptr(), q.data_ptr(), s.data_ptr(),
+        M, K, *([quant.q_row_warps(K)] if hopper else []),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"Q launch failed: CUDA error {rc}")
+    return q, s
+
+
 def sass_by_kernel(path: Path) -> dict:
     """{mangled kernel name: its SASS} of a built library, from the
     cuobjdump beside nvcc."""
@@ -239,10 +312,10 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def _turns(base, this, reps: int) -> dict:
+def _turns(base, this, reps: int, timer=time_ms) -> dict:
     """Times in the order baseline, this, this, baseline, and the speedup
     of the sums."""
-    t = [time_ms(f, reps) for f in (base, this, this, base)]
+    t = [timer(f, reps) for f in (base, this, this, base)]
     return {"baseline_ms": [t[0], t[3]], "this_ms": [t[1], t[2]],
             "speedup": (t[0] + t[3]) / (t[1] + t[2])}
 
@@ -359,9 +432,73 @@ def run_bwd(args, smi: str) -> list:
     return rows
 
 
+def _ulps(got, want) -> int:
+    return (got.view(torch.int16).long() - want.view(torch.int16).long()
+            ).abs().max().item()
+
+
+def run_int8(args, smi: str) -> list:
+    lib = build_baseline(args.baseline, "int8_gemm")
+    hopper = baseline_has_hopper_int8(args.baseline)
+    mine = _build.library("int8_gemm")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for label in args.shapes:
+        M, K, N, act = INT8_SHAPES[label]
+        wq, sw = quant.quantize_weight(
+            torch.randn((N, K), generator=gen, device="cuda"))
+        row = {"kernel": "int8", "shape": label, "M": M, "K": K, "N": N,
+               "tile_n": quant.p2_tile_n(N)}
+        if act:
+            x = (3 * torch.randn((M, K), generator=gen, device="cuda")
+                 ).to(torch.bfloat16)
+            want = quant.quantize_rows_plain(x)
+            for who, l_, h in (("baseline", lib, hopper), ("this", mine, True)):
+                got = call_q(l_, h, x)
+                row[f"q_{who}_equal"] = all(torch.equal(g, w)
+                                            for g, w in zip(got, want))
+            xq, sx = want
+            row.update({f"q_{k}": v for k, v in _turns(
+                lambda: call_q(lib, hopper, x), lambda: call_q(mine, True, x),
+                args.reps, queued_ms).items()})
+            row["q_bound_ms"] = 1e3 * (3 * M * K + 4 * M) / PEAK_BYTES
+            del x
+        else:
+            xq = torch.randint(-127, 128, (M, K), generator=gen,
+                               device="cuda", dtype=torch.int8)
+            sx, sw = None, sw * 0.01
+        want = quant.int8_gemm_plain(xq, wq, sx, sw, torch.bfloat16)
+        for who, l_, h in (("baseline", lib, hopper), ("this", mine, True)):
+            row[f"{who}_max_ulps"] = _ulps(call_p2(l_, h, xq, wq, sx, sw),
+                                           want)
+        del want
+        row.update(_turns(lambda: call_p2(lib, hopper, xq, wq, sx, sw),
+                          lambda: call_p2(mine, True, xq, wq, sx, sw),
+                          args.reps, queued_ms))
+        ops = 2.0 * M * N * K
+        nbytes = M * K + N * K + 2 * M * N + 4 * N + (4 * M if act else 0)
+        row["bound_ms"] = 1e3 * max(ops / PEAK_INT8, nbytes / PEAK_BYTES)
+        row["this_tops"] = ops / min(row["this_ms"]) / 1e9
+        row["card"] = smi
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del xq, wq
+        torch.cuda.empty_cache()
+    _build.build(["flash_fwd", "flash_bwd"])
+    for source in ("flash_fwd", "flash_bwd"):
+        build_baseline(args.baseline, source)
+        sass = same_sass(baseline_library(args.baseline, source),
+                         _build._target(source))
+        print(json.dumps({"kernel": "int8", "sass_of": f"{source}.cu",
+                          "sass_identical": len(sass["identical"]), **sass,
+                          "card": smi}), flush=True)
+    return rows
+
+
 def run(args) -> list:
     smi = _card()
-    return run_fwd(args, smi) if args.kernel == "fwd" else run_bwd(args, smi)
+    return {"fwd": run_fwd, "bwd": run_bwd, "int8": run_int8}[args.kernel](
+        args, smi)
 
 
 def main(argv=None) -> int:

@@ -1,8 +1,9 @@
 """K1-K6 (`mmpl_tpu_torch/csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`, their
 Hopper bodies `csrc/flash_fwd_sm90.cuh` and `csrc/flash_bwd_sm90.cuh`) and
-the int8 kernels P2 and Q (`csrc/int8_gemm.cu`) on the card: agreement
-with their plain versions, the body each type runs, the dispatch's launch
-counts, and what the wrappers refuse.
+the int8 kernels P2 and Q (`csrc/int8_gemm.cu`, P2's Hopper body
+`csrc/int8_gemm_sm90.cuh`) on the card: agreement with their plain
+versions, the body each type runs, the dispatch's launch counts, and what
+the wrappers refuse.
 
 Needs an NVIDIA GPU and nvcc, not JAX; on the card run
 
@@ -108,25 +109,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, dtype, d):
 # ---------------------------------------------------------------------------
 
 def _launched(fn):
-    """The names of the device kernels one call of `fn` launches.  A
-    session that records no device kernel at all runs again after a pause
-    (even with CUPTI resident a short session now and then loses every
-    device record)."""
-    import time
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for pause in (0.0, 1.0, 2.0, 4.0):
-        time.sleep(pause)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = {e.key for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA}
-        if names:
-            return names
-    return names
+    """The names of the device kernels one call of `fn` launches."""
+    from mmpl_tpu_torch.utils.profiling import device_kernels
+    return set(device_kernels(fn))
 
 
 @pytest.mark.parametrize("lq", [1, 127, 1000])
@@ -528,6 +513,94 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda, case):
     with pytest.raises(ValueError):
         calls[case]()
     assert quant.launch_counts == {"int8_gemm": 0, "quantize_rows": 0}
+
+
+# The Hopper P2 at every tile width (N = 3 .. 8960 take tiles of 16, 128,
+# 256 and 128), the ragged and the 16-byte K, the staged (TMA-store) and
+# the register epilogue (N = 3 and odd or narrow rows take the latter).
+P2_M = (1, 1000, 6240)
+P2_K = (16, 96, 432, 1536, 8960)
+P2_N = (3, 96, 200, 384, 1536, 8960)
+
+
+def _codes(shape, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-127, 128, shape, generator=g, device=device,
+                         dtype=torch.int8)
+
+
+@pytest.mark.parametrize("n", P2_N)
+@pytest.mark.parametrize("k", P2_K)
+@pytest.mark.parametrize("m", P2_M)
+def test_hopper_p2_accumulator_is_exact(cuda, m, k, n):
+    from mmpl_tpu_torch.ops import quant
+    a, b = _codes((m, k), m + k, cuda), _codes((n, k), n + 1, cuda)
+    got = quant.int8_gemm_cuda(a, b, None, None, torch.int32)
+    want = quant.int8_gemm_plain(a, b, None, None, torch.int32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_sx", [True, False])
+@pytest.mark.parametrize("n", P2_N + (130,))
+@pytest.mark.parametrize("k", P2_K)
+def test_hopper_p2_scaled_output_within_one_ulp(cuda, k, n, with_sx, out):
+    from mmpl_tpu_torch.ops import quant
+    m = 1000
+    a, b = _codes((m, k), k, cuda), _codes((n, k), n, cuda)
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    sx = torch.rand(m, generator=g, device=cuda) if with_sx else None
+    sw = torch.rand(n, generator=g, device=cuda) * 1e-3
+    got = quant.int8_gemm_cuda(a, b, sx, sw, out)
+    want = quant.int8_gemm_plain(a, b, sx, sw, out)
+    assert got.dtype == out and _ulps(got, want) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [16, 1536, 8960, 16400])
+def test_q_codes_and_scales_are_exact(cuda, k, dtype):
+    """Bit for bit at rows a warp holds (16, 1536), a block holds (8960)
+    and the two-read loop takes (16400), with an all-zero row and a row
+    that one huge value dominates; the body that ran."""
+    from mmpl_tpu_torch.ops import quant
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x = (3 * torch.randn((300, k), generator=g, device=cuda)).to(dtype)
+    x[3] = 0
+    x[4, k // 2] = 1e30
+    out = []
+    names = _launched(lambda: out.append(quant.quantize_rows_cuda(x)))
+    q, s = out[-1]
+    pq, ps = quant.quantize_rows_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    assert not q[3].any() and s[3].item() == np.float32(1e-12)
+    assert q[4, k // 2].item() == 127 and q[4].abs().sum().item() == 127
+    body = ("quantize_rows_sm90_kernel" if quant.q_row_warps(k)
+            else "quantize_rows_kernel<")
+    assert len(names) == 1 and body in next(iter(names)), names
+
+
+@pytest.mark.parametrize("n", [3, 32, 64, 96, 384, 8960])
+def test_p2_runs_the_hopper_body_at_its_tile_width(cuda, n):
+    from mmpl_tpu_torch.ops import quant
+    a, b = _codes((500, 96), 0, cuda), _codes((n, 96), 1, cuda)
+    sw = torch.ones(n, device=cuda)
+    names = _launched(lambda: quant.int8_gemm_cuda(a, b, None, sw))
+    want = f"int8_gemm_sm90_kernel<{quant.p2_tile_n(n)}, __nv_bfloat16>"
+    assert len(names) == 1 and want in next(iter(names)), names
+
+
+@pytest.mark.parametrize("k", [1536, 8960])
+def test_p2_and_q_repeat_bit_for_bit(cuda, k):
+    from mmpl_tpu_torch.ops import quant
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((4000, k), generator=g, device=cuda).to(torch.bfloat16)
+    wq, sw = quant.quantize_weight(torch.randn((1536, k), generator=g,
+                                               device=cuda))
+    first = quant.quantize_rows_cuda(x)
+    again = quant.quantize_rows_cuda(x)
+    assert all(torch.equal(u, v) for u, v in zip(first, again))
+    ys = [quant.int8_gemm_cuda(first[0], wq, first[1], sw) for _ in range(2)]
+    assert torch.equal(ys[0], ys[1])
 
 
 def test_linear_launches_q_and_p2_once_per_w8a8_call(cuda):

@@ -1,7 +1,7 @@
 """`mmpl_tpu_torch.tools.flash_compare` off the card: which scale a
-baseline checkout's K1 takes, which dKV signature its backward has, what
-it refuses, and that it needs the card (its builds and times run only
-there)."""
+baseline checkout's K1 takes, which dKV signature its backward has, which
+P2 and Q signatures its int8 source has, what it refuses, and that it
+needs the card (its builds and times run only there)."""
 
 import pytest
 import torch
@@ -44,6 +44,8 @@ def test_compare_needs_the_card(tmp_path, monkeypatch):
     ([], "fwd", list(flash_compare.SHAPES)),
     (["--kernel", "bwd"], "bwd", ["tf_cross", "fewstep_self_hot"]),
     (["--kernel", "bwd", "--shapes", "tf_cross"], "bwd", ["tf_cross"]),
+    (["--kernel", "int8"], "int8",
+     ["g23_fc1", "g23_fc2", "g0_o", "vae_96ch"]),
 ])
 def test_kernel_choice_parses_with_its_shapes(tmp_path, argv, kernel, shapes):
     args = flash_compare.parse_args(["--baseline", str(tmp_path), *argv])
@@ -77,5 +79,29 @@ def test_backward_compare_needs_the_card(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = flash_compare.parse_args(["--baseline", str(tmp_path),
                                      "--kernel", "bwd"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flash_compare.run(args)
+
+
+@pytest.mark.parametrize("hopper", [False, True])
+def test_baseline_int8_is_bound_by_its_sources(tmp_path, hopper):
+    """A baseline without int8_gemm_sm90.cuh has the entries of the
+    `mma.sync` P2 (no tile width, no Q layout); a newer one this tree's."""
+    names = ["int8_gemm.cu", "flash_common.cuh"] + (
+        ["int8_gemm_sm90.cuh"] if hopper else [])
+    root = _checkout(tmp_path, *names)
+    assert flash_compare.baseline_has_hopper_int8(root) is hopper
+    sigs = flash_compare.baseline_signatures(root, "int8_gemm")
+    mine = _build.SIGNATURES["int8_gemm"]
+    assert (sigs == mine) is hopper
+    assert (sigs == flash_compare.OLD_INT8_SIGNATURES) is (not hopper)
+    for fn in mine:     # the new entries take one int more, before the stream
+        assert len(mine[fn]) == len(flash_compare.OLD_INT8_SIGNATURES[fn]) + 1
+
+
+def test_int8_compare_needs_the_card(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = flash_compare.parse_args(["--baseline", str(tmp_path),
+                                     "--kernel", "int8"])
     with pytest.raises(RuntimeError, match="CUDA"):
         flash_compare.run(args)

@@ -3,9 +3,10 @@ and demangled, booked to the port kernel (launch counter) they belong to.
 The names are those the card's build gives K1 (the Hopper body in bf16 /
 fp16, the template body in fp32), K4, P1 (both bodies), K2/K3 (the Hopper
 backward in bf16 / fp16, K2's reduce kernel included, and the template in
-fp32) and K5/K6 (the backward templates, whose last flag is the frame
-mask); a kernel of another library books to nothing, and no Hopper
-backward kernel books to K5 or K6."""
+fp32), K5/K6 (the backward templates, whose last flag is the frame
+mask), P2 (its Hopper body at each tile width and output type) and Q (the
+one-read body and the two-read loop); a kernel of another library books
+to nothing, and no Hopper backward kernel books to K5 or K6."""
 
 import pytest
 
@@ -58,15 +59,26 @@ NAMES = [
     ('K6', 'flash_masked_bwd_dq',
      '_ZN45_GLOBAL__N__3a7d91c2_12_flash_bwd_cu_5e0b14d719flash_bwd_dq_kernelIfLi64ELb1EEEvPKT_S3_S3_S3_PKfS5_PS1_iiiiNS_7StridesEfN4mmpl9FrameMaskE',
      'void (anonymous namespace)::flash_bwd_dq_kernel<float, 64, true>(float const*, float const*, float const*, float const*, float const*, float const*, float*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
+    ('P2 Hopper', 'int8_gemm',
+     '_ZN4mmpl4sm9021int8_gemm_sm90_kernelILi256E13__nv_bfloat16EEv14CUtensorMap_stS3_S3_PKfS5_PT0_iiii',
+     'void mmpl::sm90::int8_gemm_sm90_kernel<256, __nv_bfloat16>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, float const*, __nv_bfloat16*, int, int, int, int)'),
+    ('P2 Hopper int32', 'int8_gemm',
+     '_ZN4mmpl4sm9021int8_gemm_sm90_kernelILi16EiEEv14CUtensorMap_stS2_S2_PKfS4_PT0_iiii',
+     'void mmpl::sm90::int8_gemm_sm90_kernel<16, int>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, float const*, int*, int, int, int, int)'),
+    ('Q one read', 'quantize_rows',
+     '_ZN45_GLOBAL__N__659e34ee_12_int8_gemm_cu_e18906b125quantize_rows_sm90_kernelI13__nv_bfloat16Li8EEEvPKT_PaPfii',
+     'void (anonymous namespace)::quantize_rows_sm90_kernel<__nv_bfloat16, 8>(__nv_bfloat16 const*, signed char*, float*, int, int)'),
+    ('Q two reads', 'quantize_rows',
+     '_ZN45_GLOBAL__N__659e34ee_12_int8_gemm_cu_e18906b120quantize_rows_kernelIfEEvPKT_PaPfii',
+     'void (anonymous namespace)::quantize_rows_kernel<float>(float const*, signed char*, float*, int, int)'),
 ]
 
 CASES = ([(f"{k} {form}", name, want)
           for k, want, mangled, demangled in NAMES
           for form, name in (("mangled", mangled), ("demangled", demangled))]
-         + [("P2", "void (anonymous namespace)::int8_gemm_kernel<"
-             "__nv_bfloat16>(signed char const*, signed char const*, "
-             "float const*, float const*, __nv_bfloat16*, int, int, int)",
-             "int8_gemm"),
+         + [("P2", "void mmpl::sm90::int8_gemm_sm90_kernel<128, float>("
+             "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, "
+             "float const*, float*, int, int, int, int)", "int8_gemm"),
             ("Q", "void (anonymous namespace)::quantize_rows_kernel<"
              "__nv_bfloat16>(__nv_bfloat16 const*, signed char*, float*, "
              "int, int)", "quantize_rows"),

@@ -93,6 +93,24 @@ def test_activation_codes_match_jax(dtype):
     assert q[5, :4].tolist() == [127, 2, -4, 0]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_activation_codes_match_jax_at_the_ffn_width(dtype):
+    """The per-token codes of rows as long as ffn.fc2's input (K = 8960,
+    the rows Q's block-per-row layout takes on the card), with an all-zero
+    row and a row that one huge value dominates."""
+    rng = np.random.default_rng(5)
+    x = (3 * rng.standard_normal((6, 8960))).astype(np.float32)
+    x[2] = 0
+    x[4, 4321] = 1e30
+    xt = torch.from_numpy(x).to(dtype)
+    jq, js = jfps._quantize_cache_tokens(jnp.asarray(xt.float().numpy()))
+    q, s = tquant.quantize_rows_plain(xt)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert s[2].item() == np.float32(1e-12) and not q[2].any()
+    assert q[4, 4321].item() == 127 and q[4].abs().sum().item() == 127
+
+
 def _w8_inputs(seed, k=96, n=40):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((2, 5, k)).astype(np.float32)
