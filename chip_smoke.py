@@ -23,9 +23,12 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      backward and SDPA's backward, with the body that ran and the split;
   4. kernel_masked: K4 / K5 / K6 under the fps-forcing mask at the 1.3B
      teacher-forcing self-attention shape (42 frames x 1560 tokens), and
-     ragged shapes with a frame that sees nothing, against the plain
-     versions and SDPA (memory-efficient backend) with the token mask; K5
-     and K6 run the template body;
+     ragged shapes with a frame that sees nothing (bf16, fp16, D = 24,
+     fp32) and with whole blocks that see or are seen by nothing, against
+     the plain versions and SDPA (memory-efficient backend) with the token
+     mask; bf16 / fp16 K4 and K5 run the masked instantiations of K1's and
+     K2's Hopper bodies over the coarse tile tables (their admitted and
+     partial shares reported), K6 and fp32 the template body;
   5. kernel_int8 (run before kernel_masked, whose large SDPA yardstick
      leaves the short profiler sessions that read a body without their
      records): Q (csrc/int8_gemm.cu) and P2 (the wgmma s8 + TMA body
@@ -188,11 +191,15 @@ BWD_MAIN = "tf_cross"
 #: the fps-forcing mask of T2V_CLEAN_STEPS over [clean | noisy] 2 x 21
 #: frames of 1560 tokens (L = 65520, the 1.3B teacher-forcing step);
 #: "blind" is L = 1000 in frames of 130 under a block-causal mask where
-#: frame 1 sees nothing.  tf_self runs last: after its SDPA yardstick (a
-#: 4.3 GB token mask) the short profiler sessions that read the body lost
-#: every device record
+#: frame 1 sees nothing; "dead" is L = 1000 in frames of 300 where frame 1
+#: sees nothing and frame 2 is seen by nothing (a 128-query block with no
+#: admitted key tile, 128-key blocks with no admitted query tile).  tf_self
+#: runs last: after its SDPA yardstick (a 4.3 GB token mask) the short
+#: profiler sessions that read the body lost every device record
 MASKED_SHAPES = [
     ("ragged_blind", 2, 12, 128, "blind", 130, torch.bfloat16),
+    ("ragged_blind_f16", 2, 12, 128, "blind", 130, torch.float16),
+    ("dead_blocks", 2, 12, 128, "dead", 300, torch.bfloat16),
     ("d24_bf16_blind", 2, 4, 24, "blind", 130, torch.bfloat16),
     ("d24_f32_blind", 2, 4, 24, "blind", 130, torch.float32),
     ("tf_self", 1, 12, 128, "fps", 1560, torch.bfloat16),
@@ -373,11 +380,20 @@ def _kernel_id(mangled: str) -> str:
     return mangled
 
 
+#: calls of each profiler session that reads which body ran a flash
+#: kernel: one-call sessions of K2 and K3, or of K5 and K6, kept only the
+#: second kernel's record now and then (H100, torch 2.11; PR 7 saw a
+#: 10-call session keep about 7 of its records), so each body is read from
+#: the records of this many calls
+BODY_CALLS = 10
+
+
 def _launched(fn) -> list:
-    """The names of the device kernels that one call of `fn` launches.
-    `fn` runs again (after a pause) while a session records no device
-    kernel at all; a caller keeps the result of its last call."""
-    return sorted(device_kernels(fn))
+    """The names of the device kernels that BODY_CALLS calls of `fn`
+    launch in one profiler session.  `fn` runs again (after a pause) while
+    a session records no device kernel at all; a caller keeps the result
+    of its last call."""
+    return sorted(device_kernels(fn, BODY_CALLS))
 
 
 def _body(names, counter: str, dtype) -> str:
@@ -385,8 +401,8 @@ def _body(names, counter: str, dtype) -> str:
     `*_sm90_kernel` of csrc/flash_fwd_sm90.cuh or csrc/flash_bwd_sm90.cuh,
     with K2's reduce kernel when the call split the queries) or "template"
     (the mma.sync / FMA body of csrc/flash_fwd.cu or csrc/flash_bwd.cu, one
-    kernel).  bf16 / fp16 K1, P1, K2 and K3 must run the first; fp32 and
-    the masked K5 / K6 (`dtype` None) the second."""
+    kernel).  bf16 / fp16 K1, K4, P1, K2, K3 and K5 must run the first;
+    fp32 and K6 (`dtype` None) the second."""
     mine = [n for n in names if port_kernel_of(n) == counter]
     main = [n for n in mine if "_reduce_kernel" not in n]
     check(len(main) == 1 and len(mine) - len(main) <= 1, (counter, names))
@@ -405,9 +421,9 @@ def phase_kernel():
         q, k, v = (torch.randn((B, L, N, D), generator=gen, device="cuda",
                                dtype=torch.float32).to(dtype)
                    for L in (Lq, Lk, Lk))
-        out = []
-        names = _launched(lambda: out.append(attn.flash_fwd_cuda(q, k, v)))
-        o, lse = out[-1]
+        out = {}
+        names = _launched(lambda: out.update(r=attn.flash_fwd_cuda(q, k, v)))
+        o, lse = out["r"]
         po, plse = attn.flash_attention_plain(q, k, v)
         torch.cuda.synchronize()
         err = (o.float() - po.float()).abs()
@@ -548,8 +564,9 @@ def phase_kernel_bwd():
 
 
 def _masked_inputs(kind, S):
-    """(q ids, kv ids, frame mask) on the card, the blind query rows (or
-    None) and the share of (query, key) pairs the mask allows."""
+    """(q ids, kv ids, frame mask) on the card, the blind query rows and
+    the keys that no query sees (each None where there are none), and the
+    share of (query, key) pairs the mask allows."""
     if kind == "fps":
         fm = masks.fps_forcing_frame_mask(T2V_CLEAN_STEPS)
         ids = np.repeat(np.arange(fm.shape[0]), S)
@@ -557,14 +574,16 @@ def _masked_inputs(kind, S):
         L = 1000
         fm = masks.blockwise_causal_frame_mask(-(-L // S), 3)
         fm[1] = False
+        if kind == "dead":
+            fm[:, 2] = False
         ids = np.repeat(np.arange(fm.shape[0]), S)[:L]
     counts = np.bincount(ids, minlength=fm.shape[0]).astype(np.float64)
     share = float(counts @ fm @ counts) / float(len(ids)) ** 2
     tids = torch.as_tensor(ids, dtype=torch.int32, device="cuda")
-    blind = ~fm.any(axis=1)
-    rows = (torch.as_tensor(blind[ids], device="cuda") if blind.any()
-            else None)
-    return (tids, tids, torch.as_tensor(fm, device="cuda")), rows, share
+    tokens = lambda frames: (torch.as_tensor(frames[ids], device="cuda")
+                             if frames.any() else None)
+    return ((tids, tids, torch.as_tensor(fm, device="cuda")),
+            tokens(~fm.any(axis=1)), tokens(~fm.any(axis=0)), share)
 
 
 def phase_kernel_masked():
@@ -573,21 +592,32 @@ def phase_kernel_masked():
     rows = {}
     gen = torch.Generator(device="cuda").manual_seed(2)
     for label, B, N, D, kind, S, dtype in MASKED_SHAPES:
-        mask, blind, share = _masked_inputs(kind, S)
+        mask, blind, unseen, share = _masked_inputs(kind, S)
         L = mask[0].numel()
         q, k, v, do = (_rand(gen, dtype, B, L, N, D) for _ in range(4))
-        tiles = attn.tile_table(*mask)
-        o, lse = attn.flash_fwd_cuda(q, k, v, None, mask, tiles)
+        tiles = attn.mask_tiles(*mask)
+        out = {}
+        names = _launched(lambda: out.update(
+            r=attn.flash_fwd_cuda(q, k, v, None, mask, tiles)))
+        o, lse = out["r"]
         po, plse = attn.frame_masked_attention_plain(q, k, v, *mask)
         torch.cuda.synchronize()
         err = (o.float() - po.float()).abs()
         live = torch.isfinite(plse)
+        admitted = lambda t: (t != 0).float().mean().item()
+        partial = lambda t: (t == 1).float().mean().item()
         row = {"phase": "kernel_masked", "shape": label, "mask": kind,
                "B": B, "N": N, "D": D, "L": L, "frames": mask[2].shape[0],
                "dtype": str(dtype).replace("torch.", ""),
+               "fwd_body": _body(names, "flash_masked_fwd", dtype),
                "pair_share": share,
-               "tile_share": (tiles != 0).float().mean().item(),
-               "tiles_full_share": (tiles == 2).float().mean().item(),
+               "tile_share": admitted(tiles.t64),
+               "tiles_full_share": (tiles.t64 == 2).float().mean().item(),
+               # the Hopper K4's 128 x 128 and K5's 64 x 128 tables
+               "fwd_tile_share": admitted(tiles.fwd),
+               "fwd_partial_share": partial(tiles.fwd),
+               "dkv_tile_share": admitted(tiles.dkv),
+               "dkv_partial_share": partial(tiles.dkv),
                "o_max_abs_err": err.max().item(),
                "o_mean_abs_err": err.mean().item(),
                "lse_max_abs_err": (lse[live] - plse[live]).abs().max().item(),
@@ -612,13 +642,17 @@ def phase_kernel_masked():
             dq=attn.flash_bwd_dq_cuda(q, k, v, do, lse, delta, None, mask,
                                       tiles)))
         (dk, dv), dq = out["dkv"], out["dq"]
-        # K5 / K6 keep the template body in every type
-        row["dkv_body"] = _body(names, "flash_masked_bwd_dkv", None)
+        # K5 runs the Hopper body in bf16 / fp16; K6 keeps the template
+        row["dkv_body"] = _body(names, "flash_masked_bwd_dkv", dtype)
         row["dq_body"] = _body(names, "flash_masked_bwd_dq", None)
         want = attn.frame_masked_attention_bwd_plain(q, k, v, do, lse, delta,
                                                      *mask)
         torch.cuda.synchronize()
         _grad_errors(row, (dq, dk, dv), want, dtype, blind)
+        if unseen is not None:
+            row["unseen_dkv_zero"] = bool((dk[:, unseen] == 0).all()
+                                          and (dv[:, unseen] == 0).all())
+            check(row["unseen_dkv_zero"], (label, "dk, dv of unseen keys"))
         del dq, dk, dv, want
         row["fwd_ms"] = time_ms(
             lambda: attn.flash_fwd_cuda(q, k, v, None, mask, tiles))
@@ -626,23 +660,29 @@ def phase_kernel_masked():
             q, k, v, do, lse, delta, None, mask, tiles))
         row["dq_ms"] = time_ms(lambda: attn.flash_bwd_dq_cuda(
             q, k, v, do, lse, delta, None, mask, tiles))
-        row["tile_table_ms"] = time_ms(lambda: attn.tile_table(*mask))
+        row["mask_tiles_ms"] = time_ms(lambda: attn.mask_tiles(*mask))
         row["plain_fwd_ms"] = time_ms(
             lambda: attn.frame_masked_attention_plain(q, k, v, *mask),
             max_reps=5)
         row["plain_bwd_ms"] = time_ms(
             lambda: attn.frame_masked_attention_bwd_plain(
                 q, k, v, do, lse, delta, *mask), max_reps=5)
-        mask_bytes = 4 * 2 * L + mask[2].numel() + tiles.numel()
+        hopper = dtype != torch.float32
         for part in ("fwd", "dkv", "dq"):
+            # the ids, the frame table and the tile table the kernel reads
+            table = (getattr(tiles, part) if hopper and part != "dq"
+                     else tiles.t64)
+            mask_bytes = 4 * 2 * L + mask[2].numel() + table.numel()
             work = attention_work(part, B, N, D, L, L, dtype, share,
                                   mask_bytes)
             row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = roofline(
                 *work, dtype)
             row[f"{part}_tflops"] = work[0] / row[f"{part}_ms"] / 1e9
-            # the same at the admitted tiles' share, what the kernel computes
+            row[f"{part}_bound_share"] = (row[f"{part}_bound_ms"]
+                                          / row[f"{part}_ms"])
+            # the same at the admitted share of the tiles the kernel walks
             row[f"{part}_tile_bound_ms"] = roofline(*attention_work(
-                part, B, N, D, L, L, dtype, row["tile_share"], mask_bytes),
+                part, B, N, D, L, L, dtype, admitted(table), mask_bytes),
                 dtype)[0]
         token_mask = mask[2][mask[0].long()][:, mask[1].long()]
         _library_times(row, q, k, v, do, token_mask)
@@ -1192,15 +1232,18 @@ def _profile_step(step, what: str, phase: str, top: int = 12) -> dict:
 def _by_port(kernels) -> dict:
     """Device ms of each port kernel (by launch counter) among the
     profiler's `kernels`; a Hopper-body kernel (K2's reduce included) must
-    book to K1, P1, K2, K3, P2 or Q, never to nothing or to a masked
-    kernel."""
+    book to K1, K4, P1, K2, K3, K5, P2 or Q, never to nothing or to K6;
+    and a masked Hopper kernel to K4 or K5 alone."""
     by_port = {}
     for e in kernels:
         name = port_kernel_of(e.key)
         if "_sm90_kernel" in e.key or "_reduce_kernel" in e.key:
-            check(name in ("flash_fwd", "flash_exp2", "flash_bwd_dkv",
+            check(name in ("flash_fwd", "flash_masked_fwd", "flash_exp2",
+                           "flash_bwd_dkv", "flash_masked_bwd_dkv",
                            "flash_bwd_dq", "int8_gemm", "quantize_rows"),
                   e.key)
+            check(("_masked_" in e.key) == (name in (
+                "flash_masked_fwd", "flash_masked_bwd_dkv")), e.key)
         if name:
             by_port[name] = by_port.get(name, 0.0) + \
                 e.self_device_time_total / 1e3
@@ -1515,10 +1558,10 @@ def phase_kernel_exp2():
                 emit(row)
                 check(row["refused"], row)
                 continue
-            out = []
-            names = _launched(lambda: out.append(
-                attn.flash_exp2_cuda(q, k, v, use_exp2, mask_pad)))
-            o = out[-1]
+            out = {}
+            names = _launched(lambda: out.update(
+                r=attn.flash_exp2_cuda(q, k, v, use_exp2, mask_pad)))
+            o = out["r"]
             po = attn.flash_attention_exp2_plain(q, k, v, use_exp2, mask_pad)
             torch.cuda.synchronize()
             err = (o.float() - po.float()).abs()
@@ -1895,6 +1938,18 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                         "plain_ms": r["plain_ms"],
                         "library_ms": r.get("library_bwd_ms")}
                     for k, r in bwd.items()}))
+    masked_bodies = {
+        "fwd": ("K1's wgmma + TMA body, masked (flash_fwd_sm90.cuh) for "
+                "bf16 / fp16 over the 128 x 128 table, the template body "
+                "of flash_fwd.cu for fp32; entry in flash_fwd.cu",
+                sm90_src, [sm90_src, fwd_src]),
+        "dkv": ("K2's wgmma + TMA dKV body, masked, never split "
+                "(flash_bwd_sm90.cuh) for bf16 / fp16 over the 64 x 128 "
+                "table, the template body of flash_bwd.cu for fp32; entry "
+                "in flash_bwd.cu", bwd_sm90_src, [bwd_sm90_src, bwd_src]),
+        "dq": ("the mma.sync template body of flash_bwd.cu in every type",
+               bwd_src, [bwd_src]),
+    }
     for name, part, line, plain, lib in (
             ("flash_masked_fwd", "fwd", 725, "plain_fwd_ms", "library_fwd_ms"),
             ("flash_masked_bwd_dkv", "dkv", 783, "plain_bwd_ms",
@@ -1904,12 +1959,24 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
         err = (max(r["o_max_abs_err"] for r in masked.values())
                if part == "fwd" else
                grad_err(masked, ("dk", "dv") if part == "dkv" else ("dq",)))
+        body, src, srcs = masked_bodies[part]
+        coarse = ({f"{part}_tile_share": m[f"{part}_tile_share"],
+                   f"{part}_partial_share": m[f"{part}_partial_share"]}
+                  if part != "dq" else {})
         out.append(_entry(
-            name, fwd_src if part == "fwd" else bwd_src,
-            f"mmpl_tpu/ops/attention.py:{line}", train_counts[name], err,
+            name, src, f"mmpl_tpu/ops/attention.py:{line}",
+            train_counts[name], err,
             m[f"{part}_ms"], m[plain], m[f"{part}_bound_ms"],
             m[f"{part}_bound_by"], m.get(lib), at=MASKED_MAIN,
-            pair_share=m["pair_share"], tile_share=m["tile_share"],
+            sources=srcs, bodies=body,
+            bound_share=m[f"{part}_bound_share"],
+            pair_share=m["pair_share"], tile_share=m["tile_share"], **coarse,
+            shapes={k: {"body": r["fwd_body" if part == "fwd"
+                                  else f"{part}_body"],
+                        "ms": r[f"{part}_ms"],
+                        "bound_ms": r[f"{part}_bound_ms"],
+                        "bound_share": r[f"{part}_bound_share"]}
+                    for k, r in masked.items()},
             library=("SDPA, memory-efficient backend, token-level bool mask"
                      + ("" if part == "fwd" else "; " + bwd_note))))
     int8_src = "mmpl_tpu_torch/csrc/int8_gemm.cu"

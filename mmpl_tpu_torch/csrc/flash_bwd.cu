@@ -9,8 +9,10 @@
 //    deterministic reduce when the key blocks alone would not fill the card
 //    (see that file).  fp32 runs the template below.
 //  * K5 / K6, the same under the frame mask: `_masked_bwd_dkv_kernel`
-//    (:783, :963) and `_masked_bwd_dq_kernel` (:821, :992).  They run the
-//    template below in every type, for now.
+//    (:783, :963) and `_masked_bwd_dq_kernel` (:821, :992).  bf16 / fp16
+//    K5 runs the Hopper dKV body of flash_bwd_sm90.cuh (its masked
+//    instantiation, over the 64 x 128 coarse table, never split); K6, and
+//    fp32 K5, run the template below, for now.
 //
 // What bounds them on an H100: operations.  dKV does four products per
 // tile (S, dP, dV, dK: 8*B*N*Lq*Lk*D FLOPs), dQ three (S, dP, dQ: 6*...),
@@ -19,7 +21,7 @@
 // shapes.  So both bodies keep the products on the tensor cores with the
 // scores, probabilities and accumulators in registers; the template is the
 // simple version (mma.sync, no TMA, no warp specialisation) that the
-// Hopper body replaced for K2 / K3 and will replace for K5 / K6.
+// Hopper body replaced for K2 / K3 and K5 and will replace for K6.
 //
 // The template: one block of 4 warps owns 64 keys (dKV) or 64 query rows
 // (dQ) of one (b, head) and loops over the admitted tiles of the other
@@ -375,8 +377,9 @@ FrameMask make_mask(const void* qf, const void* kf, const void* fm, const void* 
                    static_cast<const unsigned char*>(tiles), F, (Lk + TILE - 1) / TILE};
 }
 
-// bf16 / fp16 K2 or K3 on the Hopper body; D <= 128 was checked.
-template <typename T, bool kDKV>
+// bf16 / fp16 K2 or K3 on the Hopper body (K5 with kMasked, `a.mask`
+// holding the coarse table); D <= 128 was checked.
+template <typename T, bool kDKV, bool kMasked = false>
 int launch_sm90(const Args& a, const long long* strides, void* ws, int splits,
                 cudaStream_t stream) {
   const Strides& st = a.st;
@@ -385,7 +388,12 @@ int launch_sm90(const Args& a, const long long* strides, void* ws, int splits,
                           st.ab, st.al, st.ah, st.cb, st.cl, st.ch,
                           a.B, a.Lq, a.Lk, a.N, a.D, splits,
                           a.scale, a.scale * sm90::kLog2e};
-  if constexpr (kDKV)
+  if constexpr (kMasked)
+    return a.D <= 64
+               ? sm90::launch_masked_dkv<T, 64>(a.q, a.k, a.v, a.dout, strides, p, a.mask, stream)
+               : sm90::launch_masked_dkv<T, 128>(a.q, a.k, a.v, a.dout, strides, p, a.mask,
+                                                 stream);
+  else if constexpr (kDKV)
     return a.D <= 64 ? sm90::launch_dkv<T, 64>(a.q, a.k, a.v, a.dout, strides, p, stream)
                      : sm90::launch_dkv<T, 128>(a.q, a.k, a.v, a.dout, strides, p, stream);
   else
@@ -442,18 +450,34 @@ extern "C" int mmpl_flash_bwd_dq(int dtype, const void* q, const void* k, const 
 }
 
 // The masked entries take the frame ids, table and tile table of
-// mmpl_flash_masked_fwd (flash_fwd.cu) after the outputs.
+// mmpl_flash_masked_fwd (flash_fwd.cu) after the outputs.  The dKV entry
+// also takes `coarse`, the table over 64 queries x 128 keys stored key-block
+// major ([ceil(Lk/128), ceil(Lq/64)]), which bf16 / fp16 read (F up to
+// sm90::kMaxFrames); fp32 reads `tiles`.
 extern "C" int mmpl_flash_masked_bwd_dkv(int dtype, const void* q, const void* k,
                                          const void* v, const void* dout, const void* lse,
                                          const void* delta, void* dk, void* dv,
                                          const void* qf, const void* kf, const void* fm,
-                                         const void* tiles, int F, int B, int Lq, int Lk,
-                                         int N, int D, const long long* strides, float scale,
+                                         const void* tiles, const void* coarse, int F, int B,
+                                         int Lq, int Lk, int N, int D,
+                                         const long long* strides, float scale,
                                          void* stream) {
   Args a{q, k, v, dout, lse, delta, dk, dv, B, Lq, Lk, N, D, {}, scale,
          make_mask(qf, kf, fm, tiles, F, Lk)};
   a.st = *reinterpret_cast<const Strides*>(strides);
-  return dispatch<true, true>(dtype, a, stream);
+  if (dtype == 0) return dispatch<true, true>(dtype, a, stream);
+  if (D <= 0 || D > 128 || D % 8) return (int)cudaErrorInvalidValue;
+  a.mask.tiles = static_cast<const unsigned char*>(coarse);
+  a.mask.nkt = (Lq + sm90::kQueryTile - 1) / sm90::kQueryTile;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 1:
+      return launch_sm90<__nv_bfloat16, true, true>(a, strides, nullptr, 1, s);
+    case 2:
+      return launch_sm90<__half, true, true>(a, strides, nullptr, 1, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int mmpl_flash_masked_bwd_dq(int dtype, const void* q, const void* k,

@@ -1,10 +1,13 @@
 // Flash-attention backward for Hopper (sm_90a) on wgmma, TMA and warp
-// specialisation: the bf16 / fp16 bodies of K2 and K3 (entries in
+// specialisation: the bf16 / fp16 bodies of K2, K3 and K5 (entries in
 // csrc/flash_bwd.cu).
 //
 //  * K2 (`flash_bwd_dkv_sm90_kernel`, with `flash_bwd_dkv_reduce_kernel`)
 //    replaces `_flash_bwd_dkv_kernel` (mmpl_tpu/ops/attention.py:373):
 //    dV = sum P^T dO and dK = scale * sum dS^T Q over the queries.
+//  * K5 (`flash_masked_bwd_dkv_sm90_kernel`) replaces
+//    `_masked_bwd_dkv_kernel` (:783): the same under the frame mask, p = 0
+//    on forbidden pairs and on rows whose lse is -inf (`_masked_p`, :771).
 //  * K3 (`flash_bwd_dq_sm90_kernel`) replaces `_flash_bwd_dq_kernel`
 //    (:417): dQ = scale * sum dS K over the keys.
 //
@@ -47,6 +50,24 @@
 //    shared memory) and dQ += dS K (dS from registers, K MN-major).
 //  * No overlap of products inside a consumer yet: the two consumers of a
 //    block interleave on the tensor cores.
+//  * K5, the frame mask: the dKV body walks only the 64-query tiles that
+//    the coarse table (ops/attention.py `mask_tiles`, one byte per 64
+//    queries x 128 keys, stored key-block major so that a block's tiles are
+//    one contiguous row) admits, never split.  The producer warp reads the
+//    row 32 tiles at a time (a ballot) and, beside each admitted tile's lse
+//    and delta, writes its class and its 64 queries' rows of the frame
+//    table (frame id times F) into the stage's QueryMeta; each consumer
+//    warp counts the admitted tiles itself while K and V load.  Consumers
+//    keep their two keys' frame ids in registers and the [F, F] table in
+//    shared memory; on class-1 tiles only, a pass before the per-element
+//    step sets the scores of forbidden pairs to -inf, so that p_ds, the same
+//    step as K2's, gives them p = ex2(-inf) = 0.  Rows whose lse is -inf
+//    (they saw no key in the forward) get p = 0 on every tile: the producer
+//    hands them +inf as lse * log2(e), where ex2(s c - (-inf)) would be
+//    +inf.  With both tests folded into p_ds's `keep` instead, K5 took
+//    37.4 ms against 26.9-27.9 at the 1.3B teacher-forcing shape on an
+//    H100 (chip_smoke.py kernel_masked): the tests held registers across
+//    the whole step.  A block with no admitted tile writes dK = dV = 0.
 //  * The ragged edges: TMA zero-fills rows past L and columns past D (D is
 //    padded to kD = 64 or 128).  Query rows past Lq have q = dO = 0 and the
 //    producer writes lse = delta = 0 for them without reading memory, so
@@ -55,8 +76,9 @@
 //    keys of the last dQ tile, the key rows of a dKV block).  Rows past Lq
 //    and Lk are not stored.
 //
-// Shared memory at kD = 128: dKV K and V 2 x 32 KB, Q and dO 3 x 2 x 16 KB;
-// dQ Q and dO 2 x 32 KB, K and V 2 x 2 x 32 KB.  One block per SM.
+// Shared memory at kD = 128: dKV K and V 2 x 32 KB, Q and dO 3 x 2 x 16 KB
+// (K5 adds a QueryMeta per stage and the F * F frame table); dQ Q and dO
+// 2 x 32 KB, K and V 2 x 2 x 32 KB.  One block per SM.
 #pragma once
 
 #include "sm90_common.cuh"
@@ -73,7 +95,14 @@ constexpr int kKeyTile = 128;         // dQ: keys of a streamed K / V tile
 constexpr int kDkvStages = 3;
 constexpr int kDqStages = 2;
 constexpr int kRowBytes = 128;        // one row of a box
-constexpr float kLog2e = 1.4426950408889634f;
+
+// K5: a stage's 64 queries, beside their lse and delta.
+struct QueryMeta {
+  int cls;                          // 1: test each pair, 2: every pair allowed
+  unsigned short fmrow[kQueryTile];  // frame id * F: the query's row of the table
+  unsigned char pad[12];
+};
+static_assert(sizeof(QueryMeta) % 16 == 0, "QueryMeta slots stay 16-byte aligned");
 
 struct BwdParams {
   void* out0;          // dK (dKV) or dQ
@@ -103,6 +132,11 @@ struct DkvLayout {
   static constexpr int bar = rows + kDkvStages * 2 * kQueryTile * 4;
   // kv_full, then full and empty of each stage
   static constexpr int bytes = bar + 8 * (1 + 2 * kDkvStages) + 1024;  // + alignment slack
+  // K5: a QueryMeta per stage after the barriers, then the [F, F] frame table
+  static constexpr int meta = bar + 64;
+  static constexpr int fm = meta + kDkvStages * (int)sizeof(QueryMeta);
+  static constexpr int masked_bytes(int F) { return fm + (F * F + 15) / 16 * 16 + 1024; }
+  static_assert(8 * (1 + 2 * kDkvStages) <= 64, "the barriers fit before the QueryMeta");
 };
 
 template <int kD>
@@ -174,18 +208,24 @@ __device__ __forceinline__ void store_partial(float* dst, int row0, int L, int D
   }
 }
 
-// K2: dK and dV of 128 keys over this block's share of the query tiles.
-template <typename T, int kD>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qm,
-                          const __grid_constant__ CUtensorMap km,
-                          const __grid_constant__ CUtensorMap vm,
-                          const __grid_constant__ CUtensorMap dm, const BwdParams p) {
+// K2 (K5 with kMasked): dK and dV of 128 keys over this block's share of
+// the query tiles (K5: the admitted ones of `mask`, whose `tiles` are the
+// key-block-major table [ceil(Lk/128), nkt = ceil(Lq/64)]).
+template <typename T, int kD, bool kMasked>
+__device__ __forceinline__ void flash_bwd_dkv_sm90_body(const CUtensorMap& qm,
+                                                        const CUtensorMap& km,
+                                                        const CUtensorMap& vm,
+                                                        const CUtensorMap& dm,
+                                                        const BwdParams& p,
+                                                        const FrameMask& mask) {
   using L = DkvLayout<kD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   float* rows = reinterpret_cast<float*>(smem_raw + (base - raw) + L::rows);
+  // K5: the stages' QueryMeta and the frame table
+  QueryMeta* const qmeta = reinterpret_cast<QueryMeta*>(smem_raw + (base - raw) + L::meta);
+  unsigned char* const fm_s = smem_raw + (base - raw) + L::fm;
   const uint32_t kv_full = base + L::bar;
   auto full = [&](int s) { return kv_full + 8 * (1 + s); };
   auto empty = [&](int s) { return kv_full + 8 * (1 + kDkvStages + s); };
@@ -198,6 +238,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qm,
   const int nqt = (p.Lq + kQueryTile - 1) / kQueryTile;
   const int t0 = (int)((long long)z * nqt / p.splits);
   const int nt = (int)((long long)(z + 1) * nqt / p.splits) - t0;
+  // K5 (splits = 1): this key block's row of the key-block-major table
+  const unsigned char* const trow =
+      kMasked ? mask.tiles + (long long)blockIdx.x * mask.nkt : nullptr;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -206,6 +249,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qm,
       mbar_init(empty(s), kBwdConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (kMasked) {
+    for (int i = threadIdx.x; i < mask.F * mask.F; i += kBwdThreads) fm_s[i] = mask.fm[i];
   }
   __syncthreads();
 
@@ -225,29 +271,69 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qm,
         }
       }
       const long long rb = ((long long)b * p.N + h) * p.Lq;
-      for (int i = 0; i < nt; ++i) {
-        const int s = i % kDkvStages;
-        const int q0 = (t0 + i) * kQueryTile;
-        mbar_wait(empty(s), ((i / kDkvStages) & 1) ^ 1);  // the first round passes
-        float* r = rows + s * 2 * kQueryTile;
+      if constexpr (kMasked) {
+        int i = 0;  // step of the walk: stage i % kDkvStages
+        for (int c0 = 0; c0 < nqt; c0 += 32) {
+          const int cls_l = c0 + lane < nqt ? trow[c0 + lane] : 0;
+          for (uint32_t todo = __ballot_sync(0xffffffffu, cls_l != 0); todo; ++i) {
+            const int bit = __ffs(todo) - 1;
+            todo &= todo - 1;
+            const int cls = __shfl_sync(0xffffffffu, cls_l, bit);
+            const int s = i % kDkvStages;
+            const int q0 = (c0 + bit) * kQueryTile;
+            mbar_wait(empty(s), ((i / kDkvStages) & 1) ^ 1);  // the first round passes
+            float* r = rows + s * 2 * kQueryTile;
+            QueryMeta& mq = qmeta[s];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int row = q0 + lane + 32 * j;
-          const bool in = row < p.Lq;  // past Lq nothing is read: 0, 0
-          r[lane + 32 * j] = in ? p.lse[rb + row] * kLog2e : 0.f;
-          r[kQueryTile + lane + 32 * j] = in ? p.delta[rb + row] : 0.f;
-        }
-        if (lane == 0) {
-          mbar_expect_tx(full(s), 2 * L::q_tile);
+            for (int j = 0; j < 2; ++j) {
+              const int row = q0 + lane + 32 * j;
+              const bool in = row < p.Lq;  // past Lq nothing is read: 0, 0
+              const float lse = in ? p.lse[rb + row] : 0.f;
+              // a row that saw no key: +inf, so that p = ex2(s c - inf) = 0
+              r[lane + 32 * j] = lse == -INFINITY ? INFINITY : lse * kLog2e;
+              r[kQueryTile + lane + 32 * j] = in ? p.delta[rb + row] : 0.f;
+              mq.fmrow[lane + 32 * j] = in ? mask.qf[row] * mask.F : 0;
+            }
+            if (lane == 0) {
+              mq.cls = cls;
+              mbar_expect_tx(full(s), 2 * L::q_tile);
 #pragma unroll
-          for (int c = 0; c < L::halves; ++c) {
-            tma_load(base + L::q + s * L::q_tile + c * L::q_box, qm, full(s), c * kBox, h, q0,
-                     b);
-            tma_load(base + L::d + s * L::q_tile + c * L::q_box, dm, full(s), c * kBox, h, q0,
-                     b);
+              for (int c = 0; c < L::halves; ++c) {
+                tma_load(base + L::q + s * L::q_tile + c * L::q_box, qm, full(s), c * kBox, h,
+                         q0, b);
+                tma_load(base + L::d + s * L::q_tile + c * L::q_box, dm, full(s), c * kBox, h,
+                         q0, b);
+              }
+            } else {
+              mbar_arrive(full(s));
+            }
           }
-        } else {
-          mbar_arrive(full(s));
+        }
+      } else {
+        for (int i = 0; i < nt; ++i) {
+          const int s = i % kDkvStages;
+          const int q0 = (t0 + i) * kQueryTile;
+          mbar_wait(empty(s), ((i / kDkvStages) & 1) ^ 1);  // the first round passes
+          float* r = rows + s * 2 * kQueryTile;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int row = q0 + lane + 32 * j;
+            const bool in = row < p.Lq;  // past Lq nothing is read: 0, 0
+            r[lane + 32 * j] = in ? p.lse[rb + row] * kLog2e : 0.f;
+            r[kQueryTile + lane + 32 * j] = in ? p.delta[rb + row] : 0.f;
+          }
+          if (lane == 0) {
+            mbar_expect_tx(full(s), 2 * L::q_tile);
+#pragma unroll
+            for (int c = 0; c < L::halves; ++c) {
+              tma_load(base + L::q + s * L::q_tile + c * L::q_box, qm, full(s), c * kBox, h, q0,
+                       b);
+              tma_load(base + L::d + s * L::q_tile + c * L::q_box, dm, full(s), c * kBox, h, q0,
+                       b);
+            }
+          } else {
+            mbar_arrive(full(s));
+          }
         }
       }
     }
@@ -273,8 +359,19 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qm,
     float st[32], dpt[32];
     uint32_t pf[4][4], df[4][4];
 
+    // the steps of the walk: this split's query tiles, or K5's admitted
+    // ones, which each warp counts while K and V load; K5 also keeps its
+    // two keys' frame ids
+    int n = nt;
+    int kfr[2] = {0, 0};
+    if constexpr (kMasked) {
+      n = count_admitted(trow, nqt, lane);
+      kfr[0] = keep0 ? mask.kf[key0] : 0;
+      kfr[1] = keep1 ? mask.kf[key0 + 8] : 0;
+    }
+
     mbar_wait(kv_full, 0);
-    for (int i = 0; i < nt; ++i) {
+    for (int i = 0; i < n; ++i) {
       const int s = i % kDkvStages;
       const uint32_t qa = base + L::q + s * L::q_tile;
       const uint32_t da = base + L::d + s * L::q_tile;
@@ -290,6 +387,16 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qm,
       fence_regs(dpt);
       // element e is key row g + 8 ((e >> 1) & 1), query column c below
       const float* r = rows + s * 2 * kQueryTile;
+      if constexpr (kMasked) {
+        // a class-1 tile: the pairs the frame table forbids score -inf
+        const QueryMeta& mq = qmeta[s];
+        if (mq.cls != 2) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e)
+            if (!fm_s[mq.fmrow[8 * (e / 4) + 2 * t + (e & 1)] + kfr[(e >> 1) & 1]])
+              st[e] = -INFINITY;
+        }
+      }
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const int c = 8 * (e / 4) + 2 * t + (e & 1);
@@ -321,6 +428,27 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qm,
       store_partial<kD>(wk + p.splits * plane, key0, p.Lk, p.D, dv);
     }
   }
+}
+
+// K2: dK and dV of 128 keys over this block's share of the query tiles.
+template <typename T, int kD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qm,
+                          const __grid_constant__ CUtensorMap km,
+                          const __grid_constant__ CUtensorMap vm,
+                          const __grid_constant__ CUtensorMap dm, const BwdParams p) {
+  flash_bwd_dkv_sm90_body<T, kD, false>(qm, km, vm, dm, p, FrameMask{});
+}
+
+// K5: dK and dV of 128 keys over the query tiles the frame mask admits.
+template <typename T, int kD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_masked_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qm,
+                                 const __grid_constant__ CUtensorMap km,
+                                 const __grid_constant__ CUtensorMap vm,
+                                 const __grid_constant__ CUtensorMap dm, const BwdParams p,
+                                 const FrameMask mask) {
+  flash_bwd_dkv_sm90_body<T, kD, true>(qm, km, vm, dm, p, mask);
 }
 
 // K2's second pass when splits > 1: dK = scale * sum_z partial dK, dV =
@@ -494,6 +622,27 @@ int encode_qkvd(CUtensorMap (&m)[4], const void* q, const void* k, const void* v
   if (rc == 0) rc = encode<T>(&m[2], v, p.B, p.Lk, p.N, p.D, st[6], st[7], st[8], k_rows);
   if (rc == 0) rc = encode<T>(&m[3], dout, p.B, p.Lq, p.N, p.D, st[9], st[10], st[11], q_rows);
   return rc;
+}
+
+// K5 (splits = 1): `mask.tiles` is the key-block-major 64 x 128 table.
+template <typename T, int kD>
+int launch_masked_dkv(const void* q, const void* k, const void* v, const void* dout,
+                      const long long* st, const BwdParams& p, const FrameMask& mask,
+                      cudaStream_t stream) {
+  if (p.splits != 1 || mask.F <= 0 || mask.F > kMaxFrames ||
+      mask.nkt != (p.Lq + kQueryTile - 1) / kQueryTile)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m[4];
+  const int rc = encode_qkvd<T>(m, q, k, v, dout, st, p, kQueryTile, kKeyBlock);
+  if (rc != 0) return rc;
+  const int bytes = DkvLayout<kD>::masked_bytes(mask.F);
+  const cudaError_t err = cudaFuncSetAttribute(flash_masked_bwd_dkv_sm90_kernel<T, kD>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.Lk + kKeyBlock - 1) / kKeyBlock, p.N, p.B);
+  flash_masked_bwd_dkv_sm90_kernel<T, kD><<<grid, kBwdThreads, bytes, stream>>>(m[0], m[1], m[2],
+                                                                               m[3], p, mask);
+  return (int)cudaGetLastError();
 }
 
 // K2, then its reduce when p.splits > 1 (p.ws holding the partials).

@@ -31,7 +31,9 @@ struct Pitch {
 
 // Frame mask: token i may attend token j iff fm[qf[i] * F + kf[j]] != 0.
 // tiles[qt * nkt + kt] is 0 (no pair allowed: skip), 1 (test each pair) or
-// 2 (every pair allowed) for the TILE x TILE tile (qt, kt).
+// 2 (every pair allowed) for the TILE x TILE tile (qt, kt); the Hopper K4
+// and K5 get their coarser tables through the same struct (their notes in
+// flash_fwd_sm90.cuh and flash_bwd_sm90.cuh).
 struct FrameMask {
   const int* qf;
   const int* kf;

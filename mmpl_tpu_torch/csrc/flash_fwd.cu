@@ -11,6 +11,8 @@
 //    two one-hot matmuls (:716-722).  A tile that the tile table marks 0 is
 //    never loaded; one marked 2 (every frame pair allowed) skips the
 //    per-element test.  A row that sees no key gets O = 0 and lse = -inf.
+//    The Hopper body reads the table pooled to its 128 x 128 tiles, the
+//    template body the 64 x 64 one.
 //  * P1, the exp2 probe.  Replaces `_fwd_kernel` (tools/exp2_probe.py:42,
 //    launched through `variant` :85 at :95): K1 with two choices, kExp2
 //    (log2(e) folded into the scale on the host, exp2 for both alpha and p,
@@ -22,18 +24,19 @@
 //
 // The bodies, by type:
 //
-//  * bf16 and fp16 K1 and P1 run `flash_fwd_sm90.cuh`: wgmma, TMA and warp
-//    specialisation, 128 query rows and 128-key tiles a block (its note
-//    says what bounds it and what the design does about it).  K1 takes its
-//    scale with log2(e) folded in and returns the lse in natural log.
-//  * K4 (every type) and fp32 K1 and P1 run the template body below: each
-//    of 4 warps owns 16 of a block's 64 query rows and holds its Q
-//    fragments, scores, probabilities and output accumulator in registers
-//    (mma.sync m16n8k16 for bf16/fp16 K4, a plain FMA path in the same
-//    fragment layout for fp32), and the block double-buffers the 64-key K/V
-//    tiles with cp.async.  fp32 is the smoke configuration: a TF32 wgmma
-//    could not meet its 1e-4 tolerance, so fp32 stays off the tensor cores.
-//    The body's fp32 K1 uses exp2 as the new one does (the same scale).
+//  * bf16 and fp16 K1, K4 and P1 run `flash_fwd_sm90.cuh`: wgmma, TMA and
+//    warp specialisation, 128 query rows and 128-key tiles a block (its
+//    note says what bounds it and what the design does about it).  K1 takes
+//    its scale with log2(e) folded in and returns the lse in natural log;
+//    K4's entry takes the natural scale and folds log2(e) in itself.
+//  * fp32 K1, K4 and P1 run the template body below: each of 4 warps owns
+//    16 of a block's 64 query rows and holds its scores, probabilities and
+//    output accumulator in registers (FMA in the mma.sync m16n8k16
+//    fragment layout of flash_common.cuh), and the block double-buffers the
+//    64-key K/V tiles with cp.async.  fp32 is the smoke configuration: a
+//    TF32 wgmma could not meet its 1e-4 tolerance, so fp32 stays off the
+//    tensor cores.  The body's K1 uses exp2 as the Hopper one does (the
+//    same scale).
 //
 // All keep an online softmax in fp32 (m, l, acc), round P to the input
 // type before the PV product, and write O in the input type and (K1, K4)
@@ -66,11 +69,12 @@ namespace {
 
 using namespace mmpl;
 
-template <typename T, int kD>
+// Shared memory of the template body (fp32): Q, two K and two V tiles, and
+// each warp's P rows.
+template <int kD>
 struct FwdSmem {
   static constexpr size_t bytes =
-      sizeof(T) * 5 * Pitch<T, kD>::tile +
-      (Pitch<T, kD>::kFloat ? sizeof(float) * TILE * Pitch<T, kD>::pld : 0);
+      sizeof(float) * (5 * Pitch<float, kD>::tile + TILE * Pitch<float, kD>::pld);
 };
 
 template <bool kExp2>
@@ -84,8 +88,7 @@ __device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T*
                                                float* __restrict__ lse, int Lq, int Lk, int N,
                                                int D, const FwdStrides& st, float scale,
                                                const FrameMask& mask) {
-  constexpr bool kFloat = Pitch<T, kD>::kFloat;
-  constexpr int LD = Pitch<T, kD>::ld;
+  static_assert(Pitch<T, kD>::kFloat, "bf16 / fp16 run the Hopper body");
   constexpr int TL = Pitch<T, kD>::tile;
   constexpr int DT = kD / 8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -127,8 +130,6 @@ __device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T*
   float acc[DT][4] = {};                 // output rows g, g + 8
   float m[2] = {-INFINITY, -INFINITY};   // running row max
   float l[2] = {0.f, 0.f};               // this lane's share of the row sum
-  uint32_t qf[kD / 16][4];               // Q as A fragments (16-bit path)
-  bool first = true;
 
   for (int stage = 0; kb < nkb; stage ^= 1) {
     const int nxt = next_tile<kMasked>(trow, 1, kb + 1, nkb);
@@ -146,30 +147,7 @@ __device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T*
 
     // S = Q K^T for this warp's 16 rows (raw fp32 dot products)
     float s[8][4];
-    if constexpr (kFloat) {
-      fma_abt<kD>(s, Qs, warp * 16, Kt, D);
-    } else {
-      const int mi = lane / 8;  // which 8x8 matrix this lane addresses
-      const int r = lane % 8;
-      if (first) {
-#pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk)
-          ldsm_x4(qf[kk], Qs + (warp * 16 + r + 8 * (mi & 1)) * LD + 16 * kk + 8 * (mi >> 1));
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-#pragma unroll
-        for (int jp = 0; jp < 4; ++jp) {  // key tiles 2*jp, 2*jp + 1
-          uint32_t bk[4];
-          ldsm_x4(bk, Kt + (8 * (2 * jp + (mi >> 1)) + r) * LD + 16 * kk + 8 * (mi & 1));
-          mma16816<T>(s[2 * jp], qf[kk], bk[0], bk[1]);
-          mma16816<T>(s[2 * jp + 1], qf[kk], bk[2], bk[3]);
-        }
-      }
-    }
-    first = false;
+    fma_abt<kD>(s, Qs, warp * 16, Kt, D);
 
     // online softmax; each row's 64 scores live in the 4 lanes of a quad
     const int kvalid = Lk - kb * TILE;
@@ -221,14 +199,10 @@ __device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T*
       acc[c][2] *= alpha[1]; acc[c][3] *= alpha[1];
     }
 
-    // O += P V, P rounded to the input type first
-    if constexpr (kFloat) {
-      float* Pw = reinterpret_cast<float*>(smem + sizeof(T) * 5 * TL) +
-                  warp * 16 * Pitch<T, kD>::pld;
-      fma_pb<kD>(acc, s, Vt, Pw);
-    } else {
-      mma_pb<T, kD>(acc, s, Vt);
-    }
+    // O += P V
+    float* Pw = reinterpret_cast<float*>(smem + sizeof(T) * 5 * TL) +
+                warp * 16 * Pitch<T, kD>::pld;
+    fma_pb<kD>(acc, s, Vt, Pw);
     __syncthreads();  // every warp is done with this stage before it is refilled
     kb = nxt;
   }
@@ -264,7 +238,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                                  FrameMask{});
 }
 
-// K4, every type.
+// K4 on the template body: fp32 only (bf16 / fp16 run
+// sm90::launch_masked).
 template <typename T, int kD>
 __global__ void __launch_bounds__(THREADS)
 flash_masked_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -301,7 +276,7 @@ bool bad_head_dim(int D) { return D <= 0 || D > 128 || D % 8; }
 template <typename T, int kD>
 int fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Lq,
             int Lk, int N, int D, const FwdStrides& st, float scale, cudaStream_t s) {
-  return launch_body(flash_fwd_kernel<T, kD>, FwdSmem<T, kD>::bytes, B, Lq, N, s,
+  return launch_body(flash_fwd_kernel<T, kD>, FwdSmem<kD>::bytes, B, Lq, N, s,
                      static_cast<const T*>(q), static_cast<const T*>(k),
                      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
                      Lq, Lk, N, D, st, scale);
@@ -311,7 +286,7 @@ template <typename T, int kD>
 int masked_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Lq,
                int Lk, int N, int D, const FwdStrides& st, float scale, const FrameMask& mask,
                cudaStream_t s) {
-  return launch_body(flash_masked_fwd_kernel<T, kD>, FwdSmem<T, kD>::bytes, B, Lq, N, s,
+  return launch_body(flash_masked_fwd_kernel<T, kD>, FwdSmem<kD>::bytes, B, Lq, N, s,
                      static_cast<const T*>(q), static_cast<const T*>(k),
                      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
                      Lq, Lk, N, D, st, scale, mask);
@@ -323,6 +298,17 @@ int masked_width(const void* q, const void* k, const void* v, void* o, void* lse
                  const FrameMask& mask, cudaStream_t s) {
   return D <= 64 ? masked_fwd<T, 64>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s)
                  : masked_fwd<T, 128>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
+}
+
+// K4 in bf16 / fp16 on the wgmma body; `scale` is the natural one.
+template <typename T>
+int masked_sm90(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Lq,
+                int Lk, int N, int D, const FwdStrides& st, float scale, const FrameMask& mask,
+                cudaStream_t s) {
+  float* l = static_cast<float*>(lse);
+  const float sc = scale * sm90::kLog2e;
+  return D <= 64 ? sm90::launch_masked<T, 64>(q, k, v, o, l, B, Lq, Lk, N, D, st, sc, mask, s)
+                 : sm90::launch_masked<T, 128>(q, k, v, o, l, B, Lq, Lk, N, D, st, sc, mask, s);
 }
 
 // K1 in bf16 / fp16 on the wgmma body.
@@ -339,7 +325,7 @@ int fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse, in
 template <typename T, int kD, bool kExp2, bool kPadMask>
 int exp2_f32(const void* q, const void* k, const void* v, void* o, int B, int Lq, int Lk,
              int N, int D, const FwdStrides& st, float scale, cudaStream_t s) {
-  return launch_body(flash_exp2_kernel<T, kD, kExp2, kPadMask>, FwdSmem<T, kD>::bytes, B, Lq,
+  return launch_body(flash_exp2_kernel<T, kD, kExp2, kPadMask>, FwdSmem<kD>::bytes, B, Lq,
                      N, s, static_cast<const T*>(q), static_cast<const T*>(k),
                      static_cast<const T*>(v), static_cast<T*>(o), Lq, Lk, N, D, st, scale);
 }
@@ -410,12 +396,14 @@ extern "C" int mmpl_flash_fwd(int dtype, const void* q, const void* k,
 }
 
 // K4.  qf [Lq] / kf [Lk] int32 frame ids in [0, F); fm [F, F] uint8; tiles
-// [ceil(Lq/64), ceil(Lk/64)] uint8 (0 skip, 1 test pairs, 2 all allowed).
-// `scale` is the natural one.
+// [ceil(Lq/64), ceil(Lk/64)] uint8 (0 skip, 1 test pairs, 2 all allowed),
+// read by fp32; coarse, the same over 128 x 128 tiles [ceil(Lq/128),
+// ceil(Lk/128)], read by bf16 / fp16 (F up to sm90::kMaxFrames).  `scale`
+// is the natural one.
 extern "C" int mmpl_flash_masked_fwd(int dtype, const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      const void* qf, const void* kf, const void* fm,
-                                     const void* tiles, int F, int B, int Lq,
+                                     const void* tiles, const void* coarse, int F, int B, int Lq,
                                      int Lk, int N, int D, long long sqb,
                                      long long sql, long long sqh, long long skb,
                                      long long skl, long long skh, long long svb,
@@ -427,14 +415,16 @@ extern "C" int mmpl_flash_masked_fwd(int dtype, const void* q, const void* k,
   const FrameMask mask{static_cast<const int*>(qf), static_cast<const int*>(kf),
                        static_cast<const unsigned char*>(fm),
                        static_cast<const unsigned char*>(tiles), F, (Lk + TILE - 1) / TILE};
+  const FrameMask wide{mask.qf, mask.kf, mask.fm, static_cast<const unsigned char*>(coarse), F,
+                       (Lk + sm90::kBlockN - 1) / sm90::kBlockN};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return masked_width<float>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
     case 1:
-      return masked_width<__nv_bfloat16>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
+      return masked_sm90<__nv_bfloat16>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, wide, s);
     case 2:
-      return masked_width<__half>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
+      return masked_sm90<__half>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, wide, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA bodies of the
-// flash forward (flash_fwd_sm90.cuh: K1, P1), the backward
-// (flash_bwd_sm90.cuh: K2, K3) and the int8 product (int8_gemm_sm90.cuh:
+// flash forward (flash_fwd_sm90.cuh: K1, K4, P1), the backward
+// (flash_bwd_sm90.cuh: K2, K3, K5) and the int8 product (int8_gemm_sm90.cuh:
 // P2): mbarriers, TMA loads, wgmma and its shared-memory descriptors,
 // setmaxnreg, and the host-side tensor maps.
 //
@@ -27,6 +27,10 @@ namespace mmpl {
 namespace sm90 {
 
 constexpr int kBox = 64;  // columns of a TMA box: 128 bytes of 16-bit values
+// Frames of the [F, F] table that the masked bodies (K4, K5) keep in
+// shared memory (ops/attention.py SM90_MAX_FRAMES)
+constexpr int kMaxFrames = 192;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // mbarrier, TMA, wgmma and setmaxnreg
@@ -132,6 +136,24 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R][4]) {
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// The nonzero bytes among row[0, n), counted by one warp (`lane` its
+// lane): the masked bodies' admitted tiles of a coarse-table row.  Four
+// loads a lane in flight at once.
+__device__ __forceinline__ int count_admitted(const unsigned char* row, int n, int lane) {
+  int count = 0;
+  for (int c0 = 0; c0 < n; c0 += 128) {
+    bool on[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = c0 + 32 * u + lane;
+      on[u] = i < n && row[i] != 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) count += __popc(__ballot_sync(0xffffffffu, on[u]));
+  }
+  return count;
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand: start

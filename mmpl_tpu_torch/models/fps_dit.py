@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..core.geometry import GroupSchedule, KV_CACHE_SLOTS
-from ..ops.attention import attention, frame_masked_attention, tile_table
+from ..ops.attention import attention, frame_masked_attention, mask_tiles
 from ..ops.quant import quantize_rows
 from ..ops.rope import rope_table
 from .dit import (WanDiT, block_forward, call_with, cast_params, embed_text,
@@ -168,9 +168,9 @@ def fps_forward_train(model: WanDiT, cfg, noisy: torch.Tensor,
 
     Self-attention runs `frame_masked_attention` (K4 forward, K5 / K6
     backward on CUDA; the plain versions on the CPU) with frame ids
-    repeat(arange(frames), S); its tile table is built once here for every
-    layer.  Cross-attention runs `attention` (K1 / K2 / K3).  Each block
-    is recomputed in the backward pass (`dit.remat`).
+    repeat(arange(frames), S); its tile tables (`mask_tiles`) are built
+    once here for every layer.  Cross-attention runs `attention` (K1 / K2 /
+    K3).  Each block is recomputed in the backward pass (`dit.remat`).
     The forward reads the parameters cast to `compute_dtype` (default: the
     masters' own dtype; the bf16 trunk over fp32 masters, grads flowing
     back through the cast): the embeddings and the head here, each block's
@@ -214,7 +214,7 @@ def _forward_train(model, cfg, noisy, t, context, frame_mask, clean_x,
 
     ids = torch.arange(num_seq_frames, dtype=torch.int32,
                        device=device).repeat_interleave(S)
-    tiles = tile_table(ids, ids, fm)
+    tiles = mask_tiles(ids, ids, fm)
 
     ctx = embed_text(model, context.to(x.dtype))
     # reads the blocks' masters; `linear` and `rms_norm` cast each weight to

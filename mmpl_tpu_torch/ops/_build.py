@@ -25,8 +25,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-#: the masked entries' frame ids, frame table and tile table, then F
+#: the masked entries' frame ids, frame table and tile table, then F; K4's
+#: and K5's entries also take the Hopper body's coarse table before F
 _MASK = [_P, _P, _P, _P, _I]
+_MASK_SM90 = [_P, _P, _P, _P, _P, _I]
 
 #: C signatures, by source name.  The backward entries take their 18
 #: strides as a pointer to a `long long` array; the unmasked dKV entry
@@ -36,7 +38,7 @@ SIGNATURES = {
     "flash_fwd": {
         "mmpl_flash_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
                           + [_L] * 12 + [_F, _P],
-        "mmpl_flash_masked_fwd": [_I, _P, _P, _P, _P, _P] + _MASK
+        "mmpl_flash_masked_fwd": [_I, _P, _P, _P, _P, _P] + _MASK_SM90
                                  + [_I] * 5 + [_L] * 12 + [_F, _P],
         "mmpl_flash_exp2": [_I, _P, _P, _P, _P, _I, _I] + [_I] * 5
                            + [_L] * 12 + [_F, _P],
@@ -44,7 +46,7 @@ SIGNATURES = {
     "flash_bwd": {
         "mmpl_flash_bwd_dkv": [_I] + [_P] * 9 + [_I] * 6 + [_P, _F, _P],
         "mmpl_flash_bwd_dq": [_I] + [_P] * 7 + [_I] * 5 + [_P, _F, _P],
-        "mmpl_flash_masked_bwd_dkv": [_I] + [_P] * 8 + _MASK + [_I] * 5
+        "mmpl_flash_masked_bwd_dkv": [_I] + [_P] * 8 + _MASK_SM90 + [_I] * 5
                                      + [_P, _F, _P],
         "mmpl_flash_masked_bwd_dq": [_I] + [_P] * 7 + _MASK + [_I] * 5
                                     + [_P, _F, _P],

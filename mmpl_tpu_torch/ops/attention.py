@@ -21,8 +21,11 @@ Port of `mmpl_tpu/ops/attention.py`.  Layout is [B, L, N, D] throughout.
   * `frame_masked_attention` is the training self-attention under a
     frame-granular mask (token i attends token j iff
     frame_mask[q_frame_ids[i], kv_frame_ids[j]]): K4 forward, K5 / K6
-    backward.  Whole 64x64 tiles that the mask forbids are skipped through
-    a tile table built on the device (`tile_table`).
+    backward.  Whole tiles that the mask forbids are skipped through tile
+    tables built on the device (`mask_tiles`): 64x64 (`tile_table`) for K6
+    and the fp32 template, pooled to 128x128 for the Hopper K4 and to
+    64x128 for the Hopper K5, which run in bf16 / fp16 as masked
+    instantiations of K1's and K2's bodies.
 
 On CUDA tensors each wrapper launches its hand-written kernel or raises; on
 CPU tensors the same `autograd.Function`s run the plain versions, forward
@@ -36,7 +39,7 @@ import ctypes
 import functools
 import math
 from fractions import Fraction
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -55,6 +58,15 @@ TILE = 64
 
 #: log2(e), folded into K1's scale and P1's by its exp2 variants
 LOG2E = 1.4426950408889634
+
+#: the Hopper bodies' mask tiles in units of TILE (queries, keys): K4's
+#: 128 x 128 (csrc/flash_fwd_sm90.cuh kBlockM, kBlockN) and K5's 64-query
+#: tiles of a 128-key block (csrc/flash_bwd_sm90.cuh kQueryTile, kKeyBlock)
+FWD_MASK_TILE = (2, 2)
+DKV_MASK_TILE = (1, 2)
+#: frames whose [F, F] table the Hopper K4 / K5 hold in shared memory
+#: (csrc/sm90_common.cuh kMaxFrames)
+SM90_MAX_FRAMES = 192
 
 #: bytes of fp32 scores the plain versions hold at once (~1 GiB)
 _PLAIN_SCORE_BYTES = 1 << 30
@@ -326,6 +338,46 @@ def tile_table(q_frame_ids: torch.Tensor, kv_frame_ids: torch.Tensor,
     return torch.where(some, torch.where(every, 2, 1), 0).to(torch.uint8)
 
 
+def pool_tiles(table: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """A tile table over tiles of `rows` x `cols` of `table`'s tiles: 0
+    iff every tile within is 0, 2 iff every one is 2, else 1 (the ragged
+    last row and column pool the tiles they hold).  Exact, not just
+    conservative: the 64x64 classes already match the token-level mask."""
+    nq, nk = table.shape
+    pad = (0, -nk % cols, 0, -nq % rows)
+
+    def pooled(x: torch.Tensor, fill: int, reduce) -> torch.Tensor:
+        x = torch.nn.functional.pad(x.to(torch.uint8), pad, value=fill)
+        return reduce(x.view(x.shape[0] // rows, rows, x.shape[1] // cols,
+                             cols), dim=(1, 3)).bool()
+
+    some = pooled(table != 0, 0, torch.amax)
+    every = pooled(table == 2, 1, torch.amin)
+    return torch.where(some, torch.where(every, 2, 1), 0).to(torch.uint8)
+
+
+class MaskTiles(NamedTuple):
+    """The tile tables of one frame mask and its ids (`mask_tiles`):
+    `t64` is `tile_table` (64 x 64 tiles: K6, and K4 / K5 in fp32), `fwd`
+    pools it to the bf16 / fp16 K4's 128 x 128 tiles and `dkv` to the
+    bf16 / fp16 K5's 64 x 128, stored key-block major ([ceil(Lk/128),
+    ceil(Lq/64)]: one contiguous row a key block)."""
+    t64: torch.Tensor
+    fwd: torch.Tensor
+    dkv: torch.Tensor
+
+
+def mask_tiles(q_frame_ids: torch.Tensor, kv_frame_ids: torch.Tensor,
+               frame_mask: torch.Tensor) -> MaskTiles:
+    """Every tile table the masked kernels read, built on the ids' device
+    (`tile_table`, which refuses ids outside [0, F), pooled by
+    `pool_tiles`).  Build them once with the ids and mask they belong to
+    (`fps_forward_train` does so once per forward for all layers)."""
+    t64 = tile_table(q_frame_ids, kv_frame_ids, frame_mask)
+    return MaskTiles(t64, pool_tiles(t64, *FWD_MASK_TILE),
+                     pool_tiles(t64, *DKV_MASK_TILE).t().contiguous())
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers (CUDA tensors only)
 # ---------------------------------------------------------------------------
@@ -362,26 +414,43 @@ def _strides(*xs) -> list:
     return [s for x in xs for s in x.stride()[:3]]
 
 
-def _mask_args(what: str, mask, tiles, Lq: int, Lk: int, device):
+def _mask_args(what: str, mask, tiles, Lq: int, Lk: int, device,
+               coarse: Optional[str] = None, hopper: bool = False):
+    """The mask arguments of a masked entry: the ids, the frame table, the
+    64 x 64 table, the `coarse` table of `tiles` ("fwd" or "dkv") where
+    the entry takes one, and F.  `hopper`: the call runs a Hopper body,
+    which holds the frame table in shared memory."""
     q_ids, kv_ids, fm = mask
+    if not isinstance(tiles, MaskTiles):
+        raise ValueError(f"{what}: tiles must be the MaskTiles of "
+                         f"mask_tiles, got {type(tiles).__name__}")
     if q_ids.shape != (Lq,) or kv_ids.shape != (Lk,):
         raise ValueError(f"{what}: frame ids {tuple(q_ids.shape)} "
                          f"{tuple(kv_ids.shape)} for Lq={Lq}, Lk={Lk}")
     if fm.ndim != 2 or fm.shape[0] != fm.shape[1]:
         raise ValueError(f"{what}: frame mask must be [F, F], got "
                          f"{tuple(fm.shape)}")
-    want = (-(-Lq // TILE), -(-Lk // TILE))
-    if tiles.shape != want or tiles.dtype != torch.uint8:
-        raise ValueError(f"{what}: tile table {tuple(tiles.shape)} "
-                         f"{tiles.dtype}, want {want} uint8")
+    nq, nk = -(-Lq // TILE), -(-Lk // TILE)
+    cq, ck = -(-nq // FWD_MASK_TILE[0]), -(-nk // FWD_MASK_TILE[1])
+    dq, dk = -(-nq // DKV_MASK_TILE[0]), -(-nk // DKV_MASK_TILE[1])
+    for name, x, want in (("t64", tiles.t64, (nq, nk)),
+                          ("fwd", tiles.fwd, (cq, ck)),
+                          ("dkv", tiles.dkv, (dk, dq))):
+        if tuple(x.shape) != want or x.dtype != torch.uint8:
+            raise ValueError(f"{what}: tile table {name} {tuple(x.shape)} "
+                             f"{x.dtype}, want {want} uint8")
     if fm.dtype not in (torch.bool, torch.uint8):
         raise ValueError(f"{what}: frame mask is {fm.dtype}, want bool")
-    for x in (q_ids, kv_ids, fm, tiles):
+    if hopper and fm.shape[0] > SM90_MAX_FRAMES:
+        raise ValueError(f"{what}: {fm.shape[0]} frames; the bf16 / fp16 "
+                         f"kernel holds at most {SM90_MAX_FRAMES}")
+    for x in (q_ids, kv_ids, fm, *tiles):
         if x.device != device or not x.is_contiguous():
             raise ValueError(f"{what}: mask tensors must be contiguous on "
                              f"{device}")
+    extra = [getattr(tiles, coarse).data_ptr()] if coarse else []
     return [q_ids.data_ptr(), kv_ids.data_ptr(), fm.data_ptr(),
-            tiles.data_ptr(), fm.shape[0]]
+            tiles.t64.data_ptr(), *extra, fm.shape[0]]
 
 
 #: the Hopper body's own return codes (csrc/flash_fwd_sm90.cuh)
@@ -403,16 +472,18 @@ def _launch(lib_name: str, fn: str, counter: str, device, *args) -> None:
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: Optional[float] = None, mask=None,
-                   tiles: Optional[torch.Tensor] = None
+                   tiles: Optional[MaskTiles] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 (or, with `mask` = (q ids, kv ids, frame mask) and its
-    `tiles`, K4) from `csrc/flash_fwd.cu` on CUDA tensors.
+    `tiles` from `mask_tiles`, K4) from `csrc/flash_fwd.cu` on CUDA
+    tensors.
 
     q [B, Lq, N, D], k/v [B, Lk, N, D]; fp32, bf16 or fp16 with D a
     multiple of 8 up to 128.  Returns (O, lse [B, N, Lq]), lse in natural
-    log.  K1 takes its scale with log2(e) folded in (its softmax is exp2:
-    the Hopper body for bf16 / fp16, the template body for fp32); K4 takes
-    the natural scale."""
+    log.  bf16 / fp16 run the Hopper body (K4 over `tiles.fwd`, up to
+    SM90_MAX_FRAMES frames), fp32 the template body (K4 over `tiles.t64`).
+    K1 takes its scale with log2(e) folded in (its softmax is exp2); K4's
+    entry takes the natural scale."""
     what = "flash_fwd" if mask is None else "flash_masked_fwd"
     _check_qkv(what, q, k, v)
     B, Lq, N, D = q.shape
@@ -429,7 +500,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _launch("flash_fwd", "mmpl_flash_fwd", what, q.device, *head, *tail,
                 float(scale * LOG2E))
     else:
-        margs = _mask_args(what, mask, tiles, Lq, Lk, q.device)
+        margs = _mask_args(what, mask, tiles, Lq, Lk, q.device, "fwd",
+                           q.dtype != torch.float32)
         _launch("flash_fwd", "mmpl_flash_masked_fwd", what, q.device,
                 *head, *margs, *tail, float(scale))
     return o, lse
@@ -466,9 +538,10 @@ def _sm_count(index: int) -> int:
 def _bwd_launch(part: str, q, k, v, do, lse, delta, outs, scale, mask,
                 tiles) -> None:
     """Launch the dKV (`part` = "dkv", outs = (dk, dv)) or dQ ("dq",
-    outs = (dq,)) kernel of `csrc/flash_bwd.cu`, masked with `mask`.  The
-    unmasked bf16 / fp16 dKV takes its query split (`bwd_query_splits`)
-    and, when it splits, an fp32 workspace for the partials."""
+    outs = (dq,)) kernel of `csrc/flash_bwd.cu`, masked with `mask` and its
+    `tiles`.  The unmasked bf16 / fp16 dKV takes its query split
+    (`bwd_query_splits`) and, when it splits, an fp32 workspace for the
+    partials; the masked one (K5) never splits and reads `tiles.dkv`."""
     masked = mask is not None
     what = "flash_masked_bwd" if masked else "flash_bwd"
     _check_qkv(what, q, k, v)
@@ -487,8 +560,10 @@ def _bwd_launch(part: str, q, k, v, do, lse, delta, outs, scale, mask,
         for x in outs:
             x.zero_()
         return
-    margs = (_mask_args(what, mask, tiles, Lq, Lk, q.device) if masked
-             else [])
+    sm90_dkv = part == "dkv" and q.dtype != torch.float32
+    margs = (_mask_args(what, mask, tiles, Lq, Lk, q.device,
+                        "dkv" if part == "dkv" else None, sm90_dkv)
+             if masked else [])
     split = []
     if part == "dkv" and not masked:
         splits = (1 if q.dtype == torch.float32 else bwd_query_splits(
@@ -508,11 +583,11 @@ def _bwd_launch(part: str, q, k, v, do, lse, delta, outs, scale, mask,
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale=None, mask=None,
                        tiles=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dKV kernel (K2, or K5 with `mask` and its `tiles`) from
-    `csrc/flash_bwd.cu` (bf16 / fp16 K2: `csrc/flash_bwd_sm90.cuh`, with
-    its reduce in the same launch count when it splits the queries).  dO is
-    read through its strides (the same rules as q); lse and delta =
-    rowsum(dO * O) are contiguous [B, N, Lq] fp32.  Returns (dk, dv),
-    contiguous, in k's dtype."""
+    `csrc/flash_bwd.cu` (bf16 / fp16 K2 and K5: `csrc/flash_bwd_sm90.cuh`,
+    K2 with its reduce in the same launch count when it splits the
+    queries).  dO is read through its strides (the same rules as q); lse
+    and delta = rowsum(dO * O) are contiguous [B, N, Lq] fp32.  Returns
+    (dk, dv), contiguous, in k's dtype."""
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     _bwd_launch("dkv", q, k, v, do, lse, delta, (dk, dv), scale, mask, tiles)
@@ -625,19 +700,19 @@ def flash_attention_exp2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def frame_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            q_frame_ids, kv_frame_ids, frame_mask,
                            scale: Optional[float] = None,
-                           tiles: Optional[torch.Tensor] = None
+                           tiles: Optional[MaskTiles] = None
                            ) -> torch.Tensor:
     """Differentiable attention under a frame-granular boolean mask.
 
     q [B, Lq, N, D], k/v [B, Lk, N, D]; q_frame_ids [Lq] and kv_frame_ids
     [Lk] are int frame ids in [0, F); frame_mask [F, F] bool (True =
-    attend).  `tiles` is `tile_table` of the same ids and mask (built here
+    attend).  `tiles` is `mask_tiles` of the same ids and mask (built here
     when not given; building it refuses ids outside [0, F)).  A row that
     sees no key gets O = 0 and zero grads.
     """
     mask = _as_mask(q_frame_ids, kv_frame_ids, frame_mask, q.device)
     if tiles is None:
-        tiles = tile_table(*mask)
+        tiles = mask_tiles(*mask)
     return _attend(q, k, v, scale, mask, tiles)
 
 

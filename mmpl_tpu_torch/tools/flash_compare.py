@@ -1,8 +1,9 @@
-"""K1, K2 and K3, or P2 and Q, of this tree against another checkout's, on
-one card, in turns.
+"""K1, K2 and K3, K4-K6, or P2 and Q, of this tree against another
+checkout's, on one card, in turns.
 
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel bwd
+    python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel masked
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel int8
 
 DIR holds another checkout of the repository (for example an earlier
@@ -26,6 +27,16 @@ both trees' distance from the plain version, SDPA's time on the same inputs
 bound.  The card's name and power limit come first; for `fwd` a last line
 says whether each Hopper kernel (`*_sm90_kernel`) compiled to the same
 SASS in both trees (`cuobjdump -sass`).
+
+`--kernel masked` builds the baseline's `flash_fwd.cu` and `flash_bwd.cu`
+and times K4, K5 and K6 (`call_masked`) at `MASKED_SHAPES` (the
+teacher-forcing self-attention under the fps-forcing mask) the same way;
+a baseline whose masked entries take no coarse tile table (before the
+Hopper K4 and K5, `OLD_MASKED_SIGNATURES`) gets the 64 x 64 table alone.
+Both trees are held against the plain versions; the last two lines say
+whether the Hopper kernels of each source compiled to the same SASS in
+both trees (K1, P1, K2 and K3; the masked ones exist in one tree only
+when the baseline predates them).
 
 `--kernel int8` builds the baseline's `int8_gemm.cu` (bound by the old
 signatures, without P2's tile width and Q's layout, when it has no
@@ -81,7 +92,14 @@ INT8_SHAPES = {
     "g0_o": (6240, 1536, 1536, True),
     "vae_96ch": (480 * 832, 96 * 27, 96, False),
 }
-TABLES = {"fwd": SHAPES, "bwd": BWD_SHAPES, "int8": INT8_SHAPES}
+#: K4-K6: (B, N, D, tokens a frame) under the fps-forcing mask of
+#: T2V_CLEAN_STEPS over [clean | noisy] 2 x 21 frames: the 1.3B
+#: teacher-forcing step's self-attention, 65520 tokens
+MASKED_SHAPES = {
+    "tf_self": (1, 12, 128, 1560),
+}
+TABLES = {"fwd": SHAPES, "bwd": BWD_SHAPES, "masked": MASKED_SHAPES,
+          "int8": INT8_SHAPES}
 
 #: H100 SXM dense bf16 and int8 tensor-core peaks and HBM rate (NVIDIA
 #: data sheet)
@@ -92,6 +110,13 @@ PEAK_BYTES = 3.35e12
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the dKV entry of the trees before the Hopper backward body
 OLD_DKV_SIGNATURE = [_I] + [_P] * 8 + [_I] * 5 + [_P, _F, _P]
+#: the masked entries of the trees before the Hopper K4 and K5 (no coarse
+#: tile table); K6's has not changed
+OLD_MASKED_SIGNATURES = {
+    "mmpl_flash_masked_fwd": [_I] + [_P] * 9 + [_I] * 6
+                             + [ctypes.c_longlong] * 12 + [_F, _P],
+    "mmpl_flash_masked_bwd_dkv": [_I] + [_P] * 12 + [_I] * 6 + [_P, _F, _P],
+}
 #: the int8 entries of the trees before the Hopper P2 (no tile width, no
 #: Q layout)
 OLD_INT8_SIGNATURES = {
@@ -102,11 +127,13 @@ OLD_INT8_SIGNATURES = {
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="K1, K2 / K3 or P2 / Q against another checkout's")
+        description="K1, K2 / K3, K4-K6 or P2 / Q against another "
+                    "checkout's")
     p.add_argument("--baseline", required=True, type=Path,
                    help="root of the other checkout")
     p.add_argument("--kernel", choices=sorted(TABLES), default="fwd",
-                   help="fwd: K1; bwd: K2 and K3; int8: P2 and Q")
+                   help="fwd: K1; bwd: K2 and K3; masked: K4, K5 and K6; "
+                        "int8: P2 and Q")
     p.add_argument("--shapes", nargs="+", default=None,
                    choices=sorted({k for t in TABLES.values() for k in t}),
                    help="default: every shape of the kernel")
@@ -142,6 +169,17 @@ def baseline_splits_queries(root: Path) -> bool:
     return (baseline_csrc(root, "flash_bwd") / "flash_bwd_sm90.cuh").exists()
 
 
+def baseline_takes_coarse_tables(root: Path,
+                                  source: str = "flash_fwd") -> bool:
+    """Whether the baseline's masked entry of `source` (K4, or K5) takes the
+    Hopper body's coarse tile table (or only the 64 x 64 one, as earlier
+    trees)."""
+    src = (baseline_csrc(root, source) / f"{source}.cu").read_text()
+    entry = "fwd" if source == "flash_fwd" else "bwd_dkv"
+    return re.search(rf"mmpl_flash_masked_{entry}\([^)]*coarse",
+                     src) is not None
+
+
 def baseline_has_hopper_int8(root: Path) -> bool:
     """Whether the baseline's P2 is the Hopper body, whose entries take
     P2's tile width and Q's layout (or the earlier `mma.sync` one)."""
@@ -152,15 +190,18 @@ def baseline_signatures(root: Path, source: str) -> dict:
     """The entries of the baseline's `source` that the comparison calls,
     with the C signatures its sources have."""
     sigs = _build.SIGNATURES[source]
-    if source == "flash_fwd":
-        return {"mmpl_flash_fwd": sigs["mmpl_flash_fwd"]}
     if source == "int8_gemm":
         return (dict(sigs) if baseline_has_hopper_int8(root)
                 else dict(OLD_INT8_SIGNATURES))
+    coarse = baseline_takes_coarse_tables(root, source)
+    masked = {n: (sigs[n] if coarse else OLD_MASKED_SIGNATURES.get(n, sigs[n]))
+              for n in sigs if n.startswith("mmpl_flash_masked")}
+    if source == "flash_fwd":
+        return {"mmpl_flash_fwd": sigs["mmpl_flash_fwd"], **masked}
     return {"mmpl_flash_bwd_dkv": (sigs["mmpl_flash_bwd_dkv"]
                                    if baseline_splits_queries(root)
                                    else OLD_DKV_SIGNATURE),
-            "mmpl_flash_bwd_dq": sigs["mmpl_flash_bwd_dq"]}
+            "mmpl_flash_bwd_dq": sigs["mmpl_flash_bwd_dq"], **masked}
 
 
 def baseline_library(root: Path, source: str = "flash_fwd") -> Path:
@@ -239,6 +280,44 @@ def call_bwd(lib, splits_queries: bool, part: str, q, k, v, do, lse, delta):
     return outs
 
 
+def call_masked(lib, coarse: bool, part: str, q, k, v, mask, tiles,
+                do=None, lse=None, delta=None):
+    """K4 ("fwd": (O, lse)), K5 ("dkv": (dk, dv)) or K6 ("dq": (dq,)) of a
+    built `flash_fwd` / `flash_bwd` library on CUDA tensors under `mask`
+    (ids, ids, frame table) and its `attn.mask_tiles`; a library whose
+    entries take the coarse tables gets the one of its kernel."""
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    ids = [mask[0].data_ptr(), mask[1].data_ptr(), mask[2].data_ptr(),
+           tiles.t64.data_ptr()]
+    if coarse and part != "dq":
+        ids.append(getattr(tiles, part).data_ptr())
+    ids.append(mask[2].shape[0])
+    code = attn._DTYPE_CODES[q.dtype]
+    if part == "fwd":
+        o = torch.empty_like(q, memory_format=torch.contiguous_format)
+        out = torch.empty((B, N, Lq), dtype=torch.float32, device=q.device)
+        rc = lib.mmpl_flash_masked_fwd(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            out.data_ptr(), *ids, B, Lq, Lk, N, D,
+            *attn._strides(q, k, v, o), float(D ** -0.5), stream)
+        outs = (o, out)
+    else:
+        like = (k, v) if part == "dkv" else (q,)
+        outs = tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
+                     for x in like)
+        strides = attn._strides(q, k, v, do, *outs) + [0] * 3 * (2 - len(outs))
+        rc = getattr(lib, f"mmpl_flash_masked_bwd_{part}")(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
+            *ids, B, Lq, Lk, N, D, (ctypes.c_longlong * 18)(*strides),
+            float(D ** -0.5), stream)
+    if rc != 0:
+        raise RuntimeError(f"masked {part} launch failed: CUDA error {rc}")
+    return outs
+
+
 def call_p2(lib, hopper: bool, a, b, sx, sw):
     """P2 of a built `int8_gemm` library, bf16 out; a Hopper library gets
     this tree's tile width."""
@@ -272,7 +351,9 @@ def call_q(lib, hopper: bool, x):
 
 def sass_by_kernel(path: Path) -> dict:
     """{mangled kernel name: its SASS} of a built library, from the
-    cuobjdump beside nvcc."""
+    cuobjdump beside nvcc, each line's runs of blanks made one (cuobjdump
+    pads the instructions to the widest of the whole library, so a kernel
+    added beside them shifts every column)."""
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
                          text=True, check=True).stdout
@@ -283,7 +364,7 @@ def sass_by_kernel(path: Path) -> dict:
             name = m.group(1)
             kernels[name] = []
         elif name is not None:
-            kernels[name].append(line.strip())
+            kernels[name].append(" ".join(line.split()))
     return {k: "\n".join(v) for k, v in kernels.items()}
 
 
@@ -432,6 +513,78 @@ def run_bwd(args, smi: str) -> list:
     return rows
 
 
+def run_masked(args, smi: str) -> list:
+    from ..core.geometry import T2V_CLEAN_STEPS
+    from ..training.masks import fps_forcing_frame_mask
+    libs = {src: build_baseline(args.baseline, src)
+            for src in ("flash_fwd", "flash_bwd")}
+    coarse = {src: baseline_takes_coarse_tables(args.baseline, src)
+              for src in libs}
+    mine = {src: _build.library(src) for src in ("flash_fwd", "flash_bwd")}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for label in args.shapes:
+        B, N, D, S = MASKED_SHAPES[label]
+        fm = fps_forcing_frame_mask(T2V_CLEAN_STEPS)
+        ids = torch.arange(fm.shape[0], dtype=torch.int32,
+                           device="cuda").repeat_interleave(S)
+        mask = (ids, ids, torch.as_tensor(fm, device="cuda"))
+        tiles = attn.mask_tiles(*mask)
+        L = ids.numel()
+        counts = torch.full((fm.shape[0],), float(S), dtype=torch.float64)
+        share = float(counts @ torch.as_tensor(fm, dtype=torch.float64)
+                      @ counts) / L ** 2
+        q, k, v, do = (torch.randn((B, L, N, D), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = attn.flash_fwd_cuda(q, k, v, None, mask, tiles)
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+        po, _ = attn.frame_masked_attention_plain(q, k, v, *mask)
+        want = dict(zip(("dq", "dk", "dv"),
+                        attn.frame_masked_attention_bwd_plain(
+                            q, k, v, do, lse, delta, *mask)))
+        want["o"] = po
+        row = {"kernel": "masked", "shape": label, "B": B, "N": N, "D": D,
+               "L": L, "pair_share": share,
+               "fwd_tile_share": (tiles.fwd != 0).float().mean().item(),
+               "dkv_tile_share": (tiles.dkv != 0).float().mean().item(),
+               "t64_tile_share": (tiles.t64 != 0).float().mean().item()}
+        bwd_args = dict(do=do, lse=lse, delta=delta)
+        for part, src, names, mult in (("fwd", "flash_fwd", ("o",), 4.0),
+                                       ("dkv", "flash_bwd", ("dk", "dv"), 8.0),
+                                       ("dq", "flash_bwd", ("dq",), 6.0)):
+            extra = {} if part == "fwd" else bwd_args
+            base = lambda: call_masked(libs[src], coarse[src], part, q, k,
+                                       v, mask, tiles, **extra)
+            this = lambda: call_masked(mine[src], True, part, q, k, v, mask,
+                                       tiles, **extra)
+            for who, fn in (("baseline", base), ("this", this)):
+                row[f"{part}_{who}_rel_err"] = max(
+                    _rel(g, want[n]) for g, n in zip(fn(), names))
+            row.update({f"{part}_{k_}": x for k_, x in
+                        _turns(base, this, args.reps).items()})
+            flops = mult * B * N * L * L * D * share
+            elems = {"fwd": 4 * L, "dkv": 6 * L, "dq": 5 * L}[part]
+            nbytes = 2 * B * N * D * elems + 4 * B * N * L * (
+                1 if part == "fwd" else 2)
+            row[f"{part}_bound_ms"] = 1e3 * max(flops / PEAK_FLOPS,
+                                                nbytes / PEAK_BYTES)
+            row[f"{part}_this_tflops"] = (flops / min(row[f"{part}_this_ms"])
+                                          / 1e9)
+        row["card"] = smi
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del q, k, v, do, o, lse, delta, po, want
+        torch.cuda.empty_cache()
+    for source in ("flash_fwd", "flash_bwd"):
+        sass = same_sass(baseline_library(args.baseline, source),
+                         _build._target(source))
+        print(json.dumps({"kernel": "masked", "sass_of": f"{source}.cu",
+                          "sass_identical": len(sass["identical"]), **sass,
+                          "card": smi}), flush=True)
+    return rows
+
+
 def _ulps(got, want) -> int:
     return (got.view(torch.int16).long() - want.view(torch.int16).long()
             ).abs().max().item()
@@ -497,8 +650,8 @@ def run_int8(args, smi: str) -> list:
 
 def run(args) -> list:
     smi = _card()
-    return {"fwd": run_fwd, "bwd": run_bwd, "int8": run_int8}[args.kernel](
-        args, smi)
+    return {"fwd": run_fwd, "bwd": run_bwd, "masked": run_masked,
+            "int8": run_int8}[args.kernel](args, smi)
 
 
 def main(argv=None) -> int:

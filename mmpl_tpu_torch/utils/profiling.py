@@ -21,21 +21,24 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 
-#: the `__global__` functions of `csrc/`, by launch counter.  K1, P1, K2
-#: and K3 have a Hopper kernel (bf16 / fp16) and a template-body one
+#: the `__global__` functions of `csrc/`, by launch counter.  K1, K4, P1,
+#: K2, K3 and K5 have a Hopper kernel (bf16 / fp16) and a template-body one
 #: (fp32); K2's Hopper launch adds its reduce when it splits the queries.
 #: The backward templates take the frame mask as their last flag (K5, K6);
-#: the Hopper backward kernels take no bool template argument.  P2 has one
+#: the Hopper backward kernels take no bool template argument (K5's is a
+#: kernel of its own name).  P2 has one
 #: body; Q reads a row once, or twice beyond the rows its registers hold
 _KERNELS = {
     "flash_fwd_sm90_kernel": "flash_fwd",
     "flash_fwd_kernel": "flash_fwd",
+    "flash_masked_fwd_sm90_kernel": "flash_masked_fwd",
     "flash_masked_fwd_kernel": "flash_masked_fwd",
     "flash_exp2_sm90_kernel": "flash_exp2",
     "flash_exp2_kernel": "flash_exp2",
     "flash_bwd_dkv_sm90_kernel": "flash_bwd_dkv",
     "flash_bwd_dkv_reduce_kernel": "flash_bwd_dkv",
     "flash_bwd_dkv_kernel": "flash_bwd_dkv",
+    "flash_masked_bwd_dkv_sm90_kernel": "flash_masked_bwd_dkv",
     "flash_bwd_dq_sm90_kernel": "flash_bwd_dq",
     "flash_bwd_dq_kernel": "flash_bwd_dq",
     "int8_gemm_sm90_kernel": "int8_gemm",

@@ -1,5 +1,6 @@
 """K1-K6 (`mmpl_tpu_torch/csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`, their
-Hopper bodies `csrc/flash_fwd_sm90.cuh` and `csrc/flash_bwd_sm90.cuh`) and
+Hopper bodies `csrc/flash_fwd_sm90.cuh` and `csrc/flash_bwd_sm90.cuh`, which
+also run the bf16 / fp16 K4 and K5) and
 the int8 kernels P2 and Q (`csrc/int8_gemm.cu`, P2's Hopper body
 `csrc/int8_gemm_sm90.cuh`) on the card: agreement with their plain
 versions, the body each type runs, the dispatch's launch counts, and what
@@ -193,14 +194,17 @@ def test_backward_through_autograd_reads_the_hopper_lse(cuda, lk):
 # K4-K6 and K2/K3
 # ---------------------------------------------------------------------------
 
-def _mask(L, S, cuda, blind=True):
+def _mask(L, S, cuda, blind=True, unseen=False):
     """Frame ids of L tokens in frames of S, a block-causal mask over them
-    and, with `blind`, one frame that sees nothing."""
+    and, with `blind`, one frame that sees nothing; with `unseen` frame 2
+    is seen by nothing (at S >= 256 both span whole 128-token blocks)."""
     from mmpl_tpu_torch.training import masks
     F = -(-L // S)
     fm = masks.blockwise_causal_frame_mask(F, 3)
     if blind:
         fm[1] = False
+    if unseen:
+        fm[:, 2] = False
     ids = np.repeat(np.arange(F), S)[:L]
     return (torch.as_tensor(ids, dtype=torch.int32, device=cuda),
             torch.as_tensor(ids, dtype=torch.int32, device=cuda),
@@ -214,11 +218,13 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
                                      (torch.bfloat16, 24),
+                                     (torch.float16, 128),
+                                     (torch.float16, 24),
                                      (torch.float32, 24)])
 def test_masked_forward_matches_plain_with_a_blind_frame(cuda, dtype, d):
     q, k, v = _qkv(1000, 1000, d, dtype, cuda)
     mask = _mask(1000, 130, cuda)
-    tiles = ta.tile_table(*mask)
+    tiles = ta.mask_tiles(*mask)
     o, lse = ta.flash_fwd_cuda(q, k, v, None, mask, tiles)
     po, plse = ta.frame_masked_attention_plain(q, k, v, *mask)
     blind = mask[0] == 1
@@ -233,6 +239,8 @@ def test_masked_forward_matches_plain_with_a_blind_frame(cuda, dtype, d):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("dtype,d,tol", [(torch.bfloat16, 128, 1e-2),
                                          (torch.bfloat16, 24, 1e-2),
+                                         (torch.float16, 128, 1e-2),
+                                         (torch.float16, 24, 1e-2),
                                          (torch.float32, 24, 1e-5),
                                          (torch.float32, 128, 1e-5)])
 def test_backward_matches_plain_at_a_ragged_shape(cuda, masked, dtype, d,
@@ -241,7 +249,7 @@ def test_backward_matches_plain_at_a_ragged_shape(cuda, masked, dtype, d,
     q, k, v = _qkv(lq, lk, d, dtype, cuda)
     do = _qkv(lq, lq, d, dtype, cuda, seed=1)[0]
     mask = _mask(lq, 130, cuda) if masked else None
-    tiles = ta.tile_table(*mask) if masked else None
+    tiles = ta.mask_tiles(*mask) if masked else None
     o, lse = ta.flash_fwd_cuda(q, k, v, None, mask, tiles)
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
     got = ta.flash_bwd_cuda(q, k, v, do, lse, delta, None, mask, tiles)
@@ -255,6 +263,82 @@ def test_backward_matches_plain_at_a_ragged_shape(cuda, masked, dtype, d,
         assert _rel(g, w) <= tol, (name, _rel(g, w))
     if masked:
         assert torch.all(got[0][:, mask[0] == 1] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [24, 128])
+def test_masked_blocks_with_no_admitted_tile(cuda, dtype, d):
+    """Frames of 300 tokens: frame 1 sees nothing (query block 384..511
+    has no admitted tile, so K4 runs only its epilogue) and frame 2 is
+    seen by nothing (key blocks 640..895 have no admitted query tile, so
+    K5 writes zeros).  O = 0 and lse = -inf on frame 1's rows, dK = dV = 0
+    on frame 2's keys, the rest against the plain versions."""
+    q, k, v = _qkv(1000, 1000, d, dtype, cuda, seed=d)
+    do = _qkv(1000, 1000, d, dtype, cuda, seed=d + 1)[0]
+    mask = _mask(1000, 300, cuda, unseen=True)
+    tiles = ta.mask_tiles(*mask)
+    assert (tiles.fwd[3] == 0).all() and (tiles.dkv[5:7] == 0).all()
+    o, lse = ta.flash_fwd_cuda(q, k, v, None, mask, tiles)
+    po, plse = ta.frame_masked_attention_plain(q, k, v, *mask)
+    blind, unseen = mask[0] == 1, mask[1] == 2
+    assert torch.all(o[:, blind] == 0)
+    assert torch.all(lse[:, :, blind] == -float("inf"))
+    assert torch.equal(torch.isfinite(lse), torch.isfinite(plse))
+    live = torch.isfinite(plse)
+    assert (o.float() - po.float()).abs().max().item() <= 2e-2
+    assert (lse[live] - plse[live]).abs().max().item() <= 1e-3
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dk, dv = ta.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, None, mask,
+                                   tiles)
+    _, wk, wv = ta.frame_masked_attention_bwd_plain(q, k, v, do, lse, delta,
+                                                    *mask)
+    assert torch.all(dk[:, unseen] == 0) and torch.all(dv[:, unseen] == 0)
+    for g, w, name in ((dk, wk, "dk"), (dv, wv, "dv")):
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel(g, w) <= 1e-2, (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_masked_dkv_rows_without_lse_on_tiles_that_allow_every_pair(cuda,
+                                                                     dtype):
+    """Rows whose lse is -inf give p = 0 on every tile, also where the
+    frame table allows every pair (class 2, which tests no pair): an
+    all-ones mask with some rows' lse set to -inf, against the plain
+    version."""
+    q, k, v, do = _bwd_inputs(1000, 1000, 128, dtype, cuda, seed=11)
+    ids = torch.zeros(1000, dtype=torch.int32, device=cuda)
+    mask = (ids, ids, torch.ones((1, 1), dtype=torch.bool, device=cuda))
+    tiles = ta.mask_tiles(*mask)
+    assert (tiles.dkv == 2).all()
+    o, lse = ta.flash_fwd_cuda(q, k, v, None, mask, tiles)
+    lse[:, :, 100:150] = -float("inf")
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dk, dv = ta.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, None, mask,
+                                   tiles)
+    _, wk, wv = ta.frame_masked_attention_bwd_plain(q, k, v, do, lse, delta,
+                                                    *mask)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for g, w, name in ((dk, wk, "dk"), (dv, wv, "dv")):
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel(g, w) <= tol, (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("dtype,body", [
+    (torch.bfloat16, "flash_masked_fwd_sm90_kernel"),
+    (torch.float16, "flash_masked_fwd_sm90_kernel"),
+    (torch.float32, "flash_masked_fwd_kernel"),
+])
+def test_masked_forward_runs_the_body_of_its_type(cuda, dtype, body):
+    """bf16 / fp16 K4 runs the Hopper kernel (the masked instantiation of
+    K1's body), fp32 the template; the profiler books each to K4."""
+    from mmpl_tpu_torch.utils.profiling import port_kernel_of
+    q, k, v = _qkv(500, 500, 64, dtype, cuda)
+    mask = _mask(500, 100, cuda)
+    tiles = ta.mask_tiles(*mask)
+    names = _launched(lambda: ta.flash_fwd_cuda(q, k, v, None, mask, tiles))
+    mine = [n for n in names if port_kernel_of(n) == "flash_masked_fwd"]
+    assert len(mine) == 1 and body in mine[0], names
 
 
 def test_backward_reads_strided_do(cuda):
@@ -387,33 +471,35 @@ def test_hopper_bwd_padding_keys_stay_finite_under_a_very_negative_lse(cuda):
     assert max(errs) <= 1e-2, errs
 
 
-@pytest.mark.parametrize("dtype,masked,body", [
-    (torch.bfloat16, False, "_sm90_kernel"),
-    (torch.float16, False, "_sm90_kernel"),
-    (torch.float32, False, "flash_bwd_d"),
-    (torch.bfloat16, True, "flash_bwd_d"),
+@pytest.mark.parametrize("dtype,masked,bodies", [
+    (torch.bfloat16, False, ("_sm90_kernel", "_sm90_kernel")),
+    (torch.float16, False, ("_sm90_kernel", "_sm90_kernel")),
+    (torch.float32, False, ("flash_bwd_d", "flash_bwd_d")),
+    (torch.bfloat16, True, ("_sm90_kernel", "flash_bwd_d")),
+    (torch.float16, True, ("_sm90_kernel", "flash_bwd_d")),
+    (torch.float32, True, ("flash_bwd_d", "flash_bwd_d")),
 ])
-def test_backward_runs_the_body_of_its_type(cuda, dtype, masked, body):
-    """bf16 / fp16 K2 / K3 run the Hopper kernels (K2 with its reduce where
-    it splits), fp32 and the masked K5 / K6 the template; the profiler
-    attribution books each to its own counter."""
+def test_backward_runs_the_body_of_its_type(cuda, dtype, masked, bodies):
+    """bf16 / fp16 K2 / K3 and K5 run the Hopper kernels (K2 with its
+    reduce where it splits, K5 never split), fp32 and K6 the template; the
+    profiler attribution books each to its own counter."""
     from mmpl_tpu_torch.utils.profiling import port_kernel_of
     q, k, v, do = _bwd_inputs(500, 300, 64, dtype, cuda)
     mask = _mask(500, 100, cuda, blind=False) if masked else None
     mask = (mask[0], mask[1][:300], mask[2]) if masked else None
-    tiles = ta.tile_table(*mask) if masked else None
+    tiles = ta.mask_tiles(*mask) if masked else None
     o, lse = ta.flash_fwd_cuda(q, k, v, None, mask, tiles)
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
     prefix = "flash_masked_bwd" if masked else "flash_bwd"
     names = _launched(lambda: ta.flash_bwd_cuda(q, k, v, do, lse, delta, None,
                                                 mask, tiles))
-    for part in ("dkv", "dq"):
+    for part, body in zip(("dkv", "dq"), bodies):
         mine = [n for n in names if port_kernel_of(n) == f"{prefix}_{part}"]
         main = [n for n in mine if "_reduce_kernel" not in n]
         assert len(main) == 1 and body in main[0], names
         assert ("_sm90_kernel" in main[0]) is (body == "_sm90_kernel")
         assert len(mine) - len(main) == (
-            part == "dkv" and body == "_sm90_kernel"
+            part == "dkv" and body == "_sm90_kernel" and not masked
             and ta.bwd_query_splits(2, 3, 500, 300, torch.cuda
                                     .get_device_properties(cuda)
                                     .multi_processor_count) > 1), names

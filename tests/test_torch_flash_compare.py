@@ -1,7 +1,8 @@
 """`mmpl_tpu_torch.tools.flash_compare` off the card: which scale a
 baseline checkout's K1 takes, which dKV signature its backward has, which
-P2 and Q signatures its int8 source has, what it refuses, and that it
-needs the card (its builds and times run only there)."""
+masked signatures (with or without the coarse tile table) its K4 and K5
+have, which P2 and Q signatures its int8 source has, what it refuses, and
+that it needs the card (its builds and times run only there)."""
 
 import pytest
 import torch
@@ -46,6 +47,7 @@ def test_compare_needs_the_card(tmp_path, monkeypatch):
     (["--kernel", "bwd", "--shapes", "tf_cross"], "bwd", ["tf_cross"]),
     (["--kernel", "int8"], "int8",
      ["g23_fc1", "g23_fc2", "g0_o", "vae_96ch"]),
+    (["--kernel", "masked"], "masked", ["tf_self"]),
 ])
 def test_kernel_choice_parses_with_its_shapes(tmp_path, argv, kernel, shapes):
     args = flash_compare.parse_args(["--baseline", str(tmp_path), *argv])
@@ -103,5 +105,62 @@ def test_int8_compare_needs_the_card(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = flash_compare.parse_args(["--baseline", str(tmp_path),
                                      "--kernel", "int8"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flash_compare.run(args)
+
+
+#: the K4 and K5 entries' first lines in the trees before and after the
+#: coarse tile table
+OLD_K4_ENTRY = """extern "C" int mmpl_flash_masked_fwd(int dtype,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* qf, const void* kf, const void* fm, const void* tiles,
+    int F, int B,"""
+NEW_K4_ENTRY = """extern "C" int mmpl_flash_masked_fwd(int dtype,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* qf, const void* kf, const void* fm, const void* tiles,
+    const void* coarse, int F, int B,"""
+OLD_K5_ENTRY = """extern "C" int mmpl_flash_masked_bwd_dkv(int dtype,
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, const void* qf,
+    const void* kf, const void* fm, const void* tiles, int F, int B,"""
+NEW_K5_ENTRY = """extern "C" int mmpl_flash_masked_bwd_dkv(int dtype,
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, const void* qf,
+    const void* kf, const void* fm, const void* tiles, const void* coarse,
+    int F, int B,"""
+
+
+@pytest.mark.parametrize("coarse", [False, True])
+def test_baseline_masked_entries_are_bound_by_their_sources(tmp_path, coarse):
+    """A baseline whose K4 entry takes no coarse table (the trees before the
+    Hopper K4 and K5) has the older K4 and K5 signatures, one pointer
+    shorter; K6's is the same in both."""
+    root = _checkout(tmp_path, "flash_fwd.cu", "flash_bwd.cu",
+                     "flash_common.cuh", "flash_fwd_sm90.cuh",
+                     "flash_bwd_sm90.cuh")
+    csrc = root / "mmpl_tpu_torch" / "csrc"
+    (csrc / "flash_fwd.cu").write_text(NEW_K4_ENTRY if coarse
+                                       else OLD_K4_ENTRY)
+    (csrc / "flash_bwd.cu").write_text(NEW_K5_ENTRY if coarse
+                                       else OLD_K5_ENTRY)
+    for source in ("flash_fwd", "flash_bwd"):
+        assert flash_compare.baseline_takes_coarse_tables(
+            root, source) is coarse
+    fwd = flash_compare.baseline_signatures(root, "flash_fwd")
+    bwd = flash_compare.baseline_signatures(root, "flash_bwd")
+    mine = {**_build.SIGNATURES["flash_fwd"], **_build.SIGNATURES["flash_bwd"]}
+    for name in ("mmpl_flash_masked_fwd", "mmpl_flash_masked_bwd_dkv"):
+        got = fwd.get(name) or bwd[name]
+        assert (got == mine[name]) is coarse
+        assert len(got) == len(mine[name]) - (not coarse)
+    assert bwd["mmpl_flash_masked_bwd_dq"] == \
+        mine["mmpl_flash_masked_bwd_dq"]
+    assert fwd["mmpl_flash_fwd"] == mine["mmpl_flash_fwd"]
+
+
+def test_masked_compare_needs_the_card(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = flash_compare.parse_args(["--baseline", str(tmp_path),
+                                     "--kernel", "masked"])
     with pytest.raises(RuntimeError, match="CUDA"):
         flash_compare.run(args)

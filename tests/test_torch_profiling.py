@@ -1,12 +1,13 @@
 """`utils.profiling.port_kernel_of`: the profiler's kernel names, mangled
 and demangled, booked to the port kernel (launch counter) they belong to.
-The names are those the card's build gives K1 (the Hopper body in bf16 /
-fp16, the template body in fp32), K4, P1 (both bodies), K2/K3 (the Hopper
-backward in bf16 / fp16, K2's reduce kernel included, and the template in
-fp32), K5/K6 (the backward templates, whose last flag is the frame
+The names are those the card's build gives K1 and K4 (the Hopper body in
+bf16 / fp16, the template body in fp32), P1 (both bodies), K2/K3 (the
+Hopper backward in bf16 / fp16, K2's reduce kernel included, and the
+template in fp32), K5 (the Hopper dKV body's masked kernel in bf16 /
+fp16) and K5/K6 (the backward templates, whose last flag is the frame
 mask), P2 (its Hopper body at each tile width and output type) and Q (the
 one-read body and the two-read loop); a kernel of another library books
-to nothing, and no Hopper backward kernel books to K5 or K6."""
+to nothing, and no Hopper K2 / K3 kernel books to K5 or K6."""
 
 import pytest
 
@@ -23,6 +24,9 @@ NAMES = [
     ('K4', 'flash_masked_fwd',
      '_ZN45_GLOBAL__N__176ec67e_12_flash_fwd_cu_c145cf2523flash_masked_fwd_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_PS2_PfiiiiN4mmpl10FwdStridesEfNS7_9FrameMaskE',
      'void (anonymous namespace)::flash_masked_fwd_kernel<__nv_bfloat16, 128>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, int, int, int, int, mmpl::FwdStrides, float, mmpl::FrameMask)'),
+    ('K4 Hopper', 'flash_masked_fwd',
+     '_ZN4mmpl4sm9028flash_masked_fwd_sm90_kernelI13__nv_bfloat16Li128EEEv14CUtensorMap_stS3_S3_NS0_6ParamsENS_9FrameMaskE',
+     'void mmpl::sm90::flash_masked_fwd_sm90_kernel<__nv_bfloat16, 128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::Params, mmpl::FrameMask)'),
     ('P1 Hopper', 'flash_exp2',
      '_ZN4mmpl4sm9022flash_exp2_sm90_kernelI6__halfLi64ELb1ELb0EEEv14CUtensorMap_stS3_S3_NS0_6ParamsE',
      'void mmpl::sm90::flash_exp2_sm90_kernel<__half, 64, true, false>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::Params)'),
@@ -56,6 +60,9 @@ NAMES = [
     ('K5', 'flash_masked_bwd_dkv',
      '_ZN45_GLOBAL__N__3a7d91c2_12_flash_bwd_cu_5e0b14d720flash_bwd_dkv_kernelI13__nv_bfloat16Li128ELb1EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_iiiiNS_7StridesEfN4mmpl9FrameMaskE',
      'void (anonymous namespace)::flash_bwd_dkv_kernel<__nv_bfloat16, 128, true>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, float const*, float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
+    ('K5 Hopper', 'flash_masked_bwd_dkv',
+     '_ZN4mmpl4sm9032flash_masked_bwd_dkv_sm90_kernelI6__halfLi64EEEv14CUtensorMap_stS3_S3_S3_NS0_9BwdParamsENS_9FrameMaskE',
+     'void mmpl::sm90::flash_masked_bwd_dkv_sm90_kernel<__half, 64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::BwdParams, mmpl::FrameMask)'),
     ('K6', 'flash_masked_bwd_dq',
      '_ZN45_GLOBAL__N__3a7d91c2_12_flash_bwd_cu_5e0b14d719flash_bwd_dq_kernelIfLi64ELb1EEEvPKT_S3_S3_S3_PKfS5_PS1_iiiiNS_7StridesEfN4mmpl9FrameMaskE',
      'void (anonymous namespace)::flash_bwd_dq_kernel<float, 64, true>(float const*, float const*, float const*, float const*, float const*, float const*, float*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
