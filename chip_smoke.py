@@ -26,9 +26,9 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      ragged shapes with a frame that sees nothing (bf16, fp16, D = 24,
      fp32) and with whole blocks that see or are seen by nothing, against
      the plain versions and SDPA (memory-efficient backend) with the token
-     mask; bf16 / fp16 K4 and K5 run the masked instantiations of K1's and
-     K2's Hopper bodies over the coarse tile tables (their admitted and
-     partial shares reported), K6 and fp32 the template body;
+     mask; bf16 / fp16 K4, K5 and K6 run the masked instantiations of K1's,
+     K2's and K3's Hopper bodies over the coarse tile tables (their
+     admitted and partial shares reported), fp32 the template body;
   5. kernel_int8 (run before kernel_masked, whose large SDPA yardstick
      leaves the short profiler sessions that read a body without their
      records): Q (csrc/int8_gemm.cu) and P2 (the wgmma s8 + TMA body
@@ -120,7 +120,8 @@ from mmpl_tpu_torch.pipelines.fps_inference import \
     CausalFPSInferencePipeline                                    # noqa: E402
 from mmpl_tpu_torch.training import masks                        # noqa: E402
 from mmpl_tpu_torch.utils.device import set_float32_precision   # noqa: E402
-from mmpl_tpu_torch.utils.profiling import (device_kernels,      # noqa: E402
+from mmpl_tpu_torch.utils.profiling import (BODY_CALLS,          # noqa: E402
+                                            device_kernels,
                                             port_kernel_of, queued_ms)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -380,14 +381,6 @@ def _kernel_id(mangled: str) -> str:
     return mangled
 
 
-#: calls of each profiler session that reads which body ran a flash
-#: kernel: one-call sessions of K2 and K3, or of K5 and K6, kept only the
-#: second kernel's record now and then (H100, torch 2.11; PR 7 saw a
-#: 10-call session keep about 7 of its records), so each body is read from
-#: the records of this many calls
-BODY_CALLS = 10
-
-
 def _launched(fn) -> list:
     """The names of the device kernels that BODY_CALLS calls of `fn`
     launch in one profiler session.  `fn` runs again (after a pause) while
@@ -400,9 +393,9 @@ def _body(names, counter: str, dtype) -> str:
     """Which body ran `counter`'s launch among `names`: "wgmma" (the
     `*_sm90_kernel` of csrc/flash_fwd_sm90.cuh or csrc/flash_bwd_sm90.cuh,
     with K2's reduce kernel when the call split the queries) or "template"
-    (the mma.sync / FMA body of csrc/flash_fwd.cu or csrc/flash_bwd.cu, one
-    kernel).  bf16 / fp16 K1, K4, P1, K2, K3 and K5 must run the first;
-    fp32 and K6 (`dtype` None) the second."""
+    (the fp32 FMA body of csrc/flash_fwd.cu or csrc/flash_bwd.cu, one
+    kernel).  bf16 / fp16 K1-K6 and P1 must run the first; fp32 the
+    second."""
     mine = [n for n in names if port_kernel_of(n) == counter]
     main = [n for n in mine if "_reduce_kernel" not in n]
     check(len(main) == 1 and len(mine) - len(main) <= 1, (counter, names))
@@ -613,11 +606,12 @@ def phase_kernel_masked():
                "pair_share": share,
                "tile_share": admitted(tiles.t64),
                "tiles_full_share": (tiles.t64 == 2).float().mean().item(),
-               # the Hopper K4's 128 x 128 and K5's 64 x 128 tables
-               "fwd_tile_share": admitted(tiles.fwd),
-               "fwd_partial_share": partial(tiles.fwd),
-               "dkv_tile_share": admitted(tiles.dkv),
-               "dkv_partial_share": partial(tiles.dkv),
+               # the Hopper K4's and K6's 128 x 128 and K5's 64 x 128
+               # tables
+               **{f"{part}_{what}": fn(getattr(tiles, table))
+                  for part, table in attn.COARSE_TABLE.items()
+                  for what, fn in (("tile_share", admitted),
+                                   ("partial_share", partial))},
                "o_max_abs_err": err.max().item(),
                "o_mean_abs_err": err.mean().item(),
                "lse_max_abs_err": (lse[live] - plse[live]).abs().max().item(),
@@ -642,9 +636,8 @@ def phase_kernel_masked():
             dq=attn.flash_bwd_dq_cuda(q, k, v, do, lse, delta, None, mask,
                                       tiles)))
         (dk, dv), dq = out["dkv"], out["dq"]
-        # K5 runs the Hopper body in bf16 / fp16; K6 keeps the template
         row["dkv_body"] = _body(names, "flash_masked_bwd_dkv", dtype)
-        row["dq_body"] = _body(names, "flash_masked_bwd_dq", None)
+        row["dq_body"] = _body(names, "flash_masked_bwd_dq", dtype)
         want = attn.frame_masked_attention_bwd_plain(q, k, v, do, lse, delta,
                                                      *mask)
         torch.cuda.synchronize()
@@ -670,7 +663,7 @@ def phase_kernel_masked():
         hopper = dtype != torch.float32
         for part in ("fwd", "dkv", "dq"):
             # the ids, the frame table and the tile table the kernel reads
-            table = (getattr(tiles, part) if hopper and part != "dq"
+            table = (getattr(tiles, attn.COARSE_TABLE[part]) if hopper
                      else tiles.t64)
             mask_bytes = 4 * 2 * L + mask[2].numel() + table.numel()
             work = attention_work(part, B, N, D, L, L, dtype, share,
@@ -1232,18 +1225,20 @@ def _profile_step(step, what: str, phase: str, top: int = 12) -> dict:
 def _by_port(kernels) -> dict:
     """Device ms of each port kernel (by launch counter) among the
     profiler's `kernels`; a Hopper-body kernel (K2's reduce included) must
-    book to K1, K4, P1, K2, K3, K5, P2 or Q, never to nothing or to K6;
-    and a masked Hopper kernel to K4 or K5 alone."""
+    book to K1-K6, P1, P2 or Q, never to nothing; and a masked Hopper
+    kernel to K4, K5 or K6 alone."""
     by_port = {}
     for e in kernels:
         name = port_kernel_of(e.key)
         if "_sm90_kernel" in e.key or "_reduce_kernel" in e.key:
             check(name in ("flash_fwd", "flash_masked_fwd", "flash_exp2",
                            "flash_bwd_dkv", "flash_masked_bwd_dkv",
-                           "flash_bwd_dq", "int8_gemm", "quantize_rows"),
+                           "flash_bwd_dq", "flash_masked_bwd_dq",
+                           "int8_gemm", "quantize_rows"),
                   e.key)
             check(("_masked_" in e.key) == (name in (
-                "flash_masked_fwd", "flash_masked_bwd_dkv")), e.key)
+                "flash_masked_fwd", "flash_masked_bwd_dkv",
+                "flash_masked_bwd_dq")), e.key)
         if name:
             by_port[name] = by_port.get(name, 0.0) + \
                 e.self_device_time_total / 1e3
@@ -1947,8 +1942,10 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                 "(flash_bwd_sm90.cuh) for bf16 / fp16 over the 64 x 128 "
                 "table, the template body of flash_bwd.cu for fp32; entry "
                 "in flash_bwd.cu", bwd_sm90_src, [bwd_sm90_src, bwd_src]),
-        "dq": ("the mma.sync template body of flash_bwd.cu in every type",
-               bwd_src, [bwd_src]),
+        "dq": ("K3's wgmma + TMA dQ body, masked (flash_bwd_sm90.cuh) for "
+               "bf16 / fp16 over the 128 x 128 table, the template body of "
+               "flash_bwd.cu for fp32; entry in flash_bwd.cu", bwd_sm90_src,
+               [bwd_sm90_src, bwd_src]),
     }
     for name, part, line, plain, lib in (
             ("flash_masked_fwd", "fwd", 725, "plain_fwd_ms", "library_fwd_ms"),
@@ -1960,9 +1957,8 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                if part == "fwd" else
                grad_err(masked, ("dk", "dv") if part == "dkv" else ("dq",)))
         body, src, srcs = masked_bodies[part]
-        coarse = ({f"{part}_tile_share": m[f"{part}_tile_share"],
-                   f"{part}_partial_share": m[f"{part}_partial_share"]}
-                  if part != "dq" else {})
+        coarse = {f"{part}_tile_share": m[f"{part}_tile_share"],
+                  f"{part}_partial_share": m[f"{part}_partial_share"]}
         out.append(_entry(
             name, src, f"mmpl_tpu/ops/attention.py:{line}",
             train_counts[name], err,

@@ -1,6 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a) on wgmma, TMA and warp
-// specialisation: the bf16 / fp16 bodies of K2, K3 and K5 (entries in
-// csrc/flash_bwd.cu).
+// specialisation: the bf16 / fp16 bodies of K2, K3, K5 and K6 (entries
+// in csrc/flash_bwd.cu).
 //
 //  * K2 (`flash_bwd_dkv_sm90_kernel`, with `flash_bwd_dkv_reduce_kernel`)
 //    replaces `_flash_bwd_dkv_kernel` (mmpl_tpu/ops/attention.py:373):
@@ -10,8 +10,10 @@
 //    on forbidden pairs and on rows whose lse is -inf (`_masked_p`, :771).
 //  * K3 (`flash_bwd_dq_sm90_kernel`) replaces `_flash_bwd_dq_kernel`
 //    (:417): dQ = scale * sum dS K over the keys.
+//  * K6 (`flash_masked_bwd_dq_sm90_kernel`) replaces
+//    `_masked_bwd_dq_kernel` (:821): the same under the frame mask.
 //
-// Both recompute P = exp(scale * Q K^T - lse) from the natural-log lse that
+// All recompute P = exp(scale * Q K^T - lse) from the natural-log lse that
 // K1 saved (as exp2, with log2(e) folded into the scale and into each row's
 // lse once), and dS = P o (dO V^T - delta) with delta = rowsum(dO o O) as
 // the wrapper computed it.  P and dS are rounded to the input type before
@@ -68,6 +70,22 @@
 //    37.4 ms against 26.9-27.9 at the 1.3B teacher-forcing shape on an
 //    H100 (chip_smoke.py kernel_masked): the tests held registers across
 //    the whole step.  A block with no admitted tile writes dK = dV = 0.
+//  * K6, the frame mask on the dQ body: K4's walk (the 128 x 128 table,
+//    query-block major) on K3's body (flash_bwd_dq_sm90_body.cuh, included
+//    by both kernels).  The producer becomes a warp that reads the block's
+//    row 32 tiles a ballot and, beside each admitted tile's K and V, writes
+//    the stage's TileMeta (the tile's index, its class, its 128 keys' frame
+//    ids); each consumer warp counts the admitted tiles while Q and dO
+//    load.  The table is held as bits (F * ceil(F / 32) words, built by the
+//    block from the byte table at its start): a byte a pair on top of K3's
+//    197,672 bytes would pass the H100's opt-in limit above F = 185.  As
+//    in K5, class-1 tiles alone run a pass that sets forbidden scores to
+//    -inf before K3's unchanged step (it reads the thread's two rows' frame
+//    ids there: with the rows' table offsets held in registers instead, K6
+//    took 2.4% longer at the 1.3B teacher-forcing shape on an H100,
+//    mmpl_tpu_torch/tools/flash_compare.py), rows whose lse is -inf get
+//    +inf as lse * log2(e), and keys past Lk are masked on the tile whose
+//    own index is the last.  A block with no admitted tile writes dQ = 0.
 //  * The ragged edges: TMA zero-fills rows past L and columns past D (D is
 //    padded to kD = 64 or 128).  Query rows past Lq have q = dO = 0 and the
 //    producer writes lse = delta = 0 for them without reading memory, so
@@ -78,7 +96,8 @@
 //
 // Shared memory at kD = 128: dKV K and V 2 x 32 KB, Q and dO 3 x 2 x 16 KB
 // (K5 adds a QueryMeta per stage and the F * F frame table); dQ Q and dO
-// 2 x 32 KB, K and V 2 x 2 x 32 KB.  One block per SM.
+// 2 x 32 KB, K and V 2 x 2 x 32 KB (K6 adds a TileMeta per stage and the
+// table's bits, 4,608 bytes at F = 192).  One block per SM.
 #pragma once
 
 #include "sm90_common.cuh"
@@ -95,6 +114,9 @@ constexpr int kKeyTile = 128;         // dQ: keys of a streamed K / V tile
 constexpr int kDkvStages = 3;
 constexpr int kDqStages = 2;
 constexpr int kRowBytes = 128;        // one row of a box
+
+// K6: 32-bit words of a row of the frame table's bits.
+__host__ __device__ constexpr int fm_words(int F) { return (F + 31) / 32; }
 
 // K5: a stage's 64 queries, beside their lse and delta.
 struct QueryMeta {
@@ -151,9 +173,20 @@ struct DqLayout {
   static constexpr int bar = v + kDqStages * tile;
   // qd_full, then full and empty of each stage
   static constexpr int bytes = bar + 8 * (1 + 2 * kDqStages) + 1024;
+  // K6: a TileMeta per stage after the barriers, then the [F, F] frame
+  // table as bits (a byte a pair would pass the opt-in limit at kMaxFrames)
+  static constexpr int meta = bar + 64;
+  static constexpr int fm = meta + kDqStages * (int)sizeof(TileMeta);
+  static constexpr int masked_bytes(int F) { return fm + 4 * F * fm_words(F) + 1024; }
+  static_assert(8 * (1 + 2 * kDqStages) <= 64, "the barriers fit before the TileMeta");
 };
 
 static_assert(kQueryBlock == kKeyTile, "the dQ block's Q / dO and K / V boxes share DqLayout::box");
+static_assert(sizeof(TileMeta::kf) == kKeyTile, "a TileMeta holds one key tile's frame ids");
+static_assert(DkvLayout<128>::masked_bytes(kMaxFrames) <= kMaxSmem,
+              "K5's frame table fits at kMaxFrames");
+static_assert(DqLayout<128>::masked_bytes(kMaxFrames) <= kMaxSmem,
+              "K6's frame table fits at kMaxFrames");
 
 // The per-element step: p = exp2(s * scale_log2 - lse2) from the saved lse
 // (lse2 = lse * log2(e)), 0 where `keep` is false, and dS = p (dP - delta).
@@ -487,6 +520,26 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_reduce_kernel(const BwdPara
   }
 }
 
+// K6, on a class-1 tile: the scores of the pairs that the frame table's
+// bits `fmw` (row f in fm_words(F) words, bit k % 32 of word k / 32)
+// forbid become -inf; this thread's rows are row0 and row0 + 8.
+__device__ __forceinline__ void forbid_pairs_bits(float (&s)[64], int t, const TileMeta& mt,
+                                                  const uint32_t* fmw, const FrameMask& mask,
+                                                  int row0, int Lq) {
+  if (mt.cls != 2) {
+    const int words = fm_words(mask.F);
+    int qoff[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      qoff[r] = row0 + 8 * r < Lq ? mask.qf[row0 + 8 * r] * words : 0;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int kf = mt.kf[8 * (i / 4) + 2 * t + (i & 1)];
+      if (!((fmw[qoff[(i >> 1) & 1] + (kf >> 5)] >> (kf & 31)) & 1u)) s[i] = -INFINITY;
+    }
+  }
+}
+
 // K3: dQ of 128 queries over every key tile.
 template <typename T, int kD>
 __global__ void __launch_bounds__(kBwdThreads, 1)
@@ -494,117 +547,21 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qm,
                          const __grid_constant__ CUtensorMap km,
                          const __grid_constant__ CUtensorMap vm,
                          const __grid_constant__ CUtensorMap dm, const BwdParams p) {
-  using L = DqLayout<kD>;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t qd_full = base + L::bar;
-  auto full = [&](int s) { return qd_full + 8 * (1 + s); };
-  auto empty = [&](int s) { return qd_full + 8 * (1 + kDqStages + s); };
+  constexpr bool kMasked = false;
+  const FrameMask mask{};
+#include "flash_bwd_dq_sm90_body.cuh"
+}
 
-  const int q0 = blockIdx.x * kQueryBlock;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int nkt = (p.Lk + kKeyTile - 1) / kKeyTile;
-
-  if (threadIdx.x == 0) {
-    mbar_init(qd_full, 1);
-    for (int s = 0; s < kDqStages; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), kBwdConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
-  if (wg == 0) {
-    // producer: one thread issues every load
-    regs_dealloc<24>();
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(qd_full, 2 * L::tile);
-#pragma unroll
-      for (int c = 0; c < L::halves; ++c) {
-        tma_load(base + L::q + c * L::box, qm, qd_full, c * kBox, h, q0, b);
-        tma_load(base + L::d + c * L::box, dm, qd_full, c * kBox, h, q0, b);
-      }
-      for (int j = 0; j < nkt; ++j) {
-        const int s = j % kDqStages;
-        mbar_wait(empty(s), ((j / kDqStages) & 1) ^ 1);  // the first round passes
-        mbar_expect_tx(full(s), 2 * L::tile);
-#pragma unroll
-        for (int c = 0; c < L::halves; ++c) {
-          tma_load(base + L::k + s * L::tile + c * L::box, km, full(s), c * kBox, h,
-                   j * kKeyTile, b);
-          tma_load(base + L::v + s * L::tile + c * L::box, vm, full(s), c * kBox, h,
-                   j * kKeyTile, b);
-        }
-      }
-    }
-  } else {
-    // consumers: 64 queries each
-    regs_alloc<240>();
-    const int cw = wg - 1;
-    const int tid = threadIdx.x % 128;
-    const int warp = tid / 32;
-    const int lane = tid % 32;
-    const int g = lane / 4;
-    const int t = lane % 4;
-    const bool signals = lane == 0;
-    const uint32_t qa = base + L::q + cw * 64 * kRowBytes;
-    const uint32_t da = base + L::d + cw * 64 * kRowBytes;
-    const int row0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows row0, row0 + 8
-    float lse2[2], dl[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      const bool in = row < p.Lq;
-      const long long at = ((long long)b * p.N + h) * p.Lq + row;
-      lse2[r] = in ? p.lse[at] * kLog2e : 0.f;
-      dl[r] = in ? p.delta[at] : 0.f;
-    }
-    const int last_valid = p.Lk - (nkt - 1) * kKeyTile;
-
-    float dq[kD / 2];
-#pragma unroll
-    for (int i = 0; i < kD / 2; ++i) dq[i] = 0.f;
-    float sc[64], dp[64];
-    uint32_t df[8][4];
-
-    mbar_wait(qd_full, 0);
-    for (int j = 0; j < nkt; ++j) {
-      const int s = j % kDqStages;
-      const uint32_t ka = base + L::k + s * L::tile;
-      const uint32_t va = base + L::v + s * L::tile;
-      mbar_wait(full(s), (j / kDqStages) & 1);
-      fence_regs(dq);
-      wg_fence();
-      issue_ss<T, kD, kKeyTile>(sc, qa, L::box, ka, L::box);  // S = Q K^T
-      issue_ss<T, kD, kKeyTile>(dp, da, L::box, va, L::box);  // dP = dO V^T
-      wg_commit();
-      wg_wait<0>();
-      fence_regs(sc);
-      fence_regs(dp);
-      // element e is query row g + 8 ((e >> 1) & 1), key column c below;
-      // keys past Lk (the last tile's) are masked
-      const int valid = j == nkt - 1 ? last_valid : kKeyTile;
-#pragma unroll
-      for (int e = 0; e < 64; ++e) {
-        const int c = 8 * (e / 4) + 2 * t + (e & 1);
-        const int r = (e >> 1) & 1;
-        p_ds(sc[e], dp[e], lse2[r], dl[r], p.scale_log2, c < valid);
-      }
-      pack_frag<T, 8>(df, dp);
-      fence_regs(df);
-      wg_fence();
-      issue_rs<T, kD, kKeyTile>(dq, df, ka, L::box);  // dQ += dS K
-      wg_commit();
-      wg_wait<0>();
-      fence_regs(dq);
-      if (signals) mbar_arrive(empty(s));
-    }
-    store_acc<T, kD>(static_cast<T*>(p.out0) + b * p.ab + h * p.ah, p.al, row0, p.Lq, p.D, dq,
-                     p.scale);
-  }
+// K6: dQ of 128 queries over the key tiles the frame mask admits.
+template <typename T, int kD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_masked_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qm,
+                                const __grid_constant__ CUtensorMap km,
+                                const __grid_constant__ CUtensorMap vm,
+                                const __grid_constant__ CUtensorMap dm, const BwdParams p,
+                                const FrameMask mask) {
+  constexpr bool kMasked = true;
+#include "flash_bwd_dq_sm90_body.cuh"
 }
 
 // ---------------------------------------------------------------------------
@@ -629,9 +586,7 @@ template <typename T, int kD>
 int launch_masked_dkv(const void* q, const void* k, const void* v, const void* dout,
                       const long long* st, const BwdParams& p, const FrameMask& mask,
                       cudaStream_t stream) {
-  if (p.splits != 1 || mask.F <= 0 || mask.F > kMaxFrames ||
-      mask.nkt != (p.Lq + kQueryTile - 1) / kQueryTile)
-    return (int)cudaErrorInvalidValue;
+  if (p.splits != 1 || mask.F <= 0 || mask.F > kMaxFrames) return (int)cudaErrorInvalidValue;
   CUtensorMap m[4];
   const int rc = encode_qkvd<T>(m, q, k, v, dout, st, p, kQueryTile, kKeyBlock);
   if (rc != 0) return rc;
@@ -642,6 +597,25 @@ int launch_masked_dkv(const void* q, const void* k, const void* v, const void* d
   const dim3 grid((p.Lk + kKeyBlock - 1) / kKeyBlock, p.N, p.B);
   flash_masked_bwd_dkv_sm90_kernel<T, kD><<<grid, kBwdThreads, bytes, stream>>>(m[0], m[1], m[2],
                                                                                m[3], p, mask);
+  return (int)cudaGetLastError();
+}
+
+// K6: `mask.tiles` is the 128 x 128 table ([ceil(Lq/128), nkt]).
+template <typename T, int kD>
+int launch_masked_dq(const void* q, const void* k, const void* v, const void* dout,
+                     const long long* st, const BwdParams& p, const FrameMask& mask,
+                     cudaStream_t stream) {
+  if (mask.F <= 0 || mask.F > kMaxFrames) return (int)cudaErrorInvalidValue;
+  CUtensorMap m[4];
+  const int rc = encode_qkvd<T>(m, q, k, v, dout, st, p, kQueryBlock, kKeyTile);
+  if (rc != 0) return rc;
+  const int bytes = DqLayout<kD>::masked_bytes(mask.F);
+  const cudaError_t err = cudaFuncSetAttribute(flash_masked_bwd_dq_sm90_kernel<T, kD>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.Lq + kQueryBlock - 1) / kQueryBlock, p.N, p.B);
+  flash_masked_bwd_dq_sm90_kernel<T, kD><<<grid, kBwdThreads, bytes, stream>>>(m[0], m[1], m[2],
+                                                                              m[3], p, mask);
   return (int)cudaGetLastError();
 }
 

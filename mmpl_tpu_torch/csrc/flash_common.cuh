@@ -1,8 +1,10 @@
 // Building blocks shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): cp.async tile loads with zero-filled edges, ldmatrix,
-// mma.sync m16n8k16 with fp32 accumulate, and the frame-mask arguments.
+// flash_bwd.cu): the fp32 template bodies' cp.async tile loads with
+// zero-filled edges and FMA products, the frame-mask arguments, and the
+// packing of two floats to 16 bits that the Hopper bodies use.
 //
-// Fragment layout (the m16n8 accumulator of mma.sync): lane = 4*g + t holds,
+// Fragment layout of the template bodies (that of the m16n8 accumulator of
+// mma.sync, kept by their FMA products): lane = 4*g + t holds,
 // for each 8-column tile j, element e of rows g (e = 0, 1) and g + 8
 // (e = 2, 3) at columns 8*j + 2*t + (e & 1).
 #pragma once
@@ -19,8 +21,8 @@ namespace mmpl {
 constexpr int TILE = 64;      // rows of every Q, K, V, dO tile
 constexpr int THREADS = 128;  // 4 warps, 16 rows each
 
-// Row pitch of a [TILE, kD] tile in shared memory: 16 bytes past the data
-// so that ldmatrix rows fall in distinct banks.
+// Row pitch of a [TILE, kD] tile in shared memory: 16 bytes past the data,
+// so that consecutive rows start in different banks.
 template <typename T, int kD>
 struct Pitch {
   static constexpr bool kFloat = std::is_same<T, float>::value;
@@ -87,40 +89,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long srow, 
   }
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a * b for one m16n8k16 tile, fp32 accumulate.
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1);
-template <>
-__device__ __forceinline__ void mma16816<__nv_bfloat16>(float (&c)[4], const uint32_t (&a)[4],
-                                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-template <>
-__device__ __forceinline__ void mma16816<__half>(float (&c)[4], const uint32_t (&a)[4],
-                                                 uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two floats rounded to T and packed into one register, `lo` in the low half.
 template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
 template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
@@ -132,32 +100,9 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// acc[16 rows x 64 cols] (8 fragment tiles) = A B^T over kD, 16-bit path:
+// acc[16 rows x 64 cols] (8 fragment tiles) = A B^T over D, fp32 FMA:
 // A is the warp's 16 rows of `a` (rows a_row0 .. +16 of a [TILE, kD] tile),
 // B the 64 rows of `b`.  Both tiles in shared memory, pitch LD.
-template <typename T, int kD>
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const T* a, int a_row0, const T* b) {
-  constexpr int LD = Pitch<T, kD>::ld;
-  const int lane = threadIdx.x % 32;
-  const int mi = lane / 8;
-  const int r = lane % 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, a + (a_row0 + r + 8 * (mi & 1)) * LD + 16 * kk + 8 * (mi >> 1));
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {  // column tiles 2*jp, 2*jp + 1
-      uint32_t bf[4];
-      ldsm_x4(bf, b + (8 * (2 * jp + (mi >> 1)) + r) * LD + 16 * kk + 8 * (mi & 1));
-      mma16816<T>(acc[2 * jp], af, bf[0], bf[1]);
-      mma16816<T>(acc[2 * jp + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// The same product on the fp32 FMA path, in the same fragment layout.
 template <int kD>
 __device__ __forceinline__ void fma_abt(float (&acc)[8][4], const float* a, int a_row0,
                                         const float* b, int D) {
@@ -182,33 +127,9 @@ __device__ __forceinline__ void fma_abt(float (&acc)[8][4], const float* a, int 
   }
 }
 
-// out[16 rows x kD] += P B, 16-bit path: P is the warp's [16 x 64] fragment
-// array (rounded to T here), B a [TILE, kD] tile in shared memory.
-template <typename T, int kD>
-__device__ __forceinline__ void mma_pb(float (&out)[kD / 8][4], const float (&p)[8][4],
-                                       const T* b) {
-  constexpr int LD = Pitch<T, kD>::ld;
-  const int lane = threadIdx.x % 32;
-  const int mi = lane / 8;
-  const int r = lane % 8;
-#pragma unroll
-  for (int kk = 0; kk < TILE / 16; ++kk) {  // 16 rows of B: p tiles 2kk, 2kk+1
-    const uint32_t pa[4] = {pack2<T>(p[2 * kk][0], p[2 * kk][1]),
-                            pack2<T>(p[2 * kk][2], p[2 * kk][3]),
-                            pack2<T>(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack2<T>(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int cp = 0; cp < kD / 16; ++cp) {  // output tiles 2*cp, 2*cp + 1
-      uint32_t bv[4];
-      ldsm_x4_trans(bv, b + (16 * kk + 8 * (mi & 1) + r) * LD + 8 * (2 * cp + (mi >> 1)));
-      mma16816<T>(out[2 * cp], pa, bv[0], bv[1]);
-      mma16816<T>(out[2 * cp + 1], pa, bv[2], bv[3]);
-    }
-  }
-}
-
-// The same product on the fp32 FMA path: P goes through the warp's
-// [16, pld] fp32 scratch `pw` in shared memory.
+// out[16 rows x kD] += P B, fp32 FMA: P is the warp's [16 x 64] fragment
+// array, passed through the warp's [16, pld] fp32 scratch `pw` in shared
+// memory; B a [TILE, kD] tile in shared memory.
 template <int kD>
 __device__ __forceinline__ void fma_pb(float (&out)[kD / 8][4], const float (&p)[8][4],
                                        const float* b, float* pw) {

@@ -94,14 +94,7 @@ constexpr int kMetaSlots = 2 * kStages;  // K4: the walk's metadata ring
 
 static_assert(kBlockM == kBlockN, "a Q box and a K / V box share kBoxBytes");
 
-// K4: one admitted key tile of the walk, as the producer hands it over.
-struct TileMeta {
-  int tile;                   // the key tile (kBlockN keys)
-  int cls;                    // 1: test each pair, 2: every pair allowed
-  unsigned char kf[kBlockN];  // its keys' frame ids (0 past Lk)
-  unsigned char pad[8];
-};
-static_assert(sizeof(TileMeta) % 16 == 0, "TileMeta slots stay 16-byte aligned");
+static_assert(sizeof(TileMeta::kf) == kBlockN, "a TileMeta holds one key tile's frame ids");
 
 // Byte offsets in the 1024-aligned dynamic shared memory.
 template <int kD>
@@ -119,6 +112,8 @@ struct Layout {
   static constexpr int fm = meta + kMetaSlots * (int)sizeof(TileMeta);
   static constexpr int masked_bytes(int F) { return fm + (F * F + 15) / 16 * 16 + 1024; }
 };
+static_assert(Layout<128>::masked_bytes(kMaxFrames) <= kMaxSmem,
+              "K4's frame table fits at kMaxFrames");
 
 struct Params {
   void* o;

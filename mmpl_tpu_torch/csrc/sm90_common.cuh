@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA bodies of the
 // flash forward (flash_fwd_sm90.cuh: K1, K4, P1), the backward
-// (flash_bwd_sm90.cuh: K2, K3, K5) and the int8 product (int8_gemm_sm90.cuh:
-// P2): mbarriers, TMA loads, wgmma and its shared-memory descriptors,
-// setmaxnreg, and the host-side tensor maps.
+// (flash_bwd_sm90.cuh: K2, K3, K5, K6) and the int8 product
+// (int8_gemm_sm90.cuh: P2): mbarriers, TMA loads, wgmma and its
+// shared-memory descriptors, setmaxnreg, the masked walks' TileMeta, and
+// the host-side tensor maps.
 //
 // Every operand tile lands in shared memory as [rows, 64 columns] boxes of
 // 16-bit values, 128 bytes a row, 128-byte swizzled, each box 1024-byte
@@ -27,10 +28,22 @@ namespace mmpl {
 namespace sm90 {
 
 constexpr int kBox = 64;  // columns of a TMA box: 128 bytes of 16-bit values
-// Frames of the [F, F] table that the masked bodies (K4, K5) keep in
+// Frames of the [F, F] table that the masked bodies (K4, K5, K6) keep in
 // shared memory (ops/attention.py SM90_MAX_FRAMES)
 constexpr int kMaxFrames = 192;
+// Dynamic shared memory a block may opt in to on an H100
+constexpr int kMaxSmem = 232448;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// K4 and K6: one admitted 128-key tile of a masked walk, as the producer
+// hands it over.
+struct TileMeta {
+  int tile;               // the key tile (128 keys)
+  int cls;                // 1: test each pair, 2: every pair allowed
+  unsigned char kf[128];  // its keys' frame ids (0 past Lk)
+  unsigned char pad[8];
+};
+static_assert(sizeof(TileMeta) % 16 == 0, "TileMeta slots stay 16-byte aligned");
 
 // ---------------------------------------------------------------------------
 // mbarrier, TMA, wgmma and setmaxnreg

@@ -25,9 +25,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-#: the masked entries' frame ids, frame table and tile table, then F; K4's
-#: and K5's entries also take the Hopper body's coarse table before F
-_MASK = [_P, _P, _P, _P, _I]
+#: the masked entries' frame ids, frame table, tile table and the Hopper
+#: body's coarse table, then F
 _MASK_SM90 = [_P, _P, _P, _P, _P, _I]
 
 #: C signatures, by source name.  The backward entries take their 18
@@ -48,7 +47,7 @@ SIGNATURES = {
         "mmpl_flash_bwd_dq": [_I] + [_P] * 7 + [_I] * 5 + [_P, _F, _P],
         "mmpl_flash_masked_bwd_dkv": [_I] + [_P] * 8 + _MASK_SM90 + [_I] * 5
                                      + [_P, _F, _P],
-        "mmpl_flash_masked_bwd_dq": [_I] + [_P] * 7 + _MASK + [_I] * 5
+        "mmpl_flash_masked_bwd_dq": [_I] + [_P] * 7 + _MASK_SM90 + [_I] * 5
                                     + [_P, _F, _P],
     },
     "int8_gemm": {

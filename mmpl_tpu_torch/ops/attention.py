@@ -8,7 +8,7 @@ Port of `mmpl_tpu/ops/attention.py`.  Layout is [B, L, N, D] throughout.
     whole frames, `models/fps_dit.py`); training's cross-attention runs it
     too.  In bf16 / fp16, K1 runs the Hopper body of
     `csrc/flash_fwd_sm90.cuh` (wgmma, TMA, a producer warpgroup and two
-    consumer warpgroups, exp2 softmax); fp32 runs the mma.sync / FMA
+    consumer warpgroups, exp2 softmax); fp32 runs the FMA
     template body of `flash_fwd.cu`.  The same holds for K2 / K3: bf16 /
     fp16 run the Hopper body of `csrc/flash_bwd_sm90.cuh`, whose dKV splits
     each key block's query loop over `bwd_query_splits` blocks where the key
@@ -22,10 +22,10 @@ Port of `mmpl_tpu/ops/attention.py`.  Layout is [B, L, N, D] throughout.
     frame-granular mask (token i attends token j iff
     frame_mask[q_frame_ids[i], kv_frame_ids[j]]): K4 forward, K5 / K6
     backward.  Whole tiles that the mask forbids are skipped through tile
-    tables built on the device (`mask_tiles`): 64x64 (`tile_table`) for K6
-    and the fp32 template, pooled to 128x128 for the Hopper K4 and to
+    tables built on the device (`mask_tiles`): 64x64 (`tile_table`) for
+    the fp32 template, pooled to 128x128 for the Hopper K4 and K6 and to
     64x128 for the Hopper K5, which run in bf16 / fp16 as masked
-    instantiations of K1's and K2's bodies.
+    instantiations of K1's, K3's and K2's bodies.
 
 On CUDA tensors each wrapper launches its hand-written kernel or raises; on
 CPU tensors the same `autograd.Function`s run the plain versions, forward
@@ -60,11 +60,14 @@ TILE = 64
 LOG2E = 1.4426950408889634
 
 #: the Hopper bodies' mask tiles in units of TILE (queries, keys): K4's
-#: 128 x 128 (csrc/flash_fwd_sm90.cuh kBlockM, kBlockN) and K5's 64-query
+#: 128 x 128 (csrc/flash_fwd_sm90.cuh kBlockM, kBlockN), which K6 reads too
+#: (csrc/flash_bwd_sm90.cuh kQueryBlock, kKeyTile), and K5's 64-query
 #: tiles of a 128-key block (csrc/flash_bwd_sm90.cuh kQueryTile, kKeyBlock)
 FWD_MASK_TILE = (2, 2)
 DKV_MASK_TILE = (1, 2)
-#: frames whose [F, F] table the Hopper K4 / K5 hold in shared memory
+#: the `MaskTiles` table that each Hopper masked kernel reads, by part
+COARSE_TABLE = {"fwd": "fwd", "dkv": "dkv", "dq": "fwd"}
+#: frames whose [F, F] table the Hopper K4 / K5 / K6 hold in shared memory
 #: (csrc/sm90_common.cuh kMaxFrames)
 SM90_MAX_FRAMES = 192
 
@@ -358,8 +361,8 @@ def pool_tiles(table: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 class MaskTiles(NamedTuple):
     """The tile tables of one frame mask and its ids (`mask_tiles`):
-    `t64` is `tile_table` (64 x 64 tiles: K6, and K4 / K5 in fp32), `fwd`
-    pools it to the bf16 / fp16 K4's 128 x 128 tiles and `dkv` to the
+    `t64` is `tile_table` (64 x 64 tiles: K4-K6 in fp32), `fwd` pools it
+    to the bf16 / fp16 K4's and K6's 128 x 128 tiles and `dkv` to the
     bf16 / fp16 K5's 64 x 128, stored key-block major ([ceil(Lk/128),
     ceil(Lq/64)]: one contiguous row a key block)."""
     t64: torch.Tensor
@@ -415,11 +418,11 @@ def _strides(*xs) -> list:
 
 
 def _mask_args(what: str, mask, tiles, Lq: int, Lk: int, device,
-               coarse: Optional[str] = None, hopper: bool = False):
+               coarse: str, hopper: bool = False):
     """The mask arguments of a masked entry: the ids, the frame table, the
-    64 x 64 table, the `coarse` table of `tiles` ("fwd" or "dkv") where
-    the entry takes one, and F.  `hopper`: the call runs a Hopper body,
-    which holds the frame table in shared memory."""
+    64 x 64 table, the `coarse` table of `tiles` ("fwd" or "dkv") and F.
+    `hopper`: the call runs a Hopper body, which holds the frame table in
+    shared memory."""
     q_ids, kv_ids, fm = mask
     if not isinstance(tiles, MaskTiles):
         raise ValueError(f"{what}: tiles must be the MaskTiles of "
@@ -448,9 +451,9 @@ def _mask_args(what: str, mask, tiles, Lq: int, Lk: int, device,
         if x.device != device or not x.is_contiguous():
             raise ValueError(f"{what}: mask tensors must be contiguous on "
                              f"{device}")
-    extra = [getattr(tiles, coarse).data_ptr()] if coarse else []
     return [q_ids.data_ptr(), kv_ids.data_ptr(), fm.data_ptr(),
-            tiles.t64.data_ptr(), *extra, fm.shape[0]]
+            tiles.t64.data_ptr(), getattr(tiles, coarse).data_ptr(),
+            fm.shape[0]]
 
 
 #: the Hopper body's own return codes (csrc/flash_fwd_sm90.cuh)
@@ -500,8 +503,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _launch("flash_fwd", "mmpl_flash_fwd", what, q.device, *head, *tail,
                 float(scale * LOG2E))
     else:
-        margs = _mask_args(what, mask, tiles, Lq, Lk, q.device, "fwd",
-                           q.dtype != torch.float32)
+        margs = _mask_args(what, mask, tiles, Lq, Lk, q.device,
+                           COARSE_TABLE["fwd"], q.dtype != torch.float32)
         _launch("flash_fwd", "mmpl_flash_masked_fwd", what, q.device,
                 *head, *margs, *tail, float(scale))
     return o, lse
@@ -535,13 +538,23 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _bwd_mask_args(part: str, mask, tiles, Lq: int, Lk: int, device,
+                   dtype: torch.dtype) -> list:
+    """The mask arguments of the masked dKV (K5, `part` = "dkv") or dQ
+    (K6, "dq") entry: both take their coarse table (`COARSE_TABLE`), which
+    bf16 / fp16 read on the Hopper body (so F is held to SM90_MAX_FRAMES);
+    fp32 reads the 64 x 64 one."""
+    return _mask_args(f"flash_masked_bwd_{part}", mask, tiles, Lq, Lk,
+                      device, COARSE_TABLE[part], dtype != torch.float32)
+
+
 def _bwd_launch(part: str, q, k, v, do, lse, delta, outs, scale, mask,
                 tiles) -> None:
     """Launch the dKV (`part` = "dkv", outs = (dk, dv)) or dQ ("dq",
     outs = (dq,)) kernel of `csrc/flash_bwd.cu`, masked with `mask` and its
-    `tiles`.  The unmasked bf16 / fp16 dKV takes its query split
-    (`bwd_query_splits`) and, when it splits, an fp32 workspace for the
-    partials; the masked one (K5) never splits and reads `tiles.dkv`."""
+    `tiles` (`_bwd_mask_args`).  The unmasked bf16 / fp16 dKV takes its
+    query split (`bwd_query_splits`) and, when it splits, an fp32 workspace
+    for the partials; the masked one (K5) never splits."""
     masked = mask is not None
     what = "flash_masked_bwd" if masked else "flash_bwd"
     _check_qkv(what, q, k, v)
@@ -560,9 +573,7 @@ def _bwd_launch(part: str, q, k, v, do, lse, delta, outs, scale, mask,
         for x in outs:
             x.zero_()
         return
-    sm90_dkv = part == "dkv" and q.dtype != torch.float32
-    margs = (_mask_args(what, mask, tiles, Lq, Lk, q.device,
-                        "dkv" if part == "dkv" else None, sm90_dkv)
+    margs = (_bwd_mask_args(part, mask, tiles, Lq, Lk, q.device, q.dtype)
              if masked else [])
     split = []
     if part == "dkv" and not masked:
@@ -596,8 +607,9 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale=None, mask=None,
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale=None, mask=None,
                       tiles=None) -> torch.Tensor:
-    """Launch the dQ kernel (K3, or K6 with `mask`) from
-    `csrc/flash_bwd.cu`; arguments as `flash_bwd_dkv_cuda`.  Returns dq."""
+    """Launch the dQ kernel (K3, or K6 with `mask` and its `tiles`) from
+    `csrc/flash_bwd.cu` (bf16 / fp16 K3 and K6: `csrc/flash_bwd_sm90.cuh`);
+    arguments as `flash_bwd_dkv_cuda`.  Returns dq."""
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), scale, mask, tiles)
     return dq

@@ -31,12 +31,12 @@ SASS in both trees (`cuobjdump -sass`).
 `--kernel masked` builds the baseline's `flash_fwd.cu` and `flash_bwd.cu`
 and times K4, K5 and K6 (`call_masked`) at `MASKED_SHAPES` (the
 teacher-forcing self-attention under the fps-forcing mask) the same way;
-a baseline whose masked entries take no coarse tile table (before the
-Hopper K4 and K5, `OLD_MASKED_SIGNATURES`) gets the 64 x 64 table alone.
-Both trees are held against the plain versions; the last two lines say
-whether the Hopper kernels of each source compiled to the same SASS in
-both trees (K1, P1, K2 and K3; the masked ones exist in one tree only
-when the baseline predates them).
+a baseline entry that takes no coarse tile table (K4 and K5 before their
+Hopper bodies, K6 before its own; `OLD_MASKED_SIGNATURES`) gets the
+64 x 64 table alone.  Both trees are held against the plain versions; the
+last two lines say whether the Hopper kernels of each source compiled to
+the same SASS in both trees (K1, P1, K2, K3 and those of K4-K6 that both
+trees have; the others exist in one tree only).
 
 `--kernel int8` builds the baseline's `int8_gemm.cu` (bound by the old
 signatures, without P2's tile width and Q's layout, when it has no
@@ -110,12 +110,13 @@ PEAK_BYTES = 3.35e12
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the dKV entry of the trees before the Hopper backward body
 OLD_DKV_SIGNATURE = [_I] + [_P] * 8 + [_I] * 5 + [_P, _F, _P]
-#: the masked entries of the trees before the Hopper K4 and K5 (no coarse
-#: tile table); K6's has not changed
+#: the masked entries of the trees before the Hopper K4 and K5, or K6 (no
+#: coarse tile table)
 OLD_MASKED_SIGNATURES = {
     "mmpl_flash_masked_fwd": [_I] + [_P] * 9 + [_I] * 6
                              + [ctypes.c_longlong] * 12 + [_F, _P],
     "mmpl_flash_masked_bwd_dkv": [_I] + [_P] * 12 + [_I] * 6 + [_P, _F, _P],
+    "mmpl_flash_masked_bwd_dq": [_I] + [_P] * 11 + [_I] * 6 + [_P, _F, _P],
 }
 #: the int8 entries of the trees before the Hopper P2 (no tile width, no
 #: Q layout)
@@ -169,13 +170,13 @@ def baseline_splits_queries(root: Path) -> bool:
     return (baseline_csrc(root, "flash_bwd") / "flash_bwd_sm90.cuh").exists()
 
 
-def baseline_takes_coarse_tables(root: Path,
-                                  source: str = "flash_fwd") -> bool:
-    """Whether the baseline's masked entry of `source` (K4, or K5) takes the
-    Hopper body's coarse tile table (or only the 64 x 64 one, as earlier
-    trees)."""
+def baseline_takes_coarse_tables(root: Path, source: str = "flash_fwd",
+                                  part: str = "dkv") -> bool:
+    """Whether the baseline's masked entry of `source` (flash_fwd: K4;
+    flash_bwd: K5, or K6 with `part` = "dq") takes the Hopper body's coarse
+    tile table (or only the 64 x 64 one, as earlier trees)."""
     src = (baseline_csrc(root, source) / f"{source}.cu").read_text()
-    entry = "fwd" if source == "flash_fwd" else "bwd_dkv"
+    entry = "fwd" if source == "flash_fwd" else f"bwd_{part}"
     return re.search(rf"mmpl_flash_masked_{entry}\([^)]*coarse",
                      src) is not None
 
@@ -193,8 +194,9 @@ def baseline_signatures(root: Path, source: str) -> dict:
     if source == "int8_gemm":
         return (dict(sigs) if baseline_has_hopper_int8(root)
                 else dict(OLD_INT8_SIGNATURES))
-    coarse = baseline_takes_coarse_tables(root, source)
-    masked = {n: (sigs[n] if coarse else OLD_MASKED_SIGNATURES.get(n, sigs[n]))
+    masked = {n: (sigs[n] if baseline_takes_coarse_tables(
+                      root, source, n.rsplit("_", 1)[-1])
+                  else OLD_MASKED_SIGNATURES[n])
               for n in sigs if n.startswith("mmpl_flash_masked")}
     if source == "flash_fwd":
         return {"mmpl_flash_fwd": sigs["mmpl_flash_fwd"], **masked}
@@ -284,15 +286,15 @@ def call_masked(lib, coarse: bool, part: str, q, k, v, mask, tiles,
                 do=None, lse=None, delta=None):
     """K4 ("fwd": (O, lse)), K5 ("dkv": (dk, dv)) or K6 ("dq": (dq,)) of a
     built `flash_fwd` / `flash_bwd` library on CUDA tensors under `mask`
-    (ids, ids, frame table) and its `attn.mask_tiles`; a library whose
-    entries take the coarse tables gets the one of its kernel."""
+    (ids, ids, frame table) and its `attn.mask_tiles`; with `coarse` (the
+    entry takes a coarse table) it gets the one of its kernel."""
     B, Lq, N, D = q.shape
     Lk = k.shape[1]
     stream = torch.cuda.current_stream().cuda_stream
     ids = [mask[0].data_ptr(), mask[1].data_ptr(), mask[2].data_ptr(),
            tiles.t64.data_ptr()]
-    if coarse and part != "dq":
-        ids.append(getattr(tiles, part).data_ptr())
+    if coarse:
+        ids.append(getattr(tiles, attn.COARSE_TABLE[part]).data_ptr())
     ids.append(mask[2].shape[0])
     code = attn._DTYPE_CODES[q.dtype]
     if part == "fwd":
@@ -518,8 +520,9 @@ def run_masked(args, smi: str) -> list:
     from ..training.masks import fps_forcing_frame_mask
     libs = {src: build_baseline(args.baseline, src)
             for src in ("flash_fwd", "flash_bwd")}
-    coarse = {src: baseline_takes_coarse_tables(args.baseline, src)
-              for src in libs}
+    coarse = {part: baseline_takes_coarse_tables(args.baseline, src, part)
+              for part, src in (("fwd", "flash_fwd"), ("dkv", "flash_bwd"),
+                                ("dq", "flash_bwd"))}
     mine = {src: _build.library(src) for src in ("flash_fwd", "flash_bwd")}
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
@@ -554,7 +557,7 @@ def run_masked(args, smi: str) -> list:
                                        ("dkv", "flash_bwd", ("dk", "dv"), 8.0),
                                        ("dq", "flash_bwd", ("dq",), 6.0)):
             extra = {} if part == "fwd" else bwd_args
-            base = lambda: call_masked(libs[src], coarse[src], part, q, k,
+            base = lambda: call_masked(libs[src], coarse[part], part, q, k,
                                        v, mask, tiles, **extra)
             this = lambda: call_masked(mine[src], True, part, q, k, v, mask,
                                        tiles, **extra)

@@ -22,11 +22,11 @@ import torch
 
 
 #: the `__global__` functions of `csrc/`, by launch counter.  K1, K4, P1,
-#: K2, K3 and K5 have a Hopper kernel (bf16 / fp16) and a template-body one
-#: (fp32); K2's Hopper launch adds its reduce when it splits the queries.
-#: The backward templates take the frame mask as their last flag (K5, K6);
-#: the Hopper backward kernels take no bool template argument (K5's is a
-#: kernel of its own name).  P2 has one
+#: K2, K3, K5 and K6 have a Hopper kernel (bf16 / fp16) and a template-body
+#: one (fp32); K2's Hopper launch adds its reduce when it splits the
+#: queries.  The backward templates take the frame mask as their last flag
+#: (K5, K6); the Hopper backward kernels take no bool template argument
+#: (K5's and K6's are kernels of their own names).  P2 has one
 #: body; Q reads a row once, or twice beyond the rows its registers hold
 _KERNELS = {
     "flash_fwd_sm90_kernel": "flash_fwd",
@@ -40,6 +40,7 @@ _KERNELS = {
     "flash_bwd_dkv_kernel": "flash_bwd_dkv",
     "flash_masked_bwd_dkv_sm90_kernel": "flash_masked_bwd_dkv",
     "flash_bwd_dq_sm90_kernel": "flash_bwd_dq",
+    "flash_masked_bwd_dq_sm90_kernel": "flash_masked_bwd_dq",
     "flash_bwd_dq_kernel": "flash_bwd_dq",
     "int8_gemm_sm90_kernel": "int8_gemm",
     "quantize_rows_sm90_kernel": "quantize_rows",
@@ -68,6 +69,13 @@ def port_kernel_of(name: str) -> Optional[str]:
         return counter.replace("flash_", "flash_masked_")
     return counter
 
+
+#: calls of each profiler session that reads which body ran a kernel
+#: (`chip_smoke.py`, the card tests): one-call sessions kept only some of
+#: their kernels' records now and then, a whole session or one of two
+#: kernels (H100, torch 2.11; a 10-call session kept about 7 of its 10
+#: records), so each body is read from the records of this many calls
+BODY_CALLS = 10
 
 #: a profiler session that recorded no device kernel at all is run again
 #: after these pauses (s): even with CUPTI kept resident between sessions

@@ -279,3 +279,76 @@ def test_split_partials_summed_in_order_match_the_pallas_dkv():
         True)
     _close([torch.cat(dqs, 1).numpy(), dk.numpy(), dv.numpy()],
            [np.asarray(x) for x in (dq_w, dk_w, dv_w)], atol=5e-4, rtol=5e-4)
+
+
+# ---------------------------------------------------------------------------
+# The walk of the Hopper K6 (the masked dQ over the 128 x 128 table)
+# ---------------------------------------------------------------------------
+
+def _k6_walk(q, k, v, do, lse, delta, mask, tiles, scale):
+    """dQ as the Hopper K6 computes it, in fp32: each 128-query block walks
+    the key tiles its row of `tiles.fwd` admits, in order; on class-1 tiles
+    the pairs the frame table forbids score -inf; rows whose lse is -inf
+    take +inf in its place; K and V are padded with zeros to whole tiles
+    and the keys past Lk masked on the tile whose own index is the last; a
+    block with no admitted tile keeps dQ = 0."""
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
+    q_ids, kv_ids, fm = mask
+    nkt = -(-Lk // 128)
+    pad = lambda x: torch.nn.functional.pad(
+        x.float().permute(0, 2, 1, 3), (0, 0, 0, nkt * 128 - Lk))
+    kp, vp = pad(k), pad(v)                          # [B, N, nkt * 128, D]
+    kv_pad = torch.nn.functional.pad(kv_ids.long(), (0, nkt * 128 - Lk))
+    qt, dot = (x.float().permute(0, 2, 1, 3) for x in (q, do))
+    lse_in = torch.where(lse == -math.inf, math.inf, lse)
+    dq = torch.zeros_like(qt)
+    for qb in range(tiles.fwd.shape[0]):
+        r0, r1 = 128 * qb, min(128 * qb + 128, Lq)
+        for kt in torch.nonzero(tiles.fwd[qb]).flatten().tolist():
+            c0, c1 = 128 * kt, 128 * kt + 128
+            s = qt[:, :, r0:r1] @ kp[:, :, c0:c1].transpose(-1, -2) * scale
+            if tiles.fwd[qb, kt] == 1:
+                allowed = fm[q_ids[r0:r1].long()][:, kv_pad[c0:c1]]
+                s = s.masked_fill(~allowed, -math.inf)
+            p = torch.exp(s - lse_in[:, :, r0:r1, None])
+            if kt == nkt - 1:
+                p[..., Lk - c0:] = 0.0
+            dp = dot[:, :, r0:r1] @ vp[:, :, c0:c1].transpose(-1, -2)
+            ds = p * (dp - delta[:, :, r0:r1, None])
+            dq[:, :, r0:r1] += ds @ kp[:, :, c0:c1]
+    return (scale * dq).permute(0, 2, 1, 3)
+
+
+def test_k6_walk_over_admitted_tiles_matches_the_pallas_dq():
+    """The Hopper K6's arithmetic on the CPU: `_k6_walk` against the JAX
+    package's K6 (`_masked_bwd_dq_kernel`, through the masked VJP in
+    interpret mode) and the port's plain backward, on a mask with a frame
+    that sees nothing (its rows' lse is -inf, and query block 3 holds only
+    its rows, so no tile of that block is admitted), partial and full
+    tiles, and a ragged last key tile."""
+    fm = np.tril(np.ones((3, 3), bool))
+    fm[1] = False                        # frame 1 (rows 300..599) is blind
+    ids = np.repeat(np.arange(3), 300)[:700]
+    B, N, D, L = 1, 2, 64, 700
+    q, k, v, w = _arrays([(B, L, N, D)] * 4, seed=13)
+    _, vjp = jax.vjp(lambda a, b, c: j_masked(
+        a, b, c, ids, ids, fm, block_q=128, block_k=128, interpret=True),
+        *map(jnp.asarray, (q, k, v)))
+    dq_w = np.asarray(vjp(jnp.asarray(w))[0])
+
+    qt, kt, vt, dot = map(torch.from_numpy, (q, k, v, w))
+    mask = ta._as_mask(ids, ids, fm, torch.device("cpu"))
+    tiles = ta.mask_tiles(*mask)
+    assert (tiles.fwd[3] == 0).all()
+    assert {0, 1, 2} <= set(tiles.fwd.flatten().tolist())
+    o, lse = ta.frame_masked_attention_plain(qt, kt, vt, ids, ids, fm)
+    delta = (dot * o).sum(-1).permute(0, 2, 1).contiguous()
+    blind = torch.from_numpy(ids == 1)
+    assert (lse[:, :, blind] == -math.inf).all()
+    got = _k6_walk(qt, kt, vt, dot, lse, delta, mask, tiles, D ** -0.5)
+    assert (got[:, blind] == 0).all()
+    np.testing.assert_allclose(got.numpy(), dq_w, atol=5e-4, rtol=5e-4)
+    plain = ta.frame_masked_attention_bwd_plain(qt, kt, vt, dot, lse, delta,
+                                                ids, ids, fm)[0]
+    torch.testing.assert_close(got, plain, atol=1e-5, rtol=1e-5)

@@ -1,6 +1,6 @@
 """K1-K6 (`mmpl_tpu_torch/csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`, their
 Hopper bodies `csrc/flash_fwd_sm90.cuh` and `csrc/flash_bwd_sm90.cuh`, which
-also run the bf16 / fp16 K4 and K5) and
+also run the bf16 / fp16 K4, K5 and K6) and
 the int8 kernels P2 and Q (`csrc/int8_gemm.cu`, P2's Hopper body
 `csrc/int8_gemm_sm90.cuh`) on the card: agreement with their plain
 versions, the body each type runs, the dispatch's launch counts, and what
@@ -110,9 +110,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, dtype, d):
 # ---------------------------------------------------------------------------
 
 def _launched(fn):
-    """The names of the device kernels one call of `fn` launches."""
-    from mmpl_tpu_torch.utils.profiling import device_kernels
-    return set(device_kernels(fn))
+    """The names of the device kernels that `BODY_CALLS` calls of `fn`
+    launch in one profiler session (one-call sessions lose records)."""
+    from mmpl_tpu_torch.utils.profiling import BODY_CALLS, device_kernels
+    return set(device_kernels(fn, BODY_CALLS))
 
 
 @pytest.mark.parametrize("lq", [1, 127, 1000])
@@ -269,10 +270,10 @@ def test_backward_matches_plain_at_a_ragged_shape(cuda, masked, dtype, d,
 @pytest.mark.parametrize("d", [24, 128])
 def test_masked_blocks_with_no_admitted_tile(cuda, dtype, d):
     """Frames of 300 tokens: frame 1 sees nothing (query block 384..511
-    has no admitted tile, so K4 runs only its epilogue) and frame 2 is
-    seen by nothing (key blocks 640..895 have no admitted query tile, so
-    K5 writes zeros).  O = 0 and lse = -inf on frame 1's rows, dK = dV = 0
-    on frame 2's keys, the rest against the plain versions."""
+    has no admitted tile, so K4 and K6 run only their epilogues) and frame
+    2 is seen by nothing (key blocks 640..895 have no admitted query tile,
+    so K5 writes zeros).  O = 0, lse = -inf and dQ = 0 on frame 1's rows,
+    dK = dV = 0 on frame 2's keys, the rest against the plain versions."""
     q, k, v = _qkv(1000, 1000, d, dtype, cuda, seed=d)
     do = _qkv(1000, 1000, d, dtype, cuda, seed=d + 1)[0]
     mask = _mask(1000, 300, cuda, unseen=True)
@@ -288,12 +289,13 @@ def test_masked_blocks_with_no_admitted_tile(cuda, dtype, d):
     assert (o.float() - po.float()).abs().max().item() <= 2e-2
     assert (lse[live] - plse[live]).abs().max().item() <= 1e-3
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
-    dk, dv = ta.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, None, mask,
+    dq, dk, dv = ta.flash_bwd_cuda(q, k, v, do, lse, delta, None, mask,
                                    tiles)
-    _, wk, wv = ta.frame_masked_attention_bwd_plain(q, k, v, do, lse, delta,
-                                                    *mask)
+    wq, wk, wv = ta.frame_masked_attention_bwd_plain(q, k, v, do, lse, delta,
+                                                     *mask)
     assert torch.all(dk[:, unseen] == 0) and torch.all(dv[:, unseen] == 0)
-    for g, w, name in ((dk, wk, "dk"), (dv, wv, "dv")):
+    assert torch.all(dq[:, 384:512] == 0) and torch.all(dq[:, blind] == 0)
+    for g, w, name in ((dq, wq, "dq"), (dk, wk, "dk"), (dv, wv, "dv")):
         assert torch.isfinite(g.float()).all(), name
         assert _rel(g, w) <= 1e-2, (name, _rel(g, w))
 
@@ -322,6 +324,61 @@ def test_masked_dkv_rows_without_lse_on_tiles_that_allow_every_pair(cuda,
     for g, w, name in ((dk, wk, "dk"), (dv, wv, "dv")):
         assert torch.isfinite(g.float()).all(), name
         assert _rel(g, w) <= tol, (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_masked_dq_rows_without_lse_on_tiles_that_allow_every_pair(cuda,
+                                                                    dtype):
+    """K6's twin of the dKV test above: rows whose lse is -inf get dQ = 0,
+    also on tiles of class 2, and the other rows match the plain version."""
+    q, k, v, do = _bwd_inputs(1000, 1000, 128, dtype, cuda, seed=12)
+    ids = torch.zeros(1000, dtype=torch.int32, device=cuda)
+    mask = (ids, ids, torch.ones((1, 1), dtype=torch.bool, device=cuda))
+    tiles = ta.mask_tiles(*mask)
+    assert (tiles.fwd == 2).all()
+    o, lse = ta.flash_fwd_cuda(q, k, v, None, mask, tiles)
+    lse[:, :, 100:150] = -float("inf")
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dq = ta.flash_bwd_dq_cuda(q, k, v, do, lse, delta, None, mask, tiles)
+    wq = ta.frame_masked_attention_bwd_plain(q, k, v, do, lse, delta,
+                                             *mask)[0]
+    assert torch.all(dq[:, 100:150] == 0)
+    assert torch.isfinite(dq.float()).all()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _rel(dq, wq) <= tol, _rel(dq, wq)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_masked_kernels_at_the_most_frames_the_hopper_bodies_hold(cuda,
+                                                                   dtype):
+    """K4, K5 and K6 at F = SM90_MAX_FRAMES with D = 128, the most shared
+    memory their frame tables take (K6 holds the table as bits: a byte a
+    pair on top of K3's layout would pass the card's opt-in limit): 192
+    frames of 8 tokens under a random mask with its diagonal, so every
+    frame id appears and most 128 x 128 tiles test each pair, against the
+    plain versions."""
+    F = ta.SM90_MAX_FRAMES
+    rng = np.random.default_rng(14)
+    fm = rng.random((F, F)) < 0.3
+    np.fill_diagonal(fm, True)
+    ids = torch.as_tensor(np.repeat(np.arange(F), 8), dtype=torch.int32,
+                          device=cuda)
+    mask = (ids, ids, torch.as_tensor(fm, device=cuda))
+    tiles = ta.mask_tiles(*mask)
+    assert (tiles.fwd == 1).float().mean().item() > 0.5
+    q, k, v, do = _bwd_inputs(8 * F, 8 * F, 128, dtype, cuda, seed=15, B=1)
+    o, lse = ta.flash_fwd_cuda(q, k, v, None, mask, tiles)
+    po, plse = ta.frame_masked_attention_plain(q, k, v, *mask)
+    assert (o.float() - po.float()).abs().max().item() <= 2e-2
+    assert (lse - plse).abs().max().item() <= 1e-3
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    got = ta.flash_bwd_cuda(q, k, v, do, lse, delta, None, mask, tiles)
+    want = ta.frame_masked_attention_bwd_plain(q, k, v, do, lse, delta,
+                                               *mask)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel(g, w) <= 1e-2, (name, _rel(g, w))
 
 
 @pytest.mark.parametrize("dtype,body", [
@@ -475,13 +532,13 @@ def test_hopper_bwd_padding_keys_stay_finite_under_a_very_negative_lse(cuda):
     (torch.bfloat16, False, ("_sm90_kernel", "_sm90_kernel")),
     (torch.float16, False, ("_sm90_kernel", "_sm90_kernel")),
     (torch.float32, False, ("flash_bwd_d", "flash_bwd_d")),
-    (torch.bfloat16, True, ("_sm90_kernel", "flash_bwd_d")),
-    (torch.float16, True, ("_sm90_kernel", "flash_bwd_d")),
+    (torch.bfloat16, True, ("_sm90_kernel", "_sm90_kernel")),
+    (torch.float16, True, ("_sm90_kernel", "_sm90_kernel")),
     (torch.float32, True, ("flash_bwd_d", "flash_bwd_d")),
 ])
 def test_backward_runs_the_body_of_its_type(cuda, dtype, masked, bodies):
-    """bf16 / fp16 K2 / K3 and K5 run the Hopper kernels (K2 with its
-    reduce where it splits, K5 never split), fp32 and K6 the template; the
+    """bf16 / fp16 K2 / K3 and K5 / K6 run the Hopper kernels (K2 with its
+    reduce where it splits, K5 never split), fp32 the template; the
     profiler attribution books each to its own counter."""
     from mmpl_tpu_torch.utils.profiling import port_kernel_of
     q, k, v, do = _bwd_inputs(500, 300, 64, dtype, cuda)

@@ -1,7 +1,7 @@
 """`mmpl_tpu_torch.tools.flash_compare` off the card: which scale a
 baseline checkout's K1 takes, which dKV signature its backward has, which
-masked signatures (with or without the coarse tile table) its K4 and K5
-have, which P2 and Q signatures its int8 source has, what it refuses, and
+masked signatures (with or without the coarse tile table) its K4, K5
+and K6 have, which P2 and Q signatures its int8 source has, what it refuses, and
 that it needs the card (its builds and times run only there)."""
 
 import pytest
@@ -134,7 +134,8 @@ NEW_K5_ENTRY = """extern "C" int mmpl_flash_masked_bwd_dkv(int dtype,
 def test_baseline_masked_entries_are_bound_by_their_sources(tmp_path, coarse):
     """A baseline whose K4 entry takes no coarse table (the trees before the
     Hopper K4 and K5) has the older K4 and K5 signatures, one pointer
-    shorter; K6's is the same in both."""
+    shorter; K6's entry takes none in either (the trees before the Hopper
+    K6), so it has the older K6 signature in both."""
     root = _checkout(tmp_path, "flash_fwd.cu", "flash_bwd.cu",
                      "flash_common.cuh", "flash_fwd_sm90.cuh",
                      "flash_bwd_sm90.cuh")
@@ -154,8 +155,34 @@ def test_baseline_masked_entries_are_bound_by_their_sources(tmp_path, coarse):
         assert (got == mine[name]) is coarse
         assert len(got) == len(mine[name]) - (not coarse)
     assert bwd["mmpl_flash_masked_bwd_dq"] == \
-        mine["mmpl_flash_masked_bwd_dq"]
+        flash_compare.OLD_MASKED_SIGNATURES["mmpl_flash_masked_bwd_dq"]
+    assert len(bwd["mmpl_flash_masked_bwd_dq"]) == \
+        len(mine["mmpl_flash_masked_bwd_dq"]) - 1
     assert fwd["mmpl_flash_fwd"] == mine["mmpl_flash_fwd"]
+
+
+#: the K6 entry's first lines in the trees with the Hopper K6
+NEW_K6_ENTRY = """extern "C" int mmpl_flash_masked_bwd_dq(int dtype,
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const void* qf,
+    const void* kf, const void* fm, const void* tiles, const void* coarse,
+    int F, int B,"""
+
+
+def test_baseline_with_the_hopper_k6_binds_its_coarse_table(tmp_path):
+    """A baseline whose K6 entry takes the coarse table (a tree with the
+    Hopper K6) has this tree's K4-K6 signatures."""
+    root = _checkout(tmp_path, "flash_fwd.cu", "flash_bwd.cu",
+                     "flash_common.cuh", "flash_fwd_sm90.cuh",
+                     "flash_bwd_sm90.cuh")
+    csrc = root / "mmpl_tpu_torch" / "csrc"
+    (csrc / "flash_fwd.cu").write_text(NEW_K4_ENTRY)
+    (csrc / "flash_bwd.cu").write_text(NEW_K5_ENTRY + "\n" + NEW_K6_ENTRY)
+    assert flash_compare.baseline_takes_coarse_tables(root, "flash_bwd", "dq")
+    for source in ("flash_fwd", "flash_bwd"):
+        assert flash_compare.baseline_signatures(root, source) == {
+            n: sig for n, sig in _build.SIGNATURES[source].items()
+            if n != "mmpl_flash_exp2"}
 
 
 def test_masked_compare_needs_the_card(tmp_path, monkeypatch):

@@ -162,3 +162,37 @@ def test_mask_arguments_refuse_what_the_kernels_do_not_take(bad):
     }[bad]
     with pytest.raises(ValueError):
         _mask_args(tiles, F, hopper=True)
+
+
+@pytest.mark.parametrize("part,table", [("dkv", "dkv"), ("dq", "fwd")])
+def test_masked_backward_arguments_carry_their_coarse_table(part, table):
+    """K5's entry takes the key-block-major 64 x 128 table, K6's the
+    128 x 128 table of the forward (the Hopper K6 walks K4's rows)."""
+    ids = torch.zeros(300, dtype=torch.int32)
+    mask = (ids, ids, torch.ones((3, 3), dtype=torch.bool))
+    tiles = ta.mask_tiles(*mask)
+    args = ta._bwd_mask_args(part, mask, tiles, 300, 300, torch.device("cpu"),
+                             torch.bfloat16)
+    assert args[3:] == [tiles.t64.data_ptr(),
+                        getattr(tiles, table).data_ptr(), 3]
+
+
+@pytest.mark.parametrize("part", ["dkv", "dq"])
+@pytest.mark.parametrize("dtype,refused", [(torch.bfloat16, True),
+                                           (torch.float16, True),
+                                           (torch.float32, False)])
+def test_hopper_masked_backward_refuses_more_frames_than_it_holds(part, dtype,
+                                                                 refused):
+    """bf16 / fp16 K5 and K6 hold the frame table in shared memory, up to
+    SM90_MAX_FRAMES frames; the fp32 template reads it from memory."""
+    F = ta.SM90_MAX_FRAMES + 1
+    ids = torch.zeros(300, dtype=torch.int32)
+    mask = (ids, ids, torch.ones((F, F), dtype=torch.bool))
+    tiles = ta.mask_tiles(*mask)
+    call = lambda: ta._bwd_mask_args(part, mask, tiles, 300, 300,
+                                     torch.device("cpu"), dtype)
+    if refused:
+        with pytest.raises(ValueError, match=str(ta.SM90_MAX_FRAMES)):
+            call()
+    else:
+        assert call()[-1] == F
