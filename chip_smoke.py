@@ -77,7 +77,20 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      torch.profiler; fewstep_parity: the tiny model's fp32 few-step runs
      (static, with committed context, rolling) on the card against the
      CPU's plain path;
-  14. the kernels line, then the final device line.
+  14. real inputs: t5, umT5-XXL at full width and depth (seeded f32
+     weights on the card) encoding two 512-token rows, one padded, and a
+     2-layer full-width copy against the CPU; ckpt, synthetic files in the
+     upstream layouts (a 1.3B MMPL generator .pt with its EMA, in bf16;
+     Wan2.1_VAE.pth; the 2-layer umT5 .pth in bf16; a word-level
+     tokenizer) loaded to the card through the port's loaders, bit for
+     bit; cli_real, the CLI's non-smoke path on those files
+     (--checkpoint-path, --wan-dir, --use-ema, a prompt) at 480x832, 4
+     steps, two bridged windows, exact K1 launches; window_i2v, two
+     bridged 1.3B windows on the i2v plan from a synthetic 480x832 image,
+     exact K1 launches; window_i2v_parity, the tiny model's fp32 i2v
+     window and image encode on the card against the CPU.  The K1 rows
+     of the kernel phase include the i2v plan's own shapes;
+  15. the kernels line, then the final device line.
 """
 
 from __future__ import annotations
@@ -136,13 +149,20 @@ PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1979e12
 
 #: (label, B, N, D, Lq, Lk, dtype): the 1.3B main path's K1 calls (the four
-#: t2v self-attention groups and text cross-attention), the training
-#: cross-attention, a ragged shape, and the fp32 smoke path's head dim
+#: t2v self-attention groups and text cross-attention), the shapes only
+#: the i2v plan gives (group 0: the image frame alone, its commit; group 1:
+#: frame 1 over frames {0, 1}, denoised in window 0; group 3: 6 frames
+#: over the 15 cached ones, not in append mode; its group 2 and append-mode
+#: group 4 run group1_self and group3_self), the training cross-attention,
+#: a ragged shape, and the fp32 smoke path's head dim
 K1_SHAPES = [
     ("group0_self", 2, 12, 128, 3120, 3120, torch.bfloat16),
     ("group1_self", 2, 12, 128, 10920, 14040, torch.bfloat16),
     ("group2_self", 2, 12, 128, 9360, 20280, torch.bfloat16),
     ("group3_self", 2, 12, 128, 9360, 32760, torch.bfloat16),
+    ("i2v_group0_self", 2, 12, 128, 1560, 1560, torch.bfloat16),
+    ("i2v_group1_self", 2, 12, 128, 1560, 3120, torch.bfloat16),
+    ("i2v_group3_self", 2, 12, 128, 9360, 23400, torch.bfloat16),
     ("cross", 2, 12, 128, 9360, 512, torch.bfloat16),
     ("tf_cross", 1, 12, 128, 65520, 512, torch.bfloat16),
     ("fewstep_self_hot", 1, 12, 128, 4680, 32760, torch.bfloat16),
@@ -911,18 +931,28 @@ def _window_forwards(steps: int) -> int:
     return (4 * steps + 3) + (3 * steps + 3)
 
 
+def _i2v_window_forwards(steps: int) -> int:
+    """DiT forwards of two bridged windows on the i2v plan: window 0
+    commits the image frame (group 0) and runs groups 1-4 (group 4 in
+    append mode, no commit); window 1 commits its 2 bridge latents as
+    groups 0 and 1 and runs groups 2-4."""
+    return (1 + 4 * steps + 3) + (2 + 3 * steps + 2)
+
+
 #: commit forwards (the cache writes) of the two bridged windows: groups
 #: 0-2 of window 0, the bridge commit and groups 1-2 of window 1
 WINDOW_COMMITS = (3, 3)
 
 
 def _run_windows(phase, steps, quantize=None, quantize_cache=False,
-                 quantize_vae=False):
+                 quantize_vae=False, plan=None, image=None):
     """Two bridged 1.3B windows at 480x832 in bf16 from the same seeds
     (model 0, head 99, VAE 1, text 2 / 3, noise 100), with the int8
-    options asked for.  Returns (pipe, cond, uncond, rows, latents,
-    frames, caches): per-window rows, latents on the host, frames, and
-    each KV cache's {name: (dtype, bytes)}."""
+    options asked for; with `plan` and `image` ([3, 480, 832] in [-1, 1])
+    the i2v windows, the image VAE-encoded as window 0's first latent
+    frame.  Returns (pipe, cond, uncond, rows, latents, frames, caches):
+    per-window rows, latents on the host, frames, and each KV cache's
+    {name: (dtype, bytes)}."""
     from mmpl_tpu_torch.pipelines import fps_inference
     cfg = WAN_CONFIGS["t2v-1.3B"]
     dev = torch.device("cuda")
@@ -934,11 +964,14 @@ def _run_windows(phase, steps, quantize=None, quantize_cache=False,
     if quantize_vae:
         vae.quantize_vae_decoder(vae_model)
     cond, uncond = cli.random_text_context(cfg, dev)
-    pipe = CausalFPSInferencePipeline(cfg, model, sampling_steps=steps,
+    pipe = CausalFPSInferencePipeline(cfg, model, plan=plan,
+                                      sampling_steps=steps,
                                       quantize=quantize,
                                       quantize_cache=quantize_cache,
                                       dtype=torch.bfloat16)
     pipe.sync_timing = True
+    initial = None if image is None else cli.encode_image(vae_model, image,
+                                                          dev)
     torch.cuda.synchronize()
     emit({"phase": f"{phase}_init", "seconds": time.perf_counter() - t0})
 
@@ -954,7 +987,8 @@ def _run_windows(phase, steps, quantize=None, quantize_cache=False,
         lat = lat.float()
         finite = bool(torch.isfinite(lat).all().item())
         std = lat.std().item()
-        new_frames = 21 if win == 0 else 19
+        new_frames = (21 - (0 if initial is None else initial.shape[1])
+                      if win == 0 else 19)
         now = counts_now()
         row = {"phase": phase, "window": win, "seconds": seconds,
                "new_latent_frames": new_frames,
@@ -990,7 +1024,7 @@ def _run_windows(phase, steps, quantize=None, quantize_cache=False,
     torch.cuda.reset_peak_memory_stats()
     try:
         full = cli.run_windows(pipe, vae_model, cond, uncond, 2, (60, 104),
-                               g(100), on_window)
+                               g(100), on_window, initial_latent=initial)
     finally:
         fps_inference.init_kv_cache = make_cache
     check(full[0].shape == (157, 480, 832, 3) and str(full.dtype) == "uint8",
@@ -1868,6 +1902,374 @@ def phase_fewstep_parity():
         check(row[f"{case}_rel_err"] <= row[f"{case}_gate"], row)
 
 
+#: the T5 depth of the checkpoint phases: a 2-layer umT5 at full width
+#: (vocabulary 256384, dim 4096, 64 heads, ffn 10240); the t5 phase runs
+#: all 24 layers
+T5_SHALLOW_LAYERS = 2
+#: the words of the tokenizer the checkpoint phases write (the umT5
+#: tokenizer files are not in the repository): <pad> 0, </s> 1, <unk> 2
+TOKENIZER_WORDS = ("a cat dog surfing wave at sunset on the beach red blue "
+                   "green quickly slowly runs jumps over fox lazy").split()
+CLI_PROMPT = "a cat surfing a wave at sunset on the beach"
+
+
+def _t5_ids(vocab: int, L: int = 512, seed: int = 5):
+    """Two 512-token id rows: one full, one of 77 tokens then padding
+    (mask 0, id 0); </s> (id 1) ends each."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, vocab, (2, L)).astype(np.int32)
+    mask = np.ones((2, L), np.int32)
+    ids[0, -1] = ids[1, 76] = 1
+    ids[1, 77:] = 0
+    mask[1, 77:] = 0
+    return ids, mask
+
+
+def phase_t5():
+    """umT5-XXL at full width and depth (24 layers, 5.68 B parameters,
+    seeded weights made on the card in f32): two 512-token rows, one
+    padded, through `WanTextEncoder.encode_ids`, with the encode's ms and
+    the peak memory; then a 2-layer full-width copy on the card against
+    the same module on the CPU (f32, TF32 off: within 1e-4 relative).
+    Returns the 2-layer CPU module (the checkpoint phases write it)."""
+    from mmpl_tpu_torch.models import t5
+    from mmpl_tpu_torch.utils.tokenizer import WanTextEncoder
+    cfg = t5.UMT5_XXL
+    ids, mask = _t5_ids(cfg["vocab_size"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = t5.init_t5_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                              torch.float32, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    enc = WanTextEncoder(model)
+    out = {}
+    ms = time_ms(lambda: out.update(s=enc.encode_ids(ids, mask)),
+                 max_reps=5)
+    states = out["s"]
+    row = {"phase": "t5", "layers": cfg["num_layers"], "dim": cfg["dim"],
+           "heads": cfg["num_heads"], "ffn": cfg["dim_ffn"],
+           "vocab": cfg["vocab_size"],
+           "params": sum(p.numel() for p in model.parameters()),
+           "param_gb": sum(p.numel() * p.element_size()
+                           for p in model.parameters()) / 1e9,
+           "init_s": init_s, "tokens": list(ids.shape),
+           "valid_tokens": mask.sum(1).tolist(), "encode_ms": ms,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30,
+           "states_shape": list(states.shape),
+           "finite": bool(torch.isfinite(states).all()),
+           "padded_zero": bool((states[1, 77:] == 0).all()),
+           "states_std": states[0].std().item()}
+    del model, enc, states, out
+    torch.cuda.empty_cache()
+
+    shallow = t5.init_t5_params(dict(cfg, num_layers=T5_SHALLOW_LAYERS),
+                                torch.Generator().manual_seed(1))
+    want = shallow(torch.from_numpy(ids), torch.from_numpy(mask))
+    card = t5.empty_t5(shallow.cfg, device="cuda")
+    card.load_state_dict(shallow.state_dict())
+    got = card(torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda())
+    got = got.cpu()
+    del card
+    torch.cuda.empty_cache()
+    row.update(shallow_layers=T5_SHALLOW_LAYERS,
+               shallow_rel_err=((got - want).norm() / want.norm()).item(),
+               shallow_max_abs_err=(got - want).abs().max().item())
+    emit(row)
+    check(row["finite"] and row["padded_zero"] and row["states_std"] > 0.1,
+          row)
+    check(row["states_shape"] == [2, 512, 4096], row)
+    check(row["params"] == 5_680_910_336, row)
+    check(row["shallow_rel_err"] <= 1e-4, row)
+    return shallow
+
+
+def _save_word_tokenizer(path: str) -> str:
+    """A umT5-like word-level tokenizer in `path` (tokenizer.json and
+    tokenizer_config.json, as `AutoTokenizer.from_pretrained` reads
+    them): <pad> 0, </s> 1 appended to each sequence, <unk> 2."""
+    from tokenizers import Tokenizer, models, pre_tokenizers, processors
+    vocab = {w: i for i, w in enumerate(["<pad>", "</s>", "<unk>",
+                                         *TOKENIZER_WORDS])}
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.post_processor = processors.TemplateProcessing(
+        single="$A </s>", special_tokens=[("</s>", 1)])
+    os.makedirs(path, exist_ok=True)
+    tok.save(os.path.join(path, "tokenizer.json"))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast",
+                   "pad_token": "<pad>", "eos_token": "</s>",
+                   "unk_token": "<unk>", "model_max_length": 512}, f)
+    return path
+
+
+def _mismatched(module, source: dict, source_key, widen=False) -> list:
+    """Names of the module's tensors that differ from their upstream
+    tensors in `source` (reshaped to the module's layout; widened to f32
+    where the module is f32 and the file bf16)."""
+    bad = []
+    for k, v in module.state_dict().items():
+        want = source[source_key(k)].reshape(v.shape)
+        if widen:
+            want = want.float()
+        if not torch.equal(v.cpu(), want):
+            bad.append(k)
+    return bad
+
+
+def phase_ckpt(t5_shallow):
+    """Synthetic files in the upstream layouts under build/chip_smoke/ckpt:
+    a 1.3B MMPL generator `.pt` (`generator` and `generator_ema` under
+    `model.`, bf16; the EMA differs in the head and shares the rest), a
+    Wan2.1 directory with `Wan2.1_VAE.pth` (f32), the 2-layer full-width
+    umT5 in bf16 (`models_t5_umt5-xxl-enc-bf16.pth`) and a word-level
+    tokenizer under `google/umt5-xxl`.  Each file loads to the card
+    through the port's loaders; the module tensors equal the written
+    ones bit for bit (T5's widened to f32).  Returns (pt, wan dir)."""
+    from mmpl_tpu_torch.utils import checkpoint as ckpt
+    cfg = WAN_CONFIGS["t2v-1.3B"]
+    root = os.path.join(OUT_DIR, "ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    wan = os.path.join(root, "Wan2.1-T2V-1.3B")
+    os.makedirs(wan)
+    pt = os.path.join(root, "mmpl_t2v_1.3B.pt")
+    g = lambda s: torch.Generator(device="cuda").manual_seed(s)
+    model = dit.randomize_head(
+        dit.init_dit_params(cfg, g(0), torch.bfloat16, "cuda"), g(99))
+    up = {k: v.cpu() for k, v in
+          ckpt.to_upstream(model.state_dict(), "dit").items()}
+    del model
+    ema = dict(up)
+    for k in ("head.head.weight", "head.modulation"):
+        ema[k] = (up[k].float() * 0.5).to(torch.bfloat16)
+    vae_up = {k: v.cpu() for k, v in ckpt.to_upstream(
+        vae.init_vae_params(g(1), torch.float32, "cuda").state_dict(),
+        "vae").items()}
+    t5_up = {k: v.to(torch.bfloat16) for k, v in
+             ckpt.to_upstream(t5_shallow.state_dict(), "t5").items()}
+    files = {"generator": pt,
+             "vae": os.path.join(wan, cfg.vae_checkpoint),
+             "t5": os.path.join(wan, cfg.t5_checkpoint)}
+    t0 = time.perf_counter()
+    torch.save({"generator": {f"model.{k}": v for k, v in up.items()},
+                "generator_ema": {f"model.{k}": v for k, v in ema.items()}},
+               pt)
+    torch.save(vae_up, files["vae"])
+    torch.save(t5_up, files["t5"])
+    tok = _save_word_tokenizer(os.path.join(wan, cfg.t5_tokenizer))
+    write_s = time.perf_counter() - t0
+    row = {"phase": "ckpt", "write_s": write_s,
+           "bytes": {k: os.path.getsize(p) for k, p in files.items()},
+           "tokenizer": sorted(os.listdir(tok))}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for use_ema, src in ((False, up), (True, ema)):
+        m, sec = timed(lambda: ckpt.load_mmpl_generator(
+            pt, cfg, use_ema=use_ema, dtype=torch.bfloat16, device="cuda"))
+        name = "generator_ema" if use_ema else "generator"
+        row[f"{name}_load_s"] = sec
+        row[f"{name}_params"] = sum(p.numel() for p in m.parameters())
+        row[f"{name}_mismatched"] = _mismatched(m, src, ckpt.dit_source_key)
+        del m
+    m, row["vae_load_s"] = timed(lambda: ckpt.load_vae(
+        files["vae"], torch.float32, "cuda"))
+    row["vae_mismatched"] = _mismatched(m, vae_up, ckpt.vae_source_key)
+    m, row["t5_load_s"] = timed(lambda: ckpt.load_t5(
+        files["t5"], t5_shallow.cfg, torch.float32, "cuda"))
+    row["t5_mismatched"] = _mismatched(m, t5_up, ckpt.t5_source_key,
+                                      widen=True)
+    row["t5_params"] = sum(p.numel() for p in m.parameters())
+    del m
+    torch.cuda.empty_cache()
+    emit(row)
+    for part in ("generator", "generator_ema", "vae", "t5"):
+        check(row[f"{part}_mismatched"] == [], row)
+    check(row["generator_params"] == 1_418_996_800, row)
+    return pt, wan
+
+
+def phase_cli_real(pt: str, wan: str, steps: int = 4):
+    """The CLI's non-smoke path on the ckpt phase's files: the 1.3B
+    generator's EMA in bf16, the VAE, the 2-layer umT5 (the CLI's umT5
+    config cut to the file's depth) and the tokenizer, a prompt and Wan's
+    default negative prompt, at 480x832, `steps` sampling steps, two
+    bridged windows: exact K1 launches per window, window seconds and
+    latent-frames/s, the text states' spread."""
+    from mmpl_tpu_torch.models import t5
+    cfg = WAN_CONFIGS["t2v-1.3B"]
+    rows, counted, states = [], {"k1": 0}, {}
+    real_run, real_t5 = cli.run_windows, t5.UMT5_XXL
+
+    def run_windows(pipe, vae_model, cond, uncond, duration, lat_hw, gen,
+                    on_window=None, **kw):
+        pipe.sync_timing = True
+        states.update(cond=cond, uncond=uncond)
+
+        def record(win, lat, frames, seconds):
+            lat = lat.float()
+            k1 = attn.launch_counts["flash_fwd"]
+            new = 21 if win == 0 else 19
+            row = {"phase": "cli_real", "window": win, "seconds": seconds,
+                   "new_latent_frames": new,
+                   "latent_frames_per_s": new / seconds,
+                   "latents_finite": bool(torch.isfinite(lat).all()),
+                   "latents_std": lat.std().item(),
+                   "frames_shape": list(frames.shape),
+                   "flash_fwd_launches": k1 - counted["k1"]}
+            counted["k1"] = k1
+            for key, val in pipe.phase_times.items():
+                if key.endswith("_steps_s"):
+                    row[key.replace("_steps_s", "_ms_per_step")] = \
+                        1e3 * val / steps
+            rows.append(row)
+            emit(row)
+            check(row["latents_finite"] and row["latents_std"] > 1e-3, row)
+        return real_run(pipe, vae_model, cond, uncond, duration, lat_hw,
+                        gen, record, **kw)
+
+    out = os.path.join(OUT_DIR, "cli_real.mp4")
+    written, restore = _capture_writes()
+    cli.run_windows = run_windows
+    t5.UMT5_XXL = dict(real_t5, num_layers=T5_SHALLOW_LAYERS)
+    attn.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["--model", "t2v-1.3B", "--checkpoint-path", pt,
+                       "--wan-dir", wan, "--use-ema", "--prompt", CLI_PROMPT,
+                       "--duration", "2", "--sampling-steps", str(steps),
+                       "--device", "cuda", "--output", out])
+    finally:
+        restore()
+        cli.run_windows, t5.UMT5_XXL = real_run, real_t5
+    total_s = time.perf_counter() - t0
+    frames = written[out]
+    expected = 2 * cfg.num_layers * _window_forwards(steps)
+    cond, uncond = states["cond"], states["uncond"]
+    total = {"phase": "cli_real_total", "rc": rc, "seconds": total_s,
+             "load_and_encode_s": total_s - sum(r["seconds"] for r in rows),
+             "frames_shape": list(frames.shape),
+             "flash_fwd_launches": attn.launch_counts["flash_fwd"],
+             "expected_launches": expected,
+             "text_states_shape": list(cond.shape),
+             "cond_uncond_max_abs_diff":
+                 (cond - uncond).abs().max().item(),
+             "max_memory_allocated_gib":
+                 torch.cuda.max_memory_allocated() / 2**30}
+    emit(total)
+    check(rc == 0, total)
+    check(frames.shape == (157, 480, 832, 3) and str(frames.dtype)
+          == "uint8", total)
+    check(total["flash_fwd_launches"] == expected, total)
+    check(total["text_states_shape"] == [1, 512, 4096]
+          and total["cond_uncond_max_abs_diff"] > 1e-2, total)
+    return total["flash_fwd_launches"]
+
+
+def _synthetic_image(h: int, w: int, seed: int = 21) -> np.ndarray:
+    """[h, w, 3] uint8: a colour gradient with noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    rgb = np.stack([255 * x / w, 255 * y / h, 128 + 64 * np.sin(x / 37.0)],
+                   -1) + rng.normal(0, 12, (h, w, 3))
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _image_input(rgb: np.ndarray, h: int, w: int):
+    """(the image as `load_image` gives it from a PNG file, how): through
+    PIL where the machine has it, else the array through `image_array`,
+    the step that follows the decoding."""
+    from mmpl_tpu_torch.utils import media
+    try:
+        from PIL import Image
+    except ImportError:
+        return media.image_array(rgb, h, w), "image_array (no PIL)"
+    path = os.path.join(OUT_DIR, f"i2v_{rgb.shape[0]}x{rgb.shape[1]}.png")
+    Image.fromarray(rgb).save(path)
+    return media.load_image(path, h, w), "load_image (PNG via PIL)"
+
+
+def phase_window_i2v(steps: int = 4):
+    """Two bridged 1.3B windows on the i2v plan at 480x832, bf16, `steps`
+    sampling steps, from a synthetic image (a 540x960 PNG resized and
+    centre-cropped): the image's latent commits group 0 of window 0, the 2
+    bridge latents groups 0 and 1 of window 1; exact K1 launches,
+    per-group ms per step, window seconds."""
+    from mmpl_tpu_torch.core.geometry import i2v_plan
+    image, how = _image_input(_synthetic_image(540, 960), 480, 832)
+    _, _, _, rows, _, _, _ = _run_windows("window_i2v", steps,
+                                          plan=i2v_plan(), image=image)
+    launches = attn.launch_counts["flash_fwd"]
+    expected = 2 * WAN_CONFIGS["t2v-1.3B"].num_layers * \
+        _i2v_window_forwards(steps)
+    for row in rows:
+        emit(row)
+    emit({"phase": "window_i2v_total", "image_input": how,
+          "flash_fwd_launches": launches, "expected_launches": expected,
+          "per_window": [r["launches"]["flash_fwd"] for r in rows],
+          "max_memory_allocated_gib":
+              torch.cuda.max_memory_allocated() / 2**30})
+    check(launches == expected, (launches, expected))
+    check([r["new_latent_frames"] for r in rows] == [20, 19], rows)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_window_i2v_parity(steps: int = 4):
+    """The tiny model's fp32 i2v window on the card against the CPU's
+    plain path, from the same weights, noise and text states: the image
+    (64x64) encoded by the VAE on both (within 1e-4 relative), then the
+    window from that one latent frame (within 1e-4 relative, the float
+    window gate of quant_parity)."""
+    import copy
+
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    from mmpl_tpu_torch.core.geometry import i2v_plan
+    cfg = tiny_test_config()
+    model = dit.randomize_head(dit.init_dit_params(
+        cfg, torch.Generator().manual_seed(0), torch.float32),
+        torch.Generator().manual_seed(99))
+    vae_cpu = vae.init_vae_params(torch.Generator().manual_seed(1))
+    vae_gpu = copy.deepcopy(vae_cpu).to("cuda")
+    image, how = _image_input(_synthetic_image(80, 100), 64, 64)
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    lat_cpu = cli.encode_image(vae_cpu, image, torch.device("cpu"))
+    lat_gpu = cli.encode_image(vae_gpu, image, torch.device("cuda")).cpu()
+    rng = np.random.default_rng(17)
+    noise = rng.standard_normal((1, 21, 16, 8, 8)).astype(np.float32)
+    cond, uncond = (rng.standard_normal((1, cfg.text_len, cfg.text_dim))
+                    .astype(np.float32) for _ in range(2))
+
+    def window(dev):
+        pipe = CausalFPSInferencePipeline(
+            cfg, copy.deepcopy(model).to(dev), plan=i2v_plan(),
+            sampling_steps=steps, dtype=torch.float32)
+        t = lambda a: torch.from_numpy(a).to(dev)
+        return pipe.inference(t(noise), t(cond), t(uncond),
+                              initial_latent=lat_cpu.to(dev)).cpu()
+
+    got, want = window("cuda"), window("cpu")
+    row = {"phase": "window_i2v_parity", "steps": steps, "image_input": how,
+           "latent_shape": list(lat_cpu.shape),
+           "encode_rel_err": rel(lat_gpu, lat_cpu),
+           "window_rel_err": rel(got, want),
+           "first_frame_equal": bool(torch.equal(got[:, :1], lat_cpu))}
+    emit(row)
+    check(row["latent_shape"] == [1, 1, 16, 8, 8], row)
+    check(row["encode_rel_err"] <= 1e-4 and row["window_rel_err"] <= 1e-4,
+          row)
+    check(row["first_frame_equal"], row)
+
+
 def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
            bound_ms, bound_by, library_ms, **extra):
     return {"name": name, "route": "cuda", "source": source,
@@ -1879,13 +2281,15 @@ def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
 
 def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                  int8_launches, train_counts, exp2, exp2_launches,
-                 fewstep_launches):
+                 path_launches):
     """The nine kernels at their main-path shapes: K1 at group 3 of the
     serving window, K2 / K3 at the training cross-attention (and their
     other shapes under `shapes`), K4-K6 at the
     training self-attention, P2 at group 3's ffn.fc1, Q at group 3's
     ffn.fc2 input and P1 (its exp2 variant without the pad test) at the
-    probe's shape.  `launches` sums the paths each runs on."""
+    probe's shape.  `launches` sums the paths each runs on;
+    `path_launches` holds K1's on the few-step, real-file CLI and i2v
+    paths."""
     fwd_src = "mmpl_tpu_torch/csrc/flash_fwd.cu"
     sm90_src = "mmpl_tpu_torch/csrc/flash_fwd_sm90.cuh"
     bwd_src = "mmpl_tpu_torch/csrc/flash_bwd.cu"
@@ -1901,14 +2305,14 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
     out = [_entry(
         "flash_fwd", sm90_src, "mmpl_tpu/ops/attention.py:324",
         window_launches + int8_launches["flash_fwd"]
-        + train_counts["flash_fwd"] + sum(fewstep_launches.values()),
+        + train_counts["flash_fwd"] + sum(path_launches.values()),
         max(r["o_max_abs_err"] for r in rows.values()), k1["ms"],
         k1["plain_ms"], k1["bound_ms"], k1["bound_by"], k1["library_ms"],
         at=MAIN_SHAPE, bodies=bodies, bound_share=k1["bound_share"],
         launches_by_path={
             "window": window_launches,
             "window_int8": int8_launches["flash_fwd"],
-            "train": train_counts["flash_fwd"], **fewstep_launches},
+            "train": train_counts["flash_fwd"], **path_launches},
         shapes={k: {f: r[f] for f in ("body", "ms", "plain_ms", "bound_ms",
                                       "library_ms", "o_max_abs_err")}
                 for k, r in rows.items()})]
@@ -2076,12 +2480,23 @@ def main() -> int:
     del model, pipe, cond
     torch.cuda.empty_cache()
     phase_fewstep_parity()
-    fewstep_launches = {"fewstep": sum(r["flash_fwd_launches"]
-                                       for r in fewstep_rows),
-                        "fewstep_rolling": rolling_k1}
+    path_launches = {"fewstep": sum(r["flash_fwd_launches"]
+                                    for r in fewstep_rows),
+                     "fewstep_rolling": rolling_k1}
+    # real inputs: umT5 at full width, files in the upstream layouts, the
+    # CLI's non-smoke path on them, the i2v windows
+    t5_shallow = phase_t5()
+    pt, wan = phase_ckpt(t5_shallow)
+    del t5_shallow
+    try:
+        path_launches["cli_real"] = phase_cli_real(pt, wan)
+    finally:
+        shutil.rmtree(os.path.dirname(pt), ignore_errors=True)
+    path_launches["window_i2v"] = phase_window_i2v()
+    phase_window_i2v_parity()
     emit(kernels_line(smi, rows, bwd, masked, int8, window_launches,
                       int8_launches, train_counts, exp2, exp2_launches,
-                      fewstep_launches))
+                      path_launches))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,10 +1,21 @@
-"""CLI entry point: rolling long-video T2V generation.
+"""CLI entry point: rolling long-video T2V / I2V generation.
 
 Port of `mmpl_tpu/cli.py`.  `--duration` windows are generated in turn;
 each window after the first is seeded by re-encoding the previous window's
 last 5 pixel frames into 2 context latents, and its first 5 pixel frames
-(the overlap) are trimmed.  Without a checkpoint it runs random weights and
-random text embeddings ("smoke" is the tiny config at 64x64).
+(the overlap) are trimmed.
+
+Without `--checkpoint-path` it runs random weights and random text states
+("smoke" is the tiny config at 64x64; fp32 activations over bf16
+weights).  With it, the generator comes from an MMPL `.pt` (bf16;
+`--use-ema` takes `generator_ema`), and the VAE, the umT5 encoder (f32)
+and its tokenizer from `--wan-dir` (a Wan2.1 directory:
+`Wan2.1_VAE.pth`, `models_t5_umt5-xxl-enc-bf16.pth`, `google/umt5-xxl/`);
+`--prompt` and `--negative-prompt` (else the config's, else Wan's default
+negative prompt) become the cond / uncond text states.  `--image` runs the
+i2v window plan: the image (a file, an http(s) URL or base64) is resized
+and centre-cropped to the output size and VAE-encoded as window 0's one
+clean latent frame.
 
 The pipeline follows the run config: one with a `denoising_step_list`
 (`configs/self_forcing_dmd.yaml`) selects the few-step causal pipeline
@@ -14,6 +25,8 @@ planned-window pipeline (`pipelines/fps_inference.py`).
     python -m mmpl_tpu_torch.cli --model smoke --duration 2 --sampling-steps 4
     python -m mmpl_tpu_torch.cli --config configs/self_forcing_dmd.yaml \
         --profile --preview preview.mp4
+    python -m mmpl_tpu_torch.cli --checkpoint-path mmpl_t2v_1.3B.pt \
+        --wan-dir Wan2.1-T2V-1.3B --use-ema --prompt "..." [--image img.png]
 
 `--quantize int8|int8wo|auto`, `--quantize-cache` and `--quantize-vae` run
 the int8 projections, the int8 KV cache and the int8 VAE decoder.
@@ -36,11 +49,11 @@ import torch
 
 #: flags that belong to later slices of the port (ROADMAP.md, Queue 1)
 LATER_SLICES = {
-    "checkpoint_path": "Slice A item 10 (checkpoint ingestion)",
-    "wan_dir": "Slice A item 10 (checkpoint ingestion)",
-    "use_ema": "Slice A item 10 (checkpoint ingestion)",
-    "image": "Slice D (i2v)",
     "mesh": "Slice F (multi-device)",
+}
+#: models of later slices
+LATER_MODELS = {
+    "i2v-14B": "Slice D (the i2v DiT variant: img_emb, k_img / v_img)",
 }
 
 
@@ -48,13 +61,25 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="mmpl_tpu_torch video generation")
     p.add_argument("--config", default=None, help="run-config yaml")
     p.add_argument("--model", default="t2v-1.3B",
-                   choices=["t2v-14B", "t2v-1.3B", "smoke"],
+                   choices=["t2v-14B", "t2v-1.3B", "i2v-14B", "smoke"],
                    help="model config ('smoke' = tiny random-weight)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--prompt", default="a cat surfing a wave at sunset",
-                   help="unused until the text encoder is ported: random "
-                        "text embeddings stand in")
-    p.add_argument("--negative-prompt", default=None)
+                   help="the text prompt (random text states stand in "
+                        "without --checkpoint-path)")
+    p.add_argument("--negative-prompt", default=None,
+                   help="the uncond prompt (default: the run config's, "
+                        "else the model config's sample_neg_prompt)")
+    p.add_argument("--image", default=None,
+                   help="conditioning image (file, http(s) URL or base64) "
+                        "-> the i2v plan: the image is VAE-encoded as the "
+                        "first latent frame")
+    p.add_argument("--checkpoint-path", default=None,
+                   help="MMPL generator .pt (t2v_14B_8k.pt style)")
+    p.add_argument("--wan-dir", default=None,
+                   help="Wan2.1 directory (the VAE, T5 and tokenizer)")
+    p.add_argument("--use-ema", action="store_true",
+                   help="take the checkpoint's generator_ema")
     p.add_argument("--duration", type=int, default=1,
                    help="number of 21-frame windows (~5s each)")
     p.add_argument("--height", type=int, default=480)
@@ -89,14 +114,18 @@ def parse_args(argv=None):
                    help="taew2_1.pth weights for --preview (random "
                         "weights when absent)")
     # flags of later slices: parsed so that they can be refused by name
-    for flag in ("--checkpoint-path", "--wan-dir", "--image", "--mesh"):
-        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--use-ema", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     for dest, where in LATER_SLICES.items():
         if getattr(args, dest):
             p.error(f"--{dest.replace('_', '-')} is not ported yet: "
                     f"ROADMAP.md {where}")
+    if args.model in LATER_MODELS:
+        p.error(f"--model {args.model} is not ported yet: ROADMAP.md "
+                f"{LATER_MODELS[args.model]}")
+    if args.checkpoint_path and args.model != "smoke" and not args.wan_dir:
+        p.error("--checkpoint-path needs --wan-dir (the VAE, the T5 encoder "
+                "and its tokenizer)")
     return args
 
 
@@ -110,12 +139,42 @@ def random_text_context(cfg, device: torch.device):
     return out
 
 
+def load_models(cfg, checkpoint_path: str, wan_dir: str, use_ema: bool,
+                device: torch.device):
+    """(generator, VAE, text encoder) from real files: the MMPL generator
+    `.pt` in bf16 (`generator_ema` with use_ema), the VAE and the umT5
+    encoder (f32, `models.t5.UMT5_XXL`) from the Wan2.1 directory, the
+    tokenizer from its `google/umt5-xxl`."""
+    from .models import t5
+    from .utils import checkpoint as ckpt
+    from .utils.tokenizer import WanTextEncoder
+    model = ckpt.load_mmpl_generator(checkpoint_path, cfg, use_ema=use_ema,
+                                     dtype=torch.bfloat16, device=device)
+    vae_model = ckpt.load_vae(os.path.join(wan_dir, cfg.vae_checkpoint),
+                              torch.float32, device)
+    t5_model = ckpt.load_t5(os.path.join(wan_dir, cfg.t5_checkpoint),
+                            t5.UMT5_XXL, torch.float32, device)
+    text_encoder = WanTextEncoder(
+        t5_model, os.path.join(wan_dir, cfg.t5_tokenizer))
+    return model, vae_model, text_encoder
+
+
+def encode_image(vae_model, image: np.ndarray,
+                 device: torch.device) -> torch.Tensor:
+    """[3, H, W] in [-1, 1] (`utils/media.load_image`) -> the i2v window's
+    first clean latent frame [1, 1, 16, H/8, W/8]."""
+    from .models import vae
+    pixels = torch.from_numpy(image).to(device)[None, None]
+    return vae.encode(vae_model, pixels)
+
+
 def run_windows(pipe, vae_model, cond: torch.Tensor, uncond: torch.Tensor,
                 duration: int, lat_hw, generator: torch.Generator,
                 on_window: Optional[Callable[..., None]] = None,
                 profile: bool = False,
                 on_block: Optional[Callable[[int, torch.Tensor], None]]
-                = None) -> np.ndarray:
+                = None,
+                initial_latent: Optional[torch.Tensor] = None) -> np.ndarray:
     """Generate `duration` bridged windows; returns uint8 [B, T, H, W, 3].
 
     The planned-window pipeline denoises 21 latent frames per window:
@@ -132,14 +191,15 @@ def run_windows(pipe, vae_model, cond: torch.Tensor, uncond: torch.Tensor,
     synchronised).  profile: synchronise and print each window's denoise
     and decode seconds, and complete the few-step pipeline's phase report
     with "VAE decoding".  on_block: the few-step pipeline's per-block hook
-    (the preview)."""
+    (the preview).  initial_latent [B, n0, 16, h, w]: window 0's clean
+    context latents (the encoded i2v image, n0 = 1); a pipeline with the
+    i2v plan commits it as group 0 and denoises from frame 1 on."""
     from .models import vae
     from .pipelines.causal_inference import CausalInferencePipeline
     from .utils.profiling import sync
     few_step = isinstance(pipe, CausalInferencePipeline)
     device = cond.device
     lat_h, lat_w = lat_hw
-    initial_latent = None
     videos = []
     for win in range(duration):
         noise = torch.randn((1, 21, 16, lat_h, lat_w), generator=generator,
@@ -237,9 +297,11 @@ def main(argv=None) -> int:
         print("error: --duration must be >= 1", file=sys.stderr)
         return 2
     from .core.config import WAN_CONFIGS, load_config, tiny_test_config
+    from .core.geometry import i2v_plan
     from .models import dit, vae
     from .pipelines.fps_inference import CausalFPSInferencePipeline
     from .utils.device import resolve_device, set_float32_precision
+    from .utils.media import load_image
 
     # run-config merge; a `denoising_step_list` selects the few-step pipeline
     run_cfg = {}
@@ -254,6 +316,8 @@ def main(argv=None) -> int:
                                           args.timestep_shift)
         args.guidance_scale = run_cfg.get("guidance_scale",
                                           args.guidance_scale)
+        if run_cfg.get("negative_prompt") and not args.negative_prompt:
+            args.negative_prompt = run_cfg["negative_prompt"]
     denoising_step_list = run_cfg.get("denoising_step_list")
     if args.preview and not denoising_step_list:
         print("--preview requires the few-step pipeline "
@@ -262,8 +326,8 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     set_float32_precision()
-    smoke = args.model == "smoke"
-    if smoke:
+    smoke = args.model == "smoke" or args.checkpoint_path is None
+    if args.model == "smoke":
         cfg = tiny_test_config()
         H = W = 64
     else:
@@ -271,20 +335,30 @@ def main(argv=None) -> int:
         H, W = args.height, args.width
 
     t0 = time.time()
-    print(f"[random weights] config={cfg.name} device={device}",
-          file=sys.stderr)
-    model = dit.init_dit_params(
-        cfg, torch.Generator(device=device).manual_seed(args.seed),
-        torch.bfloat16, device)
-    vae_model = vae.init_vae_params(
-        torch.Generator(device=device).manual_seed(1), torch.float32, device)
+    if smoke:
+        print(f"[smoke mode] random weights, config={cfg.name} "
+              f"device={device}", file=sys.stderr)
+        model = dit.init_dit_params(
+            cfg, torch.Generator(device=device).manual_seed(args.seed),
+            torch.bfloat16, device)
+        vae_model = vae.init_vae_params(
+            torch.Generator(device=device).manual_seed(1), torch.float32,
+            device)
+        cond, uncond = random_text_context(cfg, device)
+    else:
+        model, vae_model, text_encoder = load_models(
+            cfg, args.checkpoint_path, args.wan_dir, args.use_ema, device)
+        cond = text_encoder([args.prompt])["prompt_embeds"]
+        neg = args.negative_prompt or cfg.sample_neg_prompt
+        uncond = text_encoder([neg])["prompt_embeds"]
+        del text_encoder           # the encoder runs once, before the windows
     if args.quantize_vae:
         vae.quantize_vae_decoder(vae_model)
-    cond, uncond = random_text_context(cfg, device)
     print(f"model init: {time.time() - t0:.1f}s", file=sys.stderr)
 
-    # smoke runs fp32 activations over bf16 weights; real widths run bf16
+    # smoke runs fp32 activations over bf16 weights; checkpoints run bf16
     dtype = torch.float32 if smoke else torch.bfloat16
+    plan = i2v_plan() if args.image else None
     if denoising_step_list:
         pipe = few_step_pipeline(cfg, model, run_cfg, args.timestep_shift,
                                  quantize=args.quantize,
@@ -292,10 +366,15 @@ def main(argv=None) -> int:
                                  dtype=dtype)
     else:
         pipe = CausalFPSInferencePipeline(
-            cfg, model, sampling_steps=args.sampling_steps,
+            cfg, model, plan=plan, sampling_steps=args.sampling_steps,
             timestep_shift=args.timestep_shift,
             guidance_scale=args.guidance_scale, quantize=args.quantize,
             quantize_cache=args.quantize_cache, dtype=dtype)
+
+    initial_latent = None
+    if args.image:
+        initial_latent = encode_image(vae_model, load_image(args.image, H, W),
+                                      device)
 
     on_block, preview_frames = None, []
     if args.preview:
@@ -310,7 +389,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed + 100)
     full = run_windows(pipe, vae_model, cond, uncond, args.duration,
                        (H // 8, W // 8), gen, on_window,
-                       profile=args.profile, on_block=on_block)
+                       profile=args.profile, on_block=on_block,
+                       initial_latent=initial_latent)
     from .utils.video_io import write_video
     if preview_frames:
         ppath = write_video(args.preview, np.concatenate(preview_frames),

@@ -12,7 +12,10 @@ Constants (reference `casual_fps_inference.py` / `causal_fps_model.py`):
     written; it attends to the visible cache plus its own keys;
   - t2v plan clean_steps=[0,0,1,1,2,2,2,2,2,2,1,1,1,3,3,3,3,3,3,1,1],
     groups [2,7,6,6]; frames {19,20} are hidden from group 2 and visible
-    again for group 3.
+    again for group 3;
+  - i2v plan clean_steps=[0,1,2,2,3,3,3,3,3,3,2,2,2,4,4,4,4,4,4,2,2],
+    groups [1,1,7,6,6]: frame 0 (the encoded image) has a group of its own;
+    no visibility toggles, no re-seeds.
 """
 
 from __future__ import annotations
@@ -50,6 +53,9 @@ def pixel_frames(num_latent_frames: int) -> int:
 
 T2V_CLEAN_STEPS: Tuple[int, ...] = (
     0, 0, 1, 1, 2, 2, 2, 2, 2, 2, 1, 1, 1, 3, 3, 3, 3, 3, 3, 1, 1)
+#: the i2v variant: the first frame gets a group of its own
+I2V_CLEAN_STEPS: Tuple[int, ...] = (
+    0, 1, 2, 2, 3, 3, 3, 3, 3, 3, 2, 2, 2, 4, 4, 4, 4, 4, 4, 2, 2)
 
 
 def cache_slot(frame: int) -> int:
@@ -167,4 +173,22 @@ def t2v_plan() -> ChunkPlan:
         handoff_frames=(0, 2, 3, 10, 11, 12, 19, 20),
         vis_toggles={2: ("remove", (19, 20)), 3: ("add", (19, 20))},
         reseeds={2: ((0, 3), (5, 10)), 3: ((0, 12), (5, 19))},
+    )
+
+
+def i2v_plan() -> ChunkPlan:
+    """The i2v window plan: groups [1,1,7,6,6].
+
+    Group 0 = frame 0 (the encoded conditioning image, committed clean);
+    group 1 = frame 1; group 2 = anchors {2,3,10,11,12,19,20}; groups 3
+    and 4 = the fills, group 4 in append mode.  No visibility toggles and
+    no re-seeds.  Handoff after group 2: frames (0, 19, 20).
+    """
+    return _build_plan(
+        "i2v",
+        I2V_CLEAN_STEPS,
+        anchor_group=2,
+        handoff_frames=(0, 19, 20),
+        vis_toggles={},
+        reseeds={},
     )

@@ -432,6 +432,11 @@ def _temporal_upsample_full(p: Conv, x: torch.Tensor) -> torch.Tensor:
 
 
 def _temporal_downsample_full(p: Conv, x: torch.Tensor) -> torch.Tensor:
+    """Frame 0 passes through; a valid stride-2 kt=3 conv runs from frame 0
+    (T = 1 + 2m -> 1 + m).  Under 3 frames (a one-frame image) the conv
+    has no full window and frame 0 is all, as in the JAX package."""
+    if x.shape[2] < p.weight.shape[2]:
+        return x[:, :, :1]
     y = _add_bias(F.conv3d(x, p.weight.to(x.dtype), stride=(2, 1, 1)), p)
     return torch.cat([x[:, :, :1], y], dim=2)
 

@@ -5,9 +5,14 @@ Port of the `teacher_forcing` branch of `train.py:main`.  Random weights
 and synthetic batches drawn from `torch.Generator`s seeded from `--seed`;
 a bf16 trunk over fp32 masters, AdamW, EMA, and one JSON line per step in
 `<log-dir>/<run-name>/metrics.jsonl`.  Smoke mode is the tiny config at
-4x4 latents; otherwise `t2v-1.3B` at 60x104 (480x832 pixels).
+4x4 latents; otherwise `t2v-1.3B` at 60x104 (480x832 pixels).  The
+generator starts, in this order, from an MMPL fine-tune `.pt`
+(`--generator-ckpt`), the base Wan weights (`--wan-dir`: a directory of
+safetensors shards or one state dict file), or random weights; the fp32
+masters take the file's values, widened where the file holds bf16.
 
     python -m mmpl_tpu_torch.train --smoke --steps 3
+    python -m mmpl_tpu_torch.train --generator-ckpt mmpl_t2v_1.3B.pt
 """
 
 from __future__ import annotations
@@ -24,8 +29,6 @@ LATER_SLICES = {
     "resume": "Slice H (checkpoints and resume)",
     "export_pt": "Slice H (checkpoints and resume)",
     "ckpt_dir": "Slice H (checkpoints and resume)",
-    "generator_ckpt": "Slice A item 10 (checkpoint ingestion)",
-    "wan_dir": "Slice A item 10 (checkpoint ingestion)",
     "config": "Slice H (run configs)",
     "mesh": "Slice F (multi-device)",
     "remat_offload": "Slice H (a 16 GB TPU workaround the H100 needs not)",
@@ -61,12 +64,17 @@ def parse_args(argv=None):
     p.add_argument("--log-dir", default="runs",
                    help="JSONL metrics directory (utils/metrics.py)")
     p.add_argument("--run-name", default=None)
+    p.add_argument("--generator-ckpt", default=None,
+                   help="MMPL generator .pt to start from")
+    p.add_argument("--wan-dir", default=None,
+                   help="base Wan DiT weights to start from (without "
+                        "--generator-ckpt)")
     p.add_argument("--ckpt-every", type=int, default=500,
                    help="checkpoints are not ported yet: a run that would "
                         "write one (ckpt-every <= steps) is refused")
     # flags of later slices: parsed so that they can be refused by name
     for flag in ("--data-dir", "--resume", "--export-pt", "--ckpt-dir",
-                 "--generator-ckpt", "--wan-dir", "--config", "--mesh"):
+                 "--config", "--mesh"):
         p.add_argument(flag, default=None, help=argparse.SUPPRESS)
     for flag in ("--remat-offload", "--offload-opt"):
         p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
@@ -85,11 +93,41 @@ def parse_args(argv=None):
     return args
 
 
+def load_generator(args, cfg, generator: torch.Generator,
+                   device: torch.device):
+    """The fp32 generator: `--generator-ckpt` (the MMPL `.pt`), else
+    `--wan-dir` (base Wan weights), else random weights from
+    `generator`."""
+    from .models import dit
+    from .utils import checkpoint as ckpt
+    if args.generator_ckpt:
+        model = ckpt.load_mmpl_generator(args.generator_ckpt, cfg,
+                                         dtype=torch.float32, device=device)
+        print(f"generator <- {args.generator_ckpt}", file=sys.stderr)
+    elif args.wan_dir:
+        model = ckpt.load_wan_dit(args.wan_dir, cfg, torch.float32, device)
+        print(f"generator <- {args.wan_dir}", file=sys.stderr)
+    else:
+        model = dit.init_dit_params(cfg, generator, torch.float32, device)
+    return model
+
+
+def synthetic_batch(generator: torch.Generator, shape, cfg,
+                    device: torch.device) -> dict:
+    """One synthetic batch: latents [B, F, C, h, w] and text states drawn
+    from `generator` (text states first), a zero uncond context."""
+    context = torch.randn((shape[0], cfg.text_len, cfg.text_dim),
+                          generator=generator, device=device)
+    return {"latents": torch.randn(shape, generator=generator,
+                                   device=device),
+            "context": context,
+            "uncond_context": torch.zeros_like(context)}
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     from .core.config import WAN_CONFIGS, tiny_test_config
     from .core.geometry import T2V_CLEAN_STEPS
-    from .models import dit
     from .training import masks
     from .training.diffusion import (DiffusionTrainer, draw_teacher_forcing,
                                      make_scheduler,
@@ -105,7 +143,7 @@ def main(argv=None) -> int:
     lat_hw = (4, 4) if args.smoke else (60, 104)
     gen = lambda s: torch.Generator(device=device).manual_seed(s)
 
-    model = dit.init_dit_params(cfg, gen(args.seed), torch.float32, device)
+    model = load_generator(args, cfg, gen(args.seed), device)
     metrics = MetricsLogger(args.log_dir, args.run_name, config=vars(args))
     sch = make_scheduler(args.timestep_shift)
     fm = masks.fps_forcing_frame_mask(T2V_CLEAN_STEPS[:F])
@@ -118,12 +156,7 @@ def main(argv=None) -> int:
     data_gen, draw_gen = gen(args.seed), gen(args.seed + 1)
     shape = (args.batch_size, F, cfg.in_dim, *lat_hw)
     for step in range(args.steps):
-        context = torch.randn((args.batch_size, cfg.text_len, cfg.text_dim),
-                              generator=data_gen, device=device)
-        batch = {"latents": torch.randn(shape, generator=data_gen,
-                                        device=device),
-                 "context": context,
-                 "uncond_context": torch.zeros_like(context)}
+        batch = synthetic_batch(data_gen, shape, cfg, device)
         draws = draw_teacher_forcing(draw_gen, shape,
                                      args.num_frame_per_block,
                                      len(sch.timesteps), args.noise_aug_max,

@@ -105,3 +105,24 @@ def taehv_state_from_jax(tree) -> Dict[str, torch.Tensor]:
                              + leaf, a)
                 state[k] = t
     return state
+
+
+def t5_state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """State dict of `models.t5.T5Encoder` from `init_t5_params`-style
+    params: the stacked `blocks` leaves [L, ...] -> `blocks.<i>.*`, the
+    bare [din, dout] projections (`attn.q`, `ffn.gate`, ...) -> `.weight`
+    [dout, din], `token_embedding` and `pos_embedding` -> `.weight`."""
+    state = {"token_embedding.weight": to_tensor(tree["token_embedding"]),
+             "norm.weight": to_tensor(tree["norm"]["weight"])}
+    for path, a in _walk(tree["blocks"]):
+        a = np.asarray(a)
+        for i in range(a.shape[0]):
+            t = to_tensor(a[i])
+            if path.startswith(("attn.", "ffn.")):
+                path_i, t = f"{path}.weight", t.T.contiguous()
+            elif path == "pos_embedding":
+                path_i = "pos_embedding.weight"
+            else:
+                path_i = path
+            state[f"blocks.{i}.{path_i}"] = t
+    return state
