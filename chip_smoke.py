@@ -90,12 +90,29 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      exact K1 launches; window_i2v_parity, the tiny model's fp32 i2v
      window and image encode on the card against the CPU.  The K1 rows
      of the kernel phase include the i2v plan's own shapes;
-  15. the kernels line, then the final device line.
+  15. checkpoints and the whole-clip pipelines: train_resume, the trainer
+     at the 1.3B width cut to 2 layers, two steps unbroken and twice, then
+     one step resumed from the step-1 checkpoint and the `.pt` export,
+     held bit for bit against the unbroken run (loss, masters, AdamW
+     state, EMA, generators) and loaded back, with the checkpoint's bytes
+     and save / restore seconds; wan_t2v, `WanT2V` on the 1.3B model at
+     full width and depth, 480x832, 2 UniPC steps and the decode to 81
+     frames, exact K1 launches; wan_i2v, `WanI2V.generate_from_image` on
+     i2v-14B at full width and depth (weights made on the card) with
+     ViT-H/14, the chunked conditioning encode and the decode, exact K1
+     launches, the peak memory; clip_text, the two-tower XLM-RoBERTa CLIP
+     at full width and depth, and a 2-layer copy against the CPU;
+     wan_parity, the tiny fp32 WanT2V and WanI2V on the card against the
+     CPU.  The K1 rows of the kernel phase include WanI2V's shapes
+     (32760^2 over 40 heads, 32760 x 512, 32760 x 257, and the CLIP's
+     257^2 at head dim 80);
+  16. the kernels line, then the final device line.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -154,7 +171,11 @@ PEAK_INT8 = 1979e12
 #: frame 1 over frames {0, 1}, denoised in window 0; group 3: 6 frames
 #: over the 15 cached ones, not in append mode; its group 2 and append-mode
 #: group 4 run group1_self and group3_self), the training cross-attention,
-#: a ragged shape, and the fp32 smoke path's head dim
+#: a ragged shape, the fp32 smoke path's head dim, and the whole-clip
+#: WanI2V's: the i2v-14B DiT's self-attention over all 21 latent frames
+#: (CFG pair, 40 heads), its text and image cross-attention (512 and 257
+#: keys; the last 128-key tile of the image keys holds one key) and the
+#: CLIP tower's 257 tokens at head dim 80
 K1_SHAPES = [
     ("group0_self", 2, 12, 128, 3120, 3120, torch.bfloat16),
     ("group1_self", 2, 12, 128, 10920, 14040, torch.bfloat16),
@@ -169,6 +190,10 @@ K1_SHAPES = [
     ("fewstep_cross", 1, 12, 128, 4680, 512, torch.bfloat16),
     ("ragged", 2, 12, 128, 1000, 1300, torch.bfloat16),
     ("smoke_f32", 2, 4, 24, 130, 200, torch.float32),
+    ("i2v14b_self", 2, 40, 128, 32760, 32760, torch.bfloat16),
+    ("i2v14b_cross", 2, 40, 128, 32760, 512, torch.bfloat16),
+    ("i2v14b_img", 2, 40, 128, 32760, 257, torch.bfloat16),
+    ("clip_self", 1, 16, 80, 257, 257, torch.bfloat16),
 ]
 MAIN_SHAPE = "group3_self"
 
@@ -1137,8 +1162,6 @@ def phase_quant_parity(steps: int = 4):
     window's amplification, separates the two by far more: its int8 output
     within 1e-3 of the CPU's and within a tenth of the float forward's
     distance from it."""
-    import copy
-
     from mmpl_tpu_torch.core.config import tiny_test_config
     cfg = tiny_test_config()
     model = dit.randomize_head(dit.init_dit_params(
@@ -1861,8 +1884,6 @@ def phase_fewstep_parity():
     a rolling run (12 frames through a 6-slot ring).  Each is gated by a
     sensitivity measured here: how far one fp32 ulp of the noise moves the
     card's own run (at most 100 times that, and 1e-4)."""
-    import copy
-
     from mmpl_tpu_torch.core.config import tiny_test_config
     cfg = tiny_test_config()
     model = dit.randomize_head(dit.init_dit_params(
@@ -2230,8 +2251,6 @@ def phase_window_i2v_parity(steps: int = 4):
     (64x64) encoded by the VAE on both (within 1e-4 relative), then the
     window from that one latent frame (within 1e-4 relative, the float
     window gate of quant_parity)."""
-    import copy
-
     from mmpl_tpu_torch.core.config import tiny_test_config
     from mmpl_tpu_torch.core.geometry import i2v_plan
     cfg = tiny_test_config()
@@ -2270,6 +2289,387 @@ def phase_window_i2v_parity(steps: int = 4):
     check(row["first_frame_equal"], row)
 
 
+# ---------------------------------------------------------------------------
+# Checkpoints and resume; the whole-clip Wan pipelines; the CLIP towers
+# ---------------------------------------------------------------------------
+
+#: depth of the resume cell's 1.3B-wide trainer: a checkpoint holds 16
+#: bytes a parameter (fp32 masters, EMA, AdamW's two moments), ~22 GB at
+#: full depth and ~1.9 GB at 2 layers
+RESUME_LAYERS = 2
+
+
+def _metrics(root: str, run: str) -> list:
+    with open(os.path.join(root, run, "metrics.jsonl"),
+              encoding="utf-8") as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _state_diff(a, b) -> float:
+    """The largest absolute difference between two checkpoint states
+    (nested dicts of tensors and numbers; 0.0 when equal bit for bit,
+    inf when their layouts differ)."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return math.inf
+        return max((_state_diff(a[k], b[k]) for k in a), default=0.0)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return math.inf
+        return max((_state_diff(x, y) for x, y in zip(a, b)), default=0.0)
+    if isinstance(a, torch.Tensor):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return math.inf
+        if torch.equal(a, b):
+            return 0.0
+        if not a.is_floating_point():
+            return math.inf
+        return (a.double() - b.double()).abs().max().item()
+    return 0.0 if a == b else math.inf
+
+
+def phase_train_resume():
+    """`python -m mmpl_tpu_torch.train` in process at the 1.3B width (dim
+    1536, 21 latent frames at 60x104), cut to RESUME_LAYERS layers: two
+    steps unbroken (checkpoints at steps 1 and 2), the same again (the
+    run-to-run spread), then a new trainer resumed from the first run's
+    step-1 checkpoint takes step 2 and exports the `.pt`.  The resumed
+    run's loss and its step-2 state (masters, AdamW state, EMA,
+    generators) against the unbroken run's, bit for bit (or within the
+    spread of the two unbroken runs, if they differ); the export loaded
+    back through `load_mmpl_generator` against that state, bit for bit;
+    the checkpoint's bytes, save and restore seconds; exact launches of
+    the resumed step."""
+    from mmpl_tpu_torch import train
+    from mmpl_tpu_torch.core.config import DotDict
+    from mmpl_tpu_torch.utils import checkpoint as ckpt
+    from mmpl_tpu_torch.utils import train_state_io as tsio
+    name = "t2v-1.3B"
+    full = WAN_CONFIGS[name]
+    cfg = DotDict(full, num_layers=RESUME_LAYERS)
+    root = os.path.join(OUT_DIR, "resume")
+    shutil.rmtree(root, ignore_errors=True)
+    base = ["--device", "cuda", "--steps", "2", "--log-dir", root]
+    WAN_CONFIGS[name] = cfg
+    try:
+        for run, extra in (("unbroken", ["--ckpt-every", "1"]),
+                           ("unbroken2", ["--ckpt-every", "2"])):
+            check(train.main(base + extra + [
+                "--run-name", run, "--ckpt-dir",
+                os.path.join(root, run)]) == 0, run)
+        pt = os.path.join(root, "resumed.pt")
+        step1 = os.path.join(root, "unbroken", "step1")
+        attn.reset_launch_counts()
+        rc = train.main(base + [
+            "--run-name", "resumed", "--resume", step1, "--ckpt-every", "1",
+            "--ckpt-dir", os.path.join(root, "resumed"), "--export-pt", pt])
+        counts = dict(attn.launch_counts)
+        check(rc == 0, "resumed run")
+        logs = {run: _metrics(root, run)
+                for run in ("unbroken", "unbroken2", "resumed")}
+        loss = {run: {r["step"]: r["loss"] for r in recs if "loss" in r}
+                for run, recs in logs.items()}
+        saves = [r for r in logs["unbroken"] if "ckpt_bytes" in r]
+        restore = [r for r in logs["resumed"] if "restore_s" in r]
+        states = {run: tsio.restore_checkpoint(
+            os.path.join(root, run, "step2"))
+            for run in ("unbroken", "unbroken2", "resumed")}
+        spread = _state_diff(states["unbroken2"], states["unbroken"])
+        resumed = _state_diff(states["resumed"], states["unbroken"])
+        t0 = time.perf_counter()
+        export = {use_ema: ckpt.load_mmpl_generator(
+            pt, cfg, use_ema=use_ema, dtype=torch.float32, device="cuda")
+            for use_ema in (False, True)}
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want = states["resumed"]
+        export_diff = max(
+            _state_diff({k: v.cpu() for k, v in
+                         export[False].state_dict().items()}, want["model"]),
+            _state_diff({k: v.cpu() for k, v in
+                         export[True].state_dict().items()}, want["ema"]))
+        del export
+    finally:
+        WAN_CONFIGS[name] = full
+    expected = _train_launches(RESUME_LAYERS, 1)
+    row = {"phase": "train_resume", "layers": RESUME_LAYERS,
+           "dim": cfg.dim, "latent_frames": 21, "latent_hw": [60, 104],
+           "params": sum(t.numel() for t in want["model"].values()),
+           "ckpt_bytes": saves[0]["ckpt_bytes"],
+           "save_s": [r["save_s"] for r in saves],
+           "restore_s": restore[0]["restore_s"],
+           "export_bytes": os.path.getsize(pt), "export_load_s": load_s,
+           "losses": loss,
+           "resumed_loss_equal": loss["resumed"][1] == loss["unbroken"][1],
+           "unbroken_spread_max_abs": spread,
+           "resumed_max_abs_diff": resumed,
+           "bit_for_bit": resumed == 0.0,
+           "export_max_abs_diff": export_diff,
+           "launches": counts, "expected_launches": expected}
+    del states, want
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit(row)
+    check(list(loss["resumed"]) == [1], loss)
+    check(all(map(math.isfinite, loss["unbroken"].values())), loss)
+    if spread == 0.0:
+        check(row["resumed_loss_equal"] and row["bit_for_bit"], row)
+    else:
+        check(resumed <= spread, row)
+    check(export_diff == 0.0, row)
+    check(counts == expected, (counts, expected))
+    return counts
+
+
+def _text_states(cfg, device, seeds=(2, 3)):
+    return [torch.randn((1, cfg.text_len, cfg.text_dim), device=device,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(s)) for s in seeds]
+
+
+def _video_row(video) -> dict:
+    return {"video_shape": list(video.shape),
+            "finite": bool(torch.isfinite(video).all()),
+            "video_std": video.float().std().item()}
+
+
+def phase_wan_t2v(steps: int = 2):
+    """`WanT2V.generate` on the 1.3B model at full width and depth (random
+    weights, non-zero head), 480x832, 21 latent frames, bf16, the batched
+    CFG pair, `steps` UniPC steps, then the fp32 streaming decode to 81
+    frames: exact K1 launches (self and text cross-attention, 30 layers,
+    each step), seconds per step and of the decode, the peak memory."""
+    from mmpl_tpu_torch.pipelines.wan_reference import WanT2V
+    cfg = WAN_CONFIGS["t2v-1.3B"]
+    g = lambda s: torch.Generator(device="cuda").manual_seed(s)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = dit.randomize_head(
+        dit.init_dit_params(cfg, g(0), torch.bfloat16, "cuda"), g(99))
+    vae_m = vae.init_vae_params(g(1), torch.float32, "cuda")
+    pipe = WanT2V(cfg, model, vae_m, sampling_steps=steps,
+                  dtype=torch.bfloat16)
+    pipe.sync_timing = True
+    noise = torch.randn((1, 21, 16, 60, 104), generator=g(4), device="cuda")
+    cond, uncond = _text_states(cfg, "cuda")
+    attn.reset_launch_counts()
+    t0 = time.perf_counter()
+    video = pipe.generate(noise, cond, uncond)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(attn.launch_counts)
+    expected = {**dict.fromkeys(counts, 0),
+                "flash_fwd": 2 * cfg.num_layers * steps}
+    row = {"phase": "wan_t2v", "model": cfg.name, "steps": steps,
+           "latents": [21, 60, 104], "seconds": seconds,
+           "seconds_per_step": pipe.phase_times["steps_s"] / steps,
+           "decode_s": pipe.phase_times["decode_s"],
+           "launches": counts, "expected_launches": expected,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30,
+           **_video_row(video)}
+    del pipe, model, vae_m, video
+    torch.cuda.empty_cache()
+    emit(row)
+    check(counts == expected, (counts, expected))
+    check(row["finite"] and row["video_shape"] == [1, 81, 3, 480, 832]
+          and row["video_std"] > 0, row)
+    return counts["flash_fwd"]
+
+
+def phase_wan_i2v(steps: int = 2):
+    """`WanI2V.generate_from_image` on i2v-14B at full width and depth
+    (dim 5120, 40 layers, ~16.4 B parameters in bf16, random weights made
+    on the card), ViT-H/14 at full width (bf16), a synthetic 480x832
+    image, 21 latent frames, the batched CFG pair, `steps` UniPC steps,
+    the conditioning encode in causal chunks and the fp32 decode to 81
+    frames: exact K1 launches (31 CLIP blocks, then self, text and image
+    cross-attention of 40 layers each step), the CLIP ms, the encode,
+    per-step and decode seconds, the peak memory."""
+    from mmpl_tpu_torch.models import clip
+    from mmpl_tpu_torch.pipelines.wan_reference import WanI2V
+    cfg = WAN_CONFIGS["i2v-14B"]
+    g = lambda s: torch.Generator(device="cuda").manual_seed(s)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = dit.randomize_head(
+        dit.init_dit_params(cfg, g(0), torch.bfloat16, "cuda"), g(99))
+    clip_m = clip.init_clip_visual_params(clip.VIT_H_14, g(3),
+                                          torch.bfloat16, "cuda")
+    vae_m = vae.init_vae_params(g(1), torch.float32, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in model.parameters())
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    pipe = WanI2V(cfg, model, vae_m, clip_model=clip_m,
+                  sampling_steps=steps, dtype=torch.bfloat16)
+    pipe.sync_timing = True
+    image, how = _image_input(_synthetic_image(540, 960), 480, 832)
+    image = torch.from_numpy(image)[None].cuda()
+    noise = torch.randn((1, 21, 16, 60, 104), generator=g(4), device="cuda")
+    cond, uncond = _text_states(cfg, "cuda")
+    attn.reset_launch_counts()
+    t0 = time.perf_counter()
+    video = pipe.generate_from_image(noise, image, cond, uncond)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(attn.launch_counts)
+    clip_blocks = clip.VIT_H_14["num_layers"] - 1
+    expected = {**dict.fromkeys(counts, 0),
+                "flash_fwd": clip_blocks + 3 * cfg.num_layers * steps}
+    pt = pipe.phase_times
+    row = {"phase": "wan_i2v", "model": cfg.name, "steps": steps,
+           "params": params, "weights_gib": weights_gib, "init_s": init_s,
+           "image_input": how, "latents": [21, 60, 104],
+           "seconds": seconds, "clip_ms": 1e3 * pt["clip_s"],
+           "encode_s": pt["encode_s"],
+           "seconds_per_step": pt["steps_s"] / steps,
+           "decode_s": pt["decode_s"], "launches": counts,
+           "expected_launches": expected,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30,
+           **_video_row(video)}
+    del pipe, model, clip_m, vae_m, video
+    torch.cuda.empty_cache()
+    emit(row)
+    check(counts == expected, (counts, expected))
+    check(row["finite"] and row["video_shape"] == [1, 81, 3, 480, 832]
+          and row["video_std"] > 0, row)
+    check(row["max_memory_allocated_gib"] < 79.0, row)
+    return counts["flash_fwd"]
+
+
+def _clip_ids(vocab: int, L: int = 77, seed: int = 9):
+    """Two XLM-R id rows of L: <s> (0), words, </s> (2); the second one
+    ends at 20 and is padded (pad id 1)."""
+    ids = np.random.default_rng(seed).integers(5, vocab, (2, L))
+    ids[:, 0] = 0
+    ids[0, -1] = ids[1, 19] = 2
+    ids[1, 20:] = 1
+    return torch.from_numpy(ids)
+
+
+def phase_clip_text():
+    """`xlm_roberta_clip_forward` at full width and depth (ViT-H/14, 32
+    blocks; XLM-R large, 24 layers, vocab 250002; seeded f32 weights made
+    on the card): two 224x224 images from the synthetic one and two
+    77-token rows, one padded: exact K1 launches (32 visual blocks; the
+    text tower's key-padding attention is plain torch), the forward's ms,
+    the peak memory; then a 2-layer full-width copy of both towers on the
+    card against the CPU (f32, TF32 off: within 1e-4 relative)."""
+    from mmpl_tpu_torch.models import clip, xlm_roberta as xr
+    vis, text = clip.VIT_H_14, xr.XLM_ROBERTA_LARGE
+    img, _ = _image_input(_synthetic_image(540, 960), 480, 832)
+    imgs = clip.preprocess_image(torch.from_numpy(np.stack(
+        [img, img[:, :, ::-1].copy()])))
+    ids = _clip_ids(text["vocab_size"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = clip.init_xlm_roberta_clip_params(
+        vis, text, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    attn.reset_launch_counts()
+    xi, xt = clip.xlm_roberta_clip_forward(model, imgs.cuda(), ids.cuda())
+    torch.cuda.synchronize()
+    counts = dict(attn.launch_counts)
+    ms = time_ms(lambda: clip.xlm_roberta_clip_forward(
+        model, imgs.cuda(), ids.cuda()), max_reps=5)
+    expected = {**dict.fromkeys(counts, 0), "flash_fwd": vis["num_layers"]}
+    row = {"phase": "clip_text", "visual_layers": vis["num_layers"],
+           "text_layers": text["num_layers"],
+           "params": sum(p.numel() for p in model.parameters()),
+           "images": list(imgs.shape), "ids": list(ids.shape),
+           "forward_ms": ms, "launches": counts,
+           "expected_launches": expected,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30,
+           "visual_shape": list(xi.shape), "text_shape": list(xt.shape),
+           "finite": bool(torch.isfinite(xi).all()
+                          and torch.isfinite(xt).all())}
+    del model, xi, xt
+    torch.cuda.empty_cache()
+
+    cut_v, cut_t = dict(vis, num_layers=2), dict(text, num_layers=2)
+    shallow = clip.init_xlm_roberta_clip_params(
+        cut_v, cut_t, generator=torch.Generator().manual_seed(1))
+    want = clip.xlm_roberta_clip_forward(shallow, imgs, ids)
+    card = copy.deepcopy(shallow).to("cuda")
+    got = [t.cpu() for t in clip.xlm_roberta_clip_forward(
+        card, imgs.cuda(), ids.cuda())]
+    del card
+    torch.cuda.empty_cache()
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    row.update(shallow_layers=2,
+               shallow_visual_rel_err=rel(got[0], want[0]),
+               shallow_text_rel_err=rel(got[1], want[1]))
+    emit(row)
+    check(counts == expected, (counts, expected))
+    check(row["finite"] and row["visual_shape"] == [2, 257, 1280]
+          and row["text_shape"] == [2, 1024], row)
+    check(row["shallow_visual_rel_err"] <= 1e-4
+          and row["shallow_text_rel_err"] <= 1e-4, row)
+    return counts["flash_fwd"]
+
+
+def phase_wan_parity(steps: int = 2):
+    """The tiny fp32 `WanT2V.generate` and `WanI2V.generate_from_image`
+    (4x4 latents, 3 latent frames, a CLIP tower of ViT-H/14's width cut
+    to 2 blocks, the VAE with random weights), `steps` UniPC steps, on the
+    card against the CPU from the same weights and inputs (within 1e-4
+    relative; the CPU path is held to the JAX package by
+    tests/test_torch_wan_reference.py)."""
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    from mmpl_tpu_torch.models import clip
+    from mmpl_tpu_torch.pipelines.wan_reference import WanI2V, WanT2V
+    vis = dict(clip.VIT_H_14, mlp_ratio=1, num_layers=2)
+    vae_cpu = vae.init_vae_params(torch.Generator().manual_seed(1))
+    clip_cpu = clip.init_clip_visual_params(vis,
+                                            torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(23)
+    noise = rng.standard_normal((1, 3, 16, 4, 4)).astype(np.float32)
+    image = rng.uniform(-1, 1, (1, 3, 32, 32)).astype(np.float32)
+    row = {"phase": "wan_parity", "steps": steps}
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    for kind in ("t2v", "i2v"):
+        cfg = tiny_test_config(kind)
+        model = dit.randomize_head(dit.init_dit_params(
+            cfg, torch.Generator().manual_seed(0), torch.float32),
+            torch.Generator().manual_seed(99))
+        ctx = rng.standard_normal((2, 1, cfg.text_len, cfg.text_dim)).astype(
+            np.float32)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t = lambda a: torch.from_numpy(a).to(dev)
+            args = (copy.deepcopy(model).to(dev), copy.deepcopy(vae_cpu)
+                    .to(dev))
+            attn.reset_launch_counts()
+            if kind == "t2v":
+                pipe = WanT2V(cfg, *args, sampling_steps=steps,
+                              dtype=torch.float32)
+                video = pipe.generate(t(noise), t(ctx[0]), t(ctx[1]))
+            else:
+                pipe = WanI2V(cfg, *args, clip_model=copy.deepcopy(
+                    clip_cpu).to(dev), sampling_steps=steps,
+                    dtype=torch.float32)
+                video = pipe.generate_from_image(t(noise), t(image),
+                                                 t(ctx[0]), t(ctx[1]))
+            out[dev] = (video.cpu(), attn.launch_counts["flash_fwd"])
+        per_step = 2 if kind == "t2v" else 3
+        expected = per_step * cfg.num_layers * steps + (
+            vis["num_layers"] - 1 if kind == "i2v" else 0)
+        row.update({f"{kind}_rel_err": rel(out["cuda"][0], out["cpu"][0]),
+                    f"{kind}_flash_fwd_launches": out["cuda"][1],
+                    f"{kind}_expected_launches": expected,
+                    f"{kind}_shape": list(out["cuda"][0].shape)})
+    emit(row)
+    for kind in ("t2v", "i2v"):
+        check(row[f"{kind}_rel_err"] <= 1e-4, row)
+        check(row[f"{kind}_flash_fwd_launches"]
+              == row[f"{kind}_expected_launches"], row)
+        check(row[f"{kind}_shape"] == [1, 9, 3, 32, 32], row)
+
+
 def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
            bound_ms, bound_by, library_ms, **extra):
     return {"name": name, "route": "cuda", "source": source,
@@ -2287,9 +2687,10 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
     other shapes under `shapes`), K4-K6 at the
     training self-attention, P2 at group 3's ffn.fc1, Q at group 3's
     ffn.fc2 input and P1 (its exp2 variant without the pad test) at the
-    probe's shape.  `launches` sums the paths each runs on;
-    `path_launches` holds K1's on the few-step, real-file CLI and i2v
-    paths."""
+    probe's shape.  `launches` sums the paths each runs on (the training
+    kernels': the train phase's timed steps and train_resume's resumed
+    step); `path_launches` holds K1's on the few-step, real-file CLI, i2v,
+    resumed-training, whole-clip and CLIP paths."""
     fwd_src = "mmpl_tpu_torch/csrc/flash_fwd.cu"
     sm90_src = "mmpl_tpu_torch/csrc/flash_fwd_sm90.cuh"
     bwd_src = "mmpl_tpu_torch/csrc/flash_bwd.cu"
@@ -2305,14 +2706,17 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
     out = [_entry(
         "flash_fwd", sm90_src, "mmpl_tpu/ops/attention.py:324",
         window_launches + int8_launches["flash_fwd"]
-        + train_counts["flash_fwd"] + sum(path_launches.values()),
+        + train_counts["flash_fwd"] + sum(
+            n for p, n in path_launches.items() if p != "train_resume"),
         max(r["o_max_abs_err"] for r in rows.values()), k1["ms"],
         k1["plain_ms"], k1["bound_ms"], k1["bound_by"], k1["library_ms"],
         at=MAIN_SHAPE, bodies=bodies, bound_share=k1["bound_share"],
         launches_by_path={
             "window": window_launches,
             "window_int8": int8_launches["flash_fwd"],
-            "train": train_counts["flash_fwd"], **path_launches},
+            "train": (train_counts["flash_fwd"]
+                      - path_launches.get("train_resume", 0)),
+            **path_launches},
         shapes={k: {f: r[f] for f in ("body", "ms", "plain_ms", "bound_ms",
                                       "library_ms", "o_max_abs_err")}
                 for k, r in rows.items()})]
@@ -2494,6 +2898,15 @@ def main() -> int:
         shutil.rmtree(os.path.dirname(pt), ignore_errors=True)
     path_launches["window_i2v"] = phase_window_i2v()
     phase_window_i2v_parity()
+    # checkpoints and resume; the whole-clip pipelines; the CLIP towers
+    resume_counts = phase_train_resume()
+    path_launches["train_resume"] = resume_counts["flash_fwd"]
+    train_counts = {k: train_counts[k] + resume_counts[k]
+                    for k in train_counts}
+    path_launches["wan_t2v"] = phase_wan_t2v()
+    path_launches["wan_i2v"] = phase_wan_i2v()
+    path_launches["clip_text"] = phase_clip_text()
+    phase_wan_parity()
     emit(kernels_line(smi, rows, bwd, masked, int8, window_launches,
                       int8_launches, train_counts, exp2, exp2_launches,
                       path_launches))

@@ -51,9 +51,12 @@ import torch
 LATER_SLICES = {
     "mesh": "Slice F (multi-device)",
 }
-#: models of later slices
-LATER_MODELS = {
-    "i2v-14B": "Slice D (the i2v DiT variant: img_emb, k_img / v_img)",
+#: models the serving CLI refuses, and why
+REFUSED_MODELS = {
+    "i2v-14B": ("Queue 3, a known difference: the FPS pipeline passes no "
+                "i2v conditioning y, so the in_dim-36 DiT fails at the "
+                "patch embedding in mmpl_tpu too; the i2v-14B DiT runs "
+                "whole clips through pipelines/wan_reference.WanI2V"),
 }
 
 
@@ -120,9 +123,9 @@ def parse_args(argv=None):
         if getattr(args, dest):
             p.error(f"--{dest.replace('_', '-')} is not ported yet: "
                     f"ROADMAP.md {where}")
-    if args.model in LATER_MODELS:
-        p.error(f"--model {args.model} is not ported yet: ROADMAP.md "
-                f"{LATER_MODELS[args.model]}")
+    if args.model in REFUSED_MODELS:
+        p.error(f"--model {args.model} is refused: ROADMAP.md "
+                f"{REFUSED_MODELS[args.model]}")
     if args.checkpoint_path and args.model != "smoke" and not args.wan_dir:
         p.error("--checkpoint-path needs --wan-dir (the VAE, the T5 encoder "
                 "and its tokenizer)")

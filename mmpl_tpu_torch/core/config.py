@@ -92,9 +92,44 @@ T2V_1_3B = DotDict(_SHARED, name="t2v-1.3B", model_type="t2v",
                    t5_checkpoint="models_t5_umt5-xxl-enc-bf16.pth",
                    t5_tokenizer="google/umt5-xxl")
 
+I2V_14B = DotDict(_SHARED, name="i2v-14B", model_type="i2v",
+                  dim=5120, ffn_dim=13824, num_heads=40, num_layers=40,
+                  in_dim=36,  # latent(16) + mask(4) + cond latent(16)
+                  t5_checkpoint="models_t5_umt5-xxl-enc-bf16.pth",
+                  t5_tokenizer="google/umt5-xxl",
+                  clip_checkpoint=(
+                      "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth"),
+                  clip_tokenizer="xlm-roberta-large")
+
+T2I_14B = DotDict(copy.deepcopy(T2V_14B), name="t2i-14B")
+
 WAN_CONFIGS = {
     "t2v-14B": T2V_14B,
     "t2v-1.3B": T2V_1_3B,
+    "i2v-14B": I2V_14B,
+    "t2i-14B": T2I_14B,
+}
+
+SIZE_CONFIGS = {
+    "720*1280": (720, 1280),
+    "1280*720": (1280, 720),
+    "480*832": (480, 832),
+    "832*480": (832, 480),
+    "1024*1024": (1024, 1024),
+}
+
+MAX_AREA_CONFIGS = {
+    "720*1280": 720 * 1280,
+    "1280*720": 1280 * 720,
+    "480*832": 480 * 832,
+    "832*480": 832 * 480,
+}
+
+SUPPORTED_SIZES = {
+    "t2v-14B": ("720*1280", "1280*720", "480*832", "832*480"),
+    "t2v-1.3B": ("480*832", "832*480"),
+    "i2v-14B": ("720*1280", "1280*720", "480*832", "832*480"),
+    "t2i-14B": tuple(SIZE_CONFIGS.keys()),
 }
 
 

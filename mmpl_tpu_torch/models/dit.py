@@ -1,7 +1,10 @@
 """Wan DiT layers for the planned-window serving path and training.
 
-Port of the parts of `mmpl_tpu/models/dit.py` that the FPS pipeline and the
-teacher-forcing trainer run.
+Port of `mmpl_tpu/models/dit.py`: the layers that the FPS pipeline, the
+teacher-forcing trainer and the whole-clip pipelines (`pipelines/
+wan_reference.py`) run, for the t2v DiT and its i2v variant (the CLIP
+image projection `img_emb` and the image keys and values `k_img` / `v_img`
+of each cross-attention).
 Parameters live in `nn.Module`s whose names mirror the JAX parameter tree
 (`blocks.<i>.self_attn.qkv.weight`, ...), so `utils/jax_params.py` maps one
 onto the other.  Linear weights are torch-style [out, in].  Layers are
@@ -65,7 +68,10 @@ class SelfAttention(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    def __init__(self, dim: int, **kw):
+    """Text cross-attention; with `image`, also the i2v image keys and
+    values (`k_img`, `v_img`, `norm_k_img`)."""
+
+    def __init__(self, dim: int, image: bool = False, **kw):
         super().__init__()
         self.q = nn.Linear(dim, dim, **kw)
         self.k = nn.Linear(dim, dim, **kw)
@@ -73,6 +79,10 @@ class CrossAttention(nn.Module):
         self.o = nn.Linear(dim, dim, **kw)
         self.norm_q = Affine(dim, **kw)
         self.norm_k = Affine(dim, **kw)
+        if image:
+            self.k_img = nn.Linear(dim, dim, **kw)
+            self.v_img = nn.Linear(dim, dim, **kw)
+            self.norm_k_img = Affine(dim, **kw)
 
 
 class MLP(nn.Module):
@@ -89,7 +99,8 @@ class Block(nn.Module):
         super().__init__()
         d = cfg.dim
         self.self_attn = SelfAttention(d, fused, **kw)
-        self.cross_attn = CrossAttention(d, **kw)
+        self.cross_attn = CrossAttention(d, image=cfg.model_type == "i2v",
+                                         **kw)
         self.ffn = MLP(d, cfg.ffn_dim, d, **kw)
         self.modulation = nn.Parameter(torch.empty(1, 6, d, **kw))
         self.norm3 = Affine(d, bias=True, **kw) if cfg.cross_attn_norm \
@@ -109,8 +120,23 @@ class Head(nn.Module):
         self.modulation = nn.Parameter(torch.empty(1, 2, dim, **kw))
 
 
+#: width of the CLIP ViT-H/14 image tokens that `img_emb` projects
+CLIP_DIM = 1280
+
+
+class ImageEmbedding(nn.Module):
+    """MLPProj of the i2v DiT: LayerNorm, fc1, GELU, fc2, LayerNorm."""
+
+    def __init__(self, dim: int, **kw):
+        super().__init__()
+        self.norm1 = Affine(CLIP_DIM, bias=True, **kw)
+        self.fc1 = nn.Linear(CLIP_DIM, CLIP_DIM, **kw)
+        self.fc2 = nn.Linear(CLIP_DIM, dim, **kw)
+        self.norm2 = Affine(dim, bias=True, **kw)
+
+
 class WanDiT(nn.Module):
-    """Parameter container of the (causal FPS) Wan DiT, t2v."""
+    """Parameter container of the Wan DiT (t2v, or i2v with `img_emb`)."""
 
     def __init__(self, cfg, fused: bool = False, dtype=torch.bfloat16,
                  device=None):
@@ -125,6 +151,8 @@ class WanDiT(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, fused, **kw)
                                     for _ in range(cfg.num_layers))
         self.head = Head(d, pt * ph * pw * cfg.out_dim, **kw)
+        self.img_emb = ImageEmbedding(d, **kw) \
+            if cfg.model_type == "i2v" else None
         self.requires_grad_(False)
 
 
@@ -201,14 +229,15 @@ def init_dit_params(cfg, generator: torch.Generator, dtype=torch.bfloat16,
     model = empty_dit(cfg, fused=False, dtype=dtype, device=device)
     g = generator
     d = cfg.dim
+    i2v = model.img_emb is not None
     for blk in model.blocks:
+        ca = blk.cross_attn
         for lin in (blk.self_attn.q, blk.self_attn.k, blk.self_attn.v,
-                    blk.self_attn.o, blk.cross_attn.q, blk.cross_attn.k,
-                    blk.cross_attn.v, blk.cross_attn.o, blk.ffn.fc1,
-                    blk.ffn.fc2):
+                    blk.self_attn.o, ca.q, ca.k, ca.v, ca.o, blk.ffn.fc1,
+                    blk.ffn.fc2) + ((ca.k_img, ca.v_img) if i2v else ()):
             _init_linear(lin, g)
-        for nrm in (blk.self_attn.norm_q, blk.self_attn.norm_k,
-                    blk.cross_attn.norm_q, blk.cross_attn.norm_k):
+        for nrm in (blk.self_attn.norm_q, blk.self_attn.norm_k, ca.norm_q,
+                    ca.norm_k) + ((ca.norm_k_img,) if i2v else ()):
             nrm.weight.fill_(1.0)
         blk.modulation.copy_(torch.randn(blk.modulation.shape, generator=g,
                                          device=device) / math.sqrt(d))
@@ -224,6 +253,13 @@ def init_dit_params(cfg, generator: torch.Generator, dtype=torch.bfloat16,
     model.head.modulation.copy_(torch.randn(
         model.head.modulation.shape, generator=g, device=device)
         / math.sqrt(d))
+    if i2v:
+        ie = model.img_emb
+        _init_linear(ie.fc1, g)
+        _init_linear(ie.fc2, g)
+        for nrm in (ie.norm1, ie.norm2):
+            nrm.weight.fill_(1.0)
+            nrm.bias.zero_()
     return model
 
 
@@ -504,19 +540,26 @@ def qkv_project(sa: SelfAttention, x: torch.Tensor, n: int, d: int,
 
 
 def cross_attention(ca: CrossAttention, x: torch.Tensor, ctx_k: torch.Tensor,
-                    ctx_v: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Text cross-attention with precomputed context K/V."""
+                    ctx_v: torch.Tensor, num_heads: int,
+                    img_k: Optional[torch.Tensor] = None,
+                    img_v: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Text cross-attention with precomputed context K/V; with `img_k` /
+    `img_v` (i2v) a second attention over the image tokens is added."""
     B, L, D = x.shape
     d = D // num_heads
     q = rms_norm(linear(ca.q, x), ca.norm_q.weight).reshape(
         B, L, num_heads, d)
     out = attention(q, ctx_k, ctx_v)
+    if img_k is not None:
+        out = out + attention(q, img_k, img_v)
     return linear(ca.o, out.reshape(B, L, D))
 
 
-def precompute_context_kv(model: WanDiT, cfg, context_emb: torch.Tensor
+def precompute_context_kv(model: WanDiT, cfg, context_emb: torch.Tensor,
+                          img_emb: Optional[torch.Tensor] = None
                           ) -> List[Dict[str, torch.Tensor]]:
-    """Per-layer cross-attention K/V [B, T, N, d] of an embedded context."""
+    """Per-layer cross-attention K/V [B, T, N, d] of an embedded context;
+    with `img_emb` [B, Ti, D] (i2v) also `k_img` / `v_img` [B, Ti, N, d]."""
     B, T, _ = context_emb.shape
     n, d = cfg.num_heads, cfg.dim // cfg.num_heads
     out = []
@@ -525,7 +568,13 @@ def precompute_context_kv(model: WanDiT, cfg, context_emb: torch.Tensor
         k = rms_norm(linear(ca.k, context_emb),
                      ca.norm_k.weight).reshape(B, T, n, d)
         v = linear(ca.v, context_emb).reshape(B, T, n, d)
-        out.append({"k": k, "v": v})
+        kv = {"k": k, "v": v}
+        if img_emb is not None:
+            Ti = img_emb.shape[1]
+            kv["k_img"] = rms_norm(linear(ca.k_img, img_emb),
+                                   ca.norm_k_img.weight).reshape(B, Ti, n, d)
+            kv["v_img"] = linear(ca.v_img, img_emb).reshape(B, Ti, n, d)
+        out.append(kv)
     return out
 
 
@@ -545,7 +594,8 @@ def block_forward(blk: Block, cfg, x: torch.Tensor, e: torch.Tensor,
     xc = layer_norm(x, cfg.eps, blk.norm3.weight, blk.norm3.bias) \
         if blk.norm3 is not None else x
     x = x + cross_attention(blk.cross_attn, xc, ctx_kv["k"], ctx_kv["v"],
-                            cfg.num_heads)
+                            cfg.num_heads, ctx_kv.get("k_img"),
+                            ctx_kv.get("v_img"))
 
     y = mlp(blk.ffn, modulate(layer_norm(x, cfg.eps), shift_ff, scale_ff,
                               num_frames))
@@ -576,6 +626,15 @@ def embed_text(model: WanDiT, context: torch.Tensor) -> torch.Tensor:
     return mlp(model.text_embedding, context)
 
 
+def embed_image_clip(model: WanDiT, clip_fea: torch.Tensor) -> torch.Tensor:
+    """CLIP image tokens [B, 257, 1280] -> [B, 257, dim] (MLPProj, exact
+    GELU, LayerNorms at eps 1e-5)."""
+    p = model.img_emb
+    x = layer_norm(clip_fea, 1e-5, p.norm1.weight, p.norm1.bias)
+    x = linear(p.fc2, F.gelu(linear(p.fc1, x), approximate="none"))
+    return layer_norm(x, 1e-5, p.norm2.weight, p.norm2.bias)
+
+
 def randomize_head(model: WanDiT, generator: torch.Generator,
                    std: float = 0.05) -> WanDiT:
     """Give the zero-initialised output head random weights, so that a
@@ -592,10 +651,17 @@ def randomize_head(model: WanDiT, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def dit_forward(model: WanDiT, cfg, latents: torch.Tensor, t: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
-    """The bidirectional Wan DiT (t2v): latents [B, F, C, H, W], t [B] or
+                context: torch.Tensor,
+                clip_fea: Optional[torch.Tensor] = None,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The bidirectional Wan DiT: latents [B, F, C, H, W], t [B] or
     [B, F], context [B, T, text_dim] -> flow [B, F, C_out, H, W].  Every
-    token attends every token of the window; RoPE runs at frames 0..F-1."""
+    token attends every token of the window; RoPE runs at frames 0..F-1.
+    i2v: `clip_fea` [B, 257, 1280] CLIP image tokens (the image
+    cross-attention), `y` [B, F, C', H, W] concatenated to the latents
+    along channels before the patch embedding."""
+    if y is not None:
+        latents = torch.cat([latents, y.to(latents.dtype)], dim=2)
     B, Fr, C, H, W = latents.shape
     grid = (H // cfg.patch_size[1], W // cfg.patch_size[2])
     n, d = cfg.num_heads, cfg.dim // cfg.num_heads
@@ -603,8 +669,10 @@ def dit_forward(model: WanDiT, cfg, latents: torch.Tensor, t: torch.Tensor,
     if t.ndim == 1:
         t = t[:, None]
     e, e0 = time_embed(model, cfg, t.expand(B, Fr))
+    img = embed_image_clip(model, clip_fea.to(x.dtype)) \
+        if clip_fea is not None else None
     ctx_kv = precompute_context_kv(model, cfg,
-                                   embed_text(model, context.to(x.dtype)))
+                                   embed_text(model, context.to(x.dtype)), img)
     cos_np, sin_np = window_rope_table(Fr, grid[0], grid[1], d)
     cos = torch.as_tensor(cos_np, device=x.device)
     sin = torch.as_tensor(sin_np, device=x.device)

@@ -73,14 +73,16 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
                       schedule: GroupSchedule,
                       write_cache: bool = False,
                       rope_cs: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                      = None) -> torch.Tensor:
+                      = None,
+                      y: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One forward of the group's frames through the whole trunk.
 
     latents [B, G, C, H, W] (frames ascending as `schedule.frames`);
     t [B, G]; ctx_kv: per-layer cross-attention K/V.  Returns the flow
     [B, G, C_out, H, W].  `rope_cs` (cos, sin) [G*S, d//2] overrides the
     table of `schedule.frames` (the rolling cache's
-    `rope.dynamic_rope_table`).
+    `rope.dynamic_rope_table`).  `y` [B, G, C', H, W]: the i2v
+    conditioning, concatenated to the latents along channels.
 
     Self-attention runs over the cached frames visible to the group other
     than its own, plus the group's own in-flight K/V.  A group never reads
@@ -90,6 +92,8 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
     loop (codes and scales for an int8 cache).  Append-mode groups never
     write.
     """
+    if y is not None:
+        latents = torch.cat([latents, y.to(latents.dtype)], dim=2)
     B, G, C, H, W = latents.shape
     assert G == schedule.num_frames, (G, schedule)
     grid = (H // cfg.patch_size[1], W // cfg.patch_size[2])

@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from ..core.geometry import ChunkPlan, GroupSchedule, KV_CACHE_SLOTS, t2v_plan
-from ..models.dit import (WanDiT, apply_quantize, embed_text,
-                          fuse_qkv_params, precompute_context_kv)
+from ..models.dit import (WanDiT, apply_quantize, embed_image_clip,
+                          embed_text, fuse_qkv_params, precompute_context_kv)
 from ..models.fps_dit import fps_forward_group, init_kv_cache
 from ..schedulers.flow_match import FlowMatchScheduler
 from ..schedulers.unipc import FlowUniPC
@@ -144,11 +144,18 @@ class CausalFPSInferencePipeline:
     # ------------------------------------------------------------------
 
     def prepare_context(self, cond_context: torch.Tensor,
-                        uncond_context: torch.Tensor):
-        """Per-layer cross-attention K/V of the stacked [cond; uncond]."""
+                        uncond_context: torch.Tensor,
+                        clip_fea: Optional[torch.Tensor] = None):
+        """Per-layer cross-attention K/V of the stacked [cond; uncond];
+        with `clip_fea` [B, 257, 1280] (an i2v DiT) also the image K/V of
+        [clip_fea; clip_fea]."""
         ctx = torch.cat([cond_context, uncond_context], 0)
         emb = embed_text(self.model, ctx.to(self.dtype))
-        return precompute_context_kv(self.model, self.cfg, emb)
+        img = None
+        if clip_fea is not None:
+            img = embed_image_clip(self.model, torch.cat(
+                [clip_fea, clip_fea], 0).to(self.dtype))
+        return precompute_context_kv(self.model, self.cfg, emb, img)
 
     @torch.inference_mode()
     def inference(self, noise: torch.Tensor, cond_context: torch.Tensor,
@@ -156,7 +163,8 @@ class CausalFPSInferencePipeline:
                   initial_latent: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None,
                   on_anchor: Optional[Callable[[torch.Tensor], None]] = None,
-                  reseed_noise: Optional[Dict[int, torch.Tensor]] = None
+                  reseed_noise: Optional[Dict[int, torch.Tensor]] = None,
+                  clip_fea: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
         """Denoise one window.
 
@@ -165,13 +173,16 @@ class CausalFPSInferencePipeline:
         group by group (video extension / the window bridge);
         generator: draws each fill group's reseed noise [B, R, C, H, W]
         unless `reseed_noise` ({group index: tensor}) supplies it;
-        on_anchor: called with the handoff latents after the anchor group.
+        on_anchor: called with the handoff latents after the anchor group;
+        clip_fea [B, 257, 1280]: CLIP image tokens for an i2v DiT's image
+        cross-attention.
         Returns the denoised window [B, 21, C, H, W] fp32.
         """
         B, Fr, C, H, W = noise.shape
         assert Fr == self.plan.num_frames
         device = noise.device
-        ctx_kv2 = self.prepare_context(cond_context, uncond_context)
+        ctx_kv2 = self.prepare_context(cond_context, uncond_context,
+                                       clip_fea=clip_fea)
         cache = init_kv_cache(self.cfg, 2 * B, H * W // 4, KV_CACHE_SLOTS,
                               self.dtype, device,
                               quantize=self.quantize_cache)

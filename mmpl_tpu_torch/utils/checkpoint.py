@@ -3,9 +3,9 @@ port's modules.
 
 Port of `mmpl_tpu/utils/checkpoint.py`.  The upstream layouts: base Wan
 weights in a directory of safetensors shards (WanModel's parameter names),
-T5 and the VAE as raw `.pth` state dicts, and MMPL fine-tunes as one `.pt`
-holding `{'generator': ..., 'generator_ema': ...}` with every key prefixed
-`model.`.
+T5, the VAE and CLIP as raw `.pth` state dicts, and MMPL fine-tunes as one
+`.pt` holding `{'generator': ..., 'generator_ema': ...}` with every key
+prefixed `model.`.
 
 Each loader remaps the upstream names onto the port's module (built on the
 meta device), converts each tensor to the asked dtype and device on its
@@ -103,8 +103,15 @@ def strip_prefix(sd: State, prefix: str) -> State:
 # Name maps: the port's parameter name -> the upstream one
 # ---------------------------------------------------------------------------
 
+#: the i2v DiT's `img_emb` parts -> WanModel's `img_emb.proj` indices
+_IMG_EMB = {"norm1": "0", "fc1": "1", "fc2": "3", "norm2": "4"}
+
+
 def dit_source_key(key: str) -> str:
     """WanModel's name of a `models.dit.WanDiT` (unfused) parameter."""
+    if key.startswith("img_emb."):
+        _, part, leaf = key.split(".")
+        return f"img_emb.proj.{_IMG_EMB[part]}.{leaf}"
     key = key.replace("time_projection.fc.", "time_projection.1.")
     return key.replace(".fc1.", ".0.").replace(".fc2.", ".2.")
 
@@ -170,12 +177,9 @@ def _convert(module: torch.nn.Module, sd: State,
 def convert_dit(sd: State, cfg, dtype=torch.float32,
                 device="cpu") -> State:
     """WanModel state dict -> the state dict of `models.dit.WanDiT`
-    (unfused self-attention), t2v configs only."""
+    (unfused self-attention); an i2v config also takes `img_emb.proj.
+    {0,1,3,4}` and each cross-attention's `k_img`, `v_img`, `norm_k_img`."""
     from ..models.dit import WanDiT
-    if cfg.model_type == "i2v":
-        raise NotImplementedError(
-            "the i2v DiT variant (img_emb, k_img / v_img) is not ported "
-            "yet: ROADMAP.md Slice D")
     return _convert(WanDiT(cfg, fused=False, device="meta"), sd,
                     dit_source_key, dtype, device)
 
@@ -231,6 +235,25 @@ def load_vae(path: str, dtype=torch.float32, device="cpu"):
     from ..models.vae import WanVAE
     return _load(WanVAE(dtype=dtype, device="meta"),
                  convert_vae(load_torch_state_dict(path), dtype, device))
+
+
+def load_clip(path: str, cfg: dict = None, text: bool = False,
+              text_cfg: dict = None, dtype=torch.float32, device="cpu"):
+    """The upstream CLIP checkpoint
+    (`models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth`) ->
+    `models.clip.CLIPVisual` (the visual tower, what i2v runs), or with
+    `text` the whole `models.clip.XLMRobertaCLIP` (both towers, the text
+    head and `log_scale`)."""
+    from ..models import clip
+    cfg = cfg if cfg is not None else clip.VIT_H_14
+    sd = load_torch_state_dict(path)
+    if not text:
+        return _load(clip.CLIPVisual(cfg, dtype, device="meta"),
+                     clip.convert_clip_visual(sd, cfg, dtype, device))
+    state = clip.convert_xlm_roberta_clip(sd, cfg, text_cfg, dtype, device)
+    return _load(clip.XLMRobertaCLIP(cfg, text_cfg,
+                                     state["head.fc2.weight"].shape[0],
+                                     dtype, device="meta"), state)
 
 
 def to_upstream(state: State, kind: str) -> State:

@@ -14,7 +14,13 @@ numpy's `bfloat16` extension type or any 2-byte view of it).  Conversions:
     both map one to one; build the DiT with the matching `fused` flag;
   * TAEHV's per-layer lists (`init_taehv_params`-style) -> the upstream
     `taew2_1.pth` names that `models.taehv.TAEHV` carries: a MemBlock's
-    `c0/c1/c2` -> `conv.0/2/4`, a TPool / TGrow kernel -> `conv`.
+    `c0/c1/c2` -> `conv.0/2/4`, a TPool / TGrow kernel -> `conv`;
+  * the i2v DiT's extra leaves (`img_emb`, `k_img` / `v_img` /
+    `norm_k_img`) map like the others; the CLIP visual tower, XLM-RoBERTa
+    (its bare embedding tables -> `.weight`) and its head, and the whole
+    XLMRobertaCLIP map onto `models.clip` / `models.xlm_roberta`;
+  * the JAX trainer's state (params, optax AdamW state, EMA shadow, step)
+    -> a checkpoint of `utils/train_state_io` for the port's trainer.
 
 This module reads numpy only; it never imports the JAX package.
 """
@@ -59,20 +65,89 @@ def _leaf(path: str, a) -> Tuple[str, torch.Tensor]:
     return f"{head}.{_KERNELS[name]}", t.permute(*perm).contiguous()
 
 
-def dit_state_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
-    """State dict of `models.dit.WanDiT` from `init_dit_params`-style
-    params (stacked `blocks`, optionally `fuse_qkv_params`-fused)."""
+def _stacked_state(tree, num_layers: int) -> Dict[str, torch.Tensor]:
+    """A tree whose `blocks` leaves are stacked [L, ...] -> `blocks.<i>.*`,
+    the other leaves through `_leaf`."""
     state = {}
     for path, a in _walk({k: v for k, v in tree.items() if k != "blocks"}):
         k, t = _leaf(path, a)
         state[k] = t
     for path, a in _walk(tree["blocks"]):
         a = np.asarray(a)
-        assert a.shape[0] == cfg.num_layers, (path, a.shape)
-        for i in range(cfg.num_layers):
+        assert a.shape[0] == num_layers, (path, a.shape)
+        for i in range(num_layers):
             k, t = _leaf(path, a[i])
             state[f"blocks.{i}.{k}"] = t
     return state
+
+
+def dit_state_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
+    """State dict of `models.dit.WanDiT` from `init_dit_params`-style
+    params (stacked `blocks`, optionally `fuse_qkv_params`-fused; an i2v
+    tree's `img_emb` and `k_img` / `v_img` / `norm_k_img` included)."""
+    return _stacked_state(tree, cfg.num_layers)
+
+
+def clip_visual_state_from_jax(tree, cfg: dict) -> Dict[str, torch.Tensor]:
+    """State dict of `models.clip.CLIPVisual` from
+    `init_clip_visual_params`-style params (the HWIO patch kernel ->
+    OIHW)."""
+    return _stacked_state(tree, cfg["num_layers"])
+
+
+#: XLM-RoBERTa's bare embedding tables
+_TABLES = ("token_embedding", "pos_embedding", "type_embedding")
+
+
+def xlm_roberta_state_from_jax(tree, cfg: dict) -> Dict[str, torch.Tensor]:
+    """State dict of `models.xlm_roberta.XLMRoberta` from
+    `init_xlm_roberta_params`-style params."""
+    state = _stacked_state(tree, cfg["num_layers"])
+    for name in _TABLES:
+        state[f"{name}.weight"] = state.pop(name)
+    return state
+
+
+def xlm_roberta_head_state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """State dict of `models.xlm_roberta.XLMRobertaHead`."""
+    return dict(_leaf(path, a) for path, a in _walk(tree))
+
+
+def xlm_roberta_clip_state_from_jax(tree, vis_cfg: dict, text_cfg: dict
+                                    ) -> Dict[str, torch.Tensor]:
+    """State dict of `models.clip.XLMRobertaCLIP` from the
+    `convert_xlm_roberta_clip` tree ({"visual", "textual", "head",
+    "log_scale"})."""
+    state = {"log_scale": to_tensor(tree["log_scale"])}
+    for prefix, part in (
+            ("visual", clip_visual_state_from_jax(tree["visual"], vis_cfg)),
+            ("textual", xlm_roberta_state_from_jax(tree["textual"],
+                                                   text_cfg)),
+            ("head", xlm_roberta_head_state_from_jax(tree["head"]))):
+        state.update({f"{prefix}.{k}": v for k, v in part.items()})
+    return state
+
+
+def train_state_from_jax(params, opt_state, ema, step: int, cfg,
+                         optimizer: torch.optim.Optimizer,
+                         model: torch.nn.Module) -> Dict[str, object]:
+    """A `utils/train_state_io` checkpoint dict from the JAX trainer's
+    state: `params`, the `optax.adamw` state (`opt_state[0]` holds `count`,
+    `mu`, `nu`), the EMA shadow and the step.  `optimizer` (an AdamW over
+    `model.parameters()`) gives the parameter order and the
+    hyper-parameters.  No generator states: a run resumed from it draws
+    from the seeds."""
+    adam = opt_state[0]
+    names = [n for n, _ in model.named_parameters()]
+    mu = dit_state_from_jax(adam.mu, cfg)
+    nu = dit_state_from_jax(adam.nu, cfg)
+    count = float(np.asarray(adam.count))
+    opt = optimizer.state_dict()
+    opt["state"] = {i: {"step": torch.tensor(count),
+                        "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                    for i, n in enumerate(names)}
+    return {"model": dit_state_from_jax(params, cfg), "optimizer": opt,
+            "ema": dit_state_from_jax(ema, cfg), "step": int(step)}
 
 
 def vae_state_from_jax(tree) -> Dict[str, torch.Tensor]:

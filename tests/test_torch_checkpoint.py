@@ -138,9 +138,13 @@ def test_convert_dit_bf16_keeps_the_values():
 
 
 def test_convert_dit_refuses_i2v():
+    """An i2v config takes the i2v leaves (tests/test_torch_i2v_dit.py
+    converts a whole i2v file); a t2v file has none, and its conversion
+    to an i2v DiT is refused, naming the first missing key."""
     cfg = tiny_test_config("i2v")
-    with pytest.raises(NotImplementedError, match="Slice D"):
-        tck.convert_dit({}, cfg)
+    sd = _torch_sd(make_synthetic_dit_sd(j_tiny("i2v")))
+    with pytest.raises(KeyError, match="k_img"):
+        tck.convert_dit(sd, cfg)
 
 
 def test_convert_vae_equals_the_bridged_jax_conversion():

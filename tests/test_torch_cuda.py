@@ -904,3 +904,63 @@ def test_few_step_window_on_the_card(cuda):
     assert ta.launch_counts["flash_fwd"] == 2 * 3 * cfg.num_layers * 2
     rel = ((out["cuda"] - out["cpu"]).norm() / out["cpu"].norm()).item()
     assert rel <= 1e-4, rel
+
+
+# ---------------------------------------------------------------------------
+# The whole-clip i2v path: K1 at the CLIP tower's and the image
+# cross-attention's shapes, the i2v DiT on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,o_tol", [(torch.bfloat16, 2e-2),
+                                         (torch.float16, 5e-3),
+                                         (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B,N,d,lq,lk", [
+    (1, 16, 80, 257, 257),       # ViT-H/14: 257 tokens, head dim 80
+    (2, 4, 128, 1000, 257),      # image keys: the last tile holds 1 key
+    (2, 4, 80, 300, 257)])
+def test_k1_matches_plain_at_the_clip_and_image_shapes(cuda, dtype, o_tol,
+                                                       B, N, d, lq, lk):
+    o_err, lse_err = _errors(*_qkv(lq, lk, d, dtype, cuda, seed=d + lk,
+                                   B=B, N=N))
+    lse_tol = 1e-4 if dtype == torch.float32 else 1e-3
+    assert o_err <= o_tol and lse_err <= lse_tol, (o_err, lse_err)
+
+
+def test_k1_reads_the_clip_fused_qkv_at_head_dim_80(cuda):
+    """CLIP's q, k and v are views of one [B, 257, 3, 16, 80] projection."""
+    qkv = torch.randn((1, 257, 3, 16, 80), generator=torch.Generator(
+        device=cuda).manual_seed(2), device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    o, lse = ta.flash_fwd_cuda(q, k, v)
+    oc, lsec = ta.flash_fwd_cuda(q.contiguous(), k.contiguous(),
+                                 v.contiguous())
+    torch.testing.assert_close(o, oc, atol=0, rtol=0)
+    torch.testing.assert_close(lse, lsec, atol=0, rtol=0)
+
+
+def test_i2v_dit_forward_on_the_card(cuda):
+    """The tiny fp32 i2v DiT's bidirectional forward with CLIP tokens and
+    `y` on the card against the CPU, and its K1 launches: self, text and
+    image attention in each layer."""
+    import copy
+
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    from mmpl_tpu_torch.models import dit
+    cfg = tiny_test_config("i2v")
+    model = dit.randomize_head(dit.init_dit_params(
+        cfg, torch.Generator().manual_seed(0), torch.float32),
+        torch.Generator().manual_seed(99))
+    rng = np.random.default_rng(8)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32))
+    args = (t(2, 3, 16, 4, 4), torch.tensor([937.0, 250.0]),
+            t(2, cfg.text_len, cfg.text_dim))
+    kw = {"clip_fea": t(2, 257, dit.CLIP_DIM), "y": t(2, 3, 20, 4, 4)}
+    want = dit.dit_forward(model, cfg, *args, **kw)
+    card = copy.deepcopy(model).to(cuda)
+    ta.reset_launch_counts()
+    got = dit.dit_forward(card, cfg, *(a.to(cuda) for a in args),
+                          **{k: v.to(cuda) for k, v in kw.items()}).cpu()
+    assert ta.launch_counts["flash_fwd"] == 3 * cfg.num_layers
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 1e-4, rel

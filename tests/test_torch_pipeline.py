@@ -141,11 +141,12 @@ def test_cli_cpu_run_writes_bridged_frames(monkeypatch, tmp_path):
     (["--wan-dir", "wan"], None),
     (["--mesh", "dp=2"], "Slice F"),
     (["--use-ema"], None),
-    (["--model", "i2v-14B"], "Slice D"),
+    (["--model", "i2v-14B"], "Queue 3"),
 ])
 def test_cli_refuses_flags_of_later_slices(flag, where, capsys):
-    """Flags of later slices exit 2 naming their ROADMAP slice; the flags
-    that this slice ported (checkpoints, EMA, the i2v image) parse."""
+    """Flags of later slices exit 2 naming their ROADMAP slice, and
+    `--model i2v-14B` its known difference (ROADMAP Queue 3); the flags
+    that earlier slices ported (checkpoints, EMA, the i2v image) parse."""
     if where is None:
         args = cli.parse_args(["--model", "smoke", "--device", "cpu", *flag])
         dest = flag[0][2:].replace("-", "_")

@@ -4,6 +4,7 @@ package, at `tiny_test_config` in f32 on the CPU."""
 
 import copy
 import json
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,7 @@ def _few_torch_threads():
 
 
 B, F, C, H, W = 1, 21, 16, 4, 4
+CONFIGS = pathlib.Path(__file__).resolve().parents[1] / "configs"
 FM = jmasks.fps_forcing_frame_mask(T2V_CLEAN_STEPS)
 
 
@@ -240,20 +242,22 @@ def test_train_cli_smoke_run_logs_finite_losses(tmp_path):
     (["--objective", "ode"], "Slice H"),
     (["--objective", "flow"], "Slice E"),
     (["--data-dir", "x"], "Slice I"),
-    (["--resume", "x"], "Slice H"),
-    (["--export-pt", "x"], "Slice H"),
-    (["--ckpt-dir", "x"], "Slice H"),
+    (["--resume", "x"], None),
+    (["--export-pt", "x"], None),
+    (["--ckpt-dir", "x"], None),
     (["--generator-ckpt", "x"], None),
     (["--wan-dir", "x"], None),
-    (["--config", "x"], "Slice H"),
+    (["--config", str(CONFIGS / "self_forcing_df.yaml")], None),
     (["--mesh", "dp=2"], "Slice F"),
     (["--remat-offload"], "Slice H"),
     (["--offload-opt"], "Slice H"),
-    (["--steps", "5", "--ckpt-every", "5"], "Slice H"),
+    (["--config", str(CONFIGS / "self_forcing_dmd.yaml")], "Slice H"),
 ])
 def test_refused_flags_name_their_slice(argv, slice_name, capsys):
-    """Flags of later slices exit naming their ROADMAP slice; the
-    checkpoint flags this slice ported (slice_name None) parse."""
+    """Flags of later slices exit naming their ROADMAP slice; the flags
+    that earlier slices and the checkpoint slice ported (slice_name None)
+    parse, and a run config whose trainer is a later objective is
+    refused."""
     if slice_name is None:
         args = ttrain.parse_args(argv)
         assert getattr(args, argv[0][2:].replace("-", "_")) == argv[1]
