@@ -106,7 +106,29 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      CPU.  The K1 rows of the kernel phase include WanI2V's shapes
      (32760^2 over 40 heads, 32760 x 512, 32760 x 257, and the CLIP's
      257^2 at head dim 80);
-  16. the kernels line, then the final device line.
+  16. distillation, the flow objective and the baseline pipelines (1.3B
+     width, 480x832, bf16 activations, seeded random weights with non-zero
+     heads, exact K1 / K2 / K3 launches checked against each path's
+     formula): causal_diffusion, `CausalDiffusionInferencePipeline` (7
+     blocks of 3 frames, 2 UniPC steps over the CFG pair, ms per block),
+     and again with --quantize auto and the int8 cache (exact P2 / Q
+     launches from the auto policy); bidirectional, the 2-step UniPC CFG
+     and 4-step few-step bidirectional pipelines; window_dpm, one planned
+     window with DPM-Solver++; train_flow, the flow objective at full
+     depth (32760 tokens, per-block recomputation, AdamW, EMA); distill_dmd,
+     one DMD critic and one generator step at DISTILL_LAYERS depth
+     (configs/self_forcing_dmd.yaml's steps; the drawn exit flag printed
+     and the launches checked against it; peak memory; distill_profile, a
+     generator step under torch.profiler); distill_other,
+     SiD, GAN (critic with R1 / R2, generator; K1-K3 at one query row over
+     32760 keys), CausVid and ODE at 2 layers; distill_rolling, 27 frames
+     through the 21-slot ring at 2 layers; train_distill_cli, the trainer
+     CLI in smoke mode for flow, dmd, sid, causvid, gan and ode;
+     distill_parity, tiny fp32 DMD losses and gradients and a tiny
+     causal-diffusion run, card against CPU.  The K1 / K2 / K3 rows of the
+     kernel phases include the critic's and flow's 32760^2, the scores'
+     32760 x 512 and the GAN head's 1 x 32760;
+  17. the kernels line, then the final device line.
 """
 
 from __future__ import annotations
@@ -175,7 +197,11 @@ PEAK_INT8 = 1979e12
 #: WanI2V's: the i2v-14B DiT's self-attention over all 21 latent frames
 #: (CFG pair, 40 heads), its text and image cross-attention (512 and 257
 #: keys; the last 128-key tile of the image keys holds one key) and the
-#: CLIP tower's 257 tokens at head dim 80
+#: CLIP tower's 257 tokens at head dim 80; the distillation slice's: the
+#: bidirectional pipeline's CFG pair over all 32760 tokens, the critic's
+#: and the flow objective's batch of one, the causal-diffusion pipeline's
+#: last block (CFG pair, 4680 queries over 32760 keys) and the GAN head's
+#: register token (one query row over 32760 keys)
 K1_SHAPES = [
     ("group0_self", 2, 12, 128, 3120, 3120, torch.bfloat16),
     ("group1_self", 2, 12, 128, 10920, 14040, torch.bfloat16),
@@ -194,6 +220,10 @@ K1_SHAPES = [
     ("i2v14b_cross", 2, 40, 128, 32760, 512, torch.bfloat16),
     ("i2v14b_img", 2, 40, 128, 32760, 257, torch.bfloat16),
     ("clip_self", 1, 16, 80, 257, 257, torch.bfloat16),
+    ("bidir_self", 2, 12, 128, 32760, 32760, torch.bfloat16),
+    ("critic_self", 1, 12, 128, 32760, 32760, torch.bfloat16),
+    ("cd_block_self", 2, 12, 128, 4680, 32760, torch.bfloat16),
+    ("gan_head_q1", 2, 12, 128, 1, 32760, torch.bfloat16),
 ]
 MAIN_SHAPE = "group3_self"
 
@@ -220,9 +250,11 @@ FEWSTEP_K1 = (7 * 5 * 30 * 2, 6 * 5 * 30 * 2)
 
 #: K2 / K3 shapes, as K1_SHAPES: the 1.3B teacher-forcing step's
 #: cross-attention (65520 tokens over 512 text tokens) in bf16 and fp16,
-#: the few-step steady-state self-attention (the shape self-forcing
-#: training and the ring backward will run), a ragged shape and the tiny
-#: configuration's head dim in bf16 and fp32
+#: the few-step steady-state self-attention (the graded rollout block's
+#: backward over 7 blocks), a ragged shape and the tiny configuration's
+#: head dim in bf16 and fp32; the distillation slice's: the critic's and
+#: the flow objective's self-attention (32760^2) and text cross-attention
+#: (32760 x 512), and the GAN head's register token (Lq = 1 over 32760)
 BWD_SHAPES = [
     ("tf_cross", 1, 12, 128, 65520, 512, torch.bfloat16),
     ("tf_cross_f16", 1, 12, 128, 65520, 512, torch.float16),
@@ -230,6 +262,9 @@ BWD_SHAPES = [
     ("ragged", 2, 12, 128, 1000, 1300, torch.bfloat16),
     ("d24_bf16", 2, 4, 24, 1000, 1300, torch.bfloat16),
     ("d24_f32", 2, 4, 24, 1000, 1300, torch.float32),
+    ("critic_self", 1, 12, 128, 32760, 32760, torch.bfloat16),
+    ("score_cross", 1, 12, 128, 32760, 512, torch.bfloat16),
+    ("gan_head_q1", 2, 12, 128, 1, 32760, torch.bfloat16),
 ]
 BWD_MAIN = "tf_cross"
 
@@ -1545,10 +1580,13 @@ def phase_train(timed_steps: int = 2):
     return counts, step
 
 
-def phase_train_profile(step, top: int = 14):
-    """One 1.3B teacher-forcing step under torch.profiler: device time by
-    kernel, the port kernels' shares and the device's idle share of the
-    synchronised wall time.  Read by PERF.md's breakdown, not checked."""
+def phase_train_profile(step, top: int = 14, phase: str = "train_profile",
+                        what: str = "one 1.3B teacher-forcing step, 30 layers",
+                        checked=tuple(TRAIN_LAUNCHES_PER_LAYER)):
+    """One training step under torch.profiler (by default the 1.3B
+    teacher-forcing step): device time by kernel, the port kernels' shares
+    and the device's idle share of the synchronised wall time.  Read by
+    PERF.md's breakdown; checked only for the port's kernels `checked`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1562,8 +1600,7 @@ def phase_train_profile(step, top: int = 14):
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     by_port = _by_port(kernels)
-    row = {"phase": "train_profile",
-           "what": "one 1.3B teacher-forcing step, 30 layers",
+    row = {"phase": phase, "what": what,
            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
            "port_kernels_ms": by_port,
@@ -1575,7 +1612,7 @@ def phase_train_profile(step, top: int = 14):
     emit(row)
     # K1 (bf16 cross-attention) books to K1, and K4-K6 to themselves
     check(by_port.get("flash_fwd", 0.0) > 0, row)
-    check(all(by_port.get(k, 0.0) > 0 for k in TRAIN_LAUNCHES_PER_LAYER), row)
+    check(all(by_port.get(k, 0.0) > 0 for k in checked), row)
 
 
 def phase_kernel_exp2():
@@ -2670,6 +2707,634 @@ def phase_wan_parity(steps: int = 2):
         check(row[f"{kind}_shape"] == [1, 9, 3, 32, 32], row)
 
 
+# ---------------------------------------------------------------------------
+# Distillation, the flow objective and the baseline pipelines
+# ---------------------------------------------------------------------------
+
+#: the depth of the full-depth distillation and flow phases (the memory
+#: reckoning of three 1.3B models, two AdamW states and the EMA fits the
+#: 80 GB card at 30 layers) and of the phases cut to 2 layers
+DISTILL_LAYERS = 30
+SHALLOW_LAYERS = 2
+#: the 21 latent frames of a 480x832 window, in blocks of 3
+DISTILL_FRAMES, DISTILL_BLOCKS = 21, 7
+FEW_STEPS = (1000, 750, 500, 250)
+
+
+def _cfg13(layers: int = 30):
+    from mmpl_tpu_torch.core.config import DotDict
+    return DotDict(WAN_CONFIGS["t2v-1.3B"], num_layers=layers)
+
+
+def _model13(cfg, seed: int, dtype):
+    g = lambda s: torch.Generator(device="cuda").manual_seed(s)
+    return dit.randomize_head(dit.init_dit_params(cfg, g(seed), dtype,
+                                                  "cuda"), g(seed + 99))
+
+
+def _attn_counts(**kw) -> dict:
+    """Every attention counter, 0 where not given."""
+    return {**dict.fromkeys(attn.launch_counts, 0), **kw}
+
+
+def _k123(fwd: int, bwd: int = 0) -> dict:
+    return _attn_counts(flash_fwd=fwd, flash_bwd_dkv=bwd, flash_bwd_dq=bwd)
+
+
+def _run_counted(fn):
+    """(result, seconds, attention launches, peak GiB) of fn() on the card."""
+    attn.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, dict(attn.launch_counts),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_causal_diffusion(model, cond, uncond, quantize=None):
+    """`CausalDiffusionInferencePipeline` on the 1.3B model at 480x832:
+    7 blocks of 3 frames, each by a 2-step UniPC loop over the CFG pair
+    and a clean commit (K1 4680 x 4680k, CFG batch 2); with `quantize`,
+    int8 projections (P2, Q) and the int8 cache (Q codes k and v in each
+    commit).  Exact launches, ms per block."""
+    from mmpl_tpu_torch.pipelines.causal_diffusion_inference import \
+        CausalDiffusionInferencePipeline
+    cfg = WAN_CONFIGS["t2v-1.3B"]
+    dev = torch.device("cuda")
+    pipe = CausalDiffusionInferencePipeline(
+        cfg, model, sampling_steps=2, timestep_shift=8.0,
+        guidance_scale=5.0, quantize=quantize,
+        quantize_cache=quantize is not None, dtype=torch.bfloat16)
+    noise = torch.randn((1, 21, 16, 60, 104), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(110))
+    block_s = []
+    run_block = pipe._denoise_block
+
+    def timed_block(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_block(*a)
+        torch.cuda.synchronize()
+        block_s.append(time.perf_counter() - t0)
+        return out
+
+    pipe._denoise_block = timed_block
+    for k in quant.launch_counts:
+        quant.launch_counts[k] = 0
+    out, seconds, counts, peak = _run_counted(
+        lambda: pipe.inference(noise, cond, uncond))
+    forwards = DISTILL_BLOCKS * 3                 # 2 steps + the commit
+    expected = _k123(forwards * 30 * 2)
+    n8 = 0
+    if quantize is not None:
+        policy = (dit.last_auto_quantize_report["policy"]
+                  if quantize == "auto" else
+                  dict.fromkeys(dit.AUTO_QUANT_TARGETS, quantize))
+        n8 = sum(mode == "int8" for mode in policy.values())
+    q_expected = {"int8_gemm": n8 * 30 * forwards,
+                  "quantize_rows": n8 * 30 * forwards
+                  + (2 * 30 * DISTILL_BLOCKS if quantize else 0)}
+    row = {"phase": "causal_diffusion" + ("_int8" if quantize else ""),
+           "quantize": quantize, "seconds": seconds,
+           "block_ms": [1e3 * s for s in block_s],
+           "ms_per_block": 1e3 * statistics.mean(block_s),
+           "launches": counts, "expected_launches": expected,
+           "int8_launches": dict(quant.launch_counts),
+           "expected_int8_launches": q_expected, "w8a8_targets": n8,
+           "max_memory_allocated_gib": peak,
+           "latents_finite": bool(torch.isfinite(out).all().item()),
+           "latents_std": out.float().std().item()}
+    emit(row)
+    check(counts == expected, row)
+    check(dict(quant.launch_counts) == q_expected, row)
+    check(tuple(out.shape) == (1, 21, 16, 60, 104) and row["latents_finite"],
+          row)
+    return counts, dict(quant.launch_counts)
+
+
+def phase_bidirectional(model, cond, uncond):
+    """`BidirectionalDiffusionInferencePipeline` (2 UniPC steps, CFG pair:
+    K1 at 32760^2, batch 2) and `BidirectionalInferencePipeline` (4 steps,
+    batch 1) on the 1.3B model at 480x832."""
+    from mmpl_tpu_torch.pipelines.bidirectional_inference import (
+        BidirectionalDiffusionInferencePipeline,
+        BidirectionalInferencePipeline)
+    cfg = WAN_CONFIGS["t2v-1.3B"]
+    dev = torch.device("cuda")
+    g = lambda s: torch.Generator(device=dev).manual_seed(s)
+    noise = torch.randn((1, 21, 16, 60, 104), device=dev, generator=g(111))
+    total = {}
+    for name, pipe, run, fwd in (
+            ("diffusion", BidirectionalDiffusionInferencePipeline(
+                cfg, model, sampling_steps=2, dtype=torch.bfloat16),
+             lambda p: p.inference(noise, cond, uncond), 2),
+            ("fewstep", BidirectionalInferencePipeline(
+                cfg, model, FEW_STEPS, dtype=torch.bfloat16),
+             lambda p: p.inference(noise, cond, generator=g(112)), 4)):
+        out, seconds, counts, peak = _run_counted(lambda: run(pipe))
+        expected = _k123(fwd * 30 * 2)
+        row = {"phase": f"bidirectional_{name}", "seconds": seconds,
+               "ms_per_forward": 1e3 * seconds / fwd, "launches": counts,
+               "expected_launches": expected,
+               "max_memory_allocated_gib": peak,
+               "latents_finite": bool(torch.isfinite(out).all().item()),
+               "latents_std": out.float().std().item()}
+        emit(row)
+        check(counts == expected, row)
+        check(tuple(out.shape) == tuple(noise.shape)
+              and row["latents_finite"], row)
+        total = {k: total.get(k, 0) + counts[k] for k in counts}
+    return total
+
+
+def phase_window_dpm(model, cond, uncond, steps: int = 4):
+    """One planned t2v window of the 1.3B model with
+    `sample_solver="dpm++"`, 4 steps: K1 exactly, finite latents."""
+    dev = torch.device("cuda")
+    pipe = CausalFPSInferencePipeline(WAN_CONFIGS["t2v-1.3B"], model,
+                                      sampling_steps=steps,
+                                      sample_solver="dpm++",
+                                      dtype=torch.bfloat16)
+    g = lambda s: torch.Generator(device=dev).manual_seed(s)
+    noise = torch.randn((1, 21, 16, 60, 104), device=dev, generator=g(113))
+    out, seconds, counts, peak = _run_counted(
+        lambda: pipe.inference(noise, cond, uncond, generator=g(114)))
+    expected = _k123((4 * steps + 3) * 30 * 2)
+    row = {"phase": "window_dpm", "solver": type(pipe.sampler).__name__,
+           "steps": steps, "seconds": seconds, "launches": counts,
+           "expected_launches": expected, "max_memory_allocated_gib": peak,
+           "latents_finite": bool(torch.isfinite(out).all().item()),
+           "latents_std": out.float().std().item()}
+    emit(row)
+    check(counts == expected, row)
+    check(row["solver"] == "FlowDPMSolver" and row["latents_finite"], row)
+    return counts
+
+
+def phase_train_flow(timed_steps: int = 2):
+    """The flow objective on the 1.3B model at full depth: 21 latent frames
+    at 60x104 (32760 tokens, bidirectional), a bf16 trunk over fp32
+    masters with per-block recomputation, AdamW, EMA, batch 1.  Per step
+    each layer launches K1 four times (self and text cross-attention,
+    forward and recomputation) and K2 and K3 twice."""
+    from mmpl_tpu_torch.training.diffusion import (DiffusionTrainer,
+                                                   draw_flow, make_loss_fn,
+                                                   make_scheduler)
+    from mmpl_tpu_torch.utils.ema import EmaParams
+    cfg = _cfg13(DISTILL_LAYERS)
+    dev = torch.device("cuda")
+    g = lambda s: torch.Generator(device=dev).manual_seed(s)
+    model = _model13(cfg, 20, torch.float32)
+    trainer = DiffusionTrainer(model, make_loss_fn(cfg, make_scheduler(8.0)),
+                               learning_rate=1e-5)
+    ema = EmaParams(model, decay=0.999)
+    shape = (1, DISTILL_FRAMES, 16, 60, 104)
+    gen = g(21)
+    batch = {"latents": torch.randn(shape, device=dev, generator=gen),
+             "context": torch.randn((1, 512, 4096), device=dev,
+                                    generator=gen)}
+
+    def step():
+        loss = trainer.train_step(batch, draw_flow(gen, shape, 3, dev))
+        ema.update(model)
+        return loss.item()
+
+    rows = []
+    for i in range(timed_steps + 1):
+        loss, seconds, counts, peak = _run_counted(step)
+        row = {"phase": "train_flow", "step": i, "warmup": i == 0,
+               "layers": cfg.num_layers, "seconds": seconds, "loss": loss,
+               "grad_norm": trainer.grad_norm.item(), "launches": counts,
+               "expected_launches": _k123(4 * cfg.num_layers,
+                                          2 * cfg.num_layers),
+               "max_memory_allocated_gib": peak}
+        emit(row)
+        check(counts == row["expected_launches"], row)
+        check(math.isfinite(loss) and math.isfinite(row["grad_norm"])
+              and row["grad_norm"] > 0, row)
+        rows.append(row)
+    timed = rows[1:]
+    return ({k: sum(r["launches"][k] for r in timed) for k in counts},
+            statistics.mean(r["seconds"] for r in timed))
+
+
+def _distill_setup(layers: int, dtype=torch.bfloat16, gan: bool = False,
+                   frames: int = DISTILL_FRAMES, **rollout_kw):
+    """The 1.3B distillation bundle at `layers`: generator, fake score and
+    real score (or GAN head) as fp32 masters with non-zero heads from
+    seeds, the rollout and Distiller of configs/self_forcing_dmd.yaml
+    (warped steps, shift 5.0, guidance 3.0) in `dtype`, and one batch."""
+    from mmpl_tpu_torch import train
+    from mmpl_tpu_torch.training.diffusion import make_scheduler
+    from mmpl_tpu_torch.training.distillation import (DistillationConfig,
+                                                      Distiller)
+    from mmpl_tpu_torch.training.gan import init_gan_head_params
+    from mmpl_tpu_torch.training.self_forcing import SelfForcingRollout
+    cfg = _cfg13(layers)
+    dev = torch.device("cuda")
+    g = lambda s: torch.Generator(device=dev).manual_seed(s)
+    models = {"generator": _model13(cfg, 30, torch.float32),
+              "fake_score": _model13(cfg, 31, torch.float32)}
+    if gan:
+        models["gan_head"] = init_gan_head_params(
+            g(33), atten_dim=cfg.dim, ffn_dim=cfg.ffn_dim,
+            device=dev).requires_grad_(False)
+    else:
+        models["real_score"] = _model13(cfg, 32, torch.float32)
+    sch = make_scheduler(5.0)
+    kw = dict(warp_denoising_step=True, num_max_frames=DISTILL_FRAMES,
+              grad_frame_window=DISTILL_FRAMES, dtype=dtype)
+    kw.update(rollout_kw)
+    ro = SelfForcingRollout(cfg, sch, FEW_STEPS, **kw)
+    dcfg = dict(timestep_shift=5.0, real_guidance_scale=3.0, dtype=dtype)
+    gen = g(34)
+    ctx = torch.randn((1, 512, 4096), device=dev, generator=gen)
+    batch = {"context": ctx, "uncond_context": torch.zeros_like(ctx),
+             "noise": torch.randn((1, frames, 16, 60, 104), device=dev,
+                                  generator=gen),
+             "ctx_kv": train._context_kv(models["generator"], cfg,
+                                         ctx.to(dtype))}
+    if gan:
+        batch["real_latents"] = torch.randn(
+            (1, DISTILL_FRAMES, 16, 60, 104), device=dev, generator=gen)
+    return cfg, models, ro, sch, dcfg, batch, gen
+
+
+def _distill_step(models, keys, loss_fn, batch, ro, gen, nblocks, lr=1e-5):
+    """One AdamW step of `keys` on the loss with the exit flags drawn
+    here (so the run's launches can be checked against them)."""
+    from mmpl_tpu_torch import train
+    flags = ro.sample_exit_flags(gen, nblocks, device=gen.device)
+    opt = train.adamw([p for k in keys for p in models[k].parameters()], lr,
+                      train.OPTAX_WEIGHT_DECAY)
+    draws = {"generator": gen, "exit_flags": flags}
+    loss = train.train_step(models, keys, loss_fn, opt, batch, draws)
+    return loss.item(), ro.block_flags(flags, nblocks)
+
+
+def _rollout_k123(flags, L, graded):
+    """K1 and K2 / K3 of a rollout: every block's no-grad steps before its
+    flag, the flagged step and the commit (2L K1 each); the graded blocks'
+    flagged step again in the backward pass, and its backward."""
+    fwd = sum(f + 2 for f in flags) * 2 * L
+    return fwd + graded * 2 * L, graded * 2 * L
+
+
+def phase_distill_dmd():
+    """One DMD critic step and one generator step at 1.3B width and
+    DISTILL_LAYERS depth, 21 frames at 60x104, the rollout and the
+    Distiller in bf16 over fp32 masters (configs/self_forcing_dmd.yaml's
+    warped steps, shift 5.0, guidance 3.0), AdamW.  The exit flag is
+    drawn once for all blocks (same_step_across_blocks), so the launches
+    are checked against the flag's formula."""
+    from mmpl_tpu_torch.training.distillation import (DistillationConfig,
+                                                      Distiller)
+    cfg, models, ro, sch, dcfg, batch, gen = _distill_setup(DISTILL_LAYERS)
+    dist = Distiller(cfg, DistillationConfig(**dcfg), ro, sch)
+    L, nb = cfg.num_layers, DISTILL_BLOCKS
+    n_params = sum(p.numel() for m in models.values()
+                   for p in m.parameters())
+    out, total = [], {}
+    for role, keys, fn in (("critic", ("fake_score",), dist.critic_loss),
+                           ("generator", ("generator",),
+                            dist.dmd_generator_loss)):
+        (loss, flags), seconds, counts, peak = _run_counted(
+            lambda: _distill_step(models, keys, fn, batch, ro, gen, nb))
+        if role == "critic":
+            # the rollout without gradients; the fake score's forward,
+            # its recomputation and its backward
+            fwd, bwd = _rollout_k123(flags, L, 0)
+            expected = _k123(fwd + 2 * 2 * L, 2 * L)
+        else:
+            # the rollout with every block graded; three score forwards
+            # (fake, real cond, real uncond) without gradients
+            fwd, bwd = _rollout_k123(flags, L, nb)
+            expected = _k123(fwd + 3 * 2 * L, bwd)
+        row = {"phase": "distill_dmd", "step": role, "layers": L,
+               "params": n_params, "flag": flags[0], "seconds": seconds,
+               "loss": loss, "launches": counts,
+               "expected_launches": expected,
+               "max_memory_allocated_gib": peak}
+        emit(row)
+        check(counts == expected, row)
+        check(math.isfinite(loss), row)
+        out.append(row)
+        total = {k: total.get(k, 0) + counts[k] for k in counts}
+    grads_finite = all(torch.isfinite(p).all().item()
+                       for m in models.values() for p in m.parameters())
+    phase_train_profile(
+        lambda: _distill_step(models, ("generator",),
+                              dist.dmd_generator_loss, batch, ro, gen, nb),
+        phase="distill_profile",
+        what=f"one DMD generator step, 1.3B width, {L} layers, bf16 over "
+             f"fp32 masters", checked=("flash_bwd_dkv", "flash_bwd_dq"))
+    emit({"phase": "distill_dmd_total", "layers": L,
+          "seconds_per_step": {r["step"]: r["seconds"] for r in out},
+          "max_memory_allocated_gib": max(r["max_memory_allocated_gib"]
+                                          for r in out),
+          "params_finite_after": grads_finite, "launches": total})
+    check(grads_finite, "non-finite parameters after the DMD steps")
+    return total
+
+
+def phase_distill_other():
+    """One step each of SiD (generator), GAN (critic with R1 / R2, then
+    generator), CausVid (generator, fake-score CFG 2.0) and ODE regression
+    at 1.3B width cut to SHALLOW_LAYERS, bf16 over fp32 masters."""
+    from mmpl_tpu_torch import train
+    from mmpl_tpu_torch.training.distillation import (
+        DistillationConfig, Distiller, ode_regression_loss,
+        prepare_ode_generator_input)
+    from mmpl_tpu_torch.training.gan import gan_tap_layers
+    L, nb = SHALLOW_LAYERS, DISTILL_BLOCKS
+    total = {}
+
+    def record(name, fn, expected_of):
+        nonlocal total
+        (loss, flags), seconds, counts, peak = _run_counted(fn)
+        expected = expected_of(flags)
+        row = {"phase": "distill_other", "objective": name, "layers": L,
+               "flag": flags[0] if flags else None, "seconds": seconds,
+               "loss": loss, "launches": counts,
+               "expected_launches": expected,
+               "max_memory_allocated_gib": peak}
+        emit(row)
+        check(counts == expected, row)
+        check(math.isfinite(loss), row)
+        total = {k: total.get(k, 0) + counts[k] for k in counts}
+
+    cfg, models, ro, sch, dcfg, batch, gen = _distill_setup(L)
+    sid = Distiller(cfg, DistillationConfig(**dcfg), ro, sch)
+    cv = Distiller(cfg, DistillationConfig(fake_guidance_scale=2.0, **dcfg),
+                   ro, sch)
+
+    def graded_gen(extra_fwd, extra_bwd):
+        def of(flags):
+            fwd, bwd = _rollout_k123(flags, L, nb)
+            return _k123(fwd + extra_fwd, bwd + extra_bwd)
+        return of
+
+    # SiD: three score forwards with gradients into the sample
+    record("sid", lambda: _distill_step(
+        models, ("generator",), sid.sid_generator_loss, batch, ro, gen, nb),
+        graded_gen(3 * 2 * 2 * L, 3 * 2 * L))
+    # CausVid: four score forwards without gradients
+    record("causvid", lambda: _distill_step(
+        models, ("generator",), cv.causvid_generator_loss, batch, ro, gen,
+        nb), graded_gen(4 * 2 * L, 0))
+    del models["real_score"]
+    torch.cuda.empty_cache()
+
+    cfg, models, ro, sch, dcfg, batch, gen = _distill_setup(L, gan=True)
+    gan = Distiller(cfg, DistillationConfig(r1_weight=0.1, r2_weight=0.1,
+                                            **dcfg), ro, sch)
+    # one classify pass: the trunk up to the last tap (2 per layer), one
+    # register-token attention per tap (Lq = 1 over 32760 keys)
+    trunk = 2 * (max(gan_tap_layers(L, 3)) + 1)
+    classify = trunk + 3
+
+    def gan_critic(flags):
+        fwd, _ = _rollout_k123(flags, L, 0)
+        # [fake; real], R1 and R2: three passes, the trunk recomputed
+        return _k123(fwd + 3 * (classify + trunk), 3 * classify)
+
+    record("gan_critic", lambda: _distill_step(
+        models, ("fake_score", "gan_head"), gan.gan_critic_loss, batch, ro,
+        gen, nb), gan_critic)
+    record("gan_generator", lambda: _distill_step(
+        models, ("generator",), gan.gan_generator_loss, batch, ro, gen, nb),
+        graded_gen(classify + trunk, classify))
+    del models
+    torch.cuda.empty_cache()
+
+    cfg, models, ro, sch, dcfg, batch, gen = _distill_setup(L)
+    gmodel = models["generator"]
+    steps = (1000, 750, 500)
+    traj = torch.randn((1, len(steps) + 1, DISTILL_FRAMES, 16, 60, 104),
+                       device="cuda", generator=gen)
+    idx = torch.randint(0, len(steps), (1, nb), device="cuda",
+                        generator=gen)
+    noisy, tt = prepare_ode_generator_input(traj, steps, idx)
+    ode_batch = {"noisy_input": noisy, "clean_latent": traj[:, -1],
+                 "timestep": tt, "ctx_kv": batch["ctx_kv"]}
+
+    def ode_step():
+        opt = train.adamw(gmodel.parameters(), 1e-5,
+                          train.OPTAX_WEIGHT_DECAY)
+        loss = train.train_step(
+            {"generator": gmodel}, ("generator",),
+            lambda m, b, d: ode_regression_loss(m["generator"], cfg, sch, b,
+                                                dtype=torch.bfloat16),
+            opt, ode_batch, {})
+        return loss.item(), []
+
+    # each block: a noisy forward and a commit forward with gradients
+    # through the cache, each recomputed; no gradient reaches the last
+    # block's commit, nor the last layer's attention of the others
+    record("ode", ode_step, lambda _: _k123(
+        2 * nb * 2 * L + (2 * nb - 1) * 2 * L,
+        nb * 2 * L + (nb - 1) * 2 * (L - 1)))
+    return total
+
+
+def phase_distill_rolling():
+    """The DMD generator's rollout with `rolling` past the 21-slot ring
+    (27 frames: 7 absolute-slot blocks, then 2 steady-state blocks that
+    evict through the slot permutation, their commits functional) at
+    SHALLOW_LAYERS: seconds, launches, finite gradients.  The last 21
+    frames are graded: 7 of the 9 blocks."""
+    from mmpl_tpu_torch.training.distillation import (DistillationConfig,
+                                                      Distiller)
+    L = SHALLOW_LAYERS
+    cfg, models, ro, sch, dcfg, batch, gen = _distill_setup(
+        L, frames=27, rolling=True)
+    dist = Distiller(cfg, DistillationConfig(**dcfg), ro, sch)
+    (loss, flags), seconds, counts, peak = _run_counted(
+        lambda: _distill_step(models, ("generator",),
+                              dist.dmd_generator_loss, batch, ro, gen, 9))
+    fwd, bwd = _rollout_k123(flags, L, 7)
+    expected = _k123(fwd + 3 * 2 * L, bwd)
+    finite = all(torch.isfinite(p).all().item()
+                 for p in models["generator"].parameters())
+    row = {"phase": "distill_rolling", "layers": L, "frames": 27,
+           "ring_slots": 21, "flag": flags[0], "seconds": seconds,
+           "loss": loss, "launches": counts, "expected_launches": expected,
+           "params_finite_after": finite, "max_memory_allocated_gib": peak}
+    emit(row)
+    check(counts == expected and math.isfinite(loss) and finite, row)
+    return counts
+
+
+def phase_train_distill_cli():
+    """`python -m mmpl_tpu_torch.train --smoke` for flow, dmd, sid,
+    causvid, gan and ode on the card (tiny config, fp32, 21 frames at
+    4x4, 2 steps, the generator every step), in this process: exact K1 /
+    K2 / K3 launches (each distillation step's exit flags are drawn where
+    the loss would draw them and recorded), finite losses."""
+    from mmpl_tpu_torch import train
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    from mmpl_tpu_torch.training.gan import gan_tap_layers
+    L = tiny_test_config().num_layers
+    nb = DISTILL_BLOCKS
+    taps = 2 * (max(gan_tap_layers(L, 3)) + 1)
+    classify = taps + 3
+    real_draws = train.loss_draws
+    total = {}
+    for objective in ("flow", "dmd", "sid", "causvid", "gan", "ode"):
+        flags = []
+
+        def draws(generator, step, role):
+            d = real_draws(generator, step, role)
+            if objective in ("flow", "ode"):
+                return d
+            f = torch.randint(0, 4, (nb,), generator=generator,
+                              device=generator.device)
+            flags.append((role, int(f[0])))
+            return {**d, "exit_flags": f}
+
+        train.loss_draws = draws
+        run = f"distill_cli_{objective}"
+        shutil.rmtree(os.path.join(OUT_DIR, run), ignore_errors=True)
+        try:
+            rc, seconds, counts, peak = _run_counted(lambda: train.main([
+                "--smoke", "--objective", objective, "--steps", "2",
+                "--device", "cuda", "--dfake-gen-update-ratio", "1",
+                "--log-dir", OUT_DIR, "--run-name", run]))
+        finally:
+            train.loss_draws = real_draws
+        with open(os.path.join(OUT_DIR, run, "metrics.jsonl"),
+                  encoding="utf-8") as f:
+            recs = [json.loads(line) for line in f if line.strip()]
+        losses = [r[k] for r in recs for k in ("loss", "critic_loss",
+                                               "gen_loss") if k in r]
+        if objective == "flow":
+            expected = _k123(2 * 4 * L, 2 * 2 * L)
+        elif objective == "ode":
+            expected = _k123(2 * (2 * nb * 2 * L + (2 * nb - 1) * 2 * L),
+                             2 * (nb * 2 * L + (nb - 1) * 2 * (L - 1)))
+        else:
+            fwd = bwd = 0
+            for role, f in flags:
+                rf, rb = _rollout_k123([f] * nb, L,
+                                       nb if role == "generator" else 0)
+                if objective == "gan":
+                    # one classify pass each (the trainer sets no R1 / R2)
+                    extra = (classify + taps, classify)
+                elif role == "critic":
+                    extra = (2 * 2 * L, 2 * L)
+                else:
+                    extra = {"dmd": (3 * 2 * L, 0), "causvid": (3 * 2 * L, 0),
+                             "sid": (3 * 2 * 2 * L, 3 * 2 * L)}[objective]
+                fwd += rf + extra[0]
+                bwd += rb + extra[1]
+            expected = _k123(fwd, bwd)
+        row = {"phase": "train_distill_cli", "objective": objective,
+               "rc": rc, "seconds": seconds, "losses": losses,
+               "flags": flags, "launches": counts,
+               "expected_launches": expected,
+               "max_memory_allocated_gib": peak}
+        emit(row)
+        check(rc == 0 and losses and all(map(math.isfinite, losses)), row)
+        check(counts == expected, row)
+        total = {k: total.get(k, 0) + counts[k] for k in counts}
+    return total
+
+
+def phase_distill_parity():
+    """Tiny fp32 DMD generator and critic losses and gradients (12 frames,
+    two blocks' draws handed in) and a tiny `CausalDiffusionInference
+    Pipeline` run, each on the card against the CPU's plain path.  Gate:
+    1e-4 relative (gradients: of the largest entry)."""
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    from mmpl_tpu_torch.pipelines.causal_diffusion_inference import \
+        CausalDiffusionInferencePipeline
+    from mmpl_tpu_torch.training.diffusion import make_scheduler
+    from mmpl_tpu_torch.training.distillation import (DistillationConfig,
+                                                      Distiller)
+    from mmpl_tpu_torch.training.self_forcing import SelfForcingRollout
+    cfg = tiny_test_config()
+    g = lambda s: torch.Generator().manual_seed(s)
+    base = {k: dit.randomize_head(dit.init_dit_params(
+        cfg, g(s), torch.float32), g(s + 99))
+        for k, s in (("generator", 0), ("fake_score", 1),
+                     ("real_score", 2))}
+    gen = g(7)
+    ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen)
+    noise = torch.randn(1, 6, 16, 4, 4, generator=gen)
+    draws = {"exit_flags": torch.tensor([2, 1]),
+             "rollout": [{"step": [torch.randn(1, 3, 16, 4, 4,
+                                               generator=gen)
+                                   for _ in range(3)],
+                          "commit": torch.randn(1, 3, 16, 4, 4,
+                                                generator=gen)}
+                         for _ in range(2)],
+             "u": torch.rand(1, 1, generator=gen),
+             "noise": torch.randn(1, 6, 16, 4, 4, generator=gen)}
+    row = {"phase": "distill_parity"}
+    for loss_name, trained in (("dmd_generator_loss", "generator"),
+                               ("critic_loss", "fake_score")):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            models = {k: copy.deepcopy(m).to(dev) for k, m in base.items()}
+            sch = make_scheduler(5.0)
+            ro = SelfForcingRollout(cfg, sch, FEW_STEPS, num_max_frames=6,
+                                    grad_frame_window=6,
+                                    same_step_across_blocks=False)
+            dist = Distiller(cfg, DistillationConfig(timestep_shift=5.0),
+                             ro, sch)
+            with torch.no_grad():
+                kv = dit.precompute_context_kv(
+                    models["generator"], cfg,
+                    dit.embed_text(models["generator"], ctx.to(dev)))
+            d = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+                 for k, v in draws.items()}
+            models[trained].requires_grad_(True)
+            attn.reset_launch_counts()
+            val, _ = getattr(dist, loss_name)(
+                models, {"noise": noise.to(dev), "ctx_kv": kv,
+                         "context": ctx.to(dev),
+                         "uncond_context": torch.zeros_like(ctx).to(dev)}, d)
+            val.backward()
+            res[dev] = (val.item(), {n: p.grad.cpu() for n, p in
+                                     models[trained].named_parameters()
+                                     if p.grad is not None},
+                        dict(attn.launch_counts))
+        (lc, gc, _), (lg, gg, counts) = res["cpu"], res["cuda"]
+        scale = max(x.abs().max().item() for x in gc.values())
+        row[loss_name] = {
+            "loss_rel_err": abs(lg - lc) / abs(lc),
+            "grad_max_abs_err_over_largest": max(
+                (gg[n] - gc[n]).abs().max().item() for n in gc) / scale,
+            "launches": counts}
+    pipe_out = {}
+    rng = np.random.default_rng(14)
+    cnoise = torch.from_numpy(rng.standard_normal((1, 6, 16, 4, 4)).astype(
+        np.float32))
+    uncond = torch.zeros_like(ctx)
+    for dev in ("cpu", "cuda"):
+        pipe = CausalDiffusionInferencePipeline(
+            cfg, copy.deepcopy(base["generator"]).to(dev), sampling_steps=2,
+            local_attn_frames=6, dtype=torch.float32)
+        attn.reset_launch_counts()
+        pipe_out[dev] = pipe.inference(cnoise.to(dev), ctx.to(dev),
+                                       uncond.to(dev)).cpu()
+    row["causal_diffusion_rel_err"] = (
+        (pipe_out["cuda"] - pipe_out["cpu"]).norm()
+        / pipe_out["cpu"].norm()).item()
+    row["causal_diffusion_flash_fwd"] = attn.launch_counts["flash_fwd"]
+    emit(row)
+    for loss_name in ("dmd_generator_loss", "critic_loss"):
+        r = row[loss_name]
+        check(r["loss_rel_err"] <= 1e-4, row)
+        check(r["grad_max_abs_err_over_largest"] <= 1e-4, row)
+        check(r["launches"]["flash_bwd_dkv"] > 0, row)
+    check(row["causal_diffusion_rel_err"] <= 1e-4, row)
+    check(row["causal_diffusion_flash_fwd"] == 2 * 3 * 2 * cfg.num_layers,
+          row)
+
+
 def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
            bound_ms, bound_by, library_ms, **extra):
     return {"name": name, "route": "cuda", "source": source,
@@ -2681,7 +3346,7 @@ def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
 
 def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                  int8_launches, train_counts, exp2, exp2_launches,
-                 path_launches):
+                 path_launches, bwd_paths, int8_paths):
     """The nine kernels at their main-path shapes: K1 at group 3 of the
     serving window, K2 / K3 at the training cross-attention (and their
     other shapes under `shapes`), K4-K6 at the
@@ -2690,7 +3355,11 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
     probe's shape.  `launches` sums the paths each runs on (the training
     kernels': the train phase's timed steps and train_resume's resumed
     step); `path_launches` holds K1's on the few-step, real-file CLI, i2v,
-    resumed-training, whole-clip and CLIP paths."""
+    resumed-training, whole-clip and CLIP paths, and on the distillation
+    slice's paths (the causal-diffusion and bidirectional pipelines, the
+    DPM window, the flow and distillation steps, the trainer's CLI);
+    `bwd_paths` K2's and K3's on the flow and distillation paths, and
+    `int8_paths` P2's and Q's on the int8 causal-diffusion run."""
     fwd_src = "mmpl_tpu_torch/csrc/flash_fwd.cu"
     sm90_src = "mmpl_tpu_torch/csrc/flash_fwd_sm90.cuh"
     bwd_src = "mmpl_tpu_torch/csrc/flash_bwd.cu"
@@ -2728,12 +3397,14 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                              ("flash_bwd_dq", "dq", 417)):
         out.append(_entry(
             name, bwd_sm90_src, f"mmpl_tpu/ops/attention.py:{line}",
-            train_counts[name],
+            train_counts[name] + sum(c[name] for c in bwd_paths.values()),
             grad_err(bwd, ("dk", "dv") if part == "dkv" else ("dq",)),
             b[f"{part}_ms"], b["plain_ms"], b[f"{part}_bound_ms"],
             b[f"{part}_bound_by"], b.get("library_bwd_ms"), at=BWD_MAIN,
             sources=[bwd_sm90_src, bwd_src], bodies=bwd_bodies,
             bound_share=b[f"{part}_bound_share"], note=bwd_note,
+            launches_by_path={"train": train_counts[name],
+                              **{p: c[name] for p, c in bwd_paths.items()}},
             shapes={k: {"body": r[f"{part}_body"], "splits": r["splits"],
                         "ms": r[f"{part}_ms"],
                         "bound_ms": r[f"{part}_bound_ms"],
@@ -2795,7 +3466,8 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
         "int8_gemm", p2_src,
         "tools/pallas_int8_mm_probe.py:38 (_mm_s8_kernel, pallas_call :49) "
         "and :61 (_mm_s8_kloop_kernel, pallas_call :82)",
-        int8_launches["int8_gemm"],
+        int8_launches["int8_gemm"]
+        + sum(c["int8_gemm"] for c in int8_paths.values()),
         max(r["max_abs_err"] for r in int8.values()), p2["ms"],
         p2["plain_ms"], p2["bound_ms"], p2["bound_by"], p2["library_ms"],
         at=INT8_MAIN, sources=[p2_src, int8_src],
@@ -2813,7 +3485,8 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
     out.append(_entry(
         "quantize_rows", int8_src,
         "mmpl_tpu/ops/quant.py:49-52 (per-token codes, fused by XLA)",
-        int8_launches["quantize_rows"],
+        int8_launches["quantize_rows"]
+        + sum(c["quantize_rows"] for c in int8_paths.values()),
         max(r["q_max_abs_err"] for r in int8.values() if "q_ms" in r),
         q["q_ms"], q["q_plain_ms"],
         q["q_bound_ms"], "bytes", None, at=Q_MAIN,
@@ -2907,9 +3580,41 @@ def main() -> int:
     path_launches["wan_i2v"] = phase_wan_i2v()
     path_launches["clip_text"] = phase_clip_text()
     phase_wan_parity()
+    # distillation, the flow objective and the baseline pipelines: the
+    # bf16 pipelines share one 1.3B model (the int8 run quantises it last)
+    dev = torch.device("cuda")
+    g = lambda s: torch.Generator(device=dev).manual_seed(s)
+    model = dit.randomize_head(dit.init_dit_params(
+        WAN_CONFIGS["t2v-1.3B"], g(40), torch.bfloat16, dev), g(139))
+    cond, uncond = cli.random_text_context(WAN_CONFIGS["t2v-1.3B"], dev)
+    path_launches["causal_diffusion"] = phase_causal_diffusion(
+        model, cond, uncond)[0]["flash_fwd"]
+    path_launches["bidirectional"] = phase_bidirectional(
+        model, cond, uncond)["flash_fwd"]
+    path_launches["window_dpm"] = phase_window_dpm(
+        model, cond, uncond)["flash_fwd"]
+    counts, int8_cd = phase_causal_diffusion(model, cond, uncond,
+                                             quantize="auto")
+    path_launches["causal_diffusion_int8"] = counts["flash_fwd"]
+    del model, cond, uncond
+    torch.cuda.empty_cache()
+    bwd_paths = {}
+    bwd_paths["train_flow"], _ = phase_train_flow()
+    torch.cuda.empty_cache()
+    bwd_paths["distill_dmd"] = phase_distill_dmd()
+    torch.cuda.empty_cache()
+    bwd_paths["distill_other"] = phase_distill_other()
+    torch.cuda.empty_cache()
+    bwd_paths["distill_rolling"] = phase_distill_rolling()
+    torch.cuda.empty_cache()
+    bwd_paths["train_distill_cli"] = phase_train_distill_cli()
+    phase_distill_parity()
+    for p, c in bwd_paths.items():
+        path_launches[p] = c["flash_fwd"]
     emit(kernels_line(smi, rows, bwd, masked, int8, window_launches,
                       int8_launches, train_counts, exp2, exp2_launches,
-                      path_launches))
+                      path_launches, bwd_paths,
+                      {"causal_diffusion_int8": int8_cd}))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

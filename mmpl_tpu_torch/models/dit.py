@@ -200,6 +200,10 @@ def remat(fn: Callable[[torch.Tensor], torch.Tensor],
     return checkpoint(fn, x, use_reentrant=False)
 
 
+#: `remat` under another name, for the functions whose flag is `remat`
+_remat = remat
+
+
 # ---------------------------------------------------------------------------
 # Initialisation (random weights from an explicit generator)
 # ---------------------------------------------------------------------------
@@ -653,13 +657,32 @@ def randomize_head(model: WanDiT, generator: torch.Generator,
 def dit_forward(model: WanDiT, cfg, latents: torch.Tensor, t: torch.Tensor,
                 context: torch.Tensor,
                 clip_fea: Optional[torch.Tensor] = None,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                y: Optional[torch.Tensor] = None,
+                remat: bool = False,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The bidirectional Wan DiT: latents [B, F, C, H, W], t [B] or
     [B, F], context [B, T, text_dim] -> flow [B, F, C_out, H, W].  Every
     token attends every token of the window; RoPE runs at frames 0..F-1.
     i2v: `clip_fea` [B, 257, 1280] CLIP image tokens (the image
     cross-attention), `y` [B, F, C', H, W] concatenated to the latents
-    along channels before the patch embedding."""
+    along channels before the patch embedding.  remat=True recomputes
+    each block in the backward pass (the score models and the flow
+    objective, which train through this forward); it changes no value.
+    compute_dtype: the parameters are read cast to it (the bf16 trunk over
+    fp32 masters, grads flowing back through the cast): the embeddings and
+    the head here, each block's inside its own (recomputed) step, so that
+    the recomputation reads the same cast values."""
+    if compute_dtype is None:
+        return _dit_forward(model, cfg, latents, t, context, clip_fea, y,
+                            remat, None)
+    outer = {n: p.to(compute_dtype) for n, p in model.named_parameters()
+             if not n.startswith("blocks.")}
+    return call_with(model, outer, _dit_forward, cfg, latents, t, context,
+                     clip_fea, y, remat, compute_dtype)
+
+
+def _dit_forward(model, cfg, latents, t, context, clip_fea, y, remat,
+                 block_dtype):
     if y is not None:
         latents = torch.cat([latents, y.to(latents.dtype)], dim=2)
     B, Fr, C, H, W = latents.shape
@@ -677,10 +700,20 @@ def dit_forward(model: WanDiT, cfg, latents: torch.Tensor, t: torch.Tensor,
     cos = torch.as_tensor(cos_np, device=x.device)
     sin = torch.as_tensor(sin_np, device=x.device)
 
+    def block_fn(x, blk, ckv):
+        def self_attn_fn(xm):
+            q, k, v = qkv_project(blk.self_attn, xm, n, d, cos, sin)
+            return linear(blk.self_attn.o,
+                          attention(q, k, v).reshape(B, xm.shape[1], -1))
+        return block_forward(blk, cfg, x, e0, self_attn_fn, ckv, Fr)
+
     for blk, ckv in zip(model.blocks, ctx_kv):
-        def self_attn_fn(xm, sa=blk.self_attn):
-            q, k, v = qkv_project(sa, xm, n, d, cos, sin)
-            return linear(sa.o, attention(q, k, v).reshape(B, xm.shape[1], -1))
-        x = block_forward(blk, cfg, x, e0, self_attn_fn, ckv, Fr)
+        if block_dtype is None:
+            step = lambda x, blk=blk, ckv=ckv: block_fn(x, blk, ckv)
+        else:
+            step = lambda x, blk=blk, ckv=ckv: call_with(
+                blk, cast_params(blk, block_dtype),
+                lambda b, x: block_fn(x, b, ckv), x)
+        x = _remat(step, x) if remat else step(x)
     x = head_forward(model.head, cfg, x, e, Fr)
     return unpatchify(x, Fr, grid, cfg.patch_size, cfg.out_dim)

@@ -11,8 +11,11 @@ mask.  The cached K carries RoPE in the fused projection's split-half
 channel layout.  An int8 cache (`init_kv_cache(quantize=True)`) keeps
 per-token f32 scales beside the codes: the gathered visible set is
 dequantised in the activation dtype, and the commit pass writes codes.
-Training needs no cache: its self-attention runs the frame-masked kernels
-over the whole [clean | noisy] sequence.
+Teacher forcing needs no cache: its self-attention runs the frame-masked
+kernels over the whole [clean | noisy] sequence.  The self-forcing rollout
+and the ODE loss train through `fps_forward_group` itself, with per-layer
+recomputation and, where a later pass must still read the cache an
+earlier one read or gradients flow through the cache, functional writes.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from ..ops.quant import quantize_rows
 from ..ops.rope import rope_table
 from .dit import (WanDiT, block_forward, call_with, cast_params, embed_text,
                   head_forward, linear, patchify, precompute_context_kv,
-                  qkv_project, remat, time_embed, unpatchify)
+                  qkv_project, time_embed, unpatchify)
+from .dit import remat as remat_layer
 
 
 def init_kv_cache(cfg, batch_size: int, tokens_per_frame: int,
@@ -67,6 +71,19 @@ def _gather(kv_cache, name: str, li: int, slots: torch.Tensor,
     return x.to(dtype) * scale[li].index_select(1, slots)[..., None].to(dtype)
 
 
+def _write(kv_cache, name: str, slots: torch.Tensor,
+           per_layer: List[torch.Tensor], inplace: bool) -> None:
+    """Write each layer's [B, G, ...] rows into the slots of cache `name`:
+    in place, or as a new tensor that replaces the dict's entry."""
+    dtype = kv_cache[name].dtype
+    if inplace:
+        for li, rows in enumerate(per_layer):
+            kv_cache[name][li].index_copy_(1, slots, rows.to(dtype))
+    else:
+        kv_cache[name] = kv_cache[name].index_copy(
+            2, slots, torch.stack([r.to(dtype) for r in per_layer]))
+
+
 def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
                       t: torch.Tensor, ctx_kv: List[Dict[str, torch.Tensor]],
                       kv_cache: Dict[str, torch.Tensor],
@@ -74,7 +91,9 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
                       write_cache: bool = False,
                       rope_cs: Optional[Tuple[torch.Tensor, torch.Tensor]]
                       = None,
-                      y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      y: Optional[torch.Tensor] = None,
+                      remat: bool = False,
+                      inplace: bool = True) -> torch.Tensor:
     """One forward of the group's frames through the whole trunk.
 
     latents [B, G, C, H, W] (frames ascending as `schedule.frames`);
@@ -90,7 +109,16 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
     the clean commit pass (`write_cache=True`) writes, and it writes the
     group's `write_slots` of `kv_cache` IN PLACE, once, after the layer
     loop (codes and scales for an int8 cache).  Append-mode groups never
-    write.
+    write.  With `inplace=False` the write is functional instead: each of
+    `kv_cache`'s entries is replaced by a new tensor, differentiable in
+    the written K/V, and the tensors it replaces stay as they were.  That
+    is what training needs where a later pass must still read the old
+    cache (the recomputation of an earlier graded block) or where
+    gradients flow through the cache (the ODE loss).
+
+    remat=True recomputes each layer in the backward pass (`dit.remat`);
+    the layers read the cache tensors bound at entry, so a later
+    functional write does not change what the recomputation reads.
     """
     if y is not None:
         latents = torch.cat([latents, y.to(latents.dtype)], dim=2)
@@ -115,41 +143,55 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
                                      schedule.visible_slots) if f not in own]
     vis_other = torch.as_tensor(other_slots, dtype=torch.long, device=device)
     write = write_cache and not schedule.append_mode
-    own_kv = []
+    cache = dict(kv_cache)      # the tensors this pass reads
 
-    for li, blk in enumerate(model.blocks):
-        def self_attn_fn(xm, sa=blk.self_attn, li=li):
+    def layer(x, blk, ckv, li):
+        own_kv = []
+
+        def self_attn_fn(xm):
             L = xm.shape[1]
-            q, k, v = qkv_project(sa, xm, n, d, cos, sin)
+            q, k, v = qkv_project(blk.self_attn, xm, n, d, cos, sin)
             if other_slots:
-                ck = _gather(kv_cache, "k", li, vis_other, k.dtype)
-                cv = _gather(kv_cache, "v", li, vis_other, v.dtype)
+                ck = _gather(cache, "k", li, vis_other, k.dtype)
+                cv = _gather(cache, "v", li, vis_other, v.dtype)
                 kv_k = torch.cat([ck.reshape(B, -1, n, d), k], dim=1)
                 kv_v = torch.cat([cv.reshape(B, -1, n, d), v], dim=1)
             else:
                 kv_k, kv_v = k, v
             out = attention(q, kv_k, kv_v)
             if write:
-                own_kv.append((k.reshape(B, G, S, n * d),
+                own_kv.extend((k.reshape(B, G, S, n * d),
                                v.reshape(B, G, S, n * d)))
-            return linear(sa.o, out.reshape(B, L, -1))
+            return linear(blk.self_attn.o, out.reshape(B, L, -1))
 
-        x = block_forward(blk, cfg, x, e0, self_attn_fn, ctx_kv[li], G)
+        x = block_forward(blk, cfg, x, e0, self_attn_fn, ckv, G)
+        return (x, *own_kv) if write else x
+
+    own_k, own_v = [], []
+    for li, blk in enumerate(model.blocks):
+        step = lambda x, blk=blk, li=li: layer(x, blk, ctx_kv[li], li)
+        out = remat_layer(step, x) if remat else step(x)
+        if write:
+            x, k, v = out
+            own_k.append(k)
+            own_v.append(v)
+        else:
+            x = out
 
     if write:
         slots = torch.as_tensor(schedule.write_slots, dtype=torch.long,
                                 device=device)
-        for li, own in enumerate(own_kv):
-            for name, kv in zip(("k", "v"), own):
-                if f"{name}_scale" in kv_cache:
-                    # per-token codes: one launch of Q per layer and name
-                    codes, scale = quantize_rows(kv.reshape(-1, n * d)
-                                                 .contiguous())
-                    kv = codes.reshape(kv.shape)
-                    kv_cache[f"{name}_scale"][li].index_copy_(
-                        1, slots, scale.reshape(kv.shape[:-1]))
-                kv_cache[name][li].index_copy_(1, slots,
-                                               kv.to(kv_cache[name].dtype))
+        for name, own_l in (("k", own_k), ("v", own_v)):
+            if f"{name}_scale" in kv_cache:
+                # per-token codes: one launch of Q per layer and name
+                coded = [quantize_rows(kv.reshape(-1, n * d).contiguous())
+                         for kv in own_l]
+                own_l = [c.reshape(kv.shape) for (c, _), kv
+                         in zip(coded, own_l)]
+                scales = [sc.reshape(kv.shape[:-1]) for (_, sc), kv
+                          in zip(coded, own_l)]
+                _write(kv_cache, f"{name}_scale", slots, scales, inplace)
+            _write(kv_cache, name, slots, own_l, inplace)
 
     x = head_forward(model.head, cfg, x, e, G)
     return unpatchify(x, G, grid, cfg.patch_size, cfg.out_dim)
@@ -240,7 +282,7 @@ def _forward_train(model, cfg, noisy, t, context, frame_mask, clean_x,
         # the same cast values
         step = lambda x, blk=blk, ckv=ckv: call_with(
             blk, cast_params(blk, dtype), block_fn, x, ckv)
-        x = remat(step, x)
+        x = remat_layer(step, x)
 
     if clean_x is not None:
         x = x[:, x.shape[1] // 2:]

@@ -57,6 +57,21 @@ def block_schedule(start_frame: int, num_frames: int,
         anchor_group=False)
 
 
+def rolling_schedule(cap: int, G: int,
+                     slot_order: Sequence[int]) -> GroupSchedule:
+    """The steady-state block's schedule in a ring of `cap` slots: it
+    writes the slots of the last G recency positions and attends to every
+    other slot, in recency order, then to its own K/V.  The frame ids are
+    placeholders (RoPE comes from the start frame)."""
+    return GroupSchedule(
+        index=-1, frames=tuple(range(10 ** 6, 10 ** 6 + G)),
+        append_mode=False,
+        write_slots=tuple(slot_order[cap - G:]),
+        visible_frames=tuple(range(cap - G)),
+        visible_slots=tuple(slot_order[:cap - G]),
+        anchor_group=False)
+
+
 def in_recency_order(cache: Dict[str, torch.Tensor],
                      slot_order: Sequence[int]) -> Dict[str, torch.Tensor]:
     """The ring cache's leaves with their slots in recency order (the JAX
@@ -170,18 +185,7 @@ class CausalInferencePipeline:
 
     def _rolling_schedule(self, G: int,
                           slot_order: Sequence[int]) -> GroupSchedule:
-        """The steady-state block's schedule: it writes the slots of the
-        last G recency positions and attends to every other slot, in
-        recency order, then to its own K/V.  The frame ids are placeholders
-        (RoPE comes from the start frame)."""
-        cap = self.max_attention_frames
-        return GroupSchedule(
-            index=-1, frames=tuple(range(10 ** 6, 10 ** 6 + G)),
-            append_mode=False,
-            write_slots=tuple(slot_order[cap - G:]),
-            visible_frames=tuple(range(cap - G)),
-            visible_slots=tuple(slot_order[:cap - G]),
-            anchor_group=False)
+        return rolling_schedule(self.max_attention_frames, G, slot_order)
 
     def _denoise_block_rolling(self, ctx_kv, cache, slot_order: List[int],
                                noisy: torch.Tensor, start_frame: int,

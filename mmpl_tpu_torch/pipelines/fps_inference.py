@@ -11,6 +11,10 @@ Port of `mmpl_tpu/pipelines/fps_inference.py` (single device).  Behaviour:
     FlowMatch `add_noise` at `ddpm_timestep`, which resolves to sigma = 1.0.
     The reseed noise is a tensor drawn by `inference` from an explicit
     `torch.Generator`, or handed in by the caller;
+  * `sample_solver` picks the group loop's sampler: "unipc" (FlowUniPC)
+    or "dpm++" (FlowDPMSolver, order 2); both step a state dict through
+    `step(coef, state, flow)`, UniPC's with its two-step history, DPM's
+    with the previous x0 only;
   * `quantize` ("int8" W8A8, "int8wo" W8A16, "auto" per projection) turns
     the block projections into int8 codes at construction
     (`dit.apply_quantize`), and `quantize_cache` keeps the KV cache in int8
@@ -29,6 +33,7 @@ from ..core.geometry import ChunkPlan, GroupSchedule, KV_CACHE_SLOTS, t2v_plan
 from ..models.dit import (WanDiT, apply_quantize, embed_image_clip,
                           embed_text, fuse_qkv_params, precompute_context_kv)
 from ..models.fps_dit import fps_forward_group, init_kv_cache
+from ..schedulers.dpm_solver import FlowDPMSolver
 from ..schedulers.flow_match import FlowMatchScheduler
 from ..schedulers.unipc import FlowUniPC
 
@@ -41,6 +46,7 @@ class CausalFPSInferencePipeline:
                  guidance_scale: float = 5.0,
                  num_train_timesteps: int = 1000,
                  reseed_seed: int = 0,
+                 sample_solver: str = "unipc",
                  fuse_qkv: bool = True,
                  quantize: Optional[str] = None,
                  quantize_cache: bool = False,
@@ -55,8 +61,12 @@ class CausalFPSInferencePipeline:
         self.plan = plan or t2v_plan()
         self.guidance_scale = float(guidance_scale)
         self.dtype = dtype
-        self.sampler = FlowUniPC(sampling_steps, shift=timestep_shift,
-                                 num_train_timesteps=num_train_timesteps)
+        solvers = {"unipc": FlowUniPC, "dpm++": FlowDPMSolver}
+        if sample_solver not in solvers:
+            raise NotImplementedError(f"Unsupported solver {sample_solver}")
+        self.sampler = solvers[sample_solver](
+            sampling_steps, shift=timestep_shift,
+            num_train_timesteps=num_train_timesteps)
         # the re-seed scheduler, training-mode tables at the run shift; the
         # random index in [980, 1000) is drawn once, as in the reference
         self.ddpm = FlowMatchScheduler(shift=timestep_shift, sigma_min=0.0,

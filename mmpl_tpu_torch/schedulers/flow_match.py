@@ -82,6 +82,15 @@ class FlowMatchScheduler:
         out = xt.float() - sigma * flow_pred.float()
         return out.to(flow_pred.dtype)
 
+    def convert_x0_to_flow_pred(self, x0_pred: torch.Tensor,
+                                xt: torch.Tensor,
+                                timestep: torch.Tensor) -> torch.Tensor:
+        """v = (x_t - x0) / sigma_t, in fp32, returned in x0_pred's dtype."""
+        sigma = self.sigma_of(timestep)
+        sigma = sigma.reshape(sigma.shape + (1,) * (xt.ndim - 1))
+        out = (xt.float() - x0_pred.float()) / sigma
+        return out.to(x0_pred.dtype)
+
     def training_weight(self, timestep: torch.Tensor) -> torch.Tensor:
         """Per-timestep loss weight of the nearest table timestep, one per
         entry (`set_timesteps(training=True)` first)."""

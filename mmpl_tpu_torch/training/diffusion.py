@@ -1,7 +1,12 @@
-"""Flow-matching teacher-forcing training on one device.
+"""Flow-matching training on one device: teacher forcing and the flow
+objective.
 
-Port of the teacher-forcing part of `mmpl_tpu/training/diffusion.py`
-(`make_teacher_forcing_loss_fn`, `DiffusionTrainer`) without the mesh:
+Port of `mmpl_tpu/training/diffusion.py` (`make_teacher_forcing_loss_fn`,
+`make_loss_fn`, `sample_block_timesteps`, `DiffusionTrainer`) without the
+mesh.  The flow objective (`make_loss_fn`) is flow-matching MSE on the
+bidirectional `dit_forward` with per-block rematerialisation, blockwise
+timesteps, the training weight and 10% CFG dropout (one coin per sample).
+Teacher forcing:
   * blockwise random timesteps (equal within each `num_frame_per_block`
     group), flow target v = noise - x0 and the per-timestep loss weight;
   * the [clean | noisy] sequence under the frame mask (typically
@@ -21,6 +26,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..models.dit import dit_forward
 from ..models.fps_dit import fps_forward_train
 from ..schedulers.flow_match import FlowMatchScheduler
 
@@ -43,6 +49,64 @@ def draw_teacher_forcing(generator: torch.Generator, latents_shape,
                     if noise_aug_max_timestep > 0 else None),
         "coin": torch.rand((), **kw),
     }
+
+
+def sample_block_timesteps(generator: torch.Generator, batch: int,
+                           num_frames: int, num_frame_per_block: int,
+                           min_t: int = 0, max_t: int = 1000,
+                           device=None) -> torch.Tensor:
+    """[B, F] integer timesteps as fp32, equal within each block."""
+    nb = num_frames // num_frame_per_block
+    t = torch.randint(min_t, max_t, (batch, nb), generator=generator,
+                      device=device).float()
+    return t.repeat_interleave(num_frame_per_block, dim=1)
+
+
+def draw_flow(generator: torch.Generator, latents_shape,
+              num_frame_per_block: int = 3,
+              device=None) -> Dict[str, torch.Tensor]:
+    """One flow step's draws: `t` [B, F] block timesteps, `noise` like the
+    latents, `coin` [B] in [0, 1) (CFG dropout where < the rate)."""
+    B, F = latents_shape[:2]
+    return {"t": sample_block_timesteps(generator, B, F, num_frame_per_block,
+                                        device=device),
+            "noise": torch.randn(tuple(latents_shape), generator=generator,
+                                 device=device),
+            "coin": torch.rand((B,), generator=generator, device=device)}
+
+
+def make_loss_fn(cfg, scheduler: FlowMatchScheduler,
+                 cfg_dropout: float = 0.1,
+                 compute_dtype=torch.bfloat16,
+                 remat: bool = True) -> Callable:
+    """Flow-matching MSE with timestep weighting on the bidirectional Wan
+    DiT; loss_fn(model, batch, draws).
+
+    batch: {"latents" [B, F, C, H, W], "context" [B, T, text_dim]};
+    draws: from `draw_flow`.  The trunk reads the parameters cast to
+    compute_dtype (default bf16 over fp32 masters); the noising and the
+    loss stay fp32."""
+
+    def loss_fn(model, batch, draws):
+        x0 = batch["latents"].float()
+        context = batch["context"]
+        B, F = x0.shape[:2]
+        flat = lambda a: a.reshape((-1,) + tuple(a.shape[2:]))
+        ts = torch.as_tensor(scheduler.timesteps, device=x0.device)
+        # the integer train step -> the shifted schedule's timestep
+        t = ts[draws["t"].long().clamp(0, ts.shape[0] - 1)]
+        noise = draws["noise"].float()
+        xt = scheduler.add_noise(flat(x0), flat(noise),
+                                 t.reshape(-1)).reshape(x0.shape)
+        drop = (draws["coin"] < cfg_dropout).reshape(B, 1, 1)
+        context = torch.where(drop, torch.zeros_like(context), context)
+        flow = dit_forward(model, cfg, xt.to(compute_dtype), t, context,
+                           remat=remat, compute_dtype=compute_dtype)
+        err = (flow.float() - (noise - x0)) ** 2
+        w = scheduler.training_weight(t).reshape(B, F, 1, 1, 1)
+        return torch.mean(err * w)
+
+    return loss_fn
 
 
 def make_teacher_forcing_loss_fn(cfg, scheduler: FlowMatchScheduler,

@@ -19,6 +19,7 @@ numpy's `bfloat16` extension type or any 2-byte view of it).  Conversions:
     `norm_k_img`) map like the others; the CLIP visual tower, XLM-RoBERTa
     (its bare embedding tables -> `.weight`) and its head, and the whole
     XLMRobertaCLIP map onto `models.clip` / `models.xlm_roberta`;
+  * the GAN head of the distillation trainer (`training.gan.GanHead`);
   * the JAX trainer's state (params, optax AdamW state, EMA shadow, step)
     -> a checkpoint of `utils/train_state_io` for the port's trainer.
 
@@ -148,6 +149,13 @@ def train_state_from_jax(params, opt_state, ema, step: int, cfg,
                     for i, n in enumerate(names)}
     return {"model": dit_state_from_jax(params, cfg), "optimizer": opt,
             "ema": dit_state_from_jax(ema, cfg), "step": int(step)}
+
+
+def gan_head_state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """State dict of `training.gan.GanHead` from `init_gan_head_params`-
+    style params (the register tokens as they are, each `gan_blocks` entry
+    -> `gan_blocks.<i>.*`)."""
+    return dict(_leaf(path, a) for path, a in _walk(tree))
 
 
 def vae_state_from_jax(tree) -> Dict[str, torch.Tensor]:

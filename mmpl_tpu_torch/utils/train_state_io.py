@@ -4,13 +4,17 @@ Port of `mmpl_tpu/utils/train_state_io.py`.  The JAX trainer checkpoints
 its pytree with orbax; the port writes one `torch.save` dict instead (a
 different format: neither package reads the other's checkpoint):
 
-  * "model": the fp32 master weights (the trainer's state dict),
+  * "model": the fp32 master weights (the trainer's state dict), or
+    "models": one state dict per trained model (the distillation trainer:
+    generator, fake score, GAN head),
   * "optimizer": the AdamW state dict (`exp_avg`, `exp_avg_sq` and `step`
-    of each parameter, and the hyper-parameters),
+    of each parameter, and the hyper-parameters), or "opt_g" and "opt_c",
+    the generator's and the critic's,
   * "ema": the EMA shadow,
   * "step": the number of steps taken,
-  * "rng": the states of the trainer's `torch.Generator`s, so that a
-    resumed run draws the numbers an unbroken run would.
+  * "rng": the states of the trainer's `torch.Generator`s (and of the
+    rollout-length numpy Generator), so that a resumed run draws the
+    numbers an unbroken run would.
 
 A checkpoint `<dir>/stepN` is a directory holding `train_state.pt`, which
 is written under a temporary name and renamed into place, so a reader
@@ -56,22 +60,30 @@ def restore_checkpoint(path: str,
 
     With a `template` (a dict of the same layout, e.g. the trainer's
     current state), every key of the template must be in the checkpoint,
-    and each tensor of `template["model"]` must have its saved tensor's
-    shape and dtype; a mismatch raises and names the tensor."""
+    and each tensor of `template["model"]` (and of each model of
+    `template["models"]`, the distillation trainer's) must have its saved
+    tensor's shape and dtype; a mismatch raises and names the tensor."""
     state = torch.load(os.path.join(path, STATE_FILE),
                        map_location=map_location, weights_only=True)
     if template is not None:
         missing = sorted(set(template) - set(state))
         if missing:
             raise KeyError(f"checkpoint {path} lacks {missing}")
-        for name, like in template.get("model", {}).items():
-            got = state["model"].get(name)
-            if got is None or got.shape != like.shape \
-                    or got.dtype != like.dtype:
-                raise ValueError(
-                    f"checkpoint {path}: model tensor {name!r} is "
-                    f"{None if got is None else (tuple(got.shape), got.dtype)}"
-                    f", expected {(tuple(like.shape), like.dtype)}")
+        models = {"model": (template.get("model", {}),
+                            state.get("model", {}))}
+        for key, like in template.get("models", {}).items():
+            if key not in state["models"]:
+                raise KeyError(f"checkpoint {path} lacks model {key!r}")
+            models[key] = (like, state["models"][key])
+        for what, (want, saved) in models.items():
+            for name, like in want.items():
+                got = saved.get(name)
+                if got is None or got.shape != like.shape \
+                        or got.dtype != like.dtype:
+                    raise ValueError(
+                        f"checkpoint {path}: {what} tensor {name!r} is "
+                        f"{None if got is None else (tuple(got.shape), got.dtype)}"
+                        f", expected {(tuple(like.shape), like.dtype)}")
     return state
 
 

@@ -964,3 +964,92 @@ def test_i2v_dit_forward_on_the_card(cuda):
     assert ta.launch_counts["flash_fwd"] == 3 * cfg.num_layers
     rel = ((got - want).norm() / want.norm()).item()
     assert rel <= 1e-4, rel
+
+
+# ---------------------------------------------------------------------------
+# Distillation and the flow objective: K1-K3 at the shapes the critic, the
+# flow objective, the rollout's graded blocks and the GAN head run, and a
+# tiny DMD step on the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,lq,lk", [
+    (1, 32760, 32760),      # critic / flow / bidirectional self-attention
+    (2, 1, 32760),          # the GAN head: one register token a sample
+    (1, 4680, 18720),       # a graded rollout block over 3 cached blocks
+    (1, 32760, 512)])       # the scores' text cross-attention
+def test_k1_k2_k3_match_plain_at_the_distillation_shapes(cuda, B, lq, lk):
+    q, k, v, do = _bwd_inputs(lq, lk, 128, torch.bfloat16, cuda, seed=lq,
+                              B=B, N=12)
+    o, lse = ta.flash_fwd_cuda(q, k, v)
+    po, plse = ta.flash_attention_plain(q, k, v)
+    assert (o.float() - po.float()).abs().max().item() <= 2e-2
+    assert (lse - plse).abs().max().item() <= 1e-3
+    del po, plse
+    _, errs = _bwd_errors(q, k, v, do)
+    assert max(errs) <= 1e-2, errs
+
+
+def _tiny_dmd(device):
+    """Tiny fp32 generator, fake and real scores, a 2-block batch."""
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    from mmpl_tpu_torch.models import dit
+    cfg = tiny_test_config()
+    g = lambda s: torch.Generator().manual_seed(s)
+    models = {k: dit.randomize_head(dit.init_dit_params(
+        cfg, g(s), torch.float32), g(s + 99)).to(device)
+        for k, s in (("generator", 0), ("fake_score", 1),
+                     ("real_score", 2))}
+    ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g(5))
+    return cfg, models, ctx.to(device), torch.randn(
+        1, 6, 16, 4, 4, generator=g(6)).to(device)
+
+
+@pytest.mark.parametrize("loss,trained", [("dmd_generator_loss", "generator"),
+                                          ("critic_loss", "fake_score")])
+def test_tiny_dmd_step_on_the_card_matches_the_cpu(cuda, loss, trained):
+    """One fp32 DMD generator (or critic) loss and its gradients on the
+    card against the CPU, the draws handed in."""
+    from mmpl_tpu_torch.models import dit
+    from mmpl_tpu_torch.training.diffusion import make_scheduler
+    from mmpl_tpu_torch.training.distillation import (DistillationConfig,
+                                                      Distiller)
+    from mmpl_tpu_torch.training.self_forcing import SelfForcingRollout
+    out = {}
+    for dev in ("cpu", cuda):
+        cfg, models, ctx, noise = _tiny_dmd(dev)
+        sch = make_scheduler(5.0)
+        ro = SelfForcingRollout(cfg, sch, (1000, 750, 500, 250),
+                                num_max_frames=6, grad_frame_window=6)
+        dist = Distiller(cfg, DistillationConfig(timestep_shift=5.0), ro,
+                         sch)
+        with torch.no_grad():
+            kv = dit.precompute_context_kv(
+                models["generator"], cfg,
+                dit.embed_text(models["generator"], ctx))
+        gen = torch.Generator().manual_seed(7)
+        draws = {"exit_flags": torch.tensor([2, 2]),
+                 "rollout": [{"step": [torch.randn(1, 3, 16, 4, 4,
+                                                   generator=gen)
+                                       for _ in range(3)],
+                              "commit": torch.randn(1, 3, 16, 4, 4,
+                                                    generator=gen)}
+                             for _ in range(2)],
+                 "u": torch.rand(1, 1, generator=gen).to(dev),
+                 "noise": torch.randn(1, 6, 16, 4, 4,
+                                      generator=gen).to(dev)}
+        models[trained].requires_grad_(True)
+        ta.reset_launch_counts()
+        val, _ = getattr(dist, loss)(
+            models, {"noise": noise, "ctx_kv": kv, "context": ctx,
+                     "uncond_context": torch.zeros_like(ctx)}, draws)
+        val.backward()
+        out[str(dev)] = (val.item(), {
+            n: p.grad.cpu() for n, p in models[trained].named_parameters()
+            if p.grad is not None}, dict(ta.launch_counts))
+    (lc, gc, _), (lg, gg, counts) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    scale = max(g.abs().max().item() for g in gc.values())
+    for n in gc:
+        assert (gg[n] - gc[n]).abs().max().item() <= 1e-4 * scale, n
+    assert counts["flash_fwd"] > 0 and counts["flash_bwd_dkv"] > 0 \
+        and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"], counts
