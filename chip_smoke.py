@@ -128,7 +128,25 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      causal-diffusion run, card against CPU.  The K1 / K2 / K3 rows of the
      kernel phases include the critic's and flow's 32760^2, the scores'
      32760 x 512 and the GAN head's 1 x 32760;
-  17. the kernels line, then the final device line.
+  17. multi-device and serving on this one card: chunk_pipeline,
+     `ChunkParallelPipeline` at 1.3B (480x832, bf16, 4 steps): 3 chunks
+     over 2 stages (two streams, one model), then on 1 stage, with wall
+     seconds, peak memory, each chunk's CUDA events, the overlap and exact
+     K1 launches, the two runs' chunks compared bit for bit;
+     generate_parallel, `python -m mmpl_tpu_torch.generate_parallel` in
+     smoke mode writing its chunk files; serving, the HTTP server in this
+     process on 127.0.0.1 backed by the 1.3B chunk pipeline on 2 stages, a
+     2-chunk request polled to success, chunk 0's file out while chunk 1
+     still runs; ring, `ring_flash_attention` with ring = 4
+     in the in-process group at 32760 tokens (B=2, 12 x 128) against one
+     K1 call and K2 / K3 over the whole sequence; usp, `WanT2V` with sp 2 x
+     ring 2 in the in-process group against one device, at 1.3B and full
+     depth; mesh, `init_distributed` and `make_mesh` on NCCL at world size
+     1, USP attention over the process groups, one group-3 forward of the
+     pipeline built over the mesh, one 1.3B teacher-forcing step at full
+     width and depth FSDP-sharded over the mesh against the same step
+     unsharded, and one `train --mesh` CLI step in smoke mode;
+  18. the kernels line, then the final device line.
 """
 
 from __future__ import annotations
@@ -332,7 +350,13 @@ TRAIN_LAUNCHES_PER_LAYER = {"flash_fwd": 2, "flash_masked_fwd": 2,
                             "flash_masked_bwd_dq": 1}
 
 
+#: perf_counter at import: every phase row carries its seconds since then
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -3335,6 +3359,568 @@ def phase_distill_parity():
           row)
 
 
+# ---------------------------------------------------------------------------
+# Multi-device and serving: the chunk pipeline, its entry, the server, the
+# ring, sequence parallelism and the process groups
+# ---------------------------------------------------------------------------
+
+CHUNKS = 3
+
+
+def _chunk_forwards(steps: int, chunks: int) -> int:
+    """DiT forwards of `chunks` chained t2v chunks: chunk 0 as a window
+    from noise, each later one as a bridged window (`_window_forwards`)."""
+    return (4 * steps + 3) + (chunks - 1) * (3 * steps + 3)
+
+
+def phase_chunk_pipeline(steps: int = 4):
+    """`ChunkParallelPipeline` at 1.3B (480x832, bf16, the CFG pair, 30
+    layers, `steps` UniPC steps): 3 chunks over 2 stages on one card (two
+    streams, chunk 2 back on stage 0), then the same chunks on 1 stage.
+    Wall seconds and peak memory each way, each chunk's CUDA events, the
+    overlap (chunk k+1's first group start against chunk k's end), exact
+    K1 launches, and the 2-stage chunks against the 1-stage ones."""
+    from mmpl_tpu_torch.parallel.chunk_pipeline import ChunkParallelPipeline
+    cfg = WAN_CONFIGS["t2v-1.3B"]
+    model = _model13(cfg, 0, torch.bfloat16)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = lambda s: torch.Generator(device=dev).manual_seed(s)
+    vae_m = vae.init_vae_params(g(1), torch.float32, dev)
+    cond, uncond = cli.random_text_context(cfg, dev)
+    gen = g(200)
+    noises = [torch.randn((1, 21, 16, 60, 104), generator=gen, device=dev)
+              for _ in range(CHUNKS)]
+    expected = _attn_counts(flash_fwd=2 * cfg.num_layers
+                            * _chunk_forwards(steps, CHUNKS))
+    runs, total = {}, 0
+    for stages in (2, 1):
+        pipe = ChunkParallelPipeline(cfg, model, vae_m, devices=[dev] * stages,
+                                     sampling_steps=steps,
+                                     dtype=torch.bfloat16)
+        torch.cuda.empty_cache()
+        chunks, seconds, counts, peak = _run_counted(
+            lambda: pipe.generate(noises, cond, uncond, seed=5))
+        timeline = pipe.device_timeline()
+        overlap = [{"chunks": [k, k + 1],
+                    "first_group_start_ms": timeline[k + 1]["groups_start_ms"],
+                    "previous_end_ms": timeline[k]["end_ms"],
+                    "overlap_ms": timeline[k]["end_ms"]
+                    - timeline[k + 1]["groups_start_ms"]}
+                   for k in range(CHUNKS - 1)]
+        row = {"phase": "chunk_pipeline", "stages": stages,
+               "chunks": CHUNKS, "steps": steps, "wall_s": seconds,
+               "device_span_ms": max(t["end_ms"] for t in timeline),
+               "timeline": timeline, "overlap": overlap,
+               "stage_of_chunk": [e["stage"] for e in pipe.dispatch_log],
+               "dispatch_s": [e["dispatch_end"] - e["dispatch_start"]
+                              for e in pipe.dispatch_log],
+               "launches": counts, "expected_launches": expected,
+               "max_memory_allocated_gib": peak,
+               "finite": all(bool(torch.isfinite(c).all()) for c in chunks)}
+        emit(row)
+        check(counts == expected, (counts, expected))
+        check(row["finite"] and all(c.shape == (1, 21, 16, 60, 104)
+                                    for c in chunks), row)
+        check(row["stage_of_chunk"] == [i % stages for i in range(CHUNKS)],
+              row)
+        runs[stages] = [c.cpu() for c in chunks]
+        total += counts["flash_fwd"]
+        del pipe, chunks
+    diffs = [(a - b).abs().max().item() for a, b in zip(runs[2], runs[1])]
+    rels = [((a - b).norm() / b.norm()).item()
+            for a, b in zip(runs[2], runs[1])]
+    row = {"phase": "chunk_pipeline_equal", "bit_equal": all(
+        torch.equal(a, b) for a, b in zip(runs[2], runs[1])),
+        "max_abs_diff": diffs, "rel_diff": rels}
+    if not row["bit_equal"]:
+        row["why"] = ("the stages launch on two streams of one card, so "
+                      "a kernel whose result depends on what runs beside "
+                      "it (a library call picking another algorithm or "
+                      "split) differs in its last bits; the diff grows "
+                      "through the solver steps and the bridge")
+    emit(row)
+    check(max(rels) < 1e-2, row)
+    del model, vae_m
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_generate_parallel():
+    """`python -m mmpl_tpu_torch.generate_parallel` in smoke mode on the
+    card, in this process: 2 chunks of the tiny model over every visible
+    card, one video file a chunk; exact K1 launches."""
+    from mmpl_tpu_torch import generate_parallel
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    out_dir = os.path.join(OUT_DIR, "generate_parallel")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--num-chunks", "2", "--sampling-steps", "4", "--output-dir",
+            out_dir]
+    try:
+        rc, seconds, counts, peak = _run_counted(
+            lambda: generate_parallel.main(argv))
+        files = sorted(os.listdir(out_dir))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    stages = torch.cuda.device_count()
+    expected = _attn_counts(flash_fwd=2 * tiny_test_config().num_layers
+                            * _chunk_forwards(4, 2))
+    row = {"phase": "generate_parallel", "argv": argv, "rc": rc,
+           "seconds": seconds, "stages": stages, "files": files,
+           "launches": counts, "expected_launches": expected}
+    emit(row)
+    check(rc == 0 and len(files) == 2, row)
+    check(counts == expected, (counts, expected))
+    return counts["flash_fwd"]
+
+
+def _http(port, path, body=None, timeout=30):
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def phase_serving(steps: int = 4):
+    """The HTTP server in this process on 127.0.0.1 (an ephemeral port),
+    backed by `make_pipeline_backend` over the 1.3B chunk pipeline (480x832,
+    bf16, `steps` steps, random text states) on 2 stages of this card:
+    /health, then a 2-chunk /parallel_text_2_video request polled through
+    /status to success, its files written; the request's seconds, exact K1
+    launches, and when chunk 1's file was published: while chunk 1 still
+    ran (its end event not yet complete)."""
+    import threading
+    from mmpl_tpu_torch.serving import server as srv_mod
+    cfg = WAN_CONFIGS["t2v-1.3B"]
+    model = _model13(cfg, 0, torch.bfloat16)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    vae_m = vae.init_vae_params(torch.Generator(device=dev).manual_seed(1),
+                                torch.float32, dev)
+    out_dir = os.path.join(OUT_DIR, "serving")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    config = srv_mod.ParallelServerConfig(host="127.0.0.1", port=0,
+                                          output_folder=out_dir,
+                                          num_chunks=2)
+    backend = srv_mod.make_pipeline_backend(
+        cfg, model, vae_m, srv_mod.smoke_text_encoder(cfg, dev), config,
+        devices=[dev, dev], lat_hw=(60, 104), sampling_steps=steps,
+        dtype=torch.bfloat16)
+
+    def chunk1_done() -> bool:
+        """Whether chunk 1's last group has run on the card (its log entry
+        is written once the chunk is enqueued)."""
+        log = backend.pipe.dispatch_log
+        return len(log) == 2 and bool(log[1]) \
+            and log[1]["cuda_events"]["end"].query()
+
+    server = srv_mod.create_server(config, backend=backend)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.server_address[1]
+        health = _http(port, "/health")
+        attn.reset_launch_counts()
+        t0 = time.perf_counter()
+        body = _http(port, "/parallel_text_2_video",
+                     {"prompt": "a red panda climbing a tree", "seed": 3,
+                      "num_chunks": 2, "seqid": "chip-smoke"})
+        rec, first = None, None
+        while time.perf_counter() - t0 < 600:
+            rec = _http(port, f"/status/{body['task_id']}")
+            if first is None and rec.get("data") and rec["data"]["video"]:
+                first = {"s": time.perf_counter() - t0,
+                         "status": rec["status"],
+                         "videos": len(rec["data"]["video"]),
+                         "chunk1_done": chunk1_done()}
+            if rec["status"] in (srv_mod.TaskStatus.SUCCESS.value,
+                                 srv_mod.TaskStatus.FAILED.value):
+                break
+            time.sleep(0.2)
+        seconds = time.perf_counter() - t0
+        search = _http(port, "/openapi/task_search", {"seqid": "chip-smoke"})
+        files = sorted(os.listdir(out_dir))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    counts = dict(attn.launch_counts)
+    expected = _attn_counts(flash_fwd=2 * cfg.num_layers
+                            * _chunk_forwards(steps, 2))
+    row = {"phase": "serving", "health": health, "request_s": seconds,
+           "status": rec["status"], "message": rec["message"],
+           "videos": rec["data"]["video"], "covers": rec["data"]["cover_image"],
+           "search_status": search["status"], "files": files,
+           "first_published": first, "stages": len(backend.pipe.stages),
+           "launches": counts, "expected_launches": expected}
+    emit(row)
+    check(health["status"] == "healthy" and health["model_loaded"], row)
+    check(rec["status"] == srv_mod.TaskStatus.SUCCESS.value
+          and len(rec["data"]["video"]) == 2
+          and len(rec["data"]["cover_image"]) == 2
+          and search["status"] == rec["status"], row)
+    check(counts == expected, (counts, expected))
+    # chunk 0's file is published while chunk 1 still runs
+    check(first is not None and first["videos"] == 1
+          and first["status"] == srv_mod.TaskStatus.PROCESSING.value
+          and not first["chunk1_done"], row)
+    del model, vae_m, backend
+    torch.cuda.empty_cache()
+    return counts["flash_fwd"]
+
+
+RING = 4
+RING_SHAPE = (2, 32760, 12, 128)
+
+
+def phase_ring():
+    """`ring_flash_attention` with ring = 4 in the in-process group at
+    32760 tokens, B=2, 12 x 128, bf16: one K1 call per ring step over the
+    four ranks' stacked shards, then K2 / K3 per step with the global lse
+    and delta.  Held against one K1 call over all 32760 keys and K2 / K3
+    over the whole sequence; exact launches (4 K1, 4 K2, 4 K3 a call); the
+    ring's ms, the whole-sequence kernels' ms, the merge's and the
+    rotations' own ms."""
+    from mmpl_tpu_torch.parallel.collectives import LocalMesh
+    mesh = LocalMesh({"ring": RING})
+    group = mesh.get_group("ring")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    q, k, v, do = (_rand(gen, torch.bfloat16, *RING_SHAPE) for _ in range(4))
+    shard = lambda x: mesh.shard(x, 1, ("ring",)).contiguous()
+    unshard = lambda x: mesh.gather(x, 1, ("ring",))
+    ql, kl, vl, dol = (shard(x) for x in (q, k, v, do))
+    # forward: the ring against K1 whole
+    attn.reset_launch_counts()
+    with torch.no_grad():
+        out_l, lse_l = attn._ring_fwd(ql, kl, vl, group, None)
+    fwd_counts = dict(attn.launch_counts)
+    o_w, lse_w = attn.flash_fwd_cuda(q, k, v)
+    out = unshard(out_l)
+    lse = lse_l.reshape(RING, 2, 12, -1).permute(1, 2, 0, 3).reshape(
+        2, 12, -1)
+    err = (out.float() - o_w.float()).abs()
+    # backward: autograd through the ring against K2 / K3 whole
+    leaves = [x.clone().requires_grad_() for x in (ql, kl, vl)]
+    attn.reset_launch_counts()
+    attn.ring_flash_attention(*leaves, group).backward(dol)
+    bwd_counts = dict(attn.launch_counts)
+    delta_w = (do.float() * o_w.float()).sum(-1).transpose(1, 2).contiguous()
+    dq_w, dk_w, dv_w = attn.flash_bwd_cuda(q, k, v, do, lse_w, delta_w)
+    rel = {f"{n}_rel_err": ((unshard(x.grad).float() - w.float()).norm()
+                            / w.float().norm()).item()
+           for n, x, w in zip(("dq", "dk", "dv"), leaves, (dq_w, dk_w, dv_w))}
+    torch.cuda.synchronize()
+    B, L, N, D = RING_SHAPE
+    o_c, lse_c = attn.flash_attention_lse(ql, kl, vl)
+    of = out_l.float()
+    row = {"phase": "ring", "ring": RING, "B": B, "L": L, "N": N, "D": D,
+           "group": "in-process (LocalMesh)",
+           "o_max_abs_err": err.max().item(),
+           "o_mean_abs_err": err.mean().item(),
+           "lse_max_abs_err": (lse - lse_w).abs().max().item(), **rel,
+           "fwd_launches": fwd_counts, "bwd_launches": bwd_counts,
+           "ms": time_ms(lambda: attn._ring_fwd(ql, kl, vl, group, None)),
+           "whole_k1_ms": time_ms(lambda: attn.flash_fwd_cuda(q, k, v)),
+           "merge_ms": (RING - 1) * time_ms(
+               lambda: attn.merge_lse(of, lse_l, o_c, lse_c)),
+           "rotate_ms": 2 * (RING - 1) * time_ms(lambda: group.rotate(kl))}
+
+    def fwd_bwd():
+        xs = [x.detach().requires_grad_() for x in (ql, kl, vl)]
+        attn.ring_flash_attention(*xs, group).backward(dol)
+
+    row["fwd_bwd_ms"] = time_ms(fwd_bwd)
+    row["whole_fwd_bwd_ms"] = time_ms(
+        lambda: attn.flash_bwd_cuda(q, k, v, do, lse_w, delta_w)) \
+        + row["whole_k1_ms"]
+    row["bound_ms"], row["bound_by"] = bound(B, N, D, L, L, torch.bfloat16)
+    emit(row)
+    check(row["o_max_abs_err"] <= FWD_TOL["max"]
+          and row["o_mean_abs_err"] <= FWD_TOL["mean"]
+          and row["lse_max_abs_err"] <= FWD_TOL["lse"], row)
+    check(all(v <= GRAD_REL_TOL[torch.bfloat16] for v in rel.values()), row)
+    check(fwd_counts == _k123(RING), fwd_counts)
+    check(bwd_counts == _k123(RING, RING), bwd_counts)
+    del q, k, v, do, ql, kl, vl, dol, leaves, o_w, dq_w, dk_w, dv_w
+    torch.cuda.empty_cache()
+    return _k123(2 * RING, RING)
+
+
+def phase_usp(steps: int = 2):
+    """`WanT2V` at 1.3B, full depth, 480x832, bf16, `steps` UniPC steps
+    (no decode) with sp = 2 x ring = 2 in the in-process group (Ulysses
+    over sp: 6 heads a rank; the ring of 2 over the rest), against the
+    single-device run from the same noise: the latents' error, seconds
+    per step each way, exact K1 launches (self-attention: 2 ring steps a
+    layer over the stacked ranks; cross-attention: 1)."""
+    from mmpl_tpu_torch.parallel.collectives import LocalMesh
+    from mmpl_tpu_torch.pipelines.wan_reference import WanT2V
+    cfg = WAN_CONFIGS["t2v-1.3B"]
+    model = _model13(cfg, 0, torch.bfloat16)
+    g = lambda s: torch.Generator(device="cuda").manual_seed(s)
+    noise = torch.randn((1, 21, 16, 60, 104), generator=g(4), device="cuda")
+    cond, uncond = _text_states(cfg, "cuda")
+    rows = {}
+    for name, mesh in (("single", None),
+                       ("sp2_ring2", LocalMesh({"sp": 2, "ring": 2}))):
+        pipe = WanT2V(cfg, model, None, sampling_steps=steps, mesh=mesh,
+                      dtype=torch.bfloat16)
+        pipe.sync_timing = True
+        torch.cuda.empty_cache()
+        lat, seconds, counts, peak = _run_counted(
+            lambda: pipe.generate(noise, cond, uncond, decode=False))
+        rows[name] = {"latents": lat.float(), "seconds": seconds,
+                      "seconds_per_step": pipe.phase_times["steps_s"] / steps,
+                      "launches": counts, "peak_gib": peak}
+    # one forward each way on the same input: the drift a step starts
+    from mmpl_tpu_torch.models.dit import dit_forward
+    from mmpl_tpu_torch.parallel.sequence_parallel import usp_dit_forward
+    lat2 = torch.cat([noise, noise]).to(torch.bfloat16)
+    t2 = torch.full((2,), 999.0, device="cuda")
+    ctx2 = torch.cat([cond, uncond]).to(torch.bfloat16)
+    with torch.no_grad():
+        f_single = dit_forward(model, cfg, lat2, t2, ctx2).float()
+        f_usp = usp_dit_forward(model, cfg, lat2, t2, ctx2,
+                                LocalMesh({"sp": 2, "ring": 2}),
+                                ring_axis="ring").float()
+    forward_rel = ((f_usp - f_single).norm() / f_single.norm()).item()
+    del f_single, f_usp
+    a, b = rows["sp2_ring2"]["latents"], rows["single"]["latents"]
+    per_fwd = {"single": 2, "sp2_ring2": 3}
+    row = {"phase": "usp", "mesh": {"sp": 2, "ring": 2},
+           "group": "in-process (LocalMesh)", "steps": steps,
+           "forward_rel_err": forward_rel,
+           "max_abs_err": (a - b).abs().max().item(),
+           "rel_err": ((a - b).norm() / b.norm()).item(),
+           "finite": bool(torch.isfinite(a).all()),
+           **{f"{k}_{f}": r[f] for k, r in rows.items()
+              for f in ("seconds", "seconds_per_step", "launches",
+                        "peak_gib")}}
+    emit(row)
+    for k, r in rows.items():
+        check(r["launches"] == _attn_counts(
+            flash_fwd=per_fwd[k] * cfg.num_layers * steps), (k, r["launches"]))
+    check(row["finite"] and row["forward_rel_err"] < 2e-2
+          and row["rel_err"] < 5e-2, row)
+    del model, rows, a, b
+    torch.cuda.empty_cache()
+    return 3 * cfg.num_layers * steps
+
+
+def _sharded_fps_step(mesh) -> dict:
+    """One group-3 solver forward of the 1.3B planned window through the
+    pipeline built over `mesh` (`shard_params_for_inference`, the dp rows)
+    against the same forward without a mesh."""
+    from mmpl_tpu_torch.core.geometry import KV_CACHE_SLOTS
+    from mmpl_tpu_torch.models.fps_dit import init_kv_cache
+    cfg = WAN_CONFIGS["t2v-1.3B"]
+    model = _model13(cfg, 0, torch.bfloat16)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cond, uncond = cli.random_text_context(cfg, dev)
+    lat = torch.randn((1, 6, 16, 60, 104), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(7))
+    flows, counts = [], []
+    for m in (None, mesh):
+        pipe = CausalFPSInferencePipeline(cfg, model, sampling_steps=1,
+                                          mesh=m, dtype=torch.bfloat16)
+        schedule = pipe.plan.groups[3]
+        with torch.inference_mode():
+            ctx_kv2 = pipe.prepare_context(cond, uncond)
+            cache = init_kv_cache(pipe.cfg, 2, 60 * 104 // 4,
+                                  KV_CACHE_SLOTS, torch.bfloat16, dev)
+            attn.reset_launch_counts()
+            flows.append(pipe._forward(schedule, ctx_kv2, cache, lat, 500.0,
+                                       False).float())
+        counts.append(attn.launch_counts["flash_fwd"])
+    out = {"sharded_step_bit_equal": torch.equal(*flows),
+           "sharded_step_flash_fwd": counts[1]}
+    del model, flows
+    torch.cuda.empty_cache()
+    check(counts == [2 * cfg.num_layers] * 2, counts)
+    return out
+
+
+def _train_mesh_cli() -> dict:
+    """`python -m mmpl_tpu_torch.train --smoke --steps 1 --mesh
+    dp=1,fsdp=1` in this process, on the group already initialised: the
+    CLI's wiring of the mesh (the tiny model FSDP-sharded, one
+    teacher-forcing step); exact launches."""
+    from mmpl_tpu_torch import train
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    log_dir = os.path.join(OUT_DIR, "train_mesh")
+    try:
+        rc, seconds, counts, _ = _run_counted(lambda: train.main(
+            ["--smoke", "--steps", "1", "--mesh", "dp=1,fsdp=1",
+             "--log-dir", log_dir, "--run-name", "mesh"]))
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    out = {"train_mesh_cli_rc": rc, "train_mesh_cli_s": seconds,
+           "train_mesh_cli_launches": counts}
+    check(rc == 0, out)
+    check(counts == _train_launches(tiny_test_config().num_layers, 1),
+          out)
+    return counts
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole tensor; any other tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _train_mesh_step(mesh) -> dict:
+    """One teacher-forcing step of the 1.3B model at full width and depth,
+    the train phase's shapes (21 latents at 60x104, B=1, bf16 over fp32
+    masters, AdamW), without a mesh and then with the model sharded over
+    `mesh` by `shard_for_training` (FSDP2, DTensor parameters, as `train
+    --mesh` shards it): the same weights, batch and draws.  The sharded
+    step's loss, gradient norm, gradients and updated parameters against
+    the unsharded step's (train_parity's tolerances), and each step's
+    exact K1-K6 launches; then a second sharded step for its seconds.
+    Returns the launches of the three steps."""
+    from mmpl_tpu_torch.parallel.mesh import shard_for_training
+    from mmpl_tpu_torch.training.diffusion import (
+        DiffusionTrainer, draw_teacher_forcing, make_teacher_forcing_loss_fn)
+    cfg = WAN_CONFIGS["t2v-1.3B"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    expected = _train_launches(cfg.num_layers, 1)
+    total = dict.fromkeys(expected, 0)
+    norm = lambda gs: torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in gs])).item()
+    for sharded in (False, True):
+        model, sch, fm, batch, _ = _tf_setup(cfg, dev, torch.float32, 21,
+                                             (60, 104))
+        if sharded:
+            shard_for_training(model, mesh)
+        loss_fn = make_teacher_forcing_loss_fn(cfg, sch, fm,
+                                               num_frame_per_block=3,
+                                               noise_aug_max_timestep=100)
+        trainer = DiffusionTrainer(model, loss_fn, learning_rate=1e-5)
+        draws = draw_teacher_forcing(
+            torch.Generator(device=dev).manual_seed(3),
+            batch["latents"].shape, 3, len(sch.timesteps), 100, dev)
+        loss, seconds, counts, peak = _run_counted(
+            lambda: trainer.train_step(batch, draws))
+        check(counts == expected, (sharded, counts, expected))
+        total = {k: total[k] + counts[k] for k in total}
+        named = list(model.named_parameters())
+        if not sharded:
+            # the unsharded step's gradients and updated parameters, kept
+            # (no copy) while the sharded step runs
+            one = {"loss": loss.item(), "seconds": seconds, "peak": peak,
+                   "grads": {n: p.grad.detach() for n, p in named},
+                   "params": {n: p.detach() for n, p in named}}
+            del model, named, loss, trainer, loss_fn, batch, draws
+            torch.cuda.empty_cache()
+            continue
+        kind = type(named[0][1]).__name__
+        grad_err, param_err, equal, sq = {}, 0.0, True, []
+        for n, p in named:
+            g = _full(p.grad).detach()
+            grad_err[n] = (g - one["grads"][n]).abs().max().item()
+            equal = equal and torch.equal(g, one["grads"][n])
+            sq.append(torch.linalg.vector_norm(g))
+            param_err = max(param_err, (_full(p).detach()
+                                        - one["params"][n]).abs().max()
+                            .item())
+        g_sh = torch.linalg.vector_norm(torch.stack(sq)).item()
+        g_one = norm(one["grads"].values())
+        worst = max(grad_err, key=grad_err.get)
+        out = {"train_mesh_loss": loss.item(),
+               "train_mesh_loss_single": one["loss"],
+               "train_mesh_loss_rel_err": abs(loss.item() - one["loss"])
+               / abs(one["loss"]),
+               "train_mesh_grad_norm": g_sh,
+               "train_mesh_grad_norm_single": g_one,
+               "train_mesh_grad_norm_rel_err": abs(g_sh - g_one) / g_one,
+               "train_mesh_grad_max_abs_err": grad_err[worst],
+               "train_mesh_grad_max_abs_err_at": worst,
+               "train_mesh_params_max_abs_err": param_err,
+               "train_mesh_bit_equal": equal,
+               "train_mesh_parameters": kind,
+               "train_mesh_s": seconds, "train_mesh_single_s":
+               one["seconds"], "train_mesh_peak_gib": peak,
+               "train_mesh_single_peak_gib": one["peak"],
+               "train_mesh_launches": total}
+        del named, loss, sq
+        # a second sharded step, past FSDP2's lazy set-up: its seconds
+        _, out["train_mesh_second_s"], counts, _ = _run_counted(
+            lambda: trainer.train_step(batch, draws))
+        check(counts == expected, ("second", counts, expected))
+        out["train_mesh_launches"] = {k: total[k] + counts[k] for k in total}
+        del model, trainer, loss_fn, batch, draws
+    del one
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh():
+    """`init_distributed` on NCCL at world size 1 (a localhost rendezvous,
+    an ephemeral port), `make_mesh`'s default fold and an sp x ring mesh,
+    USP attention over the real process groups (of one rank each), and
+    one group-3 forward of the 1.3B pipeline built over the default mesh
+    (`_sharded_fps_step`), one 1.3B teacher-forcing step at full width and
+    depth with the model FSDP-sharded over it against the same step
+    without (`_train_mesh_step`), and the `train --mesh` CLI in smoke mode
+    (`_train_mesh_cli`); the group is destroyed after."""
+    import socket
+    import torch.distributed as dist
+    from mmpl_tpu_torch.parallel import mesh as mesh_mod
+    from mmpl_tpu_torch.parallel import sequence_parallel as tsp
+    from mmpl_tpu_torch.parallel.collectives import as_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    ok = mesh_mod.init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        init_s = time.perf_counter() - t0
+        default = mesh_mod.make_mesh()
+        m = as_mesh(mesh_mod.make_mesh({"sp": 1, "ring": 1}))
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        q, k, v = (_rand(gen, torch.bfloat16, 2, 3120, 12, 128)
+                   for _ in range(3))
+        attn.reset_launch_counts()
+        out = tsp.ulysses_attention(q, k, v, m.get_group("sp"),
+                                    m.get_group("ring"))
+        counts = dict(attn.launch_counts)
+        want, _ = attn.flash_fwd_cuda(q, k, v)
+        err = (out.float() - want.float()).abs().max().item()
+        del q, k, v, out, want
+        step = _sharded_fps_step(default)
+        # the trainer's mesh is (dp, fsdp), as `train --mesh` builds it
+        step.update(_train_mesh_step(mesh_mod.make_mesh({"dp": 1,
+                                                         "fsdp": 1})))
+        cli_counts = _train_mesh_cli()
+        row = {"phase": "mesh", "initialised": ok, "init_s": init_s,
+               "backend": dist.get_backend(),
+               "world_size": dist.get_world_size(),
+               "default_mesh": dict(zip(default.mesh_dim_names,
+                                        default.mesh.shape)),
+               "mesh": dict(zip(m.names, m.sizes)),
+               "usp_attention_max_abs_err": err, "launches": counts,
+               **step}
+    finally:
+        dist.destroy_process_group()
+    emit(row)
+    check(row["sharded_step_bit_equal"], row)
+    # train_parity's tolerances: loss rtol 1e-5, gradients atol 1e-4; a
+    # first AdamW step moves a parameter by about lr (1e-5) either way, so
+    # two such steps end at most 2 lr apart
+    check(row["train_mesh_parameters"] == "DTensor", row)
+    check(row["train_mesh_loss_rel_err"] <= 1e-5, row)
+    check(row["train_mesh_grad_norm_rel_err"] <= 1e-5, row)
+    check(row["train_mesh_grad_max_abs_err"] <= 1e-4, row)
+    check(row["train_mesh_params_max_abs_err"] <= 2e-5, row)
+    check(ok and row["backend"] == "nccl" and row["world_size"] == 1, row)
+    check(row["default_mesh"] == {"dp": 1, "fsdp": 1, "tp": 1}, row)
+    check(err == 0.0 and counts == _k123(1), row)
+    total = {k: v + cli_counts[k]
+             for k, v in row["train_mesh_launches"].items()}
+    total["flash_fwd"] += counts["flash_fwd"] + row["sharded_step_flash_fwd"]
+    return total
+
+
 def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
            bound_ms, bound_by, library_ms, **extra):
     return {"name": name, "route": "cuda", "source": source,
@@ -3609,8 +4195,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     bwd_paths["train_distill_cli"] = phase_train_distill_cli()
     phase_distill_parity()
+    # multi-device and serving: stages as streams of this card, the
+    # in-process group for the ring and USP, NCCL at world size 1
+    path_launches["chunk_pipeline"] = phase_chunk_pipeline()
+    path_launches["generate_parallel"] = phase_generate_parallel()
+    path_launches["serving"] = phase_serving()
+    bwd_paths["ring"] = phase_ring()
+    path_launches["usp"] = phase_usp()
+    bwd_paths["mesh"] = phase_mesh()
     for p, c in bwd_paths.items():
         path_launches[p] = c["flash_fwd"]
+    # the masked kernels' rows count training steps: train --mesh's too
+    train_counts = {k: v + (bwd_paths["mesh"][k] if "masked" in k else 0)
+                    for k, v in train_counts.items()}
     emit(kernels_line(smi, rows, bwd, masked, int8, window_launches,
                       int8_launches, train_counts, exp2, exp2_launches,
                       path_launches, bwd_paths,

@@ -30,6 +30,10 @@ planned-window pipeline (`pipelines/fps_inference.py`).
 
 `--quantize int8|int8wo|auto`, `--quantize-cache` and `--quantize-vae` run
 the int8 projections, the int8 KV cache and the int8 VAE decoder.
+`--mesh dp=A,fsdp=B,tp=C` runs either pipeline over a process group (one
+process per card, under torchrun): the model sharded over fsdp and tp,
+the batch (the planned window's CFG pair) over dp (`parallel/mesh.py`);
+rank 0 writes.
 `--profile` prints the few-step pipeline's phase report per window (with
 the planned-window pipeline it only times each window's phases);
 `--preview` writes a TAEHV preview decoded block by block during the
@@ -47,10 +51,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-#: flags that belong to later slices of the port (ROADMAP.md, Queue 1)
-LATER_SLICES = {
-    "mesh": "Slice F (multi-device)",
-}
 #: models the serving CLI refuses, and why
 REFUSED_MODELS = {
     "i2v-14B": ("Queue 3, a known difference: the FPS pipeline passes no "
@@ -116,13 +116,14 @@ def parse_args(argv=None):
     p.add_argument("--taehv-path", default=None,
                    help="taew2_1.pth weights for --preview (random "
                         "weights when absent)")
-    # flags of later slices: parsed so that they can be refused by name
-    p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--mesh", default=None,
+                   help="multi-process mesh 'dp=A,fsdp=B,tp=C' (sizes "
+                        "multiply to the processes): the pipeline with the "
+                        "model sharded over fsdp and tp and the batch (the "
+                        "CFG pair) over dp; run one process per "
+                        "card under torchrun (or COORDINATOR_ADDRESS / "
+                        "NUM_PROCESSES / PROCESS_ID)")
     args = p.parse_args(argv)
-    for dest, where in LATER_SLICES.items():
-        if getattr(args, dest):
-            p.error(f"--{dest.replace('_', '-')} is not ported yet: "
-                    f"ROADMAP.md {where}")
     if args.model in REFUSED_MODELS:
         p.error(f"--model {args.model} is refused: ROADMAP.md "
                 f"{REFUSED_MODELS[args.model]}")
@@ -329,6 +330,20 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     set_float32_precision()
+    mesh = None
+    if args.mesh:
+        from .parallel.mesh import init_distributed, make_mesh
+        if not init_distributed():
+            print("--mesh needs a process group: run under torchrun, or "
+                  "set COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID",
+                  file=sys.stderr)
+            return 2
+        mesh = make_mesh({k: int(v) for k, v in
+                          (kv.split("=") for kv in args.mesh.split(","))})
+        print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}",
+              file=sys.stderr)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     smoke = args.model == "smoke" or args.checkpoint_path is None
     if args.model == "smoke":
         cfg = tiny_test_config()
@@ -366,13 +381,13 @@ def main(argv=None) -> int:
         pipe = few_step_pipeline(cfg, model, run_cfg, args.timestep_shift,
                                  quantize=args.quantize,
                                  quantize_cache=args.quantize_cache,
-                                 dtype=dtype)
+                                 mesh=mesh, dtype=dtype)
     else:
         pipe = CausalFPSInferencePipeline(
             cfg, model, plan=plan, sampling_steps=args.sampling_steps,
             timestep_shift=args.timestep_shift,
             guidance_scale=args.guidance_scale, quantize=args.quantize,
-            quantize_cache=args.quantize_cache, dtype=dtype)
+            quantize_cache=args.quantize_cache, mesh=mesh, dtype=dtype)
 
     initial_latent = None
     if args.image:
@@ -395,6 +410,8 @@ def main(argv=None) -> int:
                        profile=args.profile, on_block=on_block,
                        initial_latent=initial_latent)
     from .utils.video_io import write_video
+    if mesh is not None and mesh.get_rank() != 0:
+        return 0                   # every rank holds the video; one writes
     if preview_frames:
         ppath = write_video(args.preview, np.concatenate(preview_frames),
                             fps=16)

@@ -25,6 +25,7 @@ masters), and `remat` recomputes a block in the backward pass.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import sys
 from typing import Callable, Dict, List, Optional, Tuple
@@ -106,6 +107,12 @@ class Block(nn.Module):
         self.norm3 = Affine(d, bias=True, **kw) if cfg.cross_attn_norm \
             else None
 
+    def forward(self, fn, *args, **kwargs):
+        """fn(self, *args, **kwargs): the layer functions run through the
+        module's call, so that its hooks (an FSDP unit's gather of its
+        parameters, `parallel/mesh.shard_for_training`) wrap them."""
+        return fn(self, *args, **kwargs)
+
 
 class TimeProjection(nn.Module):
     def __init__(self, dim: int, **kw):
@@ -154,6 +161,8 @@ class WanDiT(nn.Module):
         self.img_emb = ImageEmbedding(d, **kw) \
             if cfg.model_type == "i2v" else None
         self.requires_grad_(False)
+
+    forward = Block.forward
 
 
 def empty_dit(cfg, fused: bool = False, dtype=torch.bfloat16,
@@ -431,21 +440,80 @@ def apply_quantize(model: WanDiT, quantize: Optional[str],
 # Primitive layers
 # ---------------------------------------------------------------------------
 
-def linear(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def linear(lin: nn.Module, x: torch.Tensor, group=None) -> torch.Tensor:
+    """x @ W^T + b.  With `group` (a row-parallel projection of a
+    tensor-parallel model: o, fc2) the ranks' partial products are summed
+    across the group before the bias."""
     if isinstance(lin, QuantLinear):
         y = lin.matmul(x)
     else:
         y = torch.matmul(x, lin.weight.to(x.dtype).t())
+    if group is not None:
+        y = group.all_reduce(y)
     if lin.bias is not None:
         y = y + lin.bias.to(x.dtype)
     return y
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+             eps: float = 1e-6, group=None) -> torch.Tensor:
+    """RMS norm over the last dim; with `group` (a tensor-parallel group
+    whose ranks each hold a slice of that dim, as the QK-norms of a
+    head-sharded model do) over the whole width, the sum of squares
+    reduced across the group."""
     xf = x.float()
-    normed = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    if group is None:
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        ms = group.all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True)) \
+            / (x.shape[-1] * group.size)
+    normed = xf * torch.rsqrt(ms + eps)
     return normed.to(x.dtype) * weight.to(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSharding:
+    """How the layers of a model sharded for inference run
+    (`parallel/mesh.shard_params_for_inference` returns it, and the
+    sampling pipelines pass it in `cfg.sharding`; absent, the layers run
+    whole).  tp: the ranks the heads and the ffn are split over;
+    tp_group: their group (a `parallel/collectives` group), over which the
+    row-parallel projections (o, fc2) sum their partial products and the
+    QK-norms their sums of squares, None for tp = 1; unshard(blk): the
+    block's parameters gathered across fsdp ({name: tensor}), or None."""
+    tp: int = 1
+    tp_group: object = None
+    unshard: Optional[Callable] = None
+
+
+#: the layers of a model that is not sharded
+WHOLE = LayerSharding()
+
+
+def sharding_of(cfg) -> LayerSharding:
+    """The `LayerSharding` of a sharded model's cfg, else `WHOLE`."""
+    return cfg.get("sharding", WHOLE)
+
+
+def run_block(blk: Block, fn, *args, dtype: Optional[torch.dtype] = None,
+              unshard: Optional[Callable] = None):
+    """fn(blk, *args) through the block's call (`Block.forward`); with
+    `dtype`, over its parameters cast to dtype (the bf16 trunk over fp32
+    masters; a recomputation in the backward pass reads the same cast
+    values); with `unshard` (`LayerSharding.unshard`), over the block's
+    parameters gathered across fsdp."""
+    if unshard is not None:
+        return call_with(blk, unshard(blk), fn, *args)
+    if dtype is None:
+        return blk(fn, *args)
+    return blk(lambda b, *a: call_with(b, cast_params(b, dtype), fn, *a),
+               *args)
+
+
+def local_heads(cfg) -> int:
+    """Attention heads of this rank: all of them, or 1/tp of them in a
+    model sharded over tp ranks (`cfg.sharding`)."""
+    return cfg.num_heads // sharding_of(cfg).tp
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6,
@@ -462,8 +530,10 @@ def layer_norm(x: torch.Tensor, eps: float = 1e-6,
     return y
 
 
-def mlp(m: MLP, x: torch.Tensor) -> torch.Tensor:
-    return linear(m.fc2, F.gelu(linear(m.fc1, x), approximate="tanh"))
+def mlp(m: MLP, x: torch.Tensor, group=None) -> torch.Tensor:
+    """fc2(gelu(fc1(x))); `group`: fc2's tensor-parallel group."""
+    return linear(m.fc2, F.gelu(linear(m.fc1, x), approximate="tanh"),
+                  group)
 
 
 def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
@@ -523,18 +593,19 @@ def gate(x: torch.Tensor, g: torch.Tensor, num_frames: int) -> torch.Tensor:
 
 def qkv_project(sa: SelfAttention, x: torch.Tensor, n: int, d: int,
                 cos: Optional[torch.Tensor] = None,
-                sin: Optional[torch.Tensor] = None):
+                sin: Optional[torch.Tensor] = None, group=None):
     """q/k/v projection, QK RMS-norm and RoPE; returns [B, L, n, d] each.
 
     Fused params carry q/k in the split-half RoPE layout; unfused params
-    keep the interleaved pairing.  q.k^T is the same either way."""
+    keep the interleaved pairing.  q.k^T is the same either way.  group:
+    the tensor-parallel group of a head-sharded model (the QK-norms')."""
     B, L, _ = x.shape
     if sa.fused:
         q, k, v = linear(sa.qkv, x).chunk(3, dim=-1)
     else:
         q, k, v = linear(sa.q, x), linear(sa.k, x), linear(sa.v, x)
-    q = rms_norm(q, sa.norm_q.weight).reshape(B, L, n, d)
-    k = rms_norm(k, sa.norm_k.weight).reshape(B, L, n, d)
+    q = rms_norm(q, sa.norm_q.weight, group=group).reshape(B, L, n, d)
+    k = rms_norm(k, sa.norm_k.weight, group=group).reshape(B, L, n, d)
     v = v.reshape(B, L, n, d)
     if cos is not None:
         rope = apply_rope_split if sa.fused else apply_rope
@@ -546,17 +617,19 @@ def qkv_project(sa: SelfAttention, x: torch.Tensor, n: int, d: int,
 def cross_attention(ca: CrossAttention, x: torch.Tensor, ctx_k: torch.Tensor,
                     ctx_v: torch.Tensor, num_heads: int,
                     img_k: Optional[torch.Tensor] = None,
-                    img_v: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    img_v: Optional[torch.Tensor] = None,
+                    group=None) -> torch.Tensor:
     """Text cross-attention with precomputed context K/V; with `img_k` /
-    `img_v` (i2v) a second attention over the image tokens is added."""
-    B, L, D = x.shape
-    d = D // num_heads
-    q = rms_norm(linear(ca.q, x), ca.norm_q.weight).reshape(
-        B, L, num_heads, d)
+    `img_v` (i2v) a second attention over the image tokens is added.
+    num_heads: this rank's heads (`local_heads`); group: the
+    tensor-parallel group of a head-sharded model."""
+    B, L, _ = x.shape
+    q = rms_norm(linear(ca.q, x), ca.norm_q.weight, group=group)
+    q = q.reshape(B, L, num_heads, q.shape[-1] // num_heads)
     out = attention(q, ctx_k, ctx_v)
     if img_k is not None:
         out = out + attention(q, img_k, img_v)
-    return linear(ca.o, out.reshape(B, L, D))
+    return linear(ca.o, out.reshape(B, L, -1), group)
 
 
 def precompute_context_kv(model: WanDiT, cfg, context_emb: torch.Tensor,
@@ -565,28 +638,35 @@ def precompute_context_kv(model: WanDiT, cfg, context_emb: torch.Tensor,
     """Per-layer cross-attention K/V [B, T, N, d] of an embedded context;
     with `img_emb` [B, Ti, D] (i2v) also `k_img` / `v_img` [B, Ti, N, d]."""
     B, T, _ = context_emb.shape
-    n, d = cfg.num_heads, cfg.dim // cfg.num_heads
-    out = []
-    for blk in model.blocks:
+    n, d = local_heads(cfg), cfg.dim // cfg.num_heads
+    sh = sharding_of(cfg)
+
+    def kv_of(blk: Block) -> Dict[str, torch.Tensor]:
         ca = blk.cross_attn
-        k = rms_norm(linear(ca.k, context_emb),
-                     ca.norm_k.weight).reshape(B, T, n, d)
+        k = rms_norm(linear(ca.k, context_emb), ca.norm_k.weight,
+                     group=sh.tp_group).reshape(B, T, n, d)
         v = linear(ca.v, context_emb).reshape(B, T, n, d)
         kv = {"k": k, "v": v}
         if img_emb is not None:
             Ti = img_emb.shape[1]
-            kv["k_img"] = rms_norm(linear(ca.k_img, img_emb),
-                                   ca.norm_k_img.weight).reshape(B, Ti, n, d)
+            kv["k_img"] = rms_norm(
+                linear(ca.k_img, img_emb), ca.norm_k_img.weight,
+                group=sh.tp_group).reshape(B, Ti, n, d)
             kv["v_img"] = linear(ca.v_img, img_emb).reshape(B, Ti, n, d)
-        out.append(kv)
-    return out
+        return kv
+
+    return [run_block(blk, kv_of, unshard=sh.unshard)
+            for blk in model.blocks]
 
 
 def block_forward(blk: Block, cfg, x: torch.Tensor, e: torch.Tensor,
                   self_attn_fn: Callable[[torch.Tensor], torch.Tensor],
                   ctx_kv: Dict[str, torch.Tensor],
                   num_frames: int) -> torch.Tensor:
-    """One transformer block; e [B, F, 6, D] fp32."""
+    """One transformer block; e [B, F, 6, D] fp32.  The cross-attention
+    and the ffn run sharded where `cfg.sharding` says so; self_attn_fn
+    takes care of its own."""
+    sh = sharding_of(cfg)
     e6 = blk.modulation.float()[None] + e.float()          # [B,F,6,D]
     shift_sa, scale_sa, gate_sa, shift_ff, scale_ff, gate_ff = (
         e6[:, :, i:i + 1] for i in range(6))
@@ -598,11 +678,11 @@ def block_forward(blk: Block, cfg, x: torch.Tensor, e: torch.Tensor,
     xc = layer_norm(x, cfg.eps, blk.norm3.weight, blk.norm3.bias) \
         if blk.norm3 is not None else x
     x = x + cross_attention(blk.cross_attn, xc, ctx_kv["k"], ctx_kv["v"],
-                            cfg.num_heads, ctx_kv.get("k_img"),
-                            ctx_kv.get("v_img"))
+                            cfg.num_heads // sh.tp, ctx_kv.get("k_img"),
+                            ctx_kv.get("v_img"), sh.tp_group)
 
     y = mlp(blk.ffn, modulate(layer_norm(x, cfg.eps), shift_ff, scale_ff,
-                              num_frames))
+                              num_frames), sh.tp_group)
     return x + gate(y, gate_ff, num_frames)
 
 
@@ -708,12 +788,8 @@ def _dit_forward(model, cfg, latents, t, context, clip_fea, y, remat,
         return block_forward(blk, cfg, x, e0, self_attn_fn, ckv, Fr)
 
     for blk, ckv in zip(model.blocks, ctx_kv):
-        if block_dtype is None:
-            step = lambda x, blk=blk, ckv=ckv: block_fn(x, blk, ckv)
-        else:
-            step = lambda x, blk=blk, ckv=ckv: call_with(
-                blk, cast_params(blk, block_dtype),
-                lambda b, x: block_fn(x, b, ckv), x)
+        step = lambda x, blk=blk, ckv=ckv: run_block(
+            blk, lambda b, x: block_fn(x, b, ckv), x, dtype=block_dtype)
         x = _remat(step, x) if remat else step(x)
     x = head_forward(model.head, cfg, x, e, Fr)
     return unpatchify(x, Fr, grid, cfg.patch_size, cfg.out_dim)

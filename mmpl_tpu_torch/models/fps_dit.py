@@ -29,9 +29,10 @@ from ..core.geometry import GroupSchedule, KV_CACHE_SLOTS
 from ..ops.attention import attention, frame_masked_attention, mask_tiles
 from ..ops.quant import quantize_rows
 from ..ops.rope import rope_table
-from .dit import (WanDiT, block_forward, call_with, cast_params, embed_text,
-                  head_forward, linear, patchify, precompute_context_kv,
-                  qkv_project, time_embed, unpatchify)
+from .dit import (WanDiT, block_forward, call_with, embed_text,
+                  head_forward, linear, local_heads, patchify,
+                  precompute_context_kv, qkv_project, run_block,
+                  sharding_of, time_embed, unpatchify)
 from .dit import remat as remat_layer
 
 
@@ -47,7 +48,7 @@ def init_kv_cache(cfg, batch_size: int, tokens_per_frame: int,
     of the largest resident of the 50-step CFG window."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"KV cache dtype {dtype} (bf16 or f32 only)")
-    n, d = cfg.num_heads, cfg.dim // cfg.num_heads
+    n, d = local_heads(cfg), cfg.dim // cfg.num_heads
     shape = (cfg.num_layers, batch_size, num_slots, tokens_per_frame, n * d)
     if not quantize:
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -126,7 +127,8 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
     assert G == schedule.num_frames, (G, schedule)
     grid = (H // cfg.patch_size[1], W // cfg.patch_size[2])
     S = grid[0] * grid[1]
-    n, d = cfg.num_heads, cfg.dim // cfg.num_heads
+    n, d = local_heads(cfg), cfg.dim // cfg.num_heads
+    sh = sharding_of(cfg)
     device = latents.device
 
     x = patchify(model.patch_embedding, latents, cfg.patch_size)
@@ -150,7 +152,8 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
 
         def self_attn_fn(xm):
             L = xm.shape[1]
-            q, k, v = qkv_project(blk.self_attn, xm, n, d, cos, sin)
+            q, k, v = qkv_project(blk.self_attn, xm, n, d, cos, sin,
+                                  sh.tp_group)
             if other_slots:
                 ck = _gather(cache, "k", li, vis_other, k.dtype)
                 cv = _gather(cache, "v", li, vis_other, v.dtype)
@@ -162,14 +165,17 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
             if write:
                 own_kv.extend((k.reshape(B, G, S, n * d),
                                v.reshape(B, G, S, n * d)))
-            return linear(blk.self_attn.o, out.reshape(B, L, -1))
+            return linear(blk.self_attn.o, out.reshape(B, L, -1),
+                          sh.tp_group)
 
         x = block_forward(blk, cfg, x, e0, self_attn_fn, ckv, G)
         return (x, *own_kv) if write else x
 
     own_k, own_v = [], []
     for li, blk in enumerate(model.blocks):
-        step = lambda x, blk=blk, li=li: layer(x, blk, ctx_kv[li], li)
+        step = lambda x, blk=blk, li=li: run_block(
+            blk, lambda b, x: layer(x, b, ctx_kv[li], li), x,
+            unshard=sh.unshard)
         out = remat_layer(step, x) if remat else step(x)
         if write:
             x, k, v = out
@@ -280,8 +286,8 @@ def _forward_train(model, cfg, noisy, t, context, frame_mask, clean_x,
         # the block casts its own parameters, so that the backward's
         # recomputation, which runs after this forward has returned, reads
         # the same cast values
-        step = lambda x, blk=blk, ckv=ckv: call_with(
-            blk, cast_params(blk, dtype), block_fn, x, ckv)
+        step = lambda x, blk=blk, ckv=ckv: run_block(
+            blk, block_fn, x, ckv, dtype=dtype)
         x = remat_layer(step, x)
 
     if clean_x is not None:

@@ -38,11 +38,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from fractions import Fraction
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+#: guards `launch_counts`: the chunk pipeline's stages launch from threads
+_count_lock = threading.Lock()
 #: launches of each hand-written kernel, counted where the launch succeeds
 launch_counts = {"flash_fwd": 0, "flash_masked_fwd": 0, "flash_bwd_dkv": 0,
                  "flash_bwd_dq": 0, "flash_masked_bwd_dkv": 0,
@@ -470,7 +473,8 @@ def _launch(lib_name: str, fn: str, counter: str, device, *args) -> None:
     if rc != 0:
         why = _LAUNCH_ERRORS.get(rc, f"CUDA error {rc}")
         raise RuntimeError(f"{counter} launch failed: {why}")
-    launch_counts[counter] += 1
+    with _count_lock:
+        launch_counts[counter] += 1
 
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -696,6 +700,110 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Differentiable unmasked attention: K1 forward, K2 / K3 backward."""
     return _attend(q, k, v, scale, None, None)
+
+
+def flash_attention_bwd(q, k, v, do, lse, delta, scale=None):
+    """(dq, dk, dv) of unmasked attention from a given lse and delta =
+    rowsum(dO * O), both [B, N, Lq] fp32 (K2 / K3 on CUDA tensors, their
+    plain version on CPU tensors).  The ring's backward passes the whole
+    sequence's lse and delta with each chunk of keys."""
+    if _device_check(q):
+        return flash_bwd_cuda(q, k, v, do, lse, delta, scale)
+    return _plain_bwd(q, k, v, do, lse, delta, _scale(q, scale))
+
+
+def dense_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain attention and its per-query logsumexp, differentiable through
+    torch's autograd (the dense ring of `parallel/sequence_parallel.py`,
+    the plain version of `ring_flash_attention`).  Returns (out [B, Lq, N,
+    D], lse [B, N, Lq] fp32)."""
+    qf = q.float() * _scale(q, scale)
+    scores = torch.einsum("bqnd,bknd->bnqk", qf, k.float())
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bnqk,bknd->bqnd", (p / l).to(v.dtype), v)
+    return out, (m + torch.log(l))[..., 0]
+
+
+def merge_lse(out: torch.Tensor, lse: torch.Tensor, o_c: torch.Tensor,
+              lse_c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Online-softmax merge of two attention results over disjoint keys:
+    out / o_c [B, Lq, N, D] weighted by their lse [B, N, Lq]; returns the
+    merged (out fp32, lse).  Differentiable."""
+    m = torch.maximum(lse, lse_c)
+    w, w_c = torch.exp(lse - m), torch.exp(lse_c - m)
+    tot = w + w_c
+    wq = (w / tot).transpose(1, 2)[..., None]
+    wc = (w_c / tot).transpose(1, 2)[..., None]
+    return out.float() * wq + o_c.float() * wc, m + torch.log(tot)
+
+
+def _ring_fwd(q, k, v, group, scale):
+    out, lse = flash_attention_lse(q, k, v, scale)
+    out = out.float()
+    kr, vr = k, v
+    for _ in range(group.size - 1):
+        kr, vr = group.rotate(kr), group.rotate(vr)
+        o_c, lse_c = flash_attention_lse(q, kr, vr, scale)
+        out, lse = merge_lse(out, lse, o_c, lse_c)
+    return out.to(q.dtype), lse.contiguous()
+
+
+class _RingFlashAttention(torch.autograd.Function):
+    """Ring attention with its backward defined over the whole ring (the
+    JAX package's custom VJP, `attention.py:622-713`): the forward rotates
+    the K/V chunks and merges one K1 call per chunk by lse; the backward
+    runs K2 and K3 per chunk with the GLOBAL lse and delta, each chunk's
+    share of the full softmax's gradient being exactly p = exp(s -
+    lse_global); the dK / dV accumulators travel the ring with their chunk
+    and come home after `ring` rotations."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, scale):
+        out, lse = _ring_fwd(q, k, v, group, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.group, ctx.scale = group, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        group = ctx.group
+        do = g.to(q.dtype).contiguous()
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        kr, vr = k, v
+        for _ in range(group.size):
+            dq_c, dk_c, dv_c = flash_attention_bwd(q, kr, vr, do, lse, delta,
+                                                   ctx.scale)
+            dq += dq_c.float()
+            dk += dk_c.float()
+            dv += dv_c.float()
+            if group.size > 1:
+                kr, vr = group.rotate(kr), group.rotate(vr)
+                dk, dv = group.rotate(dk), group.rotate(dv)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         group, scale: Optional[float] = None
+                         ) -> torch.Tensor:
+    """Differentiable ring attention over a sequence-sharded K/V: q / k / v
+    [B, L/ring, N, D] are this rank's shards (or, in an in-process group,
+    every rank's stacked along B), `group` a group of
+    `parallel/collectives.py` (`size`, `rotate`).  K1 per chunk forward,
+    K2 / K3 per chunk backward on CUDA tensors; the plain versions on CPU
+    tensors.  The merge runs in fp32 and rounds once, at the end."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _RingFlashAttention.apply(q, k, v, group, scale)
+    return _ring_fwd(q, k, v, group, scale)[0]
 
 
 def flash_attention_exp2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

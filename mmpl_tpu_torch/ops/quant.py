@@ -33,11 +33,14 @@ XLA computes it outside any kernel.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+#: guards `launch_counts`: the chunk pipeline's stages launch from threads
+_count_lock = threading.Lock()
 #: launches of each hand-written kernel, counted where the launch succeeds
 launch_counts = {"int8_gemm": 0, "quantize_rows": 0}
 
@@ -173,7 +176,8 @@ def _launch(fn: str, counter: str, device, *args) -> None:
         rc = getattr(lib, fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{counter} launch failed: CUDA error {rc}")
-    launch_counts[counter] += 1
+    with _count_lock:
+        launch_counts[counter] += 1
 
 
 def _check_2d(what: str, name: str, x: torch.Tensor, dtypes) -> None:

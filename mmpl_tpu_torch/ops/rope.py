@@ -52,28 +52,35 @@ def rope_table(frame_positions: Tuple[int, ...], grid_h: int, grid_w: int,
             np.sin(angles).astype(np.float32))
 
 
+def _table(t: torch.Tensor) -> torch.Tensor:
+    """A table broadcast against [B, L, N, D//2]: [L, D//2] is shared by
+    every batch row, [B, L, 1, D//2] (sequence parallelism's stacked
+    shards, each at its own token offset) is taken as it is."""
+    return t if t.ndim == 4 else t[None, :, None, :]
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                out_dtype=None) -> torch.Tensor:
-    """Rotate x [B, L, N, D] (interleaved pairs) by cos/sin [L, D//2]."""
+    """Rotate x [B, L, N, D] (interleaved pairs) by cos/sin [L, D//2], or
+    by a table per batch row, [B, L, 1, D//2] (`_table`)."""
     out_dtype = out_dtype or x.dtype
     B, L, N, D = x.shape
     xf = x.float().reshape(B, L, N, D // 2, 2)
     re, im = xf[..., 0], xf[..., 1]
-    c = cos[None, :, None, :]
-    s = sin[None, :, None, :]
+    c, s = _table(cos), _table(sin)
     out = torch.stack([re * c - im * s, re * s + im * c], dim=-1)
     return out.reshape(B, L, N, D).to(out_dtype)
 
 
 def apply_rope_split(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                      out_dtype=None) -> torch.Tensor:
-    """Rotate x [B, L, N, D] whose per-head channels are split-half."""
+    """Rotate x [B, L, N, D] whose per-head channels are split-half; the
+    table as `apply_rope`."""
     out_dtype = out_dtype or x.dtype
     half = x.shape[-1] // 2
     re = x[..., :half].float()
     im = x[..., half:].float()
-    c = cos[None, :, None, :]
-    s = sin[None, :, None, :]
+    c, s = _table(cos), _table(sin)
     return torch.cat([re * c - im * s, re * s + im * c], dim=-1).to(out_dtype)
 
 

@@ -1,7 +1,8 @@
 """CausalInferencePipeline: few-step block-causal sampling (the distilled
 DMD / SiD / CausVid checkpoints).
 
-Port of `mmpl_tpu/pipelines/causal_inference.py` (single device).  Blocks
+Port of `mmpl_tpu/pipelines/causal_inference.py`, on one device or, with
+`mesh`, sharded as the planned-window pipeline is.  Blocks
 of `num_frame_per_block` frames are denoised in generation order through a
 short `denoising_step_list` (e.g. [1000, 750, 500, 250]): each step predicts
 the flow, converts it to x0 and, before the next step, re-noises x0 to the
@@ -38,6 +39,7 @@ from ..models.dit import (WanDiT, apply_quantize, embed_text,
                           fuse_qkv_params, precompute_context_kv)
 from ..models.fps_dit import fps_forward_group, init_kv_cache
 from ..ops.rope import dynamic_rope_table
+from ..parallel.mesh import InferenceSharding
 from ..schedulers.flow_match import FlowMatchScheduler
 from ..utils.profiling import PhaseTimer, sync
 
@@ -96,16 +98,21 @@ class CausalInferencePipeline:
                  fuse_qkv: bool = True,
                  quantize: Optional[str] = None,
                  quantize_cache: bool = False,
+                 mesh=None,
                  dtype=torch.bfloat16):
         """max_attention_frames: the rolling cache, a ring of that many
         slots with the first `sink_frames` frames pinned; memory stays
         constant however long the video.  When None the cache grows with
         the video and attention is truncated to the last
-        `local_attn_frames` frames."""
-        self.cfg = cfg
-        if fuse_qkv:
+        `local_attn_frames` frames.  mesh: the model sharded over its tp
+        and fsdp dims and the batch rows over dp, as the planned-window
+        pipeline's (`parallel/mesh.InferenceSharding`)."""
+        if fuse_qkv or mesh is not None:
             model = fuse_qkv_params(model, num_heads=cfg.num_heads)
-        self.model = apply_quantize(model, quantize, cfg)
+        self._shard = InferenceSharding(cfg, model, mesh, quantize,
+                                        quantize_cache)
+        self.cfg = cfg = self._shard.cfg
+        self.model = apply_quantize(self._shard.model, quantize, cfg)
         self.quantize_cache = bool(quantize_cache)
         self.num_frame_per_block = num_frame_per_block
         self.context_noise = context_noise
@@ -140,18 +147,21 @@ class CausalInferencePipeline:
 
     def prepare_context(self, cond_context: torch.Tensor):
         """Per-layer cross-attention K/V of the text states."""
-        emb = embed_text(self.model, cond_context.to(self.dtype))
+        emb = embed_text(self.model,
+                         self._shard.rows(cond_context).to(self.dtype))
         return precompute_context_kv(self.model, self.cfg, emb)
 
     def _forward(self, schedule: GroupSchedule, ctx_kv, cache,
                  x: torch.Tensor, t: float, write_cache: bool,
                  rope_cs=None) -> torch.Tensor:
+        x = self._shard.rows(x)
         B, G = x.shape[:2]
         tt = torch.full((B, G), float(t), dtype=torch.float32,
                         device=x.device)
-        return fps_forward_group(self.model, self.cfg, x.to(self.dtype), tt,
+        flow = fps_forward_group(self.model, self.cfg, x.to(self.dtype), tt,
                                  ctx_kv, cache, schedule,
                                  write_cache=write_cache, rope_cs=rope_cs)
+        return flow if write_cache else self._shard.gather(flow)
 
     def _denoise_block(self, schedule: GroupSchedule, ctx_kv, cache,
                        noisy: torch.Tensor, step_noise: torch.Tensor,
@@ -252,8 +262,9 @@ class CausalInferencePipeline:
         ctx_kv = self.prepare_context(cond_context)
         num_slots = cap if cap is not None else max(n_init + F,
                                                     self.local_attn_frames)
-        cache = init_kv_cache(self.cfg, B, H * W // 4, num_slots, self.dtype,
-                              device, quantize=self.quantize_cache)
+        cache = init_kv_cache(self.cfg, self._shard.num_rows(B), H * W // 4,
+                              num_slots, self.dtype, device,
+                              quantize=self.quantize_cache)
         order = list(range(num_slots))
         if timer:
             sync(device)

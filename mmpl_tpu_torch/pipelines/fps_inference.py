@@ -18,7 +18,14 @@ Port of `mmpl_tpu/pipelines/fps_inference.py` (single device).  Behaviour:
   * `quantize` ("int8" W8A8, "int8wo" W8A16, "auto" per projection) turns
     the block projections into int8 codes at construction
     (`dit.apply_quantize`), and `quantize_cache` keeps the KV cache in int8
-    with per-token scales (`fps_dit.init_kv_cache`).
+    with per-token scales (`fps_dit.init_kv_cache`);
+  * `mesh` (a DeviceMesh, or `parallel/collectives.ProcessMesh`, with
+    some of the dims dp, fsdp, tp) shards the model at construction
+    (`parallel/mesh.shard_params_for_inference`: heads and the ffn over
+    tp, the projections' input columns over fsdp) and runs this process's
+    rows of the CFG pair over dp: its half of the context K/V and of the
+    KV cache, whose heads are this rank's tp share; the flows are
+    gathered across dp before the guidance.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from ..core.geometry import ChunkPlan, GroupSchedule, KV_CACHE_SLOTS, t2v_plan
 from ..models.dit import (WanDiT, apply_quantize, embed_image_clip,
                           embed_text, fuse_qkv_params, precompute_context_kv)
 from ..models.fps_dit import fps_forward_group, init_kv_cache
+from ..parallel.mesh import InferenceSharding
 from ..schedulers.dpm_solver import FlowDPMSolver
 from ..schedulers.flow_match import FlowMatchScheduler
 from ..schedulers.unipc import FlowUniPC
@@ -50,13 +58,16 @@ class CausalFPSInferencePipeline:
                  fuse_qkv: bool = True,
                  quantize: Optional[str] = None,
                  quantize_cache: bool = False,
+                 mesh=None,
                  dtype=torch.bfloat16):
-        self.cfg = cfg
-        if fuse_qkv:
+        if fuse_qkv or mesh is not None:
             # one [3D, D] gemm per layer + split-half RoPE layout
             model = fuse_qkv_params(model, num_heads=cfg.num_heads)
+        self._shard = InferenceSharding(cfg, model, mesh, quantize,
+                                        quantize_cache)
+        self.cfg = cfg = self._shard.cfg
         # int8 projections, in place, after the fusion
-        self.model = apply_quantize(model, quantize, cfg)
+        self.model = apply_quantize(self._shard.model, quantize, cfg)
         self.quantize_cache = bool(quantize_cache)
         self.plan = plan or t2v_plan()
         self.guidance_scale = float(guidance_scale)
@@ -74,8 +85,8 @@ class CausalFPSInferencePipeline:
         self.ddpm.set_timesteps(num_train_timesteps, training=True)
         idx = int(np.random.default_rng(reseed_seed).integers(980, 1000))
         self.ddpm_timestep = float(self.ddpm.timesteps[idx]) + 1000.0
-        #: when True, synchronise around each group and record its solver
-        #: and commit seconds in `phase_times`
+        #: when True, wait for the current stream around each group and
+        #: record its solver and commit seconds in `phase_times`
         self.sync_timing = False
         self.phase_times: Dict[str, float] = {}
 
@@ -83,12 +94,13 @@ class CausalFPSInferencePipeline:
 
     def _forward(self, schedule: GroupSchedule, ctx_kv2, cache,
                  latents: torch.Tensor, t: float, write_cache: bool):
-        B2 = 2 * latents.shape[0]
-        lat2 = torch.cat([latents, latents], 0).to(self.dtype)
-        tt = torch.full((B2, schedule.num_frames), t, dtype=torch.float32,
-                        device=latents.device)
-        return fps_forward_group(self.model, self.cfg, lat2, tt, ctx_kv2,
+        lat2 = self._shard.rows(torch.cat([latents, latents],
+                                          0).to(self.dtype))
+        tt = torch.full((lat2.shape[0], schedule.num_frames), t,
+                        dtype=torch.float32, device=latents.device)
+        flow = fps_forward_group(self.model, self.cfg, lat2, tt, ctx_kv2,
                                  cache, schedule, write_cache=write_cache)
+        return flow if write_cache else self._shard.gather(flow)
 
     def _apply_reseed(self, schedule: GroupSchedule, latents: torch.Tensor,
                       reseed_src: List[torch.Tensor],
@@ -109,8 +121,12 @@ class CausalFPSInferencePipeline:
         return latents
 
     def _sync(self, device) -> float:
+        """The host clock, after the work queued on this thread's current
+        stream of `device` when `sync_timing` is set: only this pipeline's
+        stream is waited for, so stages of a chunk pipeline on other
+        streams of the same card keep running."""
         if self.sync_timing and device.type == "cuda":
-            torch.cuda.synchronize(device)
+            torch.cuda.current_stream(device).synchronize()
         return time.perf_counter()
 
     def _denoise_group(self, schedule: GroupSchedule, ctx_kv2, cache,
@@ -159,12 +175,12 @@ class CausalFPSInferencePipeline:
         """Per-layer cross-attention K/V of the stacked [cond; uncond];
         with `clip_fea` [B, 257, 1280] (an i2v DiT) also the image K/V of
         [clip_fea; clip_fea]."""
-        ctx = torch.cat([cond_context, uncond_context], 0)
+        ctx = self._shard.rows(torch.cat([cond_context, uncond_context], 0))
         emb = embed_text(self.model, ctx.to(self.dtype))
         img = None
         if clip_fea is not None:
-            img = embed_image_clip(self.model, torch.cat(
-                [clip_fea, clip_fea], 0).to(self.dtype))
+            img = embed_image_clip(self.model, self._shard.rows(torch.cat(
+                [clip_fea, clip_fea], 0)).to(self.dtype))
         return precompute_context_kv(self.model, self.cfg, emb, img)
 
     @torch.inference_mode()
@@ -193,7 +209,8 @@ class CausalFPSInferencePipeline:
         device = noise.device
         ctx_kv2 = self.prepare_context(cond_context, uncond_context,
                                        clip_fea=clip_fea)
-        cache = init_kv_cache(self.cfg, 2 * B, H * W // 4, KV_CACHE_SLOTS,
+        cache = init_kv_cache(self.cfg, self._shard.num_rows(2 * B),
+                              H * W // 4, KV_CACHE_SLOTS,
                               self.dtype, device,
                               quantize=self.quantize_cache)
         n_init = 0 if initial_latent is None else initial_latent.shape[1]

@@ -9,9 +9,12 @@ frames at 480x832), then the streaming VAE decode.  I2V adds the CLIP
 image tokens (31 blocks of ViT-H/14, their own cross-attention in each
 layer) and the channel-concatenated mask and first-frame latents `y`.
 
-Not ported: the `MMPL_STEPS_PER_PROGRAM` segmentation of the solver loop
-(a TPU workaround for long programs; the loop here runs step by step
-anyway) and sequence parallelism over a mesh (Slice F: a mesh is refused).
+With a `mesh` whose `sp` axis has more than one rank, the T2V forward
+runs sequence-parallel (`parallel/sequence_parallel.usp_dit_forward`):
+Ulysses over `sp`, and the ring over `ring` where the mesh has that axis
+with more than one rank, as the JAX package's `_forward` chooses.  Not
+ported: the `MMPL_STEPS_PER_PROGRAM` segmentation of the solver loop (a
+TPU workaround for long programs; the loop here runs step by step anyway).
 `phase_times` holds the last run's seconds: `clip_s`, `encode_s` (i2v),
 `steps_s` and `decode_s`, measured after a device synchronise when
 `sync_timing` is set.
@@ -27,6 +30,8 @@ import torch
 from ..models import vae as vae_mod
 from ..models.clip import CLIPVisual, clip_visual_forward, preprocess_image
 from ..models.dit import WanDiT, dit_forward, fuse_qkv_params
+from ..parallel.collectives import as_mesh
+from ..parallel.sequence_parallel import usp_dit_forward
 from ..schedulers.unipc import FlowUniPC
 
 
@@ -59,11 +64,10 @@ class WanT2V:
                  sampling_steps: int = 50, timestep_shift: float = 5.0,
                  guidance_scale: float = 5.0, mesh=None,
                  dtype=torch.bfloat16):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sequence parallelism over a mesh is not ported: "
-                "ROADMAP.md Slice F (multi-device)")
         self.cfg = cfg
+        #: a `parallel/collectives` mesh or a DeviceMesh (sequence
+        #: parallelism over its `sp` and `ring` axes), or None
+        self.mesh = None if mesh is None else as_mesh(mesh)
         if not model.blocks[0].self_attn.fused:
             fuse_qkv_params(model, num_heads=cfg.num_heads)
         self.model = model
@@ -73,6 +77,17 @@ class WanT2V:
         self.sampler = FlowUniPC(sampling_steps, shift=timestep_shift)
         self.sync_timing = False
         self.phase_times = {}
+
+    def _forward(self, lat2, t2, ctx2, clip2, y2):
+        mesh = self.mesh
+        if (mesh is not None and "sp" in mesh.names and mesh.size("sp") > 1
+                and clip2 is None):
+            ring = "ring" if ("ring" in mesh.names
+                              and mesh.size("ring") > 1) else None
+            return usp_dit_forward(self.model, self.cfg, lat2, t2, ctx2,
+                                   mesh, ring_axis=ring)
+        return dit_forward(self.model, self.cfg, lat2, t2, ctx2,
+                           clip_fea=clip2, y=y2)
 
     def _clock(self, device) -> float:
         if self.sync_timing and device.type == "cuda":
@@ -102,8 +117,7 @@ class WanT2V:
             lat2 = torch.cat([state["sample"], state["sample"]], 0).to(dt)
             t2 = torch.full((2 * B,), float(t), dtype=torch.float32,
                             device=device)
-            flow2 = dit_forward(self.model, self.cfg, lat2, t2, ctx2,
-                                clip_fea=clip2, y=y2)
+            flow2 = self._forward(lat2, t2, ctx2, clip2, y2)
             c, u = flow2[:B], flow2[B:]
             flow = u.float() + self.guidance_scale * (c - u).float()
             state = self.sampler.step(coef, state, flow)

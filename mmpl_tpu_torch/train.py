@@ -34,9 +34,13 @@ restores them and runs steps N..`--steps`-1, drawing what an unbroken run
 would, bit for bit.  `--export-pt` writes the generator and its EMA as the
 upstream `.pt` at the end.  `--config` merges a run config
 (`configs/*.yaml`) over the flag defaults as the JAX trainer does; flags
-given on the command line win.  Refused by name: `--data-dir` (Slice I),
-`--mesh` (Slice F) and the two 16 GB TPU workarounds `--remat-offload` and
-`--offload-opt`.
+given on the command line win.  `--mesh dp=A,fsdp=B` (one process per
+card under torchrun, or `--coordinator` / `--num-processes` /
+`--process-id`) FSDP-shards every model over fsdp, replicated over dp,
+and splits the batch over dp (`_Ranks`); `--export-pt` gathers the full
+tensors to rank 0, `--ckpt-dir` / `--resume` are not ported.
+Refused by name: `--data-dir` (Slice I) and the two 16 GB TPU workarounds
+`--remat-offload` and `--offload-opt`.
 
     python -m mmpl_tpu_torch.train --smoke --steps 3
     python -m mmpl_tpu_torch.train --smoke --objective flow --steps 3
@@ -58,10 +62,11 @@ import time
 import numpy as np
 import torch
 
+from .models.dit import WanDiT
+
 #: flags that are not ported (ROADMAP.md)
 REFUSED = {
     "data_dir": "Slice I (data)",
-    "mesh": "Slice F (multi-device)",
     "remat_offload": "a 16 GB TPU workaround the H100 needs not "
                      "(ROADMAP.md North star)",
     "offload_opt": "a 16 GB TPU workaround the H100 needs not "
@@ -143,9 +148,19 @@ def parse_args(argv=None):
     p.add_argument("--config", default=None,
                    help="YAML run config (configs/*.yaml) merged over the "
                         "flag defaults; flags given explicitly win")
+    p.add_argument("--mesh", default=None,
+                   help="multi-process mesh 'dp=A,fsdp=B' (sizes multiply "
+                        "to the processes): every model FSDP-sharded over "
+                        "fsdp (HSDP, replicated over dp), the batch over "
+                        "dp; one process per card under torchrun, or "
+                        "--coordinator / --num-processes / --process-id")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process rendezvous host:port "
+                        "(torch.distributed; parallel/mesh.py)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     # flags that are not ported: parsed so that they can be refused by name
-    for flag in ("--data-dir", "--mesh"):
-        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--data-dir", default=None, help=argparse.SUPPRESS)
     for flag in ("--remat-offload", "--offload-opt"):
         p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     args = apply_run_config(p.parse_args(argv), argv)
@@ -155,6 +170,11 @@ def parse_args(argv=None):
     for dest, why in REFUSED.items():
         if getattr(args, dest):
             p.error(f"--{dest.replace('_', '-')} is not ported: {why}")
+    if args.mesh:
+        for dest in ("ckpt_dir", "resume"):
+            if getattr(args, dest):
+                p.error(f"--{dest.replace('_', '-')} with --mesh is not "
+                        f"ported: sharded checkpoints (ROADMAP.md Queue 1)")
     return args
 
 
@@ -352,6 +372,102 @@ class _Checkpoints:
         print(f"saved {path} ({nbytes} bytes, {dt:.2f}s)", file=sys.stderr)
 
 
+class _Ranks:
+    """The trainer's `--mesh` (JAX `train.py`'s (dp, fsdp) mesh): every
+    model FSDP-sharded (`parallel/mesh.shard_for_training`), each process
+    on its dp rows of the batch, the losses run inside the models'
+    forwards (whose hooks gather the parameters), the gradients of
+    unsharded modules (the GAN head) averaged over dp.  Without `--mesh`
+    every method leaves its input as it is."""
+
+    def __init__(self, args):
+        self.mesh, self.dp, self.dp_rank, self.rank0 = None, 1, 0, True
+        self.batch = args.batch_size
+        if not args.mesh:
+            return
+        import torch.distributed as dist
+        from .parallel.mesh import init_distributed, make_mesh
+        shape = {k: int(v) for k, v in
+                 (kv.split("=") for kv in args.mesh.split(","))}
+        if set(shape) - {"dp", "fsdp", "tp"} or shape.get("tp", 1) > 1:
+            raise SystemExit(f"--mesh {args.mesh}: the trainer shards over "
+                             f"dp and fsdp (tp in training is not ported)")
+        if not init_distributed(args.coordinator, args.num_processes,
+                                args.process_id):
+            raise SystemExit("--mesh needs a process group: run under "
+                             "torchrun, or give --coordinator, "
+                             "--num-processes and --process-id")
+        self.dp = shape.get("dp", 1)
+        if self.batch % self.dp:
+            raise SystemExit(f"--batch-size {self.batch} does not split "
+                             f"over dp = {self.dp}")
+        self.mesh = make_mesh({"dp": self.dp, "fsdp": shape.get("fsdp", 1)})
+        self.dp_rank = self.mesh.get_local_rank("dp")
+        self.rank0 = dist.get_rank() == 0
+        dims = dict(zip(self.mesh.mesh_dim_names, self.mesh.mesh.shape))
+        print(f"mesh: {dims} (process {dist.get_rank()}/"
+              f"{dist.get_world_size()})", file=sys.stderr)
+
+    def shard(self, model):
+        if self.mesh is None:
+            return model
+        from .parallel.mesh import shard_for_training
+        return shard_for_training(model, self.mesh)
+
+    def rows(self, tree):
+        """This process's dp rows of every batch-first tensor of `tree`."""
+        if self.dp == 1:
+            return tree
+        if isinstance(tree, dict):
+            return {k: self.rows(v) for k, v in tree.items()}
+        if (isinstance(tree, torch.Tensor) and tree.ndim
+                and tree.shape[0] == self.batch):
+            return tree.chunk(self.dp)[self.dp_rank]
+        return tree
+
+    def in_forward(self, modules, fn, *args):
+        """fn(*args) inside each module's forward (`WanDiT.forward`): an
+        FSDP root gathers its own parameters there."""
+        if self.mesh is None or not modules:
+            return fn(*args)
+        rest = list(modules[1:])
+        return modules[0](lambda _m, *a: self.in_forward(rest, fn, *a),
+                          *args)
+
+    def export(self, path: str, model, ema_shadow, cfg) -> None:
+        """`--export-pt`: the generator (and its EMA) as the upstream
+        `.pt`; under the mesh every rank gathers the full tensors
+        (`DTensor.full_tensor`, a collective) and rank 0 writes."""
+        from .utils import train_state_io as tsio
+        params = dict(model.named_parameters())
+        if self.mesh is not None:
+            full = lambda d: {n: t.full_tensor() for n, t in d.items()}
+            params = full(params)
+            ema_shadow = None if ema_shadow is None else full(ema_shadow)
+        if self.rank0:
+            tsio.export_generator_pt(path, params, ema_shadow, cfg)
+            print(f"exported {path}", file=sys.stderr)
+
+    def sync_grads(self, modules) -> None:
+        """The dp mean of the gradients of modules FSDP does not hold."""
+        if self.dp == 1:
+            return
+        import torch.distributed as dist
+        group = self.mesh.get_group("dp")
+        for m in modules:
+            for p in m.parameters():
+                if p.grad is not None:
+                    dist.all_reduce(p.grad, group=group)
+                    p.grad.div_(self.dp)
+
+
+class _NoMetrics:
+    """The metrics of a process other than rank 0 (which writes them)."""
+
+    def log(self, step: int, **scalars) -> None:
+        pass
+
+
 def _restore_ema(ema, saved) -> None:
     with torch.no_grad():
         for name, s in ema.shadow.items():
@@ -366,27 +482,33 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     set_float32_precision()
+    ranks = _Ranks(args)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = tiny_test_config() if args.smoke else WAN_CONFIGS["t2v-1.3B"]
     lat_hw = (4, 4) if args.smoke else (60, 104)
     model = load_generator(args, cfg, torch.Generator(device=device)
                            .manual_seed(args.seed), device)
-    metrics = MetricsLogger(args.log_dir, args.run_name, config=vars(args))
+    metrics = MetricsLogger(args.log_dir, args.run_name, config=vars(args)) \
+        if ranks.rank0 else _NoMetrics()
     ckpts = _Checkpoints(args, metrics, device)
     if args.objective in ("teacher_forcing", "flow"):
-        _train_diffusion(args, cfg, model, lat_hw, device, metrics, ckpts)
+        _train_diffusion(args, cfg, model, lat_hw, device, metrics, ckpts,
+                         ranks)
     elif args.objective == "ode":
-        _train_ode(args, cfg, model, lat_hw, device, metrics, ckpts)
+        _train_ode(args, cfg, model, lat_hw, device, metrics, ckpts, ranks)
     else:
-        _train_distill(args, cfg, model, lat_hw, device, metrics, ckpts)
+        _train_distill(args, cfg, model, lat_hw, device, metrics, ckpts,
+                       ranks)
     return 0
 
 
-def _train_diffusion(args, cfg, model, lat_hw, device, metrics, ckpts):
+def _train_diffusion(args, cfg, model, lat_hw, device, metrics, ckpts,
+                     ranks):
     """teacher_forcing and flow: one model, AdamW, EMA."""
     from .core.geometry import T2V_CLEAN_STEPS
     from .training import diffusion as tdiff
     from .training import masks
-    from .utils import train_state_io as tsio
     from .utils.ema import EmaParams
 
     F = args.num_frames
@@ -398,7 +520,8 @@ def _train_diffusion(args, cfg, model, lat_hw, device, metrics, ckpts):
             noise_aug_max_timestep=args.noise_aug_max)
     else:
         loss_fn = tdiff.make_loss_fn(cfg, sch)
-    trainer = tdiff.DiffusionTrainer(model, loss_fn, learning_rate=args.lr)
+    trainer = tdiff.DiffusionTrainer(ranks.shard(model), loss_fn,
+                                     learning_rate=args.lr)
     ema = EmaParams(model, decay=args.ema_decay)
     data_gen, draw_gen = _generators(device, args.seed)
 
@@ -430,15 +553,14 @@ def _train_diffusion(args, cfg, model, lat_hw, device, metrics, ckpts):
             draws = tdiff.draw_flow(draw_gen, shape,
                                     args.num_frame_per_block, device)
         t0 = time.time()
-        loss = float(trainer.train_step(batch, draws))
+        loss = float(trainer.train_step(ranks.rows(batch), ranks.rows(draws)))
         ema.update(model)
         dt = time.time() - t0
         _log_step(metrics, step, f"step {step}: loss={loss:.5f}",
                   {"loss": loss, "step_s": dt})
         ckpts.maybe_save(step + 1, train_state)
     if args.export_pt:
-        tsio.export_generator_pt(args.export_pt, model, ema.shadow, cfg)
-        print(f"exported {args.export_pt}", file=sys.stderr)
+        ranks.export(args.export_pt, model, ema.shadow, cfg)
 
 
 def _step_list(args):
@@ -454,17 +576,16 @@ def _context_kv(model, cfg, context):
                                      dit.embed_text(model, context))
 
 
-def _train_ode(args, cfg, model, lat_hw, device, metrics, ckpts):
+def _train_ode(args, cfg, model, lat_hw, device, metrics, ckpts, ranks):
     """ODE regression of the generator onto synthetic trajectories."""
     from .training import diffusion as tdiff
     from .training.distillation import (ode_regression_loss,
                                         prepare_ode_generator_input)
-    from .utils import train_state_io as tsio
 
     F = args.num_frames
     sch = tdiff.make_scheduler(args.timestep_shift)
     steps = _step_list(args)
-    model.requires_grad_(True)
+    model = ranks.shard(model.requires_grad_(True))
     opt = adamw(model.parameters(), args.lr, OPTAX_WEIGHT_DECAY)
     data_gen, draw_gen = _generators(device, args.seed)
 
@@ -492,11 +613,15 @@ def _train_ode(args, cfg, model, lat_hw, device, metrics, ckpts):
         if idx is None:
             idx = torch.randint(0, len(steps), (shape[0], F // 3),
                                 generator=draws["generator"], device=device)
-        noisy, t = prepare_ode_generator_input(traj, steps, idx.to(device))
+        traj, ctx, idx = (ranks.rows(x) for x in (traj, ctx,
+                                                  idx.to(device)))
+        noisy, t = prepare_ode_generator_input(traj, steps, idx)
         batch = {"noisy_input": noisy, "clean_latent": traj[:, -1],
-                 "timestep": t, "ctx_kv": _context_kv(model, cfg, ctx)}
+                 "timestep": t, "ctx_kv": ranks.in_forward(
+                     [model], _context_kv, model, cfg, ctx)}
         opt.zero_grad(set_to_none=True)
-        loss, _ = ode_regression_loss(model, cfg, sch, batch)
+        loss, _ = ranks.in_forward([model], ode_regression_loss, model, cfg,
+                                   sch, batch)
         loss.backward()
         opt.step()
         loss = float(loss.detach())
@@ -505,9 +630,8 @@ def _train_ode(args, cfg, model, lat_hw, device, metrics, ckpts):
                   {"loss": loss, "step_s": dt})
         ckpts.maybe_save(step + 1, train_state)
     if args.export_pt:
-        tsio.export_generator_pt(args.export_pt, model,
-                                 dict(model.named_parameters()), cfg)
-        print(f"exported {args.export_pt}", file=sys.stderr)
+        ranks.export(args.export_pt, model, dict(model.named_parameters()),
+                     cfg)
 
 
 def build_distillation(args, cfg, generator_model, device, vae=None,
@@ -568,15 +692,24 @@ def build_distillation(args, cfg, generator_model, device, vae=None,
             dist.critic_loss, ("fake_score",))
 
 
-def train_step(models, keys, loss_fn, opt, batch, draws):
+def train_step(models, keys, loss_fn, opt, batch, draws, ranks=None):
     """One AdamW step of the modules `keys` on loss_fn(models, batch,
-    draws); only they require gradients during it.  Returns the loss."""
+    draws); only they require gradients during it.  Returns the loss.
+    ranks: the `--mesh` (`_Ranks`), whose sharded models' forwards the
+    loss runs in."""
     for name, m in models.items():
         m.requires_grad_(name in keys)
     opt.zero_grad(set_to_none=True)
     try:
-        loss, _ = loss_fn(models, batch, draws)
+        if ranks is None:
+            loss, _ = loss_fn(models, batch, draws)
+        else:
+            roots = [m for m in models.values() if isinstance(m, WanDiT)]
+            loss, _ = ranks.in_forward(roots, loss_fn, models, batch, draws)
         loss.backward()
+        if ranks is not None:
+            ranks.sync_grads([models[k] for k in keys
+                              if not isinstance(models[k], WanDiT)])
         opt.step()
     finally:
         for m in models.values():
@@ -584,11 +717,12 @@ def train_step(models, keys, loss_fn, opt, batch, draws):
     return loss.detach()
 
 
-def _train_distill(args, cfg, model, lat_hw, device, metrics, ckpts):
+def _train_distill(args, cfg, model, lat_hw, device, metrics, ckpts,
+                   ranks):
     """dmd / sid / causvid / gan: the critic every step, the generator
-    every --dfake-gen-update-ratio-th."""
+    every --dfake-gen-update-ratio-th.  Under a dp mesh each dp rank draws
+    the losses' noise from its own stream (seed + 1 + 1000 x dp rank)."""
     from .training.self_forcing import sample_num_frames
-    from .utils import train_state_io as tsio
     from .utils.ema import EmaParams
 
     vae = None
@@ -599,6 +733,8 @@ def _train_distill(args, cfg, model, lat_hw, device, metrics, ckpts):
     model.requires_grad_(False)
     models, dist, gen_loss, critic_loss, critic_keys = build_distillation(
         args, cfg, model, device, vae)
+    models = {k: ranks.shard(m) if isinstance(m, WanDiT) else m
+              for k, m in models.items()}
     F = args.num_frames
     max_F = args.num_training_frames or F
     nb = args.num_frame_per_block
@@ -610,6 +746,8 @@ def _train_distill(args, cfg, model, lat_hw, device, metrics, ckpts):
                   lr_c, OPTAX_WEIGHT_DECAY)
     ema = EmaParams(models["generator"], decay=args.ema_decay)
     data_gen, draw_gen = _generators(device, args.seed)
+    if ranks.dp > 1:
+        draw_gen.manual_seed(args.seed + 1 + 1000 * ranks.dp_rank)
     len_rng = np.random.default_rng(args.seed + 2)
     trained = ("generator",) + critic_keys
 
@@ -641,18 +779,20 @@ def _train_distill(args, cfg, model, lat_hw, device, metrics, ckpts):
             data_gen, (args.batch_size, F_roll, cfg.in_dim, *lat_hw), cfg,
             device, real_shape=((args.batch_size, F, cfg.in_dim, *lat_hw)
                                 if args.objective == "gan" else None))
-        batch["ctx_kv"] = _context_kv(models["generator"], cfg,
-                                      batch["context"])
+        batch = ranks.rows(batch)
+        batch["ctx_kv"] = ranks.in_forward(
+            [models["generator"]], _context_kv, models["generator"], cfg,
+            batch["context"])
         t0 = time.time()
         closs = float(train_step(models, critic_keys, critic_loss, opt_c,
-                                 batch, loss_draws(draw_gen, step,
-                                                   "critic")))
+                                 batch, loss_draws(draw_gen, step, "critic"),
+                                 ranks))
         line = f"step {step}: critic={closs:.5f}"
         scalars = {"critic_loss": closs}
         if (step + 1) % args.dfake_gen_update_ratio == 0:
             gloss = float(train_step(models, ("generator",), gen_loss, opt_g,
                                      batch, loss_draws(draw_gen, step,
-                                                       "generator")))
+                                                       "generator"), ranks))
             if step >= args.ema_start_step:
                 ema.update(models["generator"])
             line += f" gen={gloss:.5f}"
@@ -661,9 +801,7 @@ def _train_distill(args, cfg, model, lat_hw, device, metrics, ckpts):
         _log_step(metrics, step, line, scalars)
         ckpts.maybe_save(step + 1, train_state)
     if args.export_pt:
-        tsio.export_generator_pt(args.export_pt, models["generator"],
-                                 ema.shadow, cfg)
-        print(f"exported {args.export_pt}", file=sys.stderr)
+        ranks.export(args.export_pt, models["generator"], ema.shadow, cfg)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,9 @@
 objective.
 
 Port of `mmpl_tpu/training/diffusion.py` (`make_teacher_forcing_loss_fn`,
-`make_loss_fn`, `sample_block_timesteps`, `DiffusionTrainer`) without the
-mesh.  The flow objective (`make_loss_fn`) is flow-matching MSE on the
+`make_loss_fn`, `sample_block_timesteps`, `DiffusionTrainer`); the
+trainer's `--mesh` shards the model before it reaches `DiffusionTrainer`
+(`train._Ranks`).  The flow objective (`make_loss_fn`) is flow-matching MSE on the
 bidirectional `dit_forward` with per-block rematerialisation, blockwise
 timesteps, the training weight and 10% CFG dropout (one coin per sample).
 Teacher forcing:
@@ -184,7 +185,9 @@ class DiffusionTrainer:
     def train_step(self, batch, draws) -> torch.Tensor:
         """One AdamW step; returns the loss (a detached device scalar)."""
         self.opt.zero_grad(set_to_none=True)
-        loss = self._loss_fn(self.model, batch, draws)
+        # through the model's call: an FSDP-sharded model
+        # (`parallel/mesh.shard_for_training`) gathers its root there
+        loss = self.model(self._loss_fn, batch, draws)
         loss.backward()
         grads = [p.grad for p in self.model.parameters()
                  if p.grad is not None]

@@ -22,7 +22,7 @@ from torch import nn
 from ..models.dit import (MLP, Affine, block_forward, embed_text,
                           layer_norm, linear, mlp, patchify,
                           precompute_context_kv, qkv_project, remat,
-                          rms_norm, time_embed)
+                          rms_norm, run_block, time_embed)
 from ..ops.attention import attention
 from ..ops.rope import window_rope_table
 
@@ -172,7 +172,9 @@ def dit_forward_classify(model, head: GanHead, cfg, latents: torch.Tensor,
     prev = 0
     for gi, tap in enumerate(taps):
         for li in range(prev, tap + 1):
-            step = lambda x, li=li: block_fn(x, model.blocks[li], ctx_kv[li])
+            step = lambda x, li=li: run_block(
+                model.blocks[li], lambda b, x: block_fn(x, b, ctx_kv[li]),
+                x)
             x = remat(step, x) if remat_blocks else step(x)
         prev = tap + 1
         gp = head.gan_blocks[gi % len(head.gan_blocks)]

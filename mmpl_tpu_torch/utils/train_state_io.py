@@ -102,10 +102,11 @@ def _upstream_state(named: Dict[str, torch.Tensor], cfg) -> Dict[str, Any]:
     return out
 
 
-def export_generator_pt(path: str, model: torch.nn.Module,
-                        ema: Optional[Dict[str, torch.Tensor]], cfg) -> None:
+def export_generator_pt(path: str, model, ema: Optional[Dict[str,
+                        torch.Tensor]], cfg) -> None:
     """Write `{'generator': ..., 'generator_ema': ...}` (the EMA only when
-    given) with `model.`-prefixed fp32 tensors in the upstream layout: the
+    given) of `model` (a module, or its parameters by name) with
+    `model.`-prefixed fp32 tensors in the upstream layout: the
     `t2v_14B_8k.pt` format that `utils/checkpoint.load_mmpl_generator`
     (and the JAX package's) reads.  t2v configs only: the JAX export has
     no i2v leaves, so an i2v file would not load back."""
@@ -113,8 +114,9 @@ def export_generator_pt(path: str, model: torch.nn.Module,
         raise NotImplementedError(
             f"export of a {cfg.model_type} DiT: the upstream export "
             f"(mmpl_tpu export_generator_pt) writes t2v leaves only")
-    blob = {"generator": _upstream_state(dict(model.named_parameters()),
-                                         cfg)}
+    params = model if isinstance(model, dict) else dict(
+        model.named_parameters())
+    blob = {"generator": _upstream_state(params, cfg)}
     if ema is not None:
         blob["generator_ema"] = _upstream_state(ema, cfg)
     _save_atomic(blob, path)

@@ -1,6 +1,7 @@
 """Video writing with backend fallback: mp4 -> ffmpeg binary -> gif -> npy.
 
-Port of `mmpl_tpu/utils/video_io.py`; returns the path actually written.
+Port of `mmpl_tpu/utils/video_io.py`: `write_video` returns the path
+actually written, `read_video` reads any of them back.
 """
 
 from __future__ import annotations
@@ -44,3 +45,12 @@ def write_video(path: str, frames: np.ndarray, fps: int = 16) -> str:
         np.save(npy, frames)
         print(f"video backends unavailable; wrote {npy}", file=sys.stderr)
         return npy
+
+
+def read_video(path: str) -> np.ndarray:
+    """[T, H, W, 3] uint8 from mp4/gif/npy."""
+    if path.endswith(".npy"):
+        return np.load(path)
+    import imageio
+    return np.stack([np.asarray(f)[..., :3]
+                     for f in imageio.mimread(path, memtest=False)])

@@ -14,6 +14,7 @@ Every test skips where there is no CUDA device.
 """
 
 import os
+import time
 
 # Keep CUPTI resident between the short torch.profiler sessions of the body
 # checks (`_launched`): with the default teardown and lazy re-init the
@@ -1053,3 +1054,171 @@ def test_tiny_dmd_step_on_the_card_matches_the_cpu(cuda, loss, trained):
         assert (gg[n] - gc[n]).abs().max().item() <= 1e-4 * scale, n
     assert counts["flash_fwd"] > 0 and counts["flash_bwd_dkv"] > 0 \
         and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"], counts
+
+
+# ---------------------------------------------------------------------------
+# Multi-device on one card: the ring in the in-process group, the chunk
+# pipeline's stages as streams
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,ring", [(torch.bfloat16, 4),
+                                        (torch.float32, 2)])
+def test_ring_matches_the_whole_sequence_kernels(cuda, dtype, ring):
+    """ring_flash_attention over `ring` stacked shards: K1 per ring step
+    merged by lse equals one K1 call over every key; K2 / K3 per step
+    with the global lse and delta equal K2 / K3 over the whole sequence;
+    `ring` launches of each a call."""
+    from mmpl_tpu_torch.parallel.collectives import LocalMesh
+    mesh = LocalMesh({"ring": ring})
+    group = mesh.get_group("ring")
+    q, k, v, do = (x.to(dtype) for x in _qkv(1024, 1024, 128, torch.float32,
+                                               cuda, seed=3) + _qkv(
+        1024, 1024, 128, torch.float32, cuda, seed=4)[:1])
+    shard = lambda x: mesh.shard(x, 1, ("ring",)).contiguous()
+    leaves = [shard(x).requires_grad_() for x in (q, k, v)]
+    ta.reset_launch_counts()
+    out = ta.ring_flash_attention(*leaves, group)
+    out.backward(shard(do))
+    counts = dict(ta.launch_counts)
+    o_w, lse_w = ta.flash_fwd_cuda(q, k, v)
+    delta = (do.float() * o_w.float()).sum(-1).transpose(1, 2).contiguous()
+    grads_w = ta.flash_bwd_cuda(q, k, v, do, lse_w, delta)
+    got = mesh.gather(out, 1, ("ring",))
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    assert (got.float() - o_w.float()).abs().max().item() <= tol
+    for x, w in zip(leaves, grads_w):
+        g = mesh.gather(x.grad, 1, ("ring",)).float()
+        rel = ((g - w.float()).norm() / w.float().norm()).item()
+        assert rel <= (1e-2 if dtype == torch.bfloat16 else 1e-5), rel
+    assert counts["flash_fwd"] == ring
+    assert counts["flash_bwd_dkv"] == counts["flash_bwd_dq"] == ring
+
+
+def _tiny_chunk_pipe(cuda, stages, **kw):
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    from mmpl_tpu_torch.models import dit, vae
+    from mmpl_tpu_torch.parallel.chunk_pipeline import ChunkParallelPipeline
+    cfg = tiny_test_config()
+    g = lambda s: torch.Generator(device=cuda).manual_seed(s)
+    model = dit.randomize_head(dit.init_dit_params(cfg, g(0), torch.bfloat16,
+                                                   cuda), g(9))
+    vae_m = vae.init_vae_params(g(1), torch.float32, cuda)
+    pipe = ChunkParallelPipeline(cfg, model, vae_m, devices=[cuda] * stages,
+                                 sampling_steps=2, dtype=torch.bfloat16,
+                                 **kw)
+    gen = g(5)
+    noises = [torch.randn((1, 21, 16, 8, 8), generator=gen, device=cuda)
+              for _ in range(3)]
+    ctx = [torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen,
+                       device=cuda) for _ in range(2)]
+    return pipe, noises, ctx
+
+
+def test_two_streams_give_one_streams_chunks(cuda):
+    """Three chunks over two stages of one card (two streams, one model)
+    equal the same chunks on one stage, bit for bit; each chunk's CUDA
+    events are ordered and chunk 1 starts after chunk 0's anchors."""
+    runs = []
+    for stages in (2, 1):
+        pipe, noises, (cond, uncond) = _tiny_chunk_pipe(cuda, stages)
+        runs.append(pipe.generate(noises, cond, uncond, seed=3))
+        timeline = pipe.device_timeline()
+        assert [t["stage"] for t in timeline] == [i % stages
+                                                  for i in range(3)]
+        for t in timeline:
+            assert t["start_ms"] <= t["groups_start_ms"] <= t["anchor_ms"] \
+                <= t["end_ms"]
+        for a, b in zip(timeline, timeline[1:]):
+            assert b["groups_start_ms"] >= a["anchor_ms"]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_sync_timing_waits_for_its_own_stream_only(cuda):
+    """With sync_timing on, a pipeline times its groups on its own stream:
+    a long kernel queued on another stream of the card (another stage)
+    does not hold it up, so two stages still overlap."""
+    pipe, noises, (cond, uncond) = _tiny_chunk_pipe(cuda, 1)
+    stage = pipe.stages[0].pipe
+    stage.sync_timing = True
+    with torch.inference_mode():
+        stage.inference(noises[0], cond, uncond)      # warm-up
+    torch.cuda.synchronize()
+    other = torch.cuda.Stream(device=cuda)
+    mine = torch.cuda.Stream(device=cuda)
+    with torch.cuda.stream(other):
+        torch.cuda._sleep(int(6e9))       # >= 3 s at up to 2 GHz
+    t0 = time.perf_counter()
+    with torch.cuda.stream(mine), torch.inference_mode():
+        stage.inference(noises[0], cond, uncond)
+    mine.synchronize()
+    seconds = time.perf_counter() - t0
+    busy = other.query()
+    torch.cuda.synchronize()
+    assert not busy, "the other stream finished first: no overlap shown"
+    assert seconds < 2.0, seconds
+    assert all(v >= 0 for v in stage.phase_times.values())
+
+
+def test_served_chunk_is_published_before_the_next_chunk_ends(cuda,
+                                                              tmp_path):
+    """The pipeline backend on two stages of the card decodes chunk 0 on
+    its stage and publishes its file (on_chunk) while chunk 1 still runs:
+    chunk 1's stage first queues a long kernel, and chunk 1's end event
+    has not completed when chunk 0's file is published."""
+    from mmpl_tpu_torch.serving import server as srv
+    cfg, model, vae_m, text_encoder, lat_hw = srv.smoke_models(cuda)
+    config = srv.ParallelServerConfig(output_folder=str(tmp_path),
+                                      num_chunks=2)
+    backend = srv.make_pipeline_backend(cfg, model, vae_m, text_encoder,
+                                        config, devices=[cuda, cuda],
+                                        lat_hw=lat_hw, sampling_steps=2)
+    stage1 = backend.pipe.stages[1].pipe
+    inference = stage1.inference
+
+    def slow_inference(*args, **kwargs):
+        torch.cuda._sleep(int(4e9))     # >= 2 s at up to 2 GHz
+        return inference(*args, **kwargs)
+
+    stage1.inference = slow_inference
+    seen = []
+
+    def on_chunk(path):
+        log = backend.pipe.dispatch_log[1]
+        seen.append(bool(log) and log["cuda_events"]["end"].query())
+
+    paths = backend("a red fox", 2, 5, on_chunk=on_chunk)
+    torch.cuda.synchronize()
+    assert len(paths) == 2 and len(seen) == 2
+    assert seen[0] is False, seen
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_usp_forward_matches_the_single_device_forward(cuda, dtype, tol):
+    """usp_dit_forward over sp 2 x ring 2 in the in-process group on the
+    card (K1 on the all-to-all's strided shards, the ring's merge) equals
+    dit_forward; relative error of the flow."""
+    import copy
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    from mmpl_tpu_torch.models import dit
+    from mmpl_tpu_torch.parallel.collectives import LocalMesh
+    from mmpl_tpu_torch.parallel.sequence_parallel import usp_dit_forward
+    from mmpl_tpu_torch.utils.device import set_float32_precision
+    set_float32_precision()
+    cfg = copy.deepcopy(tiny_test_config())
+    cfg.num_heads = 2
+    g = lambda s: torch.Generator(device=cuda).manual_seed(s)
+    model = dit.randomize_head(dit.init_dit_params(cfg, g(0), dtype, cuda),
+                               g(1))
+    dit.fuse_qkv_params(model, cfg.num_heads)
+    lat = torch.randn((1, 4, 16, 8, 8), generator=g(2), device=cuda).to(dtype)
+    t = torch.tensor([600.0], device=cuda)
+    ctx = torch.randn((1, 16, 64), generator=g(3), device=cuda).to(dtype)
+    with torch.no_grad():
+        want = dit.dit_forward(model, cfg, lat, t, ctx).float()
+        got = usp_dit_forward(model, cfg, lat, t, ctx,
+                              LocalMesh({"sp": 2, "ring": 2}),
+                              ring_axis="ring").float()
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= tol, rel

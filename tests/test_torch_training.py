@@ -248,10 +248,13 @@ def test_train_cli_smoke_run_logs_finite_losses(tmp_path):
     (["--generator-ckpt", "x"], None),
     (["--wan-dir", "x"], None),
     (["--config", str(CONFIGS / "self_forcing_df.yaml")], None),
-    (["--mesh", "dp=2"], "Slice F"),
+    # --mesh is ported (this case's id kept): it parses; with it the
+    # checkpoint flags are refused (the next case)
+    pytest.param(["--mesh", "dp=2"], None, id="argv10-Slice F"),
     (["--remat-offload"], "TPU workaround"),
     (["--offload-opt"], "TPU workaround"),
     (["--config", str(CONFIGS / "self_forcing_dmd.yaml")], None),
+    (["--mesh", "dp=2", "--ckpt-dir", "x"], "sharded checkpoints"),
 ])
 def test_refused_flags_name_their_slice(argv, slice_name, capsys):
     """Flags that are not ported exit naming their ROADMAP slice (or that

@@ -141,7 +141,7 @@ def test_a_mesh_and_a_missing_clip_are_refused(setup):
     _, vae, ctx, noise, image = setup
     cfg = tiny_test_config("i2v")
     model = port_model(jax_params_np(cfg, seed=6), cfg)
-    with pytest.raises(NotImplementedError, match="Slice F"):
+    with pytest.raises(TypeError, match="not a mesh"):
         twr.WanT2V(cfg, model, vae, mesh=object())
     pipe = twr.WanI2V(cfg, model, vae, sampling_steps=STEPS)
     with pytest.raises(ValueError, match="clip_model"):
