@@ -145,8 +145,22 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      1, USP attention over the process groups, one group-3 forward of the
      pipeline built over the mesh, one 1.3B teacher-forcing step at full
      width and depth FSDP-sharded over the mesh against the same step
-     unsharded, and one `train --mesh` CLI step in smoke mode;
-  18. the kernels line, then the final device line.
+     unsharded, one `train --mesh` CLI step in smoke mode, and mesh_ckpt:
+     2-layer teacher forcing on the data shards under `--mesh
+     dp=1,fsdp=1`, saved sharded and resumed, bit for bit;
+  18. the training data path (run after cli_real, on the ckpt phase's
+     files): data, three .npy clips of 720x1280 (two of 81+ frames, one
+     too short) through `python -m mmpl_tpu_torch.data.video_dataset
+     --use_native` at 480x832 and 81 frames, the resample and the VAE's
+     `encode_streaming` on the card (resample ms and its distance from the
+     CPU, encode seconds and peak per clip, the shard); ode_gen,
+     `data/ode_gen.record_trajectories` of the 1.3B teacher at full depth
+     in bf16 over the CFG pair, 4 steps, exact K1, the shard with
+     `prompt_embeds`; train_data, `train --data-dir` on those shards:
+     teacher forcing at full width and depth (exact K1-K6, step and load
+     seconds), flow and ODE at 2 layers; train_data_resume, 2-layer
+     teacher forcing on the shards resumed from step 1 of 3, bit for bit;
+  19. the kernels line, then the final device line.
 """
 
 from __future__ import annotations
@@ -2739,6 +2753,8 @@ def phase_wan_parity(steps: int = 2):
 #: reckoning of three 1.3B models, two AdamW states and the EMA fits the
 #: 80 GB card at 30 layers) and of the phases cut to 2 layers
 DISTILL_LAYERS = 30
+#: distill_profile's depth (its session's cost grows with the launches)
+PROFILE_LAYERS = 6
 SHALLOW_LAYERS = 2
 #: the 21 latent frames of a 480x832 window, in blocks of 3
 DISTILL_FRAMES, DISTILL_BLOCKS = 21, 7
@@ -3012,7 +3028,8 @@ def phase_distill_dmd():
     Distiller in bf16 over fp32 masters (configs/self_forcing_dmd.yaml's
     warped steps, shift 5.0, guidance 3.0), AdamW.  The exit flag is
     drawn once for all blocks (same_step_across_blocks), so the launches
-    are checked against the flag's formula."""
+    are checked against the flag's formula.  distill_profile: a generator
+    step of the same bundle cut to PROFILE_LAYERS, under the profiler."""
     from mmpl_tpu_torch.training.distillation import (DistillationConfig,
                                                       Distiller)
     cfg, models, ro, sch, dcfg, batch, gen = _distill_setup(DISTILL_LAYERS)
@@ -3048,12 +3065,19 @@ def phase_distill_dmd():
         total = {k: total.get(k, 0) + counts[k] for k in counts}
     grads_finite = all(torch.isfinite(p).all().item()
                        for m in models.values() for p in m.parameters())
+    # the profile at PROFILE_LAYERS: a session over the ~70,000 launches of
+    # a 30-layer generator step took 120-141 s of the run on the H100
+    del models, dist, ro, batch
+    torch.cuda.empty_cache()
+    cfg, models, ro, sch, dcfg, batch, gen = _distill_setup(PROFILE_LAYERS)
+    dist = Distiller(cfg, DistillationConfig(**dcfg), ro, sch)
     phase_train_profile(
         lambda: _distill_step(models, ("generator",),
                               dist.dmd_generator_loss, batch, ro, gen, nb),
         phase="distill_profile",
-        what=f"one DMD generator step, 1.3B width, {L} layers, bf16 over "
-             f"fp32 masters", checked=("flash_bwd_dkv", "flash_bwd_dq"))
+        what=f"one DMD generator step, 1.3B width, {PROFILE_LAYERS} "
+             f"layers, bf16 over fp32 masters",
+        checked=("flash_bwd_dkv", "flash_bwd_dq"))
     emit({"phase": "distill_dmd_total", "layers": L,
           "seconds_per_step": {r["step"]: r["seconds"] for r in out},
           "max_memory_allocated_gib": max(r["max_memory_allocated_gib"]
@@ -3854,15 +3878,16 @@ def _train_mesh_step(mesh) -> dict:
     return out
 
 
-def phase_mesh():
+def phase_mesh(shards: str):
     """`init_distributed` on NCCL at world size 1 (a localhost rendezvous,
     an ephemeral port), `make_mesh`'s default fold and an sp x ring mesh,
     USP attention over the real process groups (of one rank each), and
     one group-3 forward of the 1.3B pipeline built over the default mesh
     (`_sharded_fps_step`), one 1.3B teacher-forcing step at full width and
     depth with the model FSDP-sharded over it against the same step
-    without (`_train_mesh_step`), and the `train --mesh` CLI in smoke mode
-    (`_train_mesh_cli`); the group is destroyed after."""
+    without (`_train_mesh_step`), the `train --mesh` CLI in smoke mode
+    (`_train_mesh_cli`) and its sharded checkpoints on the data phase's
+    shards (`_mesh_ckpt`); the group is destroyed after."""
     import socket
     import torch.distributed as dist
     from mmpl_tpu_torch.parallel import mesh as mesh_mod
@@ -3892,6 +3917,7 @@ def phase_mesh():
         step.update(_train_mesh_step(mesh_mod.make_mesh({"dp": 1,
                                                          "fsdp": 1})))
         cli_counts = _train_mesh_cli()
+        step.update(_mesh_ckpt(shards))
         row = {"phase": "mesh", "initialised": ok, "init_s": init_s,
                "backend": dist.get_backend(),
                "world_size": dist.get_world_size(),
@@ -3915,10 +3941,370 @@ def phase_mesh():
     check(ok and row["backend"] == "nccl" and row["world_size"] == 1, row)
     check(row["default_mesh"] == {"dp": 1, "fsdp": 1, "tp": 1}, row)
     check(err == 0.0 and counts == _k123(1), row)
-    total = {k: v + cli_counts[k]
+    _check_resumed({k[len("mesh_ckpt_"):]: v for k, v in row.items()
+                    if k.startswith("mesh_ckpt_")})
+    check(row["mesh_ckpt_launches"] == row["mesh_ckpt_expected_launches"],
+          row)
+    check(".metadata" in row["mesh_ckpt_files"]
+          and "rank0.pt" in row["mesh_ckpt_files"], row)
+    total = {k: v + cli_counts[k] + row["mesh_ckpt_launches"][k]
              for k, v in row["train_mesh_launches"].items()}
     total["flash_fwd"] += counts["flash_fwd"] + row["sharded_step_flash_fwd"]
     return total
+
+
+# ---------------------------------------------------------------------------
+# The training data path: raw clips -> latent shards, ODE trajectories,
+# the trainer's --data-dir, sharded checkpoints
+# ---------------------------------------------------------------------------
+
+DATA_DIR = os.path.join(OUT_DIR, "data")
+#: (file, pixel frames, prompt): two clips of 81+ frames and one too short
+DATA_CLIPS = (("clip_a.npy", 97, "a cat surfing a wave at sunset"),
+              ("clip_b.npy", 89, "a red fox runs on the beach"),
+              ("short.npy", 40, "a lazy dog"))
+DATA_HW = (720, 1280)
+DATA_LAYERS = 2
+
+
+def _write_clips(root: str) -> str:
+    """The clips as uint8 [T, 720, 1280, 3] `.npy` (a drifting colour
+    gradient with noise, from seeds) and their CSV; returns the CSV."""
+    os.makedirs(root, exist_ok=True)
+    h, w = DATA_HW
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = np.stack([x * 255 / w, y * 255 / h,
+                     128 + 64 * np.sin(x / 41.0)], -1).astype(np.uint8)
+    for i, (name, frames, _) in enumerate(DATA_CLIPS):
+        noise = np.random.default_rng(60 + i).integers(
+            0, 24, (h, w + frames, 3), dtype=np.uint8)
+        clip = np.empty((frames, h, w, 3), np.uint8)
+        for t in range(frames):
+            # the gradient drifts a pixel a frame, the noise slides
+            np.add(np.roll(base, t, axis=1), noise[:, t:t + w], out=clip[t])
+        np.save(os.path.join(root, name), clip)
+    meta = os.path.join(root, "meta.csv")
+    with open(meta, "w", encoding="utf-8") as f:
+        f.write("file_name,text\n" + "".join(
+            f"{name},{text}\n" for name, _, text in DATA_CLIPS))
+    return meta
+
+
+def phase_data(wan: str) -> str:
+    """Raw clips to latent shards on the card: the resample
+    (`data/fastproc.py`, 81 frames of 720x1280 to 480x832) timed by CUDA
+    events and held against the same on the CPU (9 frames), then
+    `python -m mmpl_tpu_torch.data.video_dataset --use_native` in process
+    on the ckpt phase's VAE file, its 2-layer umT5 (the umT5 config cut to
+    the file's depth) and word tokenizer: each clip resampled and encoded
+    on the card (`encode_streaming`, seconds and peak per clip), the short
+    clip skipped, the shard's bytes and shapes.  Returns the shard
+    directory."""
+    from mmpl_tpu_torch.data import fastproc, video_dataset
+    from mmpl_tpu_torch.models import t5
+    from mmpl_tpu_torch.utils import checkpoint as ckpt_mod
+    cfg = WAN_CONFIGS["t2v-1.3B"]
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    clips = os.path.join(DATA_DIR, "clips")
+    t0 = time.perf_counter()
+    meta = _write_clips(clips)
+    write_s = time.perf_counter() - t0
+    raw = torch.from_numpy(np.load(os.path.join(clips, DATA_CLIPS[0][0]))
+                           [:81].copy())
+    on_card = raw.cuda()
+    resample_ms = time_ms(lambda: fastproc.scale_crop_normalize_clip(
+        on_card, 480, 832))
+    got = fastproc.scale_crop_normalize_clip(on_card[:9], 480, 832).cpu()
+    want = fastproc.scale_crop_normalize_clip(raw[:9], 480, 832)
+    resample_err = (got - want).abs().max().item()
+    del on_card, got, want, raw
+    torch.cuda.empty_cache()
+
+    seen = {"resample": [], "encode": []}
+    real_resample, real_encode = (fastproc.scale_crop_normalize_clip,
+                                  vae.encode_streaming)
+
+    def resample(frames, h, w):
+        out = real_resample(frames, h, w)
+        seen["resample"].append((frames.device.type, out.device.type))
+        return out
+
+    def encode(model, pixels):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = real_encode(model, pixels)
+        torch.cuda.synchronize()
+        seen["encode"].append({
+            "device": pixels.device.type, "pixels": list(pixels.shape),
+            "seconds": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        return out
+
+    out = os.path.join(DATA_DIR, "shards")
+    real_t5 = t5.UMT5_XXL
+    fastproc.scale_crop_normalize_clip, vae.encode_streaming = (resample,
+                                                                encode)
+    t5.UMT5_XXL = dict(real_t5, num_layers=T5_SHALLOW_LAYERS)
+    t0 = time.perf_counter()
+    try:
+        paths = video_dataset.data_process([
+            "--base_path", clips, "--metadata_path", meta,
+            "--output_path", out, "--vae_path",
+            os.path.join(wan, cfg.vae_checkpoint), "--text_encoder_path",
+            os.path.join(wan, cfg.t5_checkpoint), "--tokenizer_path",
+            os.path.join(wan, cfg.t5_tokenizer), "--num_frames", "81",
+            "--height", "480", "--width", "832", "--use_native"])
+    finally:
+        fastproc.scale_crop_normalize_clip, vae.encode_streaming = (
+            real_resample, real_encode)
+        t5.UMT5_XXL = real_t5
+    total_s = time.perf_counter() - t0
+    z = np.load(paths[0], allow_pickle=True)
+    row = {"phase": "data", "clips": [[n, f, *DATA_HW] for n, f, _ in
+                                      DATA_CLIPS],
+           "clip_write_s": write_s, "resample_ms_per_clip": resample_ms,
+           "resample_frames": 81, "resample_to": [480, 832],
+           "resample_card_vs_cpu_max_abs": resample_err,
+           "resample_devices": seen["resample"],
+           "read": "numpy .npy; resample data/fastproc.py on the card "
+                   "(no PIL)",
+           "encode": seen["encode"], "data_process_s": total_s,
+           "shards": [os.path.basename(p) for p in paths],
+           "shard_bytes": sum(os.path.getsize(p) for p in paths),
+           "latents_shape": list(z["latents"].shape),
+           "prompt_embeds_shape": list(z["prompt_embeds"].shape),
+           "prompts": [str(p) for p in z["prompts"]],
+           "short_clip_skipped": DATA_CLIPS[2][2] not in
+           [str(p) for p in z["prompts"]],
+           "latents_finite": bool(np.isfinite(z["latents"]).all()),
+           "latents_std": float(z["latents"].std()),
+           "states_differ": float(np.abs(z["prompt_embeds"][0]
+                                         - z["prompt_embeds"][1]).max())}
+    del z
+    emit(row)
+    check(len(paths) == 1 and row["latents_shape"] == [2, 21, 16, 60, 104],
+          row)
+    check(row["prompt_embeds_shape"] == [2, 512, 4096], row)
+    check(row["short_clip_skipped"] and row["prompts"]
+          == [DATA_CLIPS[0][2], DATA_CLIPS[1][2]], row)
+    check(row["latents_finite"] and row["latents_std"] > 1e-3, row)
+    check(row["states_differ"] > 1e-3, row)
+    check(resample_err <= 1e-5, row)
+    check(seen["resample"] == [("cuda", "cuda")] * 2, row)
+    check([e["device"] for e in seen["encode"]] == ["cuda"] * 2
+          and all(e["pixels"] == [1, 81, 3, 480, 832]
+                  for e in seen["encode"]), row)
+    return out
+
+
+def phase_ode_gen(shards: str):
+    """`data/ode_gen.record_trajectories` on the 1.3B teacher at full width
+    and depth in bf16: the CFG pair (the data phase's first umT5 states,
+    a zero uncond) over one 21x60x104 latent, 4 UniPC steps, the step
+    list 1000,750,500,250; seconds a step, exact K1 (self-attention at
+    32760^2 over B = 2 and text cross-attention, each layer and step);
+    the shard written with `prompt_embeds`.  Returns (shard directory, K1
+    launches)."""
+    from mmpl_tpu_torch.data.datasets import TensorDictDataset
+    from mmpl_tpu_torch.data.ode_gen import (ODERegressionNpzDataset,
+                                             record_trajectories,
+                                             write_ode_shard)
+    cfg = _cfg13(DISTILL_LAYERS)
+    dev = torch.device("cuda")
+    item = TensorDictDataset(shards)[0]
+    cond = torch.from_numpy(item["prompt_embeds"][None]).to(dev)
+    noise = torch.randn((1, DISTILL_FRAMES, 16, 60, 104), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(51))
+    model = _model13(cfg, 50, torch.bfloat16)
+    steps = 4
+    traj, seconds, counts, peak = _run_counted(lambda: record_trajectories(
+        cfg, model, noise, cond, torch.zeros_like(cond),
+        denoising_step_list=FEW_STEPS, sampling_steps=steps,
+        dtype=torch.bfloat16))
+    del model
+    torch.cuda.empty_cache()
+    root = os.path.join(DATA_DIR, "ode")
+    path = write_ode_shard(os.path.join(root, "ode_00000.npz"), traj,
+                           [item["prompts"]], cond)
+    back = ODERegressionNpzDataset(root)[0]
+    expected = _k123(steps * 2 * cfg.num_layers)
+    row = {"phase": "ode_gen", "layers": cfg.num_layers, "dim": cfg.dim,
+           "dtype": "bf16", "sampling_steps": steps,
+           "step_list": list(FEW_STEPS), "seconds": seconds,
+           "seconds_per_step": seconds / steps,
+           "trajectory_shape": list(traj.shape),
+           "entry0_equals_noise": bool(torch.equal(traj[:, 0],
+                                                   noise.float())),
+           "final_minus_noise_mean_abs": (traj[:, -1] - noise).abs().mean()
+           .item(),
+           "finite": bool(torch.isfinite(traj).all()),
+           "shard_bytes": os.path.getsize(path),
+           "shard_keys": sorted(back),
+           "launches": counts, "expected_launches": expected,
+           "max_memory_allocated_gib": peak}
+    del traj, noise
+    emit(row)
+    check(row["trajectory_shape"] == [1, 5, 21, 16, 60, 104], row)
+    check(row["entry0_equals_noise"] and row["finite"], row)
+    check(row["final_minus_noise_mean_abs"] > 1e-3, row)
+    check(row["shard_keys"] == ["ode_latent", "prompt_embeds", "prompts"],
+          row)
+    check(counts == expected, row)
+    return root, counts["flash_fwd"]
+
+
+def _ode_k123(layers: int, steps: int) -> dict:
+    """K1-K3 launches of `steps` ODE-regression steps over 21 frames (7
+    blocks of 3) at `layers` layers, as train_distill_cli counts them."""
+    nb, L = DISTILL_BLOCKS, layers
+    return _k123(steps * (2 * nb * 2 * L + (2 * nb - 1) * 2 * L),
+                 steps * (nb * 2 * L + (nb - 1) * 2 * (L - 1)))
+
+
+@contextlib.contextmanager
+def _layers_13(layers: int):
+    """The trainer's `t2v-1.3B` cut to `layers` layers inside the block."""
+    from mmpl_tpu_torch.core.config import DotDict
+    full = WAN_CONFIGS["t2v-1.3B"]
+    WAN_CONFIGS["t2v-1.3B"] = DotDict(full, num_layers=layers)
+    try:
+        yield
+    finally:
+        WAN_CONFIGS["t2v-1.3B"] = full
+
+
+def _cli_run(root: str, run: str, argv: list):
+    """`train.main(argv)` in this process: (rc, seconds, launches, peak
+    GiB, metric records)."""
+    from mmpl_tpu_torch import train
+    rc, seconds, counts, peak = _run_counted(lambda: train.main(
+        argv + ["--log-dir", root, "--run-name", run]))
+    return rc, seconds, counts, peak, _metrics(root, run)
+
+
+def phase_train_data(shards: str, ode_dir: str) -> dict:
+    """`python -m mmpl_tpu_torch.train --data-dir` in process on the
+    shards the data phase wrote: teacher forcing at full width and depth
+    (2 steps; K1-K6 exact; each step's seconds and its batch's load
+    seconds), flow at DATA_LAYERS layers, and `--objective ode --data-dir`
+    on the ode_gen shard at DATA_LAYERS layers.  Returns the launches."""
+    root = os.path.join(DATA_DIR, "runs")
+    runs = {
+        "teacher_forcing": (30, ["--data-dir", shards],
+                            _train_launches(30, 2)),
+        "flow": (DATA_LAYERS, ["--objective", "flow", "--data-dir", shards],
+                 _k123(2 * 4 * DATA_LAYERS, 2 * 2 * DATA_LAYERS)),
+        "ode": (DATA_LAYERS, ["--objective", "ode", "--data-dir", ode_dir],
+                _ode_k123(DATA_LAYERS, 2)),
+    }
+    total = dict.fromkeys(attn.launch_counts, 0)
+    for objective, (layers, extra, expected) in runs.items():
+        with _layers_13(layers):
+            rc, seconds, counts, peak, recs = _cli_run(
+                root, f"data_{objective}",
+                ["--device", "cuda", "--steps", "2"] + extra)
+        steps = [r for r in recs if "loss" in r]
+        row = {"phase": "train_data", "objective": objective,
+               "layers": layers, "rc": rc, "seconds": seconds,
+               "losses": [r["loss"] for r in steps],
+               "step_s": [r["step_s"] for r in steps],
+               "load_s": [r["load_s"] for r in steps],
+               "launches": counts, "expected_launches": expected,
+               "max_memory_allocated_gib": peak}
+        emit(row)
+        check(rc == 0 and len(steps) == 2, row)
+        check(all(map(math.isfinite, row["losses"])), row)
+        check(counts == expected, row)
+        total = {k: total[k] + counts[k] for k in total}
+    torch.cuda.empty_cache()
+    return total
+
+
+def _resume_exact(root: str, argv: list, steps: int, read) -> dict:
+    """`steps` steps twice unbroken (the first with checkpoints after each
+    step) and once resumed from the first run's step-1 checkpoint; the last step's state
+    of each run read by `read`: the resumed one against the unbroken one
+    bit for bit (or within the two unbroken runs' spread where those
+    differ).  Returns the row's numbers."""
+    out = {}
+    for run in ("unbroken", "unbroken2", "resumed"):
+        # only the unbroken run writes every step (the resumed run starts
+        # from its step 1); the others write their last
+        every = 1 if run == "unbroken" else steps
+        extra = ["--ckpt-dir", os.path.join(root, run)]
+        if run == "resumed":
+            extra += ["--resume", os.path.join(root, "unbroken", "step1")]
+        rc, seconds, counts, _, recs = _cli_run(
+            root, run, argv + ["--steps", str(steps), "--ckpt-every",
+                               str(every)] + extra)
+        check(rc == 0, (run, rc))
+        out[run] = {"seconds": seconds, "launches": counts, "recs": recs,
+                    "state": read(os.path.join(root, run, f"step{steps}"))}
+    spread = _state_diff(out["unbroken2"]["state"], out["unbroken"]["state"])
+    diff = _state_diff(out["resumed"]["state"], out["unbroken"]["state"])
+    saves = [r for r in out["unbroken"]["recs"] if "ckpt_bytes" in r]
+    restore = [r for r in out["resumed"]["recs"] if "restore_s" in r]
+    loss = {run: {r["step"]: r["loss"] for r in o["recs"] if "loss" in r}
+            for run, o in out.items()}
+    return {"steps": steps, "ckpt_bytes": saves[0]["ckpt_bytes"],
+            "save_s": [r["save_s"] for r in saves],
+            "restore_s": restore[0]["restore_s"], "losses": loss,
+            "resumed_losses_equal": all(
+                loss["resumed"][k] == loss["unbroken"][k]
+                for k in loss["resumed"]),
+            "unbroken_spread_max_abs": spread, "resumed_max_abs_diff": diff,
+            "bit_for_bit": diff == 0.0,
+            "launches": out["resumed"]["launches"]}
+
+
+def _check_resumed(row) -> None:
+    if row["unbroken_spread_max_abs"] == 0.0:
+        check(row["resumed_losses_equal"] and row["bit_for_bit"], row)
+    else:
+        check(row["resumed_max_abs_diff"] <= row["unbroken_spread_max_abs"],
+              row)
+
+
+def phase_train_data_resume(shards: str) -> dict:
+    """Teacher forcing on the shards at the 1.3B width cut to DATA_LAYERS
+    layers, 3 steps over the 2 clips (step 2 starts the second shuffle):
+    resumed from step 1, the step-3 state (masters, AdamW, EMA,
+    generators, the data position) against the unbroken run's bit for
+    bit; exact launches of the resumed run's 2 steps."""
+    from mmpl_tpu_torch.utils import train_state_io as tsio
+    root = os.path.join(DATA_DIR, "resume")
+    with _layers_13(DATA_LAYERS):
+        row = _resume_exact(root, ["--device", "cuda", "--data-dir", shards],
+                            3, tsio.restore_checkpoint)
+    row = {"phase": "train_data_resume", "layers": DATA_LAYERS, **row,
+           "expected_launches": _train_launches(DATA_LAYERS, 2)}
+    shutil.rmtree(root, ignore_errors=True)
+    emit(row)
+    _check_resumed(row)
+    check(row["launches"] == row["expected_launches"], row)
+    return row["launches"]
+
+
+def _mesh_ckpt(shards: str) -> dict:
+    """On the group already initialised: teacher forcing on the shards at
+    DATA_LAYERS layers under `--mesh dp=1,fsdp=1` (FSDP2), saved sharded
+    after each step (`train_state_io.save_sharded`), 3 steps unbroken and
+    resumed from step 1; the step-3 checkpoints read back without the
+    group (`sharded_to_state`) bit for bit; save / restore seconds and
+    bytes; exact launches of the resumed run."""
+    from mmpl_tpu_torch.utils import train_state_io as tsio
+    root = os.path.join(DATA_DIR, "mesh_ckpt")
+    with _layers_13(DATA_LAYERS):
+        row = _resume_exact(root, ["--device", "cuda", "--data-dir", shards,
+                                   "--mesh", "dp=1,fsdp=1"], 3,
+                            tsio.sharded_to_state)
+    files = sorted(os.listdir(os.path.join(root, "unbroken", "step3")))
+    shutil.rmtree(root, ignore_errors=True)
+    out = {f"mesh_ckpt_{k}": v for k, v in row.items()}
+    out["mesh_ckpt_files"] = files
+    out["mesh_ckpt_expected_launches"] = _train_launches(DATA_LAYERS, 2)
+    return out
 
 
 def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
@@ -4153,8 +4539,15 @@ def main() -> int:
     del t5_shallow
     try:
         path_launches["cli_real"] = phase_cli_real(pt, wan)
+        # the training data path: raw clips to shards on the card (the
+        # ckpt phase's VAE and umT5 files), ODE trajectories from the 1.3B
+        # teacher, the trainer on both; the shards stay for the mesh phase
+        shards = phase_data(wan)
     finally:
         shutil.rmtree(os.path.dirname(pt), ignore_errors=True)
+    ode_dir, path_launches["ode_gen"] = phase_ode_gen(shards)
+    bwd_paths = {"train_data": phase_train_data(shards, ode_dir),
+                 "train_data_resume": phase_train_data_resume(shards)}
     path_launches["window_i2v"] = phase_window_i2v()
     phase_window_i2v_parity()
     # checkpoints and resume; the whole-clip pipelines; the CLIP towers
@@ -4184,7 +4577,6 @@ def main() -> int:
     path_launches["causal_diffusion_int8"] = counts["flash_fwd"]
     del model, cond, uncond
     torch.cuda.empty_cache()
-    bwd_paths = {}
     bwd_paths["train_flow"], _ = phase_train_flow()
     torch.cuda.empty_cache()
     bwd_paths["distill_dmd"] = phase_distill_dmd()
@@ -4202,12 +4594,15 @@ def main() -> int:
     path_launches["serving"] = phase_serving()
     bwd_paths["ring"] = phase_ring()
     path_launches["usp"] = phase_usp()
-    bwd_paths["mesh"] = phase_mesh()
+    bwd_paths["mesh"] = phase_mesh(shards)
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
     for p, c in bwd_paths.items():
         path_launches[p] = c["flash_fwd"]
-    # the masked kernels' rows count training steps: train --mesh's too
-    train_counts = {k: v + (bwd_paths["mesh"][k] if "masked" in k else 0)
-                    for k, v in train_counts.items()}
+    # the masked kernels' rows count training steps: train --mesh's and
+    # the data path's too
+    train_counts = {k: v + (sum(bwd_paths[p][k] for p in (
+        "mesh", "train_data", "train_data_resume")) if "masked" in k else 0)
+        for k, v in train_counts.items()}
     emit(kernels_line(smi, rows, bwd, masked, int8, window_launches,
                       int8_launches, train_counts, exp2, exp2_launches,
                       path_launches, bwd_paths,

@@ -1,9 +1,10 @@
 """Training entry point: teacher forcing, the flow objective, self-forcing
 distillation (DMD, SiD, CausVid, GAN) and ODE regression.
 
-Port of `train.py:main` on one device.  Random weights and synthetic
-batches drawn from `torch.Generator`s seeded from `--seed`; one JSON line
-per step in `<log-dir>/<run-name>/metrics.jsonl`.  Smoke mode is the tiny
+Port of `train.py:main`.  Random weights and synthetic batches drawn
+from `torch.Generator`s seeded from `--seed`, or with `--data-dir` the
+batches of a shard directory; one JSON line per step in
+`<log-dir>/<run-name>/metrics.jsonl`.  Smoke mode is the tiny
 config at 4x4 latents; otherwise `t2v-1.3B` at 60x104 (480x832 pixels).
 The generator starts, in this order, from an MMPL fine-tune `.pt`
 (`--generator-ckpt`), the base Wan weights (`--wan-dir`: a directory of
@@ -24,23 +25,37 @@ masters take the file's values, widened where the file holds bf16.
     `--num-frames` each step draws the rollout's length and the losses see
     its last window (re-encoded through `--vae-path` when given).  The
     modules run in fp32, as the JAX trainer builds them;
-  * ode: regression of the generator onto synthetic ODE trajectories.
+  * ode: regression of the generator onto ODE trajectories, synthetic or
+    from `--data-dir`.
+
+`--data-dir` (teacher_forcing, flow, ode): `.npz` shards read through
+`data/datasets.batch_iterator` (numpy's `default_rng(--seed)` shuffle,
+the JAX trainer's batches).  Teacher forcing and flow train on the
+shards' `latents` ([N, F, 16, h, w], `data/video_dataset.py` writes them)
+with `prompt_embeds` as the context and a zero uncond context; ode on
+`ode_latent` ([N, S+1, F, 16, h, w], `data/ode_gen.py`) with
+`prompt_embeds`.  Each step's batch goes to the device as one pinned,
+non-blocking copy; its `load_s` is logged beside `step_s`.  The
+distillation objectives read no data (their real latents are drawn, in
+both packages) and exit naming `--data-dir`.
 
 Checkpoints (`utils/train_state_io.py`): with `--ckpt-dir`, every
 `--ckpt-every` steps the fp32 masters of every trained model, the AdamW
 state(s), the EMA shadow, the step and the states of the trainer's
-generators go to `<ckpt-dir>/step<N>`; `--resume <ckpt-dir>/step<N>`
-restores them and runs steps N..`--steps`-1, drawing what an unbroken run
-would, bit for bit.  `--export-pt` writes the generator and its EMA as the
+generators and the data iterator's position go to `<ckpt-dir>/step<N>`;
+`--resume <ckpt-dir>/step<N>` restores them and runs steps
+N..`--steps`-1, drawing and reading what an unbroken run would, bit for
+bit (the JAX trainer starts its shuffled order again at a resume).  `--export-pt` writes the generator and its EMA as the
 upstream `.pt` at the end.  `--config` merges a run config
 (`configs/*.yaml`) over the flag defaults as the JAX trainer does; flags
 given on the command line win.  `--mesh dp=A,fsdp=B` (one process per
 card under torchrun, or `--coordinator` / `--num-processes` /
 `--process-id`) FSDP-shards every model over fsdp, replicated over dp,
 and splits the batch over dp (`_Ranks`); `--export-pt` gathers the full
-tensors to rank 0, `--ckpt-dir` / `--resume` are not ported.
-Refused by name: `--data-dir` (Slice I) and the two 16 GB TPU workarounds
-`--remat-offload` and `--offload-opt`.
+tensors to rank 0; `--ckpt-dir` / `--resume` write and read sharded
+checkpoints (`train_state_io.save_sharded`) on a mesh of the same shape.
+Refused by name: tp in training (ROADMAP.md Queue 1) and the two 16 GB
+TPU workarounds `--remat-offload` and `--offload-opt`.
 
     python -m mmpl_tpu_torch.train --smoke --steps 3
     python -m mmpl_tpu_torch.train --smoke --objective flow --steps 3
@@ -50,11 +65,14 @@ Refused by name: `--data-dir` (Slice I) and the two 16 GB TPU workarounds
     python -m mmpl_tpu_torch.train --generator-ckpt mmpl_t2v_1.3B.pt
     python -m mmpl_tpu_torch.train --steps 1000 --ckpt-dir ckpt \
         --resume ckpt/step500 --export-pt mmpl_t2v_1.3B.pt
+    python -m mmpl_tpu_torch.train --data-dir shards --num-frames 21
+    python -m mmpl_tpu_torch.train --objective ode --data-dir ode_shards
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -66,7 +84,6 @@ from .models.dit import WanDiT
 
 #: flags that are not ported (ROADMAP.md)
 REFUSED = {
-    "data_dir": "Slice I (data)",
     "remat_offload": "a 16 GB TPU workaround the H100 needs not "
                      "(ROADMAP.md North star)",
     "offload_opt": "a 16 GB TPU workaround the H100 needs not "
@@ -74,6 +91,8 @@ REFUSED = {
 }
 OBJECTIVES = ("teacher_forcing", "flow", "dmd", "sid", "gan", "causvid",
               "ode")
+#: the objectives that train on `--data-dir`
+DATA_OBJECTIVES = ("teacher_forcing", "flow", "ode")
 
 
 def parse_args(argv=None):
@@ -159,8 +178,11 @@ def parse_args(argv=None):
                         "(torch.distributed; parallel/mesh.py)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--data-dir", default=None,
+                   help="a directory of .npz shards to train on "
+                        "(teacher_forcing and flow: data/video_dataset.py's "
+                        "latents; ode: data/ode_gen.py's trajectories)")
     # flags that are not ported: parsed so that they can be refused by name
-    p.add_argument("--data-dir", default=None, help=argparse.SUPPRESS)
     for flag in ("--remat-offload", "--offload-opt"):
         p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     args = apply_run_config(p.parse_args(argv), argv)
@@ -170,12 +192,25 @@ def parse_args(argv=None):
     for dest, why in REFUSED.items():
         if getattr(args, dest):
             p.error(f"--{dest.replace('_', '-')} is not ported: {why}")
+    if args.data_dir and args.objective not in DATA_OBJECTIVES:
+        p.error(f"--data-dir with --objective {args.objective}: the "
+                f"distillation objectives read no data (their real latents "
+                f"are drawn at random, as train.py's are); "
+                f"{', '.join(DATA_OBJECTIVES)} train on --data-dir")
     if args.mesh:
-        for dest in ("ckpt_dir", "resume"):
-            if getattr(args, dest):
-                p.error(f"--{dest.replace('_', '-')} with --mesh is not "
-                        f"ported: sharded checkpoints (ROADMAP.md Queue 1)")
+        shape = mesh_shape(args.mesh)
+        if set(shape) - {"dp", "fsdp", "tp"}:
+            p.error(f"--mesh {args.mesh}: the trainer's axes are dp and fsdp")
+        if shape.get("tp", 1) > 1:
+            p.error(f"--mesh {args.mesh}: tp in training is not ported "
+                    f"(ROADMAP.md Queue 1); the trainer shards over dp and "
+                    f"fsdp")
     return args
+
+
+def mesh_shape(spec: str) -> dict:
+    """'dp=A,fsdp=B' -> {"dp": A, "fsdp": B}."""
+    return {k: int(v) for k, v in (kv.split("=") for kv in spec.split(","))}
 
 
 #: YAML key -> (CLI flag, args attribute, cast), as the JAX trainer's
@@ -337,26 +372,100 @@ def _generators(device, seed):
 
 def _log_step(metrics, step, line, scalars):
     metrics.log(step, **scalars)
-    print(line + f" ({scalars['step_s']:.2f}s)", file=sys.stderr,
+    load = f", load {scalars['load_s']:.3f}s" if "load_s" in scalars else ""
+    print(line + f" ({scalars['step_s']:.2f}s{load})", file=sys.stderr,
           flush=True)
 
 
-class _Checkpoints:
-    """`--ckpt-dir` / `--resume` around a state function."""
+@contextlib.contextmanager
+def _trainable(module):
+    """Every parameter of `module` requires gradients inside the block:
+    `torch.distributed.checkpoint.state_dict` reads and writes the
+    optimizer state of those parameters only (and makes a fresh
+    optimizer's state by a step at lr 0 over them), while the
+    distillation trainer flags its modules only inside their steps."""
+    params = list(module.parameters())
+    flags = [p.requires_grad for p in params]
+    module.requires_grad_(True)
+    try:
+        yield
+    finally:
+        for p, f in zip(params, flags):
+            p.requires_grad_(f)
 
-    def __init__(self, args, metrics, device):
+
+class _Checkpoints:
+    """`--ckpt-dir` / `--resume` around a state function: one
+    `train_state.pt` on one device, a sharded checkpoint under the mesh
+    (`utils/train_state_io.py`).  The state function builds its model and
+    optimizer entries with `model_state` / `optim_state`, and a restore
+    puts them back with `load_model` / `load_optim`: the modules' and
+    optimizers' own state dicts on one device, `torch.distributed.
+    checkpoint.state_dict`'s under the mesh (whose optimizer state dict
+    creates a fresh AdamW's state, so that a load has tensors to fill)."""
+
+    def __init__(self, args, metrics, device, ranks):
         self.args, self.metrics, self.device = args, metrics, device
+        self.ranks = ranks
+
+    @property
+    def sharded(self) -> bool:
+        return self.ranks.mesh is not None
+
+    def model_state(self, model) -> dict:
+        if not self.sharded:
+            return model.state_dict()
+        from torch.distributed.checkpoint.state_dict import \
+            get_model_state_dict
+        return get_model_state_dict(model)
+
+    def optim_state(self, module, opt) -> dict:
+        """`module`: the modules whose parameters `opt` steps."""
+        if not self.sharded:
+            return opt.state_dict()
+        from torch.distributed.checkpoint.state_dict import \
+            get_optimizer_state_dict
+        with _trainable(module):
+            return get_optimizer_state_dict(module, opt)
+
+    def load_model(self, model, state: dict) -> None:
+        if not self.sharded:
+            model.load_state_dict(state)
+            return
+        from torch.distributed.checkpoint.state_dict import \
+            set_model_state_dict
+        set_model_state_dict(model, state)
+
+    def load_optim(self, module, opt, state: dict) -> None:
+        if not self.sharded:
+            opt.load_state_dict(state)
+            return
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions, set_optimizer_state_dict)
+        # strict=False: a parameter AdamW never stepped (no gradient in
+        # any step, e.g. the text embedding under the distillation
+        # losses) has no saved state and keeps none
+        with _trainable(module):
+            set_optimizer_state_dict(module, opt, state,
+                                     options=StateDictOptions(strict=False))
 
     def restore(self, template: dict):
         from .utils import train_state_io as tsio
+        path = self.args.resume
         t0 = time.time()
-        st = tsio.restore_checkpoint(self.args.resume, template,
-                                     map_location=self.device)
+        if self.sharded:
+            st = tsio.restore_sharded(path, template, self.ranks.shape)
+        elif os.path.exists(os.path.join(path, ".metadata")):
+            raise SystemExit(f"--resume {path} is a sharded checkpoint: "
+                             f"resume it under the --mesh that wrote it")
+        else:
+            st = tsio.restore_checkpoint(path, template,
+                                         map_location=self.device)
         dt = time.time() - t0
-        self.metrics.log(int(st["step"]), resumed_from=self.args.resume,
-                         restore_s=dt)
-        print(f"resumed at step {int(st['step'])} <- {self.args.resume} "
-              f"({dt:.2f}s)", file=sys.stderr)
+        self.metrics.log(int(st["step"]), resumed_from=path, restore_s=dt)
+        if self.ranks.rank0:
+            print(f"resumed at step {int(st['step'])} <- {path} "
+                  f"({dt:.2f}s)", file=sys.stderr)
         return st
 
     def maybe_save(self, step: int, state_fn) -> None:
@@ -366,10 +475,68 @@ class _Checkpoints:
             return
         path = os.path.join(a.ckpt_dir, f"step{step}")
         t0 = time.time()
-        nbytes = tsio.save_checkpoint(path, state_fn(step))
+        if self.sharded:
+            nbytes = tsio.save_sharded(path, state_fn(step),
+                                       self.ranks.shape)
+        else:
+            nbytes = tsio.save_checkpoint(path, state_fn(step))
         dt = time.time() - t0
         self.metrics.log(step, ckpt=path, ckpt_bytes=nbytes, save_s=dt)
-        print(f"saved {path} ({nbytes} bytes, {dt:.2f}s)", file=sys.stderr)
+        if self.ranks.rank0:
+            print(f"saved {path} ({nbytes} bytes, {dt:.2f}s)",
+                  file=sys.stderr)
+
+
+class _DataBatches:
+    """`--data-dir`: endless batches of `dataset` (`data/datasets.
+    batch_iterator`, shuffled from --seed), the arrays `keys` of each
+    stacked into one fp32 host buffer (pinned for a card) and moved to
+    `device` in one non-blocking copy.  `position` counts the batches
+    taken; a fresh iterator starts there (`skip`: the batches before it
+    are not loaded), which is how `--resume` continues the unbroken run's
+    order.  `load_s`: the host seconds of the last batch (read, pack,
+    enqueue the copy)."""
+
+    def __init__(self, dataset, args, device, keys, position: int = 0):
+        from .data.datasets import batch_iterator
+        self.dir, self.keys, self.device = args.data_dir, keys, device
+        self.position = int(position)
+        self._it = batch_iterator(dataset, args.batch_size, seed=args.seed,
+                                  skip=self.position)
+        self.load_s = 0.0
+
+    def next(self) -> dict:
+        t0 = time.perf_counter()
+        b = next(self._it)
+        self.position += 1
+        missing = [k for k in self.keys if k not in b]
+        if missing:
+            raise SystemExit(f"--data-dir {self.dir}: the shards lack "
+                             f"{', '.join(missing)} (write them with "
+                             f"data/ode_gen.write_ode_shard(..., "
+                             f"prompt_embeds=...) or data/video_dataset)")
+        arrays = [np.ascontiguousarray(b[k], dtype=np.float32)
+                  for k in self.keys]
+        host = torch.empty(sum(a.size for a in arrays), dtype=torch.float32,
+                           pin_memory=self.device.type == "cuda")
+        off = 0
+        for a in arrays:
+            host[off:off + a.size].copy_(torch.from_numpy(a.reshape(-1)))
+            off += a.size
+        flat = host.to(self.device, non_blocking=True)
+        out, off = {}, 0
+        for k, a in zip(self.keys, arrays):
+            out[k] = flat[off:off + a.size].view(a.shape)
+            off += a.size
+        self.load_s = time.perf_counter() - t0
+        return out
+
+    def check(self, what: str, got: int, want: int, flag: str) -> None:
+        """Exit naming both numbers where the shards' `what` is not the
+        `want` that `flag` gives."""
+        if got != want:
+            raise SystemExit(f"--data-dir {self.dir}: the shards' {what} "
+                             f"is {got}; {flag} gives {want}")
 
 
 class _Ranks:
@@ -387,11 +554,7 @@ class _Ranks:
             return
         import torch.distributed as dist
         from .parallel.mesh import init_distributed, make_mesh
-        shape = {k: int(v) for k, v in
-                 (kv.split("=") for kv in args.mesh.split(","))}
-        if set(shape) - {"dp", "fsdp", "tp"} or shape.get("tp", 1) > 1:
-            raise SystemExit(f"--mesh {args.mesh}: the trainer shards over "
-                             f"dp and fsdp (tp in training is not ported)")
+        shape = mesh_shape(args.mesh)
         if not init_distributed(args.coordinator, args.num_processes,
                                 args.process_id):
             raise SystemExit("--mesh needs a process group: run under "
@@ -401,7 +564,9 @@ class _Ranks:
         if self.batch % self.dp:
             raise SystemExit(f"--batch-size {self.batch} does not split "
                              f"over dp = {self.dp}")
-        self.mesh = make_mesh({"dp": self.dp, "fsdp": shape.get("fsdp", 1)})
+        #: the mesh's shape, which a sharded checkpoint records
+        self.shape = {"dp": self.dp, "fsdp": shape.get("fsdp", 1)}
+        self.mesh = make_mesh(self.shape)
         self.dp_rank = self.mesh.get_local_rank("dp")
         self.rank0 = dist.get_rank() == 0
         dims = dict(zip(self.mesh.mesh_dim_names, self.mesh.mesh.shape))
@@ -491,7 +656,7 @@ def main(argv=None) -> int:
                            .manual_seed(args.seed), device)
     metrics = MetricsLogger(args.log_dir, args.run_name, config=vars(args)) \
         if ranks.rank0 else _NoMetrics()
-    ckpts = _Checkpoints(args, metrics, device)
+    ckpts = _Checkpoints(args, metrics, device, ranks)
     if args.objective in ("teacher_forcing", "flow"):
         _train_diffusion(args, cfg, model, lat_hw, device, metrics, ckpts,
                          ranks)
@@ -524,27 +689,44 @@ def _train_diffusion(args, cfg, model, lat_hw, device, metrics, ckpts,
                                      learning_rate=args.lr)
     ema = EmaParams(model, decay=args.ema_decay)
     data_gen, draw_gen = _generators(device, args.seed)
+    batches = None
 
     def train_state(step: int) -> dict:
-        return {"model": model.state_dict(),
-                "optimizer": trainer.opt.state_dict(),
+        return {"model": ckpts.model_state(model),
+                "optimizer": ckpts.optim_state(model, trainer.opt),
                 "ema": ema.shadow, "step": step,
                 "rng": {"data": data_gen.get_state(),
-                        "draw": draw_gen.get_state()}}
+                        "draw": draw_gen.get_state()},
+                "data": batches.position if batches else 0}
 
-    start_step = 0
+    start_step, position = 0, 0
     if args.resume:
         st = ckpts.restore(train_state(0))
-        model.load_state_dict(st["model"])
-        trainer.opt.load_state_dict(st["optimizer"])
+        ckpts.load_model(model, st["model"])
+        ckpts.load_optim(model, trainer.opt, st["optimizer"])
         _restore_ema(ema, st["ema"])
         data_gen.set_state(st["rng"]["data"].cpu())
         draw_gen.set_state(st["rng"]["draw"].cpu())
-        start_step = int(st["step"])
+        start_step, position = int(st["step"]), int(st.get("data", 0))
+    if args.data_dir:
+        from .data.datasets import TensorDictDataset
+        batches = _DataBatches(TensorDictDataset(args.data_dir), args,
+                               device, ("latents", "prompt_embeds"),
+                               position)
 
     shape = (args.batch_size, F, cfg.in_dim, *lat_hw)
     for step in range(start_step, args.steps):
-        batch = synthetic_batch(data_gen, shape, cfg, device)
+        scalars = {}
+        if batches is None:
+            batch = synthetic_batch(data_gen, shape, cfg, device)
+        else:
+            b = batches.next()
+            batches.check("latent frame count", b["latents"].shape[1], F,
+                          "--num-frames")
+            batch = {"latents": b["latents"], "context": b["prompt_embeds"],
+                     "uncond_context": torch.zeros_like(b["prompt_embeds"])}
+            shape = tuple(batch["latents"].shape)
+            scalars["load_s"] = batches.load_s
         if args.objective == "teacher_forcing":
             draws = tdiff.draw_teacher_forcing(
                 draw_gen, shape, args.num_frame_per_block,
@@ -557,7 +739,7 @@ def _train_diffusion(args, cfg, model, lat_hw, device, metrics, ckpts,
         ema.update(model)
         dt = time.time() - t0
         _log_step(metrics, step, f"step {step}: loss={loss:.5f}",
-                  {"loss": loss, "step_s": dt})
+                  {"loss": loss, "step_s": dt, **scalars})
         ckpts.maybe_save(step + 1, train_state)
     if args.export_pt:
         ranks.export(args.export_pt, model, ema.shadow, cfg)
@@ -588,30 +770,47 @@ def _train_ode(args, cfg, model, lat_hw, device, metrics, ckpts, ranks):
     model = ranks.shard(model.requires_grad_(True))
     opt = adamw(model.parameters(), args.lr, OPTAX_WEIGHT_DECAY)
     data_gen, draw_gen = _generators(device, args.seed)
+    batches = None
 
     def train_state(step: int) -> dict:
-        return {"models": {"generator": model.state_dict()},
-                "opt_g": opt.state_dict(), "step": step,
+        return {"models": {"generator": ckpts.model_state(model)},
+                "opt_g": ckpts.optim_state(model, opt), "step": step,
                 "rng": {"data": data_gen.get_state(),
-                        "draw": draw_gen.get_state()}}
+                        "draw": draw_gen.get_state()},
+                "data": batches.position if batches else 0}
 
-    start_step = 0
+    start_step, position = 0, 0
     if args.resume:
         st = ckpts.restore(train_state(0))
-        model.load_state_dict(st["models"]["generator"])
-        opt.load_state_dict(st["opt_g"])
+        ckpts.load_model(model, st["models"]["generator"])
+        ckpts.load_optim(model, opt, st["opt_g"])
         data_gen.set_state(st["rng"]["data"].cpu())
         draw_gen.set_state(st["rng"]["draw"].cpu())
-        start_step = int(st["step"])
+        start_step, position = int(st["step"]), int(st.get("data", 0))
+    if args.data_dir:
+        from .data.ode_gen import ODERegressionNpzDataset
+        batches = _DataBatches(ODERegressionNpzDataset(args.data_dir), args,
+                               device, ("ode_latent", "prompt_embeds"),
+                               position)
 
     shape = (args.batch_size, len(steps) + 1, F, cfg.in_dim, *lat_hw)
     for step in range(start_step, args.steps):
-        traj, ctx = ode_batch(data_gen, shape, cfg, device)
+        scalars = {}
+        if batches is None:
+            traj, ctx = ode_batch(data_gen, shape, cfg, device)
+        else:
+            b = batches.next()
+            traj, ctx = b["ode_latent"], b["prompt_embeds"]
+            batches.check("trajectory length", traj.shape[1],
+                          len(steps) + 1, "--denoising-step-list (+ 1)")
+            batches.check("latent frame count", traj.shape[2], F,
+                          "--num-frames")
+            scalars["load_s"] = batches.load_s
         draws = loss_draws(draw_gen, step, "ode")
         t0 = time.time()
         idx = draws.get("idx")
         if idx is None:
-            idx = torch.randint(0, len(steps), (shape[0], F // 3),
+            idx = torch.randint(0, len(steps), (args.batch_size, F // 3),
                                 generator=draws["generator"], device=device)
         traj, ctx, idx = (ranks.rows(x) for x in (traj, ctx,
                                                   idx.to(device)))
@@ -627,7 +826,7 @@ def _train_ode(args, cfg, model, lat_hw, device, metrics, ckpts, ranks):
         loss = float(loss.detach())
         dt = time.time() - t0
         _log_step(metrics, step, f"step {step}: loss={loss:.5f}",
-                  {"loss": loss, "step_s": dt})
+                  {"loss": loss, "step_s": dt, **scalars})
         ckpts.maybe_save(step + 1, train_state)
     if args.export_pt:
         ranks.export(args.export_pt, model, dict(model.named_parameters()),
@@ -751,9 +950,12 @@ def _train_distill(args, cfg, model, lat_hw, device, metrics, ckpts,
     len_rng = np.random.default_rng(args.seed + 2)
     trained = ("generator",) + critic_keys
 
+    critics = torch.nn.ModuleDict({k: models[k] for k in critic_keys})
+
     def train_state(step: int) -> dict:
-        return {"models": {k: models[k].state_dict() for k in trained},
-                "opt_g": opt_g.state_dict(), "opt_c": opt_c.state_dict(),
+        return {"models": {k: ckpts.model_state(models[k]) for k in trained},
+                "opt_g": ckpts.optim_state(models["generator"], opt_g),
+                "opt_c": ckpts.optim_state(critics, opt_c),
                 "ema": ema.shadow, "step": step,
                 "rng": {"data": data_gen.get_state(),
                         "draw": draw_gen.get_state(),
@@ -763,9 +965,9 @@ def _train_distill(args, cfg, model, lat_hw, device, metrics, ckpts,
     if args.resume:
         st = ckpts.restore(train_state(0))
         for k in trained:
-            models[k].load_state_dict(st["models"][k])
-        opt_g.load_state_dict(st["opt_g"])
-        opt_c.load_state_dict(st["opt_c"])
+            ckpts.load_model(models[k], st["models"][k])
+        ckpts.load_optim(models["generator"], opt_g, st["opt_g"])
+        ckpts.load_optim(critics, opt_c, st["opt_c"])
         _restore_ema(ema, st["ema"])
         data_gen.set_state(st["rng"]["data"].cpu())
         draw_gen.set_state(st["rng"]["draw"].cpu())

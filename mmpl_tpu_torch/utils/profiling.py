@@ -9,10 +9,15 @@ kernel name from `torch.profiler` to the port kernel (its launch counter's
 name in `ops.attention` / `ops.quant`) it belongs to; `device_kernels`
 reads which device kernels a call launches and their device time, and
 `queued_ms` times a call on the card without the host's time around it.
+`trace(log_dir)` records a `torch.profiler` session as a Chrome trace and
+`device_memory_stats()` reads the card's memory in GB (the JAX module's
+`jax.profiler` trace and `device.memory_stats`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import re
 import sys
 import time
@@ -147,6 +152,38 @@ def sync(device) -> None:
     """Wait for the work queued on `device` (a no-op on the CPU)."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = os.path.join("runs", "trace")):
+    """Record the host and (with a card) the device activity of the
+    block under `torch.profiler`; on exit write `<log_dir>/trace.json`, a
+    Chrome trace (chrome://tracing or Perfetto).  Yields `log_dir`."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_memory_stats(device=None) -> Dict[str, float]:
+    """The card's memory in GB (2^30 bytes): in use by tensors, its
+    total and the peak in use; {} on the CPU."""
+    if not torch.cuda.is_available():
+        return {}
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return {}
+    gb = 1024 ** 3
+    return {
+        "bytes_in_use_gb": torch.cuda.memory_allocated(dev) / gb,
+        "bytes_limit_gb": torch.cuda.get_device_properties(dev)
+        .total_memory / gb,
+        "peak_bytes_in_use_gb": torch.cuda.max_memory_allocated(dev) / gb,
+    }
 
 
 class PhaseTimer:

@@ -14,11 +14,22 @@ different format: neither package reads the other's checkpoint):
   * "step": the number of steps taken,
   * "rng": the states of the trainer's `torch.Generator`s (and of the
     rollout-length numpy Generator), so that a resumed run draws the
-    numbers an unbroken run would.
+    numbers an unbroken run would,
+  * "data": with `--data-dir`, the batches the data iterator has yielded.
 
 A checkpoint `<dir>/stepN` is a directory holding `train_state.pt`, which
 is written under a temporary name and renamed into place, so a reader
-never sees half a file.  `export_generator_pt` writes the MMPL inference
+never sees half a file.
+
+Under the trainer's `--mesh` the masters, AdamW states and EMA are FSDP2
+DTensors, and `save_sharded` writes them with `torch.distributed.
+checkpoint` (each rank its shards, `.metadata` and `*.distcp`) beside one
+`rank<r>.pt` per rank holding that rank's own entries (`LOCAL_KEYS`: the
+step, its generators' states, the data position) and the mesh's shape.
+The directory is written as `<dir>/stepN.tmp` and renamed once every rank
+has written; `restore_sharded` loads it onto a mesh of the same shape
+only.  `sharded_to_state` reads one back into plain tensors without a
+process group (tests, comparisons).  `export_generator_pt` writes the MMPL inference
 monolith `{'generator', 'generator_ema'}` with `model.`-prefixed fp32
 tensors in the upstream WanModel layout, as the JAX export does.
 """
@@ -26,12 +37,18 @@ tensors in the upstream WanModel layout, as the JAX export does.
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
 from typing import Any, Dict, Optional
 
 import torch
 
 #: the file of a checkpoint directory
 STATE_FILE = "train_state.pt"
+#: the entries of a train state that each rank of a mesh keeps itself
+LOCAL_KEYS = ("step", "rng", "data")
+#: the file of rank r's own entries in a sharded checkpoint
+RANK_FILE = "rank{}.pt"
 
 
 def _save_atomic(obj, path: str) -> int:
@@ -85,6 +102,96 @@ def restore_checkpoint(path: str,
                         f"{None if got is None else (tuple(got.shape), got.dtype)}"
                         f", expected {(tuple(like.shape), like.dtype)}")
     return state
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def save_sharded(path: str, state: Dict[str, Any],
+                 mesh_shape: Dict[str, int]) -> int:
+    """Write `state` on every rank of the process group: its tensors
+    (DTensors and replicated tensors, `torch.distributed.checkpoint`) and
+    each rank's `LOCAL_KEYS` with the mesh's shape.  Atomic: written to
+    `path.tmp`, renamed by rank 0 after every rank has written.  Returns
+    the directory's bytes."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+    rank = dist.get_rank()
+    tmp = f"{path}.tmp"
+    if rank == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dist.barrier()
+    dcp.save({k: v for k, v in state.items() if k not in LOCAL_KEYS},
+             checkpoint_id=tmp)
+    local = {k: state[k] for k in LOCAL_KEYS if k in state}
+    local["mesh"] = dict(mesh_shape)
+    torch.save(local, os.path.join(tmp, RANK_FILE.format(rank)))
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(path, ignore_errors=True)
+        os.replace(tmp, path)
+    dist.barrier()
+    return _dir_bytes(path)
+
+
+def _rank_entries(path: str, rank: int) -> Dict[str, Any]:
+    return torch.load(os.path.join(path, RANK_FILE.format(rank)),
+                      map_location="cpu", weights_only=True)
+
+
+def restore_sharded(path: str, template: Dict[str, Any],
+                    mesh_shape: Dict[str, int]) -> Dict[str, Any]:
+    """Load the checkpoint `path` written by `save_sharded` into the
+    tensors of `template` (the state of a fresh trainer on this mesh; its
+    tensors are overwritten in place) and return them with this rank's
+    `LOCAL_KEYS`.  Exits naming both shapes where `path` was written on
+    another mesh."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+    if not os.path.exists(os.path.join(path, ".metadata")):
+        raise SystemExit(f"--resume {path}: not a sharded checkpoint (a "
+                         f"run under --mesh writes one)")
+    saved = _rank_entries(path, 0)["mesh"]
+    if saved != dict(mesh_shape):
+        raise SystemExit(f"--resume {path} was written on the mesh "
+                         f"{saved}; this run's mesh is {dict(mesh_shape)}")
+    tensors = {k: v for k, v in template.items() if k not in LOCAL_KEYS}
+    saved_keys = dcp.FileSystemReader(path).read_metadata() \
+        .state_dict_metadata.keys()
+    _prune(tensors, "", tuple(saved_keys))
+    dcp.load(tensors, checkpoint_id=path)
+    local = _rank_entries(path, dist.get_rank())
+    return {**tensors, **{k: local[k] for k in LOCAL_KEYS if k in local}}
+
+
+def _prune(tree: Dict[str, Any], prefix: str, saved: tuple) -> None:
+    """Drop the entries of `tree` that the checkpoint does not hold: a
+    fresh optimizer's state dict holds every parameter, the saved one only
+    those that had a gradient (a parameter AdamW never stepped has no
+    state, and keeps none after the load)."""
+    for k in list(tree):
+        key = f"{prefix}{k}"
+        if not any(s == key or s.startswith(key + ".") for s in saved):
+            del tree[k]
+        elif isinstance(tree[k], dict):
+            _prune(tree[k], key + ".", saved)
+
+
+def sharded_to_state(path: str) -> Dict[str, Any]:
+    """A sharded checkpoint as plain CPU tensors, read without a process
+    group: {"tensors": the whole tensors by key, "ranks": each rank's own
+    entries and mesh}."""
+    from torch.distributed.checkpoint.format_utils import dcp_to_torch_save
+    ranks = []
+    while os.path.exists(os.path.join(path, RANK_FILE.format(len(ranks)))):
+        ranks.append(_rank_entries(path, len(ranks)))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "state.pt")
+        dcp_to_torch_save(path, out)
+        tensors = torch.load(out, map_location="cpu", weights_only=False)
+    return {"tensors": tensors, "ranks": ranks}
 
 
 def _upstream_state(named: Dict[str, torch.Tensor], cfg) -> Dict[str, Any]:

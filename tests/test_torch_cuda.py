@@ -1222,3 +1222,71 @@ def test_usp_forward_matches_the_single_device_forward(cuda, dtype, tol):
                               ring_axis="ring").float()
     rel = ((got - want).norm() / want.norm()).item()
     assert rel <= tol, rel
+
+
+@pytest.mark.parametrize("th,tw,shape", [(480, 832, (9, 720, 1280, 3)),
+                                         (64, 40, (3, 96, 120, 3)),
+                                         (192, 240, (2, 96, 120, 3))])
+def test_fastproc_on_the_card_matches_the_cpu(cuda, th, tw, shape):
+    """The clip resample (`data/fastproc.py`) on the card against the
+    same on the CPU: the same taps, TF32 off, the products summed in
+    another order; within 1e-5 of [-1, 1]."""
+    from mmpl_tpu_torch.data import fastproc
+    frames = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, shape, dtype=np.uint8))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = fastproc.scale_crop_normalize_clip(frames.to(cuda), th, tw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    want = fastproc.scale_crop_normalize_clip(frames, th, tw)
+    assert got.device.type == "cuda" and got.shape == (shape[0], 3, th, tw)
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+
+
+def test_data_process_on_the_card(cuda, tmp_path):
+    """`data_process --synthetic --device cuda --use_native` at a smoke
+    size: the resample and the random VAE on the card, a short clip
+    skipped, one shard."""
+    from mmpl_tpu_torch.data import datasets, video_dataset
+    rng = np.random.default_rng(1)
+    for name, n in (("a", 9), ("b", 13), ("short", 3)):
+        np.save(tmp_path / f"{name}.npy",
+                rng.integers(0, 256, (n, 72, 128, 3), dtype=np.uint8))
+    (tmp_path / "meta.csv").write_text(
+        "file_name,text\na.npy,a cat\nb.npy,a dog\nshort.npy,short\n")
+    paths = video_dataset.data_process([
+        "--base_path", str(tmp_path), "--metadata_path",
+        str(tmp_path / "meta.csv"), "--output_path", str(tmp_path / "out"),
+        "--synthetic", "--num_frames", "9", "--height", "64", "--width",
+        "96", "--text_len", "16", "--text_dim", "64", "--use_native"])
+    items = datasets.TensorDictDataset(str(tmp_path / "out"))
+    assert len(paths) == 1 and len(items) == 2
+    assert items[0]["latents"].shape == (3, 16, 8, 12)
+    assert np.isfinite(items[1]["latents"]).all()
+
+
+def test_record_trajectories_on_the_card_matches_the_cpu(cuda):
+    """`data/ode_gen.record_trajectories` of the tiny model in fp32 (K1
+    over the CFG pair) on the card against the CPU's plain path."""
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    from mmpl_tpu_torch.data.ode_gen import record_trajectories
+    from mmpl_tpu_torch.models import dit
+    from mmpl_tpu_torch.utils.device import set_float32_precision
+    set_float32_precision()
+    cfg = tiny_test_config()
+    g = torch.Generator().manual_seed(5)
+    model = dit.randomize_head(dit.init_dit_params(cfg, g, torch.float32),
+                               g)
+    noise = torch.randn((1, 3, 16, 4, 4), generator=g)
+    cond, uncond = (torch.randn((1, 16, 64), generator=g) for _ in range(2))
+    want = record_trajectories(cfg, model, noise, cond, uncond,
+                               sampling_steps=6, dtype=torch.float32)
+    ta.reset_launch_counts()
+    got = record_trajectories(cfg, model.to(cuda), noise.to(cuda),
+                              cond.to(cuda), uncond.to(cuda),
+                              sampling_steps=6, dtype=torch.float32)
+    assert ta.launch_counts["flash_fwd"] == 6 * 2 * cfg.num_layers
+    assert torch.equal(got[:, 0].cpu(), noise)
+    rel = ((got.cpu() - want).norm() / want.norm()).item()
+    assert rel <= 1e-5, rel

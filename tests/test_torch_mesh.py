@@ -290,6 +290,7 @@ def test_sharded_training_over_four_gloo_ranks(tmp_path):
                                            err_msg=f"{tag} {n}")
     for objective in ("teacher_forcing", "dmd", "gan"):
         assert (tmp_path / "runs" / objective / "metrics.jsonl").exists()
+    _assert_sharded_resume_exact(tmp_path, outs)
     # the sharded teacher-forcing step's export equals one process's (the
     # draws are split by rows, so it is the same step; one AdamW step
     # moves a weight by at most lr = 1e-5)
@@ -306,6 +307,54 @@ def test_sharded_training_over_four_gloo_ranks(tmp_path):
         for k, v in want[part].items():
             torch.testing.assert_close(got[part][k], v, atol=2e-5, rtol=0,
                                        msg=f"{part} {k}")
+
+
+def _equal(a, b, where=""):
+    """a == b bit for bit: nested dicts and lists of tensors, arrays and
+    numbers."""
+    if isinstance(a, dict):
+        assert set(a) == set(b), where
+        for k in a:
+            _equal(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _equal(x, y, f"{where}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a, b), where
+    else:
+        assert a == b, where
+
+
+def _assert_sharded_resume_exact(tmp_path, outs):
+    """The worker's sharded checkpoints (`train_state_io.save_sharded`,
+    dp 2 x fsdp 2): teacher forcing's and DMD's step-2 state resumed from
+    step 1 equals the unbroken run's bit for bit (masters, AdamW states,
+    EMA, each rank's generators and step); a restore onto another mesh
+    exits naming both shapes."""
+    from mmpl_tpu_torch.utils import train_state_io as tsio
+    for objective in ("teacher_forcing", "dmd"):
+        got, want = (tsio.sharded_to_state(str(
+            tmp_path / "ckpt" / f"{objective}_{run}" / "step2"))
+            for run in ("resumed", "unbroken"))
+        assert len(want["ranks"]) == 4
+        assert all(r["mesh"] == {"dp": 2, "fsdp": 2} and r["step"] == 2
+                   for r in want["ranks"])
+        trained = ["generator"] if objective == "teacher_forcing" else [
+            "generator", "fake_score"]
+        if objective == "teacher_forcing":
+            assert {"model", "optimizer", "ema"} <= set(want["tensors"])
+        else:
+            assert set(want["tensors"]["models"]) == set(trained)
+            # each dp rank draws from its own stream
+            draws = [r["rng"]["draw"] for r in want["ranks"]]
+            assert not torch.equal(draws[0], draws[2])
+        _equal(got, want, objective)
+        assert not (tmp_path / "ckpt" / f"{objective}_unbroken"
+                    / "step2.tmp").exists()
+    for out in outs:
+        msg = str(out["other_mesh_exit"])
+        assert "{'dp': 2, 'fsdp': 2}" in msg and "{'dp': 1, 'fsdp': 4}" in msg
 
 
 def test_generate_parallel_refuses_two_gloo_ranks(tmp_path):

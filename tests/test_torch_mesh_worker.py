@@ -188,6 +188,28 @@ def _case_train(workdir, inp, out):
                        os.path.join(workdir, f"{objective}.pt")]
         assert train.main(argv) == 0, objective
 
+    # sharded checkpoints: two steps unbroken (saved after each), then the
+    # second step again, resumed from the first one's checkpoint
+    for objective in ("teacher_forcing", "dmd"):
+        ckpt = lambda run: os.path.join(workdir, "ckpt", f"{objective}_{run}")
+        argv = base + ["--objective", objective, "--steps", "2",
+                       "--num-frames", "6", "--dfake-gen-update-ratio", "1",
+                       "--mesh", "dp=2,fsdp=2", "--ckpt-every", "1",
+                       "--log-dir", os.path.join(workdir, "runs_ckpt")]
+        assert train.main(argv + ["--run-name", f"{objective}_unbroken",
+                                  "--ckpt-dir", ckpt("unbroken")]) == 0
+        assert train.main(argv + ["--run-name", f"{objective}_resumed",
+                                  "--ckpt-dir", ckpt("resumed"), "--resume",
+                                  os.path.join(ckpt("unbroken"), "step1")
+                                  ]) == 0
+    # a checkpoint restores onto a mesh of its own shape only
+    try:
+        train.main(argv + ["--mesh", "dp=1,fsdp=4", "--run-name", "other",
+                           "--resume", os.path.join(ckpt("unbroken"),
+                                                    "step1")])
+    except SystemExit as e:
+        out["other_mesh_exit"] = np.asarray(str(e))
+
 
 def _case_meshes(out):
     """make_mesh's default fold and make_stage_meshes' split."""

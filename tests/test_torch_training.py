@@ -3,8 +3,11 @@ loss and its gradients, two AdamW steps, the EMA, the CLI) against the JAX
 package, at `tiny_test_config` in f32 on the CPU."""
 
 import copy
+import functools
+import importlib
 import json
 import pathlib
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +32,7 @@ from mmpl_tpu_torch.training import diffusion as tdiff
 from mmpl_tpu_torch.utils.ema import EmaParams
 from mmpl_tpu_torch.utils.jax_params import dit_state_from_jax
 from helpers import randomize_head
+from test_torch_flow_objective import _flow_draws
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -72,15 +76,15 @@ def tt(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def jax_draws(rng, nfpb=3, aug_max=100):
+def jax_draws(rng, nfpb=3, aug_max=100, shape=(B, F, C, H, W)):
     """The draws of `make_teacher_forcing_loss_fn`'s key chain."""
     k1, k2, k3, k4 = jax.random.split(rng, 4)
-    nb = F // nfpb
+    nb = shape[1] // nfpb
     return {"idx": torch.from_numpy(np.array(jax.random.randint(
-                k1, (B, nb), 0, 1000))).long(),
-            "noise": tt(jax.random.normal(k2, (B, F, C, H, W), jnp.float32)),
+                k1, (shape[0], nb), 0, 1000))).long(),
+            "noise": tt(jax.random.normal(k2, shape, jnp.float32)),
             "idx_aug": torch.from_numpy(np.array(jax.random.randint(
-                k3, (B, nb), 0, aug_max))).long(),
+                k3, (shape[0], nb), 0, aug_max))).long(),
             "coin": tt(jax.random.uniform(k4, ()))}
 
 
@@ -138,13 +142,18 @@ def test_fps_forward_train_anchor_blinding(setup):
     assert (out_a[:, step2] - out_c[:, step2]).abs().max() > 1e-4
 
 
-def _grads_close(model, jgrads, cfg, atol):
+def _grads_close(model, jgrads, cfg, atol, untouched=()):
+    """`untouched`: name prefixes of parameters outside the gradient (no
+    grad in the port, zeros in JAX)."""
     want = dit_state_from_jax(jax.tree.map(np.asarray, jgrads), cfg)
     got = dict(model.named_parameters())
     assert set(got) == set(want)
     nonzero = 0
     for name, w in want.items():
         gr = got[name].grad
+        if gr is None and name.startswith(untouched):
+            assert not np.any(w.numpy()), name
+            continue
         assert gr is not None, name
         np.testing.assert_allclose(gr.numpy(), w.numpy(), atol=atol,
                                    rtol=1e-4, err_msg=name)
@@ -241,25 +250,30 @@ def test_train_cli_smoke_run_logs_finite_losses(tmp_path):
     (["--objective", "dmd"], None),
     (["--objective", "ode"], None),
     (["--objective", "flow"], None),
-    (["--data-dir", "x"], "Slice I"),
+    # --data-dir is ported (this case's id kept): it parses
+    pytest.param(["--data-dir", "x"], None, id="argv3-Slice I"),
     (["--resume", "x"], None),
     (["--export-pt", "x"], None),
     (["--ckpt-dir", "x"], None),
     (["--generator-ckpt", "x"], None),
     (["--wan-dir", "x"], None),
     (["--config", str(CONFIGS / "self_forcing_df.yaml")], None),
-    # --mesh is ported (this case's id kept): it parses; with it the
-    # checkpoint flags are refused (the next case)
+    # --mesh is ported (this case's id kept): it parses
     pytest.param(["--mesh", "dp=2"], None, id="argv10-Slice F"),
     (["--remat-offload"], "TPU workaround"),
     (["--offload-opt"], "TPU workaround"),
     (["--config", str(CONFIGS / "self_forcing_dmd.yaml")], None),
-    (["--mesh", "dp=2", "--ckpt-dir", "x"], "sharded checkpoints"),
+    # sharded checkpoints are ported (this case's id kept): they parse
+    pytest.param(["--mesh", "dp=2", "--ckpt-dir", "x"], None,
+                 id="argv14-sharded checkpoints"),
+    (["--mesh", "tp=2"], "Queue 1"),
+    (["--objective", "dmd", "--data-dir", "x"], "read no data"),
 ])
 def test_refused_flags_name_their_slice(argv, slice_name, capsys):
-    """Flags that are not ported exit naming their ROADMAP slice (or that
-    they are a TPU workaround); the flags and objectives that the port
-    trains (slice_name None) parse, the distillation run configs
+    """Flags that are not ported exit naming their ROADMAP slice or queue
+    (or that they are a TPU workaround), `--data-dir` with a distillation
+    objective exits saying it reads no data; the flags and objectives that
+    the port trains (slice_name None) parse, the distillation run configs
     included."""
     if slice_name is None:
         args = ttrain.parse_args(argv)
@@ -274,3 +288,254 @@ def test_cuda_device_raises_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(["--smoke", "--steps", "1", "--log-dir", str(tmp_path)])
+
+
+# ---------------------------------------------------------------------------
+# --data-dir: the trainer on shards, against train.py's
+# ---------------------------------------------------------------------------
+
+ROOT = CONFIGS.parent
+DF, STEPS3 = 6, (1000, 750, 500)
+
+
+def _jax_train_module():
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    return importlib.import_module("train")
+
+
+@pytest.fixture(scope="module")
+def shards(tmp_path_factory):
+    """Two latent shards (3 and 2 clips of 6 frames) and an ODE shard (3
+    trajectories over a 3-step list), as the data path writes them."""
+    root = tmp_path_factory.mktemp("shards")
+    rng = np.random.default_rng(11)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)
+    (root / "lat").mkdir()
+    for i, n in enumerate((3, 2)):
+        np.savez(root / "lat" / f"shard_{i:05d}.npz",
+                 latents=f32(n, DF, C, H, W), prompt_embeds=f32(n, 16, 64),
+                 prompts=np.asarray([f"p{i}{j}" for j in range(n)],
+                                    dtype=object))
+    from mmpl_tpu_torch.data.ode_gen import write_ode_shard
+    write_ode_shard(str(root / "ode" / "ode_00000.npz"),
+                    f32(3, len(STEPS3) + 1, DF, C, H, W), ["a", "b", "c"],
+                    f32(3, 16, 64))
+    return root
+
+
+@pytest.fixture
+def head_weights(monkeypatch):
+    """Both trainers start from one JAX init with a random head (a zero
+    head makes every loss vacuous); returns its numpy tree."""
+    tree = jax.tree.map(np.asarray, randomize_head(jdit.init_dit_params(
+        jax.random.PRNGKey(0), j_tiny(), jnp.float32)))
+    monkeypatch.setattr(jdit, "init_dit_params", lambda *a, **k:
+                        jax.tree.map(jnp.asarray, tree))
+    monkeypatch.setattr(tdit, "init_dit_params", lambda cfg, *a, **k:
+                        port_model(tree, cfg))
+    return tree
+
+
+def _spy_batches(monkeypatch):
+    """The batches the JAX trainer's iterator yields and the port trainer's
+    `_DataBatches` hands to its step."""
+    from mmpl_tpu.data import datasets as jds
+    seen = {"jax": [], "port": []}
+    real_it, real_next = jds.batch_iterator, ttrain._DataBatches.next
+
+    def j_it(*a, **kw):
+        for b in real_it(*a, **kw):
+            seen["jax"].append(b)
+            yield b
+
+    monkeypatch.setattr(jds, "batch_iterator", j_it)
+    monkeypatch.setattr(ttrain._DataBatches, "next", lambda self: (
+        seen["port"].append(real_next(self)) or seen["port"][-1]))
+    return seen
+
+
+def _first_loss(root, run):
+    return json.loads((root / run / "metrics.jsonl").read_text()
+                      .splitlines()[0])["loss"]
+
+
+@pytest.mark.parametrize("objective", ["teacher_forcing", "flow"])
+def test_data_dir_step_matches_jax(objective, shards, head_weights,
+                                   monkeypatch, tmp_path):
+    """`--data-dir` on latent shards, one step in each trainer (both trunks
+    fp32): the port's batch equals the JAX trainer's, the first losses
+    agree within 1e-5, and the loss and gradients of the fp32 loss on the
+    two batches within the file's tolerances."""
+    jtrain, seen = _jax_train_module(), _spy_batches(monkeypatch)
+    tf = objective == "teacher_forcing"
+    name = "make_teacher_forcing_loss_fn" if tf else "make_loss_fn"
+    monkeypatch.setattr(jdiff, name, functools.partial(
+        getattr(jdiff, name), compute_dtype=jnp.float32))
+    monkeypatch.setattr(tdiff, name, functools.partial(
+        getattr(tdiff, name), compute_dtype=torch.float32))
+    shape = (1, DF, C, H, W)
+    # the JAX trainer's step-0 loss key at --seed 3
+    _, sub = jax.random.split(jax.random.PRNGKey(4))
+    draws = jax_draws(sub, shape=shape) if tf else _flow_draws(sub, shape)
+    monkeypatch.setattr(tdiff, "draw_teacher_forcing" if tf else "draw_flow",
+                        lambda *a, **kw: dict(draws))
+    base = ["--smoke", "--objective", objective, "--steps", "1",
+            "--num-frames", str(DF), "--seed", "3", "--data-dir",
+            str(shards / "lat"), "--log-dir", str(tmp_path)]
+    assert jtrain.main(base + ["--run-name", "jax"]) == 0
+    assert ttrain.main(base + ["--run-name", "port", "--device",
+                               "cpu"]) == 0
+    jb, tb = seen["jax"][0], seen["port"][0]
+    np.testing.assert_array_equal(tb["latents"].numpy(), jb["latents"])
+    np.testing.assert_array_equal(tb["prompt_embeds"].numpy(),
+                                  jb["prompt_embeds"])
+    np.testing.assert_allclose(_first_loss(tmp_path, "port"),
+                               _first_loss(tmp_path, "jax"), rtol=1e-5)
+
+    cfg = tiny_test_config()
+    ctx = jnp.asarray(jb["prompt_embeds"])
+    jbatch = {"latents": jnp.asarray(jb["latents"]), "context": ctx,
+              "uncond_context": jnp.zeros_like(ctx)}
+    sch = scheduler()
+    jloss = (jdiff.make_teacher_forcing_loss_fn(
+        cfg, sch, jmasks.fps_forcing_frame_mask(T2V_CLEAN_STEPS[:DF]),
+        noise_aug_max_timestep=100) if tf else jdiff.make_loss_fn(cfg, sch))
+    loss_w, grads_w = jax.value_and_grad(jloss)(
+        jax.tree.map(jnp.asarray, head_weights), jbatch, sub)
+    tsch = tdiff.make_scheduler(8.0)
+    tloss = (tdiff.make_teacher_forcing_loss_fn(
+        cfg, tsch, jmasks.fps_forcing_frame_mask(T2V_CLEAN_STEPS[:DF]),
+        noise_aug_max_timestep=100) if tf else tdiff.make_loss_fn(cfg, tsch))
+    model = port_model(head_weights, cfg).requires_grad_(True)
+    loss_g = tloss(model, {"latents": tb["latents"],
+                           "context": tb["prompt_embeds"],
+                           "uncond_context": torch.zeros_like(
+                               tb["prompt_embeds"])}, draws)
+    loss_g.backward()
+    np.testing.assert_allclose(loss_g.item(), float(loss_w), rtol=1e-5)
+    _grads_close(model, grads_w, cfg, atol=1e-4)
+
+
+def test_ode_data_dir_step_matches_jax(shards, head_weights, monkeypatch,
+                                       tmp_path):
+    """`--objective ode --data-dir` on a trajectory shard: the port's batch
+    equals the JAX trainer's, the first losses agree within 1e-5 (both
+    fp32), and the loss and gradients of the trainer's ODE step on the two
+    batches (the text K/V outside the gradient, as both trainers compute
+    it) within the file's tolerances."""
+    jtrain, seen = _jax_train_module(), _spy_batches(monkeypatch)
+    _, sub = jax.random.split(jax.random.PRNGKey(1))
+    r1, _ = jax.random.split(sub)
+    idx = tt(jax.random.randint(r1, (1, DF // 3), 0, len(STEPS3))).long()
+    monkeypatch.setattr(ttrain, "loss_draws",
+                        lambda g, step, role: {"generator": g, "idx": idx})
+    base = ["--smoke", "--objective", "ode", "--steps", "1", "--num-frames",
+            str(DF), "--denoising-step-list", "1000,750,500", "--data-dir",
+            str(shards / "ode"), "--log-dir", str(tmp_path)]
+    assert jtrain.main(base + ["--run-name", "jax"]) == 0
+    assert ttrain.main(base + ["--run-name", "port", "--device",
+                               "cpu"]) == 0
+    jb, tb = seen["jax"][0], seen["port"][0]
+    np.testing.assert_array_equal(tb["ode_latent"].numpy(),
+                                  jb["ode_latent"])
+    np.testing.assert_array_equal(tb["prompt_embeds"].numpy(),
+                                  jb["prompt_embeds"])
+    assert np.isfinite(_first_loss(tmp_path, "port"))
+    np.testing.assert_allclose(_first_loss(tmp_path, "port"),
+                               _first_loss(tmp_path, "jax"), rtol=1e-5)
+
+    from mmpl_tpu.training import distillation as jdist
+    from mmpl_tpu_torch.training import distillation as tdist
+    cfg, sch = tiny_test_config(), scheduler()
+    jp = jax.tree.map(jnp.asarray, head_weights)
+    ode, ctx = jnp.asarray(jb["ode_latent"]), jnp.asarray(jb["prompt_embeds"])
+    noisy, ts = jdist.prepare_ode_generator_input(ode, STEPS3, r1)
+    jbatch = {"noisy_input": noisy, "clean_latent": ode[:, -1],
+              "timestep": ts, "ctx_kv": jdit.precompute_context_kv(
+                  jp, cfg, jdit.embed_text(jp, ctx))}
+    (loss_w, _), grads_w = jax.value_and_grad(
+        lambda p: jdist.ode_regression_loss(p, cfg, sch, jbatch,
+                                            jax.random.PRNGKey(0)),
+        has_aux=True)(jp)
+    model = port_model(head_weights, cfg)
+    tnoisy, tts = tdist.prepare_ode_generator_input(tb["ode_latent"], STEPS3,
+                                                    idx)
+    tbatch = {"noisy_input": tnoisy, "clean_latent": tb["ode_latent"][:, -1],
+              "timestep": tts, "ctx_kv": ttrain._context_kv(
+                  model, cfg, tb["prompt_embeds"])}
+    loss_g, _ = tdist.ode_regression_loss(model.requires_grad_(True), cfg,
+                                          tdiff.make_scheduler(8.0), tbatch)
+    loss_g.backward()
+    np.testing.assert_allclose(loss_g.item(), float(loss_w), rtol=1e-5)
+    # the text K/V's parameters (text embedding, cross-attention k, v and
+    # k-norm) are outside the step's gradient in both trainers
+    _grads_close(model, grads_w, cfg, atol=1e-4, untouched=(
+        "text_embedding.", *(f"blocks.{i}.cross_attn.{p}"
+                             for i in range(cfg.num_layers)
+                             for p in ("k.", "v.", "norm_k."))))
+
+
+def _state(path):
+    return torch.load(path / "train_state.pt", weights_only=True)
+
+
+def _equal(a, b, where=""):
+    if isinstance(a, dict):
+        assert set(a) == set(b), where
+        for k in a:
+            _equal(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, torch.Tensor):
+        assert torch.equal(a, b), where
+    else:
+        assert a == b, where
+
+
+@pytest.mark.parametrize("objective,data", [("teacher_forcing", "lat"),
+                                            ("ode", "ode")])
+def test_resumed_data_dir_run_equals_the_unbroken_one(objective, data,
+                                                      shards, tmp_path):
+    """Three steps over shards of 5 clips at batch 2 (a pass is 2 batches,
+    so step 2 starts the second shuffle) unbroken, and resumed from step
+    1: the step-3 state, the data position included, bit for bit."""
+    base = ["--smoke", "--device", "cpu", "--objective", objective,
+            "--steps", "3", "--batch-size", "2", "--num-frames", str(DF),
+            "--denoising-step-list", "1000,750,500", "--data-dir",
+            str(shards / data), "--ckpt-every", "1", "--log-dir",
+            str(tmp_path)]
+    assert ttrain.main(base + ["--run-name", "a", "--ckpt-dir",
+                               str(tmp_path / "a")]) == 0
+    assert ttrain.main(base + ["--run-name", "b", "--ckpt-dir",
+                               str(tmp_path / "b"), "--resume",
+                               str(tmp_path / "a" / "step1")]) == 0
+    want = _state(tmp_path / "a" / "step3")
+    assert want["data"] == 3 and _state(tmp_path / "a" / "step1")["data"] \
+        == 1
+    _equal(_state(tmp_path / "b" / "step3"), want)
+    logs = [json.loads(x) for x in (tmp_path / "b" / "metrics.jsonl")
+            .read_text().splitlines()]
+    assert all(r["load_s"] >= 0 for r in logs if "loss" in r)
+
+
+def test_data_dir_shape_and_content_checks(shards, capsys, tmp_path):
+    """A shard of other latent frames exits naming both counts; ODE
+    shards without prompt_embeds exit naming them; the distillation
+    objectives exit (2) naming --data-dir."""
+    base = ["--smoke", "--device", "cpu", "--steps", "1", "--log-dir",
+            str(tmp_path)]
+    with pytest.raises(SystemExit, match="latent frame count is 6; "
+                                         "--num-frames gives 9"):
+        ttrain.main(base + ["--num-frames", "9", "--data-dir",
+                            str(shards / "lat")])
+    from mmpl_tpu_torch.data.ode_gen import write_ode_shard
+    write_ode_shard(str(tmp_path / "bare" / "o.npz"),
+                    np.zeros((1, 4, DF, C, H, W), np.float32), ["x"])
+    with pytest.raises(SystemExit, match="prompt_embeds"):
+        ttrain.main(base + ["--objective", "ode", "--num-frames", str(DF),
+                            "--denoising-step-list", "1000,750,500",
+                            "--data-dir", str(tmp_path / "bare")])
+    with pytest.raises(SystemExit) as e:
+        ttrain.main(base + ["--objective", "dmd", "--data-dir",
+                            str(shards / "lat")])
+    assert e.value.code == 2
+    assert "--data-dir with --objective dmd" in capsys.readouterr().err
