@@ -160,7 +160,29 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      teacher forcing at full width and depth (exact K1-K6, step and load
      seconds), flow and ODE at 2 layers; train_data_resume, 2-layer
      teacher forcing on the shards resumed from step 1 of 3, bit for bit;
-  19. the kernels line, then the final device line.
+  19. what the mesh refused until now, two ranks spawned on this one
+     card over gloo (NCCL takes no two ranks on a device; gloo carries
+     the anchors' point-to-point move through host memory): kernel_q_modes
+     (run beside kernel_int8), Q's amax and given-scale modes at the tp-2
+     shapes (18720 x 4480, 18720 x 768), exactly against their plain
+     versions, with device times and bounds; mesh_int8, tp 2 at the 1.3B
+     width cut to TP_LAYERS layers, a group-2 solver forward and its
+     commit in W8A8 with the int8 cache against the same forwards
+     unsharded (the fc2 input's summed int32 accumulators, codes and
+     scales and the cache's codes and scales bit for bit, the flow within
+     quant_parity's int8 window gate and no farther than tp moves the
+     bf16 forward, exact Q / P2 / K1 launches); mesh_tp_train, tp-2
+     teacher-forcing steps at 65,520 tokens and TP_LAYERS layers against
+     the unsharded steps, the trunk in fp32 (train_mesh's tolerances) and
+     in bf16 (within bf16's own distance from fp32), K4-K6 at 6 heads,
+     exact launches, and `train --smoke --mesh tp=2`;
+     stage_meshes, `ChunkParallelPipeline(stage_meshes=...)` over two
+     processes of a stage each, the 1.3B window model at full width and
+     depth, 4 steps, 3 chunks, bit for bit against chunk_pipeline's
+     one-process run, with each chunk's start against the previous one's
+     end on the host clock; generate_parallel_ranks, the entry over 2
+     processes in smoke mode writing the files one process writes;
+  20. the kernels line, then the final device line.
 """
 
 from __future__ import annotations
@@ -341,6 +363,12 @@ INT8_SHAPES = [
     ("vae_conv1", 60 * 104, 16 * 27, 384, None, torch.bfloat16),
     ("ragged", 1000, 96, 200, torch.bfloat16, torch.bfloat16),
     ("smoke_f32", 224, 96, 288, torch.float32, torch.float32),
+    # tp 2: fc1's rows of a rank (column-parallel, a scaled output), fc2's
+    # and o's input columns of a rank (row-parallel: the int32
+    # accumulator, summed over tp outside the kernel)
+    ("g23_fc1_tp2", 18720, 1536, 4480, torch.bfloat16, torch.bfloat16),
+    ("g23_fc2_tp2", 18720, 4480, 1536, torch.bfloat16, torch.int32),
+    ("g23_o_tp2", 18720, 768, 1536, torch.bfloat16, torch.int32),
 ]
 INT8_MAIN = "g23_fc1"      # P2's main shape: group 3's ffn.fc1
 Q_MAIN = "g23_fc2"         # Q's: group 3's ffn.fc2 input (18720 x 8960)
@@ -914,6 +942,8 @@ def phase_kernel_int8():
         row["tops"] = ops / row["ms"] / 1e9
 
         def library():      # the yardstick only: the port never calls it
+            if out == torch.int32:
+                return torch._int_mm(xq, wq.t())
             yl = torch._int_mm(xq, wq.t()).float()
             if sx is not None:
                 yl = yl * sx[:, None]
@@ -3466,7 +3496,7 @@ def phase_chunk_pipeline(steps: int = 4):
     check(max(rels) < 1e-2, row)
     del model, vae_m
     torch.cuda.empty_cache()
-    return total
+    return total, runs[1]
 
 
 def phase_generate_parallel():
@@ -4307,6 +4337,595 @@ def _mesh_ckpt(shards: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# What the mesh refused until now: int8 projections and the int8 cache over
+# tp, tp in training, chunk-pipeline stages as processes.  Two ranks share
+# this one card over gloo (NCCL takes no two ranks on one device); the
+# group moves carry CUDA tensors through host memory where gloo takes none
+# (point-to-point: `collectives.GLOO_HOST_MOVES`)
+# ---------------------------------------------------------------------------
+
+#: layers of the 1.3B width in mesh_int8 and mesh_tp_train (cut from 30:
+#: every all-reduce crosses the host under gloo)
+TP_LAYERS = 2
+#: seconds the two ranks may take for all their cases, start-up included
+RANKS_LIMIT = 480
+#: Q's tensor-parallel shapes (label, M, K): fc2's input at tp 2 (18720
+#: tokens of group 3 x the 4480 ffn units of a rank) and a row of 768
+#: (o's input, and a cache token's heads, at tp 2)
+Q_MODE_SHAPES = (("g23_fc2_tp2", 18720, 4480), ("g23_o_tp2", 18720, 768))
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_kernel_q_modes():
+    """Q's amax mode and given-scale mode at the tensor-parallel shapes:
+    the amax, the scale and the codes exactly against their plain
+    versions, the halves of a row split in two composed to the whole
+    row's codes, the body each ran, device times, plain times and bounds
+    (bytes: the row read once; the codes written once by the given-scale
+    mode), and the amax mode's beside one library call of the same
+    function (`torch.linalg.vector_norm` of order inf in fp32)."""
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for label, M, K in Q_MODE_SHAPES:
+        x = (3 * torch.randn((M, K), generator=gen, device="cuda")).to(
+            torch.bfloat16)
+        amax = quant.row_amax_cuda(x)
+        s = quant.amax_scale(amax)
+        q = quant.quantize_rows_scaled_cuda(x, s)
+        pq, ps = quant.quantize_rows_plain(x)
+        torch.cuda.synchronize()
+        row = {"phase": "kernel_q_modes", "shape": label, "M": M, "K": K,
+               "q_row_warps": quant.q_row_warps(K),
+               "amax_equal": bool(torch.equal(amax,
+                                              quant.row_amax_plain(x))),
+               "scales_equal": bool(torch.equal(s, ps)),
+               "codes_equal": bool(torch.equal(q, pq)),
+               "max_abs_err": max((q.int() - pq.int()).abs().max().item(),
+                                  (s - ps).abs().max().item())}
+        halves = [h.contiguous() for h in x.chunk(2, -1)]
+        sh = quant.amax_scale(torch.maximum(*(quant.row_amax_cuda(h)
+                                              for h in halves)))
+        row["split_equal"] = bool(torch.equal(sh, ps) and torch.equal(
+            torch.cat([quant.quantize_rows_scaled_cuda(h, sh)
+                       for h in halves], -1), pq))
+        for mode, fn, plain, nbytes in (
+                ("amax", lambda: quant.row_amax_cuda(x),
+                 lambda: quant.row_amax_plain(x), M * K * 2 + 4 * M),
+                ("scaled", lambda: quant.quantize_rows_scaled_cuda(x, s),
+                 lambda: quant.quantize_rows_scaled_plain(x, s),
+                 M * K * 2 + 4 * M + M * K)):
+            row[f"{mode}_ms"], names = _device_ms(fn, "quantize_rows")
+            row[f"{mode}_body"] = _int8_body(names, "quantize_rows", K)
+            row[f"{mode}_plain_ms"] = time_ms(plain, max_reps=5)
+            row[f"{mode}_bound_ms"] = 1e3 * nbytes / PEAK_BYTES
+            row[f"{mode}_bound_share"] = (row[f"{mode}_bound_ms"]
+                                          / row[f"{mode}_ms"])
+
+        def library():      # the yardstick only: the port never calls it
+            return torch.linalg.vector_norm(x, float("inf"), dim=-1,
+                                            dtype=torch.float32)
+        row["amax_library_ms"] = _device_ms(library)[0]
+        row["amax_library_equal"] = bool(torch.equal(library(), amax))
+        row["scaled_library_ms"] = None     # no one call codes at a scale
+        emit(row)
+        check(row["amax_equal"] and row["scales_equal"]
+              and row["codes_equal"] and row["split_equal"], row)
+        rows[label] = row
+        del x, amax, s, q, pq, ps, halves
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _counts() -> dict:
+    """The attention and int8 launch counters, and Q's by mode."""
+    return {**attn.launch_counts, **quant.launch_counts,
+            **{f"q_{k}": v for k, v in quant.q_mode_counts.items()}}
+
+
+def _reset_counts() -> None:
+    attn.reset_launch_counts()
+    quant.reset_launch_counts()
+
+
+def _rank_mesh_int8(rank: int, world: int) -> dict:
+    """One group-2 solver forward and its commit of the 1.3B window model
+    (TP_LAYERS layers, bf16, the CFG pair: 18,720 tokens, group 3's
+    shapes) in W8A8 with the int8 cache,
+    unsharded and then over tp = `world`, with the launches of each
+    forward.  Then the unsharded forward's own layer-0 fc2 input and
+    commit K tokens split over tp: the row-parallel product's summed
+    int32 accumulators, codes, scales and output, and the cache's codes
+    and scales, against the unsharded ones."""
+    from mmpl_tpu_torch.core.geometry import KV_CACHE_SLOTS
+    from mmpl_tpu_torch.models import fps_dit
+    from mmpl_tpu_torch.parallel.collectives import as_mesh
+    from mmpl_tpu_torch.parallel.mesh import make_mesh
+    cfg = _cfg13(TP_LAYERS)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cond, uncond = cli.random_text_context(cfg, dev)
+    lat = torch.randn((1, 6, 16, 60, 104), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(7))
+    mesh = make_mesh({"tp": world})
+    seen = {}
+    w8a8, code = quant.w8a8_matmul, fps_dit.quantize_rows
+
+    def spy_w8a8(x, wq, wscale, *a, **kw):
+        if wq.shape[1] == cfg.ffn_dim and "fc2_x" not in seen:
+            seen["fc2_x"] = x.reshape(-1, wq.shape[1]).clone()
+        return w8a8(x, wq, wscale, *a, **kw)
+
+    def spy_code(x):
+        if seen.get("commit") and "k" not in seen:
+            seen["k"] = x.clone()
+        return code(x)
+
+    def run(m, quantize="int8"):
+        pipe = CausalFPSInferencePipeline(
+            cfg, _model13(cfg, 0, torch.bfloat16), sampling_steps=1,
+            quantize=quantize, quantize_cache=quantize is not None, mesh=m,
+            dtype=torch.bfloat16)
+        group = pipe.plan.groups[2]         # 6 frames, not in append mode
+        out = {}
+        with torch.inference_mode():
+            ctx_kv2 = pipe.prepare_context(cond, uncond)
+            cache = fps_dit.init_kv_cache(pipe.cfg, 2, 60 * 104 // 4,
+                                          KV_CACHE_SLOTS, torch.bfloat16,
+                                          dev, quantize=quantize is not None)
+            for phase, t, write in (("solver", 500.0, False),
+                                    ("commit", 0.0, True)):
+                seen["commit"] = write
+                torch.cuda.synchronize()
+                _reset_counts()
+                t0 = time.perf_counter()
+                flow = pipe._forward(group, ctx_kv2, cache, lat, t, write)
+                torch.cuda.synchronize()
+                out[f"{phase}_s"] = time.perf_counter() - t0
+                out[f"{phase}_launches"] = _counts()
+                if not write:
+                    out["flow"] = flow.float()
+        out["cache"] = {k: v[:, :, list(group.write_slots)]
+                        for k, v in cache.items()}
+        out["fc2"] = pipe.model.blocks[0].ffn.fc2
+        return out
+
+    # the bf16 forwards (no int8), unsharded and over tp: how far tp alone
+    # moves the flow, and how far int8 moves it
+    float_one = run(None, None)["flow"]
+    float_tp = run(mesh, None)["flow"]
+
+    quant.w8a8_matmul, fps_dit.quantize_rows = spy_w8a8, spy_code
+    try:
+        one = run(None)
+    finally:
+        quant.w8a8_matmul, fps_dit.quantize_rows = w8a8, code
+    torch.cuda.reset_peak_memory_stats()
+    sharded = run(mesh)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    tp = as_mesh(mesh).get_group("tp")
+    r = as_mesh(mesh).coordinate("tp")
+    cols = lambda t: t.chunk(world, -1)[r].contiguous()
+    x, fc2 = seen["fc2_x"], one["fc2"]
+    xq, xs = quant.quantize_rows_split(cols(x), tp)
+    acc = tp.all_reduce(quant.int8_gemm(xq, cols(fc2.codes), None, None,
+                                        torch.int32))
+    wxq, wxs = quant.quantize_rows(x)
+    want_acc = quant.int8_gemm(wxq, fc2.codes, None, None, torch.int32)
+    y = quant.w8a8_matmul(cols(x), cols(fc2.codes), fc2.scale, group=tp)
+    want_y = quant.w8a8_matmul(x, fc2.codes, fc2.scale)
+    k = seen["k"]
+    kq, ks = quant.quantize_rows_split(cols(k), tp)
+    wkq, wks = quant.quantize_rows(k)
+    heads = lambda t: t.chunk(world, -1)[r]
+    same = lambda a, b: (a == b).float().mean().item()
+    return {
+        "layers": TP_LAYERS, "tp": world, "rank": r,
+        "flow_rel_err": rel(sharded["flow"], one["flow"]),
+        "bf16_flow_tp_rel_err": rel(float_tp, float_one),
+        "bf16_vs_int8_rel": rel(float_one, one["flow"]),
+        "flow_finite": bool(torch.isfinite(sharded["flow"]).all()),
+        "fc2_rows": tuple(x.shape),
+        "fc2_acc_equal": bool(torch.equal(acc, want_acc)),
+        "fc2_codes_equal": bool(torch.equal(xq, cols(wxq))),
+        "fc2_scales_equal": bool(torch.equal(xs, wxs)),
+        "fc2_out_max_ulps": _ulps(y, want_y),
+        "k_rows": tuple(k.shape),
+        "cache_codes_equal": bool(torch.equal(kq, cols(wkq))),
+        "cache_scales_equal": bool(torch.equal(ks, wks)),
+        # the forwards' own caches: the sharded QK-norm sums its squares
+        # in another order, so a token may differ in its last bit
+        "forward_cache_codes_same_share": same(
+            sharded["cache"]["k"], heads(one["cache"]["k"])),
+        "forward_cache_scales_same_share": same(
+            sharded["cache"]["k_scale"], one["cache"]["k_scale"]),
+        "launches": {p: sharded[f"{p}_launches"]
+                     for p in ("solver", "commit")},
+        "launches_single": {p: one[f"{p}_launches"]
+                            for p in ("solver", "commit")},
+        "seconds": {p: sharded[f"{p}_s"] for p in ("solver", "commit")},
+        "seconds_single": {p: one[f"{p}_s"] for p in ("solver", "commit")},
+        "peak_gib": peak}
+
+
+def _tp_step(cfg, dev, mesh, dtype) -> dict:
+    """One teacher-forcing step of `cfg` (21 latent frames at 60x104, all
+    65,520 tokens, fp32 masters, the trunk in `dtype`, AdamW), unsharded
+    (mesh None) or over the tp mesh (`shard_for_training`): its loss,
+    gradient norm, seconds, peak and launches, and its whole gradients and
+    updated parameters (the tp slices gathered)."""
+    from mmpl_tpu_torch.core.config import DotDict
+    from mmpl_tpu_torch.parallel.mesh import gather_tp, shard_for_training
+    from mmpl_tpu_torch.training.diffusion import (
+        DiffusionTrainer, draw_teacher_forcing, make_teacher_forcing_loss_fn)
+    model, sch, fm, batch, _ = _tf_setup(cfg, dev, torch.float32, 21,
+                                         (60, 104))
+    c, group = cfg, None
+    if mesh is not None:
+        sh = shard_for_training(model, mesh, cfg.num_heads)
+        c, group = DotDict(cfg, sharding=sh), sh.tp_group
+    trainer = DiffusionTrainer(model, make_teacher_forcing_loss_fn(
+        c, sch, fm, num_frame_per_block=3, noise_aug_max_timestep=100,
+        compute_dtype=dtype), learning_rate=1e-5, tp_group=group)
+    draws = draw_teacher_forcing(
+        torch.Generator(device=dev).manual_seed(3), batch["latents"].shape,
+        3, len(sch.timesteps), 100, dev)
+    _reset_counts()
+    loss, seconds, _, peak = _run_counted(
+        lambda: trainer.train_step(batch, draws))
+    out = {"loss": loss.item(), "norm": trainer.grad_norm.item(),
+           "seconds": seconds, "peak_gib": peak, "launches": _counts()}
+    named = dict(model.named_parameters())
+    out["grads"] = {n: gather_tp(n, p.grad.detach(), group)
+                    for n, p in named.items()}
+    out["params"] = {n: gather_tp(n, p.detach(), group)
+                     for n, p in named.items()}
+    del model, trainer, named, batch, draws
+    torch.cuda.empty_cache()
+    return out
+
+
+def _step_distance(a: dict, b: dict) -> dict:
+    """How far step a is from step b: the loss's and the gradient norm's
+    relative errors, the largest gradient and parameter differences."""
+    grad = {n: (g - b["grads"][n]).abs().max().item()
+            for n, g in a["grads"].items()}
+    worst = max(grad, key=grad.get)
+    return {"loss_rel_err": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            "grad_norm_rel_err": abs(a["norm"] - b["norm"]) / b["norm"],
+            "grad_max_abs_err": grad[worst], "grad_max_abs_err_at": worst,
+            "params_max_abs_err": max(
+                (p - b["params"][n]).abs().max().item()
+                for n, p in a["params"].items())}
+
+
+def _rank_tp_train(rank: int, world: int) -> dict:
+    """Teacher-forcing steps of the 1.3B width (TP_LAYERS layers, 65,520
+    tokens): unsharded and over tp = `world`, with the trunk in bf16 (the
+    training path) and in fp32.  In fp32 the tp step is held to the
+    unsharded one at train_mesh's tolerances; in bf16 tp rounds
+    differently (each rank's row-parallel partial product is rounded to
+    bf16 before the sum; the QK-norms sum their squares in another
+    order), so the bf16 tp step's distance from the unsharded bf16 step
+    is set beside the unsharded bf16 step's own distance from the fp32
+    one.  Then `train --smoke --steps 1 --mesh tp=<world>` on this
+    group."""
+    from mmpl_tpu_torch import train
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    from mmpl_tpu_torch.parallel.mesh import make_mesh
+    cfg = _cfg13(TP_LAYERS)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh({"tp": world})
+    steps = {(dtype, tp): _tp_step(cfg, dev, mesh if tp else None, dtype)
+             for dtype in (torch.bfloat16, torch.float32)
+             for tp in (False, True)}
+    keep = ("loss", "norm", "seconds", "peak_gib", "launches")
+    name = lambda dtype, tp: (f"{str(dtype).replace('torch.', '')}"
+                              f"{'_tp' if tp else ''}")
+    res = {"layers": TP_LAYERS, "tp": world,
+           "local_heads": cfg.num_heads // world,
+           "steps": {name(*k): {f: v[f] for f in keep}
+                     for k, v in steps.items()},
+           "bf16_tp": _step_distance(steps[(torch.bfloat16, True)],
+                                     steps[(torch.bfloat16, False)]),
+           "fp32_tp": _step_distance(steps[(torch.float32, True)],
+                                     steps[(torch.float32, False)]),
+           "bf16_vs_fp32": _step_distance(steps[(torch.bfloat16, False)],
+                                          steps[(torch.float32, False)])}
+    del steps
+    torch.cuda.empty_cache()
+    log_dir = os.path.join(OUT_DIR, f"tp_train_rank{rank}")
+    try:
+        _reset_counts()
+        rc = train.main(["--smoke", "--steps", "1", "--mesh", f"tp={world}",
+                         "--log-dir", log_dir, "--run-name", "tp"])
+        torch.cuda.synchronize()
+        res.update(cli_rc=rc, cli_launches=_counts(),
+                   cli_expected=_train_launches(
+                       tiny_test_config().num_layers, 1))
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    return res
+
+
+def _stage_inputs(cfg, dev):
+    """The chunk_pipeline phase's model, VAE, contexts and noises, from the
+    same seeds."""
+    g = lambda s: torch.Generator(device=dev).manual_seed(s)
+    model = _model13(cfg, 0, torch.bfloat16)
+    vae_m = vae.init_vae_params(g(1), torch.float32, dev)
+    cond, uncond = cli.random_text_context(cfg, dev)
+    gen = g(200)
+    noises = [torch.randn((1, 21, 16, 60, 104), generator=gen, device=dev)
+              for _ in range(CHUNKS)]
+    return model, vae_m, cond, uncond, noises
+
+
+def _rank_stage_meshes(rank: int, world: int, steps: int = 4) -> dict:
+    """`ChunkParallelPipeline(stage_meshes=...)`: `world` stages of one
+    rank each, the 1.3B window model at full width and depth, `steps`
+    UniPC steps, CHUNKS chunks, the anchors handed from process to
+    process; this process's chunks (on the host), its log with the host
+    clock of each chunk's anchors arriving and its last group done, its
+    launches and peak."""
+    from mmpl_tpu_torch.parallel.chunk_pipeline import ChunkParallelPipeline
+    from mmpl_tpu_torch.parallel.mesh import make_stage_meshes
+    cfg = WAN_CONFIGS["t2v-1.3B"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model, vae_m, cond, uncond, noises = _stage_inputs(cfg, dev)
+    pipe = ChunkParallelPipeline(cfg, model, vae_m,
+                                 stage_meshes=make_stage_meshes(world),
+                                 sampling_steps=steps, dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    chunks, seconds, counts, peak = _run_counted(
+        lambda: pipe.generate(noises, cond, uncond, seed=5))
+    return {"stage": pipe.stage_index, "wall_s": seconds,
+            "launches": counts, "peak_gib": peak,
+            "chunks": {i: c.cpu() for i, c in enumerate(chunks)
+                       if c is not None},
+            "log": [{k: e[k] for k in ("chunk", "stage", "dispatch_start",
+                                       "dispatch_end", "received", "done")
+                     if k in e} for e in pipe.dispatch_log],
+            "timeline": pipe.device_timeline()}
+
+
+#: the cases a rank of `_run_ranks` runs, by name
+RANK_CASES = {"mesh_int8": _rank_mesh_int8, "mesh_tp_train": _rank_tp_train,
+              "stage_meshes": _rank_stage_meshes}
+
+
+def _rank_entry(rank: int, world: int, port: int, cases, results) -> None:
+    """One rank of a gloo group on this card: each case of RANK_CASES in
+    turn, its result (or the traceback of its failure) put on
+    `results`."""
+    import traceback
+    import torch.distributed as dist
+    from mmpl_tpu_torch.parallel.mesh import init_distributed
+    try:
+        set_float32_precision()
+        os.environ["MMPL_DIST_BACKEND"] = "gloo"
+        init_distributed(f"127.0.0.1:{port}", world, rank)
+        for case in cases:
+            results.put((rank, case, RANK_CASES[case](rank, world), None))
+            dist.barrier()
+            torch.cuda.empty_cache()
+    except Exception:      # reported to the parent, which fails the run
+        results.put((rank, None, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_ranks(cases, world: int = 2, limit: float = RANKS_LIMIT) -> dict:
+    """Spawn `world` processes (torch.multiprocessing), ranks of a gloo
+    group on a localhost rendezvous, all on this card, each running
+    `cases` in turn; {case: [result of rank 0, ...]}.  Fails if a rank
+    fails, exits non-zero or is still running after `limit` seconds;
+    every process is stopped before this returns."""
+    import queue
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(r, world, port, list(cases), results))
+             for r in range(world)]
+    out = {c: [None] * world for c in cases}
+    deadline = time.monotonic() + limit
+    for p in procs:
+        p.start()
+    try:
+        pending = world * len(cases)
+        while pending:
+            left = deadline - time.monotonic()
+            check(left > 0, f"ranks still running after {limit} s")
+            try:
+                rank, case, res, err = results.get(timeout=min(left, 5.0))
+            except queue.Empty:
+                check(all(p.is_alive() or p.exitcode == 0 for p in procs),
+                      [p.exitcode for p in procs])
+                continue
+            check(err is None, f"rank {rank}: {err}")
+            out[case][rank] = res
+            pending -= 1
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        check([p.exitcode for p in procs] == [0] * world,
+              [p.exitcode for p in procs])
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return out
+
+
+def _q_launches(L: int, split_cache: bool) -> dict:
+    """Q's and P2's launches of one W8A8 forward of L layers: six
+    projections a layer, over tp the three row-parallel ones (o, the
+    cross-attention o, fc2) taking Q's amax and given-scale modes; with
+    the cache written, its K and V each coded a layer (split over tp)."""
+    n = {"int8_gemm": 6 * L, "q_codes": 3 * L, "q_amax": 3 * L,
+         "q_scaled": 3 * L}
+    if not split_cache:
+        return n
+    return {**n, "q_amax": 5 * L, "q_scaled": 5 * L}
+
+
+def phase_mesh_ranks(one_process_chunks):
+    """The two-rank phases, in one spawn: mesh_int8 (tp 2, W8A8 and the
+    int8 cache against the unsharded forward; accumulators, codes and
+    scales bit for bit), mesh_tp_train (tp 2 teacher forcing at 65,520
+    tokens against the unsharded step: fp32 at train_mesh's tolerances,
+    bf16 within bf16's own distance from fp32; K4-K6 at 6 heads; the
+    CLI's --mesh tp=2), stage_meshes (two processes a
+    stage each, the 1.3B model at full width and depth, 4 steps, 3
+    chunks, bit for bit against the chunk_pipeline phase's one-process
+    run).  Returns the launches by path."""
+    t0 = time.perf_counter()
+    res = _run_ranks(list(RANK_CASES))
+    spawn_s = time.perf_counter() - t0
+    L = TP_LAYERS
+    # mesh_int8
+    transport = ("gloo on one card: collectives on the device tensors, no "
+                 "point-to-point move")
+    emit({"phase": "mesh_int8", "transport": transport,
+          "ranks": res["mesh_int8"]})
+    emit({"phase": "mesh_tp_train", "transport": transport,
+          "ranks": res["mesh_tp_train"]})
+    rows = res["stage_meshes"]
+    got = {i: c for r in rows for i, c in r["chunks"].items()}
+    logs = sorted((e for r in rows for e in r["log"]),
+                  key=lambda e: e["chunk"])
+    overlap = [{"chunks": [a["chunk"], b["chunk"]],
+                "received": b["received"] - logs[0]["dispatch_start"],
+                "previous_done": a["done"] - logs[0]["dispatch_start"],
+                "overlap_s": a["done"] - b["received"]}
+               for a, b in zip(logs, logs[1:])]
+    same = sorted(got) == list(range(CHUNKS))
+    srow = {"phase": "stage_meshes", "stages": 2, "chunks": CHUNKS,
+            "transport": "gloo on one card: the anchors through host "
+                         "memory (a thread copies and sends them)",
+            "stage_of_chunk": [e["stage"] for e in logs],
+            "wall_s": [r["wall_s"] for r in rows],
+            "peak_gib": [r["peak_gib"] for r in rows],
+            "launches": [r["launches"]["flash_fwd"] for r in rows],
+            "overlap": overlap, "timeline": [r["timeline"] for r in rows],
+            "bit_equal": same and all(
+                torch.equal(got[i], one_process_chunks[i])
+                for i in range(CHUNKS)),
+            "max_abs_diff": [(got[i] - one_process_chunks[i]).abs().max()
+                             .item() for i in range(CHUNKS)] if same
+            else None, "spawn_s": spawn_s}
+    emit(srow)
+    for r in res["mesh_int8"]:
+        check(r["fc2_acc_equal"] and r["fc2_codes_equal"]
+              and r["fc2_scales_equal"] and r["cache_codes_equal"]
+              and r["cache_scales_equal"], r)
+        check(r["fc2_out_max_ulps"] <= 1, r)
+        # quant_parity's card-against-CPU gate for an int8 window, and tp
+        # moving the int8 forward no farther than it moves the bf16 one
+        check(r["flow_finite"] and r["flow_rel_err"] <= 1e-2
+              and r["flow_rel_err"] <= r["bf16_flow_tp_rel_err"], r)
+        for p, split in (("solver", False), ("commit", True)):
+            got = r["launches"][p]
+            want = {**_q_launches(L, split), "flash_fwd": 2 * L}
+            want["quantize_rows"] = (want["q_codes"] + want["q_amax"]
+                                     + want["q_scaled"])
+            check({k: got[k] for k in want} == want, (p, got, want))
+    want = _train_launches(L, 1)
+    for r in res["mesh_tp_train"]:
+        # fp32: train_mesh's tolerances (loss rtol 1e-5, gradients atol
+        # 1e-4, one AdamW step moves a weight by at most lr = 1e-5 either
+        # way)
+        f, b, noise = r["fp32_tp"], r["bf16_tp"], r["bf16_vs_fp32"]
+        check(f["loss_rel_err"] <= 1e-5 and f["grad_norm_rel_err"] <= 1e-5
+              and f["grad_max_abs_err"] <= 1e-4
+              and f["params_max_abs_err"] <= 2e-5, r)
+        # bf16: the loss at train_mesh's tolerance, the gradients no
+        # farther from the unsharded bf16 step than bf16 itself is from fp32
+        check(b["loss_rel_err"] <= 1e-5 and b["params_max_abs_err"] <= 2e-5
+              and b["grad_max_abs_err"] <= noise["grad_max_abs_err"]
+              and b["grad_norm_rel_err"] <= noise["grad_norm_rel_err"], r)
+        for s in r["steps"].values():
+            check({k: s["launches"][k] for k in want} == want, r)
+        check(r["cli_rc"] == 0 and {k: r["cli_launches"][k] for k in
+                                    r["cli_expected"]} == r["cli_expected"],
+              r)
+    check(same, srow)
+    check(srow["stage_of_chunk"] == [i % 2 for i in range(CHUNKS)], srow)
+    check(srow["bit_equal"], srow)
+    check(sum(srow["launches"]) == 2 * WAN_CONFIGS["t2v-1.3B"].num_layers
+          * _chunk_forwards(4, CHUNKS), srow)
+    paths = {
+        "mesh_int8": {k: sum(r["launches"][p][k] + r["launches_single"][p][k]
+                             for r in res["mesh_int8"]
+                             for p in ("solver", "commit"))
+                      for k in ("flash_fwd", "int8_gemm", "quantize_rows",
+                                "q_codes", "q_amax", "q_scaled")},
+        "mesh_tp_train": {k: sum(sum(s["launches"][k]
+                                     for s in r["steps"].values())
+                                 + r["cli_launches"][k]
+                                 for r in res["mesh_tp_train"])
+                          for k in attn.launch_counts},
+        "stage_meshes": sum(srow["launches"])}
+    return paths
+
+
+def phase_generate_parallel_ranks():
+    """`python -m mmpl_tpu_torch.generate_parallel` over 2 processes on a
+    gloo group (MMPL_DIST_BACKEND=gloo: the ranks share this card), smoke
+    mode, 2 chunks: a stage each, each process writing its own chunk's
+    file; the files against the one process's run of the same command,
+    byte for byte."""
+    out_dir = os.path.join(OUT_DIR, "generate_parallel_ranks")
+    one_dir = os.path.join(OUT_DIR, "generate_parallel_one")
+    argv = [sys.executable, "-m", "mmpl_tpu_torch.generate_parallel",
+            "--num-chunks", "2", "--sampling-steps", "4"]
+    env = {**os.environ, "MMPL_DIST_BACKEND": "gloo"}
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        argv + ["--output-dir", out_dir, "--coordinator",
+                f"127.0.0.1:{port}", "--num-processes", "2",
+                "--process-id", str(r)], cwd=ROOT, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=240)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+    seconds = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    try:
+        one = subprocess.run(argv + ["--output-dir", one_dir], cwd=ROOT,
+                             capture_output=True, text=True, timeout=240)
+        files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+        want = sorted(os.listdir(one_dir)) if os.path.isdir(one_dir) else []
+        same = files == want and all(
+            open(os.path.join(out_dir, f), "rb").read()
+            == open(os.path.join(one_dir, f), "rb").read() for f in files)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(one_dir, ignore_errors=True)
+    row = {"phase": "generate_parallel_ranks", "rcs": rcs,
+           "one_process_rc": one.returncode, "seconds": seconds,
+           "files": files, "files_equal": same,
+           "stderr_tail": [e[-400:] for e in errs]}
+    emit(row)
+    check(rcs == [0, 0] and one.returncode == 0 and len(files) == 2
+          and same, row)
+
+
 def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
            bound_ms, bound_by, library_ms, **extra):
     return {"name": name, "route": "cuda", "source": source,
@@ -4318,7 +4937,7 @@ def _entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
 
 def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                  int8_launches, train_counts, exp2, exp2_launches,
-                 path_launches, bwd_paths, int8_paths):
+                 path_launches, bwd_paths, int8_paths, q_modes):
     """The nine kernels at their main-path shapes: K1 at group 3 of the
     serving window, K2 / K3 at the training cross-attention (and their
     other shapes under `shapes`), K4-K6 at the
@@ -4330,8 +4949,11 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
     resumed-training, whole-clip and CLIP paths, and on the distillation
     slice's paths (the causal-diffusion and bidirectional pipelines, the
     DPM window, the flow and distillation steps, the trainer's CLI);
-    `bwd_paths` K2's and K3's on the flow and distillation paths, and
-    `int8_paths` P2's and Q's on the int8 causal-diffusion run."""
+    `bwd_paths` K2's and K3's on the flow and distillation paths (and
+    tp training's), `int8_paths` P2's and Q's on the int8
+    causal-diffusion run and the tp-2 int8 forwards, and `q_modes` Q's
+    amax and given-scale modes at the tp shapes (`modes` of Q's entry:
+    the same kernel, its launches counted with Q's)."""
     fwd_src = "mmpl_tpu_torch/csrc/flash_fwd.cu"
     sm90_src = "mmpl_tpu_torch/csrc/flash_fwd_sm90.cuh"
     bwd_src = "mmpl_tpu_torch/csrc/flash_bwd.cu"
@@ -4469,6 +5091,18 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
         codes_and_scales_exact=all(
             r["q_codes_equal"] and r["q_scales_equal"]
             for r in int8.values() if "q_codes_equal" in r),
+        modes={f"{mode}/{k}": {
+            "ms": r[f"{mode}_ms"], "plain_ms": r[f"{mode}_plain_ms"],
+            "bound_ms": r[f"{mode}_bound_ms"], "bound_by": "bytes",
+            "bound_share": r[f"{mode}_bound_share"],
+            "body": r[f"{mode}_body"],
+            "library_ms": r[f"{mode}_library_ms"],
+            "exact": r["amax_equal"] and r["codes_equal"]
+            and r["scales_equal"] and r["split_equal"]}
+            for k, r in q_modes.items() for mode in ("amax", "scaled")},
+        mode_launches={m: sum(c.get(f"q_{m}", 0)
+                              for c in int8_paths.values())
+                       for m in ("amax", "scaled")},
         shapes={k: {f: r[f] for f in ("q_body", "q_row_warps", "q_ms",
                                       "q_call_ms", "q_plain_ms",
                                       "q_bound_ms", "q_bound_share")}
@@ -4501,6 +5135,7 @@ def main() -> int:
     # before kernel_masked: after its 65520^2 SDPA yardstick the short
     # sessions that read which body ran lost their device records
     int8 = phase_kernel_int8()
+    q_modes = phase_kernel_q_modes()
     masked = phase_kernel_masked()
     phase_cli()
     phase_cli_int8()
@@ -4589,24 +5224,35 @@ def main() -> int:
     phase_distill_parity()
     # multi-device and serving: stages as streams of this card, the
     # in-process group for the ring and USP, NCCL at world size 1
-    path_launches["chunk_pipeline"] = phase_chunk_pipeline()
+    path_launches["chunk_pipeline"], one_stage = phase_chunk_pipeline()
     path_launches["generate_parallel"] = phase_generate_parallel()
     path_launches["serving"] = phase_serving()
     bwd_paths["ring"] = phase_ring()
     path_launches["usp"] = phase_usp()
     bwd_paths["mesh"] = phase_mesh(shards)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
+    # what the mesh refused until now, two ranks on this card over gloo:
+    # int8 over tp, tp in training, stages as processes
+    torch.cuda.empty_cache()
+    ranks = phase_mesh_ranks(one_stage)
+    del one_stage
+    path_launches["stage_meshes"] = ranks["stage_meshes"]
+    bwd_paths["mesh_tp_train"] = ranks["mesh_tp_train"]
+    int8_tp = ranks["mesh_int8"]
+    path_launches["mesh_int8"] = int8_tp["flash_fwd"]
+    phase_generate_parallel_ranks()
     for p, c in bwd_paths.items():
         path_launches[p] = c["flash_fwd"]
     # the masked kernels' rows count training steps: train --mesh's and
     # the data path's too
     train_counts = {k: v + (sum(bwd_paths[p][k] for p in (
-        "mesh", "train_data", "train_data_resume")) if "masked" in k else 0)
-        for k, v in train_counts.items()}
+        "mesh", "train_data", "train_data_resume", "mesh_tp_train"))
+        if "masked" in k else 0) for k, v in train_counts.items()}
     emit(kernels_line(smi, rows, bwd, masked, int8, window_launches,
                       int8_launches, train_counts, exp2, exp2_launches,
                       path_launches, bwd_paths,
-                      {"causal_diffusion_int8": int8_cd}))
+                      {"causal_diffusion_int8": int8_cd,
+                       "mesh_int8": int8_tp}, q_modes))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -11,6 +11,13 @@
 //    -127, 127), in fp32 with true divisions and round-half-even, so the
 //    codes equal the plain version's bit for bit.
 //
+//    Q has three modes: the codes and scales (kCodes); each row's amax
+//    alone (kAmax, no codes); the codes from a per-row fp32 scale it is
+//    given (kGiven).  A row split over tensor-parallel ranks (the input of
+//    a row-parallel projection, a cache token's heads) takes its amax on
+//    every rank, the maximum over the ranks, then its codes from the
+//    scale of that maximum: the codes of the unsplit row.
+//
 // What bounds Q: bytes (one read of x, one write of the codes).  So the
 // row is read once: `quantize_rows_sm90_kernel` holds it in registers,
 // eight elements (one or two 16-byte loads) a slot and up to kSlots slots
@@ -27,6 +34,8 @@
 #include "int8_gemm_sm90.cuh"
 
 namespace {
+
+enum QMode { kCodes = 0, kAmax = 1, kGiven = 2 };
 
 constexpr int kSlots = 8;      // eight-element slots a thread holds
 constexpr int kRowWarps = 8;   // warps of a block that owns one row
@@ -76,7 +85,9 @@ __device__ __forceinline__ uint2 codes8(const float (&v)[8], float s) {
 // Q in one read.  kWarps = 1: eight rows a block, a warp each; kWarps =
 // kRowWarps: one row a block.  Thread i of a row holds slots i, i + T, ...
 // (T threads a row), so a warp's loads and stores are contiguous.
-template <typename T, int kWarps>
+// kMode kAmax writes the amax into `scale`; kGiven reads the row's scale
+// from it.
+template <typename T, int kWarps, int kMode>
 __global__ void __launch_bounds__(kWarps == 1 ? 256 : 32 * kWarps)
     quantize_rows_sm90_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                               float* __restrict__ scale, int M, int K) {
@@ -94,23 +105,34 @@ __global__ void __launch_bounds__(kWarps == 1 ? 256 : 32 * kWarps)
     const int slot = i + r * kThreads;
     if (slot < slots) {
       held[r].load(xr + 8 * slot);
-      float v[8];
-      held[r].get(v);
+      if constexpr (kMode != kGiven) {
+        float v[8];
+        held[r].get(v);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+        for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+      }
     }
   }
+  float s;
+  if constexpr (kMode == kGiven) {
+    s = scale[row];
+  } else {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  if constexpr (kWarps > 1) {
-    __shared__ float part[kWarps];
-    if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = amax;
-    __syncthreads();
+    for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    if constexpr (kWarps > 1) {
+      __shared__ float part[kWarps];
+      if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = amax;
+      __syncthreads();
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) amax = fmaxf(amax, part[w]);
+      for (int w = 0; w < kWarps; ++w) amax = fmaxf(amax, part[w]);
+    }
+    if constexpr (kMode == kAmax) {
+      if (i == 0) scale[row] = amax;
+      return;
+    }
+    s = row_scale(amax);
+    if (i == 0) scale[row] = s;
   }
-  const float s = row_scale(amax);
-  if (i == 0) scale[row] = s;
   int8_t* qr = q + row * K;
 #pragma unroll
   for (int r = 0; r < kSlots; ++r) {
@@ -125,26 +147,35 @@ __global__ void __launch_bounds__(kWarps == 1 ? 256 : 32 * kWarps)
 
 // Q for rows longer than the one-read layouts hold: one warp a row, the
 // amax, then the codes from a second read.
-template <typename T>
+template <typename T, int kMode>
 __global__ void quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                                      float* __restrict__ scale, int M, int K) {
   const long long row = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= M) return;
   const T* xr = x + row * K;
-  float amax = 0.f;
-  for (int k = 8 * lane; k < K; k += 32 * 8) {
-    Eight<T> e;
-    e.load(xr + k);
-    float v[8];
-    e.get(v);
+  float s;
+  if constexpr (kMode == kGiven) {
+    s = scale[row];
+  } else {
+    float amax = 0.f;
+    for (int k = 8 * lane; k < K; k += 32 * 8) {
+      Eight<T> e;
+      e.load(xr + k);
+      float v[8];
+      e.get(v);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
+      for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    if constexpr (kMode == kAmax) {
+      if (lane == 0) scale[row] = amax;
+      return;
+    }
+    s = row_scale(amax);
+    if (lane == 0) scale[row] = s;
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float s = row_scale(amax);
-  if (lane == 0) scale[row] = s;
   int8_t* qr = q + row * K;
   for (int k = 8 * lane; k < K; k += 32 * 8) {
     Eight<T> e;
@@ -171,7 +202,7 @@ int launch_gemm(int out_dtype, const void* a, const void* b, const float* sx, co
   }
 }
 
-template <typename T>
+template <typename T, int kMode>
 int launch_quantize(const void* xv, void* qv, void* sv, int M, int K, int warps,
                     cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
@@ -179,15 +210,26 @@ int launch_quantize(const void* xv, void* qv, void* sv, int M, int K, int warps,
   float* s = static_cast<float*>(sv);
   switch (warps) {
     case 1:
-      quantize_rows_sm90_kernel<T, 1><<<(M + 7) / 8, 256, 0, stream>>>(x, q, s, M, K);
+      quantize_rows_sm90_kernel<T, 1, kMode><<<(M + 7) / 8, 256, 0, stream>>>(x, q, s, M, K);
       break;
     case kRowWarps:
-      quantize_rows_sm90_kernel<T, kRowWarps><<<M, 32 * kRowWarps, 0, stream>>>(x, q, s, M, K);
+      quantize_rows_sm90_kernel<T, kRowWarps, kMode>
+          <<<M, 32 * kRowWarps, 0, stream>>>(x, q, s, M, K);
       break;
     default:
-      quantize_rows_kernel<T><<<(M + 7) / 8, 256, 0, stream>>>(x, q, s, M, K);
+      quantize_rows_kernel<T, kMode><<<(M + 7) / 8, 256, 0, stream>>>(x, q, s, M, K);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_quantize_mode(int mode, const void* x, void* q, void* s, int M, int K, int warps,
+                         cudaStream_t stream) {
+  switch (mode) {
+    case kCodes: return launch_quantize<T, kCodes>(x, q, s, M, K, warps, stream);
+    case kAmax: return launch_quantize<T, kAmax>(x, q, s, M, K, warps, stream);
+    default: return launch_quantize<T, kGiven>(x, q, s, M, K, warps, stream);
+  }
 }
 
 }  // namespace
@@ -219,18 +261,22 @@ extern "C" int mmpl_int8_gemm(int out_dtype, const void* a, const void* b, const
 // Q.  dtype: 0 = float32, 1 = bfloat16; x [M, K] and q int8 [M, K]
 // contiguous and 16-byte aligned, K a multiple of 16; scale fp32 [M].
 // warps: the layout (ops/quant.py:q_row_warps): 1 or 8 warps a row read
-// once, 0 the two-read loop; a one-read layout must hold the row.
+// once, 0 the two-read loop; a one-read layout must hold the row.  mode:
+// 0 writes the codes and scales, 1 each row's amax into scale (q unused,
+// may be null), 2 the codes from the scales given in scale.
 extern "C" int mmpl_quantize_rows(int dtype, const void* x, void* q, void* scale, int M, int K,
-                                  int warps, void* stream) {
+                                  int warps, int mode, void* stream) {
   if (M <= 0 || K <= 0 || K % 16) return (int)cudaErrorInvalidValue;
   if (warps != 0 && warps != 1 && warps != kRowWarps) return (int)cudaErrorInvalidValue;
   if (warps > 0 && K / 8 > 32 * warps * kSlots) return (int)cudaErrorInvalidValue;
+  if (mode != kCodes && mode != kAmax && mode != kGiven) return (int)cudaErrorInvalidValue;
+  if (!x || !scale || (mode != kAmax && !q)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_quantize<float>(x, q, scale, M, K, warps, s);
+      return launch_quantize_mode<float>(mode, x, q, scale, M, K, warps, s);
     case 1:
-      return launch_quantize<__nv_bfloat16>(x, q, scale, M, K, warps, s);
+      return launch_quantize_mode<__nv_bfloat16>(mode, x, q, scale, M, K, warps, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

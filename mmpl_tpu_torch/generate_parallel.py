@@ -11,10 +11,12 @@ random text states (smoke mode), as the JAX entry does.
         --output-dir out/
 
 `--coordinator`, `--num-processes` and `--process-id` initialise
-`torch.distributed` (`parallel/mesh.init_distributed`); a world of more
-than one process is refused, since the stages are this process's (one
-stage per process is not ported).  `--device cpu` runs one stage on the
-CPU.
+`torch.distributed` (`parallel/mesh.init_distributed`); a world of N
+processes runs N stages of one rank each (JAX's one stage per global
+device: `ChunkParallelPipeline(stage_meshes=...)`), each process on its
+own card (NCCL) or all on one (gloo), each writing its own chunks' files
+under the names one process writes.  `--device cpu` runs the stages on
+the CPU.
 """
 
 from __future__ import annotations
@@ -84,12 +86,13 @@ def main(argv=None) -> int:
     from .models import dit, vae
     from .parallel.chunk_pipeline import ChunkParallelPipeline, \
         default_devices
-    from .parallel.mesh import init_distributed
+    from .parallel.mesh import init_distributed, make_stage_meshes
     from .utils.device import resolve_device, set_float32_precision
     from .utils.video_io import write_video
 
     device = resolve_device(args.device)
     set_float32_precision()
+    stage_meshes = None
     if init_distributed(args.coordinator, args.num_processes,
                         args.process_id):
         import torch.distributed as dist
@@ -97,14 +100,14 @@ def main(argv=None) -> int:
               f"{dist.get_world_size()} ({dist.get_backend()})",
               file=sys.stderr)
         if dist.get_world_size() > 1:
-            # every process would run every chunk on every visible card
-            # and write the same files
-            print("error: generate_parallel runs its stages in one "
-                  "process, over every visible card; one stage per "
-                  "process (stage_meshes) is not ported (ROADMAP.md "
-                  "Queue 1)", file=sys.stderr)
-            return 2
-    devices = default_devices() if device.type == "cuda" else [device]
+            # one stage per process, this process's on its own device
+            stage_meshes = make_stage_meshes(dist.get_world_size(),
+                                             {"dp": 1})
+    if stage_meshes is not None:
+        devices = [torch.device("cuda", torch.cuda.current_device())
+                   if device.type == "cuda" else device]
+    else:
+        devices = default_devices() if device.type == "cuda" else [device]
     dev0 = devices[0]
 
     smoke = args.model == "smoke" or args.checkpoint_path is None
@@ -128,14 +131,17 @@ def main(argv=None) -> int:
         del text_encoder
         dtype = torch.bfloat16
 
-    print(f"{len(devices)} stage(s) on {[str(d) for d in devices]}; "
+    n_stages = len(stage_meshes) if stage_meshes else len(devices)
+    print(f"{n_stages} stage(s) on {[str(d) for d in devices]}"
+          f"{' (one per process)' if stage_meshes else ''}; "
           f"{args.num_chunks} chunks (round-robin reuse beyond "
-          f"{len(devices)})", file=sys.stderr)
+          f"{n_stages})", file=sys.stderr)
     pipe = ChunkParallelPipeline(
         cfg, model, vae_model, devices=devices, sampling_steps=steps,
         guidance_scale=args.guidance_scale,
         timestep_shift=args.timestep_shift, quantize=args.quantize,
-        quantize_cache=args.quantize_cache, dtype=dtype)
+        quantize_cache=args.quantize_cache, dtype=dtype,
+        stage_meshes=stage_meshes)
 
     gen = torch.Generator(device=dev0).manual_seed(args.seed)
     noises = [torch.randn((1, 21, 16, lat_h, lat_w), generator=gen,
@@ -145,6 +151,8 @@ def main(argv=None) -> int:
     vids = pipe.decode_chunks(chunks, uint8=True)
     os.makedirs(args.output_dir, exist_ok=True)
     for i, v in enumerate(vids):
+        if v is None:           # another process's chunk
+            continue
         frames = v[0].cpu().numpy()
         out = os.path.join(args.output_dir,
                            f"{args.prompt[:60]}-chunk{i + 1}.mp4")

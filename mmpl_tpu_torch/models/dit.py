@@ -443,16 +443,27 @@ def apply_quantize(model: WanDiT, quantize: Optional[str],
 def linear(lin: nn.Module, x: torch.Tensor, group=None) -> torch.Tensor:
     """x @ W^T + b.  With `group` (a row-parallel projection of a
     tensor-parallel model: o, fc2) the ranks' partial products are summed
-    across the group before the bias."""
+    across the group before the bias (Megatron's *g*: the gradient passes
+    through); a W8A8 `QuantLinear` sums its int32 accumulators instead
+    (`ops/quant.w8a8_matmul`).  A column-parallel projection takes its
+    input through `column` first."""
     if isinstance(lin, QuantLinear):
-        y = lin.matmul(x)
+        y = lin.matmul(x, group)
     else:
         y = torch.matmul(x, lin.weight.to(x.dtype).t())
-    if group is not None:
-        y = group.all_reduce(y)
+        if group is not None:
+            y = group.all_reduce(y)
     if lin.bias is not None:
         y = y + lin.bias.to(x.dtype)
     return y
+
+
+def column(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The input of a column-parallel projection of a tensor-parallel
+    model (qkv, the cross-attention q, k and v, fc1): x itself, its
+    gradient summed across `group` (Megatron's *f*), since each rank's
+    output columns give only their share of it."""
+    return x if group is None else group.copy_to(x)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -460,12 +471,14 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     """RMS norm over the last dim; with `group` (a tensor-parallel group
     whose ranks each hold a slice of that dim, as the QK-norms of a
     head-sharded model do) over the whole width, the sum of squares
-    reduced across the group."""
+    summed across the group, forward and backward (each rank normalises
+    its own slice by it)."""
     xf = x.float()
     if group is None:
         ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     else:
-        ms = group.all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True)) \
+        ms = group.all_reduce_shared(torch.sum(xf * xf, dim=-1,
+                                               keepdim=True)) \
             / (x.shape[-1] * group.size)
     normed = xf * torch.rsqrt(ms + eps)
     return normed.to(x.dtype) * weight.to(x.dtype)
@@ -473,14 +486,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class LayerSharding:
-    """How the layers of a model sharded for inference run
-    (`parallel/mesh.shard_params_for_inference` returns it, and the
-    sampling pipelines pass it in `cfg.sharding`; absent, the layers run
-    whole).  tp: the ranks the heads and the ffn are split over;
-    tp_group: their group (a `parallel/collectives` group), over which the
-    row-parallel projections (o, fc2) sum their partial products and the
-    QK-norms their sums of squares, None for tp = 1; unshard(blk): the
-    block's parameters gathered across fsdp ({name: tensor}), or None."""
+    """How the layers of a sharded model run
+    (`parallel/mesh.shard_params_for_inference` and
+    `shard_for_training` return it, and the sampling pipelines and the
+    trainer pass it in `cfg.sharding`; absent, the layers run whole).
+    tp: the ranks the heads and the ffn are split over; tp_group: their
+    group (a `parallel/collectives` group), into which the column-parallel
+    projections (qkv, the cross-attention q / k / v, fc1) take their input
+    (`column`), over which the row-parallel ones (o, fc2) sum their
+    partial products and the QK-norms their sums of squares, None for
+    tp = 1; unshard(blk): the block's parameters (and int8 codes)
+    gathered across fsdp ({name: tensor}), or None."""
     tp: int = 1
     tp_group: object = None
     unshard: Optional[Callable] = None
@@ -531,9 +547,10 @@ def layer_norm(x: torch.Tensor, eps: float = 1e-6,
 
 
 def mlp(m: MLP, x: torch.Tensor, group=None) -> torch.Tensor:
-    """fc2(gelu(fc1(x))); `group`: fc2's tensor-parallel group."""
-    return linear(m.fc2, F.gelu(linear(m.fc1, x), approximate="tanh"),
-                  group)
+    """fc2(gelu(fc1(x))); `group`: the tensor-parallel group (fc1
+    column-, fc2 row-parallel)."""
+    return linear(m.fc2, F.gelu(linear(m.fc1, column(x, group)),
+                                approximate="tanh"), group)
 
 
 def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
@@ -600,6 +617,7 @@ def qkv_project(sa: SelfAttention, x: torch.Tensor, n: int, d: int,
     keep the interleaved pairing.  q.k^T is the same either way.  group:
     the tensor-parallel group of a head-sharded model (the QK-norms')."""
     B, L, _ = x.shape
+    x = column(x, group)
     if sa.fused:
         q, k, v = linear(sa.qkv, x).chunk(3, dim=-1)
     else:
@@ -624,7 +642,8 @@ def cross_attention(ca: CrossAttention, x: torch.Tensor, ctx_k: torch.Tensor,
     num_heads: this rank's heads (`local_heads`); group: the
     tensor-parallel group of a head-sharded model."""
     B, L, _ = x.shape
-    q = rms_norm(linear(ca.q, x), ca.norm_q.weight, group=group)
+    q = rms_norm(linear(ca.q, column(x, group)), ca.norm_q.weight,
+                 group=group)
     q = q.reshape(B, L, num_heads, q.shape[-1] // num_heads)
     out = attention(q, ctx_k, ctx_v)
     if img_k is not None:
@@ -640,6 +659,9 @@ def precompute_context_kv(model: WanDiT, cfg, context_emb: torch.Tensor,
     B, T, _ = context_emb.shape
     n, d = local_heads(cfg), cfg.dim // cfg.num_heads
     sh = sharding_of(cfg)
+    context_emb = column(context_emb, sh.tp_group)
+    if img_emb is not None:
+        img_emb = column(img_emb, sh.tp_group)
 
     def kv_of(blk: Block) -> Dict[str, torch.Tensor]:
         ca = blk.cross_attn
@@ -767,7 +789,8 @@ def _dit_forward(model, cfg, latents, t, context, clip_fea, y, remat,
         latents = torch.cat([latents, y.to(latents.dtype)], dim=2)
     B, Fr, C, H, W = latents.shape
     grid = (H // cfg.patch_size[1], W // cfg.patch_size[2])
-    n, d = cfg.num_heads, cfg.dim // cfg.num_heads
+    n, d = local_heads(cfg), cfg.dim // cfg.num_heads
+    tp_group = sharding_of(cfg).tp_group
     x = patchify(model.patch_embedding, latents, cfg.patch_size)
     if t.ndim == 1:
         t = t[:, None]
@@ -782,9 +805,11 @@ def _dit_forward(model, cfg, latents, t, context, clip_fea, y, remat,
 
     def block_fn(x, blk, ckv):
         def self_attn_fn(xm):
-            q, k, v = qkv_project(blk.self_attn, xm, n, d, cos, sin)
+            q, k, v = qkv_project(blk.self_attn, xm, n, d, cos, sin,
+                                  tp_group)
             return linear(blk.self_attn.o,
-                          attention(q, k, v).reshape(B, xm.shape[1], -1))
+                          attention(q, k, v).reshape(B, xm.shape[1], -1),
+                          tp_group)
         return block_forward(blk, cfg, x, e0, self_attn_fn, ckv, Fr)
 
     for blk, ckv in zip(model.blocks, ctx_kv):

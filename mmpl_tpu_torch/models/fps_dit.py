@@ -27,7 +27,7 @@ import torch
 
 from ..core.geometry import GroupSchedule, KV_CACHE_SLOTS
 from ..ops.attention import attention, frame_masked_attention, mask_tiles
-from ..ops.quant import quantize_rows
+from ..ops.quant import quantize_rows, quantize_rows_split
 from ..ops.rope import rope_table
 from .dit import (WanDiT, block_forward, call_with, embed_text,
                   head_forward, linear, local_heads, patchify,
@@ -45,7 +45,9 @@ def init_kv_cache(cfg, batch_size: int, tokens_per_frame: int,
     quantize=True stores K/V as int8 with per-token f32 scales
     `k_scale` / `v_scale` [L, B, SLOTS, S] (one scale across the merged
     heads; the QK-norm keeps head magnitudes comparable): half the bytes
-    of the largest resident of the 50-step CFG window."""
+    of the largest resident of the 50-step CFG window.  Under tp
+    (`cfg.sharding`) the codes hold this rank's heads and the scales,
+    whose token spans every rank's heads, are whole on every rank."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"KV cache dtype {dtype} (bf16 or f32 only)")
     n, d = local_heads(cfg), cfg.dim // cfg.num_heads
@@ -189,8 +191,11 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
                                 device=device)
         for name, own_l in (("k", own_k), ("v", own_v)):
             if f"{name}_scale" in kv_cache:
-                # per-token codes: one launch of Q per layer and name
-                coded = [quantize_rows(kv.reshape(-1, n * d).contiguous())
+                # per-token codes: one launch of Q per layer and name; a
+                # token split over tp takes the maximum over the ranks
+                code = quantize_rows if sh.tp_group is None else (
+                    lambda x: quantize_rows_split(x, sh.tp_group))
+                coded = [code(kv.reshape(-1, n * d).contiguous())
                          for kv in own_l]
                 own_l = [c.reshape(kv.shape) for (c, _), kv
                          in zip(coded, own_l)]
@@ -240,7 +245,8 @@ def _forward_train(model, cfg, noisy, t, context, frame_mask, clean_x,
     B, Fr, C, H, W = noisy.shape
     grid = (H // cfg.patch_size[1], W // cfg.patch_size[2])
     S = grid[0] * grid[1]
-    n, d = cfg.num_heads, cfg.dim // cfg.num_heads
+    n, d = local_heads(cfg), cfg.dim // cfg.num_heads
+    tp_group = sharding_of(cfg).tp_group
     device = noisy.device
 
     x = patchify(model.patch_embedding, noisy, cfg.patch_size)
@@ -276,9 +282,10 @@ def _forward_train(model, cfg, noisy, t, context, frame_mask, clean_x,
     def block_fn(blk, x, ckv):
         def self_attn_fn(xm):
             L = xm.shape[1]
-            q, k, v = qkv_project(blk.self_attn, xm, n, d, cos, sin)
+            q, k, v = qkv_project(blk.self_attn, xm, n, d, cos, sin,
+                                  tp_group)
             out = frame_masked_attention(q, k, v, ids, ids, fm, tiles=tiles)
-            return linear(blk.self_attn.o, out.reshape(B, L, -1))
+            return linear(blk.self_attn.o, out.reshape(B, L, -1), tp_group)
         return block_forward(blk, cfg, x, e0, self_attn_fn, ckv,
                              num_seq_frames)
 

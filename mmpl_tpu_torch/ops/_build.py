@@ -32,7 +32,7 @@ _MASK_SM90 = [_P, _P, _P, _P, _P, _I]
 #: C signatures, by source name.  The backward entries take their 18
 #: strides as a pointer to a `long long` array; the unmasked dKV entry
 #: takes the fp32 workspace and the number of query splits after dK, dV;
-#: P2 takes its tile width and Q its layout before the stream.
+#: P2 takes its tile width and Q its layout and mode before the stream.
 SIGNATURES = {
     "flash_fwd": {
         "mmpl_flash_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
@@ -52,7 +52,7 @@ SIGNATURES = {
     },
     "int8_gemm": {
         "mmpl_int8_gemm": [_I] + [_P] * 5 + [_I] * 4 + [_P],
-        "mmpl_quantize_rows": [_I, _P, _P, _P, _I, _I, _I, _P],
+        "mmpl_quantize_rows": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 

@@ -22,7 +22,11 @@ Two hand-written kernels, entered through `csrc/int8_gemm.cu`:
     dot of `w8a8_matmul`.  Its tile width comes from `p2_tile_n`;
   * Q, `quantize_rows`: per-row amax, then codes and scales in one kernel
     that reads each row once (`quant.py:49-52`, fused by XLA on the TPU);
-    its layout comes from `q_row_warps`.
+    its layout comes from `q_row_warps`.  Two more modes of the same
+    kernel: `row_amax` (each row's amax alone) and `quantize_rows_scaled`
+    (the codes from a per-row scale given), the two halves of Q for a row
+    split over tensor-parallel ranks, whose scale is that of the maximum
+    over the ranks (`w8a8_matmul`'s `group`, the int8 cache over tp).
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain version.  The plain int8 product is exact: float
@@ -42,7 +46,12 @@ from torch import nn
 #: guards `launch_counts`: the chunk pipeline's stages launch from threads
 _count_lock = threading.Lock()
 #: launches of each hand-written kernel, counted where the launch succeeds
+#: (Q's in every mode)
 launch_counts = {"int8_gemm": 0, "quantize_rows": 0}
+#: Q's launches by mode: codes and scales, the amax alone, codes from a
+#: given scale
+Q_MODES = {"codes": 0, "amax": 1, "scaled": 2}
+q_mode_counts = dict.fromkeys(Q_MODES, 0)
 
 #: element type codes of the C interface (csrc/int8_gemm.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 3}
@@ -85,8 +94,9 @@ def q_row_warps(K: int) -> int:
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, q_mode_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_cuda(x: torch.Tensor, what: str) -> bool:
@@ -122,13 +132,23 @@ def quantize_weight(w: torch.Tensor, clip: float = 127.0
 # Plain versions
 # ---------------------------------------------------------------------------
 
+def row_amax_plain(x: torch.Tensor) -> torch.Tensor:
+    """max_k |x[..., k]| in fp32: f32 [...]."""
+    return x.float().abs().amax(dim=-1)
+
+
+def quantize_rows_scaled_plain(x: torch.Tensor, s: torch.Tensor
+                               ) -> torch.Tensor:
+    """The int8 codes of x [..., K] at the per-row scales s f32 [...]."""
+    q = torch.clamp(torch.round(x.float() / s[..., None]), -127, 127)
+    return q.to(torch.int8)
+
+
 def quantize_rows_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row (per-token) int8 codes of x [..., K] in fp32 arithmetic:
-    (int8 [..., K], scale f32 [...])."""
-    xf = x.float()
-    s = amax_scale(xf.abs().amax(dim=-1))
-    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
-    return q.to(torch.int8), s
+    (int8 [..., K], scale f32 [...]); the two halves above, composed."""
+    s = amax_scale(row_amax_plain(x))
+    return quantize_rows_scaled_plain(x, s), s
 
 
 #: K-slice of the plain product: a sum of at most 1024 products of int8
@@ -168,7 +188,7 @@ def int8_gemm_plain(a: torch.Tensor, b: torch.Tensor,
 # Kernel wrappers (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
-def _launch(fn: str, counter: str, device, *args) -> None:
+def _launch(fn: str, counter: str, device, *args, mode=None) -> None:
     from . import _build
     lib = _build.library("int8_gemm")
     with torch.cuda.device(device):
@@ -178,6 +198,8 @@ def _launch(fn: str, counter: str, device, *args) -> None:
         raise RuntimeError(f"{counter} launch failed: CUDA error {rc}")
     with _count_lock:
         launch_counts[counter] += 1
+        if mode is not None:
+            q_mode_counts[mode] += 1
 
 
 def _check_2d(what: str, name: str, x: torch.Tensor, dtypes) -> None:
@@ -200,6 +222,16 @@ def _check_vec(what: str, name: str, v: torch.Tensor, n: int, device) -> None:
                          f"{device}, got {v.dtype} {tuple(v.shape)}")
 
 
+def _q_launch(x: torch.Tensor, q: Optional[torch.Tensor], s: torch.Tensor,
+              mode: str) -> None:
+    M, K = x.shape
+    if M:
+        _launch("mmpl_quantize_rows", "quantize_rows", x.device,
+                _DTYPE_CODES[x.dtype], x.data_ptr(),
+                None if q is None else q.data_ptr(), s.data_ptr(), M, K,
+                q_row_warps(K), Q_MODES[mode], mode=mode)
+
+
 def quantize_rows_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch Q (`csrc/int8_gemm.cu`) on x [M, K] (bf16 or fp32,
     contiguous, K a multiple of 16): (int8 [M, K], scale f32 [M])."""
@@ -207,11 +239,28 @@ def quantize_rows_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     M, K = x.shape
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     s = torch.empty((M,), dtype=torch.float32, device=x.device)
-    if M:
-        _launch("mmpl_quantize_rows", "quantize_rows", x.device,
-                _DTYPE_CODES[x.dtype], x.data_ptr(), q.data_ptr(),
-                s.data_ptr(), M, K, q_row_warps(K))
+    _q_launch(x, q, s, "codes")
     return q, s
+
+
+def row_amax_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch Q's amax mode on x [M, K] (as `quantize_rows_cuda`): f32
+    [M], each row's max |x|."""
+    _check_2d("row_amax", "x", x, ACT_DTYPES)
+    amax = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
+    _q_launch(x, None, amax, "amax")
+    return amax
+
+
+def quantize_rows_scaled_cuda(x: torch.Tensor, s: torch.Tensor
+                              ) -> torch.Tensor:
+    """Launch Q's given-scale mode on x [M, K] (as `quantize_rows_cuda`)
+    with the per-row scales s (fp32 [M]): int8 [M, K]."""
+    _check_2d("quantize_rows_scaled", "x", x, ACT_DTYPES)
+    _check_vec("quantize_rows_scaled", "s", s, x.shape[0], x.device)
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    _q_launch(x, q, s, "scaled")
+    return q
 
 
 def int8_gemm_cuda(a: torch.Tensor, b: torch.Tensor,
@@ -258,6 +307,32 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return quantize_rows_plain(x)
 
 
+def row_amax(x: torch.Tensor) -> torch.Tensor:
+    """Q's amax mode on CUDA tensors, its plain version on CPU tensors."""
+    if _on_cuda(x, "row_amax"):
+        return row_amax_cuda(x)
+    return row_amax_plain(x)
+
+
+def quantize_rows_scaled(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Q's given-scale mode on CUDA tensors, its plain version on CPU
+    tensors."""
+    if _on_cuda(x, "quantize_rows_scaled"):
+        return quantize_rows_scaled_cuda(x, s)
+    return quantize_rows_scaled_plain(x, s)
+
+
+def quantize_rows_split(x: torch.Tensor, group
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row codes of x [M, K], a row split over the ranks of `group`
+    (a `parallel/collectives.DistGroup`; this rank holds K of each row's
+    columns): Q's amax mode, the maximum over the group, the scale, Q's
+    given-scale mode.  The scales are the same on every rank and the codes
+    are those of the whole rows.  (int8 [M, K], scale f32 [M])."""
+    s = amax_scale(group.all_reduce_max(row_amax(x)))
+    return quantize_rows_scaled(x, s), s
+
+
 def int8_gemm(a: torch.Tensor, b: torch.Tensor, sx: Optional[torch.Tensor],
               sw: Optional[torch.Tensor],
               out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -268,14 +343,27 @@ def int8_gemm(a: torch.Tensor, b: torch.Tensor, sx: Optional[torch.Tensor],
 
 
 def w8a8_matmul(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                group=None) -> torch.Tensor:
     """y = x @ dequant(wq)^T with per-token dynamic activation codes.
 
-    x [..., K] float; wq int8 [N, K]; wscale f32 [N].  Q then P2."""
+    x [..., K] float; wq int8 [N, K]; wscale f32 [N].  Q then P2.  With
+    `group` (a row-parallel projection: x and wq hold this rank's K
+    columns) the codes take the scale of the whole row
+    (`quantize_rows_split`), P2 writes its int32 accumulator, the
+    accumulators are summed over the group (exactly: the unsharded
+    product's) and the rescale runs after, in the plain version's
+    order."""
     out_dtype = out_dtype or x.dtype
     K = x.shape[-1]
-    xq, xs = quantize_rows(x.reshape(-1, K).contiguous())
-    y = int8_gemm(xq, wq, xs, wscale, out_dtype)
+    x2 = x.reshape(-1, K).contiguous()
+    if group is None:
+        xq, xs = quantize_rows(x2)
+        y = int8_gemm(xq, wq, xs, wscale, out_dtype)
+    else:
+        xq, xs = quantize_rows_split(x2, group)
+        acc = group.all_reduce(int8_gemm(xq, wq, None, None, torch.int32))
+        y = ((acc.float() * xs[:, None]) * wscale[None, :]).to(out_dtype)
     return y.reshape(*x.shape[:-1], wq.shape[0])
 
 
@@ -335,7 +423,11 @@ class QuantLinear(nn.Module):
             q.bias.copy_(bias)
         return q
 
-    def matmul(self, x: torch.Tensor) -> torch.Tensor:
-        """x [..., K] -> [..., N] in x's dtype, without the bias."""
-        fn = w8a16_matmul if self.weight_only else w8a8_matmul
-        return fn(x, self.codes, self.scale)
+    def matmul(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """x [..., K] -> [..., N] in x's dtype, without the bias.  With
+        `group` (row-parallel: this rank's K columns) the partial products
+        are summed over it: W8A8's int32 accumulators, W8A16's outputs."""
+        if not self.weight_only:
+            return w8a8_matmul(x, self.codes, self.scale, group=group)
+        y = w8a16_matmul(x, self.codes, self.scale)
+        return y if group is None else group.all_reduce(y)

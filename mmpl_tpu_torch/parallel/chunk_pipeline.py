@@ -26,6 +26,17 @@ frames [0:5) of the handoff mask, keep pixel frames 8:13, re-encode, keep
 the first two latents (the reference decodes a full 21-frame window and
 re-encodes 81 frames for the same two latents).
 
+With `stage_meshes` (JAX's one pipeline per sub-mesh) the stages are
+processes: each process belongs to one stage's mesh, builds that stage
+only (its model sharded over the sub-mesh, `InferenceSharding`) and runs
+the chunks c with c % S equal to its stage.  After the anchor group each
+rank sends the anchors, the same on every rank of a stage, to the rank
+at its own position in the next stage, without blocking (the sender goes
+on with its fill groups); the receiver's stream waits for them before
+the bridge (`collectives.DistGroup.send` / `recv` on the default group;
+under gloo a CUDA tensor crosses through host memory, the copy and the
+send on a thread of their own).
+
 Not ported (TPU workarounds): `MMPL_STEPS_PER_PROGRAM` and the compile
 cache.  The JAX `rng` splits become one `torch.Generator` per chunk, or
 the reseed draws handed in.
@@ -114,6 +125,7 @@ class _Handoff:
         self.latents: Optional[torch.Tensor] = None
         self.event = None           # CUDA event after the anchor group
         self.failed = False
+        self.sent = None            # a send in flight (`_PeerHandoff`)
 
     def set(self, latents, event=None, failed: bool = False) -> None:
         if not self._ready.is_set():
@@ -127,6 +139,36 @@ class _Handoff:
         return self
 
 
+class _PeerHandoff(_Handoff):
+    """The same handoff between processes (stage_meshes): `set`, on chunk
+    k's process, sends the anchors to the rank at this rank's position in
+    chunk k+1's stage without blocking (`ChunkParallelPipeline._send`);
+    `wait`, on chunk k+1's process, receives them from the rank at its
+    position in chunk k's stage."""
+
+    def __init__(self, pipe: "ChunkParallelPipeline", ci: int, last: bool,
+                 shape, device: torch.device):
+        super().__init__()
+        self.pipe, self.ci, self.last = pipe, ci, last
+        self.shape, self.device = shape, device
+
+    def set(self, latents, event=None, failed: bool = False) -> None:
+        if self._ready.is_set():
+            return
+        self._ready.set()
+        if latents is not None and not self.last:
+            S = self.pipe.num_stages
+            self.sent = self.pipe._send(
+                latents, self.pipe.peers[(self.ci + 1) % S], event)
+
+    def wait(self) -> "_Handoff":
+        like = torch.empty(self.shape, dtype=torch.float32,
+                           device=self.device)
+        self.latents = self.pipe._world.recv(
+            like, self.pipe.peers[self.ci % self.pipe.num_stages])
+        return self
+
+
 class ChunkParallelPipeline:
     """W chunks pipelined over S stages, each a device and a stream."""
 
@@ -137,20 +179,30 @@ class ChunkParallelPipeline:
                  **pipe_kwargs):
         """devices: one entry per stage (default: every visible card); a
         device may repeat, and its stages then share one model and VAE.
-        stage_meshes is refused (not ported).  pipe_kwargs go to
+        stage_meshes: one DeviceMesh per stage (`parallel/mesh.
+        make_stage_meshes`, built by every process), in place of
+        `devices`: this process runs the stage whose mesh holds its rank,
+        on the device of `model`.  pipe_kwargs go to
         `CausalFPSInferencePipeline`."""
         self.plan = plan or t2v_plan()
         n_handoff = len(self.plan.handoff_frames)
         self.stages: List[Stage] = []
-        #: per chunk of the last `generate`: chunk, stage, host dispatch
-        #: start / end (perf_counter), the stage pipeline's phase_times and,
-        #: on a card, its CUDA events (`device_timeline` reads them)
+        #: per chunk of the last `generate` (this process's chunks only,
+        #: with stage_meshes): chunk, stage, host dispatch start / end
+        #: (perf_counter, one clock for every process of a host), when the
+        #: previous chunk's anchors had reached it (`received`: enqueued
+        #: by another stage of this process, or arrived from another
+        #: process), the stage pipeline's phase_times and, on a card, its
+        #: CUDA events (`device_timeline` reads them); with stage_meshes on
+        #: a card, also when its last group had run (`done`)
         self.dispatch_log: List[dict] = []
+        #: with stage_meshes: this process's stage, its number of stages
+        #: and the global rank at this rank's position in each stage
+        self.stage_index, self.num_stages, self.peers = 0, None, None
         if stage_meshes is not None:
-            raise NotImplementedError(
-                "stage_meshes (a sharded pipeline per stage) is not "
-                "ported: a stage here is a thread and a stream of one "
-                "process, a mesh's ranks are processes (ROADMAP.md Queue 1)")
+            self._own_stage(cfg, model, vae_model, stage_meshes,
+                            pipe_kwargs)
+            return
         self.devices = [_canonical(d) for d in (
             devices if devices is not None else default_devices())]
         shared: Dict[torch.device, Stage] = {}
@@ -170,6 +222,33 @@ class ChunkParallelPipeline:
             shared[dev] = Stage(dev, self._stream(dev), pipe, vm,
                                 make_bridge_fn(vm, n_handoff))
             self.stages.append(shared[dev])
+
+    def _own_stage(self, cfg, model, vae_model, stage_meshes,
+                   pipe_kwargs) -> None:
+        import torch.distributed as dist
+        from .collectives import DistGroup
+        ranks = [m.mesh.flatten().tolist() for m in stage_meshes]
+        rank = dist.get_rank()
+        mine = [i for i, r in enumerate(ranks) if rank in r]
+        if len(mine) != 1 or len({len(r) for r in ranks}) != 1:
+            raise ValueError(f"rank {rank} must be in exactly one of "
+                             f"equal stage meshes, got {ranks}")
+        if not any(g.anchor_group for g in self.plan.groups):
+            raise ValueError("stages over processes hand anchors on: the "
+                             "plan needs an anchor group")
+        s, pos = mine[0], ranks[mine[0]].index(rank)
+        self.stage_index, self.num_stages = s, len(ranks)
+        self.peers = [r[pos] for r in ranks]
+        self._world = DistGroup()
+        dev = _device_of(model)
+        self.devices = [dev]
+        pipe = CausalFPSInferencePipeline(cfg, model, plan=self.plan,
+                                          mesh=stage_meshes[s],
+                                          **pipe_kwargs)
+        vm = self._vae_on(vae_model, dev)
+        self.stages = [Stage(dev, self._stream(dev), pipe, vm,
+                             make_bridge_fn(vm,
+                                            len(self.plan.handoff_frames)))]
 
     @staticmethod
     def _stream(dev: torch.device):
@@ -212,34 +291,48 @@ class ChunkParallelPipeline:
         """Generate len(noise_per_chunk) chunks, round-robin over stages.
 
         Returns the denoised latent windows ([B, 21, C, H, W] fp32), each
-        on its stage's device.  Chunk ci draws its reseed noise from a
-        `torch.Generator` on its stage's device seeded `seed + ci`, unless
-        `reseed_noise[ci]` ({group index: tensor}) hands it in.
-        initial_latent: chunk 0's clean context latents (the i2v image).
-        on_chunk(ci, latents): called on chunk ci's stage thread, with the
-        stage's device and stream current, once the chunk's last group is
-        enqueued; what it enqueues runs on that stream before the stage's
-        next chunk and does not wait for later chunks (a server's decode
-        of each chunk, published while later chunks run).  Every stage waits for the caller's current streams before it
-        starts, and the caller's current streams wait for every stage
-        before this returns; the host never synchronises with a card.
+        on its stage's device (with stage_meshes: this process's chunks,
+        None in the places of the other stages').  Chunk ci draws its
+        reseed noise from a `torch.Generator` on its stage's device seeded
+        `seed + ci`, unless `reseed_noise[ci]` ({group index: tensor})
+        hands it in.  initial_latent: chunk 0's clean context latents (the
+        i2v image).  on_chunk(ci, latents): called on chunk ci's stage
+        thread, with the stage's device and stream current, once the
+        chunk's last group is enqueued; what it enqueues runs on that
+        stream before the stage's next chunk and does not wait for later
+        chunks (a server's decode of each chunk, published while later
+        chunks run).  Every stage waits for the caller's current streams
+        before it starts, and the caller's current streams wait for every
+        stage before this returns; the host never synchronises with a
+        card, except with stage_meshes after each chunk (its `done`).
         """
-        W, S = len(noise_per_chunk), len(self.stages)
-        handoffs = [_Handoff() for _ in range(W)]
+        W = len(noise_per_chunk)
+        if self.num_stages is None:         # every stage in this process
+            S, own = len(self.stages), dict(enumerate(self.stages))
+            handoffs = [_Handoff() for _ in range(W)]
+        else:
+            S, own = self.num_stages, {self.stage_index: self.stages[0]}
+            B, _, C, H, Wd = noise_per_chunk[0].shape
+            shape = (B, len(self.plan.handoff_frames), C, H, Wd)
+            handoffs = [_PeerHandoff(self, ci, ci + 1 == W, shape,
+                                     self.stages[0].device)
+                        for ci in range(W)]
         outputs: List[Optional[torch.Tensor]] = [None] * W
-        self.dispatch_log = [{} for _ in range(W)]
+        log: List[dict] = [{} for _ in range(W)]
+        self.dispatch_log = log
         callers = {st.device: torch.cuda.current_stream(st.device)
-                   for st in self.stages if st.stream is not None}
-        for st in self.stages:
+                   for st in own.values() if st.stream is not None}
+        for st in own.values():
             if st.stream is not None:
                 st.stream.wait_stream(callers[st.device])
         errors: List[BaseException] = []
 
         def run_chunk(ci: int) -> None:
-            stage = self.stages[ci % S]
+            stage = own[ci % S]
             dev = stage.device
             t_start = time.perf_counter()
             events = {"start": self._mark(stage)}
+            entry = {"chunk": ci, "stage": ci % S, "dispatch_start": t_start}
             with self._on(stage):
                 noise = noise_per_chunk[ci].to(dev)
                 cond, uncond = cond_context.to(dev), uncond_context.to(dev)
@@ -248,6 +341,7 @@ class ChunkParallelPipeline:
                     initial = initial_latent.to(dev)
                 elif ci > 0:
                     prev = handoffs[ci - 1].wait()
+                    entry["received"] = time.perf_counter()
                     if prev.latents is not None:
                         if prev.event is not None:
                             stage.stream.wait_event(prev.event)
@@ -271,12 +365,15 @@ class ChunkParallelPipeline:
                 if on_chunk is not None:
                     on_chunk(ci, out)
             handoffs[ci].set(None)
+            if self.num_stages is not None and events["end"] is not None:
+                events["end"].synchronize()     # the host clock of `done`
+                entry["done"] = time.perf_counter()
             outputs[ci] = out
-            self.dispatch_log[ci] = {
-                "chunk": ci, "stage": ci % S, "dispatch_start": t_start,
-                "dispatch_end": time.perf_counter(),
-                "phase_times": dict(stage.pipe.phase_times),
-                "cuda_events": events if stage.stream is not None else None}
+            entry.update(dispatch_end=time.perf_counter(),
+                         phase_times=dict(stage.pipe.phase_times),
+                         cuda_events=events if stage.stream is not None
+                         else None)
+            log[ci] = entry
 
         def worker(si: int) -> None:
             ci = si
@@ -290,20 +387,53 @@ class ChunkParallelPipeline:
 
         threads = [threading.Thread(target=worker, args=(si,), daemon=True,
                                     name=f"chunk-stage-{si}")
-                   for si in range(min(S, W))]
+                   for si in own if si < W]
         for t in threads:
             t.start()
         for t in threads:
             t.join()
+        for h in handoffs:
+            if h.sent is not None:
+                h.sent.wait()
         if errors:
             raise errors[0]
-        for st in self.stages:
+        self.dispatch_log = [e for e in log if e]
+        for st in own.values():
             if st.stream is not None:
                 callers[st.device].wait_stream(st.stream)
         for out in outputs:
-            if out.is_cuda:
+            if out is not None and out.is_cuda:
                 out.record_stream(callers[_canonical(out.device)])
         return outputs
+
+    def _send(self, anchors: torch.Tensor, dst: int, event):
+        """Send the anchors to global rank `dst` without blocking this
+        thread; returns what to `wait()` for.  Where they cross through
+        host memory (`collectives.via_host`), a thread waits for the
+        anchor group, copies them and sends them."""
+        from .collectives import via_host
+        if not via_host(self._world.pg, "send", anchors):
+            return self._world.send(anchors, dst)
+        box: List[BaseException] = []
+
+        def send():
+            try:
+                if event is not None:
+                    event.synchronize()
+                self._world.send(anchors, dst).wait()
+            except BaseException as e:      # re-raised by wait()
+                box.append(e)
+
+        t = threading.Thread(target=send, daemon=True, name="anchor-send")
+        t.start()
+
+        class _Sent:
+            @staticmethod
+            def wait():
+                t.join()
+                if box:
+                    raise box[0]
+        return _Sent()
 
     def device_timeline(self) -> List[dict]:
         """Each chunk's CUDA events of the last `generate`, in ms after
@@ -338,6 +468,9 @@ class ChunkParallelPipeline:
         decodes."""
         vids = []
         for ci, lat in enumerate(chunks):
+            if lat is None:         # another process's chunk
+                vids.append(None)
+                continue
             stage = self.stages[ci % len(self.stages)]
             caller = (torch.cuda.current_stream(stage.device)
                       if stage.stream is not None else None)

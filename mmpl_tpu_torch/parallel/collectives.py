@@ -7,13 +7,24 @@ previous) and `all_to_all` over a dim.  Two implementations provide it:
 
   * `DistGroup` runs on a `torch.distributed` process group (NCCL on
     cards, gloo on the CPU); each rank holds its own shard.  It also
-    sums (`all_reduce`) and gathers (`all_gather`), which the sharded
-    model's tensor and data parallelism use;
+    makes the moves of the sharded model's tensor and data parallelism:
+    Megatron's *f* and *g* (`copy_to`: identity forward, the gradient
+    summed; `all_reduce`: the sum forward, the gradient passed through),
+    `all_reduce_shared` (a sum that every rank uses for its own slice,
+    its gradient summed too), `all_reduce_max` (no gradient), `all_gather`,
+    and `send` / `recv` between stages;
   * `LocalGroup` holds every rank's shard on one device, stacked along the
     batch dim in rank order, and makes the same moves as tensor ops.  It is
     the port's counterpart of the JAX tests' virtual CPU mesh and how the
     sequence-parallel path runs on one card: a K1 call then covers every
     rank's shard at once.
+
+The one-card transport: NCCL takes no two ranks on one card, so ranks
+sharing a card run over gloo, and gloo takes CUDA tensors for its
+collectives but not for point-to-point moves (`GLOO_HOST_MOVES`).  Under
+a gloo group those moves carry a CUDA tensor through host memory; under
+NCCL every move stays on the device.
+A move that fails raises: nothing falls back.
 
 A mesh bundles named groups: `LocalMesh` (in process) or `ProcessMesh`
 (around a `torch.distributed.device_mesh.DeviceMesh`).  `as_mesh` wraps a
@@ -29,15 +40,39 @@ import torch
 import torch.distributed as dist
 
 
+#: the moves for which gloo takes no CUDA tensor: under a gloo group they
+#: carry a CUDA tensor through host memory (the one-card transport).  On
+#: the card's torch 2.11 gloo's collectives (all_reduce, all_gather,
+#: all_to_all, broadcast, reduce_scatter) take CUDA tensors and its
+#: point-to-point moves do not: a CUDA isend aborts the process
+#: ("writev: Bad address") instead of raising
+GLOO_HOST_MOVES = frozenset({"send", "recv", "rotate"})
+
+
+def via_host(pg, move: str, x: torch.Tensor) -> bool:
+    """Whether `move` of x runs on a host copy: x on a card and `pg`
+    (None: the default group) a gloo group that takes no CUDA tensor for
+    that move."""
+    return (x.is_cuda and move in GLOO_HOST_MOVES
+            and dist.get_backend(pg) == "gloo")
+
+
+def _sum_(t: torch.Tensor, pg, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """all_reduce of t in place (SUM or MAX over the group)."""
+    dist.all_reduce(t, op=op, group=pg)
+    return t
+
+
 def _p2p_rotate(x: torch.Tensor, pg, send_to: int,
                 recv_from: int) -> torch.Tensor:
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x, send_to, pg),
+    host = via_host(pg, "rotate", x)
+    src = x.contiguous().cpu() if host else x.contiguous()
+    out = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, send_to, pg),
            dist.P2POp(dist.irecv, out, recv_from, pg)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return out
+    return out.to(x.device) if host else out
 
 
 class _Rotate(torch.autograd.Function):
@@ -92,28 +127,60 @@ class _AllGather(torch.autograd.Function):
 
 class _AllReduce(torch.autograd.Function):
     """The sum over the group; the backward passes the gradient through
-    (every rank's loss the same function of the sum, as `_AllGather`)."""
+    (every rank's loss the same function of the sum, as `_AllGather`):
+    Megatron's *g*, after a row-parallel projection."""
 
     @staticmethod
     def forward(ctx, x, pg):
-        out = x.clone()
-        dist.all_reduce(out, group=pg)
-        return out
+        return _sum_(x.clone(), pg)
 
     @staticmethod
     def backward(ctx, g):
         return g, None
 
 
-class DistGroup:
-    """A process group's moves; tensors are this rank's shard.  Every move
-    is differentiable (the dense ring and Ulysses train through them)."""
+class _AllReduceShared(torch.autograd.Function):
+    """The sum over the group, used by every rank for its own slice (the
+    QK-norms' sum of squares over the heads of every rank): each rank's
+    loss depends on the sum through its own slice only, so the gradient is
+    summed over the group too."""
 
-    def __init__(self, pg):
+    @staticmethod
+    def forward(ctx, x, pg):
+        ctx.pg = pg
+        return _sum_(x.clone(), pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_(g.clone(), ctx.pg), None
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the gradient summed over the group: Megatron's
+    *f*, the replicated input of a column-parallel projection, whose
+    ranks each take the gradient of their own output columns."""
+
+    @staticmethod
+    def forward(ctx, x, pg):
+        ctx.pg = pg
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_(g.clone(), ctx.pg), None
+
+
+class DistGroup:
+    """A process group's moves; tensors are this rank's shard.  Every float
+    move is differentiable (the dense ring and Ulysses train through them,
+    and so does tensor parallelism)."""
+
+    def __init__(self, pg=None):
         self.pg = pg
         self.size = dist.get_world_size(pg)
         self.rank = dist.get_rank(pg)
-        ranks = dist.get_process_group_ranks(pg)
+        ranks = dist.get_process_group_ranks(
+            pg if pg is not None else dist.group.WORLD)
         self.next = ranks[(self.rank + 1) % self.size]
         self.prev = ranks[(self.rank - 1) % self.size]
 
@@ -132,10 +199,45 @@ class DistGroup:
         return torch.cat(out.unbind(0), dim=concat_dim)
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the group, the gradient passed through; an int32
+        tensor (the int8 products' accumulators) sums exactly."""
+        if not x.is_floating_point():
+            return _sum_(x.clone(), self.pg)
         return _AllReduce.apply(x, self.pg)
+
+    def all_reduce_shared(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the group, the gradient summed too."""
+        return _AllReduceShared.apply(x, self.pg)
+
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum over the group (no gradient): the
+        per-token amax of an int8 code whose row is split over ranks."""
+        return _sum_(x.detach().clone(), self.pg, dist.ReduceOp.MAX)
+
+    def copy_to(self, x: torch.Tensor) -> torch.Tensor:
+        """x itself, its gradient summed over the group."""
+        return _CopyTo.apply(x, self.pg)
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return _AllGather.apply(x, self.pg, self.size, self.rank, dim)
+
+    def send(self, x: torch.Tensor, dst: int):
+        """Send x to global rank `dst` without blocking; returns the
+        request (`wait()`).  A CUDA x under gloo is copied to the host
+        first, which waits for the work that makes x."""
+        src = x.detach().contiguous()
+        if via_host(self.pg, "send", src):
+            src = src.cpu()
+        return dist.isend(src, dst, group=self.pg)
+
+    def recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
+        """A tensor of `like`'s shape, dtype and device from global rank
+        `src`; blocks until it has arrived (on a card under NCCL, the
+        current stream waits for it instead)."""
+        host = via_host(self.pg, "recv", like)
+        out = torch.empty_like(like, device="cpu" if host else like.device)
+        dist.irecv(out, src, group=self.pg).wait()
+        return out.to(like.device) if host else out
 
 
 class LocalGroup:

@@ -15,10 +15,12 @@ from __future__ import annotations
 
 import math
 import os
+import re
 from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -40,9 +42,11 @@ def init_distributed(coordinator: Optional[str] = None,
     same rendezvous.  With nothing set it is a single-process no-op and
     returns False; with the default group already initialised it returns
     True.  Otherwise it initialises the default process group,
-    NCCL where a card is available (each process on card LOCAL_RANK, else
-    its process id modulo the cards) and gloo on the CPU, and returns True.
-    Call it before any other use of the groups."""
+    NCCL where a card is available and gloo on the CPU, and returns True;
+    `MMPL_DIST_BACKEND` names another, as gloo for ranks that share one
+    card, which NCCL refuses.  Where a card is available
+    each process takes card LOCAL_RANK, else its process id modulo the
+    cards.  Call it before any other use of the groups."""
     if dist.is_initialized():
         return True
     coordinator = coordinator or os.environ.get("COORDINATOR_ADDRESS")
@@ -62,8 +66,9 @@ def init_distributed(coordinator: Optional[str] = None,
         raise ValueError(f"init_distributed: {', '.join(missing)} not given "
                          f"(nor in the environment); torch.distributed "
                          f"needs all three")
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
-    if backend == "nccl":
+    backend = os.environ.get("MMPL_DIST_BACKEND") or (
+        "nccl" if torch.cuda.is_available() else "gloo")
+    if torch.cuda.is_available():
         local = _env_int("LOCAL_RANK")
         torch.cuda.set_device(local if local is not None
                               else process_id % torch.cuda.device_count())
@@ -124,25 +129,54 @@ def make_stage_meshes(n_stages: int, shape: Optional[Dict[str, int]] = None,
 
 
 # ---------------------------------------------------------------------------
-# Sharded inference: tensor parallelism over heads and the ffn, fsdp over
-# the contraction dim, dp over the CFG pair
+# Tensor parallelism over heads and the ffn (Megatron), fsdp over the
+# contraction dim, dp over the batch
 # ---------------------------------------------------------------------------
 
 #: a block's projections: column-parallel (their output rows split over
 #: tp: heads, ffn units) and row-parallel (their input columns split, the
-#: partial products summed across tp), as Megatron splits them
-_COLUMN = ("self_attn.qkv", "cross_attn.q", "cross_attn.k", "cross_attn.v",
-           "ffn.fc1")
+#: partial products summed across tp), as Megatron splits them; the fused
+#: qkv of the sampling pipelines or the trainer's q / k / v
+_COLUMN = ("self_attn.qkv", "self_attn.q", "self_attn.k", "self_attn.v",
+           "cross_attn.q", "cross_attn.k", "cross_attn.v", "ffn.fc1")
 _ROW = ("self_attn.o", "cross_attn.o", "ffn.fc2")
 #: the QK-norms, whose weights split with the heads and whose sum of
 #: squares is reduced across tp (`dit.rms_norm`)
 _NORMS = ("self_attn.norm_q", "self_attn.norm_k", "cross_attn.norm_q",
           "cross_attn.norm_k")
+#: a projection's weight: float, or the int8 codes of a `QuantLinear`
+_WEIGHTS = ("weight", "weight_q", "weight_w8")
+
+_TP_NAME = re.compile(
+    r"(?:^|\.)blocks\.\d+\.((?:self_attn|cross_attn|ffn)\.\w+)\."
+    r"(weight|weight_q|weight_w8|bias|scale)$")
+
+
+def tp_split_dim(name: str) -> Optional[int]:
+    """The dim along which tp splits the tensor of a DiT's parameter (or
+    int8 code, scale) `name` (a state-dict name, perhaps prefixed): 0 for
+    a column-parallel projection's rows (weight, bias, scale) and the
+    QK-norms, 1 for a row-parallel projection's weight; None for what
+    every tp rank holds whole."""
+    m = _TP_NAME.search(name)
+    if m is None:
+        return None
+    path, leaf = m.groups()
+    if path in _NORMS or path in _COLUMN:
+        return 0
+    if path in _ROW and leaf in _WEIGHTS:
+        return 1
+    return None
 
 
 def mesh_size(mesh, name: str) -> int:
-    """The size of a mesh dim, 1 where the mesh has no such dim."""
-    return mesh.size(name) if name in mesh.names else 1
+    """The size of a mesh dim (a DeviceMesh, `collectives.ProcessMesh` or
+    `LocalMesh`), 1 where the mesh has no such dim."""
+    names = tuple(getattr(mesh, "names", None) or mesh.mesh_dim_names)
+    if name not in names:
+        return 1
+    sizes = getattr(mesh, "sizes", None) or tuple(mesh.mesh.shape)
+    return int(sizes[names.index(name)])
 
 
 def _group(mesh, name: str):
@@ -154,20 +188,82 @@ def _slice(t: torch.Tensor, dim: int, parts: int, index: int
     return t.chunk(parts, dim)[index].contiguous()
 
 
+def _slice_rows(t: torch.Tensor, path: str, tp: int, rank: int
+                ) -> torch.Tensor:
+    """This rank's output rows of a column-parallel projection's tensor:
+    the fused qkv's q, k and v each sliced, others contiguously."""
+    if path == "self_attn.qkv":
+        return torch.cat([_slice(c, 0, tp, rank) for c in t.chunk(3, 0)])
+    return _slice(t, 0, tp, rank)
+
+
+def _projections(blk):
+    """(path, module, name of its weight or int8 codes) of each of the
+    block's projections in _COLUMN and _ROW (the fused qkv or q / k / v,
+    whichever it has)."""
+    from ..ops.quant import QuantLinear
+    for path in _COLUMN + _ROW:
+        try:
+            lin = blk.get_submodule(path)
+        except AttributeError:
+            continue
+        yield path, lin, (lin.code_name if isinstance(lin, QuantLinear)
+                          else "weight")
+
+
+@torch.no_grad()
+def _shard_tp(model, tp: int, rank: int) -> None:
+    """Megatron's split of every block of `model`, in place: the
+    column-parallel projections keep this rank's output rows (weight or
+    int8 codes, bias, scale), the row-parallel ones its input columns
+    (their bias and scale whole), the QK-norms this rank's heads."""
+    def put(mod, name, t):
+        old = getattr(mod, name)
+        if isinstance(old, nn.Parameter):
+            t = nn.Parameter(t, requires_grad=old.requires_grad)
+        setattr(mod, name, t)
+
+    for blk in model.blocks:
+        for path, lin, wname in _projections(blk):
+            w = getattr(lin, wname)
+            if path in _ROW:
+                put(lin, wname, _slice(w, 1, tp, rank))
+                continue
+            put(lin, wname, _slice_rows(w, path, tp, rank))
+            for name in ("bias", "scale"):
+                if getattr(lin, name, None) is not None:
+                    put(lin, name, _slice_rows(getattr(lin, name), path, tp,
+                                               rank))
+        for path in _NORMS:
+            norm = blk.get_submodule(path)
+            put(norm, "weight", _slice(norm.weight, 0, tp, rank))
+
+
+def _check_tp(model, tp: int, num_heads: int, what: str) -> None:
+    blk0 = model.blocks[0]
+    fc1 = blk0.ffn.fc1
+    ffn = (fc1.codes if hasattr(fc1, "codes") else fc1.weight).shape[0]
+    if num_heads % tp or ffn % tp:
+        raise ValueError(f"tp = {tp} does not divide {num_heads} heads "
+                         f"and the ffn")
+    if hasattr(blk0.cross_attn, "k_img"):
+        raise ValueError(f"{what} takes a t2v DiT")
+
+
 class InferenceSharding:
     """A sampling pipeline's view of its `mesh` (a DeviceMesh or
     `collectives.ProcessMesh` with some of dp, fsdp, tp; None: one
-    device).  At construction the fused model is sharded
-    (`shard_params_for_inference`) and `cfg` gains its `sharding`
-    (`dit.LayerSharding`), so that the layers take this rank's heads,
-    reduce over tp and gather over fsdp; then `rows` takes this process's dp
-    rows of a batch (its share of the KV cache and context K/V too) and
-    `gather` joins a forward's rows across dp.  int8 projections, and an
-    int8 cache over tp (its per-token scale spans the heads), are refused
-    under a mesh."""
+    device).  At construction the fused model, float or int8
+    (`dit.apply_quantize` runs first, on the whole weights, the same on
+    every rank), is sharded (`shard_params_for_inference`) and `cfg`
+    gains its `sharding` (`dit.LayerSharding`), so that the layers take
+    this rank's heads, reduce over tp and gather over fsdp; an int8 cache
+    then holds this rank's heads beside scales that span all of them
+    (`fps_dit.init_kv_cache`).  `rows` takes this process's dp rows of a
+    batch (its share of the KV cache and context K/V too) and `gather`
+    joins a forward's rows across dp."""
 
-    def __init__(self, cfg, model, mesh, quantize=None,
-                 quantize_cache: bool = False):
+    def __init__(self, cfg, model, mesh):
         self.mesh, self.dp, self.dp_rank = None, None, 0
         self.cfg, self.model = cfg, model
         if mesh is None:
@@ -175,11 +271,6 @@ class InferenceSharding:
         from ..core.config import DotDict
         from .collectives import as_mesh
         self.mesh = as_mesh(mesh)
-        tp = mesh_size(self.mesh, "tp")
-        if quantize or (quantize_cache and tp > 1):
-            raise NotImplementedError(
-                "int8 projections, or an int8 cache over tp, under a mesh "
-                "are not ported (ROADMAP.md Queue 1)")
         self.cfg = DotDict(cfg, sharding=shard_params_for_inference(
             model, self.mesh, cfg.num_heads))
         if mesh_size(self.mesh, "dp") > 1:
@@ -201,86 +292,111 @@ class InferenceSharding:
 
 @torch.no_grad()
 def shard_params_for_inference(model, mesh, num_heads: int):
-    """Shard a fused-qkv t2v WanDiT over `mesh`'s (fsdp, tp) dims, in
-    place (JAX `shard_params_for_inference` with `dit_param_shardings`),
-    and return the `dit.LayerSharding` its layers then run with.
+    """Shard a fused-qkv t2v WanDiT, float or int8, over `mesh`'s (fsdp,
+    tp) dims, in place (JAX `shard_params_for_inference` with
+    `dit_param_shardings`), and return the `dit.LayerSharding` its layers
+    then run with.
 
-    tp (Megatron): the fused qkv, the cross-attention q / k / v and fc1
-    keep this rank's heads / ffn units (rows), o and fc2 its input columns
-    and sum the partial products across tp (`linear`'s group); the
-    QK-norm weights keep this rank's heads and reduce their sum of squares
-    across tp (`rms_norm`'s group).  fsdp: every block projection's weight
-    keeps 1/fsdp of its input columns, gathered before the block runs
-    (`dit.run_block`'s unshard).  Embeddings, norms, modulations and the
-    head stay whole."""
+    tp (Megatron, `_shard_tp`): the fused qkv, the cross-attention q / k
+    / v and fc1 keep this rank's heads / ffn units (rows: weight or int8
+    codes, bias, scale), o and fc2 its input columns (codes too; scale
+    and bias whole) and sum the partial products across tp (`linear`'s
+    group; int32 accumulators for W8A8); the QK-norm weights keep this
+    rank's heads and reduce their sum of squares across tp (`rms_norm`'s
+    group).  fsdp: every block projection's weight (or codes) keeps 1/fsdp
+    of its input columns, gathered before the block runs (`dit.run_block`'s
+    unshard).  Embeddings, norms, modulations and the head stay whole."""
     from ..models.dit import LayerSharding
-    from ..ops.quant import QuantLinear
     from .collectives import as_mesh
     mesh = as_mesh(mesh)
     tp, fsdp = mesh_size(mesh, "tp"), mesh_size(mesh, "fsdp")
-    if num_heads % tp or model.blocks[0].ffn.fc1.weight.shape[0] % tp:
-        raise ValueError(f"tp = {tp} does not divide {num_heads} heads "
-                         f"and the ffn")
-    tp_group, fsdp_group = _group(mesh, "tp"), _group(mesh, "fsdp")
-    rank_tp = mesh.coordinate("tp") if tp_group else 0
-    rank_fsdp = mesh.coordinate("fsdp") if fsdp_group else 0
-    blk0 = model.blocks[0]
-    if not blk0.self_attn.fused or hasattr(blk0.cross_attn, "k_img"):
+    _check_tp(model, tp, num_heads, "sharded inference")
+    if not model.blocks[0].self_attn.fused:
         raise ValueError("sharded inference takes a fused-qkv t2v DiT")
-    param = lambda t: torch.nn.Parameter(t, requires_grad=False)
-    sub = lambda blk, path: blk.get_submodule(path)
+    tp_group, fsdp_group = _group(mesh, "tp"), _group(mesh, "fsdp")
+    if tp_group is not None:
+        _shard_tp(model, tp, mesh.coordinate("tp"))
     fsdp_names = set()
-    for blk in model.blocks:
-        for path in _COLUMN + _ROW:
-            lin = sub(blk, path)
-            if isinstance(lin, QuantLinear):
-                raise ValueError("sharded inference takes float "
-                                 "projections (quantize after sharding is "
-                                 "not ported)")
-            w = lin.weight
-            if tp_group is not None and path in _ROW:
-                w = _slice(w, 1, tp, rank_tp)
-            elif tp_group is not None and path == "self_attn.qkv":
-                w = torch.cat([_slice(c, 0, tp, rank_tp)
-                               for c in w.chunk(3, 0)])
-                lin.bias = param(torch.cat([
-                    _slice(c, 0, tp, rank_tp) for c in lin.bias.chunk(3)]))
-            elif tp_group is not None:
-                w = _slice(w, 0, tp, rank_tp)
-                lin.bias = param(_slice(lin.bias, 0, tp, rank_tp))
-            if fsdp_group is not None and w.shape[1] % fsdp == 0:
+    if fsdp_group is not None:
+        rank_fsdp = mesh.coordinate("fsdp")
+        for blk in model.blocks:
+            for path, lin, wname in _projections(blk):
+                w = getattr(lin, wname)
+                if w.shape[1] % fsdp:
+                    continue
                 w = _slice(w, 1, fsdp, rank_fsdp)
-                fsdp_names.add(f"{path}.weight")
-            lin.weight = param(w)
-        if tp_group is not None:
-            for path in _NORMS:
-                norm = sub(blk, path)
-                norm.weight = param(_slice(norm.weight, 0, tp, rank_tp))
+                setattr(lin, wname, nn.Parameter(w, requires_grad=False)
+                        if wname == "weight" else w)
+                fsdp_names.add(f"{path}.{wname}")
     unshard = None
     if fsdp_names:
         def unshard(blk):
-            return {n: fsdp_group.all_gather(p, 1) if n in fsdp_names else p
-                    for n, p in blk.named_parameters()}
+            held = dict(blk.named_parameters())
+            held.update(blk.named_buffers())
+            return {n: fsdp_group.all_gather(t, 1) if n in fsdp_names else t
+                    for n, t in held.items()}
     return LayerSharding(tp, tp_group, unshard)
 
 
 # ---------------------------------------------------------------------------
-# Sharded training: FSDP over fsdp, replicated over dp
+# Sharded training: tp over heads and the ffn, FSDP over fsdp, replicated
+# over dp
 # ---------------------------------------------------------------------------
 
-def shard_for_training(model, mesh):
-    """FSDP2 (`fully_shard`) of a WanDiT over a (dp, fsdp) DeviceMesh, in
-    place: each block an FSDP unit, the root holding the embeddings and
+def shard_for_training(model, mesh, num_heads: Optional[int] = None):
+    """Shard a t2v WanDiT for training over a DeviceMesh with some of dp,
+    fsdp and tp, in place, and return the `dit.LayerSharding` its training
+    forwards run with (in `cfg.sharding`).
+
+    tp: each block split as `shard_params_for_inference` splits it
+    (`_shard_tp`: Megatron's column- and row-parallel projections and
+    QK-norms), the slices plain tensors of this rank; the layers then move
+    activations and gradients with `column` / `linear` / `rms_norm` over
+    the tp group.  Then FSDP2 (`fully_shard`) over the (dp, fsdp)
+    sub-mesh: each block an FSDP unit, the root holding the embeddings and
     the head; replicated over dp and sharded over fsdp (HSDP).  The
-    parameters become DTensors; the layer functions run through
-    `Block.forward` / `WanDiT.forward`, whose hooks gather a unit's
-    parameters before it runs and reduce-scatter its gradients (their
-    mean over the mesh's ranks) after its backward.  Returns the model."""
+    parameters become DTensors over that sub-mesh; the layer functions run
+    through `Block.forward` / `WanDiT.forward`, whose hooks gather a
+    unit's parameters before it runs and reduce-scatter its gradients
+    (their mean over the sub-mesh's ranks) after its backward.  A tp mesh
+    whose (dp, fsdp) has one rank keeps plain tensors: nothing to shard,
+    and no collective over a group of one.  num_heads: the model's heads
+    (cfg.num_heads), needed with tp."""
+    from ..models.dit import WHOLE, LayerSharding
+    from .collectives import as_mesh
     try:
         from torch.distributed.fsdp import fully_shard
     except ImportError:           # torch releases before 2.6
         from torch.distributed._composable.fsdp import fully_shard
+    names = tuple(mesh.mesh_dim_names)
+    tp = mesh_size(mesh, "tp")
+    sharding = WHOLE
+    if tp > 1:
+        if num_heads is None:
+            raise ValueError("shard_for_training over tp needs num_heads")
+        _check_tp(model, tp, num_heads, "tensor-parallel training")
+        pm = as_mesh(mesh)
+        _shard_tp(model, tp, pm.coordinate("tp"))
+        sharding = LayerSharding(tp, pm.get_group("tp"), None)
+    data = tuple(n for n in names if n in ("dp", "fsdp"))
+    if not data or (tp > 1 and math.prod(mesh_size(mesh, n)
+                                         for n in data) == 1):
+        return sharding
+    sub = mesh if data == names else mesh[data]
     for blk in model.blocks:
-        fully_shard(blk, mesh=mesh)
-    fully_shard(model, mesh=mesh)
-    return model
+        fully_shard(blk, mesh=sub)
+    fully_shard(model, mesh=sub)
+    return sharding
+
+
+def gather_tp(name: str, t: torch.Tensor, group) -> torch.Tensor:
+    """The whole tensor of parameter `name` from this rank's tp slice `t`
+    (`tp_split_dim`; a collective over the tp `group`, None for tp = 1);
+    what tp does not split, as it is."""
+    dim = tp_split_dim(name)
+    if group is None or dim is None:
+        return t
+    if ".qkv." in name:
+        return torch.cat([group.all_gather(c.contiguous(), 0)
+                          for c in t.chunk(3, 0)])
+    return group.all_gather(t.contiguous(), dim)

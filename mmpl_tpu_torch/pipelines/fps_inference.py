@@ -63,11 +63,13 @@ class CausalFPSInferencePipeline:
         if fuse_qkv or mesh is not None:
             # one [3D, D] gemm per layer + split-half RoPE layout
             model = fuse_qkv_params(model, num_heads=cfg.num_heads)
-        self._shard = InferenceSharding(cfg, model, mesh, quantize,
-                                        quantize_cache)
+        # int8 projections, in place, after the fusion and before the
+        # sharding: the policy and the codes of the whole weights, the same
+        # on every rank
+        model = apply_quantize(model, quantize, cfg)
+        self._shard = InferenceSharding(cfg, model, mesh)
         self.cfg = cfg = self._shard.cfg
-        # int8 projections, in place, after the fusion
-        self.model = apply_quantize(self._shard.model, quantize, cfg)
+        self.model = self._shard.model
         self.quantize_cache = bool(quantize_cache)
         self.plan = plan or t2v_plan()
         self.guidance_scale = float(guidance_scale)

@@ -124,6 +124,12 @@ OLD_INT8_SIGNATURES = {
     "mmpl_int8_gemm": [_I] + [_P] * 5 + [_I] * 3 + [_P],
     "mmpl_quantize_rows": [_I, _P, _P, _P, _I, _I, _P],
 }
+#: the Hopper P2's entries before Q took a mode (its layout, not yet its
+#: amax and given-scale modes)
+HOPPER_INT8_SIGNATURES = {
+    "mmpl_int8_gemm": [_I] + [_P] * 5 + [_I] * 4 + [_P],
+    "mmpl_quantize_rows": [_I, _P, _P, _P, _I, _I, _I, _P],
+}
 
 
 def parse_args(argv=None):
@@ -187,13 +193,22 @@ def baseline_has_hopper_int8(root: Path) -> bool:
     return (baseline_csrc(root, "int8_gemm") / "int8_gemm_sm90.cuh").exists()
 
 
+def baseline_q_takes_mode(root: Path) -> bool:
+    """Whether the baseline's Q entry takes a mode (codes, amax, codes at
+    a given scale), as this tree's does."""
+    src = (baseline_csrc(root, "int8_gemm") / "int8_gemm.cu").read_text()
+    return re.search(r"mmpl_quantize_rows\([^)]*int mode", src) is not None
+
+
 def baseline_signatures(root: Path, source: str) -> dict:
     """The entries of the baseline's `source` that the comparison calls,
     with the C signatures its sources have."""
     sigs = _build.SIGNATURES[source]
     if source == "int8_gemm":
-        return (dict(sigs) if baseline_has_hopper_int8(root)
-                else dict(OLD_INT8_SIGNATURES))
+        if not baseline_has_hopper_int8(root):
+            return dict(OLD_INT8_SIGNATURES)
+        return dict(sigs) if baseline_q_takes_mode(root) else dict(
+            HOPPER_INT8_SIGNATURES)
     masked = {n: (sigs[n] if baseline_takes_coarse_tables(
                       root, source, n.rsplit("_", 1)[-1])
                   else OLD_MASKED_SIGNATURES[n])
@@ -336,15 +351,17 @@ def call_p2(lib, hopper: bool, a, b, sx, sw):
     return out
 
 
-def call_q(lib, hopper: bool, x):
+def call_q(lib, hopper: bool, x, mode: bool = True):
     """Q of a built `int8_gemm` library: (codes, scales); a Hopper library
-    gets this tree's layout."""
+    gets this tree's layout, and, with `mode` (an entry that takes one),
+    the codes-and-scales mode."""
     M, K = x.shape
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     s = torch.empty((M,), dtype=torch.float32, device=x.device)
     rc = lib.mmpl_quantize_rows(
         quant._DTYPE_CODES[x.dtype], x.data_ptr(), q.data_ptr(), s.data_ptr(),
         M, K, *([quant.q_row_warps(K)] if hopper else []),
+        *([quant.Q_MODES["codes"]] if hopper and mode else []),
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"Q launch failed: CUDA error {rc}")
@@ -596,6 +613,7 @@ def _ulps(got, want) -> int:
 def run_int8(args, smi: str) -> list:
     lib = build_baseline(args.baseline, "int8_gemm")
     hopper = baseline_has_hopper_int8(args.baseline)
+    mode = hopper and baseline_q_takes_mode(args.baseline)
     mine = _build.library("int8_gemm")
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
@@ -609,14 +627,16 @@ def run_int8(args, smi: str) -> list:
             x = (3 * torch.randn((M, K), generator=gen, device="cuda")
                  ).to(torch.bfloat16)
             want = quant.quantize_rows_plain(x)
-            for who, l_, h in (("baseline", lib, hopper), ("this", mine, True)):
-                got = call_q(l_, h, x)
+            for who, l_, h, m in (("baseline", lib, hopper, mode),
+                                  ("this", mine, True, True)):
+                got = call_q(l_, h, x, m)
                 row[f"q_{who}_equal"] = all(torch.equal(g, w)
                                             for g, w in zip(got, want))
             xq, sx = want
             row.update({f"q_{k}": v for k, v in _turns(
-                lambda: call_q(lib, hopper, x), lambda: call_q(mine, True, x),
-                args.reps, queued_ms).items()})
+                lambda: call_q(lib, hopper, x, mode),
+                lambda: call_q(mine, True, x), args.reps,
+                queued_ms).items()})
             row["q_bound_ms"] = 1e3 * (3 * M * K + 4 * M) / PEAK_BYTES
             del x
         else:

@@ -48,14 +48,16 @@ N..`--steps`-1, drawing and reading what an unbroken run would, bit for
 bit (the JAX trainer starts its shuffled order again at a resume).  `--export-pt` writes the generator and its EMA as the
 upstream `.pt` at the end.  `--config` merges a run config
 (`configs/*.yaml`) over the flag defaults as the JAX trainer does; flags
-given on the command line win.  `--mesh dp=A,fsdp=B` (one process per
-card under torchrun, or `--coordinator` / `--num-processes` /
-`--process-id`) FSDP-shards every model over fsdp, replicated over dp,
-and splits the batch over dp (`_Ranks`); `--export-pt` gathers the full
-tensors to rank 0; `--ckpt-dir` / `--resume` write and read sharded
-checkpoints (`train_state_io.save_sharded`) on a mesh of the same shape.
-Refused by name: tp in training (ROADMAP.md Queue 1) and the two 16 GB
-TPU workarounds `--remat-offload` and `--offload-opt`.
+given on the command line win.  `--mesh dp=A,fsdp=B,tp=C` (one process
+per card under torchrun, or `--coordinator` / `--num-processes` /
+`--process-id`) splits every DiT's heads and ffn over tp (Megatron, the
+tp ranks of a dp rank on the same rows and draws), FSDP-shards it over
+fsdp, replicated over dp, and splits the batch over dp (`_Ranks`);
+`--export-pt` gathers the full tensors to rank 0; `--ckpt-dir` /
+`--resume` write and read sharded checkpoints
+(`train_state_io.save_sharded`, the tp slices under keys of their own)
+on a mesh of the same shape.  Refused by name: the two 16 GB TPU
+workarounds `--remat-offload` and `--offload-opt`.
 
     python -m mmpl_tpu_torch.train --smoke --steps 3
     python -m mmpl_tpu_torch.train --smoke --objective flow --steps 3
@@ -168,10 +170,11 @@ def parse_args(argv=None):
                    help="YAML run config (configs/*.yaml) merged over the "
                         "flag defaults; flags given explicitly win")
     p.add_argument("--mesh", default=None,
-                   help="multi-process mesh 'dp=A,fsdp=B' (sizes multiply "
-                        "to the processes): every model FSDP-sharded over "
-                        "fsdp (HSDP, replicated over dp), the batch over "
-                        "dp; one process per card under torchrun, or "
+                   help="multi-process mesh 'dp=A,fsdp=B,tp=C' (sizes "
+                        "multiply to the processes): every model's heads "
+                        "and ffn split over tp, FSDP-sharded over fsdp "
+                        "(HSDP, replicated over dp), the batch over dp; "
+                        "one process per card under torchrun, or "
                         "--coordinator / --num-processes / --process-id")
     p.add_argument("--coordinator", default=None,
                    help="multi-process rendezvous host:port "
@@ -200,16 +203,13 @@ def parse_args(argv=None):
     if args.mesh:
         shape = mesh_shape(args.mesh)
         if set(shape) - {"dp", "fsdp", "tp"}:
-            p.error(f"--mesh {args.mesh}: the trainer's axes are dp and fsdp")
-        if shape.get("tp", 1) > 1:
-            p.error(f"--mesh {args.mesh}: tp in training is not ported "
-                    f"(ROADMAP.md Queue 1); the trainer shards over dp and "
-                    f"fsdp")
+            p.error(f"--mesh {args.mesh}: the trainer's axes are dp, fsdp "
+                    f"and tp")
     return args
 
 
 def mesh_shape(spec: str) -> dict:
-    """'dp=A,fsdp=B' -> {"dp": A, "fsdp": B}."""
+    """'dp=A,fsdp=B,tp=C' -> {"dp": A, "fsdp": B, "tp": C}."""
     return {k: int(v) for k, v in (kv.split("=") for kv in spec.split(","))}
 
 
@@ -454,7 +454,8 @@ class _Checkpoints:
         path = self.args.resume
         t0 = time.time()
         if self.sharded:
-            st = tsio.restore_sharded(path, template, self.ranks.shape)
+            st = tsio.restore_sharded(path, template, self.ranks.shape,
+                                      self.ranks.tp_rank)
         elif os.path.exists(os.path.join(path, ".metadata")):
             raise SystemExit(f"--resume {path} is a sharded checkpoint: "
                              f"resume it under the --mesh that wrote it")
@@ -477,7 +478,7 @@ class _Checkpoints:
         t0 = time.time()
         if self.sharded:
             nbytes = tsio.save_sharded(path, state_fn(step),
-                                       self.ranks.shape)
+                                       self.ranks.shape, self.ranks.tp_rank)
         else:
             nbytes = tsio.save_checkpoint(path, state_fn(step))
         dt = time.time() - t0
@@ -540,19 +541,25 @@ class _DataBatches:
 
 
 class _Ranks:
-    """The trainer's `--mesh` (JAX `train.py`'s (dp, fsdp) mesh): every
-    model FSDP-sharded (`parallel/mesh.shard_for_training`), each process
-    on its dp rows of the batch, the losses run inside the models'
-    forwards (whose hooks gather the parameters), the gradients of
-    unsharded modules (the GAN head) averaged over dp.  Without `--mesh`
-    every method leaves its input as it is."""
+    """The trainer's `--mesh` (JAX `train.py`'s (dp, fsdp, tp) mesh): every
+    model split over tp and FSDP-sharded over (dp, fsdp)
+    (`parallel/mesh.shard_for_training`), the layers given the tp group
+    through `cfg.sharding` (`layer_cfg`), each process on its dp rows of
+    the batch (the tp ranks of a dp rank on the same rows and draws), the
+    losses run inside the models' forwards (whose hooks gather the
+    parameters), the gradients of unsharded modules (the GAN head)
+    averaged over dp.  Without `--mesh` every method leaves its input as
+    it is."""
 
     def __init__(self, args):
         self.mesh, self.dp, self.dp_rank, self.rank0 = None, 1, 0, True
+        self.tp, self.tp_rank, self.tp_group = 1, 0, None
+        self.num_heads = None
         self.batch = args.batch_size
         if not args.mesh:
             return
         import torch.distributed as dist
+        from .parallel.collectives import DistGroup
         from .parallel.mesh import init_distributed, make_mesh
         shape = mesh_shape(args.mesh)
         if not init_distributed(args.coordinator, args.num_processes,
@@ -560,24 +567,41 @@ class _Ranks:
             raise SystemExit("--mesh needs a process group: run under "
                              "torchrun, or give --coordinator, "
                              "--num-processes and --process-id")
-        self.dp = shape.get("dp", 1)
+        self.dp, self.tp = shape.get("dp", 1), shape.get("tp", 1)
         if self.batch % self.dp:
             raise SystemExit(f"--batch-size {self.batch} does not split "
                              f"over dp = {self.dp}")
-        #: the mesh's shape, which a sharded checkpoint records
+        #: the mesh's shape, which a sharded checkpoint records (tp only
+        #: where it splits)
         self.shape = {"dp": self.dp, "fsdp": shape.get("fsdp", 1)}
+        if self.tp > 1:
+            self.shape["tp"] = self.tp
         self.mesh = make_mesh(self.shape)
         self.dp_rank = self.mesh.get_local_rank("dp")
+        if self.tp > 1:
+            self.tp_rank = self.mesh.get_local_rank("tp")
+            self.tp_group = DistGroup(self.mesh.get_group("tp"))
         self.rank0 = dist.get_rank() == 0
         dims = dict(zip(self.mesh.mesh_dim_names, self.mesh.mesh.shape))
         print(f"mesh: {dims} (process {dist.get_rank()}/"
               f"{dist.get_world_size()})", file=sys.stderr)
 
+    def layer_cfg(self, cfg):
+        """cfg with the layers' `sharding` under tp (`dit.LayerSharding`:
+        this rank's heads, the tp group's moves); cfg itself without."""
+        self.num_heads = cfg.num_heads
+        if self.tp == 1:
+            return cfg
+        from .core.config import DotDict
+        from .models.dit import LayerSharding
+        return DotDict(cfg, sharding=LayerSharding(self.tp, self.tp_group))
+
     def shard(self, model):
         if self.mesh is None:
             return model
         from .parallel.mesh import shard_for_training
-        return shard_for_training(model, self.mesh)
+        shard_for_training(model, self.mesh, self.num_heads)
+        return model
 
     def rows(self, tree):
         """This process's dp rows of every batch-first tensor of `tree`."""
@@ -599,16 +623,27 @@ class _Ranks:
         return modules[0](lambda _m, *a: self.in_forward(rest, fn, *a),
                           *args)
 
+    def full(self, named: dict) -> dict:
+        """The whole tensors of a sharded model's {name: tensor}: the FSDP
+        shards gathered (`DTensor.full_tensor`), then the tp slices
+        (`parallel/mesh.gather_tp`); collectives, on every rank."""
+        from .parallel.mesh import gather_tp
+        out = {}
+        for n, t in named.items():
+            t = t.full_tensor() if hasattr(t, "full_tensor") else t
+            out[n] = gather_tp(n, t.detach(), self.tp_group)
+        return out
+
     def export(self, path: str, model, ema_shadow, cfg) -> None:
         """`--export-pt`: the generator (and its EMA) as the upstream
-        `.pt`; under the mesh every rank gathers the full tensors
-        (`DTensor.full_tensor`, a collective) and rank 0 writes."""
+        `.pt`; under the mesh every rank gathers the full tensors (`full`)
+        and rank 0 writes."""
         from .utils import train_state_io as tsio
         params = dict(model.named_parameters())
         if self.mesh is not None:
-            full = lambda d: {n: t.full_tensor() for n, t in d.items()}
-            params = full(params)
-            ema_shadow = None if ema_shadow is None else full(ema_shadow)
+            params = self.full(params)
+            ema_shadow = None if ema_shadow is None else self.full(
+                ema_shadow)
         if self.rank0:
             tsio.export_generator_pt(path, params, ema_shadow, cfg)
             print(f"exported {path}", file=sys.stderr)
@@ -654,6 +689,7 @@ def main(argv=None) -> int:
     lat_hw = (4, 4) if args.smoke else (60, 104)
     model = load_generator(args, cfg, torch.Generator(device=device)
                            .manual_seed(args.seed), device)
+    cfg = ranks.layer_cfg(cfg)
     metrics = MetricsLogger(args.log_dir, args.run_name, config=vars(args)) \
         if ranks.rank0 else _NoMetrics()
     ckpts = _Checkpoints(args, metrics, device, ranks)
@@ -686,7 +722,8 @@ def _train_diffusion(args, cfg, model, lat_hw, device, metrics, ckpts,
     else:
         loss_fn = tdiff.make_loss_fn(cfg, sch)
     trainer = tdiff.DiffusionTrainer(ranks.shard(model), loss_fn,
-                                     learning_rate=args.lr)
+                                     learning_rate=args.lr,
+                                     tp_group=ranks.tp_group)
     ema = EmaParams(model, decay=args.ema_decay)
     data_gen, draw_gen = _generators(device, args.seed)
     batches = None

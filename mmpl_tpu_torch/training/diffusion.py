@@ -169,7 +169,8 @@ class DiffusionTrainer:
     them (the `optax.adamw` configuration of the JAX trainer)."""
 
     def __init__(self, model, loss_fn: Callable,
-                 learning_rate: float = 1e-5, weight_decay: float = 0.01):
+                 learning_rate: float = 1e-5, weight_decay: float = 0.01,
+                 tp_group=None):
         bad = [n for n, p in model.named_parameters()
                if p.dtype != torch.float32]
         if bad:
@@ -179,7 +180,9 @@ class DiffusionTrainer:
                                      betas=(0.9, 0.999), eps=1e-8,
                                      weight_decay=weight_decay)
         self._loss_fn = loss_fn
-        #: global norm of the last step's gradients (a device scalar)
+        self._tp_group = tp_group
+        #: global norm of the last step's gradients (a device scalar;
+        #: `grad_norm`)
         self.grad_norm: Optional[torch.Tensor] = None
 
     def train_step(self, batch, draws) -> torch.Tensor:
@@ -189,9 +192,27 @@ class DiffusionTrainer:
         # (`parallel/mesh.shard_for_training`) gathers its root there
         loss = self.model(self._loss_fn, batch, draws)
         loss.backward()
-        grads = [p.grad for p in self.model.parameters()
-                 if p.grad is not None]
-        self.grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        self.grad_norm = grad_norm(self.model, self._tp_group)
         self.opt.step()
         return loss.detach()
+
+
+def grad_norm(model, tp_group=None) -> torch.Tensor:
+    """The global norm of `model`'s gradients.  FSDP2's DTensor gradients
+    reduce over their mesh; under tp (`tp_group`) a parameter split over
+    the ranks counts once per slice (its squares summed over the group)
+    and one every rank holds whole counts once."""
+    from ..parallel.mesh import tp_split_dim
+    parts = {True: [], False: []}
+    for n, p in model.named_parameters():
+        if p.grad is not None:
+            split = tp_group is not None and tp_split_dim(n) is not None
+            parts[split].append(torch.linalg.vector_norm(p.grad))
+    if not parts[True]:
+        return torch.linalg.vector_norm(torch.stack(parts[False]))
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    sq = lambda norms: full(torch.sum(torch.stack(norms) ** 2))
+    total = tp_group.all_reduce(sq(parts[True]).detach())
+    if parts[False]:
+        total = total + sq(parts[False])
+    return torch.sqrt(total)

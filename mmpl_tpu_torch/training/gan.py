@@ -20,9 +20,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.dit import (MLP, Affine, block_forward, embed_text,
-                          layer_norm, linear, mlp, patchify,
+                          layer_norm, linear, local_heads, mlp, patchify,
                           precompute_context_kv, qkv_project, remat,
-                          rms_norm, run_block, time_embed)
+                          rms_norm, run_block, sharding_of, time_embed)
 from ..ops.attention import attention
 from ..ops.rope import window_rope_table
 
@@ -152,16 +152,19 @@ def dit_forward_classify(model, head: GanHead, cfg, latents: torch.Tensor,
     e, e0 = time_embed(model, cfg, t.expand(B, Fr))
     ctx_kv = precompute_context_kv(model, cfg,
                                    embed_text(model, context.to(x.dtype)))
-    n, d = cfg.num_heads, cfg.dim // cfg.num_heads
+    n, d = local_heads(cfg), cfg.dim // cfg.num_heads
+    tp_group = sharding_of(cfg).tp_group
     cos_np, sin_np = window_rope_table(Fr, grid[0], grid[1], d)
     cos = torch.as_tensor(cos_np, device=x.device)
     sin = torch.as_tensor(sin_np, device=x.device)
 
     def block_fn(x, blk, ckv):
         def self_attn_fn(xm):
-            q, k, v = qkv_project(blk.self_attn, xm, n, d, cos, sin)
+            q, k, v = qkv_project(blk.self_attn, xm, n, d, cos, sin,
+                                  tp_group)
             return linear(blk.self_attn.o,
-                          attention(q, k, v).reshape(B, xm.shape[1], -1))
+                          attention(q, k, v).reshape(B, xm.shape[1], -1),
+                          tp_group)
         return block_forward(blk, cfg, x, e0, self_attn_fn, ckv, Fr)
 
     R = head.register_tokens.shape[0]

@@ -28,7 +28,12 @@ checkpoint` (each rank its shards, `.metadata` and `*.distcp`) beside one
 step, its generators' states, the data position) and the mesh's shape.
 The directory is written as `<dir>/stepN.tmp` and renamed once every rank
 has written; `restore_sharded` loads it onto a mesh of the same shape
-only.  `sharded_to_state` reads one back into plain tensors without a
+only.  `torch.distributed.checkpoint` keeps one copy of the entries that
+share a name and offsets across ranks, which is right for what every tp
+rank holds whole and wrong for a tp slice: so under tp every tensor that
+tp splits (`parallel/mesh.tp_split_dim`: parameters, their AdamW states
+and EMA shadows) is written under its name and `@tp<r>`, one entry per
+tp rank.  `sharded_to_state` reads one back into plain tensors without a
 process group (tests, comparisons).  `export_generator_pt` writes the MMPL inference
 monolith `{'generator', 'generator_ema'}` with `model.`-prefixed fp32
 tensors in the upstream WanModel layout, as the JAX export does.
@@ -109,13 +114,32 @@ def _dir_bytes(path: str) -> int:
                for root, _, files in os.walk(path) for f in files)
 
 
+def _tp_keys(tree, tp_rank: int, back: bool = False):
+    """`tree` with every key that names a tp-split tensor given (or, with
+    `back`, rid of) the suffix `@tp<tp_rank>`; the values are the same
+    objects."""
+    if not isinstance(tree, dict):
+        return tree
+    from ..parallel.mesh import tp_split_dim
+    tag = f"@tp{tp_rank}"
+    out = {}
+    for k, v in tree.items():
+        if back and isinstance(k, str) and k.endswith(tag):
+            k = k[:-len(tag)]
+        elif not back and isinstance(k, str) and tp_split_dim(k) is not None:
+            k = k + tag
+        out[k] = _tp_keys(v, tp_rank, back)
+    return out
+
+
 def save_sharded(path: str, state: Dict[str, Any],
-                 mesh_shape: Dict[str, int]) -> int:
+                 mesh_shape: Dict[str, int], tp_rank: int = 0) -> int:
     """Write `state` on every rank of the process group: its tensors
-    (DTensors and replicated tensors, `torch.distributed.checkpoint`) and
-    each rank's `LOCAL_KEYS` with the mesh's shape.  Atomic: written to
-    `path.tmp`, renamed by rank 0 after every rank has written.  Returns
-    the directory's bytes."""
+    (DTensors and replicated tensors, `torch.distributed.checkpoint`; tp
+    slices under keys of their own, `_tp_keys`) and each rank's
+    `LOCAL_KEYS` with the mesh's shape.  tp_rank: this rank's coordinate
+    on the mesh's tp dim.  Atomic: written to `path.tmp`, renamed by rank
+    0 after every rank has written.  Returns the directory's bytes."""
     import torch.distributed as dist
     import torch.distributed.checkpoint as dcp
     rank = dist.get_rank()
@@ -123,8 +147,10 @@ def save_sharded(path: str, state: Dict[str, Any],
     if rank == 0:
         shutil.rmtree(tmp, ignore_errors=True)
     dist.barrier()
-    dcp.save({k: v for k, v in state.items() if k not in LOCAL_KEYS},
-             checkpoint_id=tmp)
+    tensors = {k: v for k, v in state.items() if k not in LOCAL_KEYS}
+    if mesh_shape.get("tp", 1) > 1:
+        tensors = _tp_keys(tensors, tp_rank)
+    dcp.save(tensors, checkpoint_id=tmp)
     local = {k: state[k] for k in LOCAL_KEYS if k in state}
     local["mesh"] = dict(mesh_shape)
     torch.save(local, os.path.join(tmp, RANK_FILE.format(rank)))
@@ -142,12 +168,13 @@ def _rank_entries(path: str, rank: int) -> Dict[str, Any]:
 
 
 def restore_sharded(path: str, template: Dict[str, Any],
-                    mesh_shape: Dict[str, int]) -> Dict[str, Any]:
+                    mesh_shape: Dict[str, int],
+                    tp_rank: int = 0) -> Dict[str, Any]:
     """Load the checkpoint `path` written by `save_sharded` into the
     tensors of `template` (the state of a fresh trainer on this mesh; its
-    tensors are overwritten in place) and return them with this rank's
-    `LOCAL_KEYS`.  Exits naming both shapes where `path` was written on
-    another mesh."""
+    tensors are overwritten in place; this rank's tp slices from their
+    own keys) and return them with this rank's `LOCAL_KEYS`.  Exits
+    naming both shapes where `path` was written on another mesh."""
     import torch.distributed as dist
     import torch.distributed.checkpoint as dcp
     if not os.path.exists(os.path.join(path, ".metadata")):
@@ -158,10 +185,15 @@ def restore_sharded(path: str, template: Dict[str, Any],
         raise SystemExit(f"--resume {path} was written on the mesh "
                          f"{saved}; this run's mesh is {dict(mesh_shape)}")
     tensors = {k: v for k, v in template.items() if k not in LOCAL_KEYS}
+    split = mesh_shape.get("tp", 1) > 1
+    if split:
+        tensors = _tp_keys(tensors, tp_rank)
     saved_keys = dcp.FileSystemReader(path).read_metadata() \
         .state_dict_metadata.keys()
     _prune(tensors, "", tuple(saved_keys))
     dcp.load(tensors, checkpoint_id=path)
+    if split:
+        tensors = _tp_keys(tensors, tp_rank, back=True)
     local = _rank_entries(path, dist.get_rank())
     return {**tensors, **{k: local[k] for k in LOCAL_KEYS if k in local}}
 

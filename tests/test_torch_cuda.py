@@ -659,6 +659,68 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda, case):
     assert quant.launch_counts == {"int8_gemm": 0, "quantize_rows": 0}
 
 
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k", [(77, 48), (1000, 96), (300, 4480),
+                                 (129, 768), (64, 17920), (40, 1536)])
+def test_q_amax_and_scaled_modes_match_plain(cuda, act, m, k):
+    """Q's amax mode and its given-scale mode exactly against their plain
+    versions at ragged and tensor-parallel shapes (K = 4480, fc2's input
+    at tp 2; 768, o's and a cache token's; 17920 takes the two-read
+    loop), bf16 and fp32, with a zero row and ties; the two halves of a
+    row split in two, the maximum taken, give the whole row's codes; one
+    launch of each mode counted."""
+    from mmpl_tpu_torch.ops import quant
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)
+                         * 3).to(cuda, act)
+    x[5] = 0
+    x[6, :4] = torch.tensor([63.5, -127.0, 0.5, 1.5], device=cuda).to(act)
+    quant.reset_launch_counts()
+    amax = quant.row_amax_cuda(x)
+    assert torch.equal(amax, quant.row_amax_plain(x))
+    s = quant.amax_scale(amax)
+    q = quant.quantize_rows_scaled_cuda(x, s)
+    assert torch.equal(q, quant.quantize_rows_scaled_plain(x, s))
+    pq, ps = quant.quantize_rows_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    assert quant.q_mode_counts == {"codes": 0, "amax": 1, "scaled": 1}
+    assert quant.launch_counts == {"int8_gemm": 0, "quantize_rows": 2}
+    if k % 32 == 0:
+        halves = [h.contiguous() for h in x.chunk(2, -1)]
+        sh = quant.amax_scale(torch.maximum(*(quant.row_amax_cuda(h)
+                                              for h in halves)))
+        assert torch.equal(sh, ps)
+        assert torch.equal(torch.cat([quant.quantize_rows_scaled_cuda(h, sh)
+                                      for h in halves], -1), pq)
+
+
+@pytest.mark.parametrize("case", ["amax_x_int8", "amax_x_strided",
+                                  "amax_k_not_16", "scaled_s_short",
+                                  "scaled_s_f64", "scaled_s_cpu",
+                                  "scaled_x_strided"])
+def test_q_modes_refuse_what_the_kernel_does_not_take(cuda, case):
+    from mmpl_tpu_torch.ops import quant
+    x = torch.randn((64, 96), device=cuda)
+    s = torch.ones(64, device=cuda)
+    calls = {
+        "amax_x_int8": lambda: quant.row_amax_cuda(_int8((64, 96), 0, cuda)),
+        "amax_x_strided": lambda: quant.row_amax_cuda(
+            torch.randn((64, 192), device=cuda)[:, :96]),
+        "amax_k_not_16": lambda: quant.row_amax_cuda(x[:, :40].contiguous()),
+        "scaled_s_short": lambda: quant.quantize_rows_scaled_cuda(x, s[:63]),
+        "scaled_s_f64": lambda: quant.quantize_rows_scaled_cuda(
+            x, s.double()),
+        "scaled_s_cpu": lambda: quant.quantize_rows_scaled_cuda(x, s.cpu()),
+        "scaled_x_strided": lambda: quant.quantize_rows_scaled_cuda(
+            torch.randn((64, 192), device=cuda)[:, :96], s),
+    }
+    quant.reset_launch_counts()
+    with pytest.raises(ValueError):
+        calls[case]()
+    assert quant.launch_counts == {"int8_gemm": 0, "quantize_rows": 0}
+    assert quant.q_mode_counts == dict.fromkeys(quant.Q_MODES, 0)
+
+
 # The Hopper P2 at every tile width (N = 3 .. 8960 take tiles of 16, 128,
 # 256 and 128), the ragged and the 16-byte K, the staged (TMA-store) and
 # the register epilogue (N = 3 and odd or narrow rows take the latter).

@@ -4,6 +4,8 @@ masked signatures (with or without the coarse tile table) its K4, K5
 and K6 have, which P2 and Q signatures its int8 source has, what it refuses, and
 that it needs the card (its builds and times run only there)."""
 
+import pathlib
+
 import pytest
 import torch
 
@@ -88,17 +90,30 @@ def test_backward_compare_needs_the_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize("hopper", [False, True])
 def test_baseline_int8_is_bound_by_its_sources(tmp_path, hopper):
     """A baseline without int8_gemm_sm90.cuh has the entries of the
-    `mma.sync` P2 (no tile width, no Q layout); a newer one this tree's."""
+    `mma.sync` P2 (no tile width, no Q layout); a Hopper one P2's tile
+    width and Q's layout, and, where its Q entry takes a mode, this
+    tree's entries."""
     names = ["int8_gemm.cu", "flash_common.cuh"] + (
         ["int8_gemm_sm90.cuh"] if hopper else [])
     root = _checkout(tmp_path, *names)
     assert flash_compare.baseline_has_hopper_int8(root) is hopper
     sigs = flash_compare.baseline_signatures(root, "int8_gemm")
     mine = _build.SIGNATURES["int8_gemm"]
-    assert (sigs == mine) is hopper
-    assert (sigs == flash_compare.OLD_INT8_SIGNATURES) is (not hopper)
-    for fn in mine:     # the new entries take one int more, before the stream
-        assert len(mine[fn]) == len(flash_compare.OLD_INT8_SIGNATURES[fn]) + 1
+    old, hop = (flash_compare.OLD_INT8_SIGNATURES,
+                flash_compare.HOPPER_INT8_SIGNATURES)
+    assert sigs == (hop if hopper else old) and sigs != mine
+    for fn in mine:     # the Hopper entries take one int more, before the stream
+        assert len(hop[fn]) == len(old[fn]) + 1
+    # this tree's Q takes its mode after the layout; P2 is unchanged
+    assert mine["mmpl_int8_gemm"] == hop["mmpl_int8_gemm"]
+    assert len(mine["mmpl_quantize_rows"]) == len(
+        hop["mmpl_quantize_rows"]) + 1
+    if hopper:
+        here = pathlib.Path(_build.CSRC) / "int8_gemm.cu"
+        (root / "mmpl_tpu_torch" / "csrc" / "int8_gemm.cu").write_text(
+            here.read_text())
+        assert flash_compare.baseline_q_takes_mode(root)
+        assert flash_compare.baseline_signatures(root, "int8_gemm") == mine
 
 
 def test_int8_compare_needs_the_card(tmp_path, monkeypatch):

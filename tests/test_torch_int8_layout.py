@@ -72,7 +72,10 @@ def test_tile_and_layout_cover_each_smoke_shape(label, M, K, N, act, out):
     tile = quant.p2_tile_n(N)
     _covers(N, tile)
     if label.startswith("g"):       # the DiT's widths fill their tiles
-        assert N % tile == 0 and tile == 256
+        # (fc1's 4480 rows of a tp-2 rank fill 35 tiles of 128; 256 would
+        # pad them to 4608)
+        assert N % tile == 0 and tile == (128 if label == "g23_fc1_tp2"
+                                          else 256)
     assert K % 16 == 0
     if act is not None:             # Q reads each of these rows once
         warps = quant.q_row_warps(K)

@@ -326,19 +326,21 @@ def _equal(a, b, where=""):
         assert a == b, where
 
 
-def _assert_sharded_resume_exact(tmp_path, outs):
-    """The worker's sharded checkpoints (`train_state_io.save_sharded`,
-    dp 2 x fsdp 2): teacher forcing's and DMD's step-2 state resumed from
-    step 1 equals the unbroken run's bit for bit (masters, AdamW states,
-    EMA, each rank's generators and step); a restore onto another mesh
-    exits naming both shapes."""
+def _assert_resume_exact(tmp_path, mesh, world):
+    """The worker's sharded checkpoints (`train_state_io.save_sharded`) on
+    `world` ranks of the mesh shape `mesh`: teacher forcing's and DMD's
+    step-2 state resumed from step 1 equals the unbroken run's bit for bit
+    (masters, AdamW states, EMA, each rank's generators and step); each dp
+    rank draws from its own stream, the tp ranks of a dp rank from the
+    same one."""
     from mmpl_tpu_torch.utils import train_state_io as tsio
+    tp = mesh.get("tp", 1)
     for objective in ("teacher_forcing", "dmd"):
         got, want = (tsio.sharded_to_state(str(
             tmp_path / "ckpt" / f"{objective}_{run}" / "step2"))
             for run in ("resumed", "unbroken"))
-        assert len(want["ranks"]) == 4
-        assert all(r["mesh"] == {"dp": 2, "fsdp": 2} and r["step"] == 2
+        assert len(want["ranks"]) == world
+        assert all(r["mesh"] == mesh and r["step"] == 2
                    for r in want["ranks"])
         trained = ["generator"] if objective == "teacher_forcing" else [
             "generator", "fake_score"]
@@ -346,12 +348,33 @@ def _assert_sharded_resume_exact(tmp_path, outs):
             assert {"model", "optimizer", "ema"} <= set(want["tensors"])
         else:
             assert set(want["tensors"]["models"]) == set(trained)
-            # each dp rank draws from its own stream
             draws = [r["rng"]["draw"] for r in want["ranks"]]
-            assert not torch.equal(draws[0], draws[2])
+            if mesh.get("dp", 1) > 1:
+                assert not torch.equal(draws[0], draws[world // 2])
+            if tp > 1:
+                assert torch.equal(draws[0], draws[1])
+        if tp > 1:
+            # each tp rank's slices under their own keys
+            assert any(k.endswith("@tp1")
+                       for k in _flat_keys(want["tensors"]))
         _equal(got, want, objective)
         assert not (tmp_path / "ckpt" / f"{objective}_unbroken"
                     / "step2.tmp").exists()
+
+
+def _flat_keys(tree, prefix=""):
+    out = set()
+    for k, v in tree.items():
+        out.add(f"{prefix}{k}")
+        if isinstance(v, dict):
+            out |= _flat_keys(v, f"{prefix}{k}.")
+    return out
+
+
+def _assert_sharded_resume_exact(tmp_path, outs):
+    """`_assert_resume_exact` at dp 2 x fsdp 2; a restore onto another mesh
+    exits naming both shapes."""
+    _assert_resume_exact(tmp_path, {"dp": 2, "fsdp": 2}, 4)
     for out in outs:
         msg = str(out["other_mesh_exit"])
         assert "{'dp': 2, 'fsdp': 2}" in msg and "{'dp': 1, 'fsdp': 4}" in msg
@@ -359,14 +382,31 @@ def _assert_sharded_resume_exact(tmp_path, outs):
 
 def test_generate_parallel_refuses_two_gloo_ranks(tmp_path):
     """generate_parallel's --coordinator / --num-processes / --process-id
-    over 2 gloo ranks: each rank exits 2 (its stages are every visible
-    card of one process; N processes would each run the whole job) and
-    writes nothing."""
+    over 2 gloo ranks (one stage per process is ported; this test's name
+    is kept): each rank exits 0 having run its stage's chunk, and the
+    files are those one process writes, byte for byte."""
+    from mmpl_tpu_torch import generate_parallel
     env = {"COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}",
            "NUM_PROCESSES": 2, "PROCESS_ID": "{rank}"}
     outs = _spawn(tmp_path, 2, env, ["generate_parallel"], {})
-    assert [int(o["generate_parallel_rc"]) for o in outs] == [2, 2]
-    assert not (tmp_path / "videos").exists()
+    assert [int(o["generate_parallel_rc"]) for o in outs] == [0, 0]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)            # as each rank runs
+    try:
+        assert generate_parallel.main(
+            ["--device", "cpu", "--num-chunks", "2", "--sampling-steps",
+             "1", "--output-dir", str(tmp_path / "one")]) == 0
+    finally:
+        torch.set_num_threads(n)
+    got = sorted(p.name for p in (tmp_path / "videos").iterdir())
+    want = sorted(p.name for p in (tmp_path / "one").iterdir())
+    assert got == want and len(want) == 2
+    for name in want:
+        a, b = (np.load(d / name) if name.endswith(".npy") else
+                (d / name).read_bytes()
+                for d in (tmp_path / "videos", tmp_path / "one"))
+        assert np.array_equal(a, b) if isinstance(a, np.ndarray) \
+            else a == b, name
 
 
 def test_init_distributed_argument_and_env_paths(monkeypatch):
@@ -404,6 +444,27 @@ def test_init_distributed_argument_and_env_paths(monkeypatch):
     with pytest.raises(ValueError, match="process_id"):
         tmesh.init_distributed()
     assert not calls
+
+
+def test_init_distributed_takes_a_backend(monkeypatch):
+    """MMPL_DIST_BACKEND names the process group's backend (gloo for ranks
+    that share a card, which NCCL refuses); unset, the card's NCCL or the
+    CPU's gloo."""
+    for name in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID",
+                 "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                 "MMPL_DIST_BACKEND"):
+        monkeypatch.delenv(name, raising=False)
+    calls = []
+    monkeypatch.setattr(tmesh.dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(tmesh.dist, "init_process_group",
+                        lambda backend, **kw: calls.append(backend))
+    monkeypatch.setattr(tmesh.torch.cuda, "is_available", lambda: False)
+    assert tmesh.init_distributed("h:1", 2, 0) is True
+    monkeypatch.setenv("MMPL_DIST_BACKEND", "nccl")
+    assert tmesh.init_distributed("h:1", 2, 0) is True
+    monkeypatch.setenv("MMPL_DIST_BACKEND", "mpi")
+    assert tmesh.init_distributed("h:1", 2, 0) is True
+    assert calls == ["gloo", "nccl", "mpi"]
 
 
 def test_make_mesh_needs_a_process_group():

@@ -44,14 +44,14 @@ def _case_ulysses(mesh, inp, out):
         out[f"usp_attn_d{n}"] = mesh.gather(x.grad, 1, axes).numpy()
 
 
-def _tiny_model(inp):
+def _tiny_model(inp, prefix="dit."):
     from mmpl_tpu_torch.core.config import tiny_test_config
     from mmpl_tpu_torch.models import dit
     cfg = tiny_test_config()
     cfg.num_heads = int(inp["num_heads"])
     model = dit.empty_dit(cfg, fused=False, dtype=torch.float32)
-    model.load_state_dict({k[len("dit."):]: torch.from_numpy(v)
-                           for k, v in inp.items() if k.startswith("dit.")})
+    model.load_state_dict({k[len(prefix):]: torch.from_numpy(v)
+                           for k, v in inp.items() if k.startswith(prefix)})
     return cfg, model
 
 
@@ -112,12 +112,57 @@ def _case_cli_mesh(workdir):
 
 
 def _case_generate_parallel(workdir, out):
-    """generate_parallel on a group of more than one process: refused
-    (exit 2) before any model is built."""
+    """generate_parallel on a group of 2 processes in smoke mode: a stage
+    each, 2 chunks, each process writing its own chunk's file."""
     from mmpl_tpu_torch import generate_parallel
     out["generate_parallel_rc"] = np.asarray(generate_parallel.main(
-        ["--device", "cpu", "--num-chunks", "1", "--output-dir",
-         os.path.join(workdir, "videos")]))
+        ["--device", "cpu", "--num-chunks", "2", "--sampling-steps", "1",
+         "--output-dir", os.path.join(workdir, "videos")]))
+
+
+def _draws(inp):
+    return {int(k[3:]): torch.from_numpy(v) for k, v in inp.items()
+            if k.startswith("rn_")}
+
+
+def _case_int8_mesh(inp, out):
+    """W8A8 with the int8 cache over (fsdp 2, tp 2) and (dp 2, tp 2), W8A16
+    and `auto` with the int8 cache over (dp 2, tp 2): 2-step windows.
+    Then, at (dp 2, tp 2), the unsharded window's own activations split
+    over tp: fc2's input through a row-parallel W8A8 product (the summed
+    int32 accumulators, the codes and scales, the output) and the commit's
+    K tokens through the cache's codes, each split over the heads."""
+    from mmpl_tpu_torch.ops import quant
+    from mmpl_tpu_torch.parallel.collectives import as_mesh
+    from mmpl_tpu_torch.parallel.mesh import make_mesh
+    from mmpl_tpu_torch.pipelines.fps_inference import \
+        CausalFPSInferencePipeline
+    for name, shape, mode in (
+            ("fsdp2_tp2_int8", {"dp": 1, "fsdp": 2, "tp": 2}, "int8"),
+            ("dp2_tp2_int8", {"dp": 2, "tp": 2}, "int8"),
+            ("dp2_tp2_int8wo", {"dp": 2, "tp": 2}, "int8wo"),
+            ("dp2_tp2_auto", {"dp": 2, "tp": 2}, "auto")):
+        cfg, model = _tiny_model(inp)
+        pipe = CausalFPSInferencePipeline(
+            cfg, model, sampling_steps=2, mesh=make_mesh(shape),
+            quantize=mode, quantize_cache=True, dtype=torch.float32)
+        out[f"window_{name}"] = pipe.inference(
+            torch.from_numpy(inp["noise"]), torch.from_numpy(inp["cond"]),
+            torch.from_numpy(inp["uncond"]),
+            reseed_noise=_draws(inp)).numpy()
+    mesh = as_mesh(make_mesh({"dp": 2, "tp": 2}))
+    tp, r = mesh.get_group("tp"), mesh.coordinate("tp")
+    x, w = torch.from_numpy(inp["fc2_x"]), torch.from_numpy(inp["fc2_w"])
+    codes, scale = quant.quantize_weight(w)
+    cols = lambda t: t.chunk(2, -1)[r].contiguous()
+    xq, xs = quant.quantize_rows_split(cols(x), tp)
+    acc = tp.all_reduce(quant.int8_gemm(xq, cols(codes), None, None,
+                                        torch.int32))
+    out.update(fc2_acc=acc.numpy(), fc2_xq=xq.numpy(), fc2_xs=xs.numpy(),
+               fc2_y=quant.w8a8_matmul(cols(x), cols(codes), scale,
+                                       group=tp).numpy())
+    kq, ks = quant.quantize_rows_split(cols(torch.from_numpy(inp["k"])), tp)
+    out.update(cache_codes=kq.numpy(), cache_scales=ks.numpy())
 
 
 def _full_grads(model) -> dict:
@@ -211,6 +256,138 @@ def _case_train(workdir, inp, out):
         out["other_mesh_exit"] = np.asarray(str(e))
 
 
+def _tp_grads(ranks, model) -> dict:
+    """Every parameter's whole gradient of a model sharded by `train._Ranks`
+    (FSDP shards and tp slices gathered)."""
+    return {n: g.numpy() for n, g in ranks.full(
+        {n: p.grad for n, p in model.named_parameters()
+         if p.grad is not None}).items()}
+
+
+def _tf_step(mesh_spec, inp, out, tag):
+    """The teacher-forcing loss and gradients over `mesh_spec`, each dp
+    rank on its rows, gathered whole."""
+    import torch.distributed as dist
+    from mmpl_tpu_torch import train
+    from mmpl_tpu_torch.core.geometry import T2V_CLEAN_STEPS
+    from mmpl_tpu_torch.training import diffusion as tdiff
+    from mmpl_tpu_torch.training import masks
+    base = ["--smoke", "--device", "cpu", "--batch-size",
+            str(inp["latents"].shape[0])]
+    ranks = train._Ranks(train.parse_args(base + ["--mesh", mesh_spec]))
+    cfg, model = _tiny_model(inp)
+    cfg = ranks.layer_cfg(cfg)
+    F = inp["latents"].shape[1]
+    loss_fn = tdiff.make_teacher_forcing_loss_fn(
+        cfg, tdiff.make_scheduler(8.0),
+        masks.fps_forcing_frame_mask(T2V_CLEAN_STEPS[:F]),
+        noise_aug_max_timestep=100, compute_dtype=torch.float32)
+    model = ranks.shard(model.requires_grad_(True))
+    take = lambda keys: ranks.rows({k: torch.from_numpy(inp[k])
+                                    for k in keys})
+    batch = take(("latents", "context", "uncond_context"))
+    draws = take(("idx", "noise", "idx_aug"))
+    draws["coin"] = torch.from_numpy(inp["coin"])
+    loss = model(loss_fn, batch, draws)
+    loss.backward()
+    total = loss.detach().clone()
+    dist.all_reduce(total)
+    out[f"{tag}_loss"] = (total / dist.get_world_size()).numpy()
+    out[f"{tag}_grad_norm"] = tdiff.grad_norm(model, ranks.tp_group).numpy()
+    out.update({f"{tag}_grad.{n}": g
+                for n, g in _tp_grads(ranks, model).items()})
+
+
+def _case_tp_train(workdir, inp, out):
+    """tp 2 on 2 ranks: the teacher-forcing loss and gradients, a DMD
+    generator loss and gradients with the draws of `draws.pt`, then the
+    trainer's CLI: teacher forcing and DMD for two steps saved after each,
+    the second again resumed from the first's checkpoint, and the
+    `--export-pt` of a teacher-forcing step."""
+    from mmpl_tpu_torch import train
+    from mmpl_tpu_torch.training import diffusion as tdiff
+    from mmpl_tpu_torch.training import distillation as td
+    from mmpl_tpu_torch.training.self_forcing import SelfForcingRollout
+    _tf_step("tp=2", inp, out, "tf")
+    # the DMD generator loss as tests/test_torch_distillation.py builds it
+    ranks = train._Ranks(train.parse_args(["--smoke", "--device", "cpu",
+                                           "--mesh", "tp=2"]))
+    models = {k: _tiny_model(inp, f"{k}.")[1]
+              for k in ("generator", "fake_score", "real_score")}
+    cfg = ranks.layer_cfg(_tiny_model(inp)[0])
+    models = {k: ranks.shard(m) for k, m in models.items()}
+    sch = tdiff.make_scheduler(5.0)
+    dist_ = td.Distiller(cfg, td.DistillationConfig(
+        timestep_shift=5.0, real_guidance_scale=3.0),
+        SelfForcingRollout(cfg, sch, (1000, 750, 500, 250)), sch)
+    models["generator"].requires_grad_(True)
+    saved = torch.load(os.path.join(workdir, "draws.pt"), weights_only=False)
+    batch = {k: torch.from_numpy(inp[f"dmd_{k}"])
+             for k in ("noise", "context", "uncond_context")}
+    batch["ctx_kv"] = train._context_kv(models["generator"], cfg,
+                                        batch["context"])
+    loss, _ = dist_.dmd_generator_loss(models, batch, saved)
+    loss.backward()
+    out["dmd_loss"] = loss.detach().numpy()
+    out.update({f"dmd_grad.{n}": g
+                for n, g in _tp_grads(ranks, models["generator"]).items()})
+
+    base = ["--smoke", "--device", "cpu", "--batch-size", "1",
+            "--num-frames", "6", "--dfake-gen-update-ratio", "1",
+            "--mesh", "tp=2", "--log-dir", os.path.join(workdir, "runs")]
+    for objective in ("teacher_forcing", "dmd"):
+        ckpt = lambda run: os.path.join(workdir, "ckpt", f"{objective}_{run}")
+        argv = base + ["--objective", objective, "--steps", "2",
+                       "--ckpt-every", "1"]
+        assert train.main(argv + ["--run-name", f"{objective}_unbroken",
+                                  "--ckpt-dir", ckpt("unbroken")]) == 0
+        assert train.main(argv + ["--run-name", f"{objective}_resumed",
+                                  "--ckpt-dir", ckpt("resumed"), "--resume",
+                                  os.path.join(ckpt("unbroken"), "step1")
+                                  ]) == 0
+    assert train.main(base + ["--steps", "0", "--run-name", "export",
+                              "--export-pt",
+                              os.path.join(workdir, "tp2.pt")]) == 0
+
+
+def _case_tp_mix_train(inp, out):
+    """The teacher-forcing loss and gradients over dp 2 x tp 2 and over
+    fsdp 2 x tp 2 (4 ranks)."""
+    _tf_step("dp=2,tp=2", inp, out, "dp2_tp2")
+    _tf_step("fsdp=2,tp=2", inp, out, "fsdp2_tp2")
+
+
+def _case_stages(workdir, inp, out, tp):
+    """`ChunkParallelPipeline(stage_meshes=...)`: 2 stages of the world's
+    ranks (tp within a stage where each has 2), 3 chunks with the reseed
+    draws of `draws.pt`; this process's chunks and its log."""
+    import torch.distributed as dist
+    from mmpl_tpu_torch.models import vae
+    from mmpl_tpu_torch.parallel.chunk_pipeline import ChunkParallelPipeline
+    from mmpl_tpu_torch.parallel.mesh import make_stage_meshes
+    cfg, model = _tiny_model(inp)
+    vm = vae.empty_vae(torch.float32)
+    vm.load_state_dict({k[len("vae."):]: torch.from_numpy(v)
+                        for k, v in inp.items() if k.startswith("vae.")})
+    meshes = make_stage_meshes(2, {"tp": tp})
+    pipe = ChunkParallelPipeline(cfg, model, vm, stage_meshes=meshes,
+                                 sampling_steps=2, dtype=torch.float32)
+    noises = [torch.from_numpy(inp[f"noise{i}"]) for i in range(3)]
+    chunks = pipe.generate(noises, torch.from_numpy(inp["cond"]),
+                           torch.from_numpy(inp["uncond"]),
+                           reseed_noise=torch.load(
+                               os.path.join(workdir, "draws.pt"),
+                               weights_only=False))
+    out[f"stages_tp{tp}_own"] = np.asarray(
+        [i for i, c in enumerate(chunks) if c is not None])
+    for i, c in enumerate(chunks):
+        if c is not None:
+            out[f"stages_tp{tp}_chunk{i}"] = c.numpy()
+    out[f"stages_tp{tp}_log"] = np.asarray(
+        [(e["chunk"], e["stage"]) for e in pipe.dispatch_log])
+    out[f"stages_tp{tp}_rank"] = np.asarray(dist.get_rank())
+
+
 def _case_meshes(out):
     """make_mesh's default fold and make_stage_meshes' split."""
     from mmpl_tpu_torch.parallel.mesh import make_mesh, make_stage_meshes
@@ -252,6 +429,16 @@ def run(rank: int, world: int, workdir: str, env: dict, cases: list):
                 _case_meshes(out)
             elif case == "generate_parallel":
                 _case_generate_parallel(workdir, out)
+            elif case == "int8_mesh":
+                _case_int8_mesh(inp, out)
+            elif case == "tp_train":
+                _case_tp_train(workdir, inp, out)
+            elif case == "tp_mix_train":
+                _case_tp_mix_train(inp, out)
+            elif case == "stages_tp1":
+                _case_stages(workdir, inp, out, 1)
+            elif case == "stages_tp2":
+                _case_stages(workdir, inp, out, 2)
         np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
         dist.destroy_process_group()
     except BaseException:

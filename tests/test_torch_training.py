@@ -266,7 +266,8 @@ def test_train_cli_smoke_run_logs_finite_losses(tmp_path):
     # sharded checkpoints are ported (this case's id kept): they parse
     pytest.param(["--mesh", "dp=2", "--ckpt-dir", "x"], None,
                  id="argv14-sharded checkpoints"),
-    (["--mesh", "tp=2"], "Queue 1"),
+    # tp in training is ported (this case's id kept): it parses
+    pytest.param(["--mesh", "tp=2"], None, id="argv15-Queue 1"),
     (["--objective", "dmd", "--data-dir", "x"], "read no data"),
 ])
 def test_refused_flags_name_their_slice(argv, slice_name, capsys):
