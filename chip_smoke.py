@@ -119,7 +119,16 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      one DMD critic and one generator step at DISTILL_LAYERS depth
      (configs/self_forcing_dmd.yaml's steps; the drawn exit flag printed
      and the launches checked against it; peak memory; distill_profile, a
-     generator step under torch.profiler); distill_other,
+     generator step under torch.profiler); offload, on distill_dmd's
+     bundle: a DMD critic and generator step with `--offload-opt
+     --remat-offload`'s pieces (HostAdamW, the host EMA, block inputs on
+     the host), the same steps resident from the same state, bit for bit
+     (losses, parameters, moments, EMA), the two offloaded steps again
+     warm, each step's peak and seconds; the pinned copy rates and one
+     offloaded 1.3B AdamW update; `offload_params` / `restore_params` of
+     the DiT; one 1.3B teacher-forcing step resident and with
+     `remat_offload`, bit for bit, K4-K6 exact; both flags through `train
+     --smoke`; distill_other,
      SiD, GAN (critic with R1 / R2, generator; K1-K3 at one query row over
      32760 keys), CausVid and ODE at 2 layers; distill_rolling, 27 frames
      through the 21-slot ring at 2 layers; train_distill_cli, the trainer
@@ -3059,10 +3068,13 @@ def phase_distill_dmd():
     warped steps, shift 5.0, guidance 3.0), AdamW.  The exit flag is
     drawn once for all blocks (same_step_across_blocks), so the launches
     are checked against the flag's formula.  distill_profile: a generator
-    step of the same bundle cut to PROFILE_LAYERS, under the profiler."""
+    step of the same bundle cut to PROFILE_LAYERS, under the profiler.
+    Returns the launches and the full-depth bundle, which the offload
+    phase goes on with."""
     from mmpl_tpu_torch.training.distillation import (DistillationConfig,
                                                       Distiller)
-    cfg, models, ro, sch, dcfg, batch, gen = _distill_setup(DISTILL_LAYERS)
+    bundle = _distill_setup(DISTILL_LAYERS)
+    cfg, models, ro, sch, dcfg, batch, gen = bundle
     dist = Distiller(cfg, DistillationConfig(**dcfg), ro, sch)
     L, nb = cfg.num_layers, DISTILL_BLOCKS
     n_params = sum(p.numel() for m in models.values()
@@ -3097,13 +3109,15 @@ def phase_distill_dmd():
                        for m in models.values() for p in m.parameters())
     # the profile at PROFILE_LAYERS: a session over the ~70,000 launches of
     # a 30-layer generator step took 120-141 s of the run on the H100
-    del models, dist, ro, batch
+    del dist
     torch.cuda.empty_cache()
-    cfg, models, ro, sch, dcfg, batch, gen = _distill_setup(PROFILE_LAYERS)
-    dist = Distiller(cfg, DistillationConfig(**dcfg), ro, sch)
+    pcfg, pmodels, pro, psch, pdcfg, pbatch, pgen = _distill_setup(
+        PROFILE_LAYERS)
+    pdist = Distiller(pcfg, DistillationConfig(**pdcfg), pro, psch)
     phase_train_profile(
-        lambda: _distill_step(models, ("generator",),
-                              dist.dmd_generator_loss, batch, ro, gen, nb),
+        lambda: _distill_step(pmodels, ("generator",),
+                              pdist.dmd_generator_loss, pbatch, pro, pgen,
+                              nb),
         phase="distill_profile",
         what=f"one DMD generator step, 1.3B width, {PROFILE_LAYERS} "
              f"layers, bf16 over fp32 masters",
@@ -3114,6 +3128,418 @@ def phase_distill_dmd():
                                           for r in out),
           "params_finite_after": grads_finite, "launches": total})
     check(grads_finite, "non-finite parameters after the DMD steps")
+    return total, bundle
+
+
+#: the offload phase's bandwidth probe: bytes copied each way
+OFFLOAD_PROBE_BYTES = 1 << 30
+
+
+def _meminfo() -> dict:
+    """The host's MemTotal and MemAvailable in bytes (/proc/meminfo)."""
+    out = {}
+    with open("/proc/meminfo", encoding="ascii") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(value.split()[0]) * 1024
+    return out
+
+
+def _clones(named: dict) -> dict:
+    """Copies of {name: tensor} where they lie, and their GiB: the offload
+    phase keeps its comparison copies on the card (host copies of 11 GB
+    cost seconds of page faults) and takes their bytes off the peaks."""
+    out = {n: t.detach().clone() for n, t in named.items()}
+    return out, sum(t.nbytes for t in out.values()) / 2**30
+
+
+def _put_back(module, saved: dict) -> None:
+    with torch.no_grad():
+        for n, p in module.named_parameters():
+            p.copy_(saved[n])
+
+
+def _bits(got: dict, want: dict) -> dict:
+    """How many of `got`'s tensors differ from `want`'s (moved to got's
+    device one at a time) in any bit, and the largest difference."""
+    differ, worst = 0, 0.0
+    for n, a in got.items():
+        b = want[n].to(a.device)
+        if not torch.equal(a, b):
+            differ += 1
+            worst = max(worst, (a.double() - b.double()).abs().max().item())
+    return {"tensors": len(got), "differ": differ, "max_abs": worst}
+
+
+def _host_peak() -> int:
+    """Peak bytes of torch's pinned host allocator, which holds the
+    recomputed blocks' inputs (not the moments or the shadow, which
+    `pin_in_place` pins); 0 where torch keeps no such statistics."""
+    stats = getattr(torch.cuda, "host_memory_stats", lambda: {})()
+    return int(stats.get("allocated_bytes.all.peak",
+                         stats.get("allocated_bytes.peak", 0)))
+
+
+def _copy_rates(nbytes: int = OFFLOAD_PROBE_BYTES) -> dict:
+    """GB/s of pinned copies on this card: to the card, to the host, and
+    both at once on two streams (each way's rate), by CUDA events; and of
+    making pinned host state (`memory.host_flat_like`: fresh zeroed pages,
+    then locked; host clock)."""
+    from mmpl_tpu_torch.utils import memory
+    like = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    t0 = time.perf_counter()
+    fresh = memory.host_flat_like([like])
+    pin_gb_s = nbytes / (time.perf_counter() - t0) / 1e9
+    del fresh, like
+    host = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            for _ in range(2)]
+    dev = [torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+           for _ in range(2)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+
+    def timed(jobs):
+        best = math.inf
+        for _ in range(3):
+            torch.cuda.synchronize()
+            marks = []
+            for stream, job in zip(streams, jobs):
+                a, b = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                with torch.cuda.stream(stream):
+                    a.record()
+                    job()
+                    b.record()
+                marks.append((a, b))
+            torch.cuda.synchronize()
+            best = min(best, max(a.elapsed_time(b) for a, b in marks))
+        return nbytes / (best / 1e3) / 1e9
+
+    h2d = lambda: dev[0].copy_(host[0], non_blocking=True)
+    d2h = lambda: host[1].copy_(dev[1], non_blocking=True)
+    out = {"bytes": nbytes, "pin_gb_s": pin_gb_s, "h2d_gb_s": timed([h2d]),
+           "d2h_gb_s": timed([d2h]), "duplex_gb_s_each_way": timed([h2d, d2h])}
+    del host, dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def _offload_dmd(bundle) -> tuple:
+    """(b) of `phase_offload`: a critic and a generator step of the DMD
+    bundle offloaded (`--offload-opt --remat-offload`: HostAdamW for both
+    optimizers, the generator's EMA on the host, every recomputed block's
+    input on the host), then the same two steps resident from the same
+    state and draws, with both optimizers and the EMA alive across the
+    steps as in the trainer, then two more offloaded steps on the same
+    draws (warm: the host state made and pinned, the allocators' caches
+    filled).  Returns
+    (rows, comparison, offloaded optimizers, launches)."""
+    from mmpl_tpu_torch import train
+    from mmpl_tpu_torch.training.distillation import (DistillationConfig,
+                                                      Distiller)
+    from mmpl_tpu_torch.utils.ema import EmaParams
+    cfg, models, ro, sch, dcfg, batch, gen = bundle
+    L, nb = cfg.num_layers, DISTILL_BLOCKS
+    trained = {"critic": "fake_score", "generator": "generator"}
+    start = {k: _clones(dict(models[k].named_parameters()))[0]
+             for k in trained.values()}
+    # the GiB of copies a run holds on the card beside its own tensors
+    held = sum(t.nbytes for st in start.values() for t in st.values()) / 2**30
+    gen_state = gen.get_state()
+    rows, total = [], {}
+
+    def two_steps(mode, opts, ema):
+        """The critic's and the generator's step; their losses and
+        launches by role."""
+        nonlocal total
+        off = mode != "resident"
+        ro.remat_offload = off
+        dist = Distiller(cfg, DistillationConfig(**dcfg, remat_offload=off),
+                         ro, sch)
+        out = {}
+        for role, fn in (("critic", dist.critic_loss),
+                         ("generator", dist.dmd_generator_loss)):
+            def run(role=role, fn=fn):
+                flags = ro.sample_exit_flags(gen, nb, device=gen.device)
+                loss = train.train_step(
+                    models, (trained[role],), fn, opts[role], batch,
+                    {"generator": gen, "exit_flags": flags})
+                if role == "generator":
+                    ema.update(models["generator"])
+                return loss.item(), ro.block_flags(flags, nb)
+
+            (loss, flags), seconds, counts, peak = _run_counted(run)
+            if role == "critic":
+                fwd, bwd = _rollout_k123(flags, L, 0)
+                expected = _k123(fwd + 2 * 2 * L, 2 * L)
+            else:
+                fwd, bwd = _rollout_k123(flags, L, nb)
+                expected = _k123(fwd + 3 * 2 * L, bwd)
+            row = {"phase": "offload_dmd", "run": mode, "step": role,
+                   "layers": L, "flag": flags[0], "seconds": seconds,
+                   "loss": loss, "launches": counts,
+                   "expected_launches": expected,
+                   "max_memory_allocated_gib": peak - held,
+                   "held_copies_gib": held,
+                   "pinned_state_bytes": (
+                       opts[role].host_bytes if off else 0)
+                   + (ema.host_bytes if role == "generator" else 0),
+                   "pinned_allocator_peak_bytes": _host_peak()}
+            emit(row)
+            check(counts == expected, row)
+            check(math.isfinite(loss), row)
+            rows.append(row)
+            out[role] = (loss, counts)
+            total = {k: total.get(k, 0) + counts[k] for k in counts}
+        return out
+
+    def make(off):
+        opts = {role: train.adamw(models[k].parameters(), 1e-5,
+                                  train.OPTAX_WEIGHT_DECAY, offload=off)
+                for role, k in trained.items()}
+        return opts, EmaParams(models["generator"], decay=0.999, offload=off)
+
+    off_opts, off_ema = make(True)
+    off_loss = two_steps("offload", off_opts, off_ema)
+    done = {k: _clones(dict(models[k].named_parameters()))[0]
+            for k in trained.values()}
+    for k in trained.values():
+        _put_back(models[k], start.pop(k))
+    gen.set_state(gen_state)
+    res_opts, res_ema = make(False)
+    res_loss = two_steps("resident", res_opts, res_ema)
+    cmp = {"losses_equal": all(off_loss[r][0] == res_loss[r][0]
+                               for r in trained),
+           "launches_equal": all(off_loss[r][1] == res_loss[r][1]
+                                 for r in trained),
+           "ema": _bits(res_ema.shadow, off_ema.shadow)}
+    for role, k in trained.items():
+        cmp[f"{k}_params"] = _bits(dict(models[k].named_parameters()),
+                                   done[k])
+        stepped = [(n, p) for n, p in models[k].named_parameters()
+                   if p in res_opts[role].state]
+        for m in ("exp_avg", "exp_avg_sq"):
+            cmp[f"{k}_{m}"] = _bits(
+                {n: res_opts[role].state[p][m] for n, p in stepped},
+                {n: off_opts[role].state[p][m] for n, p in stepped})
+    cmp["moments_pinned_on_host"] = all(
+        st[m].device.type == "cpu" and st[m].is_pinned()
+        for o in off_opts.values() for st in o.state.values()
+        for m in ("exp_avg", "exp_avg_sq"))
+    cmp["ema_pinned_on_host"] = all(s.device.type == "cpu" and s.is_pinned()
+                                    for s in off_ema.shadow.values())
+    del res_opts, res_ema, done
+    torch.cuda.empty_cache()
+    held = 0.0
+    # the first steps' draws again: the same exit flags, so the seconds
+    # compare with both runs' at the same rollout length
+    gen.set_state(gen_state)
+    two_steps("offload_warm", off_opts, off_ema)
+    ro.remat_offload = False
+    return rows, cmp, off_opts, total
+
+
+def phase_offload(bundle) -> dict:
+    """Host offload at the 1.3B width: `--offload-opt` and
+    `--remat-offload` (`utils/memory.py`) against the resident paths.
+
+    (b) offload_dmd: on distill_dmd's full-depth bundle (bf16 over fp32
+    masters, 21 frames at 60x104), a critic and a generator step with
+    both optimizers' moments and the EMA in pinned host memory and every
+    recomputed block's input there too, then the same steps resident
+    (`_offload_dmd`): losses, updated parameters, moments and EMA bit for
+    bit, exact and equal K1-K3 launches, each step's peak, seconds and
+    pinned bytes; then the offloaded steps again, warm (the first pinned
+    the host state).  The host's MemTotal / MemAvailable are printed; where
+    the host cannot hold what this needs, (b) runs on a bundle cut to
+    fewer layers and says so.  (c) offload_adamw: one more offloaded
+    AdamW update of the generator alone against this card's pinned copy
+    rates, measured here.  (d) offload_params: `offload_params` /
+    `restore_params` of the generator, bit for bit.  (a) offload_tf:
+    one teacher-forcing step of the 1.3B model at full depth resident and
+    one with `remat_offload` from the same state and draws: loss,
+    gradients and updated parameters bit for bit (or at train_parity's
+    tolerances, saying so), K4-K6 exact and equal, each step's peak.
+    Then both flags through `train.main --smoke`: the losses of a plain
+    and an offloaded 2-step DMD run equal.  Returns the launches of (a)
+    and (b)."""
+    from mmpl_tpu_torch import train
+    from mmpl_tpu_torch.training.diffusion import (
+        DiffusionTrainer, draw_teacher_forcing, make_teacher_forcing_loss_fn)
+    from mmpl_tpu_torch.utils import memory
+    t_start = time.perf_counter()
+    mem = _meminfo()
+    cfg = bundle[0]
+    tree = sum(p.numel() for p in bundle[1]["generator"].parameters()) * 4
+    # the host holds the two trained models' start and offloaded results,
+    # four moment trees and the shadow, and the recomputed blocks' inputs
+    need = 10 * tree
+    layers = cfg.num_layers
+    if mem["MemAvailable"] < 1.2 * need:
+        layers = max(2, int(layers * mem["MemAvailable"] / (1.2 * need)))
+        del bundle
+        torch.cuda.empty_cache()
+        bundle = _distill_setup(layers)
+    emit({"phase": "offload_host", "mem_total_bytes": mem["MemTotal"],
+          "mem_available_bytes": mem["MemAvailable"],
+          "host_bytes_needed": need, "dmd_layers": layers,
+          "cut": layers != cfg.num_layers})
+    rows, cmp, off_opts, total = _offload_dmd(bundle)
+    emit({"phase": "offload_dmd_parity", **cmp})
+    check(cmp["losses_equal"] and cmp["launches_equal"], cmp)
+    check(all(v["differ"] == 0 for v in cmp.values()
+              if isinstance(v, dict)), cmp)
+    check(cmp["moments_pinned_on_host"] and cmp["ema_pinned_on_host"], cmp)
+    by = {(r["run"], r["step"]): r for r in rows}
+    emit({"phase": "offload_dmd_peaks", **{
+        f"{run}_{step}_gib": r["max_memory_allocated_gib"]
+        for (run, step), r in by.items()},
+        "saved_gib": {f"{run}_{step}":
+                      by["resident", step]["max_memory_allocated_gib"]
+                      - by[run, step]["max_memory_allocated_gib"]
+                      for run in ("offload", "offload_warm")
+                      for step in ("critic", "generator")},
+        "offloaded_trees_gib": 5 * tree / 2**30})
+
+    # (c) one offloaded update of the generator alone, on the gradients of
+    # the warm generator step
+    models = bundle[1]
+    rates = _copy_rates()
+    opt = off_opts["generator"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.step()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    each_way = opt.host_bytes
+    row = {"phase": "offload_adamw", "seconds": seconds,
+           "bytes_each_way": each_way, "params": len(opt.state),
+           "ring_bytes_on_card": opt.streamer.bytes_on_device, **rates,
+           "bound_s": each_way / (rates["duplex_gb_s_each_way"] * 1e9)}
+    row["bound_share"] = row["bound_s"] / seconds
+    emit(row)
+    check(math.isfinite(seconds), row)
+    del off_opts, opt
+
+    # (d) the generator's round trip through pinned host memory
+    g = models["generator"]
+    ref = {n: t.clone() for n, t in g.state_dict().items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    memory.offload_params(g)
+    off_s = time.perf_counter() - t0
+    on_host = all(p.device.type == "cpu" and p.is_pinned()
+                  for p in g.parameters())
+    hbm_parked = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    memory.restore_params(g)
+    torch.cuda.synchronize()
+    back_s = time.perf_counter() - t0
+    exact = all(torch.equal(ref[n], t) for n, t in g.state_dict().items())
+    row = {"phase": "offload_params", "bytes": tree, "offload_s": off_s,
+           "restore_s": back_s, "pinned": on_host,
+           "allocated_gib_while_parked": hbm_parked,
+           "allocated_gib_after": torch.cuda.memory_allocated() / 2**30,
+           "bit_for_bit": exact}
+    emit(row)
+    check(on_host and exact, row)
+    # the bundle's models and batch go here, whoever else holds the bundle
+    bundle[1].clear()
+    bundle[5].clear()
+    del ref, g, models, bundle
+    torch.cuda.empty_cache()
+
+    # (a) teacher forcing at full depth, resident and with remat_offload
+    cfg = WAN_CONFIGS["t2v-1.3B"]
+    dev = torch.device("cuda")
+    model, sch, fm, batch, _ = _tf_setup(cfg, dev, torch.float32, 21,
+                                         (60, 104))
+    draws = draw_teacher_forcing(torch.Generator(device=dev).manual_seed(3),
+                                 batch["latents"].shape, 3,
+                                 len(sch.timesteps), 100, dev)
+    start, held = _clones(dict(model.named_parameters()))
+    out = {}
+    for off in (False, True):
+        if off:
+            _put_back(model, start)
+            # the resident run's gradients and parameters stay held
+            held = sum(t.nbytes for k in ("grads", "params")
+                       for t in out[False][k].values()) / 2**30
+            start = None
+        loss_fn = make_teacher_forcing_loss_fn(
+            cfg, sch, fm, num_frame_per_block=3, noise_aug_max_timestep=100,
+            remat_offload=off)
+        trainer = DiffusionTrainer(model, loss_fn, learning_rate=1e-5)
+        # the peak through the backward pass, read as AdamW starts: its
+        # moments are made in this first step, after the boundaries are gone
+        adamw_step, before_adamw = trainer.opt.step, []
+
+        def step_after_backward(*a, **kw):
+            before_adamw.append(torch.cuda.max_memory_allocated() / 2**30)
+            return adamw_step(*a, **kw)
+
+        trainer.opt.step = step_after_backward
+        loss, seconds, counts, peak = _run_counted(
+            lambda: trainer.train_step(batch, draws).item())
+        expected = _train_launches(cfg.num_layers, 1)
+        row = {"phase": "offload_tf", "remat_offload": off,
+               "layers": cfg.num_layers, "seconds": seconds, "loss": loss,
+               "launches": counts, "expected_launches": expected,
+               "max_memory_allocated_gib": peak - held,
+               "backward_peak_gib": before_adamw[0] - held,
+               "held_copies_gib": held}
+        emit(row)
+        check(counts == expected, row)
+        check(math.isfinite(loss), row)
+        out[off] = {"loss": loss, "peak": row["backward_peak_gib"],
+                    "launches": counts,
+                    "grads": {n: p.grad for n, p in model.named_parameters()},
+                    "params": dict(model.named_parameters())}
+        total = {k: total.get(k, 0) + counts[k] for k in counts}
+        if not off:
+            out[off]["grads"] = _clones(out[off]["grads"])[0]
+            out[off]["params"] = _clones(out[off]["params"])[0]
+        del trainer
+    grads = _bits(out[True]["grads"], out[False]["grads"])
+    params = _bits(out[True]["params"], out[False]["params"])
+    loss_rel = abs(out[True]["loss"] - out[False]["loss"]) / abs(
+        out[False]["loss"])
+    scale = max(t.abs().max().item() for t in out[False]["grads"].values())
+    row = {"phase": "offload_tf_parity", "loss_equal":
+           out[True]["loss"] == out[False]["loss"], "loss_rel_err": loss_rel,
+           "grads": grads, "params": params, "grad_scale": scale,
+           "launches_equal": out[True]["launches"] == out[False]["launches"],
+           "backward_peak_gib": {"resident": out[False]["peak"],
+                                 "remat_offload": out[True]["peak"]},
+           "boundaries_gib": cfg.num_layers * 2 * 21 * 60 * 104 // 4
+           * cfg.dim * 2 / 2**30}
+    row["bit_for_bit"] = (row["loss_equal"] and grads["differ"] == 0
+                          and params["differ"] == 0)
+    emit(row)
+    check(row["launches_equal"], row)
+    if not row["bit_for_bit"]:
+        # train_parity's tolerances
+        check(loss_rel <= 1e-5 and grads["max_abs"] <= 1e-4, row)
+    del out, start, model, batch, draws
+    torch.cuda.empty_cache()
+
+    # both flags through the entry point, in smoke mode
+    smoke = ["--smoke", "--objective", "dmd", "--steps", "2", "--device",
+             "cuda", "--dfake-gen-update-ratio", "1"]
+    runs = {}
+    for run, extra in (("offload_cli_plain", []),
+                       ("offload_cli", ["--offload-opt",
+                                        "--remat-offload"])):
+        shutil.rmtree(os.path.join(OUT_DIR, run), ignore_errors=True)
+        rc, secs, _, _, recs = _cli_run(OUT_DIR, run, smoke + extra)
+        runs[run] = [(r["critic_loss"], r["gen_loss"]) for r in recs
+                     if "critic_loss" in r]
+        check(rc == 0, (run, rc))
+    row = {"phase": "offload_cli", "losses": runs,
+           "equal": runs["offload_cli"] == runs["offload_cli_plain"],
+           "seconds": time.perf_counter() - t_start}
+    emit(row)
+    check(row["equal"] and len(runs["offload_cli"]) == 2, row)
     return total
 
 
@@ -5214,7 +5640,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     bwd_paths["train_flow"], _ = phase_train_flow()
     torch.cuda.empty_cache()
-    bwd_paths["distill_dmd"] = phase_distill_dmd()
+    bwd_paths["distill_dmd"], bundle = phase_distill_dmd()
+    torch.cuda.empty_cache()
+    # host offload: DMD on distill_dmd's bundle, then teacher forcing
+    bwd_paths["offload"] = phase_offload(bundle)
+    del bundle
     torch.cuda.empty_cache()
     bwd_paths["distill_other"] = phase_distill_other()
     torch.cuda.empty_cache()
@@ -5246,7 +5676,8 @@ def main() -> int:
     # the masked kernels' rows count training steps: train --mesh's and
     # the data path's too
     train_counts = {k: v + (sum(bwd_paths[p][k] for p in (
-        "mesh", "train_data", "train_data_resume", "mesh_tp_train"))
+        "mesh", "train_data", "train_data_resume", "mesh_tp_train",
+        "offload"))
         if "masked" in k else 0) for k, v in train_counts.items()}
     emit(kernels_line(smi, rows, bwd, masked, int8, window_launches,
                       int8_launches, train_counts, exp2, exp2_launches,

@@ -19,7 +19,8 @@ plain functions over those modules, as in the JAX package:
 Parameters do not require gradients unless a trainer turns them on
 (`training/diffusion.py`).  `call_with` runs a layer function over a cast
 copy of a module's parameters (the trainer's bf16 trunk over fp32
-masters), and `remat` recomputes a block in the backward pass.
+masters), and `remat` recomputes a block in the backward pass, keeping
+its input on the card or, with `offload`, in pinned host memory.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ..ops.attention import attention
 from ..ops.quant import QuantLinear
 from ..ops.rope import (apply_rope, apply_rope_split, split_rope_permutation,
                         window_rope_table)
+from ..utils.memory import HostBoundaries
 
 
 class Affine(nn.Module):
@@ -200,13 +202,25 @@ def cast_params(module: nn.Module, dtype: torch.dtype
             for n, p in module.named_parameters()}
 
 
-def remat(fn: Callable[[torch.Tensor], torch.Tensor],
-          x: torch.Tensor) -> torch.Tensor:
+def remat(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+          offload: Optional[HostBoundaries] = None) -> torch.Tensor:
     """fn(x) whose activations are recomputed in the backward pass instead
-    of kept (per-block rematerialisation, the role of `remat_layer`
-    without `offload`); fn must read what it closes over identically when
-    it is run again."""
-    return checkpoint(fn, x, use_reentrant=False)
+    of kept (per-block rematerialisation, the role of `remat_layer`); fn
+    must read what it closes over identically when it is run again.  The
+    only tensor kept is x.  offload: the forward's `HostBoundaries` (one
+    shared by its blocks), under which x is kept as a pinned host copy and
+    fetched back one block ahead of its recomputation (`remat_layer(fn,
+    offload=True)`); the values are unchanged."""
+    if offload is None:
+        return checkpoint(fn, x, use_reentrant=False)
+    with offload:
+        return checkpoint(fn, x, use_reentrant=False)
+
+
+def boundaries(remat: bool, offload: bool) -> Optional[HostBoundaries]:
+    """A forward's `HostBoundaries` where it rematerialises its blocks
+    with their inputs offloaded (`remat_offload`), else None."""
+    return HostBoundaries() if remat and offload else None
 
 
 #: `remat` under another name, for the functions whose flag is `remat`
@@ -761,7 +775,8 @@ def dit_forward(model: WanDiT, cfg, latents: torch.Tensor, t: torch.Tensor,
                 clip_fea: Optional[torch.Tensor] = None,
                 y: Optional[torch.Tensor] = None,
                 remat: bool = False,
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                compute_dtype: Optional[torch.dtype] = None,
+                remat_offload: bool = False) -> torch.Tensor:
     """The bidirectional Wan DiT: latents [B, F, C, H, W], t [B] or
     [B, F], context [B, T, text_dim] -> flow [B, F, C_out, H, W].  Every
     token attends every token of the window; RoPE runs at frames 0..F-1.
@@ -769,22 +784,24 @@ def dit_forward(model: WanDiT, cfg, latents: torch.Tensor, t: torch.Tensor,
     cross-attention), `y` [B, F, C', H, W] concatenated to the latents
     along channels before the patch embedding.  remat=True recomputes
     each block in the backward pass (the score models and the flow
-    objective, which train through this forward); it changes no value.
+    objective, which train through this forward); it changes no value,
+    nor does remat_offload, which keeps each recomputed block's input in
+    pinned host memory (`remat(offload=...)`).
     compute_dtype: the parameters are read cast to it (the bf16 trunk over
     fp32 masters, grads flowing back through the cast): the embeddings and
     the head here, each block's inside its own (recomputed) step, so that
     the recomputation reads the same cast values."""
     if compute_dtype is None:
         return _dit_forward(model, cfg, latents, t, context, clip_fea, y,
-                            remat, None)
+                            remat, None, remat_offload)
     outer = {n: p.to(compute_dtype) for n, p in model.named_parameters()
              if not n.startswith("blocks.")}
     return call_with(model, outer, _dit_forward, cfg, latents, t, context,
-                     clip_fea, y, remat, compute_dtype)
+                     clip_fea, y, remat, compute_dtype, remat_offload)
 
 
 def _dit_forward(model, cfg, latents, t, context, clip_fea, y, remat,
-                 block_dtype):
+                 block_dtype, remat_offload):
     if y is not None:
         latents = torch.cat([latents, y.to(latents.dtype)], dim=2)
     B, Fr, C, H, W = latents.shape
@@ -812,9 +829,10 @@ def _dit_forward(model, cfg, latents, t, context, clip_fea, y, remat,
                           tp_group)
         return block_forward(blk, cfg, x, e0, self_attn_fn, ckv, Fr)
 
+    offload = boundaries(remat, remat_offload)
     for blk, ckv in zip(model.blocks, ctx_kv):
         step = lambda x, blk=blk, ckv=ckv: run_block(
             blk, lambda b, x: block_fn(x, b, ckv), x, dtype=block_dtype)
-        x = _remat(step, x) if remat else step(x)
+        x = _remat(step, x, offload) if remat else step(x)
     x = head_forward(model.head, cfg, x, e, Fr)
     return unpatchify(x, Fr, grid, cfg.patch_size, cfg.out_dim)

@@ -29,7 +29,7 @@ from ..core.geometry import GroupSchedule, KV_CACHE_SLOTS
 from ..ops.attention import attention, frame_masked_attention, mask_tiles
 from ..ops.quant import quantize_rows, quantize_rows_split
 from ..ops.rope import rope_table
-from .dit import (WanDiT, block_forward, call_with, embed_text,
+from .dit import (WanDiT, block_forward, boundaries, call_with, embed_text,
                   head_forward, linear, local_heads, patchify,
                   precompute_context_kv, qkv_project, run_block,
                   sharding_of, time_embed, unpatchify)
@@ -96,7 +96,8 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
                       = None,
                       y: Optional[torch.Tensor] = None,
                       remat: bool = False,
-                      inplace: bool = True) -> torch.Tensor:
+                      inplace: bool = True,
+                      remat_offload: bool = False) -> torch.Tensor:
     """One forward of the group's frames through the whole trunk.
 
     latents [B, G, C, H, W] (frames ascending as `schedule.frames`);
@@ -121,7 +122,9 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
 
     remat=True recomputes each layer in the backward pass (`dit.remat`);
     the layers read the cache tensors bound at entry, so a later
-    functional write does not change what the recomputation reads.
+    functional write does not change what the recomputation reads.  With
+    remat, remat_offload keeps each layer's input in pinned host memory
+    until its recomputation (`dit.remat(offload=...)`).
     """
     if y is not None:
         latents = torch.cat([latents, y.to(latents.dtype)], dim=2)
@@ -174,11 +177,12 @@ def fps_forward_group(model: WanDiT, cfg, latents: torch.Tensor,
         return (x, *own_kv) if write else x
 
     own_k, own_v = [], []
+    offload = boundaries(remat, remat_offload)
     for li, blk in enumerate(model.blocks):
         step = lambda x, blk=blk, li=li: run_block(
             blk, lambda b, x: layer(x, b, ctx_kv[li], li), x,
             unshard=sh.unshard)
-        out = remat_layer(step, x) if remat else step(x)
+        out = remat_layer(step, x, offload) if remat else step(x)
         if write:
             x, k, v = out
             own_k.append(k)
@@ -212,8 +216,8 @@ def fps_forward_train(model: WanDiT, cfg, noisy: torch.Tensor,
                       t: torch.Tensor, context: torch.Tensor, frame_mask,
                       clean_x: Optional[torch.Tensor] = None,
                       aug_t: Optional[torch.Tensor] = None,
-                      compute_dtype: Optional[torch.dtype] = None
-                      ) -> torch.Tensor:
+                      compute_dtype: Optional[torch.dtype] = None,
+                      remat_offload: bool = False) -> torch.Tensor:
     """Training forward with teacher forcing (no KV cache).
 
     noisy [B, F, C, H, W]; t / aug_t [B, F]; context [B, T, text_dim];
@@ -227,7 +231,9 @@ def fps_forward_train(model: WanDiT, cfg, noisy: torch.Tensor,
     backward on CUDA; the plain versions on the CPU) with frame ids
     repeat(arange(frames), S); its tile tables (`mask_tiles`) are built
     once here for every layer.  Cross-attention runs `attention` (K1 / K2 /
-    K3).  Each block is recomputed in the backward pass (`dit.remat`).
+    K3).  Each block is recomputed in the backward pass (`dit.remat`),
+    its input kept on the card or, with remat_offload, in pinned host
+    memory (the full-depth boundaries: 30 x 65,520 x 1,536 at 1.3B).
     The forward reads the parameters cast to `compute_dtype` (default: the
     masters' own dtype; the bf16 trunk over fp32 masters, grads flowing
     back through the cast): the embeddings and the head here, each block's
@@ -237,11 +243,11 @@ def fps_forward_train(model: WanDiT, cfg, noisy: torch.Tensor,
     outer = {n: p.to(dtype) for n, p in model.named_parameters()
              if not n.startswith("blocks.")}
     return call_with(model, outer, _forward_train, cfg, noisy, t, context,
-                     frame_mask, clean_x, aug_t, dtype)
+                     frame_mask, clean_x, aug_t, dtype, remat_offload)
 
 
 def _forward_train(model, cfg, noisy, t, context, frame_mask, clean_x,
-                   aug_t, dtype):
+                   aug_t, dtype, remat_offload):
     B, Fr, C, H, W = noisy.shape
     grid = (H // cfg.patch_size[1], W // cfg.patch_size[2])
     S = grid[0] * grid[1]
@@ -289,13 +295,14 @@ def _forward_train(model, cfg, noisy, t, context, frame_mask, clean_x,
         return block_forward(blk, cfg, x, e0, self_attn_fn, ckv,
                              num_seq_frames)
 
+    offload = boundaries(True, remat_offload)
     for blk, ckv in zip(model.blocks, ctx_kv):
         # the block casts its own parameters, so that the backward's
         # recomputation, which runs after this forward has returned, reads
         # the same cast values
         step = lambda x, blk=blk, ckv=ckv: run_block(
             blk, block_fn, x, ckv, dtype=dtype)
-        x = remat_layer(step, x)
+        x = remat_layer(step, x, offload)
 
     if clean_x is not None:
         x = x[:, x.shape[1] // 2:]

@@ -56,8 +56,18 @@ fsdp, replicated over dp, and splits the batch over dp (`_Ranks`);
 `--export-pt` gathers the full tensors to rank 0; `--ckpt-dir` /
 `--resume` write and read sharded checkpoints
 (`train_state_io.save_sharded`, the tp slices under keys of their own)
-on a mesh of the same shape.  Refused by name: the two 16 GB TPU
-workarounds `--remat-offload` and `--offload-opt`.
+on a mesh of the same shape.
+
+Host offload (`utils/memory.py`), where `train.py` uses it:
+`--remat-offload` keeps each rematerialised block's input in pinned host
+memory until the backward pass (teacher forcing, ODE, the distillation
+scores and rollout); `--offload-opt` keeps the distillation objectives'
+AdamW moments (`utils/memory.HostAdamW`) and the generator's EMA shadow
+there, streamed through the card a parameter at a time.  Both change
+where tensors live, not what is computed; checkpoints keep their format
+and a run may switch either flag across a resume.  Where `train.py`
+parses a flag and ignores it (`--offload-opt` with teacher_forcing, flow
+or ode; `--remat-offload` with flow) the port exits naming it.
 
     python -m mmpl_tpu_torch.train --smoke --steps 3
     python -m mmpl_tpu_torch.train --smoke --objective flow --steps 3
@@ -84,17 +94,14 @@ import torch
 
 from .models.dit import WanDiT
 
-#: flags that are not ported (ROADMAP.md)
-REFUSED = {
-    "remat_offload": "a 16 GB TPU workaround the H100 needs not "
-                     "(ROADMAP.md North star)",
-    "offload_opt": "a 16 GB TPU workaround the H100 needs not "
-                   "(ROADMAP.md North star)",
-}
 OBJECTIVES = ("teacher_forcing", "flow", "dmd", "sid", "gan", "causvid",
               "ode")
 #: the objectives that train on `--data-dir`
 DATA_OBJECTIVES = ("teacher_forcing", "flow", "ode")
+#: the objectives whose optimizers and EMA `--offload-opt` moves, and
+#: those `--remat-offload` offloads (train.py passes each flag there only)
+OFFLOAD_OPT_OBJECTIVES = ("dmd", "sid", "gan", "causvid")
+REMAT_OFFLOAD_OBJECTIVES = ("teacher_forcing", "ode") + OFFLOAD_OPT_OBJECTIVES
 
 
 def parse_args(argv=None):
@@ -185,16 +192,25 @@ def parse_args(argv=None):
                    help="a directory of .npz shards to train on "
                         "(teacher_forcing and flow: data/video_dataset.py's "
                         "latents; ode: data/ode_gen.py's trajectories)")
-    # flags that are not ported: parsed so that they can be refused by name
-    for flag in ("--remat-offload", "--offload-opt"):
-        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--remat-offload", action="store_true",
+                   help="keep each rematerialised block's input in pinned "
+                        "host memory until the backward pass (teacher "
+                        "forcing, ode, the distillation objectives)")
+    p.add_argument("--offload-opt", action="store_true",
+                   help="distillation: keep the AdamW moments and the "
+                        "generator's EMA shadow in pinned host memory, "
+                        "streamed through the card a parameter at a time")
     args = apply_run_config(p.parse_args(argv), argv)
     if args.objective not in OBJECTIVES:
         p.error(f"--config selects objective {args.objective!r}, which "
                 f"neither package trains")
-    for dest, why in REFUSED.items():
-        if getattr(args, dest):
-            p.error(f"--{dest.replace('_', '-')} is not ported: {why}")
+    for flag, objectives in (("offload_opt", OFFLOAD_OPT_OBJECTIVES),
+                             ("remat_offload", REMAT_OFFLOAD_OBJECTIVES)):
+        if getattr(args, flag) and args.objective not in objectives:
+            p.error(f"--{flag.replace('_', '-')} with --objective "
+                    f"{args.objective}: train.py parses the flag and "
+                    f"ignores it there; it applies to "
+                    f"{', '.join(objectives)}")
     if args.data_dir and args.objective not in DATA_OBJECTIVES:
         p.error(f"--data-dir with --objective {args.objective}: the "
                 f"distillation objectives read no data (their real latents "
@@ -355,9 +371,15 @@ def loss_draws(generator: torch.Generator, step: int, role: str) -> dict:
     return {"generator": generator}
 
 
-def adamw(params, lr: float, weight_decay: float) -> torch.optim.AdamW:
-    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=weight_decay)
+def adamw(params, lr: float, weight_decay: float,
+          offload: bool = False) -> torch.optim.AdamW:
+    """AdamW (optax.adamw's betas and eps); with `offload` its moments in
+    pinned host memory (`utils/memory.HostAdamW`, `--offload-opt`), the
+    same values."""
+    from .utils.memory import HostAdamW
+    kind = HostAdamW if offload else torch.optim.AdamW
+    return kind(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                weight_decay=weight_decay)
 
 
 #: optax.adamw's default weight decay, which the JAX trainer's
@@ -460,8 +482,11 @@ class _Checkpoints:
             raise SystemExit(f"--resume {path} is a sharded checkpoint: "
                              f"resume it under the --mesh that wrote it")
         else:
-            st = tsio.restore_checkpoint(path, template,
-                                         map_location=self.device)
+            # the host-resident state (--offload-opt) is read into host
+            # memory; the models are copied onto the card as they load
+            st = tsio.restore_checkpoint(
+                path, template, map_location="cpu" if self.args.offload_opt
+                else self.device)
         dt = time.time() - t0
         self.metrics.log(int(st["step"]), resumed_from=path, restore_s=dt)
         if self.ranks.rank0:
@@ -628,9 +653,12 @@ class _Ranks:
         shards gathered (`DTensor.full_tensor`), then the tp slices
         (`parallel/mesh.gather_tp`); collectives, on every rank."""
         from .parallel.mesh import gather_tp
+        from .utils.memory import stream_to_device
         out = {}
         for n, t in named.items():
-            t = t.full_tensor() if hasattr(t, "full_tensor") else t
+            if hasattr(t, "full_tensor"):
+                # a host-resident shard (--offload-opt) gathers on the card
+                t = stream_to_device([t])[0].full_tensor()
             out[n] = gather_tp(n, t.detach(), self.tp_group)
         return out
 
@@ -666,12 +694,6 @@ class _NoMetrics:
 
     def log(self, step: int, **scalars) -> None:
         pass
-
-
-def _restore_ema(ema, saved) -> None:
-    with torch.no_grad():
-        for name, s in ema.shadow.items():
-            s.copy_(saved[name])
 
 
 def main(argv=None) -> int:
@@ -718,7 +740,8 @@ def _train_diffusion(args, cfg, model, lat_hw, device, metrics, ckpts,
         fm = masks.fps_forcing_frame_mask(T2V_CLEAN_STEPS[:F])
         loss_fn = tdiff.make_teacher_forcing_loss_fn(
             cfg, sch, fm, num_frame_per_block=args.num_frame_per_block,
-            noise_aug_max_timestep=args.noise_aug_max)
+            noise_aug_max_timestep=args.noise_aug_max,
+            remat_offload=args.remat_offload)
     else:
         loss_fn = tdiff.make_loss_fn(cfg, sch)
     trainer = tdiff.DiffusionTrainer(ranks.shard(model), loss_fn,
@@ -741,7 +764,7 @@ def _train_diffusion(args, cfg, model, lat_hw, device, metrics, ckpts,
         st = ckpts.restore(train_state(0))
         ckpts.load_model(model, st["model"])
         ckpts.load_optim(model, trainer.opt, st["optimizer"])
-        _restore_ema(ema, st["ema"])
+        ema.load(st["ema"])
         data_gen.set_state(st["rng"]["data"].cpu())
         draw_gen.set_state(st["rng"]["draw"].cpu())
         start_step, position = int(st["step"]), int(st.get("data", 0))
@@ -856,8 +879,10 @@ def _train_ode(args, cfg, model, lat_hw, device, metrics, ckpts, ranks):
                  "timestep": t, "ctx_kv": ranks.in_forward(
                      [model], _context_kv, model, cfg, ctx)}
         opt.zero_grad(set_to_none=True)
-        loss, _ = ranks.in_forward([model], ode_regression_loss, model, cfg,
-                                   sch, batch)
+        loss, _ = ranks.in_forward(
+            [model], lambda *a: ode_regression_loss(
+                *a, remat_offload=args.remat_offload),
+            model, cfg, sch, batch)
         loss.backward()
         opt.step()
         loss = float(loss.detach())
@@ -896,6 +921,7 @@ def build_distillation(args, cfg, generator_model, device, vae=None,
         same_step_across_blocks=bool(args.same_step_across_blocks),
         last_step_only=args.last_step_only, num_max_frames=F,
         grad_frame_window=F, rolling=args.rolling,
+        remat_offload=args.remat_offload,
         warp_denoising_step=args.warp_denoising_step,
         independent_first_frame=args.independent_first_frame, dtype=dtype)
     dist = Distiller(cfg, DistillationConfig(
@@ -903,7 +929,8 @@ def build_distillation(args, cfg, generator_model, device, vae=None,
         real_guidance_scale=args.real_guidance_scale,
         fake_guidance_scale=args.fake_guidance_scale,
         ts_schedule=bool(args.ts_schedule),
-        window_frames=F if max_F > F else None, dtype=dtype), ro, sch,
+        window_frames=F if max_F > F else None,
+        remat_offload=args.remat_offload, dtype=dtype), ro, sch,
         vae=vae)
     gen = lambda s: torch.Generator(device=device).manual_seed(s)
     if args.wan_dir:
@@ -977,10 +1004,14 @@ def _train_distill(args, cfg, model, lat_hw, device, metrics, ckpts,
     iff = args.independent_first_frame
     lr_c = args.lr_critic if args.lr_critic is not None else args.lr
     opt_g = adamw(models["generator"].parameters(), args.lr,
-                  OPTAX_WEIGHT_DECAY)
+                  OPTAX_WEIGHT_DECAY, offload=args.offload_opt)
     opt_c = adamw([p for k in critic_keys for p in models[k].parameters()],
-                  lr_c, OPTAX_WEIGHT_DECAY)
-    ema = EmaParams(models["generator"], decay=args.ema_decay)
+                  lr_c, OPTAX_WEIGHT_DECAY, offload=args.offload_opt)
+    ema = EmaParams(models["generator"], decay=args.ema_decay,
+                    offload=args.offload_opt)
+    if args.offload_opt and ranks.rank0:
+        print("optimizer moments + EMA shadow: host memory (pinned on a "
+              "card; streamed a parameter at a time)", file=sys.stderr)
     data_gen, draw_gen = _generators(device, args.seed)
     if ranks.dp > 1:
         draw_gen.manual_seed(args.seed + 1 + 1000 * ranks.dp_rank)
@@ -1005,7 +1036,7 @@ def _train_distill(args, cfg, model, lat_hw, device, metrics, ckpts,
             ckpts.load_model(models[k], st["models"][k])
         ckpts.load_optim(models["generator"], opt_g, st["opt_g"])
         ckpts.load_optim(critics, opt_c, st["opt_c"])
-        _restore_ema(ema, st["ema"])
+        ema.load(st["ema"])
         data_gen.set_state(st["rng"]["data"].cpu())
         draw_gen.set_state(st["rng"]["draw"].cpu())
         len_rng.bit_generator.state = st["rng"]["length"]

@@ -114,12 +114,15 @@ def make_teacher_forcing_loss_fn(cfg, scheduler: FlowMatchScheduler,
                                  frame_mask, num_frame_per_block: int = 3,
                                  noise_aug_max_timestep: int = 0,
                                  cfg_dropout: float = 0.1,
-                                 compute_dtype=torch.bfloat16) -> Callable:
+                                 compute_dtype=torch.bfloat16,
+                                 remat_offload: bool = False) -> Callable:
     """CausalDiffusion generator loss; loss_fn(model, batch, draws).
 
     batch: {"latents" [B, F, C, H, W], "context", "uncond_context"};
     draws: from `draw_teacher_forcing`.  compute_dtype is the trunk's
-    precision (default bf16; the noising and weighting stay fp32)."""
+    precision (default bf16; the noising and weighting stay fp32).
+    remat_offload keeps the blocks' inputs in pinned host memory until
+    the backward pass (`fps_forward_train`); it changes no value."""
     nfpb = num_frame_per_block
 
     def loss_fn(model, batch, draws):
@@ -148,7 +151,8 @@ def make_teacher_forcing_loss_fn(cfg, scheduler: FlowMatchScheduler,
         flow = fps_forward_train(model, cfg, noisy.to(compute_dtype), t, ctx,
                                  frame_mask,
                                  clean_x=clean_aug.to(compute_dtype),
-                                 aug_t=aug_t, compute_dtype=compute_dtype)
+                                 aug_t=aug_t, compute_dtype=compute_dtype,
+                                 remat_offload=remat_offload)
         err = torch.mean((flow.float() - target) ** 2, dim=(2, 3, 4))
         w = scheduler.training_weight(t).reshape(B, F)
         return torch.mean(err * w)

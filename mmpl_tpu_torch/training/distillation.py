@@ -77,6 +77,7 @@ class DistillationConfig:
                  critic_timestep_shift: Optional[float] = None,
                  window_frames: Optional[int] = None,
                  remat: bool = True,
+                 remat_offload: bool = False,
                  dtype=torch.float32):
         self.real_guidance_scale = real_guidance_scale
         self.fake_guidance_scale = fake_guidance_scale
@@ -104,6 +105,9 @@ class DistillationConfig:
         self.window_frames = window_frames
         #: recompute the score models' blocks in the backward pass
         self.remat = remat
+        #: with remat, keep the recomputed blocks' inputs in pinned host
+        #: memory (the scores and the ODE loss; the rollout has its own)
+        self.remat_offload = remat_offload
         self.dtype = dtype
 
 
@@ -126,7 +130,8 @@ class Distiller:
                  ctx: torch.Tensor) -> torch.Tensor:
         """Bidirectional score forward -> x0 ([B, F, ...], t [B, F])."""
         flow = dit_forward(model, self.model_cfg, xt.to(self.dcfg.dtype), t,
-                           ctx, remat=self.dcfg.remat)
+                           ctx, remat=self.dcfg.remat,
+                           remat_offload=self.dcfg.remat_offload)
         return self.scheduler.convert_flow_pred_to_x0(
             _flat(flow).float(), _flat(xt.float()),
             t.reshape(-1)).reshape(xt.shape)
@@ -275,7 +280,8 @@ class Distiller:
             models["fake_score"], models["gan_head"], self.model_cfg,
             noisy.to(self.dcfg.dtype), t, ctx,
             concat_time_embeddings=self.dcfg.concat_time_embeddings,
-            remat_blocks=self.dcfg.remat)
+            remat_blocks=self.dcfg.remat,
+            remat_offload=self.dcfg.remat_offload)
 
     def _gan_noisy_pair(self, models, batch, draws, critic: bool):
         """The rollout and its noising, and the real latents' (the last
@@ -370,7 +376,8 @@ def prepare_ode_generator_input(ode_latent: torch.Tensor,
 
 
 def ode_regression_loss(generator, cfg, scheduler: FlowMatchScheduler,
-                        batch, dtype=torch.float32, remat: bool = True):
+                        batch, dtype=torch.float32, remat: bool = True,
+                        remat_offload: bool = False):
     """Regress the causal generator onto precomputed ODE trajectories.
 
     batch: {"noisy_input" [B, F, C, H, W] (a solver state at `timestep`),
@@ -378,7 +385,8 @@ def ode_regression_loss(generator, cfg, scheduler: FlowMatchScheduler,
     [B, F], "ctx_kv"}.  Blocks of 3 frames in order; after each, the
     target's clean frames are committed as context with gradients through
     the cache (functional writes, `fps_forward_group(inplace=False)`),
-    each layer recomputed in the backward pass."""
+    each layer recomputed in the backward pass (its input in pinned host
+    memory until then with `remat_offload`)."""
     noisy = batch["noisy_input"].float()
     target = batch["clean_latent"].float()
     t = batch["timestep"].float()
@@ -392,13 +400,15 @@ def ode_regression_loss(generator, cfg, scheduler: FlowMatchScheduler,
         x = noisy[:, b * nb:(b + 1) * nb]
         tt = t[:, b * nb:(b + 1) * nb]
         flow = fps_forward_group(generator, cfg, x.to(dtype), tt,
-                                 batch["ctx_kv"], cache, sched, remat=remat)
+                                 batch["ctx_kv"], cache, sched, remat=remat,
+                                 remat_offload=remat_offload)
         preds.append(scheduler.convert_flow_pred_to_x0(
             _flat(flow).float(), _flat(x), tt.reshape(-1)).reshape(x.shape))
         clean = target[:, b * nb:(b + 1) * nb]
         fps_forward_group(generator, cfg, clean.to(dtype),
                           torch.zeros_like(tt), batch["ctx_kv"], cache, sched,
-                          write_cache=True, remat=remat, inplace=False)
+                          write_cache=True, remat=remat, inplace=False,
+                          remat_offload=remat_offload)
     pred = torch.cat(preds, dim=1)
     # frames whose timestep is 0 are left out of the mean
     mask = (t != 0.0).float()[..., None, None, None]

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.dit import (MLP, Affine, block_forward, embed_text,
+from ..models.dit import (MLP, Affine, block_forward, boundaries, embed_text,
                           layer_norm, linear, local_heads, mlp, patchify,
                           precompute_context_kv, qkv_project, remat,
                           rms_norm, run_block, sharding_of, time_embed)
@@ -140,10 +140,12 @@ def dit_forward_classify(model, head: GanHead, cfg, latents: torch.Tensor,
                          t: torch.Tensor, context: torch.Tensor,
                          concat_time_embeddings: bool = False,
                          gan_num_heads: Optional[int] = None,
-                         remat_blocks: bool = False) -> torch.Tensor:
+                         remat_blocks: bool = False,
+                         remat_offload: bool = False) -> torch.Tensor:
     """Bidirectional DiT features -> GAN logits [B, num_class].  The blocks
     past the last tap are not run.  remat_blocks recomputes each block in
-    the backward pass."""
+    the backward pass, its input kept in pinned host memory until then
+    with remat_offload."""
     B, Fr, C, H, W = latents.shape
     grid = (H // cfg.patch_size[1], W // cfg.patch_size[2])
     x = patchify(model.patch_embedding, latents, cfg.patch_size)
@@ -173,12 +175,13 @@ def dit_forward_classify(model, head: GanHead, cfg, latents: torch.Tensor,
     registers = registers[None].expand(B, -1, -1).to(x.dtype)
     feats = []
     prev = 0
+    offload = boundaries(remat_blocks, remat_offload)
     for gi, tap in enumerate(taps):
         for li in range(prev, tap + 1):
             step = lambda x, li=li: run_block(
                 model.blocks[li], lambda b, x: block_fn(x, b, ctx_kv[li]),
                 x)
-            x = remat(step, x) if remat_blocks else step(x)
+            x = remat(step, x, offload) if remat_blocks else step(x)
         prev = tap + 1
         gp = head.gan_blocks[gi % len(head.gan_blocks)]
         feats.append(_gan_cross_attn(gp, x, registers[:, gi:gi + 1],

@@ -10,7 +10,10 @@ to `context_noise`.
   * The steps before the flag run under `torch.no_grad()` and the loop
     stops at the flag (the reference's `break`); the flagged step then
     runs once with gradients, each layer recomputed in the backward pass
-    (`remat`), and the commit runs under `torch.no_grad()` again.  No pass
+    (`remat`; with `remat_offload` each layer's input waits for it in
+    pinned host memory, under `rolling` too: the JAX package turns it off
+    there for a TPU compiler fault), and the commit runs under
+    `torch.no_grad()` again.  No pass
     of the generator's own steps writes the cache, which a block never
     reads; only the commit does.
   * Absolute-slot blocks write their own frames' slots in place: a later
@@ -51,6 +54,7 @@ class SelfForcingRollout:
                  num_max_frames: int = 21,
                  grad_frame_window: int = 21,
                  remat: bool = True,
+                 remat_offload: bool = False,
                  quantize_cache: bool = False,
                  rolling: bool = False,
                  warp_denoising_step: bool = False,
@@ -74,6 +78,8 @@ class SelfForcingRollout:
         self.num_max_frames = num_max_frames
         self.grad_frame_window = grad_frame_window
         self.remat = remat
+        #: keep the recomputed layers' inputs in pinned host memory
+        self.remat_offload = bool(remat_offload)
         #: int8 rollout cache (its gradients are severed anyway)
         self.quantize_cache = bool(quantize_cache)
         self.rolling = bool(rolling)
@@ -148,7 +154,8 @@ class SelfForcingRollout:
         with torch.set_grad_enabled(graded and torch.is_grad_enabled()):
             flow = fps_forward_group(model, self.cfg, xi.to(self.dtype), tt,
                                      ctx_kv, cache, sched, rope_cs=rope_cs,
-                                     remat=self.remat and graded)
+                                     remat=self.remat and graded,
+                                     remat_offload=self.remat_offload)
             x0 = sch.convert_flow_pred_to_x0(
                 flat(flow).float(), flat(xi), tt.reshape(-1)
             ).reshape(xi.shape)

@@ -21,6 +21,14 @@ A checkpoint `<dir>/stepN` is a directory holding `train_state.pt`, which
 is written under a temporary name and renamed into place, so a reader
 never sees half a file.
 
+Host-resident state (the trainer's `--offload-opt`: `utils/memory.
+HostAdamW`'s moments, the host EMA shadow) is written from host memory as
+it lies, in the same format as resident state; a resume with the flag
+reads the file into host memory (`map_location="cpu"`, the models copied
+onto the card as they load) and `HostAdamW.load_state_dict` keeps the
+moments there, and a sharded restore loads the DCP shards in place into
+the host tensors.  None of it passes through the card.
+
 Under the trainer's `--mesh` the masters, AdamW states and EMA are FSDP2
 DTensors, and `save_sharded` writes them with `torch.distributed.
 checkpoint` (each rank its shards, `.metadata` and `*.distcp`) beside one

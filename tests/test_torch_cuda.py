@@ -1352,3 +1352,125 @@ def test_record_trajectories_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(got[:, 0].cpu(), noise)
     rel = ((got.cpu() - want).norm() / want.norm()).item()
     assert rel <= 1e-5, rel
+
+
+# ---------------------------------------------------------------------------
+# Host offload: the streamed AdamW and EMA, block inputs on the host
+# ---------------------------------------------------------------------------
+
+def _offload_params(device, n=24, shape=(512, 1024), seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.nn.Parameter(torch.randn(shape, generator=g,
+                                           device=device))
+            for _ in range(n)]
+
+
+def _grads(params, seed):
+    g = torch.Generator(device=params[0].device).manual_seed(seed)
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=g, device=p.device)
+
+
+def test_offloaded_moments_and_shadow_are_pinned_host_tensors(cuda):
+    from mmpl_tpu_torch.utils.ema import EmaParams
+    from mmpl_tpu_torch.utils.memory import HostAdamW
+    params = _offload_params(cuda, n=3)
+    opt = HostAdamW(params, lr=1e-3)
+    _grads(params, 1)
+    opt.step()
+    for st in opt.state.values():
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert st[k].device.type == "cpu" and st[k].is_pinned(), k
+        assert st["step"].device.type == "cpu"
+    ema = EmaParams(torch.nn.ParameterList(params), offload=True)
+    ema.update(torch.nn.ParameterList(params))
+    assert all(s.device.type == "cpu" and s.is_pinned()
+               for s in ema.shadow.values())
+
+
+def test_offloaded_update_equals_the_resident_one_and_holds_less(cuda):
+    """Three AdamW steps and EMA updates, resident and offloaded, from the
+    same values and gradients: parameters, moments and shadows bit for
+    bit; the offloaded step's peak device memory is below the resident
+    one's by at least the moments' bytes."""
+    from mmpl_tpu_torch.utils.ema import EmaParams
+    from mmpl_tpu_torch.utils.memory import HostAdamW
+    out = {}
+    for kind in (torch.optim.AdamW, HostAdamW):
+        params = _offload_params(cuda)
+        opt = kind(params, lr=1e-3, weight_decay=1e-4)
+        ema = EmaParams(torch.nn.ParameterList(params), decay=0.9,
+                        offload=kind is HostAdamW)
+        peaks = []
+        for step in range(3):
+            _grads(params, 10 + step)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            opt.step()
+            ema.update(torch.nn.ParameterList(params))
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+        state = opt.state_dict()["state"]
+        out[kind] = ([p.detach().clone() for p in params],
+                     {i: {k: v.cpu() for k, v in st.items()}
+                      for i, st in state.items()},
+                     {n: s.cpu() for n, s in ema.shadow.items()}, peaks[-1])
+        del params, opt, ema, state
+        torch.cuda.empty_cache()
+    (pr, sr, er, peak_r), (ph, sh, eh, peak_h) = out[torch.optim.AdamW], \
+        out[HostAdamW]
+    assert all(torch.equal(a, b) for a, b in zip(pr, ph))
+    for i in sr:
+        for k in sr[i]:
+            assert torch.equal(sr[i][k], sh[i][k]), (i, k)
+    assert all(torch.equal(er[n], eh[n]) for n in er)
+    moments = 2 * sum(p.nbytes for p in pr)
+    assert peak_r - peak_h >= moments, (peak_r, peak_h, moments)
+
+
+def test_remat_offload_on_the_card_equals_the_plain_path(cuda):
+    """A tiny fp32 teacher-forcing loss and its gradients with the blocks'
+    inputs in pinned host memory: bit for bit the plain path's, the inputs
+    really on the host while the backward waits."""
+    from mmpl_tpu_torch.core.config import tiny_test_config
+    from mmpl_tpu_torch.core.geometry import T2V_CLEAN_STEPS
+    from mmpl_tpu_torch.models import dit
+    from mmpl_tpu_torch.training import diffusion as tdiff
+    from mmpl_tpu_torch.training import masks
+    from mmpl_tpu_torch.utils import memory
+    cfg = tiny_test_config()
+    g = lambda s: torch.Generator(device=cuda).manual_seed(s)
+    fm = masks.fps_forcing_frame_mask(T2V_CLEAN_STEPS[:6])
+    shape = (1, 6, 16, 4, 4)
+    gen = g(1)
+    ctx = torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen,
+                      device=cuda)
+    batch = {"latents": torch.randn(shape, generator=gen, device=cuda),
+             "context": ctx, "uncond_context": torch.zeros_like(ctx)}
+    draws = tdiff.draw_teacher_forcing(gen, shape, 3, 1000, 100, cuda)
+    pinned = []
+    real = memory.HostBoundaries._pack
+
+    def pack(self, x):
+        b = real(self, x)
+        pinned.append(b.host.is_pinned() if x.numel() else True)
+        return b
+
+    memory.HostBoundaries._pack = pack
+    try:
+        out = {}
+        for off in (False, True):
+            model = dit.randomize_head(dit.init_dit_params(
+                cfg, g(0), torch.float32, cuda), g(2)).requires_grad_(True)
+            loss = tdiff.make_teacher_forcing_loss_fn(
+                cfg, tdiff.make_scheduler(8.0), fm,
+                noise_aug_max_timestep=100, compute_dtype=torch.float32,
+                remat_offload=off)(model, batch, draws)
+            loss.backward()
+            out[off] = (loss.detach(), [p.grad for p in model.parameters()])
+    finally:
+        memory.HostBoundaries._pack = real
+    assert len(pinned) >= cfg.num_layers and all(pinned)
+    assert torch.equal(out[False][0], out[True][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[False][1],
+                                                 out[True][1]))

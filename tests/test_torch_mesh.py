@@ -375,6 +375,12 @@ def _assert_sharded_resume_exact(tmp_path, outs):
     """`_assert_resume_exact` at dp 2 x fsdp 2; a restore onto another mesh
     exits naming both shapes."""
     _assert_resume_exact(tmp_path, {"dp": 2, "fsdp": 2}, 4)
+    # DMD resumed with --offload-opt --remat-offload (HostAdamW over FSDP2
+    # shards, the host EMA): the unbroken resident run's state, bit for bit
+    from mmpl_tpu_torch.utils import train_state_io as tsio
+    got, want = (tsio.sharded_to_state(str(tmp_path / "ckpt" / run / "step2"))
+                 for run in ("dmd_offload", "dmd_unbroken"))
+    _equal(got, want, "dmd_offload")
     for out in outs:
         msg = str(out["other_mesh_exit"])
         assert "{'dp': 2, 'fsdp': 2}" in msg and "{'dp': 1, 'fsdp': 4}" in msg

@@ -247,6 +247,12 @@ def _case_train(workdir, inp, out):
                                   "--ckpt-dir", ckpt("resumed"), "--resume",
                                   os.path.join(ckpt("unbroken"), "step1")
                                   ]) == 0
+    # DMD's second step resumed with the host-offload flags: the FSDP2
+    # shards' moments and shadow on the host, the checkpoint the same
+    assert train.main(argv + ["--run-name", "dmd_offload", "--offload-opt",
+                              "--remat-offload", "--ckpt-dir",
+                              ckpt("offload"), "--resume",
+                              os.path.join(ckpt("unbroken"), "step1")]) == 0
     # a checkpoint restores onto a mesh of its own shape only
     try:
         train.main(argv + ["--mesh", "dp=1,fsdp=4", "--run-name", "other",

@@ -260,8 +260,10 @@ def test_train_cli_smoke_run_logs_finite_losses(tmp_path):
     (["--config", str(CONFIGS / "self_forcing_df.yaml")], None),
     # --mesh is ported (this case's id kept): it parses
     pytest.param(["--mesh", "dp=2"], None, id="argv10-Slice F"),
-    (["--remat-offload"], "TPU workaround"),
-    (["--offload-opt"], "TPU workaround"),
+    # host offload is ported (these cases' ids kept): the flags parse
+    pytest.param(["--remat-offload"], None, id="argv11-TPU workaround"),
+    pytest.param(["--offload-opt", "--objective", "dmd"], None,
+                 id="argv12-TPU workaround"),
     (["--config", str(CONFIGS / "self_forcing_dmd.yaml")], None),
     # sharded checkpoints are ported (this case's id kept): they parse
     pytest.param(["--mesh", "dp=2", "--ckpt-dir", "x"], None,
@@ -269,16 +271,29 @@ def test_train_cli_smoke_run_logs_finite_losses(tmp_path):
     # tp in training is ported (this case's id kept): it parses
     pytest.param(["--mesh", "tp=2"], None, id="argv15-Queue 1"),
     (["--objective", "dmd", "--data-dir", "x"], "read no data"),
+    # where train.py parses a host-offload flag and ignores it
+    (["--offload-opt"], "--offload-opt with --objective teacher_forcing"),
+    (["--offload-opt", "--objective", "flow"], "ignores it"),
+    (["--offload-opt", "--objective", "ode"], "ignores it"),
+    (["--remat-offload", "--objective", "flow"],
+     "--remat-offload with --objective flow"),
+    pytest.param(["--remat-offload", "--objective", "ode"], None,
+                 id="remat-offload-ode"),
+    pytest.param(["--offload-opt", "--remat-offload", "--config",
+                  str(CONFIGS / "self_forcing_dmd.yaml")], None,
+                 id="offload-config-dmd"),
 ])
 def test_refused_flags_name_their_slice(argv, slice_name, capsys):
-    """Flags that are not ported exit naming their ROADMAP slice or queue
-    (or that they are a TPU workaround), `--data-dir` with a distillation
-    objective exits saying it reads no data; the flags and objectives that
-    the port trains (slice_name None) parse, the distillation run configs
-    included."""
+    """Flags that are not ported exit naming their ROADMAP slice or queue,
+    `--data-dir` with a distillation objective exits saying it reads no
+    data, a host-offload flag with an objective train.py ignores it for
+    exits naming both; the flags and objectives that the port trains
+    (slice_name None) parse, the distillation run configs included."""
     if slice_name is None:
         args = ttrain.parse_args(argv)
-        assert getattr(args, argv[0][2:].replace("-", "_")) == argv[1]
+        flag_only = len(argv) == 1 or argv[1].startswith("--")
+        assert getattr(args, argv[0][2:].replace("-", "_")) == (
+            True if flag_only else argv[1])
         return
     with pytest.raises(SystemExit):
         ttrain.parse_args(argv)
