@@ -6,21 +6,27 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
   1. device and build: the card's name and power limit; nvcc builds every
      kernel from mmpl_tpu_torch/csrc;
   2. kernel: K1 (csrc/flash_fwd.cu: bf16 / fp16 on the wgmma + TMA body of
-     csrc/flash_fwd_sm90.cuh, fp32 on the template body) against its plain
-     PyTorch version at the 1.3B main path's attention shapes, with the
+     csrc/flash_fwd_sm90.cuh, fp32 on the split-TF32 wgmma body of
+     csrc/flash_fwd_f32_sm90.cuh) against its plain PyTorch version at the
+     1.3B main path's attention shapes and the fp32 trunk's (the trainer's
+     ODE and distillation objectives), with the
      body that ran (read from the profiler's kernel names), kernel / plain
      / SDPA times and the card's bound; kernel_exp2: P1
      (csrc/flash_fwd.cu, the exp2 probe's forward, on the same two
-     bodies), its four variants against the plain version at the probe's
+     bodies as K4: fp32 on the template body), its four variants against
+     the plain version at the probe's
      shape, the few-step path's steady-state self-attention (4680 x 32760,
      where only the variants with the pad test are defined), a ragged
      shape and fp32 at D = 24, beside K1 and SDPA;
   3. kernel_bwd: K2 / K3 (csrc/flash_bwd.cu: bf16 / fp16 on the wgmma +
      TMA body of csrc/flash_bwd_sm90.cuh, with K2's query split and reduce
-     where it splits, fp32 on the template body) at the training
-     cross-attention shape in bf16 and fp16, the few-step steady-state
-     self-attention shape, a ragged shape and D = 24, against the plain
-     backward and SDPA's backward, with the body that ran and the split;
+     where it splits; fp32 K2 on the split-TF32 wgmma body of
+     csrc/flash_bwd_f32_sm90.cuh, fp32 K3 on the template body) at the
+     training cross-attention shape in bf16 and fp16, the few-step
+     steady-state self-attention shape, a ragged shape, D = 24 and the
+     fp32 trunk's shapes, against the plain backward and SDPA's backward
+     (memory-efficient backend in fp32), with the body that ran and the
+     split;
   4. kernel_masked: K4 / K5 / K6 under the fps-forcing mask at the 1.3B
      teacher-forcing self-attention shape (42 frames x 1560 tokens), and
      ragged shapes with a frame that sees nothing (bf16, fp16, D = 24,
@@ -116,7 +122,7 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      and 4-step few-step bidirectional pipelines; window_dpm, one planned
      window with DPM-Solver++; train_flow, the flow objective at full
      depth (32760 tokens, per-block recomputation, AdamW, EMA); distill_dmd,
-     one DMD critic and one generator step at DISTILL_LAYERS depth
+     one DMD critic and one generator step at DMD_LAYERS depth
      (configs/self_forcing_dmd.yaml's steps; the drawn exit flag printed
      and the launches checked against it; peak memory; distill_profile, a
      generator step under torch.profiler); offload, on distill_dmd's
@@ -242,10 +248,14 @@ from mmpl_tpu_torch.utils.profiling import (BODY_CALLS,          # noqa: E402
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 FMA,
+#: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores; fp32 at
+#: the TF32 tensor-core rate, the rate the fp32 K1 and K2 bodies run their
+#: split-TF32 products at (three passes a product: they reach at most a
+#: third of it; 67e12, the FMA rate, would put a tensor-core body above
+#: 100% of its bound), the template bodies read against the same figure;
 #: HBM bytes/s
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
-              torch.float32: 67e12}
+              torch.float32: 495e12}
 PEAK_BYTES = 3.35e12
 #: H100 SXM dense int8 tensor-core peak (NVIDIA data sheet), ops/s
 PEAK_INT8 = 1979e12
@@ -264,7 +274,8 @@ PEAK_INT8 = 1979e12
 #: bidirectional pipeline's CFG pair over all 32760 tokens, the critic's
 #: and the flow objective's batch of one, the causal-diffusion pipeline's
 #: last block (CFG pair, 4680 queries over 32760 keys) and the GAN head's
-#: register token (one query row over 32760 keys)
+#: register token (one query row over 32760 keys); in fp32, the trainer's
+#: ODE and distillation trunk (F32_SHAPES) and a ragged shape
 K1_SHAPES = [
     ("group0_self", 2, 12, 128, 3120, 3120, torch.bfloat16),
     ("group1_self", 2, 12, 128, 10920, 14040, torch.bfloat16),
@@ -287,7 +298,21 @@ K1_SHAPES = [
     ("critic_self", 1, 12, 128, 32760, 32760, torch.bfloat16),
     ("cd_block_self", 2, 12, 128, 4680, 32760, torch.bfloat16),
     ("gan_head_q1", 2, 12, 128, 1, 32760, torch.bfloat16),
+    ("ragged_f32", 2, 12, 128, 1000, 1300, torch.float32),
 ]
+#: the fp32 trunk of the trainer's ODE regression and distillation
+#: objectives (1.3B width, 21 latent frames at 60x104 in blocks of 3): a
+#: block's 4680 queries over 1, 4 and 7 blocks of keys, the critic's and
+#: real score's 32760^2 and the text cross-attention; K1-K3 run them in
+#: fp32 (mmpl_tpu_torch/tools/flash_compare.py F32_SHAPES)
+F32_SHAPES = [
+    ("ode_self_1", 1, 12, 128, 4680, 4680, torch.float32),
+    ("ode_self_4", 1, 12, 128, 4680, 18720, torch.float32),
+    ("ode_self_7", 1, 12, 128, 4680, 32760, torch.float32),
+    ("critic_self_f32", 1, 12, 128, 32760, 32760, torch.float32),
+    ("ode_cross", 1, 12, 128, 4680, 512, torch.float32),
+]
+K1_SHAPES += F32_SHAPES
 MAIN_SHAPE = "group3_self"
 
 #: P1 shapes, as K1_SHAPES: the JAX probe's shape, the few-step path's
@@ -315,7 +340,8 @@ FEWSTEP_K1 = (7 * 5 * 30 * 2, 6 * 5 * 30 * 2)
 #: cross-attention (65520 tokens over 512 text tokens) in bf16 and fp16,
 #: the few-step steady-state self-attention (the graded rollout block's
 #: backward over 7 blocks), a ragged shape and the tiny configuration's
-#: head dim in bf16 and fp32; the distillation slice's: the critic's and
+#: head dim in bf16 and fp32 (and a ragged shape and F32_SHAPES in fp32);
+#: the distillation slice's: the critic's and
 #: the flow objective's self-attention (32760^2) and text cross-attention
 #: (32760 x 512), and the GAN head's register token (Lq = 1 over 32760)
 BWD_SHAPES = [
@@ -328,7 +354,8 @@ BWD_SHAPES = [
     ("critic_self", 1, 12, 128, 32760, 32760, torch.bfloat16),
     ("score_cross", 1, 12, 128, 32760, 512, torch.bfloat16),
     ("gan_head_q1", 2, 12, 128, 1, 32760, torch.bfloat16),
-]
+    ("ragged_f32", 2, 12, 128, 1000, 1300, torch.float32),
+] + F32_SHAPES
 BWD_MAIN = "tf_cross"
 
 #: K4-K6 shapes: (label, B, N, D, mask, tokens per frame, dtype).  "fps" is
@@ -419,7 +446,9 @@ def check(ok: bool, what) -> None:
 
 def time_ms(fn, warmup: int = 1, budget_ms: float = 3000.0,
             max_reps: int = 20) -> float:
-    """Median of CUDA-event timings after warm-up."""
+    """Median of CUDA-event timings after warm-up: at least 3 calls once
+    they pass `budget_ms` together, one where a single call does (the
+    plain versions at the largest shapes take seconds a call)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -431,7 +460,7 @@ def time_ms(fn, warmup: int = 1, budget_ms: float = 3000.0,
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
-        if sum(times) > budget_ms and len(times) >= 3:
+        if sum(times) > budget_ms and (len(times) >= 3 or times[0] > budget_ms):
             break
     return statistics.median(times)
 
@@ -544,19 +573,27 @@ def _launched(fn) -> list:
     return sorted(device_kernels(fn, BODY_CALLS))
 
 
+#: the launch counters whose fp32 calls run the split-TF32 wgmma bodies
+#: (csrc/flash_fwd_f32_sm90.cuh, csrc/flash_bwd_f32_sm90.cuh)
+TF32_BODIES = ("flash_fwd", "flash_bwd_dkv")
+
+
 def _body(names, counter: str, dtype) -> str:
     """Which body ran `counter`'s launch among `names`: "wgmma" (the
     `*_sm90_kernel` of csrc/flash_fwd_sm90.cuh or csrc/flash_bwd_sm90.cuh,
-    with K2's reduce kernel when the call split the queries) or "template"
-    (the fp32 FMA body of csrc/flash_fwd.cu or csrc/flash_bwd.cu, one
-    kernel).  bf16 / fp16 K1-K6 and P1 must run the first; fp32 the
-    second."""
+    with K2's reduce kernel when the call split the queries), "tf32x3" (the
+    split-TF32 `*_f32_sm90_kernel` of csrc/flash_fwd_f32_sm90.cuh or
+    csrc/flash_bwd_f32_sm90.cuh, one kernel) or "template" (the fp32 FMA
+    body of csrc/flash_fwd.cu or csrc/flash_bwd.cu, one kernel).  bf16 /
+    fp16 K1-K6 and P1 must run the first; fp32 K1 and K2 the second, fp32
+    K3-K6 and P1 the third."""
     mine = [n for n in names if port_kernel_of(n) == counter]
     main = [n for n in mine if "_reduce_kernel" not in n]
     check(len(main) == 1 and len(mine) - len(main) <= 1, (counter, names))
-    body = "wgmma" if "_sm90_kernel" in main[0] else "template"
+    body = ("tf32x3" if "_f32_sm90_kernel" in main[0]
+            else "wgmma" if "_sm90_kernel" in main[0] else "template")
     want = ("wgmma" if dtype in (torch.bfloat16, torch.float16)
-            else "template")
+            else "tf32x3" if counter in TF32_BODIES else "template")
     check(body == want and (body == "wgmma" or len(mine) == 1),
           (counter, dtype, mine))
     return body
@@ -585,13 +622,17 @@ def phase_kernel():
                "lse_max_abs_err": lerr.max().item(),
                "lse_mean_abs_err": lerr.mean().item()}
         del po, plse, err, lerr, o, lse
-        row["ms"] = time_ms(lambda: attn.flash_fwd_cuda(q, k, v))
+        budget = BUDGET_MS[dtype]
+        row["ms"] = time_ms(lambda: attn.flash_fwd_cuda(q, k, v),
+                            budget_ms=budget)
         row["plain_ms"] = time_ms(lambda: attn.flash_attention_plain(q, k, v),
-                                  max_reps=5)
+                                  max_reps=PLAIN_REPS[dtype])
         row["bound_ms"], row["bound_by"] = bound(B, N, D, Lq, Lk, dtype)
-        row["library_ms"] = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
+        with _sdpa_backend(dtype):
+            row["library_ms"] = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+                budget_ms=budget)
         row["tflops"] = 4.0 * B * N * Lq * Lk * D / row["ms"] / 1e9
         row["bound_share"] = row["bound_ms"] / row["ms"]
         emit(row)
@@ -606,6 +647,21 @@ def phase_kernel():
         del q, k, v
         torch.cuda.empty_cache()
     return rows
+
+
+#: timed calls of the plain versions at most, and the ms that a kernel's
+#: or SDPA's timing may take before it stops at 3 calls or more (fp32 at
+#: 32760^2 takes 0.15-0.7 s a call: the whole script has a time limit)
+PLAIN_REPS = {torch.bfloat16: 5, torch.float16: 5, torch.float32: 1}
+BUDGET_MS = {torch.bfloat16: 3000.0, torch.float16: 3000.0, torch.float32: 1000.0}
+
+
+def _sdpa_backend(dtype, masked: bool = False):
+    """SDPA's yardstick backend: memory-efficient for fp32 (the one that
+    takes it) and under a token mask, else SDPA's own choice."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    return (sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION])
+            if masked or dtype == torch.float32 else contextlib.nullcontext())
 
 
 def _rand(gen, dtype, *shape):
@@ -634,26 +690,27 @@ def _grad_errors(row, got, want, dtype, blind_rows=None):
 def _library_times(row, q, k, v, do, attn_mask=None):
     """SDPA on the same inputs as the yardstick: forward, backward alone
     (torch.autograd.grad over a kept graph: dq, dk and dv in one call) and
-    forward + backward.  With `attn_mask` (the token-level bool mask) under
-    the memory-efficient backend, the one that takes a mask with a
-    backward.  Where SDPA refuses the inputs the row says why."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    forward + backward.  With `attn_mask` (the token-level bool mask) or
+    fp32 inputs under the memory-efficient backend, the one that takes a
+    mask with a backward, and fp32.  Where SDPA refuses the inputs the row
+    says why."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    backend = (sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION])
-               if attn_mask is not None else contextlib.nullcontext())
+    backend = _sdpa_backend(q.dtype, attn_mask is not None)
+    budget = BUDGET_MS[q.dtype]
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
     try:
         with backend:
             fwd = lambda: sdpa(qt, kt, vt, attn_mask=attn_mask)
-            row["library_fwd_ms"] = time_ms(lambda: fwd().detach())
+            row["library_fwd_ms"] = time_ms(lambda: fwd().detach(),
+                                            budget_ms=budget)
             out = fwd()
             row["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-                out, (qt, kt, vt), dot, retain_graph=True))
+                out, (qt, kt, vt), dot, retain_graph=True), budget_ms=budget)
             del out
             row["library_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-                fwd(), (qt, kt, vt), dot))
+                fwd(), (qt, kt, vt), dot), budget_ms=budget)
     except RuntimeError as exc:   # the yardstick only; no kernel of the port
         row["library_error"] = str(exc).splitlines()[0][:200]
     torch.cuda.empty_cache()
@@ -690,12 +747,15 @@ def phase_kernel_bwd():
         check(reduced == (splits > 1), row)
         _grad_errors(row, (dq, dk, dv), want, dtype)
         del dq, dk, dv, want
+        budget = BUDGET_MS[dtype]
         row["dkv_ms"] = time_ms(
-            lambda: attn.flash_bwd_dkv_cuda(q, k, v, do, lse, delta))
+            lambda: attn.flash_bwd_dkv_cuda(q, k, v, do, lse, delta),
+            budget_ms=budget)
         row["dq_ms"] = time_ms(
-            lambda: attn.flash_bwd_dq_cuda(q, k, v, do, lse, delta))
+            lambda: attn.flash_bwd_dq_cuda(q, k, v, do, lse, delta),
+            budget_ms=budget)
         row["plain_ms"] = time_ms(lambda: attn.flash_attention_bwd_plain(
-            q, k, v, do, lse, delta), max_reps=5)
+            q, k, v, do, lse, delta), max_reps=PLAIN_REPS[dtype])
         for part in ("dkv", "dq"):
             work = attention_work(part, B, N, D, Lq, Lk, dtype)
             row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = roofline(
@@ -2788,12 +2848,16 @@ def phase_wan_parity(steps: int = 2):
 # Distillation, the flow objective and the baseline pipelines
 # ---------------------------------------------------------------------------
 
-#: the depth of the full-depth distillation and flow phases (the memory
+#: the depth of the full-depth flow phase and the ODE teacher (the memory
 #: reckoning of three 1.3B models, two AdamW states and the EMA fits the
 #: 80 GB card at 30 layers) and of the phases cut to 2 layers
 DISTILL_LAYERS = 30
+#: distill_dmd's and the offload phase's depth: the DMD bundle cut to half
+#: the layers, for the script's time limit (PERF.md holds both phases'
+#: numbers at 30 layers, distill_dmd's 40.24 GiB among them)
+DMD_LAYERS = 15
 #: distill_profile's depth (its session's cost grows with the launches)
-PROFILE_LAYERS = 6
+PROFILE_LAYERS = 3
 SHALLOW_LAYERS = 2
 #: the 21 latent frames of a 480x832 window, in blocks of 3
 DISTILL_FRAMES, DISTILL_BLOCKS = 21, 7
@@ -3063,17 +3127,17 @@ def _rollout_k123(flags, L, graded):
 
 def phase_distill_dmd():
     """One DMD critic step and one generator step at 1.3B width and
-    DISTILL_LAYERS depth, 21 frames at 60x104, the rollout and the
+    DMD_LAYERS depth, 21 frames at 60x104, the rollout and the
     Distiller in bf16 over fp32 masters (configs/self_forcing_dmd.yaml's
     warped steps, shift 5.0, guidance 3.0), AdamW.  The exit flag is
     drawn once for all blocks (same_step_across_blocks), so the launches
     are checked against the flag's formula.  distill_profile: a generator
     step of the same bundle cut to PROFILE_LAYERS, under the profiler.
-    Returns the launches and the full-depth bundle, which the offload
-    phase goes on with."""
+    Returns the launches and the bundle, which the offload phase goes on
+    with."""
     from mmpl_tpu_torch.training.distillation import (DistillationConfig,
                                                       Distiller)
-    bundle = _distill_setup(DISTILL_LAYERS)
+    bundle = _distill_setup(DMD_LAYERS)
     cfg, models, ro, sch, dcfg, batch, gen = bundle
     dist = Distiller(cfg, DistillationConfig(**dcfg), ro, sch)
     L, nb = cfg.num_layers, DISTILL_BLOCKS
@@ -3343,7 +3407,7 @@ def phase_offload(bundle) -> dict:
     """Host offload at the 1.3B width: `--offload-opt` and
     `--remat-offload` (`utils/memory.py`) against the resident paths.
 
-    (b) offload_dmd: on distill_dmd's full-depth bundle (bf16 over fp32
+    (b) offload_dmd: on distill_dmd's bundle (DMD_LAYERS; bf16 over fp32
     masters, 21 frames at 60x104), a critic and a generator step with
     both optimizers' moments and the EMA in pinned host memory and every
     recomputed block's input there too, then the same steps resident
@@ -3641,6 +3705,63 @@ def phase_distill_other():
         2 * nb * 2 * L + (2 * nb - 1) * 2 * L,
         nb * 2 * L + (nb - 1) * 2 * (L - 1)))
     return total
+
+
+def phase_ode_profile(timed_steps: int = 2):
+    """One ODE-regression step of the trainer's default fp32 trunk
+    (`ode_regression_loss(dtype=torch.float32)`, the generator at 1.3B
+    width cut to SHALLOW_LAYERS, 21 frames at 60x104) under
+    torch.profiler, as phase_train_profile reads a step: device time by
+    kernel, K1-K3's shares, the idle share; after one warm-up step and
+    `timed_steps` steps timed on the host clock (synchronised), with exact
+    K1-K3 launches.  Not a phase of main() (the script's time limit): PERF.md
+    §5's fp32 ODE breakdown comes from it run alone on a card, against this
+    tree's package or another checkout's (put that checkout's root first on
+    sys.path before loading this file), after `set_float32_precision()`."""
+    from mmpl_tpu_torch import train
+    from mmpl_tpu_torch.training.distillation import (
+        ode_regression_loss, prepare_ode_generator_input)
+    L, nb = SHALLOW_LAYERS, DISTILL_BLOCKS
+    cfg, models, _, sch, _, batch, gen = _distill_setup(
+        L, dtype=torch.float32)
+    gmodel = models["generator"]
+    del models
+    steps = (1000, 750, 500)
+    traj = torch.randn((1, len(steps) + 1, DISTILL_FRAMES, 16, 60, 104),
+                       device="cuda", generator=gen)
+    idx = torch.randint(0, len(steps), (1, nb), device="cuda",
+                        generator=gen)
+    noisy, tt = prepare_ode_generator_input(traj, steps, idx)
+    ode_batch = {"noisy_input": noisy, "clean_latent": traj[:, -1],
+                 "timestep": tt, "ctx_kv": batch["ctx_kv"]}
+    opt = train.adamw(gmodel.parameters(), 1e-5, train.OPTAX_WEIGHT_DECAY)
+    losses = []
+
+    def step():
+        losses.append(train.train_step(
+            {"generator": gmodel}, ("generator",),
+            lambda m, b, d: ode_regression_loss(m["generator"], cfg, sch, b,
+                                                dtype=torch.float32),
+            opt, ode_batch, {}).item())
+
+    step()
+    _, seconds, counts, peak = _run_counted(
+        lambda: [step() for _ in range(timed_steps)])
+    expected = _k123(timed_steps * (2 * nb * 2 * L + (2 * nb - 1) * 2 * L),
+                     timed_steps * (nb * 2 * L + (nb - 1) * 2 * (L - 1)))
+    row = {"phase": "ode_step", "dtype": "float32", "layers": L,
+           "step_s": seconds / timed_steps, "losses": losses,
+           "launches": counts, "expected_launches": expected,
+           "max_memory_allocated_gib": peak}
+    emit(row)
+    check(counts == expected, row)
+    check(all(map(math.isfinite, losses)), row)
+    phase_train_profile(step, phase="ode_profile",
+                        what=f"one fp32 ODE-regression step, {L} layers",
+                        checked=("flash_fwd", "flash_bwd_dkv",
+                                 "flash_bwd_dq"))
+    del gmodel, opt, ode_batch, traj, noisy
+    torch.cuda.empty_cache()
 
 
 def phase_distill_rolling():
@@ -4639,6 +4760,14 @@ def _cli_run(root: str, run: str, argv: list):
     return rc, seconds, counts, peak, _metrics(root, run)
 
 
+#: the train_data ODE run (2 layers, fp32 trunk) when fp32 K1 and K2 ran
+#: the FMA template bodies: a step's seconds on an H100 80GB HBM3 at 700
+#: W, and the losses of this script's last run on the templates (the same
+#: card type and data); PERF.md, Findings, holds both runs
+ODE_ON_TEMPLATES = {"template_step_s": 5.37,
+                    "template_losses": [5.780923366546631, 4.507685661315918]}
+
+
 def phase_train_data(shards: str, ode_dir: str) -> dict:
     """`python -m mmpl_tpu_torch.train --data-dir` in process on the
     shards the data phase wrote: teacher forcing at full width and depth
@@ -4668,6 +4797,11 @@ def phase_train_data(shards: str, ode_dir: str) -> dict:
                "load_s": [r["load_s"] for r in steps],
                "launches": counts, "expected_launches": expected,
                "max_memory_allocated_gib": peak}
+        if objective == "ode":
+            # the fp32 trunk: beside the run on the template bodies
+            row.update(ODE_ON_TEMPLATES, losses_max_rel_to_templates=max(
+                abs(a - b) / abs(b) for a, b in zip(
+                    row["losses"], ODE_ON_TEMPLATES["template_losses"])))
         emit(row)
         check(rc == 0 and len(steps) == 2, row)
         check(all(map(math.isfinite, row["losses"])), row)
@@ -5384,14 +5518,18 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
     sm90_src = "mmpl_tpu_torch/csrc/flash_fwd_sm90.cuh"
     bwd_src = "mmpl_tpu_torch/csrc/flash_bwd.cu"
     bodies = ("wgmma + TMA body (flash_fwd_sm90.cuh) for bf16 / fp16, "
-              "the template body of flash_fwd.cu for fp32; entry in "
-              "flash_fwd.cu")
+              "the split-TF32 wgmma body (flash_fwd_f32_sm90.cuh) for fp32; "
+              "entry in flash_fwd.cu")
+    exp2_bodies = ("wgmma + TMA body (flash_fwd_sm90.cuh) for bf16 / fp16, "
+                   "the template body of flash_fwd.cu for fp32; entry in "
+                   "flash_fwd.cu")
     k1 = rows[MAIN_SHAPE]
     b, m = bwd[BWD_MAIN], masked[MASKED_MAIN]
     grad_err = lambda rs, parts: max(r[f"{p}_max_abs_err"]
                                      for r in rs.values() for p in parts)
     bwd_note = ("plain_ms and library_ms compute dq, dk and dv in one call "
                 "(flash_attention_bwd_plain; SDPA's backward)")
+    f32_src = "mmpl_tpu_torch/csrc/flash_fwd_f32_sm90.cuh"
     out = [_entry(
         "flash_fwd", sm90_src, "mmpl_tpu/ops/attention.py:324",
         window_launches + int8_launches["flash_fwd"]
@@ -5400,6 +5538,7 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
         max(r["o_max_abs_err"] for r in rows.values()), k1["ms"],
         k1["plain_ms"], k1["bound_ms"], k1["bound_by"], k1["library_ms"],
         at=MAIN_SHAPE, bodies=bodies, bound_share=k1["bound_share"],
+        sources=[sm90_src, f32_src, fwd_src],
         launches_by_path={
             "window": window_launches,
             "window_int8": int8_launches["flash_fwd"],
@@ -5410,9 +5549,16 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                                       "library_ms", "o_max_abs_err")}
                 for k, r in rows.items()})]
     bwd_sm90_src = "mmpl_tpu_torch/csrc/flash_bwd_sm90.cuh"
-    bwd_bodies = ("wgmma + TMA body (flash_bwd_sm90.cuh; K2 with its query "
-                  "split and reduce) for bf16 / fp16, the template body of "
-                  "flash_bwd.cu for fp32; entries in flash_bwd.cu")
+    bwd_f32_src = "mmpl_tpu_torch/csrc/flash_bwd_f32_sm90.cuh"
+    bwd_bodies = {
+        "dkv": ("wgmma + TMA body (flash_bwd_sm90.cuh, with its query "
+                "split and reduce) for bf16 / fp16, the split-TF32 wgmma "
+                "body (flash_bwd_f32_sm90.cuh) for fp32; entry in "
+                "flash_bwd.cu", [bwd_sm90_src, bwd_f32_src, bwd_src]),
+        "dq": ("wgmma + TMA body (flash_bwd_sm90.cuh) for bf16 / fp16, the "
+               "template body of flash_bwd.cu for fp32; entry in "
+               "flash_bwd.cu", [bwd_sm90_src, bwd_src]),
+    }
     for name, part, line in (("flash_bwd_dkv", "dkv", 373),
                              ("flash_bwd_dq", "dq", 417)):
         out.append(_entry(
@@ -5421,7 +5567,7 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
             grad_err(bwd, ("dk", "dv") if part == "dkv" else ("dq",)),
             b[f"{part}_ms"], b["plain_ms"], b[f"{part}_bound_ms"],
             b[f"{part}_bound_by"], b.get("library_bwd_ms"), at=BWD_MAIN,
-            sources=[bwd_sm90_src, bwd_src], bodies=bwd_bodies,
+            sources=bwd_bodies[part][1], bodies=bwd_bodies[part][0],
             bound_share=b[f"{part}_bound_share"], note=bwd_note,
             launches_by_path={"train": train_counts[name],
                               **{p: c[name] for p, c in bwd_paths.items()}},
@@ -5541,7 +5687,7 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
         p1["ms"], p1["plain_ms"], p1["bound_ms"], p1["bound_by"],
         p1["library_ms"], at=f"{EXP2_MAIN[0]} ({EXP2_MAIN[1]} variant)",
         k1_ms=p1["k1_ms"], library="SDPA (default backend)",
-        bodies=bodies, bound_share=p1["bound_share"],
+        bodies=exp2_bodies, bound_share=p1["bound_share"],
         variants={f"{lbl}/{name}": {f: r[f] for f in (
             "body", "ms", "plain_ms", "bound_ms", "library_ms", "k1_ms",
             "o_max_abs_err")} for (lbl, name), r in exp2.items()}))

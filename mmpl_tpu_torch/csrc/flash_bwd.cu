@@ -7,7 +7,11 @@
 //    producer, wgmma consumers, warp specialisation, and for dK / dV a split
 //    of each key block's query loop over several blocks with a
 //    deterministic reduce when the key blocks alone would not fill the card
-//    (see that file).  fp32 runs the template below.
+//    (see that file).  fp32 K2 runs the split-TF32 wgmma body of
+//    flash_bwd_f32_sm90.cuh (three passes a product, a producer warpgroup
+//    that splits Q and dO and writes them as rows and as columns, one
+//    consumer warpgroup of 64 keys over 32-query tiles; see that file);
+//    fp32 K3 runs the template below.
 //  * K5 / K6, the same under the frame mask: `_masked_bwd_dkv_kernel`
 //    (:783, :963) and `_masked_bwd_dq_kernel` (:821, :992).  bf16 / fp16
 //    K5 and K6 run the masked instantiations of the Hopper dKV and dQ
@@ -19,10 +23,13 @@
 // tile (S, dP, dV, dK: 8*B*N*Lq*Lk*D FLOPs), dQ three (S, dP, dQ: 6*...),
 // times the admitted share of tiles when masked; the bytes are
 // B*N*(Lq+Lk)*D elements in and out, far below the ridge at the training
-// shapes.  So the Hopper body keeps the products on the tensor cores with
-// the scores, probabilities and accumulators in registers.  The template
-// is fp32 only, the smoke configuration: FMA in the mma.sync m16n8
-// fragment layout of flash_common.cuh, no TMA, no warp specialisation.
+// shapes.  So the Hopper bodies keep the products on the tensor cores with
+// the scores, probabilities and accumulators in registers (fp32 K2 as
+// split TF32, three passes a product).  The template is fp32 only (K3, K5,
+// K6; still to be redesigned, ROADMAP.md Queue 2): FMA in the mma.sync
+// m16n8 fragment layout of flash_common.cuh, no TMA, no warp
+// specialisation, the fp32 paths' default trunk (the trainer's ODE and
+// distillation objectives) included.
 //
 // The template: one block of 4 warps owns 64 keys (dKV) or 64 query rows
 // (dQ) of one (b, head) and loops over the admitted tiles of the other
@@ -42,13 +49,15 @@
 // their products (dV, and dK / dQ); dP, p before rounding, and every
 // accumulator stay fp32.  The TPU kernels run the dO and dS products in
 // fp32 (:393, :403-409): a known difference, measured in ROADMAP.md Queue
-// 3.  The template computes in fp32 throughout.
+// 3.  The template computes in fp32 throughout; the fp32 K2 body keeps p and
+// dS in fp32 and takes every product as split TF32.
 //
 // Layout: q, do, dq [B, Lq, N, D]; k, v, dk, dv [B, Lk, N, D], all through
 // element strides with a contiguous head dim; lse and delta contiguous
 // [B, N, Lq] fp32.  64-bit offsets throughout.
 
 #include "flash_common.cuh"
+#include "flash_bwd_f32_sm90.cuh"
 #include "flash_bwd_sm90.cuh"
 
 namespace {
@@ -333,7 +342,25 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// fp32 on the template; D <= 128 was checked.
+// fp32 K2 on the split-TF32 wgmma body; D <= 128 was checked.
+int f32_dkv(const Args& a, void* stream) {
+  const Strides& st = a.st;
+  const FwdStrides in{st.qb, st.ql, st.qh, st.kb, st.kl, st.kh, st.vb, st.vl, st.vh, 0, 0, 0};
+  const sm90::F32BwdParams p{static_cast<float*>(a.out0), static_cast<float*>(a.out1),
+                             static_cast<const float*>(a.lse),
+                             static_cast<const float*>(a.delta),
+                             st.ab, st.al, st.ah, st.cb, st.cl, st.ch,
+                             a.Lq, a.Lk, a.N, a.D, a.scale, a.scale * sm90::kLog2e};
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* d = static_cast<const float*>(a.dout);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return a.D <= 64 ? sm90::launch_f32_dkv<64>(q, k, v, d, in, st.db, st.dl, st.dh, p, a.B, s)
+                   : sm90::launch_f32_dkv<128>(q, k, v, d, in, st.db, st.dl, st.dh, p, a.B, s);
+}
+
+// fp32 on the template (K3, K5, K6); D <= 128 was checked.
 template <bool kMasked, bool kDKV>
 int launch_f32(const Args& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -376,9 +403,10 @@ int launch_sm90(const Args& a, const long long* strides, void* ws, int splits,
                      : sm90::launch_dq<T, 128>(a.q, a.k, a.v, a.dout, strides, p, stream);
 }
 
-// The unmasked entries: fp32 on the template, bf16 / fp16 on the Hopper
-// body.  `splits` > 1 (bf16 / fp16 dKV only) needs the fp32 workspace `ws`
-// of 2 * splits * B * N * Lk * D values.
+// The unmasked entries: bf16 / fp16 on the Hopper body, fp32 K2 on the
+// split-TF32 body, fp32 K3 on the template.  `splits` > 1 (bf16 / fp16
+// dKV only) needs the fp32 workspace `ws` of 2 * splits * B * N * Lk * D
+// values.
 template <bool kDKV>
 int unmasked(int dtype, const Args& a, const long long* strides, void* ws, int splits,
              void* stream) {
@@ -387,7 +415,11 @@ int unmasked(int dtype, const Args& a, const long long* strides, void* ws, int s
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return splits == 1 ? launch_f32<false, kDKV>(a, stream) : (int)cudaErrorInvalidValue;
+      if (splits != 1) return (int)cudaErrorInvalidValue;
+      if constexpr (kDKV)
+        return f32_dkv(a, stream);
+      else
+        return launch_f32<false, false>(a, stream);
     case 1:
       return launch_sm90<__nv_bfloat16, kDKV>(a, strides, ws, splits, s);
     case 2:

@@ -29,17 +29,23 @@
 //    note says what bounds it and what the design does about it).  K1 takes
 //    its scale with log2(e) folded in and returns the lse in natural log;
 //    K4's entry takes the natural scale and folds log2(e) in itself.
-//  * fp32 K1, K4 and P1 run the template body below: each of 4 warps owns
-//    16 of a block's 64 query rows and holds its scores, probabilities and
+//  * fp32 K1 runs `flash_fwd_f32_sm90.cuh`: split TF32 on wgmma (three
+//    passes a product, about 21 bits of each operand), a producer
+//    warpgroup that splits Q, K and V and writes V transposed to shared
+//    memory, one consumer warpgroup of 64 query rows over 32-key stages
+//    (its note says what bounds it).  fp32 is the default trunk of the
+//    trainer's ODE and distillation objectives, so its K1 runs at their
+//    shapes.
+//  * fp32 K4 and P1 run the template body below: each of 4 warps owns 16
+//    of a block's 64 query rows and holds its scores, probabilities and
 //    output accumulator in registers (FMA in the mma.sync m16n8k16
 //    fragment layout of flash_common.cuh), and the block double-buffers the
-//    64-key K/V tiles with cp.async.  fp32 is the smoke configuration: a
-//    TF32 wgmma could not meet its 1e-4 tolerance, so fp32 stays off the
-//    tensor cores.  The body's K1 uses exp2 as the Hopper one does (the
-//    same scale).
+//    64-key K/V tiles with cp.async.  They are still to be redesigned
+//    (ROADMAP.md Queue 2).
 //
 // All keep an online softmax in fp32 (m, l, acc), round P to the input
-// type before the PV product, and write O in the input type and (K1, K4)
+// type before the PV product (the fp32 K1 body splits it into two TF32
+// parts), and write O in the input type and (K1, K4)
 // lse in fp32 (l == 0 guarded as on the TPU; in K4 the shift/alpha guards
 // of attention.py:750-752 keep a row that has seen only masked scores at
 // m = -inf without NaNs).
@@ -63,6 +69,7 @@
 // 128 works.
 
 #include "flash_common.cuh"
+#include "flash_fwd_f32_sm90.cuh"
 #include "flash_fwd_sm90.cuh"
 
 namespace {
@@ -226,18 +233,6 @@ __device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T*
   store_rows<T, kD>(og, st.ol, q0 + warp * 16 + g, Lq, D, acc, inv[0], inv[1]);
 }
 
-// K1 on the template body: fp32 only (bf16 / fp16 run sm90::launch);
-// `scale` holds log2(e).
-template <typename T, int kD>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Lq, int Lk, int N, int D,
-                 FwdStrides st, float scale) {
-  flash_fwd_body<T, kD, false, true, true, true>(q, k, v, o, lse, Lq, Lk, N, D, st, scale,
-                                                 FrameMask{});
-}
-
 // K4 on the template body: fp32 only (bf16 / fp16 run
 // sm90::launch_masked).
 template <typename T, int kD>
@@ -272,15 +267,6 @@ int launch_body(Kernel kernel, size_t bytes, int B, int Lq, int N, cudaStream_t 
 }
 
 bool bad_head_dim(int D) { return D <= 0 || D > 128 || D % 8; }
-
-template <typename T, int kD>
-int fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Lq,
-            int Lk, int N, int D, const FwdStrides& st, float scale, cudaStream_t s) {
-  return launch_body(flash_fwd_kernel<T, kD>, FwdSmem<kD>::bytes, B, Lq, N, s,
-                     static_cast<const T*>(q), static_cast<const T*>(k),
-                     static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-                     Lq, Lk, N, D, st, scale);
-}
 
 template <typename T, int kD>
 int masked_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Lq,
@@ -384,8 +370,16 @@ extern "C" int mmpl_flash_fwd(int dtype, const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return D <= 64 ? fwd_f32<float, 64>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, s)
-                     : fwd_f32<float, 128>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, s);
+      return D <= 64 ? sm90::launch_f32_fwd<64>(static_cast<const float*>(q),
+                                                static_cast<const float*>(k),
+                                                static_cast<const float*>(v),
+                                                static_cast<float*>(o), static_cast<float*>(lse),
+                                                B, Lq, Lk, N, D, st, scale, s)
+                     : sm90::launch_f32_fwd<128>(static_cast<const float*>(q),
+                                                 static_cast<const float*>(k),
+                                                 static_cast<const float*>(v),
+                                                 static_cast<float*>(o), static_cast<float*>(lse),
+                                                 B, Lq, Lk, N, D, st, scale, s);
     case 1:
       return fwd_sm90<__nv_bfloat16>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, s);
     case 2:

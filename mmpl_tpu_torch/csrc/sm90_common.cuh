@@ -406,6 +406,210 @@ __device__ __forceinline__ void pack_frag(uint32_t (&f)[R][4], const float (&s)[
 }
 
 // ---------------------------------------------------------------------------
+// Split TF32 (the fp32 bodies of K1 and K2: flash_fwd_f32_sm90.cuh,
+// flash_bwd_f32_sm90.cuh)
+// ---------------------------------------------------------------------------
+//
+// wgmma takes fp32 data only as TF32 (m64nNk8, both shared-memory operands
+// K-major: 32 values, 128 bytes, a swizzled row), which keeps 10 of fp32's
+// 23 mantissa bits.  Each operand x is written as hi + lo with
+// hi = rna_tf32(x) and lo = rna_tf32(x - hi), and a product as
+// a_lo b_hi + a_hi b_lo + a_hi b_hi in the fp32 accumulator (a_lo b_lo,
+// ~2^-22 of the product, is dropped): about 21 bits of each operand, three
+// passes at the TF32 rate.
+//
+// The A operand from registers (m64nNk8, tf32): lane 4 g + t of warp w
+// holds a[0] = (row 16 w + g, k t), a[1] = (+8, t), a[2] = (g, t + 4),
+// a[3] = (+8, t + 4).  An accumulator holds (g, 2 t) and (g, 2 t + 1) of
+// each 8 columns instead, so the bodies number the contraction within each
+// group of 8 in the order pi(j) = 2 j (j < 4), 2 (j - 4) + 1 (j >= 4):
+// accumulator elements {4 kk, 4 kk + 2, 4 kk + 1, 4 kk + 3} are the A
+// fragment of k-step kk as they stand, and the B operand's row stores key
+// (or query) 8 kk + pi(j) at position 8 kk + j (`tf32_slot`).
+
+// The descriptor of the operand `bytes` past the one `d` describes (the
+// start address field, in 16-byte units, holds any shared-memory address:
+// no carry leaves it).
+__device__ __forceinline__ uint64_t desc_at(uint64_t d, uint32_t bytes) {
+  return d + (bytes >> 4);
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), its 32 bits.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The position within its group of 8 of a key (or query) of the
+// contraction, in the order pi above: j for 8 kk + pi(j).
+__host__ __device__ constexpr int tf32_slot(int i) {
+  return (i & ~7) | ((i & 1) ? 4 + ((i & 7) >> 1) : ((i & 7) >> 1));
+}
+
+// An accumulator of 8 R columns (4 R values a thread) split into the hi
+// and lo A fragments of R k8 steps, in the order pi.
+template <int R>
+__device__ __forceinline__ void split_frag(uint32_t (&hi)[R][4], uint32_t (&lo)[R][4],
+                                           const float (&s)[4 * R]) {
+#pragma unroll
+  for (int kk = 0; kk < R; ++kk) {
+    split_tf32(s[4 * kk], hi[kk][0], lo[kk][0]);
+    split_tf32(s[4 * kk + 2], hi[kk][1], lo[kk][1]);
+    split_tf32(s[4 * kk + 1], hi[kk][2], lo[kk][2]);
+    split_tf32(s[4 * kk + 3], hi[kk][3], lo[kk][3]);
+  }
+}
+
+// Byte offset of element (r, c) of a 128-byte-swizzled box of 32 fp32
+// columns (the layout TMA's SWIZZLE_128B gives and the descriptors read).
+__device__ __forceinline__ uint32_t swz32(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2);
+}
+
+// One row's 32 columns [c0, c0 + 32) of a strided [L, D] slab into
+// registers: zeros past L (`valid` false) and past D (a multiple of 8).
+__device__ __forceinline__ void load_row32(float4 (&x)[8], const float* row, bool valid, int c0,
+                                           int D) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = c0 + 4 * j;
+    x[j] = valid && c < D ? __ldg(reinterpret_cast<const float4*>(row + c))
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Those 32 columns split: hi[j] / lo[j] hold columns 4 j .. 4 j + 3.
+__device__ __forceinline__ void split_row32(const float4 (&x)[8], uint4 (&hi)[8],
+                                            uint4 (&lo)[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    split_tf32(x[j].x, hi[j].x, lo[j].x);
+    split_tf32(x[j].y, hi[j].y, lo[j].y);
+    split_tf32(x[j].z, hi[j].z, lo[j].z);
+    split_tf32(x[j].w, hi[j].w, lo[j].w);
+  }
+}
+
+// Split columns as row r of the box at `hi_box` / `lo_box` (a row-major
+// plane: token rows, the head dim contiguous).
+__device__ __forceinline__ void store_row_split(unsigned char* hi_box, unsigned char* lo_box,
+                                                int r, const uint4 (&hi)[8],
+                                                const uint4 (&lo)[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t off = r * 128 + (((j ^ r) & 7) << 4);
+    *reinterpret_cast<uint4*>(hi_box + off) = hi[j];
+    *reinterpret_cast<uint4*>(lo_box + off) = lo[j];
+  }
+}
+
+// Split columns (head-dim rows d0 .. d0 + 31) as column `slot` of the
+// transposed plane at `hi_plane` / `lo_plane` (one box: head-dim rows, 32
+// token positions a row).
+__device__ __forceinline__ void store_col_split(unsigned char* hi_plane, unsigned char* lo_plane,
+                                                int d0, int slot, const uint4 (&hi)[8],
+                                                const uint4 (&lo)[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t h[4] = {hi[j].x, hi[j].y, hi[j].z, hi[j].w};
+    const uint32_t l[4] = {lo[j].x, lo[j].y, lo[j].z, lo[j].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t off = swz32(d0 + 4 * j + e, slot);
+      *reinterpret_cast<uint32_t*>(hi_plane + off) = h[e];
+      *reinterpret_cast<uint32_t*>(lo_plane + off) = l[e];
+    }
+  }
+}
+
+// d (+)= A B for one k8 step of TF32.  SS: A and B K-major in shared
+// memory, N = 32.  RS: A in registers, B K-major, N = 32, 64 or 128.
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
 // Host side: tensor maps
 // ---------------------------------------------------------------------------
 

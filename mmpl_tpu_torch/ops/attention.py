@@ -8,14 +8,17 @@ Port of `mmpl_tpu/ops/attention.py`.  Layout is [B, L, N, D] throughout.
     whole frames, `models/fps_dit.py`); training's cross-attention runs it
     too.  In bf16 / fp16, K1 runs the Hopper body of
     `csrc/flash_fwd_sm90.cuh` (wgmma, TMA, a producer warpgroup and two
-    consumer warpgroups, exp2 softmax); fp32 runs the FMA
-    template body of `flash_fwd.cu`.  The same holds for K2 / K3: bf16 /
+    consumer warpgroups, exp2 softmax); fp32 K1 runs the split-TF32 Hopper
+    body of `csrc/flash_fwd_f32_sm90.cuh` (each operand as two TF32 parts,
+    three wgmma passes a product).  The same holds for K2 / K3: bf16 /
     fp16 run the Hopper body of `csrc/flash_bwd_sm90.cuh`, whose dKV splits
     each key block's query loop over `bwd_query_splits` blocks where the key
-    blocks alone would not fill the card; fp32 runs the template body of
-    `flash_bwd.cu`.
+    blocks alone would not fill the card; fp32 K2 runs the split-TF32 body
+    of `csrc/flash_bwd_f32_sm90.cuh` (never split), fp32 K3 the template
+    body of `flash_bwd.cu`.
   * `flash_attention_exp2` is P1, the exp2 probe's forward (O only, exp or
-    exp2, with or without the in-kernel pad test), on the same two bodies;
+    exp2, with or without the in-kernel pad test), on K1's Hopper body in
+    bf16 / fp16 and the FMA template body of `flash_fwd.cu` in fp32;
     no path of the model runs it, `mmpl_tpu_torch.tools.exp2_probe`
     measures it against K1.
   * `frame_masked_attention` is the training self-attention under a
@@ -488,7 +491,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q [B, Lq, N, D], k/v [B, Lk, N, D]; fp32, bf16 or fp16 with D a
     multiple of 8 up to 128.  Returns (O, lse [B, N, Lq]), lse in natural
     log.  bf16 / fp16 run the Hopper body (K4 over `tiles.fwd`, up to
-    SM90_MAX_FRAMES frames), fp32 the template body (K4 over `tiles.t64`).
+    SM90_MAX_FRAMES frames); fp32 K1 the split-TF32 Hopper body, fp32 K4
+    the template body (over `tiles.t64`).
     K1 takes its scale with log2(e) folded in (its softmax is exp2); K4's
     entry takes the natural scale."""
     what = "flash_fwd" if mask is None else "flash_masked_fwd"
@@ -600,7 +604,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale=None, mask=None,
     """Launch the dKV kernel (K2, or K5 with `mask` and its `tiles`) from
     `csrc/flash_bwd.cu` (bf16 / fp16 K2 and K5: `csrc/flash_bwd_sm90.cuh`,
     K2 with its reduce in the same launch count when it splits the
-    queries).  dO is read through its strides (the same rules as q); lse
+    queries; fp32 K2: the split-TF32 `csrc/flash_bwd_f32_sm90.cuh`).  dO is read through its strides (the same rules as q); lse
     and delta = rowsum(dO * O) are contiguous [B, N, Lq] fp32.  Returns
     (dk, dv), contiguous, in k's dtype."""
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)

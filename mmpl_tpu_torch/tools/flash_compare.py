@@ -5,6 +5,9 @@ checkout's, on one card, in turns.
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel bwd
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel masked
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel int8
+    python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --dtype float32
+    python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel bwd \
+        --dtype float32
 
 DIR holds another checkout of the repository (for example an earlier
 commit unpacked with `git archive`).  Its `mmpl_tpu_torch/csrc/flash_fwd.cu`
@@ -27,6 +30,16 @@ both trees' distance from the plain version, SDPA's time on the same inputs
 bound.  The card's name and power limit come first; for `fwd` a last line
 says whether each Hopper kernel (`*_sm90_kernel`) compiled to the same
 SASS in both trees (`cuobjdump -sass`).
+
+`--dtype float32` (fwd and bwd) runs K1, or K2 and K3, on fp32 inputs at
+`F32_SHAPES`, the fp32 trunk's attention in the trainer's ODE and
+distillation objectives, and adds to each row the plain version's time
+(`flash_attention_plain` / `flash_attention_bwd_plain`, few calls) and
+SDPA's under the memory-efficient backend (the one that takes fp32); the
+bound is then taken at the TF32 tensor-core rate (`PEAK_TF32`), the rate
+the fp32 wgmma bodies run their products at.  `--kernel bwd` ends, as
+`fwd` does, with the SASS check of its source, so the two fp32 calls show
+that the bf16 / fp16 Hopper kernels of K1-K6 and P1 are unchanged.
 
 `--kernel masked` builds the baseline's `flash_fwd.cu` and `flash_bwd.cu`
 and times K4, K5 and K6 (`call_masked`) at `MASKED_SHAPES` (the
@@ -53,6 +66,7 @@ the same SASS in both trees (the Hopper helpers that P2 shares live in
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -98,14 +112,35 @@ INT8_SHAPES = {
 MASKED_SHAPES = {
     "tf_self": (1, 12, 128, 1560),
 }
+#: K1, K2 and K3 in fp32, (B, N, D, Lq, Lk): the trainer's fp32 trunk (ODE
+#: regression and the distillation objectives' rollouts and critics at the
+#: 1.3B width, 21 latent frames at 60x104 in blocks of 3 frames): a block's
+#: 4680 queries over 1, 4 and 7 blocks of keys, the critic's and the real
+#: score's 32760^2, and the text cross-attention
+F32_SHAPES = {
+    "ode_self_1": (1, 12, 128, 4680, 4680),
+    "ode_self_4": (1, 12, 128, 4680, 18720),
+    "ode_self_7": (1, 12, 128, 4680, 32760),
+    "critic_self": (1, 12, 128, 32760, 32760),
+    "ode_cross": (1, 12, 128, 4680, 512),
+}
 TABLES = {"fwd": SHAPES, "bwd": BWD_SHAPES, "masked": MASKED_SHAPES,
           "int8": INT8_SHAPES}
+#: the tables of --dtype float32
+F32_TABLES = {"fwd": F32_SHAPES, "bwd": F32_SHAPES}
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 #: H100 SXM dense bf16 and int8 tensor-core peaks and HBM rate (NVIDIA
 #: data sheet)
 PEAK_FLOPS = 989e12
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
+#: H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet): the rate of
+#: the fp32 bodies' products (split TF32 reaches at most a third of it)
+PEAK_TF32 = 495e12
+#: timed calls of the plain versions in fp32 (a 32760^2 call takes
+#: seconds)
+PLAIN_REPS = 2
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the dKV entry of the trees before the Hopper backward body
@@ -142,11 +177,18 @@ def parse_args(argv=None):
                    help="fwd: K1; bwd: K2 and K3; masked: K4, K5 and K6; "
                         "int8: P2 and Q")
     p.add_argument("--shapes", nargs="+", default=None,
-                   choices=sorted({k for t in TABLES.values() for k in t}),
+                   choices=sorted({k for t in (*TABLES.values(),
+                                               *F32_TABLES.values())
+                                   for k in t}),
                    help="default: every shape of the kernel")
+    p.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16",
+                   help="float32: K1 or K2 / K3 at F32_SHAPES (fwd, bwd)")
     p.add_argument("--reps", type=int, default=10)
     args = p.parse_args(argv)
-    table = TABLES[args.kernel]
+    if args.dtype == "float32" and args.kernel not in F32_TABLES:
+        p.error(f"--dtype float32 takes --kernel fwd or bwd, not "
+                f"{args.kernel}")
+    table = (F32_TABLES if args.dtype == "float32" else TABLES)[args.kernel]
     if args.shapes is None:
         args.shapes = list(table)
     bad = [s for s in args.shapes if s not in table]
@@ -280,8 +322,8 @@ def call_bwd(lib, splits_queries: bool, part: str, q, k, v, do, lse, delta):
                  for x in like)
     split = []
     if part == "dkv" and splits_queries:
-        splits = attn.bwd_query_splits(B, N, Lq, Lk,
-                                       attn._sm_count(q.device.index))
+        splits = (1 if q.dtype == torch.float32 else attn.bwd_query_splits(
+            B, N, Lq, Lk, attn._sm_count(q.device.index)))
         ws = (torch.empty((2, splits, B, N, Lk, D), dtype=torch.float32,
                           device=q.device) if splits > 1 else None)
         split = [None if ws is None else ws.data_ptr(), splits]
@@ -430,33 +472,57 @@ def _card() -> str:
     return smi
 
 
+def _shapes(args) -> dict:
+    return (F32_TABLES if args.dtype == "float32" else TABLES)[args.kernel]
+
+
+def _bound_ms(flops: float, nbytes: float, dtype) -> float:
+    peak = PEAK_TF32 if dtype == torch.float32 else PEAK_FLOPS
+    return 1e3 * max(flops / peak, nbytes / PEAK_BYTES)
+
+
+def _efficient_sdpa():
+    """SDPA's memory-efficient backend: the one that takes fp32."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    return sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION])
+
+
 def run_fwd(args, smi: str) -> list:
     lib = build_baseline(args.baseline)
     log2e = baseline_takes_log2e(args.baseline)
     mine = _build.library("flash_fwd")
     gen = torch.Generator(device="cuda").manual_seed(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    dtype = DTYPES[args.dtype]
+    f32 = dtype == torch.float32
     rows = []
     for label in args.shapes:
-        B, N, D, Lq, Lk = SHAPES[label]
+        B, N, D, Lq, Lk = _shapes(args)[label]
         q, k, v = (torch.randn((B, L, N, D), generator=gen, device="cuda")
-                   .to(torch.bfloat16) for L in (Lq, Lk, Lk))
+                   .to(dtype) for L in (Lq, Lk, Lk))
         po, _ = attn.flash_attention_plain(q, k, v)
         base = lambda: call_k1(lib, log2e, q, k, v)
         this = lambda: call_k1(mine, True, q, k, v)
         err = lambda f: (f()[0].float() - po.float()).abs().max().item()
-        row = {"kernel": "fwd", "shape": label, "B": B, "N": N, "D": D,
-               "Lq": Lq, "Lk": Lk, "baseline_max_abs_err": err(base),
+        row = {"kernel": "fwd", "dtype": args.dtype, "shape": label, "B": B,
+               "N": N, "D": D, "Lq": Lq, "Lk": Lk,
+               "baseline_max_abs_err": err(base),
                "this_max_abs_err": err(this)}
         del po
         row.update(_turns(base, this, args.reps))
-        row["sdpa_ms"] = time_ms(lambda: sdpa(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
-            args.reps)
+        with _efficient_sdpa() if f32 else contextlib.nullcontext():
+            row["sdpa_ms"] = time_ms(lambda: sdpa(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+                args.reps)
+        if f32:
+            row["plain_ms"] = time_ms(
+                lambda: attn.flash_attention_plain(q, k, v), PLAIN_REPS)
         flops = 4.0 * B * N * Lq * Lk * D
-        nbytes = 2 * B * N * D * (2 * Lq + 2 * Lk) + 4 * B * N * Lq
-        row["bound_ms"] = 1e3 * max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES)
+        nbytes = (q.element_size() * B * N * D * (2 * Lq + 2 * Lk)
+                  + 4 * B * N * Lq)
+        row["bound_ms"] = _bound_ms(flops, nbytes, dtype)
         row["this_tflops"] = flops / min(row["this_ms"]) / 1e9
+        row["baseline_tflops"] = flops / min(row["baseline_ms"]) / 1e9
         row["card"] = smi
         print(json.dumps(row), flush=True)
         rows.append(row)
@@ -464,7 +530,7 @@ def run_fwd(args, smi: str) -> list:
         torch.cuda.empty_cache()
     sass = same_sass(baseline_library(args.baseline),
                      _build._target("flash_fwd"))
-    print(json.dumps({"kernel": "fwd",
+    print(json.dumps({"kernel": "fwd", "sass_of": "flash_fwd.cu",
                       "sass_identical": len(sass["identical"]), **sass,
                       "card": smi}), flush=True)
     return rows
@@ -480,13 +546,15 @@ def run_bwd(args, smi: str) -> list:
     new = baseline_splits_queries(args.baseline)
     mine = _build.library("flash_bwd")
     gen = torch.Generator(device="cuda").manual_seed(1)
+    dtype = DTYPES[args.dtype]
+    f32 = dtype == torch.float32
     rows = []
     for label in args.shapes:
-        B, N, D, Lq, Lk = BWD_SHAPES[label]
+        B, N, D, Lq, Lk = _shapes(args)[label]
         q, do = (torch.randn((B, Lq, N, D), generator=gen, device="cuda")
-                 .to(torch.bfloat16) for _ in range(2))
+                 .to(dtype) for _ in range(2))
         k, v = (torch.randn((B, Lk, N, D), generator=gen, device="cuda")
-                .to(torch.bfloat16) for _ in range(2))
+                .to(dtype) for _ in range(2))
         o, lse = attn.flash_fwd_cuda(q, k, v)
         delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
         want = dict(zip(("dq", "dk", "dv"), attn.flash_attention_bwd_plain(
@@ -498,9 +566,9 @@ def run_bwd(args, smi: str) -> list:
             "dq": (lambda: call_bwd(lib, new, "dq", *args_),
                    lambda: call_bwd(mine, True, "dq", *args_)),
         }
-        row = {"kernel": "bwd", "shape": label, "B": B, "N": N, "D": D,
-               "Lq": Lq, "Lk": Lk,
-               "splits": attn.bwd_query_splits(
+        row = {"kernel": "bwd", "dtype": args.dtype, "shape": label, "B": B,
+               "N": N, "D": D, "Lq": Lq, "Lk": Lk,
+               "splits": 1 if f32 else attn.bwd_query_splits(
                    B, N, Lq, Lk, attn._sm_count(q.device.index))}
         for part, (base, this) in calls.items():
             names = ("dk", "dv") if part == "dkv" else ("dq",)
@@ -512,23 +580,33 @@ def run_bwd(args, smi: str) -> list:
             mult = 8.0 if part == "dkv" else 6.0
             flops = mult * B * N * Lq * Lk * D
             elems = (2 * Lq + 4 * Lk) if part == "dkv" else (3 * Lq + 2 * Lk)
-            nbytes = 2 * B * N * D * elems + 8 * B * N * Lq
-            row[f"{part}_bound_ms"] = 1e3 * max(flops / PEAK_FLOPS,
-                                                nbytes / PEAK_BYTES)
+            nbytes = q.element_size() * B * N * D * elems + 8 * B * N * Lq
+            row[f"{part}_bound_ms"] = _bound_ms(flops, nbytes, dtype)
             row[f"{part}_this_tflops"] = (flops / min(row[f"{part}_this_ms"])
                                           / 1e9)
+            row[f"{part}_baseline_tflops"] = (
+                flops / min(row[f"{part}_baseline_ms"]) / 1e9)
         del want
+        if f32:
+            row["plain_ms"] = time_ms(lambda: attn.flash_attention_bwd_plain(
+                *args_), PLAIN_REPS)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
-        out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
-        row["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
-            args.reps)
+        with _efficient_sdpa() if f32 else contextlib.nullcontext():
+            out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+            row["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+                args.reps)
         row["card"] = smi
         print(json.dumps(row), flush=True)
         rows.append(row)
         del q, k, v, do, o, lse, delta, qt, kt, vt, out
         torch.cuda.empty_cache()
+    sass = same_sass(baseline_library(args.baseline, "flash_bwd"),
+                     _build._target("flash_bwd"))
+    print(json.dumps({"kernel": "bwd", "sass_of": "flash_bwd.cu",
+                      "sass_identical": len(sass["identical"]), **sass,
+                      "card": smi}), flush=True)
     return rows
 
 

@@ -27,21 +27,23 @@ import torch
 
 
 #: the `__global__` functions of `csrc/`, by launch counter.  K1, K4, P1,
-#: K2, K3, K5 and K6 have a Hopper kernel (bf16 / fp16) and a template-body
-#: one (fp32); K2's Hopper launch adds its reduce when it splits the
-#: queries.  The backward templates take the frame mask as their last flag
+#: K2, K3, K5 and K6 have a Hopper kernel (bf16 / fp16); in fp32 K1 and K2
+#: a split-TF32 Hopper kernel, K4, P1, K3, K5 and K6 a template-body one
+#: (K5's is the dKV template with its mask flag set); K2's Hopper launch
+#: adds its reduce when it splits the queries.  The backward templates take the frame mask as their last flag
 #: (K5, K6); the Hopper backward kernels take no bool template argument
 #: (K5's and K6's are kernels of their own names).  P2 has one
 #: body; Q reads a row once, or twice beyond the rows its registers hold
 _KERNELS = {
     "flash_fwd_sm90_kernel": "flash_fwd",
-    "flash_fwd_kernel": "flash_fwd",
+    "flash_fwd_f32_sm90_kernel": "flash_fwd",
     "flash_masked_fwd_sm90_kernel": "flash_masked_fwd",
     "flash_masked_fwd_kernel": "flash_masked_fwd",
     "flash_exp2_sm90_kernel": "flash_exp2",
     "flash_exp2_kernel": "flash_exp2",
     "flash_bwd_dkv_sm90_kernel": "flash_bwd_dkv",
     "flash_bwd_dkv_reduce_kernel": "flash_bwd_dkv",
+    "flash_bwd_dkv_f32_sm90_kernel": "flash_bwd_dkv",
     "flash_bwd_dkv_kernel": "flash_bwd_dkv",
     "flash_masked_bwd_dkv_sm90_kernel": "flash_masked_bwd_dkv",
     "flash_bwd_dq_sm90_kernel": "flash_bwd_dq",

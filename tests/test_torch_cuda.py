@@ -1,6 +1,8 @@
 """K1-K6 (`mmpl_tpu_torch/csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`, their
 Hopper bodies `csrc/flash_fwd_sm90.cuh` and `csrc/flash_bwd_sm90.cuh`, which
-also run the bf16 / fp16 K4, K5 and K6) and
+also run the bf16 / fp16 K4, K5 and K6, and the split-TF32 bodies of fp32
+K1 and K2, `csrc/flash_fwd_f32_sm90.cuh` and `csrc/flash_bwd_f32_sm90.cuh`)
+and
 the int8 kernels P2 and Q (`csrc/int8_gemm.cu`, P2's Hopper body
 `csrc/int8_gemm_sm90.cuh`) on the card: agreement with their plain
 versions, the body each type runs, the dispatch's launch counts, and what
@@ -153,10 +155,11 @@ def test_hopper_k1_reads_the_fused_qkv_in_place(cuda, dtype, d):
 
 @pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "flash_fwd_sm90"),
                                         (torch.float16, "flash_fwd_sm90"),
-                                        (torch.float32, "flash_fwd_kernel")])
+                                        (torch.float32, "flash_fwd_f32_sm90")])
 def test_k1_runs_the_body_of_its_type(cuda, dtype, body):
-    """bf16 / fp16 K1 runs the Hopper kernel, fp32 the template body; the
-    profiler attribution books each to K1."""
+    """bf16 / fp16 K1 runs the Hopper kernel, fp32 the split-TF32 Hopper
+    kernel (not the template body); the profiler attribution books each to
+    K1."""
     from mmpl_tpu_torch.utils.profiling import port_kernel_of
     q, k, v = _qkv(200, 300, 64, dtype, cuda)
     names = _launched(lambda: ta.flash_fwd_cuda(q, k, v))
@@ -532,15 +535,16 @@ def test_hopper_bwd_padding_keys_stay_finite_under_a_very_negative_lse(cuda):
 @pytest.mark.parametrize("dtype,masked,bodies", [
     (torch.bfloat16, False, ("_sm90_kernel", "_sm90_kernel")),
     (torch.float16, False, ("_sm90_kernel", "_sm90_kernel")),
-    (torch.float32, False, ("flash_bwd_d", "flash_bwd_d")),
+    (torch.float32, False, ("_f32_sm90_kernel", "flash_bwd_dq_kernel")),
     (torch.bfloat16, True, ("_sm90_kernel", "_sm90_kernel")),
     (torch.float16, True, ("_sm90_kernel", "_sm90_kernel")),
     (torch.float32, True, ("flash_bwd_d", "flash_bwd_d")),
 ])
 def test_backward_runs_the_body_of_its_type(cuda, dtype, masked, bodies):
     """bf16 / fp16 K2 / K3 and K5 / K6 run the Hopper kernels (K2 with its
-    reduce where it splits, K5 never split), fp32 the template; the
-    profiler attribution books each to its own counter."""
+    reduce where it splits, K5 never split), fp32 K2 the split-TF32 Hopper
+    kernel and fp32 K3, K5 and K6 the template; the profiler attribution
+    books each to its own counter."""
     from mmpl_tpu_torch.utils.profiling import port_kernel_of
     q, k, v, do = _bwd_inputs(500, 300, 64, dtype, cuda)
     mask = _mask(500, 100, cuda, blind=False) if masked else None
@@ -555,7 +559,8 @@ def test_backward_runs_the_body_of_its_type(cuda, dtype, masked, bodies):
         mine = [n for n in names if port_kernel_of(n) == f"{prefix}_{part}"]
         main = [n for n in mine if "_reduce_kernel" not in n]
         assert len(main) == 1 and body in main[0], names
-        assert ("_sm90_kernel" in main[0]) is (body == "_sm90_kernel")
+        assert ("_sm90_kernel" in main[0]) is ("_sm90_kernel" in body)
+        assert ("_f32_sm90_kernel" in main[0]) is (body == "_f32_sm90_kernel")
         assert len(mine) - len(main) == (
             part == "dkv" and body == "_sm90_kernel" and not masked
             and ta.bwd_query_splits(2, 3, 500, 300, torch.cuda
@@ -578,6 +583,104 @@ def test_autograd_launches_unmasked_k2_and_k3_once(cuda):
                                 "flash_bwd_dq": 1}
     for x in (q, k, v):
         assert x.grad is not None and torch.isfinite(x.grad.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# The split-TF32 bodies of fp32 K1 and K2 (csrc/flash_fwd_f32_sm90.cuh,
+# csrc/flash_bwd_f32_sm90.cuh): 64-row K1 blocks over 32-key stages, 64-key
+# K2 blocks over 32-query tiles, D padded to 64 or 128
+# ---------------------------------------------------------------------------
+
+#: fp32 K1 and K2 against their plain versions: O and lse by the largest
+#: difference, dK and dV also by the relative norm (chip_smoke.py's
+#: GRAD_REL_TOL for fp32)
+F32_TOL = 1e-4
+F32_REL_TOL = 1e-5
+
+
+def _f32_views(lq, lk, d, cuda, seed):
+    """q, k, v and dO as strided views: q, k, v of one fused [B, L, 3 N D]
+    projection when Lq = Lk (the DiT's self-attention), else q of a wider
+    row and k, v of one fused [B, Lk, 2 N D]; dO one of two interleaved."""
+    B, N = 2, 3
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    if lq == lk:
+        q, k, v = (x.unflatten(-1, (N, d))
+                   for x in rnd(B, lq, 3 * N * d).chunk(3, -1))
+    else:
+        q = rnd(B, lq, N, d + 8)[..., 8:]
+        k, v = (x.unflatten(-1, (N, d)) for x in rnd(B, lk, 2 * N * d)
+                .chunk(2, -1))
+    do = rnd(B, lq, N, 2, d)[:, :, :, 1]
+    return q, k, v, do
+
+
+def _f32_errors(q, k, v, do):
+    """K1's largest O and lse differences and K2's dK / dV relative and
+    largest differences against the plain versions, K2 and the plain
+    backward fed the plain lse and delta."""
+    o, lse = ta.flash_fwd_cuda(q, k, v)
+    po, plse = ta.flash_attention_plain(q, k, v)
+    delta = (do * po).sum(-1).permute(0, 2, 1).contiguous()
+    dk, dv = ta.flash_bwd_dkv_cuda(q, k, v, do, plse, delta)
+    _, pdk, pdv = ta.flash_attention_bwd_plain(q, k, v, do, plse, delta)
+    torch.cuda.synchronize()
+    for x, name in ((o, "o"), (lse, "lse"), (dk, "dk"), (dv, "dv")):
+        assert torch.isfinite(x).all(), name
+    return {"o": (o - po).abs().max().item(),
+            "lse": (lse - plse).abs().max().item(),
+            "dk": (dk - pdk).abs().max().item(),
+            "dv": (dv - pdv).abs().max().item(),
+            "dk_rel": _rel(dk, pdk), "dv_rel": _rel(dv, pdv)}
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("d", [24, 64, 80, 128])
+@pytest.mark.parametrize("lq,lk", [(1000, 1300), (777, 777), (1, 500),
+                                   (65, 33)])
+def test_fp32_k1_and_k2_on_the_tf32_bodies_match_plain(cuda, lq, lk, d,
+                                                       strided):
+    """Ragged Lq and Lk against the 64-row block, the 32-key stage and the
+    32-query tile (one query row; a last stage of one key), every head-dim
+    width, contiguous operands and strided views."""
+    if strided:
+        q, k, v, do = _f32_views(lq, lk, d, cuda, seed=lq + d)
+        assert not (q.is_contiguous() or k.is_contiguous()
+                    or do.is_contiguous())
+    else:
+        q, k, v, do = _bwd_inputs(lq, lk, d, torch.float32, cuda, seed=lq + d)
+    err = _f32_errors(q, k, v, do)
+    assert max(err["o"], err["lse"], err["dk"], err["dv"]) <= F32_TOL, err
+    assert max(err["dk_rel"], err["dv_rel"]) <= F32_REL_TOL, err
+
+
+def test_fp32_k2_padding_keys_stay_finite_under_a_very_negative_lse(cuda):
+    """As the bf16 case: every lse near -93, so the keys past Lk (which
+    score 0) must get p = 0 in the split-TF32 K2, not exp(93) times 0.
+    The bound is looser than F32_REL_TOL: each score is a sum of
+    magnitude ~1,128 before the scale, whose last bits (the tensor cores'
+    sums, fp32's own ulp) move p by ~1e-4 in either implementation."""
+    q, k, v, do = _bwd_inputs(1000, 1300, 128, torch.float32, cuda, seed=9)
+    q[..., 0] = -1128.0
+    k[..., 0] = 1.0
+    _, lse = ta.flash_fwd_cuda(q, k, v)
+    assert lse.max().item() < -80, lse.max().item()
+    err = _f32_errors(q, k, v, do)
+    assert max(err["dk_rel"], err["dv_rel"]) <= 1e-3, err
+
+
+def test_fp32_k1_and_k2_give_the_same_bits_on_every_call(cuda):
+    """No atomics and no split: each block owns its outputs."""
+    q, k, v, do = _bwd_inputs(1000, 1300, 128, torch.float32, cuda, seed=4)
+    o, lse = ta.flash_fwd_cuda(q, k, v)
+    delta = (do * o).sum(-1).permute(0, 2, 1).contiguous()
+    first = (o, lse, *ta.flash_bwd_dkv_cuda(q, k, v, do, lse, delta))
+    for _ in range(2):
+        again = (*ta.flash_fwd_cuda(q, k, v),
+                 *ta.flash_bwd_dkv_cuda(q, k, v, do, lse, delta))
+        for x, y in zip(again, first):
+            assert torch.equal(x, y)
 
 
 # ---------------------------------------------------------------------------

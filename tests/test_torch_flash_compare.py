@@ -50,16 +50,36 @@ def test_compare_needs_the_card(tmp_path, monkeypatch):
     (["--kernel", "int8"], "int8",
      ["g23_fc1", "g23_fc2", "g0_o", "vae_96ch"]),
     (["--kernel", "masked"], "masked", ["tf_self"]),
+    (["--dtype", "float32"], "fwd", list(flash_compare.F32_SHAPES)),
+    (["--kernel", "bwd", "--dtype", "float32", "--shapes", "critic_self"],
+     "bwd", ["critic_self"]),
 ])
 def test_kernel_choice_parses_with_its_shapes(tmp_path, argv, kernel, shapes):
     args = flash_compare.parse_args(["--baseline", str(tmp_path), *argv])
     assert args.kernel == kernel and args.shapes == shapes
 
 
-def test_a_shape_of_the_other_kernel_is_refused(tmp_path):
+@pytest.mark.parametrize("argv", [
+    ["--kernel", "bwd", "--shapes", "cross"],
+    ["--dtype", "float32", "--shapes", "cross"],
+    ["--kernel", "masked", "--dtype", "float32"],
+    ["--kernel", "int8", "--dtype", "float32"],
+])
+def test_a_shape_of_the_other_kernel_is_refused(tmp_path, argv):
+    """A shape of another kernel's (or type's) table, and fp32 for a
+    kernel whose fp32 body is not compared."""
     with pytest.raises(SystemExit):
-        flash_compare.parse_args(["--baseline", str(tmp_path), "--kernel",
-                                  "bwd", "--shapes", "cross"])
+        flash_compare.parse_args(["--baseline", str(tmp_path), *argv])
+
+
+def test_fp32_bound_is_taken_at_the_tf32_rate():
+    """The fp32 bodies' products run at the TF32 tensor-core rate, so an
+    fp32 row's bound is its FLOPs at 495 TFLOP/s (or its bytes)."""
+    flops, nbytes = 4.0 * 12 * 4680 * 32760 * 128, 1e6
+    assert flash_compare._bound_ms(flops, nbytes, torch.float32) == (
+        1e3 * flops / flash_compare.PEAK_TF32)
+    assert flash_compare._bound_ms(flops, nbytes, torch.bfloat16) == (
+        1e3 * flops / flash_compare.PEAK_FLOPS)
 
 
 @pytest.mark.parametrize("hopper,dkv_args", [(False, 14), (True, 16)])

@@ -1,14 +1,15 @@
 """`utils.profiling.port_kernel_of`: the profiler's kernel names, mangled
 and demangled, booked to the port kernel (launch counter) they belong to.
 The names are those the card's build gives K1 and K4 (the Hopper body in
-bf16 / fp16, the template body in fp32), P1 (both bodies), K2/K3 (the
-Hopper backward in bf16 / fp16, K2's reduce kernel included, and the
-template in fp32), K5 and K6 (the Hopper dKV and dQ bodies' masked
-kernels in bf16 / fp16) and K5/K6 (the backward templates, whose last
-flag is the frame mask), P2 (its Hopper body at each tile width and
-output type) and Q (the one-read body and the two-read loop); a kernel of
-another library books to nothing, no Hopper K2 / K3 kernel books to K5
-or K6, and no Hopper kernel but K6's books to K6."""
+bf16 / fp16; in fp32 K1's split-TF32 Hopper body, K4's template body), P1
+(both bodies), K2/K3 (the Hopper backward in bf16 / fp16, K2's reduce
+kernel included; in fp32 K2's split-TF32 Hopper body, K3's template), K5
+and K6 (the Hopper dKV and dQ bodies' masked kernels in bf16 / fp16) and
+K5/K6 (the backward templates, whose last flag is the frame mask), P2 (its
+Hopper body at each tile width and output type) and Q (the one-read body
+and the two-read loop); a kernel of another library books to nothing, no
+Hopper K2 / K3 kernel books to K5 or K6, and no Hopper kernel but K6's
+books to K6."""
 
 import pytest
 
@@ -20,8 +21,8 @@ NAMES = [
      '_ZN4mmpl4sm9021flash_fwd_sm90_kernelI13__nv_bfloat16Li128EEEv14CUtensorMap_stS3_S3_NS0_6ParamsE',
      'void mmpl::sm90::flash_fwd_sm90_kernel<__nv_bfloat16, 128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::Params)'),
     ('K1 fp32', 'flash_fwd',
-     '_ZN45_GLOBAL__N__176ec67e_12_flash_fwd_cu_c145cf2516flash_fwd_kernelIfLi64EEEvPKT_S3_S3_PS1_PfiiiiN4mmpl10FwdStridesEf',
-     'void (anonymous namespace)::flash_fwd_kernel<float, 64>(float const*, float const*, float const*, float*, float*, int, int, int, int, mmpl::FwdStrides, float)'),
+     '_ZN4mmpl4sm9025flash_fwd_f32_sm90_kernelILi128EEEvPKfS3_S3_PfS4_iiiiNS_10FwdStridesEf',
+     'void mmpl::sm90::flash_fwd_f32_sm90_kernel<128>(float const*, float const*, float const*, float*, float*, int, int, int, int, mmpl::FwdStrides, float)'),
     ('K4', 'flash_masked_fwd',
      '_ZN45_GLOBAL__N__176ec67e_12_flash_fwd_cu_c145cf2523flash_masked_fwd_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_PS2_PfiiiiN4mmpl10FwdStridesEfNS7_9FrameMaskE',
      'void (anonymous namespace)::flash_masked_fwd_kernel<__nv_bfloat16, 128>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, int, int, int, int, mmpl::FwdStrides, float, mmpl::FrameMask)'),
@@ -34,12 +35,12 @@ NAMES = [
     ('P1 fp32', 'flash_exp2',
      '_ZN45_GLOBAL__N__176ec67e_12_flash_fwd_cu_c145cf2517flash_exp2_kernelIfLi64ELb1ELb1EEEvPKT_S3_S3_PS1_iiiiN4mmpl10FwdStridesEf',
      'void (anonymous namespace)::flash_exp2_kernel<float, 64, true, true>(float const*, float const*, float const*, float*, int, int, int, int, mmpl::FwdStrides, float)'),
-    ('K2', 'flash_bwd_dkv',
-     '_ZN45_GLOBAL__N__8cff8468_12_flash_bwd_cu_5aa6267520flash_bwd_dkv_kernelILi64ELb0EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiiNS_7StridesEfN4mmpl9FrameMaskE',
-     'void (anonymous namespace)::flash_bwd_dkv_kernel<64, false>(float const*, float const*, float const*, float const*, float const*, float const*, float*, float*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
     ('K3', 'flash_bwd_dq',
      '_ZN45_GLOBAL__N__8cff8468_12_flash_bwd_cu_5aa6267519flash_bwd_dq_kernelILi128ELb0EEEvPKfS2_S2_S2_S2_S2_PfiiiiNS_7StridesEfN4mmpl9FrameMaskE',
      'void (anonymous namespace)::flash_bwd_dq_kernel<128, false>(float const*, float const*, float const*, float const*, float const*, float const*, float*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
+    ('K2', 'flash_bwd_dkv',
+     '_ZN4mmpl4sm9029flash_bwd_dkv_f32_sm90_kernelILi64EEEvPKfS3_S3_S3_NS_10FwdStridesExxxNS0_12F32BwdParamsE',
+     'void mmpl::sm90::flash_bwd_dkv_f32_sm90_kernel<64>(float const*, float const*, float const*, float const*, mmpl::FwdStrides, long long, long long, long long, mmpl::sm90::F32BwdParams)'),
     ('K2 Hopper', 'flash_bwd_dkv',
      '_ZN4mmpl4sm9025flash_bwd_dkv_sm90_kernelI13__nv_bfloat16Li128EEEv14CUtensorMap_stS3_S3_S3_NS0_9BwdParamsE',
      'void mmpl::sm90::flash_bwd_dkv_sm90_kernel<__nv_bfloat16, 128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::BwdParams)'),
