@@ -21,7 +21,8 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
   3. kernel_bwd: K2 / K3 (csrc/flash_bwd.cu: bf16 / fp16 on the wgmma +
      TMA body of csrc/flash_bwd_sm90.cuh, with K2's query split and reduce
      where it splits; fp32 K2 on the split-TF32 wgmma body of
-     csrc/flash_bwd_f32_sm90.cuh, fp32 K3 on the template body) at the
+     csrc/flash_bwd_f32_sm90.cuh, fp32 K3 on the split-TF32 wgmma body of
+     csrc/flash_bwd_dq_f32_sm90.cuh) at the
      training cross-attention shape in bf16 and fp16, the few-step
      steady-state self-attention shape, a ragged shape, D = 24 and the
      fp32 trunk's shapes, against the plain backward and SDPA's backward
@@ -34,7 +35,9 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      the plain versions and SDPA (memory-efficient backend) with the token
      mask; bf16 / fp16 K4, K5 and K6 run the masked instantiations of K1's,
      K2's and K3's Hopper bodies over the coarse tile tables (their
-     admitted and partial shares reported), fp32 the template body;
+     admitted and partial shares reported); fp32 K6 runs the masked kernel
+     of fp32 K3's split-TF32 body over the 64 x 64 table, fp32 K4 and K5
+     the template bodies;
   5. kernel_int8 (run before kernel_masked, whose large SDPA yardstick
      leaves the short profiler sessions that read a body without their
      records): Q (csrc/int8_gemm.cu) and P2 (the wgmma s8 + TMA body
@@ -364,15 +367,19 @@ BWD_MAIN = "tf_cross"
 #: "blind" is L = 1000 in frames of 130 under a block-causal mask where
 #: frame 1 sees nothing; "dead" is L = 1000 in frames of 300 where frame 1
 #: sees nothing and frame 2 is seen by nothing (a 128-query block with no
-#: admitted key tile, 128-key blocks with no admitted query tile).  tf_self
-#: runs last: after its SDPA yardstick (a 4.3 GB token mask) the short
-#: profiler sessions that read the body lost every device record
+#: admitted key tile, 128-key blocks with no admitted query tile); both
+#: also in fp32 at D = 128 (fp32 K6's split-TF32 body, K4's and K5's
+#: templates).  tf_self runs last: after its SDPA yardstick (a 4.3 GB
+#: token mask) the short profiler sessions that read the body lost every
+#: device record
 MASKED_SHAPES = [
     ("ragged_blind", 2, 12, 128, "blind", 130, torch.bfloat16),
     ("ragged_blind_f16", 2, 12, 128, "blind", 130, torch.float16),
     ("dead_blocks", 2, 12, 128, "dead", 300, torch.bfloat16),
     ("d24_bf16_blind", 2, 4, 24, "blind", 130, torch.bfloat16),
     ("d24_f32_blind", 2, 4, 24, "blind", 130, torch.float32),
+    ("ragged_blind_f32", 2, 12, 128, "blind", 130, torch.float32),
+    ("dead_blocks_f32", 2, 12, 128, "dead", 300, torch.float32),
     ("tf_self", 1, 12, 128, "fps", 1560, torch.bfloat16),
 ]
 MASKED_MAIN = "tf_self"
@@ -574,19 +581,22 @@ def _launched(fn) -> list:
 
 
 #: the launch counters whose fp32 calls run the split-TF32 wgmma bodies
-#: (csrc/flash_fwd_f32_sm90.cuh, csrc/flash_bwd_f32_sm90.cuh)
-TF32_BODIES = ("flash_fwd", "flash_bwd_dkv")
+#: (csrc/flash_fwd_f32_sm90.cuh, csrc/flash_bwd_f32_sm90.cuh,
+#: csrc/flash_bwd_dq_f32_sm90.cuh)
+TF32_BODIES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+               "flash_masked_bwd_dq")
 
 
 def _body(names, counter: str, dtype) -> str:
     """Which body ran `counter`'s launch among `names`: "wgmma" (the
     `*_sm90_kernel` of csrc/flash_fwd_sm90.cuh or csrc/flash_bwd_sm90.cuh,
     with K2's reduce kernel when the call split the queries), "tf32x3" (the
-    split-TF32 `*_f32_sm90_kernel` of csrc/flash_fwd_f32_sm90.cuh or
-    csrc/flash_bwd_f32_sm90.cuh, one kernel) or "template" (the fp32 FMA
-    body of csrc/flash_fwd.cu or csrc/flash_bwd.cu, one kernel).  bf16 /
-    fp16 K1-K6 and P1 must run the first; fp32 K1 and K2 the second, fp32
-    K3-K6 and P1 the third."""
+    split-TF32 `*_f32_sm90_kernel` of csrc/flash_fwd_f32_sm90.cuh,
+    csrc/flash_bwd_f32_sm90.cuh or csrc/flash_bwd_dq_f32_sm90.cuh, one
+    kernel) or "template" (the fp32 FMA body of csrc/flash_fwd.cu or
+    csrc/flash_bwd.cu, one kernel).  bf16 / fp16 K1-K6 and P1 must run the
+    first; fp32 K1, K2, K3 and K6 the second, fp32 K4, K5 and P1 the
+    third."""
     mine = [n for n in names if port_kernel_of(n) == counter]
     main = [n for n in mine if "_reduce_kernel" not in n]
     check(len(main) == 1 and len(mine) - len(main) <= 1, (counter, names))
@@ -5550,14 +5560,16 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                 for k, r in rows.items()})]
     bwd_sm90_src = "mmpl_tpu_torch/csrc/flash_bwd_sm90.cuh"
     bwd_f32_src = "mmpl_tpu_torch/csrc/flash_bwd_f32_sm90.cuh"
+    bwd_dq_f32_src = "mmpl_tpu_torch/csrc/flash_bwd_dq_f32_sm90.cuh"
     bwd_bodies = {
         "dkv": ("wgmma + TMA body (flash_bwd_sm90.cuh, with its query "
                 "split and reduce) for bf16 / fp16, the split-TF32 wgmma "
                 "body (flash_bwd_f32_sm90.cuh) for fp32; entry in "
                 "flash_bwd.cu", [bwd_sm90_src, bwd_f32_src, bwd_src]),
         "dq": ("wgmma + TMA body (flash_bwd_sm90.cuh) for bf16 / fp16, the "
-               "template body of flash_bwd.cu for fp32; entry in "
-               "flash_bwd.cu", [bwd_sm90_src, bwd_src]),
+               "split-TF32 wgmma body (flash_bwd_dq_f32_sm90.cuh) for fp32; "
+               "entry in flash_bwd.cu",
+               [bwd_sm90_src, bwd_dq_f32_src, bwd_src]),
     }
     for name, part, line in (("flash_bwd_dkv", "dkv", 373),
                              ("flash_bwd_dq", "dq", 417)):
@@ -5588,9 +5600,10 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                 "table, the template body of flash_bwd.cu for fp32; entry "
                 "in flash_bwd.cu", bwd_sm90_src, [bwd_sm90_src, bwd_src]),
         "dq": ("K3's wgmma + TMA dQ body, masked (flash_bwd_sm90.cuh) for "
-               "bf16 / fp16 over the 128 x 128 table, the template body of "
-               "flash_bwd.cu for fp32; entry in flash_bwd.cu", bwd_sm90_src,
-               [bwd_sm90_src, bwd_src]),
+               "bf16 / fp16 over the 128 x 128 table, K3's split-TF32 wgmma "
+               "body, masked (flash_bwd_dq_f32_sm90.cuh), for fp32 over the "
+               "64 x 64 table; entry in flash_bwd.cu", bwd_sm90_src,
+               [bwd_sm90_src, bwd_dq_f32_src, bwd_src]),
     }
     for name, part, line, plain, lib in (
             ("flash_masked_fwd", "fwd", 725, "plain_fwd_ms", "library_fwd_ms"),

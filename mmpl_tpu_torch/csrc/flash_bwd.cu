@@ -1,5 +1,5 @@
 // Flash-attention backward, plain C interface for ctypes: the entries of
-// K2 / K3 and of their masked forms K5 / K6, and the fp32 template body.
+// K2 / K3 and of their masked forms K5 / K6, and fp32 K5's template body.
 //
 //  * K2, dK and dV: `_flash_bwd_dkv_kernel` (mmpl_tpu/ops/attention.py:373,
 //    pallas_call :553).  K3, dQ: `_flash_bwd_dq_kernel` (:417, :578).  In
@@ -11,32 +11,32 @@
 //    flash_bwd_f32_sm90.cuh (three passes a product, a producer warpgroup
 //    that splits Q and dO and writes them as rows and as columns, one
 //    consumer warpgroup of 64 keys over 32-query tiles; see that file);
-//    fp32 K3 runs the template below.
+//    fp32 K3 the split-TF32 wgmma body of flash_bwd_dq_f32_sm90.cuh (K2's
+//    design turned round: Q and dO resident, 64 queries over 32-key tiles
+//    whose K and V rows and K columns two slots take in turn).
 //  * K5 / K6, the same under the frame mask: `_masked_bwd_dkv_kernel`
 //    (:783, :963) and `_masked_bwd_dq_kernel` (:821, :992).  bf16 / fp16
 //    K5 and K6 run the masked instantiations of the Hopper dKV and dQ
 //    bodies of flash_bwd_sm90.cuh (K5 over the 64 x 128 coarse table, never
-//    split; K6 over the 128 x 128 one); fp32 K5 and K6 run the template
-//    below.
+//    split; K6 over the 128 x 128 one); fp32 K6 runs the masked kernel of
+//    fp32 K3's body over the 64 x 64 table, fp32 K5 the template below.
 //
 // What bounds them on an H100: operations.  dKV does four products per
 // tile (S, dP, dV, dK: 8*B*N*Lq*Lk*D FLOPs), dQ three (S, dP, dQ: 6*...),
 // times the admitted share of tiles when masked; the bytes are
 // B*N*(Lq+Lk)*D elements in and out, far below the ridge at the training
 // shapes.  So the Hopper bodies keep the products on the tensor cores with
-// the scores, probabilities and accumulators in registers (fp32 K2 as
-// split TF32, three passes a product).  The template is fp32 only (K3, K5,
-// K6; still to be redesigned, ROADMAP.md Queue 2): FMA in the mma.sync
+// the scores, probabilities and accumulators in registers (fp32 K2, K3 and
+// K6 as split TF32, three passes a product).  The template is fp32 K5's
+// only (still to be redesigned, ROADMAP.md Queue 2): FMA in the mma.sync
 // m16n8 fragment layout of flash_common.cuh, no TMA, no warp
-// specialisation, the fp32 paths' default trunk (the trainer's ODE and
-// distillation objectives) included.
+// specialisation.
 //
-// The template: one block of 4 warps owns 64 keys (dKV) or 64 query rows
-// (dQ) of one (b, head) and loops over the admitted tiles of the other
-// side, double-buffered with cp.async; per tile it recomputes
-// P = exp(scale * Q K^T - lse) from the saved lse, dS = P o (dO V^T -
-// delta), and accumulates dV += P^T dO and dK += scale * dS^T Q, or dQ +=
-// scale * dS K.  Each block owns its outputs: no atomics, no second pass.
+// The template: one block of 4 warps owns 64 keys of one (b, head) and
+// loops over the admitted query tiles, double-buffered with cp.async; per
+// tile it recomputes P = exp(scale * Q K^T - lse) from the saved lse,
+// dS = P o (dO V^T - delta), and accumulates dV += P^T dO and dK += scale
+// * dS^T Q.  Each block owns its outputs: no atomics, no second pass.
 // p is 0 where the mask forbids the pair, past the ragged edges and on
 // rows whose lse is -inf (rows that saw no key: the guard of `_masked_p`,
 // :771-780).  The mask is read from the per-token frame ids and the
@@ -49,14 +49,15 @@
 // their products (dV, and dK / dQ); dP, p before rounding, and every
 // accumulator stay fp32.  The TPU kernels run the dO and dS products in
 // fp32 (:393, :403-409): a known difference, measured in ROADMAP.md Queue
-// 3.  The template computes in fp32 throughout; the fp32 K2 body keeps p and
-// dS in fp32 and takes every product as split TF32.
+// 3.  The template computes in fp32 throughout; the fp32 K2 and K3 bodies
+// keep p and dS in fp32 and take every product as split TF32.
 //
 // Layout: q, do, dq [B, Lq, N, D]; k, v, dk, dv [B, Lk, N, D], all through
 // element strides with a contiguous head dim; lse and delta contiguous
 // [B, N, Lq] fp32.  64-bit offsets throughout.
 
 #include "flash_common.cuh"
+#include "flash_bwd_dq_f32_sm90.cuh"
 #include "flash_bwd_f32_sm90.cuh"
 #include "flash_bwd_sm90.cuh"
 
@@ -69,9 +70,9 @@ struct Strides {
   long long ab, al, ah, cb, cl, ch;                          // dK / dQ, dV
 };
 
-// Shared memory of the template (fp32): two resident tiles, two streamed
-// tiles in two stages, the streamed rows' lse, delta (and frame ids), and
-// the per-warp P rows of the FMA products.
+// Shared memory of the template (fp32 K5): two resident tiles, two
+// streamed tiles in two stages, the streamed rows' lse, delta and frame
+// ids, and the per-warp P rows of the FMA products.
 template <int kD>
 struct BwdSmem {
   static constexpr size_t tiles = sizeof(float) * 6 * Pitch<float, kD>::tile;
@@ -80,9 +81,9 @@ struct BwdSmem {
 };
 
 // dK, dV for 64 keys; streams the admitted query tiles.
-template <int kD, bool kMasked>
+template <int kD>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+flash_masked_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dk, float* __restrict__ dv, int Lq, int Lk, int N,
@@ -117,14 +118,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int nqb = (Lq + TILE - 1) / TILE;
   // the tile table's column of this key tile, walked down the query tiles
-  const unsigned char* tcol = kMasked ? mask.tiles + blockIdx.x : nullptr;
-  int kfr[2] = {-1, -1};  // frame ids of this thread's two key rows
-  if (kMasked) {
+  const unsigned char* tcol = mask.tiles + blockIdx.x;
+  int kfr[2];  // frame ids of this thread's two key rows
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = k0 + warp * 16 + g + 8 * i;
-      kfr[i] = row < Lk ? mask.kf[row] : -1;
-    }
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + warp * 16 + g + 8 * i;
+    kfr[i] = row < Lk ? mask.kf[row] : -1;
   }
   // lse (-inf past Lq), delta and the frame ids of query tile `qb`
   auto load_rows = [&](int stage, int qb) {
@@ -133,11 +132,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const bool in = row < Lq;
       lse_s[stage * TILE + threadIdx.x] = in ? lse_g[row] : -INFINITY;
       dl_s[stage * TILE + threadIdx.x] = in ? dl_g[row] : 0.f;
-      if (kMasked) qf_s[stage * TILE + threadIdx.x] = in ? mask.qf[row] : 0;
+      qf_s[stage * TILE + threadIdx.x] = in ? mask.qf[row] : 0;
     }
   };
 
-  int qb = next_tile<kMasked>(tcol, mask.nkt, 0, nqb);
+  int qb = next_tile<true>(tcol, mask.nkt, 0, nqb);
   load_tile<float, kD>(Ks, kg, st.kl, k0, Lk, D);
   load_tile<float, kD>(Vs, vg, st.vl, k0, Lk, D);
   if (qb < nqb) {
@@ -151,7 +150,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float dv_acc[DT][4] = {};
 
   for (int stage = 0; qb < nqb; stage ^= 1) {
-    const int nxt = next_tile<kMasked>(tcol, mask.nkt, qb + 1, nqb);
+    const int nxt = next_tile<true>(tcol, mask.nkt, qb + 1, nqb);
     if (nxt < nqb) {
       load_tile<float, kD>(Qs(stage ^ 1), qg, st.ql, nxt * TILE, Lq, D);
       load_tile<float, kD>(Ds(stage ^ 1), dg, st.dl, nxt * TILE, Lq, D);
@@ -173,7 +172,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     fma_abt<kD>(s, Ks, warp * 16, Qt, D);
     fma_abt<kD>(dp, Vs, warp * 16, Dt, D);
 
-    const bool test_pairs = kMasked && tcol[(long long)qb * mask.nkt] != 2;
+    const bool test_pairs = tcol[(long long)qb * mask.nkt] != 2;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -204,106 +203,6 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<float, kD>(dv + b * st.cb + h * st.ch, st.cl, row0, Lk, D, dv_acc, 1.f, 1.f);
 }
 
-// dQ for 64 query rows; streams the admitted key tiles.
-template <int kD, bool kMasked>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int Lq, int Lk, int N, int D, Strides st,
-                    float scale, FrameMask mask) {
-  constexpr int TL = Pitch<float, kD>::tile;
-  constexpr int DT = kD / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Ds = Qs + TL;
-  auto Ks = [&](int stage) { return Qs + (2 + stage) * TL; };
-  auto Vs = [&](int stage) { return Qs + (4 + stage) * TL; };
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int q0 = blockIdx.x * TILE;
-  const int h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const float* qg = q + b * st.qb + h * st.qh;
-  const float* kg = k + b * st.kb + h * st.kh;
-  const float* vg = v + b * st.vb + h * st.vh;
-  const float* dg = dout + b * st.db + h * st.dh;
-  // this warp's P rows of the FMA product
-  float* Pw = reinterpret_cast<float*>(smem + BwdSmem<kD>::tiles + BwdSmem<kD>::rows) +
-              warp * 16 * Pitch<float, kD>::pld;
-
-  const int nkb = (Lk + TILE - 1) / TILE;
-  const unsigned char* trow = kMasked ? mask.tiles + (long long)blockIdx.x * mask.nkt : nullptr;
-  float ls[2], dl[2];
-  const unsigned char* fmrow[2] = {nullptr, nullptr};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + warp * 16 + g + 8 * i;
-    const bool in = row < Lq;
-    ls[i] = in ? lse[(b * N + h) * (long long)Lq + row] : -INFINITY;
-    dl[i] = in ? delta[(b * N + h) * (long long)Lq + row] : 0.f;
-    if (kMasked && in) fmrow[i] = mask.fm + (long long)mask.qf[row] * mask.F;
-  }
-
-  int kb = next_tile<kMasked>(trow, 1, 0, nkb);
-  load_tile<float, kD>(Qs, qg, st.ql, q0, Lq, D);
-  load_tile<float, kD>(Ds, dg, st.dl, q0, Lq, D);
-  if (kb < nkb) {
-    load_tile<float, kD>(Ks(0), kg, st.kl, kb * TILE, Lk, D);
-    load_tile<float, kD>(Vs(0), vg, st.vl, kb * TILE, Lk, D);
-  }
-  cp_async_commit();
-
-  float dq_acc[DT][4] = {};  // query rows g, g + 8
-
-  for (int stage = 0; kb < nkb; stage ^= 1) {
-    const int nxt = next_tile<kMasked>(trow, 1, kb + 1, nkb);
-    if (nxt < nkb) {
-      load_tile<float, kD>(Ks(stage ^ 1), kg, st.kl, nxt * TILE, Lk, D);
-      load_tile<float, kD>(Vs(stage ^ 1), vg, st.vl, nxt * TILE, Lk, D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* Kt = Ks(stage);
-    const float* Vt = Vs(stage);
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 queries x 64 keys
-    float s[8][4], dp[8][4];
-    fma_abt<kD>(s, Qs, warp * 16, Kt, D);
-    fma_abt<kD>(dp, Ds, warp * 16, Vt, D);
-
-    const int kvalid = Lk - kb * TILE;
-    const bool test_pairs = kMasked && trow[kb] != 2;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1);  // key within the tile
-        const int i = e >> 1;
-        bool ok = col < kvalid && ls[i] != -INFINITY;
-        if (test_pairs) ok = ok && fmrow[i] != nullptr && fmrow[i][mask.kf[kb * TILE + col]] != 0;
-        const float p = ok ? expf(s[j][e] * scale - ls[i]) : 0.f;
-        dp[j][e] = p * (dp[j][e] - dl[i]);  // dS
-      }
-    }
-
-    // dQ += dS K (scale applied at the end)
-    fma_pb<kD>(dq_acc, dp, Kt, Pw);
-    __syncthreads();
-    kb = nxt;
-  }
-  cp_async_wait<0>();
-
-  store_rows<float, kD>(dq + b * st.ab + h * st.ah, st.al, q0 + warp * 16 + g, Lq, D, dq_acc,
-                        scale, scale);
-}
-
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *out0, *out1;  // dK, dV (dkv) or dQ (dq)
@@ -313,32 +212,20 @@ struct Args {
   FrameMask mask;
 };
 
-template <int kD, bool kMasked, bool kDKV>
-int launch(const Args& a, cudaStream_t stream) {
+template <int kD>
+int launch_masked_dkv(const Args& a, cudaStream_t stream) {
   const int bytes = (int)BwdSmem<kD>::bytes;
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  const float* d = static_cast<const float*>(a.dout);
-  const float* lse = static_cast<const float*>(a.lse);
-  const float* dl = static_cast<const float*>(a.delta);
-  cudaError_t err;
-  if constexpr (kDKV) {
-    auto fn = flash_bwd_dkv_kernel<kD, kMasked>;
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((a.Lk + TILE - 1) / TILE, a.N, a.B);
-    fn<<<grid, THREADS, bytes, stream>>>(q, k, v, d, lse, dl, static_cast<float*>(a.out0),
-                                         static_cast<float*>(a.out1), a.Lq, a.Lk, a.N, a.D,
-                                         a.st, a.scale, a.mask);
-  } else {
-    auto fn = flash_bwd_dq_kernel<kD, kMasked>;
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((a.Lq + TILE - 1) / TILE, a.N, a.B);
-    fn<<<grid, THREADS, bytes, stream>>>(q, k, v, d, lse, dl, static_cast<float*>(a.out0),
-                                         a.Lq, a.Lk, a.N, a.D, a.st, a.scale, a.mask);
-  }
+  auto fn = flash_masked_bwd_dkv_kernel<kD>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.Lk + TILE - 1) / TILE, a.N, a.B);
+  fn<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.Lq, a.Lk, a.N, a.D, a.st,
+      a.scale, a.mask);
   return (int)cudaGetLastError();
 }
 
@@ -360,11 +247,30 @@ int f32_dkv(const Args& a, void* stream) {
                    : sm90::launch_f32_dkv<128>(q, k, v, d, in, st.db, st.dl, st.dh, p, a.B, s);
 }
 
-// fp32 on the template (K3, K5, K6); D <= 128 was checked.
-template <bool kMasked, bool kDKV>
-int launch_f32(const Args& a, void* stream) {
+// fp32 K3, or K6 with kMasked (over `a.mask`'s 64 x 64 table), on the
+// split-TF32 wgmma body; D <= 128 was checked.
+template <bool kMasked>
+int f32_dq(const Args& a, void* stream) {
+  const Strides& st = a.st;
+  const FwdStrides in{st.qb, st.ql, st.qh, st.kb, st.kl, st.kh, st.vb, st.vl, st.vh, 0, 0, 0};
+  const sm90::F32DqParams p{static_cast<float*>(a.out0), static_cast<const float*>(a.lse),
+                            static_cast<const float*>(a.delta), st.ab, st.al, st.ah,
+                            a.Lq, a.Lk, a.N, a.D, a.scale, a.scale * sm90::kLog2e};
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* d = static_cast<const float*>(a.dout);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return a.D <= 64 ? launch<64, kMasked, kDKV>(a, s) : launch<128, kMasked, kDKV>(a, s);
+  return a.D <= 64 ? sm90::launch_f32_dq<64, kMasked>(q, k, v, d, in, st.db, st.dl, st.dh, p,
+                                                      a.mask, a.B, s)
+                   : sm90::launch_f32_dq<128, kMasked>(q, k, v, d, in, st.db, st.dl, st.dh, p,
+                                                       a.mask, a.B, s);
+}
+
+// fp32 K5 on the template; D <= 128 was checked.
+int f32_masked_dkv(const Args& a, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return a.D <= 64 ? launch_masked_dkv<64>(a, s) : launch_masked_dkv<128>(a, s);
 }
 
 FrameMask make_mask(const void* qf, const void* kf, const void* fm, const void* tiles, int F,
@@ -403,8 +309,8 @@ int launch_sm90(const Args& a, const long long* strides, void* ws, int splits,
                      : sm90::launch_dq<T, 128>(a.q, a.k, a.v, a.dout, strides, p, stream);
 }
 
-// The unmasked entries: bf16 / fp16 on the Hopper body, fp32 K2 on the
-// split-TF32 body, fp32 K3 on the template.  `splits` > 1 (bf16 / fp16
+// The unmasked entries: bf16 / fp16 on the Hopper body, fp32 K2 and K3 on
+// their split-TF32 bodies.  `splits` > 1 (bf16 / fp16
 // dKV only) needs the fp32 workspace `ws` of 2 * splits * B * N * Lk * D
 // values.
 template <bool kDKV>
@@ -419,7 +325,7 @@ int unmasked(int dtype, const Args& a, const long long* strides, void* ws, int s
       if constexpr (kDKV)
         return f32_dkv(a, stream);
       else
-        return launch_f32<false, false>(a, stream);
+        return f32_dq<false>(a, stream);
     case 1:
       return launch_sm90<__nv_bfloat16, kDKV>(a, strides, ws, splits, s);
     case 2:
@@ -434,13 +340,19 @@ int unmasked(int dtype, const Args& a, const long long* strides, void* ws, int s
 // the table that the bf16 / fp16 Hopper body reads (F up to
 // sm90::kMaxFrames): for dKV the table over 64 queries x 128 keys stored
 // key-block major ([ceil(Lk/128), ceil(Lq/64)]), for dQ the 128 x 128
-// table of the forward ([ceil(Lq/128), ceil(Lk/128)]).  fp32 reads `tiles`.
+// table of the forward ([ceil(Lq/128), ceil(Lk/128)]).  fp32 (K5's
+// template, K6's split-TF32 body) reads `tiles`.
 // The tables' widths are taken from Lq and Lk: the caller checks their
 // shapes (`_mask_args`, mmpl_tpu_torch/ops/attention.py).
 template <bool kDKV>
 int masked(int dtype, Args& a, const void* coarse, const long long* strides, void* stream) {
   if (a.D <= 0 || a.D > 128 || a.D % 8) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch_f32<true, kDKV>(a, stream);
+  if (dtype == 0) {
+    if constexpr (kDKV)
+      return f32_masked_dkv(a, stream);
+    else
+      return f32_dq<true>(a, stream);
+  }
   a.mask.tiles = static_cast<const unsigned char*>(coarse);
   a.mask.nkt = kDKV ? (a.Lq + sm90::kQueryTile - 1) / sm90::kQueryTile
                     : (a.Lk + sm90::kKeyTile - 1) / sm90::kKeyTile;

@@ -14,8 +14,8 @@ Port of `mmpl_tpu/ops/attention.py`.  Layout is [B, L, N, D] throughout.
     fp16 run the Hopper body of `csrc/flash_bwd_sm90.cuh`, whose dKV splits
     each key block's query loop over `bwd_query_splits` blocks where the key
     blocks alone would not fill the card; fp32 K2 runs the split-TF32 body
-    of `csrc/flash_bwd_f32_sm90.cuh` (never split), fp32 K3 the template
-    body of `flash_bwd.cu`.
+    of `csrc/flash_bwd_f32_sm90.cuh` (never split), fp32 K3 the split-TF32
+    body of `csrc/flash_bwd_dq_f32_sm90.cuh`.
   * `flash_attention_exp2` is P1, the exp2 probe's forward (O only, exp or
     exp2, with or without the in-kernel pad test), on K1's Hopper body in
     bf16 / fp16 and the FMA template body of `flash_fwd.cu` in fp32;
@@ -26,9 +26,10 @@ Port of `mmpl_tpu/ops/attention.py`.  Layout is [B, L, N, D] throughout.
     frame_mask[q_frame_ids[i], kv_frame_ids[j]]): K4 forward, K5 / K6
     backward.  Whole tiles that the mask forbids are skipped through tile
     tables built on the device (`mask_tiles`): 64x64 (`tile_table`) for
-    the fp32 template, pooled to 128x128 for the Hopper K4 and K6 and to
-    64x128 for the Hopper K5, which run in bf16 / fp16 as masked
-    instantiations of K1's, K3's and K2's bodies.
+    the fp32 K4 and K5 templates and fp32 K6, which runs as the masked
+    kernel of fp32 K3's split-TF32 body, pooled to 128x128 for the Hopper
+    K4 and K6 and to 64x128 for the Hopper K5, which run in bf16 / fp16 as
+    masked instantiations of K1's, K3's and K2's bodies.
 
 On CUDA tensors each wrapper launches its hand-written kernel or raises; on
 CPU tensors the same `autograd.Function`s run the plain versions, forward
@@ -551,7 +552,7 @@ def _bwd_mask_args(part: str, mask, tiles, Lq: int, Lk: int, device,
     """The mask arguments of the masked dKV (K5, `part` = "dkv") or dQ
     (K6, "dq") entry: both take their coarse table (`COARSE_TABLE`), which
     bf16 / fp16 read on the Hopper body (so F is held to SM90_MAX_FRAMES);
-    fp32 reads the 64 x 64 one."""
+    fp32 (K5's template, K6's split-TF32 body) reads the 64 x 64 one."""
     return _mask_args(f"flash_masked_bwd_{part}", mask, tiles, Lq, Lk,
                       device, COARSE_TABLE[part], dtype != torch.float32)
 
@@ -616,8 +617,9 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale=None, mask=None,
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale=None, mask=None,
                       tiles=None) -> torch.Tensor:
     """Launch the dQ kernel (K3, or K6 with `mask` and its `tiles`) from
-    `csrc/flash_bwd.cu` (bf16 / fp16 K3 and K6: `csrc/flash_bwd_sm90.cuh`);
-    arguments as `flash_bwd_dkv_cuda`.  Returns dq."""
+    `csrc/flash_bwd.cu` (bf16 / fp16 K3 and K6: `csrc/flash_bwd_sm90.cuh`;
+    fp32 K3 and K6: the split-TF32 `csrc/flash_bwd_dq_f32_sm90.cuh`, K6 over
+    `tiles.t64`); arguments as `flash_bwd_dkv_cuda`.  Returns dq."""
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), scale, mask, tiles)
     return dq

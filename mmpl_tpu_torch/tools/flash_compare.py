@@ -8,6 +8,8 @@ checkout's, on one card, in turns.
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --dtype float32
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel bwd \
         --dtype float32
+    python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR \
+        --kernel masked --dtype float32
 
 DIR holds another checkout of the repository (for example an earlier
 commit unpacked with `git archive`).  Its `mmpl_tpu_torch/csrc/flash_fwd.cu`
@@ -37,13 +39,18 @@ distillation objectives, and adds to each row the plain version's time
 (`flash_attention_plain` / `flash_attention_bwd_plain`, few calls) and
 SDPA's under the memory-efficient backend (the one that takes fp32); the
 bound is then taken at the TF32 tensor-core rate (`PEAK_TF32`), the rate
-the fp32 wgmma bodies run their products at.  `--kernel bwd` ends, as
-`fwd` does, with the SASS check of its source, so the two fp32 calls show
-that the bf16 / fp16 Hopper kernels of K1-K6 and P1 are unchanged.
+the fp32 wgmma bodies run their products at.  With `--kernel masked` it
+runs K4, K5 and K6 on fp32 inputs at `MASKED_SHAPES` the same way (the
+masked plain versions' times, the bound at `PEAK_TF32`).  `--kernel bwd`
+ends, as `fwd` does, with the SASS check of its source, so the two fp32
+calls show that the bf16 / fp16 Hopper kernels of K1-K6 and P1 are
+unchanged.
 
 `--kernel masked` builds the baseline's `flash_fwd.cu` and `flash_bwd.cu`
 and times K4, K5 and K6 (`call_masked`) at `MASKED_SHAPES` (the
-teacher-forcing self-attention under the fps-forcing mask) the same way;
+teacher-forcing self-attention under the fps-forcing mask) the same way,
+with SDPA's forward and backward under the token mask (memory-efficient
+backend, the one that takes a mask with a backward);
 a baseline entry that takes no coarse tile table (K4 and K5 before their
 Hopper bodies, K6 before its own; `OLD_MASKED_SIGNATURES`) gets the
 64 x 64 table alone.  Both trees are held against the plain versions; the
@@ -127,7 +134,7 @@ F32_SHAPES = {
 TABLES = {"fwd": SHAPES, "bwd": BWD_SHAPES, "masked": MASKED_SHAPES,
           "int8": INT8_SHAPES}
 #: the tables of --dtype float32
-F32_TABLES = {"fwd": F32_SHAPES, "bwd": F32_SHAPES}
+F32_TABLES = {"fwd": F32_SHAPES, "bwd": F32_SHAPES, "masked": MASKED_SHAPES}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 #: H100 SXM dense bf16 and int8 tensor-core peaks and HBM rate (NVIDIA
@@ -182,11 +189,12 @@ def parse_args(argv=None):
                                    for k in t}),
                    help="default: every shape of the kernel")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16",
-                   help="float32: K1 or K2 / K3 at F32_SHAPES (fwd, bwd)")
+                   help="float32: K1 or K2 / K3 at F32_SHAPES (fwd, bwd), "
+                        "K4-K6 at MASKED_SHAPES (masked)")
     p.add_argument("--reps", type=int, default=10)
     args = p.parse_args(argv)
     if args.dtype == "float32" and args.kernel not in F32_TABLES:
-        p.error(f"--dtype float32 takes --kernel fwd or bwd, not "
+        p.error(f"--dtype float32 takes --kernel fwd, bwd or masked, not "
                 f"{args.kernel}")
     table = (F32_TABLES if args.dtype == "float32" else TABLES)[args.kernel]
     if args.shapes is None:
@@ -620,6 +628,8 @@ def run_masked(args, smi: str) -> list:
                                 ("dq", "flash_bwd"))}
     mine = {src: _build.library(src) for src in ("flash_fwd", "flash_bwd")}
     gen = torch.Generator(device="cuda").manual_seed(3)
+    dtype = DTYPES[args.dtype]
+    f32 = dtype == torch.float32
     rows = []
     for label in args.shapes:
         B, N, D, S = MASKED_SHAPES[label]
@@ -633,7 +643,7 @@ def run_masked(args, smi: str) -> list:
         share = float(counts @ torch.as_tensor(fm, dtype=torch.float64)
                       @ counts) / L ** 2
         q, k, v, do = (torch.randn((B, L, N, D), generator=gen,
-                                   device="cuda").to(torch.bfloat16)
+                                   device="cuda").to(dtype)
                        for _ in range(4))
         o, lse = attn.flash_fwd_cuda(q, k, v, None, mask, tiles)
         delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
@@ -642,8 +652,8 @@ def run_masked(args, smi: str) -> list:
                         attn.frame_masked_attention_bwd_plain(
                             q, k, v, do, lse, delta, *mask)))
         want["o"] = po
-        row = {"kernel": "masked", "shape": label, "B": B, "N": N, "D": D,
-               "L": L, "pair_share": share,
+        row = {"kernel": "masked", "dtype": args.dtype, "shape": label,
+               "B": B, "N": N, "D": D, "L": L, "pair_share": share,
                "fwd_tile_share": (tiles.fwd != 0).float().mean().item(),
                "dkv_tile_share": (tiles.dkv != 0).float().mean().item(),
                "t64_tile_share": (tiles.t64 != 0).float().mean().item()}
@@ -663,16 +673,37 @@ def run_masked(args, smi: str) -> list:
                         _turns(base, this, args.reps).items()})
             flops = mult * B * N * L * L * D * share
             elems = {"fwd": 4 * L, "dkv": 6 * L, "dq": 5 * L}[part]
-            nbytes = 2 * B * N * D * elems + 4 * B * N * L * (
+            nbytes = q.element_size() * B * N * D * elems + 4 * B * N * L * (
                 1 if part == "fwd" else 2)
-            row[f"{part}_bound_ms"] = 1e3 * max(flops / PEAK_FLOPS,
-                                                nbytes / PEAK_BYTES)
+            row[f"{part}_bound_ms"] = _bound_ms(flops, nbytes, dtype)
             row[f"{part}_this_tflops"] = (flops / min(row[f"{part}_this_ms"])
                                           / 1e9)
+            row[f"{part}_baseline_tflops"] = (
+                flops / min(row[f"{part}_baseline_ms"]) / 1e9)
+        del want, po
+        if f32:
+            row["plain_fwd_ms"] = time_ms(
+                lambda: attn.frame_masked_attention_plain(q, k, v, *mask),
+                PLAIN_REPS)
+            row["plain_bwd_ms"] = time_ms(
+                lambda: attn.frame_masked_attention_bwd_plain(
+                    q, k, v, do, lse, delta, *mask), PLAIN_REPS)
+        # SDPA under the token mask: the yardstick only
+        token_mask = mask[2][mask[0].long()][:, mask[1].long()]
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        with _efficient_sdpa():
+            row["sdpa_fwd_ms"] = time_ms(lambda: sdpa(
+                qt, kt, vt, attn_mask=token_mask).detach(), args.reps)
+            out = sdpa(qt, kt, vt, attn_mask=token_mask)
+            row["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+                args.reps)
         row["card"] = smi
         print(json.dumps(row), flush=True)
         rows.append(row)
-        del q, k, v, do, o, lse, delta, po, want
+        del q, k, v, do, o, lse, delta, token_mask, qt, kt, vt, out
         torch.cuda.empty_cache()
     for source in ("flash_fwd", "flash_bwd"):
         sass = same_sass(baseline_library(args.baseline, source),

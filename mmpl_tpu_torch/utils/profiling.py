@@ -27,13 +27,11 @@ import torch
 
 
 #: the `__global__` functions of `csrc/`, by launch counter.  K1, K4, P1,
-#: K2, K3, K5 and K6 have a Hopper kernel (bf16 / fp16); in fp32 K1 and K2
-#: a split-TF32 Hopper kernel, K4, P1, K3, K5 and K6 a template-body one
-#: (K5's is the dKV template with its mask flag set); K2's Hopper launch
-#: adds its reduce when it splits the queries.  The backward templates take the frame mask as their last flag
-#: (K5, K6); the Hopper backward kernels take no bool template argument
-#: (K5's and K6's are kernels of their own names).  P2 has one
-#: body; Q reads a row once, or twice beyond the rows its registers hold
+#: K2, K3, K5 and K6 have a Hopper kernel (bf16 / fp16); in fp32 K1, K2,
+#: K3 and K6 a split-TF32 Hopper kernel, K4, P1 and K5 a template-body one;
+#: K2's Hopper launch adds its reduce when it splits the queries.  The
+#: masked kernels (K4-K6) are kernels of their own names.  P2 has one body;
+#: Q reads a row once, or twice beyond the rows its registers hold
 _KERNELS = {
     "flash_fwd_sm90_kernel": "flash_fwd",
     "flash_fwd_f32_sm90_kernel": "flash_fwd",
@@ -44,11 +42,12 @@ _KERNELS = {
     "flash_bwd_dkv_sm90_kernel": "flash_bwd_dkv",
     "flash_bwd_dkv_reduce_kernel": "flash_bwd_dkv",
     "flash_bwd_dkv_f32_sm90_kernel": "flash_bwd_dkv",
-    "flash_bwd_dkv_kernel": "flash_bwd_dkv",
+    "flash_masked_bwd_dkv_kernel": "flash_masked_bwd_dkv",
     "flash_masked_bwd_dkv_sm90_kernel": "flash_masked_bwd_dkv",
     "flash_bwd_dq_sm90_kernel": "flash_bwd_dq",
     "flash_masked_bwd_dq_sm90_kernel": "flash_masked_bwd_dq",
-    "flash_bwd_dq_kernel": "flash_bwd_dq",
+    "flash_bwd_dq_f32_sm90_kernel": "flash_bwd_dq",
+    "flash_masked_bwd_dq_f32_sm90_kernel": "flash_masked_bwd_dq",
     "int8_gemm_sm90_kernel": "int8_gemm",
     "quantize_rows_sm90_kernel": "quantize_rows",
     "quantize_rows_kernel": "quantize_rows",
@@ -57,8 +56,6 @@ _KERNELS = {
 #: (`<length>name` before its template arguments `I...E`)
 _KERNEL_RE = re.compile("|".join(
     rf"(?<![A-Za-z0-9_]){k}(?=[<(])|{len(k)}{k}(?=[IE])" for k in _KERNELS))
-#: a backward template's mask flag, its last template argument
-_MASKED_RE = re.compile(r"<[^<>()]*, true>|I.*?Lb1E")
 
 
 def port_kernel_of(name: str) -> Optional[str]:
@@ -71,10 +68,7 @@ def port_kernel_of(name: str) -> Optional[str]:
     m = _KERNEL_RE.search(name)
     if m is None:
         return None
-    counter = _KERNELS[m.group(0).lstrip("0123456789")]
-    if counter.startswith("flash_bwd") and _MASKED_RE.match(name, m.end()):
-        return counter.replace("flash_", "flash_masked_")
-    return counter
+    return _KERNELS[m.group(0).lstrip("0123456789")]
 
 
 #: calls of each profiler session that reads which body ran a kernel

@@ -1,7 +1,8 @@
 """K1-K6 (`mmpl_tpu_torch/csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`, their
 Hopper bodies `csrc/flash_fwd_sm90.cuh` and `csrc/flash_bwd_sm90.cuh`, which
 also run the bf16 / fp16 K4, K5 and K6, and the split-TF32 bodies of fp32
-K1 and K2, `csrc/flash_fwd_f32_sm90.cuh` and `csrc/flash_bwd_f32_sm90.cuh`)
+K1, K2 and K3 / K6, `csrc/flash_fwd_f32_sm90.cuh`,
+`csrc/flash_bwd_f32_sm90.cuh` and `csrc/flash_bwd_dq_f32_sm90.cuh`)
 and
 the int8 kernels P2 and Q (`csrc/int8_gemm.cu`, P2's Hopper body
 `csrc/int8_gemm_sm90.cuh`) on the card: agreement with their plain
@@ -535,16 +536,16 @@ def test_hopper_bwd_padding_keys_stay_finite_under_a_very_negative_lse(cuda):
 @pytest.mark.parametrize("dtype,masked,bodies", [
     (torch.bfloat16, False, ("_sm90_kernel", "_sm90_kernel")),
     (torch.float16, False, ("_sm90_kernel", "_sm90_kernel")),
-    (torch.float32, False, ("_f32_sm90_kernel", "flash_bwd_dq_kernel")),
+    (torch.float32, False, ("_f32_sm90_kernel", "_f32_sm90_kernel")),
     (torch.bfloat16, True, ("_sm90_kernel", "_sm90_kernel")),
     (torch.float16, True, ("_sm90_kernel", "_sm90_kernel")),
-    (torch.float32, True, ("flash_bwd_d", "flash_bwd_d")),
+    (torch.float32, True, ("flash_masked_bwd_dkv_kernel", "_f32_sm90_kernel")),
 ])
 def test_backward_runs_the_body_of_its_type(cuda, dtype, masked, bodies):
     """bf16 / fp16 K2 / K3 and K5 / K6 run the Hopper kernels (K2 with its
-    reduce where it splits, K5 never split), fp32 K2 the split-TF32 Hopper
-    kernel and fp32 K3, K5 and K6 the template; the profiler attribution
-    books each to its own counter."""
+    reduce where it splits, K5 never split), fp32 K2, K3 and K6 the
+    split-TF32 Hopper kernels and fp32 K5 the template; the profiler
+    attribution books each to its own counter."""
     from mmpl_tpu_torch.utils.profiling import port_kernel_of
     q, k, v, do = _bwd_inputs(500, 300, 64, dtype, cuda)
     mask = _mask(500, 100, cuda, blind=False) if masked else None
@@ -681,6 +682,102 @@ def test_fp32_k1_and_k2_give_the_same_bits_on_every_call(cuda):
                  *ta.flash_bwd_dkv_cuda(q, k, v, do, lse, delta))
         for x, y in zip(again, first):
             assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The split-TF32 body of fp32 K3 and K6 (csrc/flash_bwd_dq_f32_sm90.cuh):
+# 64-row blocks over 32-key tiles, D padded to 64 or 128; K6 walks the
+# 64 x 64 table, an entry two tiles
+# ---------------------------------------------------------------------------
+
+def _f32_mask(lq, lk, cuda):
+    """Frame ids of lq queries and lk keys in ten frames, a block-causal
+    mask over them with frame 1 blind (its rows see no key)."""
+    from mmpl_tpu_torch.training import masks
+    F = 10
+    S = -(-max(lq, lk) // F)
+    fm = masks.blockwise_causal_frame_mask(F, 3)
+    fm[1] = False
+    ids = lambda L: torch.as_tensor(np.repeat(np.arange(F), S)[:L],
+                                    dtype=torch.int32, device=cuda)
+    return ids(lq), ids(lk), torch.as_tensor(fm, device=cuda)
+
+
+def _f32_dq_errors(q, k, v, do, mask=None):
+    """K3's (or, with `mask`, K6's) dQ against the plain version, both fed
+    the plain lse and delta: its largest and relative differences; K6's
+    blind rows must get dQ = 0."""
+    tiles = None if mask is None else ta.mask_tiles(*mask)
+    if mask is None:
+        po, plse = ta.flash_attention_plain(q, k, v)
+    else:
+        po, plse = ta.frame_masked_attention_plain(q, k, v, *mask)
+    delta = (do * po).sum(-1).permute(0, 2, 1).contiguous()
+    dq = ta.flash_bwd_dq_cuda(q, k, v, do, plse, delta, None, mask, tiles)
+    if mask is None:
+        pdq = ta.flash_attention_bwd_plain(q, k, v, do, plse, delta)[0]
+    else:
+        pdq = ta.frame_masked_attention_bwd_plain(q, k, v, do, plse, delta,
+                                                  *mask)[0]
+        assert torch.all(dq[:, mask[0] == 1] == 0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dq).all()
+    return {"dq": (dq - pdq).abs().max().item(), "dq_rel": _rel(dq, pdq)}
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("d", [24, 64, 80, 128])
+@pytest.mark.parametrize("lq,lk", [(1000, 1300), (777, 777), (1, 500),
+                                   (65, 33)])
+def test_fp32_k3_and_k6_on_the_tf32_body_match_plain(cuda, lq, lk, d,
+                                                     strided, masked):
+    """Ragged Lq and Lk against the 64-row block and the 32-key tile (one
+    query row; a last tile of one key; an odd count of 32-key tiles, whose
+    last 64 x 64 entry covers one), every head-dim width, contiguous
+    operands and strided views, unmasked and under a mask with a blind
+    frame."""
+    if strided:
+        q, k, v, do = _f32_views(lq, lk, d, cuda, seed=lq + d + 1)
+        assert not (q.is_contiguous() or k.is_contiguous()
+                    or do.is_contiguous())
+    else:
+        q, k, v, do = _bwd_inputs(lq, lk, d, torch.float32, cuda,
+                                  seed=lq + d + 1)
+    mask = _f32_mask(lq, lk, cuda) if masked else None
+    err = _f32_dq_errors(q, k, v, do, mask)
+    assert err["dq"] <= F32_TOL and err["dq_rel"] <= F32_REL_TOL, err
+
+
+def test_fp32_k3_padding_keys_stay_finite_under_a_very_negative_lse(cuda):
+    """K2's twin for dQ: every lse near -93, so the keys past Lk (which
+    score 0) must get p = 0 in the split-TF32 K3, not exp(93) times 0 (the
+    looser bound as K2's, for the same reason)."""
+    q, k, v, do = _bwd_inputs(1000, 1300, 128, torch.float32, cuda, seed=9)
+    q[..., 0] = -1128.0
+    k[..., 0] = 1.0
+    _, lse = ta.flash_fwd_cuda(q, k, v)
+    assert lse.max().item() < -80, lse.max().item()
+    err = _f32_dq_errors(q, k, v, do)
+    assert err["dq_rel"] <= 1e-3, err
+
+
+def test_fp32_k3_and_k6_give_the_same_bits_on_every_call(cuda):
+    """No atomics and no split of the key loop: each block owns its rows."""
+    q, k, v, do = _bwd_inputs(1000, 1300, 128, torch.float32, cuda, seed=5)
+    o, lse = ta.flash_fwd_cuda(q, k, v)
+    delta = (do * o).sum(-1).permute(0, 2, 1).contiguous()
+    mask = _f32_mask(1000, 1300, cuda)
+    tiles = ta.mask_tiles(*mask)
+    mo, mlse = ta.flash_fwd_cuda(q, k, v, None, mask, tiles)
+    mdelta = (do * mo).sum(-1).permute(0, 2, 1).contiguous()
+    calls = (lambda: ta.flash_bwd_dq_cuda(q, k, v, do, lse, delta),
+             lambda: ta.flash_bwd_dq_cuda(q, k, v, do, mlse, mdelta, None,
+                                          mask, tiles))
+    for call in calls:
+        first = call()
+        for _ in range(2):
+            assert torch.equal(call(), first)
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,7 @@ def test_compare_needs_the_card(tmp_path, monkeypatch):
     (["--dtype", "float32"], "fwd", list(flash_compare.F32_SHAPES)),
     (["--kernel", "bwd", "--dtype", "float32", "--shapes", "critic_self"],
      "bwd", ["critic_self"]),
+    (["--kernel", "masked", "--dtype", "float32"], "masked", ["tf_self"]),
 ])
 def test_kernel_choice_parses_with_its_shapes(tmp_path, argv, kernel, shapes):
     args = flash_compare.parse_args(["--baseline", str(tmp_path), *argv])
@@ -62,7 +63,7 @@ def test_kernel_choice_parses_with_its_shapes(tmp_path, argv, kernel, shapes):
 @pytest.mark.parametrize("argv", [
     ["--kernel", "bwd", "--shapes", "cross"],
     ["--dtype", "float32", "--shapes", "cross"],
-    ["--kernel", "masked", "--dtype", "float32"],
+    ["--kernel", "masked", "--dtype", "float32", "--shapes", "critic_self"],
     ["--kernel", "int8", "--dtype", "float32"],
 ])
 def test_a_shape_of_the_other_kernel_is_refused(tmp_path, argv):

@@ -3,13 +3,15 @@ and demangled, booked to the port kernel (launch counter) they belong to.
 The names are those the card's build gives K1 and K4 (the Hopper body in
 bf16 / fp16; in fp32 K1's split-TF32 Hopper body, K4's template body), P1
 (both bodies), K2/K3 (the Hopper backward in bf16 / fp16, K2's reduce
-kernel included; in fp32 K2's split-TF32 Hopper body, K3's template), K5
-and K6 (the Hopper dKV and dQ bodies' masked kernels in bf16 / fp16) and
-K5/K6 (the backward templates, whose last flag is the frame mask), P2 (its
-Hopper body at each tile width and output type) and Q (the one-read body
-and the two-read loop); a kernel of another library books to nothing, no
-Hopper K2 / K3 kernel books to K5 or K6, and no Hopper kernel but K6's
-books to K6."""
+kernel included; in fp32 the split-TF32 Hopper bodies of K2 and K3), K5
+and K6 (the Hopper dKV and dQ bodies' masked kernels in bf16 / fp16, fp32
+K6 the masked kernel of K3's split-TF32 body) and K5 (fp32: the masked
+dKV template), P2 (its Hopper body at each tile width and output type) and
+Q (the one-read body and the two-read loop); a kernel of another library
+books to nothing, no Hopper K2 / K3 kernel books to K5 or K6, and no
+Hopper kernel but K6's books to K6."""
+
+import re
 
 import pytest
 
@@ -36,8 +38,8 @@ NAMES = [
      '_ZN45_GLOBAL__N__176ec67e_12_flash_fwd_cu_c145cf2517flash_exp2_kernelIfLi64ELb1ELb1EEEvPKT_S3_S3_PS1_iiiiN4mmpl10FwdStridesEf',
      'void (anonymous namespace)::flash_exp2_kernel<float, 64, true, true>(float const*, float const*, float const*, float*, int, int, int, int, mmpl::FwdStrides, float)'),
     ('K3', 'flash_bwd_dq',
-     '_ZN45_GLOBAL__N__8cff8468_12_flash_bwd_cu_5aa6267519flash_bwd_dq_kernelILi128ELb0EEEvPKfS2_S2_S2_S2_S2_PfiiiiNS_7StridesEfN4mmpl9FrameMaskE',
-     'void (anonymous namespace)::flash_bwd_dq_kernel<128, false>(float const*, float const*, float const*, float const*, float const*, float const*, float*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
+     '_ZN4mmpl4sm9028flash_bwd_dq_f32_sm90_kernelILi128EEEvPKfS3_S3_S3_NS_10FwdStridesExxxNS0_11F32DqParamsE',
+     'void mmpl::sm90::flash_bwd_dq_f32_sm90_kernel<128>(float const*, float const*, float const*, float const*, mmpl::FwdStrides, long long, long long, long long, mmpl::sm90::F32DqParams)'),
     ('K2', 'flash_bwd_dkv',
      '_ZN4mmpl4sm9029flash_bwd_dkv_f32_sm90_kernelILi64EEEvPKfS3_S3_S3_NS_10FwdStridesExxxNS0_12F32BwdParamsE',
      'void mmpl::sm90::flash_bwd_dkv_f32_sm90_kernel<64>(float const*, float const*, float const*, float const*, mmpl::FwdStrides, long long, long long, long long, mmpl::sm90::F32BwdParams)'),
@@ -60,8 +62,8 @@ NAMES = [
      '_ZN4mmpl4sm9024flash_bwd_dq_sm90_kernelI6__halfLi64EEEv14CUtensorMap_stS3_S3_S3_NS0_9BwdParamsE',
      'void mmpl::sm90::flash_bwd_dq_sm90_kernel<__half, 64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::BwdParams)'),
     ('K5', 'flash_masked_bwd_dkv',
-     '_ZN45_GLOBAL__N__8cff8468_12_flash_bwd_cu_5aa6267520flash_bwd_dkv_kernelILi128ELb1EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiiNS_7StridesEfN4mmpl9FrameMaskE',
-     'void (anonymous namespace)::flash_bwd_dkv_kernel<128, true>(float const*, float const*, float const*, float const*, float const*, float const*, float*, float*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
+     '_ZN45_GLOBAL__N__8cff8468_12_flash_bwd_cu_5aa6267527flash_masked_bwd_dkv_kernelILi128EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiiNS_7StridesEfN4mmpl9FrameMaskE',
+     'void (anonymous namespace)::flash_masked_bwd_dkv_kernel<128>(float const*, float const*, float const*, float const*, float const*, float const*, float*, float*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
     ('K5 Hopper', 'flash_masked_bwd_dkv',
      '_ZN4mmpl4sm9032flash_masked_bwd_dkv_sm90_kernelI6__halfLi64EEEv14CUtensorMap_stS3_S3_S3_NS0_9BwdParamsENS_9FrameMaskE',
      'void mmpl::sm90::flash_masked_bwd_dkv_sm90_kernel<__half, 64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::BwdParams, mmpl::FrameMask)'),
@@ -72,8 +74,8 @@ NAMES = [
      '_ZN4mmpl4sm9031flash_masked_bwd_dq_sm90_kernelI6__halfLi64EEEv14CUtensorMap_stS3_S3_S3_NS0_9BwdParamsENS_9FrameMaskE',
      'void mmpl::sm90::flash_masked_bwd_dq_sm90_kernel<__half, 64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::BwdParams, mmpl::FrameMask)'),
     ('K6', 'flash_masked_bwd_dq',
-     '_ZN45_GLOBAL__N__8cff8468_12_flash_bwd_cu_5aa6267519flash_bwd_dq_kernelILi64ELb1EEEvPKfS2_S2_S2_S2_S2_PfiiiiNS_7StridesEfN4mmpl9FrameMaskE',
-     'void (anonymous namespace)::flash_bwd_dq_kernel<64, true>(float const*, float const*, float const*, float const*, float const*, float const*, float*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
+     '_ZN4mmpl4sm9035flash_masked_bwd_dq_f32_sm90_kernelILi64EEEvPKfS3_S3_S3_NS_10FwdStridesExxxNS0_11F32DqParamsENS_9FrameMaskE',
+     'void mmpl::sm90::flash_masked_bwd_dq_f32_sm90_kernel<64>(float const*, float const*, float const*, float const*, mmpl::FwdStrides, long long, long long, long long, mmpl::sm90::F32DqParams, mmpl::FrameMask)'),
     ('P2 Hopper', 'int8_gemm',
      '_ZN4mmpl4sm9021int8_gemm_sm90_kernelILi256E13__nv_bfloat16EEv14CUtensorMap_stS3_S3_PKfS5_PT0_iiii',
      'void mmpl::sm90::int8_gemm_sm90_kernel<256, __nv_bfloat16>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, float const*, __nv_bfloat16*, int, int, int, int)'),
@@ -115,11 +117,12 @@ def test_port_kernel_of_books_each_kernel_to_its_counter(what, name, want):
 @pytest.mark.parametrize("form", [2, 3], ids=["mangled", "demangled"])
 def test_only_the_hopper_k6_kernel_books_to_k6(form):
     """Of the Hopper kernels' names, those of `flash_masked_bwd_dq_sm90_kernel`
-    and no other book to K6."""
+    (bf16 / fp16) and `flash_masked_bwd_dq_f32_sm90_kernel` (fp32) and no
+    other book to K6."""
     hopper = [n for n in NAMES if "_sm90_kernel" in n[form]
               or "_reduce_kernel" in n[form]]
     k6 = [n[0] for n in hopper
           if port_kernel_of(n[form]) == "flash_masked_bwd_dq"]
-    assert k6 == ["K6 Hopper", "K6 Hopper fp16"]
-    assert all("flash_masked_bwd_dq_sm90_kernel" in n[form] for n in hopper
-               if n[0] in k6)
+    assert k6 == ["K6 Hopper", "K6 Hopper fp16", "K6"]
+    assert all(re.search(r"flash_masked_bwd_dq(_f32)?_sm90_kernel", n[form])
+               for n in hopper if n[0] in k6)

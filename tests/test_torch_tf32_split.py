@@ -1,20 +1,24 @@
-"""The numerics of the fp32 K1 and K2 bodies (csrc/flash_fwd_f32_sm90.cuh,
-csrc/flash_bwd_f32_sm90.cuh): split TF32.  A plain emulation, here and
+"""The numerics of the fp32 K1, K2 and K3 / K6 bodies
+(csrc/flash_fwd_f32_sm90.cuh, csrc/flash_bwd_f32_sm90.cuh,
+csrc/flash_bwd_dq_f32_sm90.cuh): split TF32.  A plain emulation, here and
 not in the package: each operand rounded to TF32 as `cvt.rna.tf32.f32`
 does (10 mantissa bits, to nearest, ties away from zero) as hi, the
 remainder rounded again as lo, and each product taken as
 a_lo b_hi + a_hi b_lo + a_hi b_hi in fp32.  The attention forward (O and
-the lse) and dK / dV computed that way are held against the JAX package's
-Pallas kernels in interpret mode in fp32 at 1e-5; one TF32 pass, which
-keeps the 10 bits alone, misses 1e-4, the fp32 paths' tolerance, which is
-why the bodies split."""
+the lse), dK / dV and dQ (also under a frame mask with a frame that sees
+nothing) computed that way are held against the JAX package's Pallas
+kernels in interpret mode in fp32 at 1e-5; one TF32 pass, which keeps the
+10 bits alone, misses 1e-4, the fp32 paths' tolerance, which is why the
+bodies split."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from mmpl_tpu.ops.attention import (_flash_bwd_impl as j_flash_bwd,
-                                    _flash_vjp_fwd_impl as j_flash_fwd)
+                                    _flash_vjp_fwd_impl as j_flash_fwd,
+                                    frame_masked_attention as j_masked)
 
 #: (D, Lq, Lk): the smoke configuration's head dim and the width kD = 64,
 #: ragged against the Pallas kernels' 128-row blocks
@@ -86,6 +90,33 @@ def emulated_dkv(q, k, v, do, lse, delta, mm):
     return np.swapaxes(dk, 1, 2), np.swapaxes(dv, 1, 2)
 
 
+def emulated_dq(q, k, v, do, lse, delta, mm, allowed=None):
+    """dQ [B, L, N, D] from the saved lse and delta [B, N, Lq]; p is 0 on
+    rows whose lse is -inf and, with `allowed` ([Lq, Lk] bool, the frame
+    mask by token), on the pairs it forbids."""
+    sc = np.float32(q.shape[-1] ** -0.5)
+    qh, kh, vh, doh = map(_heads, (q, k, v, do))
+    s = mm(qh, np.swapaxes(kh, -1, -2)) * sc
+    live = np.isfinite(lse)[..., None]
+    keep = live if allowed is None else live & allowed
+    p = np.where(keep, np.exp(s - np.where(live, lse[..., None], 0)), 0)
+    ds = p * (mm(doh, np.swapaxes(vh, -1, -2)) - delta[..., None])
+    return np.swapaxes(sc * mm(ds, kh), 1, 2)
+
+
+def masked_lse(q, k, allowed):
+    """The natural-log lse [B, N, Lq] under `allowed`, in float64 (-inf on
+    rows that see no key)."""
+    qh, kh = (_heads(x).astype(np.float64) for x in (q, k))
+    s = qh @ np.swapaxes(kh, -1, -2) * q.shape[-1] ** -0.5
+    s = np.where(allowed, s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    shift = np.where(np.isfinite(m), m, 0)
+    with np.errstate(divide="ignore"):
+        return (np.log(np.exp(s - shift).sum(-1, keepdims=True))
+                + shift)[..., 0].astype(np.float32)
+
+
 def pallas_fwd(q, k, v):
     """The JAX package's K1 in interpret mode: (O, lse [B, N, Lq])."""
     o, (*_, lse) = j_flash_fwd(*map(jnp.asarray, (q, k, v)), None, 128, 128,
@@ -93,15 +124,20 @@ def pallas_fwd(q, k, v):
     return np.asarray(o), np.asarray(lse)[:, :, :q.shape[1], 0]
 
 
-def pallas_dkv(q, k, v, do, lse, delta):
-    """The JAX package's K2 in interpret mode, fed this lse and delta."""
+def pallas_bwd(q, k, v, do, lse, delta):
+    """The JAX package's K3 and K2 in interpret mode, fed this lse and
+    delta: (dQ, dK, dV)."""
     pad = -(-q.shape[1] // 128) * 128 - q.shape[1]
     rows = lambda x: np.pad(x, ((0, 0), (0, 0), (0, pad), (0, 0)))
-    _, dk, dv = j_flash_bwd(
+    return tuple(np.asarray(g) for g in j_flash_bwd(
         *map(jnp.asarray, (q, k, v)), jnp.asarray(rows(_heads(do))),
         jnp.asarray(rows(lse[..., None])), jnp.asarray(rows(delta[..., None])),
-        q.shape[-1] ** -0.5, 128, 128, True)
-    return np.asarray(dk), np.asarray(dv)
+        q.shape[-1] ** -0.5, 128, 128, True))
+
+
+def pallas_dkv(q, k, v, do, lse, delta):
+    """The JAX package's K2 in interpret mode, fed this lse and delta."""
+    return pallas_bwd(q, k, v, do, lse, delta)[1:]
 
 
 def _max_err(got, want) -> float:
@@ -140,11 +176,44 @@ def test_split_tf32_dkv_matches_pallas(D, lq, lk):
 
 
 @pytest.mark.parametrize("D,lq,lk", CASES)
+def test_split_tf32_dq_matches_pallas(D, lq, lk):
+    q, k, v, do = _inputs(D, lq, lk, seed=D + 3)
+    o, lse = pallas_fwd(q, k, v)
+    delta = _heads(do * o).sum(-1)
+    want = pallas_bwd(q, k, v, do, lse, delta)[0]
+    got = emulated_dq(q, k, v, do, lse, delta, mm3)
+    assert _max_err((got,), (want,)) <= TOL
+
+
+def test_split_tf32_masked_dq_matches_pallas():
+    """K6's arithmetic: the masked dQ against the JAX package's K6
+    (`_masked_bwd_dq_kernel`, through the masked VJP in interpret mode) on
+    a mask whose frame 1 sees nothing, so its rows get dQ = 0."""
+    fm = np.tril(np.ones((3, 3), bool))
+    fm[1] = False                        # frame 1 (rows 300..599) is blind
+    ids = np.repeat(np.arange(3), 300)[:700]
+    q, k, v, do = _inputs(64, 700, 700, seed=13)
+    o_w, vjp = jax.vjp(lambda a, b, c: j_masked(
+        a, b, c, ids, ids, fm, block_q=128, block_k=128, interpret=True),
+        *map(jnp.asarray, (q, k, v)))
+    want = np.asarray(vjp(jnp.asarray(do))[0])
+    allowed = fm[ids][:, ids]
+    lse = masked_lse(q, k, allowed)
+    assert np.isneginf(lse[:, :, ids == 1]).all()
+    delta = _heads(do * np.asarray(o_w)).sum(-1)
+    got = emulated_dq(q, k, v, do, lse, delta, mm3, allowed)
+    assert (got[:, ids == 1] == 0).all()
+    assert _max_err((got,), (want,)) <= TOL
+
+
+@pytest.mark.parametrize("D,lq,lk", CASES)
 def test_one_tf32_pass_misses_the_fp32_tolerance(D, lq, lk):
     q, k, v, do = _inputs(D, lq, lk, seed=D + 2)
     o_w, lse_w = pallas_fwd(q, k, v)
     delta = _heads(do * o_w).sum(-1)
-    dkv_w = pallas_dkv(q, k, v, do, lse_w, delta)
+    dq_w, *dkv_w = pallas_bwd(q, k, v, do, lse_w, delta)
     assert _max_err(emulated_fwd(q, k, v, mm1), (o_w, lse_w)) > FP32_TOL
     assert _max_err(emulated_dkv(q, k, v, do, lse_w, delta, mm1),
                     dkv_w) > FP32_TOL
+    assert _max_err((emulated_dq(q, k, v, do, lse_w, delta, mm1),),
+                    (dq_w,)) > FP32_TOL
