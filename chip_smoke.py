@@ -12,12 +12,13 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      ODE and distillation objectives), with the
      body that ran (read from the profiler's kernel names), kernel / plain
      / SDPA times and the card's bound; kernel_exp2: P1
-     (csrc/flash_fwd.cu, the exp2 probe's forward, on the same two
-     bodies as K4: fp32 on the template body), its four variants against
+     (csrc/flash_fwd.cu, the exp2 probe's forward, on K1's two bodies:
+     fp32 on the split-TF32 one), its four variants against
      the plain version at the probe's
      shape, the few-step path's steady-state self-attention (4680 x 32760,
      where only the variants with the pad test are defined), a ragged
-     shape and fp32 at D = 24, beside K1 and SDPA;
+     shape, fp32 at D = 24 and fp32 at K1's ode_self_1 shape (4680^2),
+     beside K1 and SDPA;
   3. kernel_bwd: K2 / K3 (csrc/flash_bwd.cu: bf16 / fp16 on the wgmma +
      TMA body of csrc/flash_bwd_sm90.cuh, with K2's query split and reduce
      where it splits; fp32 K2 on the split-TF32 wgmma body of
@@ -35,9 +36,9 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      the plain versions and SDPA (memory-efficient backend) with the token
      mask; bf16 / fp16 K4, K5 and K6 run the masked instantiations of K1's,
      K2's and K3's Hopper bodies over the coarse tile tables (their
-     admitted and partial shares reported); fp32 K6 runs the masked kernel
-     of fp32 K3's split-TF32 body over the 64 x 64 table, fp32 K4 and K5
-     the template bodies;
+     admitted and partial shares reported); fp32 K5 and K6 run the masked
+     kernels of fp32 K2's and K3's split-TF32 bodies over the 64 x 64
+     table, fp32 K4 the template body;
   5. kernel_int8 (run before kernel_masked, whose large SDPA yardstick
      leaves the short profiler sessions that read a body without their
      records): Q (csrc/int8_gemm.cu) and P2 (the wgmma s8 + TMA body
@@ -162,8 +163,8 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      depth; mesh, `init_distributed` and `make_mesh` on NCCL at world size
      1, USP attention over the process groups, one group-3 forward of the
      pipeline built over the mesh, one 1.3B teacher-forcing step at full
-     width and depth FSDP-sharded over the mesh against the same step
-     unsharded, one `train --mesh` CLI step in smoke mode, and mesh_ckpt:
+     width and 10 layers (MESH_LAYERS) FSDP-sharded over the mesh against
+     the same step unsharded, one `train --mesh` CLI step in smoke mode, and mesh_ckpt:
      2-layer teacher forcing on the data shards under `--mesh
      dp=1,fsdp=1`, saved sharded and resumed, bit for bit;
   18. the training data path (run after cli_real, on the ckpt phase's
@@ -252,10 +253,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores; fp32 at
-#: the TF32 tensor-core rate, the rate the fp32 K1 and K2 bodies run their
+#: the TF32 tensor-core rate, the rate the fp32 bodies run their
 #: split-TF32 products at (three passes a product: they reach at most a
 #: third of it; 67e12, the FMA rate, would put a tensor-core body above
-#: 100% of its bound), the template bodies read against the same figure;
+#: 100% of its bound), fp32 K4's template body read against the same figure;
 #: HBM bytes/s
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 495e12}
@@ -320,13 +321,15 @@ MAIN_SHAPE = "group3_self"
 
 #: P1 shapes, as K1_SHAPES: the JAX probe's shape, the few-step path's
 #: steady-state self-attention (Lk ragged for the 64-key tile), a ragged
-#: Lq with a tile-multiple Lk, a ragged Lk, and fp32 at the tiny head dim
+#: Lq with a tile-multiple Lk, a ragged Lk, fp32 at the tiny head dim and
+#: fp32 at K1's ode_self_1 shape (F32_SHAPES)
 EXP2_SHAPES = [
     ("probe", 2, 12, 128, 11264, 14336, torch.bfloat16),
     ("fewstep_hot", 1, 12, 128, 4680, 32760, torch.bfloat16),
     ("ragged_lq", 2, 12, 128, 1000, 1280, torch.bfloat16),
     ("ragged_lk", 2, 12, 128, 1000, 1300, torch.bfloat16),
     ("d24_f32", 2, 4, 24, 130, 192, torch.float32),
+    ("ode_self_1", 1, 12, 128, 4680, 4680, torch.float32),
 ]
 EXP2_MAIN = ("probe", "exp2")
 #: (name, use_exp2, mask_pad) of P1's variants
@@ -368,8 +371,8 @@ BWD_MAIN = "tf_cross"
 #: frame 1 sees nothing; "dead" is L = 1000 in frames of 300 where frame 1
 #: sees nothing and frame 2 is seen by nothing (a 128-query block with no
 #: admitted key tile, 128-key blocks with no admitted query tile); both
-#: also in fp32 at D = 128 (fp32 K6's split-TF32 body, K4's and K5's
-#: templates).  tf_self runs last: after its SDPA yardstick (a 4.3 GB
+#: also in fp32 at D = 128 (fp32 K5's and K6's split-TF32 bodies, K4's
+#: template).  tf_self runs last: after its SDPA yardstick (a 4.3 GB
 #: token mask) the short profiler sessions that read the body lost every
 #: device record
 MASKED_SHAPES = [
@@ -582,9 +585,9 @@ def _launched(fn) -> list:
 
 #: the launch counters whose fp32 calls run the split-TF32 wgmma bodies
 #: (csrc/flash_fwd_f32_sm90.cuh, csrc/flash_bwd_f32_sm90.cuh,
-#: csrc/flash_bwd_dq_f32_sm90.cuh)
-TF32_BODIES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
-               "flash_masked_bwd_dq")
+#: csrc/flash_bwd_dq_f32_sm90.cuh): every one but fp32 K4's
+TF32_BODIES = ("flash_fwd", "flash_exp2", "flash_bwd_dkv", "flash_bwd_dq",
+               "flash_masked_bwd_dkv", "flash_masked_bwd_dq")
 
 
 def _body(names, counter: str, dtype) -> str:
@@ -593,10 +596,9 @@ def _body(names, counter: str, dtype) -> str:
     with K2's reduce kernel when the call split the queries), "tf32x3" (the
     split-TF32 `*_f32_sm90_kernel` of csrc/flash_fwd_f32_sm90.cuh,
     csrc/flash_bwd_f32_sm90.cuh or csrc/flash_bwd_dq_f32_sm90.cuh, one
-    kernel) or "template" (the fp32 FMA body of csrc/flash_fwd.cu or
-    csrc/flash_bwd.cu, one kernel).  bf16 / fp16 K1-K6 and P1 must run the
-    first; fp32 K1, K2, K3 and K6 the second, fp32 K4, K5 and P1 the
-    third."""
+    kernel) or "template" (the fp32 FMA body of csrc/flash_fwd.cu, one
+    kernel).  bf16 / fp16 K1-K6 and P1 must run the first; fp32 K1, P1,
+    K2, K3, K5 and K6 the second, fp32 K4 the third."""
     mine = [n for n in names if port_kernel_of(n) == counter]
     main = [n for n in mine if "_reduce_kernel" not in n]
     check(len(main) == 1 and len(mine) - len(main) <= 1, (counter, names))
@@ -4379,9 +4381,15 @@ def _full(t: torch.Tensor) -> torch.Tensor:
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
+#: layers of the 1.3B width in the mesh phase's FSDP2 teacher-forcing step
+#: and the unsharded step it is held against (cut from 30 for the script's
+#: time limit; the train phase runs the step at full depth)
+MESH_LAYERS = 10
+
+
 def _train_mesh_step(mesh) -> dict:
-    """One teacher-forcing step of the 1.3B model at full width and depth,
-    the train phase's shapes (21 latents at 60x104, B=1, bf16 over fp32
+    """One teacher-forcing step of the 1.3B model at full width and
+    MESH_LAYERS layers, the train phase's shapes (21 latents at 60x104, B=1, bf16 over fp32
     masters, AdamW), without a mesh and then with the model sharded over
     `mesh` by `shard_for_training` (FSDP2, DTensor parameters, as `train
     --mesh` shards it): the same weights, batch and draws.  The sharded
@@ -4392,7 +4400,7 @@ def _train_mesh_step(mesh) -> dict:
     from mmpl_tpu_torch.parallel.mesh import shard_for_training
     from mmpl_tpu_torch.training.diffusion import (
         DiffusionTrainer, draw_teacher_forcing, make_teacher_forcing_loss_fn)
-    cfg = WAN_CONFIGS["t2v-1.3B"]
+    cfg = _cfg13(MESH_LAYERS)
     dev = torch.device("cuda", torch.cuda.current_device())
     expected = _train_launches(cfg.num_layers, 1)
     total = dict.fromkeys(expected, 0)
@@ -4471,8 +4479,8 @@ def phase_mesh(shards: str):
     USP attention over the real process groups (of one rank each), and
     one group-3 forward of the 1.3B pipeline built over the default mesh
     (`_sharded_fps_step`), one 1.3B teacher-forcing step at full width and
-    depth with the model FSDP-sharded over it against the same step
-    without (`_train_mesh_step`), the `train --mesh` CLI in smoke mode
+    MESH_LAYERS layers with the model FSDP-sharded over it against the same
+    step without (`_train_mesh_step`), the `train --mesh` CLI in smoke mode
     (`_train_mesh_cli`) and its sharded checkpoints on the data phase's
     shards (`_mesh_ckpt`); the group is destroyed after."""
     import socket
@@ -5369,6 +5377,18 @@ def phase_mesh_ranks(one_process_chunks):
           "ranks": res["mesh_int8"]})
     emit({"phase": "mesh_tp_train", "transport": transport,
           "ranks": res["mesh_tp_train"]})
+    # the unsharded steps at full width: fp32 runs K4-K6 in fp32 (K5 and
+    # K6 on the split-TF32 bodies, K4 on the template), bf16 on the Hopper
+    # bodies; both ranks run theirs at once on the one card
+    unsharded = {dt: [r["steps"][dt] for r in res["mesh_tp_train"]]
+                 for dt in ("float32", "bfloat16")}
+    emit({"phase": "mesh_tp_train_steps", "layers": L, "tokens": 65520,
+          "ranks_sharing_the_card": len(res["mesh_tp_train"]),
+          "seconds": {dt: [x["seconds"] for x in v]
+                      for dt, v in unsharded.items()},
+          "flash_masked_bwd_dkv": {
+              dt: [x["launches"]["flash_masked_bwd_dkv"] for x in v]
+              for dt, v in unsharded.items()}})
     rows = res["stage_meshes"]
     got = {i: c for r in rows for i, c in r["chunks"].items()}
     logs = sorted((e for r in rows for e in r["log"]),
@@ -5531,8 +5551,8 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
               "the split-TF32 wgmma body (flash_fwd_f32_sm90.cuh) for fp32; "
               "entry in flash_fwd.cu")
     exp2_bodies = ("wgmma + TMA body (flash_fwd_sm90.cuh) for bf16 / fp16, "
-                   "the template body of flash_fwd.cu for fp32; entry in "
-                   "flash_fwd.cu")
+                   "K1's split-TF32 wgmma body (flash_fwd_f32_sm90.cuh) "
+                   "for fp32; entry in flash_fwd.cu")
     k1 = rows[MAIN_SHAPE]
     b, m = bwd[BWD_MAIN], masked[MASKED_MAIN]
     grad_err = lambda rs, parts: max(r[f"{p}_max_abs_err"]
@@ -5597,8 +5617,10 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                 sm90_src, [sm90_src, fwd_src]),
         "dkv": ("K2's wgmma + TMA dKV body, masked, never split "
                 "(flash_bwd_sm90.cuh) for bf16 / fp16 over the 64 x 128 "
-                "table, the template body of flash_bwd.cu for fp32; entry "
-                "in flash_bwd.cu", bwd_sm90_src, [bwd_sm90_src, bwd_src]),
+                "table, K2's split-TF32 wgmma body, masked "
+                "(flash_bwd_f32_sm90.cuh), for fp32 over the 64 x 64 "
+                "table; entry in flash_bwd.cu", bwd_sm90_src,
+                [bwd_sm90_src, bwd_f32_src, bwd_src]),
         "dq": ("K3's wgmma + TMA dQ body, masked (flash_bwd_sm90.cuh) for "
                "bf16 / fp16 over the 128 x 128 table, K3's split-TF32 wgmma "
                "body, masked (flash_bwd_dq_f32_sm90.cuh), for fp32 over the "
@@ -5700,6 +5722,7 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
         p1["ms"], p1["plain_ms"], p1["bound_ms"], p1["bound_by"],
         p1["library_ms"], at=f"{EXP2_MAIN[0]} ({EXP2_MAIN[1]} variant)",
         k1_ms=p1["k1_ms"], library="SDPA (default backend)",
+        sources=[sm90_src, f32_src, fwd_src],
         bodies=exp2_bodies, bound_share=p1["bound_share"],
         variants={f"{lbl}/{name}": {f: r[f] for f in (
             "body", "ms", "plain_ms", "bound_ms", "library_ms", "k1_ms",

@@ -1,5 +1,5 @@
 // Flash-attention backward, plain C interface for ctypes: the entries of
-// K2 / K3 and of their masked forms K5 / K6, and fp32 K5's template body.
+// K2 / K3 and of their masked forms K5 / K6.
 //
 //  * K2, dK and dV: `_flash_bwd_dkv_kernel` (mmpl_tpu/ops/attention.py:373,
 //    pallas_call :553).  K3, dQ: `_flash_bwd_dq_kernel` (:417, :578).  In
@@ -18,39 +18,32 @@
 //    (:783, :963) and `_masked_bwd_dq_kernel` (:821, :992).  bf16 / fp16
 //    K5 and K6 run the masked instantiations of the Hopper dKV and dQ
 //    bodies of flash_bwd_sm90.cuh (K5 over the 64 x 128 coarse table, never
-//    split; K6 over the 128 x 128 one); fp32 K6 runs the masked kernel of
-//    fp32 K3's body over the 64 x 64 table, fp32 K5 the template below.
+//    split; K6 over the 128 x 128 one); fp32 K5 and K6 run the masked
+//    kernels of the fp32 K2 and K3 bodies over the 64 x 64 table, two
+//    32-row tiles an entry.  p is 0 where the mask forbids the pair, past
+//    the ragged edges and on rows whose lse is -inf (rows that saw no key:
+//    the guard of `_masked_p`, :771-780); the mask is read from the
+//    per-token frame ids and the [F, F] table, and the tile table (0 skip,
+//    1 test pairs, 2 all allowed) skips whole tiles.  delta = rowsum(dO o O)
+//    comes in computed (the plain torch op of
+//    mmpl_tpu_torch/ops/attention.py).
 //
 // What bounds them on an H100: operations.  dKV does four products per
 // tile (S, dP, dV, dK: 8*B*N*Lq*Lk*D FLOPs), dQ three (S, dP, dQ: 6*...),
 // times the admitted share of tiles when masked; the bytes are
 // B*N*(Lq+Lk)*D elements in and out, far below the ridge at the training
-// shapes.  So the Hopper bodies keep the products on the tensor cores with
-// the scores, probabilities and accumulators in registers (fp32 K2, K3 and
-// K6 as split TF32, three passes a product).  The template is fp32 K5's
-// only (still to be redesigned, ROADMAP.md Queue 2): FMA in the mma.sync
-// m16n8 fragment layout of flash_common.cuh, no TMA, no warp
-// specialisation.
-//
-// The template: one block of 4 warps owns 64 keys of one (b, head) and
-// loops over the admitted query tiles, double-buffered with cp.async; per
-// tile it recomputes P = exp(scale * Q K^T - lse) from the saved lse,
-// dS = P o (dO V^T - delta), and accumulates dV += P^T dO and dK += scale
-// * dS^T Q.  Each block owns its outputs: no atomics, no second pass.
-// p is 0 where the mask forbids the pair, past the ragged edges and on
-// rows whose lse is -inf (rows that saw no key: the guard of `_masked_p`,
-// :771-780).  The mask is read from the per-token frame ids and the
-// [F, F] table, and the tile table (0 skip, 1 test pairs, 2 all allowed)
-// skips whole tiles, as in flash_fwd.cu.  delta = rowsum(dO o O) comes in
-// computed (the plain torch op of mmpl_tpu_torch/ops/attention.py).
+// shapes.  So every body keeps the products on the tensor cores with the
+// scores, probabilities and accumulators in registers (fp32 as split TF32,
+// three passes a product).  Each block owns its outputs: no atomics, and
+// no second pass except the bf16 / fp16 dKV split's ordered reduce.
 //
 // Numerics: the Hopper body takes bf16/fp16 operands on the tensor cores
 // with fp32 accumulation; p and dS are rounded to the input type before
 // their products (dV, and dK / dQ); dP, p before rounding, and every
 // accumulator stay fp32.  The TPU kernels run the dO and dS products in
 // fp32 (:393, :403-409): a known difference, measured in ROADMAP.md Queue
-// 3.  The template computes in fp32 throughout; the fp32 K2 and K3 bodies
-// keep p and dS in fp32 and take every product as split TF32.
+// 3.  The fp32 bodies keep p and dS in fp32 and take every product as
+// split TF32.
 //
 // Layout: q, do, dq [B, Lq, N, D]; k, v, dk, dv [B, Lk, N, D], all through
 // element strides with a contiguous head dim; lse and delta contiguous
@@ -70,139 +63,6 @@ struct Strides {
   long long ab, al, ah, cb, cl, ch;                          // dK / dQ, dV
 };
 
-// Shared memory of the template (fp32 K5): two resident tiles, two
-// streamed tiles in two stages, the streamed rows' lse, delta and frame
-// ids, and the per-warp P rows of the FMA products.
-template <int kD>
-struct BwdSmem {
-  static constexpr size_t tiles = sizeof(float) * 6 * Pitch<float, kD>::tile;
-  static constexpr size_t rows = 2 * TILE * (2 * sizeof(float) + sizeof(int));
-  static constexpr size_t bytes = tiles + rows + sizeof(float) * TILE * Pitch<float, kD>::pld;
-};
-
-// dK, dV for 64 keys; streams the admitted query tiles.
-template <int kD>
-__global__ void __launch_bounds__(THREADS)
-flash_masked_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int Lq, int Lk, int N,
-                     int D, Strides st, float scale, FrameMask mask) {
-  constexpr int TL = Pitch<float, kD>::tile;
-  constexpr int DT = kD / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = Ks + TL;
-  auto Qs = [&](int stage) { return Ks + (2 + stage) * TL; };
-  auto Ds = [&](int stage) { return Ks + (4 + stage) * TL; };
-  float* lse_s = reinterpret_cast<float*>(smem + BwdSmem<kD>::tiles);  // [2][TILE]
-  float* dl_s = lse_s + 2 * TILE;                                     // [2][TILE]
-  int* qf_s = reinterpret_cast<int*>(dl_s + 2 * TILE);                // [2][TILE]
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int k0 = blockIdx.x * TILE;
-  const int h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const float* qg = q + b * st.qb + h * st.qh;
-  const float* kg = k + b * st.kb + h * st.kh;
-  const float* vg = v + b * st.vb + h * st.vh;
-  const float* dg = dout + b * st.db + h * st.dh;
-  const float* lse_g = lse + (b * N + h) * (long long)Lq;
-  const float* dl_g = delta + (b * N + h) * (long long)Lq;
-  // this warp's P rows of the FMA products
-  float* Pw = reinterpret_cast<float*>(smem + BwdSmem<kD>::tiles + BwdSmem<kD>::rows) +
-              warp * 16 * Pitch<float, kD>::pld;
-
-  const int nqb = (Lq + TILE - 1) / TILE;
-  // the tile table's column of this key tile, walked down the query tiles
-  const unsigned char* tcol = mask.tiles + blockIdx.x;
-  int kfr[2];  // frame ids of this thread's two key rows
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = k0 + warp * 16 + g + 8 * i;
-    kfr[i] = row < Lk ? mask.kf[row] : -1;
-  }
-  // lse (-inf past Lq), delta and the frame ids of query tile `qb`
-  auto load_rows = [&](int stage, int qb) {
-    if (threadIdx.x < TILE) {
-      const int row = qb * TILE + threadIdx.x;
-      const bool in = row < Lq;
-      lse_s[stage * TILE + threadIdx.x] = in ? lse_g[row] : -INFINITY;
-      dl_s[stage * TILE + threadIdx.x] = in ? dl_g[row] : 0.f;
-      qf_s[stage * TILE + threadIdx.x] = in ? mask.qf[row] : 0;
-    }
-  };
-
-  int qb = next_tile<true>(tcol, mask.nkt, 0, nqb);
-  load_tile<float, kD>(Ks, kg, st.kl, k0, Lk, D);
-  load_tile<float, kD>(Vs, vg, st.vl, k0, Lk, D);
-  if (qb < nqb) {
-    load_tile<float, kD>(Qs(0), qg, st.ql, qb * TILE, Lq, D);
-    load_tile<float, kD>(Ds(0), dg, st.dl, qb * TILE, Lq, D);
-    load_rows(0, qb);
-  }
-  cp_async_commit();
-
-  float dk_acc[DT][4] = {};  // key rows g, g + 8
-  float dv_acc[DT][4] = {};
-
-  for (int stage = 0; qb < nqb; stage ^= 1) {
-    const int nxt = next_tile<true>(tcol, mask.nkt, qb + 1, nqb);
-    if (nxt < nqb) {
-      load_tile<float, kD>(Qs(stage ^ 1), qg, st.ql, nxt * TILE, Lq, D);
-      load_tile<float, kD>(Ds(stage ^ 1), dg, st.dl, nxt * TILE, Lq, D);
-      load_rows(stage ^ 1, nxt);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* Qt = Qs(stage);
-    const float* Dt = Ds(stage);
-    const float* lse_t = lse_s + stage * TILE;
-    const float* dl_t = dl_s + stage * TILE;
-    const int* qf_t = qf_s + stage * TILE;
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 64 queries
-    float s[8][4], dp[8][4];
-    fma_abt<kD>(s, Ks, warp * 16, Qt, D);
-    fma_abt<kD>(dp, Vs, warp * 16, Dt, D);
-
-    const bool test_pairs = tcol[(long long)qb * mask.nkt] != 2;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1);  // query within the tile
-        const float ls = lse_t[col];
-        bool ok = ls != -INFINITY;
-        if (test_pairs) {
-          const int kf = kfr[e >> 1];
-          ok = ok && kf >= 0 && mask.fm[(long long)qf_t[col] * mask.F + kf] != 0;
-        }
-        const float p = ok ? expf(s[j][e] * scale - ls) : 0.f;
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - dl_t[col]);  // dS^T
-      }
-    }
-
-    // dV += P^T dO, dK += dS^T Q (scale applied at the end)
-    fma_pb<kD>(dv_acc, s, Dt, Pw);
-    fma_pb<kD>(dk_acc, dp, Qt, Pw);
-    __syncthreads();  // every warp is done with this stage before it is refilled
-    qb = nxt;
-  }
-  cp_async_wait<0>();  // the K/V copies when the mask admitted no tile
-
-  const int row0 = k0 + warp * 16 + g;
-  store_rows<float, kD>(dk + b * st.ab + h * st.ah, st.al, row0, Lk, D, dk_acc, scale, scale);
-  store_rows<float, kD>(dv + b * st.cb + h * st.ch, st.cl, row0, Lk, D, dv_acc, 1.f, 1.f);
-}
-
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *out0, *out1;  // dK, dV (dkv) or dQ (dq)
@@ -212,24 +72,9 @@ struct Args {
   FrameMask mask;
 };
 
-template <int kD>
-int launch_masked_dkv(const Args& a, cudaStream_t stream) {
-  const int bytes = (int)BwdSmem<kD>::bytes;
-  auto fn = flash_masked_bwd_dkv_kernel<kD>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.Lk + TILE - 1) / TILE, a.N, a.B);
-  fn<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.Lq, a.Lk, a.N, a.D, a.st,
-      a.scale, a.mask);
-  return (int)cudaGetLastError();
-}
-
-// fp32 K2 on the split-TF32 wgmma body; D <= 128 was checked.
+// fp32 K2, or K5 with kMasked (over `a.mask`'s 64 x 64 table), on the
+// split-TF32 wgmma body; D <= 128 was checked.
+template <bool kMasked>
 int f32_dkv(const Args& a, void* stream) {
   const Strides& st = a.st;
   const FwdStrides in{st.qb, st.ql, st.qh, st.kb, st.kl, st.kh, st.vb, st.vl, st.vh, 0, 0, 0};
@@ -243,8 +88,10 @@ int f32_dkv(const Args& a, void* stream) {
   const float* v = static_cast<const float*>(a.v);
   const float* d = static_cast<const float*>(a.dout);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return a.D <= 64 ? sm90::launch_f32_dkv<64>(q, k, v, d, in, st.db, st.dl, st.dh, p, a.B, s)
-                   : sm90::launch_f32_dkv<128>(q, k, v, d, in, st.db, st.dl, st.dh, p, a.B, s);
+  return a.D <= 64 ? sm90::launch_f32_dkv<64, kMasked>(q, k, v, d, in, st.db, st.dl, st.dh, p,
+                                                       a.mask, a.B, s)
+                   : sm90::launch_f32_dkv<128, kMasked>(q, k, v, d, in, st.db, st.dl, st.dh, p,
+                                                        a.mask, a.B, s);
 }
 
 // fp32 K3, or K6 with kMasked (over `a.mask`'s 64 x 64 table), on the
@@ -265,12 +112,6 @@ int f32_dq(const Args& a, void* stream) {
                                                       a.mask, a.B, s)
                    : sm90::launch_f32_dq<128, kMasked>(q, k, v, d, in, st.db, st.dl, st.dh, p,
                                                        a.mask, a.B, s);
-}
-
-// fp32 K5 on the template; D <= 128 was checked.
-int f32_masked_dkv(const Args& a, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return a.D <= 64 ? launch_masked_dkv<64>(a, s) : launch_masked_dkv<128>(a, s);
 }
 
 FrameMask make_mask(const void* qf, const void* kf, const void* fm, const void* tiles, int F,
@@ -323,7 +164,7 @@ int unmasked(int dtype, const Args& a, const long long* strides, void* ws, int s
     case 0:
       if (splits != 1) return (int)cudaErrorInvalidValue;
       if constexpr (kDKV)
-        return f32_dkv(a, stream);
+        return f32_dkv<false>(a, stream);
       else
         return f32_dq<false>(a, stream);
     case 1:
@@ -340,8 +181,8 @@ int unmasked(int dtype, const Args& a, const long long* strides, void* ws, int s
 // the table that the bf16 / fp16 Hopper body reads (F up to
 // sm90::kMaxFrames): for dKV the table over 64 queries x 128 keys stored
 // key-block major ([ceil(Lk/128), ceil(Lq/64)]), for dQ the 128 x 128
-// table of the forward ([ceil(Lq/128), ceil(Lk/128)]).  fp32 (K5's
-// template, K6's split-TF32 body) reads `tiles`.
+// table of the forward ([ceil(Lq/128), ceil(Lk/128)]).  fp32 (the
+// split-TF32 bodies of K5 and K6) reads `tiles`.
 // The tables' widths are taken from Lq and Lk: the caller checks their
 // shapes (`_mask_args`, mmpl_tpu_torch/ops/attention.py).
 template <bool kDKV>
@@ -349,7 +190,7 @@ int masked(int dtype, Args& a, const void* coarse, const long long* strides, voi
   if (a.D <= 0 || a.D > 128 || a.D % 8) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     if constexpr (kDKV)
-      return f32_masked_dkv(a, stream);
+      return f32_dkv<true>(a, stream);
     else
       return f32_dq<true>(a, stream);
   }

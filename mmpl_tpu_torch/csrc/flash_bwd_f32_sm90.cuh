@@ -1,16 +1,17 @@
 // Flash-attention backward for Hopper (sm_90a) in fp32 on the tensor
-// cores: the fp32 body of K2, dK and dV (csrc/flash_bwd.cu,
-// `flash_bwd_dkv_f32_sm90_kernel`).
+// cores: the fp32 body of K2 and K5, dK and dV (csrc/flash_bwd.cu,
+// `flash_bwd_dkv_f32_sm90_kernel` and `flash_masked_bwd_dkv_f32_sm90_kernel`).
 //
-// Replaces `_flash_bwd_dkv_kernel` (mmpl_tpu/ops/attention.py:373):
-// dV = sum P^T dO and dK = scale * sum dS^T Q over the queries, with
-// P = exp(scale * Q K^T - lse) from the natural-log lse that K1 saved and
-// dS = P o (dO V^T - delta), delta = rowsum(dO o O) as the wrapper
-// computed it.  P and dS stay fp32 (split, below), as the TPU kernel keeps
-// them (attention.py:393, :403-409).
+// Replaces `_flash_bwd_dkv_kernel` (mmpl_tpu/ops/attention.py:373) and, with
+// kMasked, `_masked_bwd_dkv_kernel` (:783): dV = sum P^T dO and dK = scale *
+// sum dS^T Q over the queries, with P = exp(scale * Q K^T - lse) from the
+// natural-log lse that K1 saved and dS = P o (dO V^T - delta), delta =
+// rowsum(dO o O) as the wrapper computed it.  P and dS stay fp32 (split,
+// below), as the TPU kernel keeps them (attention.py:393, :403-409).
 //
 // What bounds it on an H100: operations (8*B*N*Lq*Lk*D FLOPs, four
-// products, against B*N*(2*Lq + 4*Lk)*D fp32 elements in and out).  As in
+// products, times the admitted share of tiles when masked, against
+// B*N*(2*Lq + 4*Lk)*D fp32 elements in and out).  As in
 // the fp32 K1 (flash_fwd_f32_sm90.cuh), fp32 reaches the tensor cores
 // only as TF32, and split TF32 (sm90_common.cuh) takes three passes a
 // product, so the body can reach at most a third of the TF32 rate.  What
@@ -60,6 +61,24 @@
 //    Registers: the consumer holds dK and dV (kD / 2 each), S^T and dP^T
 //    (32) and the four split fragments (64): 255 a thread at kD = 128,
 //    with ~70 bytes of spills.
+//  * K5 (kMasked) walks the admitted 32-query tiles of the block's column
+//    of the 64 x 64 tile table (`mask.tiles`, `tiles.t64`, query-major, so
+//    entry i of the column is tiles[i * nkt + blockIdx.x]): an entry
+//    covers two tiles (the last one, where ceil(Lq / 32) is odd); 0 skips
+//    both and is never loaded, 2 admits every pair, 1 tests each pair
+//    fm[qf[q], kf[k]] (the [F, F] table read from device memory, L2
+//    resident, so F is unbounded).  The producer writes each tile's class
+//    and query frame ids with dO's rows, beside its lse and delta, and
+//    writes lse = +inf for the rows whose lse is -inf (masked rows that
+//    saw no key: the guard of `_masked_p`, :771-780), so that their p is
+//    exp2(-inf) = 0 and not inf times 0.  The consumer makes a 16-bit mask
+//    of its pairs once S^T and dP^T are in (a class-2 tile's is fixed for
+//    the thread): made while they ran, as fp32 K6 does, it held K5 at 2.0x
+//    the FMA template's speed at the teacher-forcing self-attention on an
+//    H100, against 2.8x made here (`flash_compare --kernel masked --dtype
+//    float32`).  The folds count the tiles walked; a key
+//    block with no admitted tile writes dK = dV = 0.  The class and ids
+//    take 256 bytes beside K2's 192 KB.
 #pragma once
 
 #include "sm90_common.cuh"
@@ -74,7 +93,13 @@ constexpr int kF32QueryTile = 32;   // queries of a tile: one 128-byte row of Q^
 // are folded into the fp32 outputs
 constexpr int kF32DkvFold = 16;
 
-template <int kD>
+// K5: a query tile's class and frame ids, handed over with its rows
+struct F32DkvMeta {
+  int cls;                   // 1: test each pair, 2: every pair allowed
+  int qf[kF32QueryTile];     // its queries' frame ids (0 past Lq)
+};
+
+template <int kD, bool kMasked = false>
 struct F32DkvLayout {
   static constexpr int boxes = kD / 32;
   static constexpr int kv_box = kF32KeyBlock * 128;        // [64 keys, 32 columns]
@@ -87,12 +112,25 @@ struct F32DkvLayout {
   static constexpr int b = a + 2 * plane;                  // slot B: hi, lo
   // the tile's lse * log2(e) and delta, 32 each, written with slot B's dO
   static constexpr int rows = b + 2 * plane;
-  static constexpr int bar = rows + 2 * kF32QueryTile * 4;
+  // K5's F32DkvMeta, written with them
+  static constexpr int meta = rows + 2 * kF32QueryTile * 4;
+  static constexpr int bar = meta + (kMasked ? 256 : 0);
   // kv_full, a_full, a_empty, b_full, b_empty
   static constexpr int bytes = bar + 8 * 5 + 1024;  // + alignment slack
   static_assert(plane == kD * 128, "a row-major and a transposed plane have one size");
+  static_assert(sizeof(F32DkvMeta) <= 256, "the tile's meta fits its room");
 };
-static_assert(F32DkvLayout<128>::bytes <= kMaxSmem, "the fp32 K2 body fits one block an SM");
+static_assert(F32DkvLayout<128, true>::bytes <= kMaxSmem,
+              "the fp32 K2 and K5 body fits one block an SM");
+
+// K5: the admitted entries of a column of `n` entries `stride` bytes apart,
+// counted by each lane of a warp.
+__device__ __forceinline__ int count_admitted_col(const unsigned char* col, long long stride, int n,
+                                                  int lane) {
+  int count = 0;
+  for (int i = lane; i < n; i += 32) count += col[(long long)i * stride] != 0;
+  return (int)__reduce_add_sync(0xffffffffu, (unsigned)count);
+}
 
 struct F32BwdParams {
   float* dk;
@@ -180,18 +218,21 @@ __device__ __forceinline__ void f32_fold_acc(float* dst, long long srow, int row
   }
 }
 
-// K2 in fp32: dK and dV of 64 keys over every query tile.
-template <int kD>
-__global__ void __launch_bounds__(kF32BwdThreads, 1)
-flash_bwd_dkv_f32_sm90_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ dout,
-                              const FwdStrides st, const long long dsb, const long long dsl,
-                              const long long dsh, const F32BwdParams p) {
-  using L = F32DkvLayout<kD>;
+// K2 in fp32 (K5 with kMasked): dK and dV of 64 keys over every query
+// tile, or over the admitted ones of `mask`.
+template <int kD, bool kMasked>
+__device__ __forceinline__ void f32_dkv_body(const float* __restrict__ q,
+                                             const float* __restrict__ k,
+                                             const float* __restrict__ v,
+                                             const float* __restrict__ dout, const FwdStrides& st,
+                                             long long dsb, long long dsl, long long dsh,
+                                             const F32BwdParams& p, const FrameMask& mask) {
+  using L = F32DkvLayout<kD, kMasked>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* const sm = smem_raw + (base - raw);  // generic pointer to `base`
+  F32DkvMeta* const meta = reinterpret_cast<F32DkvMeta*>(sm + L::meta);
   const uint32_t kv_full = base + L::bar;
   const uint32_t a_full = kv_full + 8, a_empty = kv_full + 16;
   const uint32_t b_full = kv_full + 24, b_empty = kv_full + 32;
@@ -200,6 +241,10 @@ flash_bwd_dkv_f32_sm90_kernel(const float* __restrict__ q, const float* __restri
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const int nt = (p.Lq + kF32QueryTile - 1) / kF32QueryTile;
+  // K5: this key block's column of the 64 x 64 table; entry i / 2 covers
+  // the 32-query tile i
+  const unsigned char* const tcol = kMasked ? mask.tiles + blockIdx.x : nullptr;
+  auto entry = [&](int i) { return tcol[(long long)(i >> 1) * mask.nkt]; };
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 128);  // every producer thread
@@ -242,6 +287,12 @@ flash_bwd_dkv_f32_sm90_kernel(const float* __restrict__ q, const float* __restri
     fence_async_smem();
     mbar_arrive(kv_full);
 
+    // the next tile the walk admits from tile i on (K2: i itself)
+    auto next = [&](int i) {
+      if constexpr (kMasked)
+        while (i < nt && entry(i) == 0) ++i;
+      return i;
+    };
     auto load_q = [&](int i) {
       const int row = i * kF32QueryTile + lane;
       load_row32(qx, qg + (long long)row * st.ql, row < p.Lq, c0, p.D);
@@ -251,15 +302,22 @@ flash_bwd_dkv_f32_sm90_kernel(const float* __restrict__ q, const float* __restri
       load_row32(dx, dg + (long long)row * dsl, row < p.Lq, c0, p.D);
     };
     // the lse * log2(e) and delta of this lane's query: the tile's (c) and
-    // the next one's (n), read with its rows
+    // the next one's (n), read with its rows; K5 also its frame id and the
+    // tile's class
     float* const rows = reinterpret_cast<float*>(sm + L::rows);
     const long long rb = (b * p.N + h) * (long long)p.Lq;
     float lse_c = 0.f, del_c = 0.f, lse_n = 0.f, del_n = 0.f;
+    int qf_c = 0, qf_n = 0, cls_c = 0, cls_n = 0;
     auto load_rows = [&](int i) {
       const int qi = i * kF32QueryTile + lane;
       const bool in = qi < p.Lq;  // past Lq nothing is read: 0, 0
       lse_n = in ? __ldg(p.lse + rb + qi) * kLog2e : 0.f;
       del_n = in ? __ldg(p.delta + rb + qi) : 0.f;
+      if constexpr (kMasked) {
+        if (lse_n == -INFINITY) lse_n = INFINITY;  // a row that saw no key: p = 0
+        qf_n = in ? __ldg(mask.qf + qi) : 0;
+        cls_n = entry(i);
+      }
     };
     // write a slot's use n (its hi plane at `at`) from hi / lo: wait for use
     // n - 1's release, write, make the writes visible to the tensor cores,
@@ -269,6 +327,10 @@ flash_bwd_dkv_f32_sm90_kernel(const float* __restrict__ q, const float* __restri
       if (at == L::b && !cols && warp == 0) {  // with dO's rows, the tile's lse and delta
         rows[lane] = lse_c;
         rows[kF32QueryTile + lane] = del_c;
+        if constexpr (kMasked) {  // and its frame ids and class
+          meta->qf[lane] = qf_c;
+          if (lane == 0) meta->cls = cls_c;
+        }
       }
       if (works) {
         if (cols)
@@ -280,31 +342,63 @@ flash_bwd_dkv_f32_sm90_kernel(const float* __restrict__ q, const float* __restri
       fence_async_smem();
       mbar_arrive(full);
     };
-    if (works && nt > 0) {
-      load_q(0);
-      load_d(0);
-      load_rows(0);
-    }
     // each tile: split Q, fill slot A with its rows; split dO, fill slot B
     // with its rows and slot A with its columns; split Q again, fill slot B
     // with its columns.  The next tile's dO is read once dO's last form is
     // written, its Q once Q's is (holding both split at once ran 5% slower
-    // on an H100: more registers, more spills)
-    for (int i = 0; i < nt; ++i) {
+    // on an H100: more registers, more spills).  K2's loop, written as
+    // before K5 shared the body: the walk's loop below, or this one in the
+    // form of a lambda both drive, changed the code K2 compiles to
+    if constexpr (!kMasked) {
+      if (works && nt > 0) {
+        load_q(0);
+        load_d(0);
+        load_rows(0);
+      }
+      for (int i = 0; i < nt; ++i) {
+        lse_c = lse_n;
+        del_c = del_n;
+        if (works) split_row32(qx, hi, lo);
+        fill(a_empty, a_full, 2 * i, L::a, false);      // Q: S^T
+        if (works) split_row32(dx, hi, lo);
+        fill(b_empty, b_full, 2 * i, L::b, false);      // dO: dP^T
+        fill(a_empty, a_full, 2 * i + 1, L::a, true);   // dO^T: dV
+        if (works && i + 1 < nt) load_d(i + 1);
+        if (works) split_row32(qx, hi, lo);
+        fill(b_empty, b_full, 2 * i + 1, L::b, true);   // Q^T: dK
+        if (works && i + 1 < nt) {
+          load_q(i + 1);
+          load_rows(i + 1);
+        }
+      }
+      return;
+    }
+    // K5: the same over the admitted tiles, tile `in` the next one
+    int i = next(0);
+    if (works && i < nt) {
+      load_q(i);
+      load_d(i);
+      load_rows(i);
+    }
+    while (i < nt) {
+      const int in = next(i + 1);
       lse_c = lse_n;
       del_c = del_n;
+      qf_c = qf_n;
+      cls_c = cls_n;
       if (works) split_row32(qx, hi, lo);
-      fill(a_empty, a_full, 2 * i, L::a, false);      // Q: S^T
+      fill(a_empty, a_full, 0, L::a, false);  // Q: S^T
       if (works) split_row32(dx, hi, lo);
-      fill(b_empty, b_full, 2 * i, L::b, false);      // dO: dP^T
-      fill(a_empty, a_full, 2 * i + 1, L::a, true);   // dO^T: dV
-      if (works && i + 1 < nt) load_d(i + 1);
+      fill(b_empty, b_full, 0, L::b, false);  // dO: dP^T
+      fill(a_empty, a_full, 1, L::a, true);   // dO^T: dV
+      if (works && in < nt) load_d(in);
       if (works) split_row32(qx, hi, lo);
-      fill(b_empty, b_full, 2 * i + 1, L::b, true);   // Q^T: dK
-      if (works && i + 1 < nt) {
-        load_q(i + 1);
-        load_rows(i + 1);
+      fill(b_empty, b_full, 1, L::b, true);   // Q^T: dK
+      if (works && in < nt) {
+        load_q(in);
+        load_rows(in);
       }
+      i = in;
     }
   } else {
     // consumer: the block's 64 keys
@@ -318,6 +412,21 @@ flash_bwd_dkv_f32_sm90_kernel(const float* __restrict__ q, const float* __restri
     const float* const rows = reinterpret_cast<const float*>(sm + L::rows);
     float* const dk_out = p.dk + b * p.ab + h * p.ah;
     float* const dv_out = p.dv + b * p.cb + h * p.ch;
+    // the steps of the walk: every query tile, or K5's admitted ones (two
+    // a 64 x 64 entry, one for a last entry that covers a single tile)
+    int n = nt;
+    // K5: the frame table's columns of this thread's two keys, and which of
+    // its pairs a tile of class 2 keeps (element e's key: e >> 1 & 1)
+    const unsigned char* fmcol[2] = {nullptr, nullptr};
+    uint32_t keeps = 0;
+    if constexpr (kMasked) {
+      const int nq = (nt + 1) / 2;
+      n = 2 * count_admitted_col(tcol, mask.nkt, nq, lane) - ((nt & 1) && entry(nt - 1) != 0);
+      fmcol[0] = keep0 ? mask.fm + __ldg(mask.kf + key0) : nullptr;
+      fmcol[1] = keep1 ? mask.fm + __ldg(mask.kf + key0 + 8) : nullptr;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) keeps |= (uint32_t)((e & 2) ? keep1 : keep0) << e;
+    }
 
     float dk[kD / 2], dv[kD / 2];
 #pragma unroll
@@ -327,7 +436,7 @@ flash_bwd_dkv_f32_sm90_kernel(const float* __restrict__ q, const float* __restri
 
     const uint64_t d0 = smem_desc(base, 16);
     mbar_wait(kv_full, 0);
-    for (int i = 0; i < nt; ++i) {
+    for (int i = 0; i < n; ++i) {
       mbar_wait(a_full, 0);
       mbar_wait(b_full, 0);
       fence_regs(dk);
@@ -345,11 +454,28 @@ flash_bwd_dkv_f32_sm90_kernel(const float* __restrict__ q, const float* __restri
       }
       // element e is key row g + 8 ((e >> 1) & 1), query column
       // c = 8 (e / 4) + 2 t + (e & 1), its lse * log2(e) and delta in `rows`
-      // (slot B's, until its release after dK)
+      // (slot B's, until its release after dK).  K5: which of this thread's
+      // pairs count, tested on a class-1 tile.  Here and not while S^T and
+      // dP^T run (the note above)
+      uint32_t ok = keeps;
+      if constexpr (kMasked) {
+        if (meta->cls == 1) {
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const int c = 8 * (e / 4) + 2 * t + (e & 1);
+            const unsigned char* col = fmcol[(e >> 1) & 1];
+            if (col == nullptr || col[(long long)meta->qf[c] * mask.F] == 0) ok &= ~(1u << e);
+          }
+        }
+      }
 #pragma unroll
       for (int e = 0; e < 16; ++e) {
         const int c = 8 * (e / 4) + 2 * t + (e & 1);
-        const bool keep = (e & 2) ? keep1 : keep0;
+        bool keep;
+        if constexpr (kMasked)
+          keep = (ok >> e) & 1u;
+        else
+          keep = (e & 2) ? keep1 : keep0;
         const float pe = keep ? ex2(sT[e] * p.scale_log2 - rows[c]) : 0.f;
         sT[e] = pe;
         dpT[e] = pe * (dpT[e] - rows[kF32QueryTile + c]);
@@ -377,31 +503,60 @@ flash_bwd_dkv_f32_sm90_kernel(const float* __restrict__ q, const float* __restri
         mbar_arrive(a_empty);
         mbar_arrive(b_empty);
       }
-      if ((i + 1) % kF32DkvFold == 0 || i == nt - 1) {
+      if ((i + 1) % kF32DkvFold == 0 || i == n - 1) {
         f32_fold_acc<kD>(dk_out, p.al, key0, p.Lk, p.D, dk, p.scale, i < kF32DkvFold);
         f32_fold_acc<kD>(dv_out, p.cl, key0, p.Lk, p.D, dv, 1.f, i < kF32DkvFold);
       }
     }
-    if (nt == 0) {  // no query: dK = dV = 0
+    if (n == 0) {  // no query, or K5 with no admitted tile: dK = dV = 0
       f32_fold_acc<kD>(dk_out, p.al, key0, p.Lk, p.D, dk, p.scale, true);
       f32_fold_acc<kD>(dv_out, p.cl, key0, p.Lk, p.D, dv, 1.f, true);
     }
   }
 }
 
-// K2 in fp32 at head-dim width kD: `st` holds q's, k's and v's element
-// strides, (dsb, dsl, dsh) dO's.  0 or a cudaError_t.
 template <int kD>
+__global__ void __launch_bounds__(kF32BwdThreads, 1)
+flash_bwd_dkv_f32_sm90_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
+                              const FwdStrides st, const long long dsb, const long long dsl,
+                              const long long dsh, const F32BwdParams p) {
+  f32_dkv_body<kD, false>(q, k, v, dout, st, dsb, dsl, dsh, p, FrameMask{});
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kF32BwdThreads, 1)
+flash_masked_bwd_dkv_f32_sm90_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                     const float* __restrict__ v, const float* __restrict__ dout,
+                                     const FwdStrides st, const long long dsb,
+                                     const long long dsl, const long long dsh,
+                                     const F32BwdParams p, const FrameMask mask) {
+  f32_dkv_body<kD, true>(q, k, v, dout, st, dsb, dsl, dsh, p, mask);
+}
+
+// K2 in fp32 at head-dim width kD (K5 with kMasked, over `mask`'s 64 x 64
+// table): `st` holds q's, k's and v's element strides, (dsb, dsl, dsh)
+// dO's.  0 or a cudaError_t.
+template <int kD, bool kMasked>
 int launch_f32_dkv(const float* q, const float* k, const float* v, const float* dout,
                    const FwdStrides& st, long long dsb, long long dsl, long long dsh,
-                   const F32BwdParams& p, int B, cudaStream_t stream) {
-  constexpr int bytes = F32DkvLayout<kD>::bytes;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_f32_sm90_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
+                   const F32BwdParams& p, const FrameMask& mask, int B, cudaStream_t stream) {
+  constexpr int bytes = F32DkvLayout<kD, kMasked>::bytes;
   const dim3 grid((p.Lk + kF32KeyBlock - 1) / kF32KeyBlock, p.N, B);
-  flash_bwd_dkv_f32_sm90_kernel<kD><<<grid, kF32BwdThreads, bytes, stream>>>(q, k, v, dout, st, dsb,
-                                                                           dsl, dsh, p);
+  cudaError_t err;
+  if constexpr (kMasked) {
+    err = cudaFuncSetAttribute(flash_masked_bwd_dkv_f32_sm90_kernel<kD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    flash_masked_bwd_dkv_f32_sm90_kernel<kD><<<grid, kF32BwdThreads, bytes, stream>>>(
+        q, k, v, dout, st, dsb, dsl, dsh, p, mask);
+  } else {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_f32_sm90_kernel<kD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dkv_f32_sm90_kernel<kD><<<grid, kF32BwdThreads, bytes, stream>>>(
+        q, k, v, dout, st, dsb, dsl, dsh, p);
+  }
   return (int)cudaGetLastError();
 }
 

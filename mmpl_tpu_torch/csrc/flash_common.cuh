@@ -1,10 +1,10 @@
 // Building blocks shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): the fp32 template bodies' cp.async tile loads with
+// flash_bwd.cu): the fp32 K4 template body's cp.async tile loads with
 // zero-filled edges and FMA products, the frame-mask arguments, and the
 // packing of two floats to 16 bits that the Hopper bodies use.
 //
-// Fragment layout of the template bodies (that of the m16n8 accumulator of
-// mma.sync, kept by their FMA products): lane = 4*g + t holds,
+// Fragment layout of the template body (that of the m16n8 accumulator of
+// mma.sync, kept by its FMA products): lane = 4*g + t holds,
 // for each 8-column tile j, element e of rows g (e = 0, 1) and g + 8
 // (e = 2, 3) at columns 8*j + 2*t + (e & 1).
 #pragma once
@@ -25,7 +25,6 @@ constexpr int THREADS = 128;  // 4 warps, 16 rows each
 // so that consecutive rows start in different banks.
 template <typename T, int kD>
 struct Pitch {
-  static constexpr bool kFloat = std::is_same<T, float>::value;
   static constexpr int ld = kD + 16 / (int)sizeof(T);
   static constexpr int tile = TILE * ld;  // elements per tile
   static constexpr int pld = TILE + 4;    // fp32 P row pitch (FMA path)
@@ -33,9 +32,9 @@ struct Pitch {
 
 // Frame mask: token i may attend token j iff fm[qf[i] * F + kf[j]] != 0.
 // tiles[qt * nkt + kt] is 0 (no pair allowed: skip), 1 (test each pair) or
-// 2 (every pair allowed) for the TILE x TILE tile (qt, kt); the Hopper K4
-// and K5 get their coarser tables through the same struct (their notes in
-// flash_fwd_sm90.cuh and flash_bwd_sm90.cuh).
+// 2 (every pair allowed) for the TILE x TILE tile (qt, kt); the bf16 /
+// fp16 Hopper K4-K6 get their coarser tables through the same struct (their
+// notes in flash_fwd_sm90.cuh and flash_bwd_sm90.cuh).
 struct FrameMask {
   const int* qf;
   const int* kf;
@@ -184,13 +183,9 @@ __device__ __forceinline__ void store_rows(T* dst, long long srow, int row0, int
   }
 }
 
-// The next key (or query) tile at or after `from` that the mask admits.
-template <bool kMasked>
-__device__ __forceinline__ int next_tile(const unsigned char* row, long long stride, int from,
-                                         int n) {
-  if (kMasked) {
-    while (from < n && row[(long long)from * stride] == 0) ++from;
-  }
+// The next key tile at or after `from` that the tile table's `row` admits.
+__device__ __forceinline__ int next_tile(const unsigned char* row, int from, int n) {
+  while (from < n && row[from] == 0) ++from;
   return from;
 }
 

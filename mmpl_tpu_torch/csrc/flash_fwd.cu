@@ -12,7 +12,7 @@
 //    never loaded; one marked 2 (every frame pair allowed) skips the
 //    per-element test.  A row that sees no key gets O = 0 and lse = -inf.
 //    The Hopper body reads the table pooled to its 128 x 128 tiles, the
-//    template body the 64 x 64 one.
+//    template body (fp32) the 64 x 64 one.
 //  * P1, the exp2 probe.  Replaces `_fwd_kernel` (tools/exp2_probe.py:42,
 //    launched through `variant` :85 at :95): K1 with two choices, kExp2
 //    (log2(e) folded into the scale on the host, exp2 for both alpha and p,
@@ -29,22 +29,22 @@
 //    note says what bounds it and what the design does about it).  K1 takes
 //    its scale with log2(e) folded in and returns the lse in natural log;
 //    K4's entry takes the natural scale and folds log2(e) in itself.
-//  * fp32 K1 runs `flash_fwd_f32_sm90.cuh`: split TF32 on wgmma (three
-//    passes a product, about 21 bits of each operand), a producer
+//  * fp32 K1 and P1 run `flash_fwd_f32_sm90.cuh`: split TF32 on wgmma
+//    (three passes a product, about 21 bits of each operand), a producer
 //    warpgroup that splits Q, K and V and writes V transposed to shared
 //    memory, one consumer warpgroup of 64 query rows over 32-key stages
-//    (its note says what bounds it).  fp32 is the default trunk of the
-//    trainer's ODE and distillation objectives, so its K1 runs at their
-//    shapes.
-//  * fp32 K4 and P1 run the template body below: each of 4 warps owns 16
-//    of a block's 64 query rows and holds its scores, probabilities and
-//    output accumulator in registers (FMA in the mma.sync m16n8k16
-//    fragment layout of flash_common.cuh), and the block double-buffers the
-//    64-key K/V tiles with cp.async.  They are still to be redesigned
-//    (ROADMAP.md Queue 2).
+//    (its note says what bounds it); P1 as its kernel with P1's choices and
+//    no lse.  fp32 is the default trunk of the trainer's ODE and
+//    distillation objectives, so its K1 runs at their shapes.
+//  * fp32 K4 runs the template body below, the last one: each of 4 warps
+//    owns 16 of a block's 64 query rows and holds its scores,
+//    probabilities and output accumulator in registers (FMA in the
+//    mma.sync m16n8k16 fragment layout of flash_common.cuh), and the block
+//    double-buffers the 64-key K/V tiles with cp.async.  It is still to be
+//    redesigned (ROADMAP.md Queue 2).
 //
 // All keep an online softmax in fp32 (m, l, acc), round P to the input
-// type before the PV product (the fp32 K1 body splits it into two TF32
+// type before the PV product (the fp32 split-TF32 body splits it into two TF32
 // parts), and write O in the input type and (K1, K4)
 // lse in fp32 (l == 0 guarded as on the TPU; in K4 the shift/alpha guards
 // of attention.py:750-752 keep a row that has seen only masked scores at
@@ -76,30 +76,26 @@ namespace {
 
 using namespace mmpl;
 
-// Shared memory of the template body (fp32): Q, two K and two V tiles, and
-// each warp's P rows.
+// Shared memory of the template body (fp32 K4): Q, two K and two V tiles,
+// and each warp's P rows.
 template <int kD>
 struct FwdSmem {
   static constexpr size_t bytes =
       sizeof(float) * (5 * Pitch<float, kD>::tile + TILE * Pitch<float, kD>::pld);
 };
 
-template <bool kExp2>
-__device__ __forceinline__ float softmax_exp(float x) {
-  return kExp2 ? exp2f(x) : expf(x);
-}
-
-template <typename T, int kD, bool kMasked, bool kExp2, bool kPadMask, bool kLse>
-__device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T* __restrict__ k,
-                                               const T* __restrict__ v, T* __restrict__ o,
-                                               float* __restrict__ lse, int Lq, int Lk, int N,
-                                               int D, const FwdStrides& st, float scale,
-                                               const FrameMask& mask) {
-  static_assert(Pitch<T, kD>::kFloat, "bf16 / fp16 run the Hopper body");
-  constexpr int TL = Pitch<T, kD>::tile;
+// K4 on the template body: fp32 only (bf16 / fp16 run
+// sm90::launch_masked); `scale` is the natural one.
+template <int kD>
+__global__ void __launch_bounds__(THREADS)
+flash_masked_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int Lq, int Lk, int N, int D,
+                        FwdStrides st, float scale, FrameMask mask) {
+  constexpr int TL = Pitch<float, kD>::tile;
   constexpr int DT = kD / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
+  float* Qs = reinterpret_cast<float*>(smem);
   auto Ks = [&](int stage) { return Qs + (1 + stage) * TL; };
   auto Vs = [&](int stage) { return Qs + (3 + stage) * TL; };
 
@@ -110,27 +106,25 @@ __device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T*
   const int q0 = blockIdx.x * TILE;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
-  const T* qg = q + b * st.qb + h * st.qh;
-  const T* kg = k + b * st.kb + h * st.kh;
-  const T* vg = v + b * st.vb + h * st.vh;
+  const float* qg = q + b * st.qb + h * st.qh;
+  const float* kg = k + b * st.kb + h * st.kh;
+  const float* vg = v + b * st.vb + h * st.vh;
 
   const int nkb = (Lk + TILE - 1) / TILE;
-  const unsigned char* trow = kMasked ? mask.tiles + (long long)blockIdx.x * mask.nkt : nullptr;
-  // frame-table rows of this thread's two query rows (-1: past Lq)
-  const unsigned char* fmrow[2] = {nullptr, nullptr};
-  if (kMasked) {
+  const unsigned char* trow = mask.tiles + (long long)blockIdx.x * mask.nkt;
+  // frame-table rows of this thread's two query rows (nullptr: past Lq)
+  const unsigned char* fmrow[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + warp * 16 + g + 8 * i;
-      fmrow[i] = row < Lq ? mask.fm + (long long)mask.qf[row] * mask.F : nullptr;
-    }
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + g + 8 * i;
+    fmrow[i] = row < Lq ? mask.fm + (long long)mask.qf[row] * mask.F : nullptr;
   }
 
-  int kb = next_tile<kMasked>(trow, 1, 0, nkb);
-  load_tile<T, kD>(Qs, qg, st.ql, q0, Lq, D);
+  int kb = next_tile(trow, 0, nkb);
+  load_tile<float, kD>(Qs, qg, st.ql, q0, Lq, D);
   if (kb < nkb) {
-    load_tile<T, kD>(Ks(0), kg, st.kl, kb * TILE, Lk, D);
-    load_tile<T, kD>(Vs(0), vg, st.vl, kb * TILE, Lk, D);
+    load_tile<float, kD>(Ks(0), kg, st.kl, kb * TILE, Lk, D);
+    load_tile<float, kD>(Vs(0), vg, st.vl, kb * TILE, Lk, D);
   }
   cp_async_commit();
 
@@ -139,18 +133,18 @@ __device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T*
   float l[2] = {0.f, 0.f};               // this lane's share of the row sum
 
   for (int stage = 0; kb < nkb; stage ^= 1) {
-    const int nxt = next_tile<kMasked>(trow, 1, kb + 1, nkb);
+    const int nxt = next_tile(trow, kb + 1, nkb);
     if (nxt < nkb) {
-      load_tile<T, kD>(Ks(stage ^ 1), kg, st.kl, nxt * TILE, Lk, D);
-      load_tile<T, kD>(Vs(stage ^ 1), vg, st.vl, nxt * TILE, Lk, D);
+      load_tile<float, kD>(Ks(stage ^ 1), kg, st.kl, nxt * TILE, Lk, D);
+      load_tile<float, kD>(Vs(stage ^ 1), vg, st.vl, nxt * TILE, Lk, D);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* Kt = Ks(stage);
-    const T* Vt = Vs(stage);
+    const float* Kt = Ks(stage);
+    const float* Vt = Vs(stage);
 
     // S = Q K^T for this warp's 16 rows (raw fp32 dot products)
     float s[8][4];
@@ -158,14 +152,14 @@ __device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T*
 
     // online softmax; each row's 64 scores live in the 4 lanes of a quad
     const int kvalid = Lk - kb * TILE;
-    const bool test_pairs = kMasked && trow[kb] != 2;
+    const bool test_pairs = trow[kb] != 2;
     float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + 2 * t + (e & 1);
-        bool ok = !kPadMask || col < kvalid;
+        bool ok = col < kvalid;
         if (test_pairs) {
           const unsigned char* fr = fmrow[e >> 1];
           ok = ok && fr != nullptr && fr[mask.kf[kb * TILE + col]] != 0;
@@ -181,11 +175,10 @@ __device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T*
       tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
       tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
       const float m_new = fmaxf(m[i], tmax[i]);
-      // only a masked row can have seen no score yet: every key tile of
-      // the unmasked kernel holds a valid key, and there the guard cost 8%
-      // of K1's time at the serving shapes on an H100
-      shift[i] = kMasked && m_new == -INFINITY ? 0.f : m_new;
-      alpha[i] = m[i] == -INFINITY ? 0.f : softmax_exp<kExp2>(m[i] - shift[i]);
+      // a row that has seen no allowed score shifts by 0, so alpha and its
+      // p stay 0 (the guards of attention.py:749-752)
+      shift[i] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[i] = m[i] == -INFINITY ? 0.f : expf(m[i] - shift[i]);
       m[i] = m_new;
     }
     float psum[2] = {0.f, 0.f};
@@ -193,7 +186,7 @@ __device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T*
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = softmax_exp<kExp2>(s[j][e] - shift[e >> 1]);  // exp(-inf) = 0
+        const float p = expf(s[j][e] - shift[e >> 1]);  // exp(-inf) = 0
         s[j][e] = p;
         psum[e >> 1] += p;
       }
@@ -207,15 +200,15 @@ __device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T*
     }
 
     // O += P V
-    float* Pw = reinterpret_cast<float*>(smem + sizeof(T) * 5 * TL) +
-                warp * 16 * Pitch<T, kD>::pld;
+    float* Pw = reinterpret_cast<float*>(smem + sizeof(float) * 5 * TL) +
+                warp * 16 * Pitch<float, kD>::pld;
     fma_pb<kD>(acc, s, Vt, Pw);
     __syncthreads();  // every warp is done with this stage before it is refilled
     kb = nxt;
   }
   cp_async_wait<0>();  // the Q copy when the mask admitted no tile
 
-  T* og = o + b * st.ob + h * st.oh;
+  float* og = o + b * st.ob + h * st.oh;
   float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -224,35 +217,10 @@ __device__ __forceinline__ void flash_fwd_body(const T* __restrict__ q, const T*
     const float lsafe = l[i] == 0.f ? 1.f : l[i];
     inv[i] = 1.f / lsafe;
     const int row = q0 + warp * 16 + g + 8 * i;
-    if (kLse && row < Lq && t == 0)  // natural log; m is in log2 units with exp2
-      lse[(b * N + h) * (long long)Lq + row] =
-          m[i] == -INFINITY ? -INFINITY
-                            : kExp2 ? (m[i] + log2f(lsafe)) * 0.6931471805599453f
-                                    : m[i] + logf(lsafe);
+    if (row < Lq && t == 0)  // natural log
+      lse[(b * N + h) * (long long)Lq + row] = m[i] == -INFINITY ? -INFINITY : m[i] + logf(lsafe);
   }
-  store_rows<T, kD>(og, st.ol, q0 + warp * 16 + g, Lq, D, acc, inv[0], inv[1]);
-}
-
-// K4 on the template body: fp32 only (bf16 / fp16 run
-// sm90::launch_masked).
-template <typename T, int kD>
-__global__ void __launch_bounds__(THREADS)
-flash_masked_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ o,
-                        float* __restrict__ lse, int Lq, int Lk, int N, int D,
-                        FwdStrides st, float scale, FrameMask mask) {
-  flash_fwd_body<T, kD, true, false, true, true>(q, k, v, o, lse, Lq, Lk, N, D, st, scale,
-                                                 mask);
-}
-
-// P1 on the template body: fp32 only; `scale` holds log2(e) when kExp2.
-template <typename T, int kD, bool kExp2, bool kPadMask>
-__global__ void __launch_bounds__(THREADS)
-flash_exp2_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int Lq, int Lk,
-                  int N, int D, FwdStrides st, float scale) {
-  flash_fwd_body<T, kD, false, kExp2, kPadMask, false>(q, k, v, o, nullptr, Lq, Lk, N, D, st,
-                                                       scale, FrameMask{});
+  store_rows<float, kD>(og, st.ol, q0 + warp * 16 + g, Lq, D, acc, inv[0], inv[1]);
 }
 
 template <typename Kernel, typename... Args>
@@ -268,22 +236,22 @@ int launch_body(Kernel kernel, size_t bytes, int B, int Lq, int N, cudaStream_t 
 
 bool bad_head_dim(int D) { return D <= 0 || D > 128 || D % 8; }
 
-template <typename T, int kD>
+// K4 in fp32 on the template body at head-dim width kD.
+template <int kD>
 int masked_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Lq,
                int Lk, int N, int D, const FwdStrides& st, float scale, const FrameMask& mask,
                cudaStream_t s) {
-  return launch_body(flash_masked_fwd_kernel<T, kD>, FwdSmem<kD>::bytes, B, Lq, N, s,
-                     static_cast<const T*>(q), static_cast<const T*>(k),
-                     static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-                     Lq, Lk, N, D, st, scale, mask);
+  return launch_body(flash_masked_fwd_kernel<kD>, FwdSmem<kD>::bytes, B, Lq, N, s,
+                     static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<float*>(o),
+                     static_cast<float*>(lse), Lq, Lk, N, D, st, scale, mask);
 }
 
-template <typename T>
-int masked_width(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                 int Lq, int Lk, int N, int D, const FwdStrides& st, float scale,
-                 const FrameMask& mask, cudaStream_t s) {
-  return D <= 64 ? masked_fwd<T, 64>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s)
-                 : masked_fwd<T, 128>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
+int masked_width(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Lq,
+                 int Lk, int N, int D, const FwdStrides& st, float scale, const FrameMask& mask,
+                 cudaStream_t s) {
+  return D <= 64 ? masked_fwd<64>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s)
+                 : masked_fwd<128>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
 }
 
 // K4 in bf16 / fp16 on the wgmma body; `scale` is the natural one.
@@ -308,21 +276,15 @@ int fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse, in
                                                       s);
 }
 
-template <typename T, int kD, bool kExp2, bool kPadMask>
-int exp2_f32(const void* q, const void* k, const void* v, void* o, int B, int Lq, int Lk,
-             int N, int D, const FwdStrides& st, float scale, cudaStream_t s) {
-  return launch_body(flash_exp2_kernel<T, kD, kExp2, kPadMask>, FwdSmem<kD>::bytes, B, Lq,
-                     N, s, static_cast<const T*>(q), static_cast<const T*>(k),
-                     static_cast<const T*>(v), static_cast<T*>(o), Lq, Lk, N, D, st, scale);
-}
-
-// One P1 variant at one width: the template body for fp32, the wgmma body
-// for bf16 / fp16.
+// One P1 variant at one width: the split-TF32 wgmma body for fp32, the
+// wgmma body for bf16 / fp16.
 template <typename T, int kD, bool kExp2, bool kPadMask>
 int exp2_launch(const void* q, const void* k, const void* v, void* o, int B, int Lq, int Lk,
                 int N, int D, const FwdStrides& st, float scale, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value)
-    return exp2_f32<T, kD, kExp2, kPadMask>(q, k, v, o, B, Lq, Lk, N, D, st, scale, s);
+    return sm90::launch_f32_fwd<kD, kExp2, kPadMask, false>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), nullptr, B, Lq, Lk, N, D, st, scale, s);
   else
     return sm90::launch<T, kD, kExp2, kPadMask, false>(q, k, v, o, nullptr, B, Lq, Lk, N, D,
                                                        st, scale, s);
@@ -414,7 +376,7 @@ extern "C" int mmpl_flash_masked_fwd(int dtype, const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return masked_width<float>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
+      return masked_width(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
     case 1:
       return masked_sm90<__nv_bfloat16>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, wide, s);
     case 2:

@@ -1,10 +1,17 @@
 // Flash-attention forward for Hopper (sm_90a) in fp32 on the tensor cores:
-// the fp32 body of K1 (csrc/flash_fwd.cu, `flash_fwd_f32_sm90_kernel`).
+// the fp32 body of K1 and P1 (csrc/flash_fwd.cu, `flash_fwd_f32_sm90_kernel`
+// and `flash_exp2_f32_sm90_kernel`).
 //
 // Replaces `_flash_fwd_kernel` (mmpl_tpu/ops/attention.py:324): O =
 // softmax(scale * Q K^T) V per (batch, head) and the natural-log lse
 // [B, N, Lq] in fp32, for fp32 q, k and v (the default trunk of the
-// trainer's ODE and distillation objectives).
+// trainer's ODE and distillation objectives).  P1, the exp2 probe's
+// forward (`_fwd_kernel`, tools/exp2_probe.py:42), is the same body with
+// the bf16 body's three choices: kExp2 (log2(e) folded into the scale on
+// the host and exp2 for alpha, p and the folds' rescale, or exp on the
+// natural scale), kPadMask (keep or drop the test of the keys past Lk on
+// the last tile; dropped only where Lk is a multiple of 64, so every
+// 32-key tile is whole) and kLse (K1 writes the lse, P1 O only).
 //
 // What bounds it on an H100: operations.  The work is 4*B*N*Lq*Lk*D FLOPs
 // against B*N*(2*Lq + 2*Lk)*D fp32 elements in and out, far above the
@@ -143,13 +150,14 @@ __device__ __forceinline__ void f32_issue_pv(float (&o)[kD / 2], const uint32_t 
 }
 
 // The online softmax of one 32-key tile (the bf16 body's, over 16
-// accumulator elements): scale, mask the keys past `valid`, update m and
-// l, leave the unnormalised probabilities in s.
+// accumulator elements): scale, mask the keys past `valid` (kPadMask),
+// update m and l, leave the unnormalised probabilities in s.
+template <bool kExp2, bool kPadMask>
 __device__ __forceinline__ void f32_softmax(float (&s)[16], float (&m)[2], float (&l)[2],
                                             float (&alpha)[2], float scale, int valid, int t) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) s[i] *= scale;
-  if (valid < kF32KeyTile) {
+  if (kPadMask && valid < kF32KeyTile) {
 #pragma unroll
     for (int i = 0; i < 16; ++i)
       if (8 * (i / 4) + 2 * t + (i & 1) >= valid) s[i] = -INFINITY;
@@ -163,26 +171,28 @@ __device__ __forceinline__ void f32_softmax(float (&s)[16], float (&m)[2], float
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     // every tile holds a key, so m_new is finite; exp2(-inf) = 0 on the first
     const float m_new = fmaxf(m[r], mx[r]);
-    alpha[r] = ex2(m[r] - m_new);
+    alpha[r] = softmax_exp<kExp2>(m[r] - m_new);
     m[r] = m_new;
   }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    s[i] = ex2(s[i] - m[(i >> 1) & 1]);
+    s[i] = softmax_exp<kExp2>(s[i] - m[(i >> 1) & 1]);
     sum[(i >> 1) & 1] += s[i];
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
 }
 
-// K1 in fp32: O and the natural-log lse; `scale` holds log2(e).
-template <int kD>
-__global__ void __launch_bounds__(kF32Threads, 1)
-flash_fwd_f32_sm90_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ o,
-                          float* __restrict__ lse, int Lq, int Lk, int N, int D,
-                          const FwdStrides st, float scale) {
+// K1 in fp32 (kLse): O and the natural-log lse, `scale` holding log2(e);
+// P1 (kExp2, kPadMask): O only, `scale` holding log2(e) when kExp2.
+template <int kD, bool kExp2, bool kPadMask, bool kLse>
+__device__ __forceinline__ void f32_fwd_body(const float* __restrict__ q,
+                                             const float* __restrict__ k,
+                                             const float* __restrict__ v, float* __restrict__ o,
+                                             float* __restrict__ lse, int Lq, int Lk, int N, int D,
+                                             const FwdStrides& st, float scale) {
+  static_assert(!kLse || kExp2, "the lse is converted from the exp2 domain");
   using L = F32FwdLayout<kD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -294,7 +304,7 @@ flash_fwd_f32_sm90_kernel(const float* __restrict__ q, const float* __restrict__
       float f[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        f[r] = ex2(mf[r] - m[r]);  // 0 before the first fold (mf = -inf)
+        f[r] = softmax_exp<kExp2>(mf[r] - m[r]);  // 0 before the first fold (mf = -inf)
         mf[r] = m[r];
       }
 #pragma unroll
@@ -326,7 +336,7 @@ flash_fwd_f32_sm90_kernel(const float* __restrict__ q, const float* __restrict__
       wg_wait<0>();
       fence_regs(s);
       if (signals) mbar_arrive(k_empty(0));
-      f32_softmax(s, m, l, alpha, scale, valid_of(0), t);
+      f32_softmax<kExp2, kPadMask>(s, m, l, alpha, scale, valid_of(0), t);
       split_frag<4>(ph, pl, s);
     }
     for (int j = 1; j < nkb; ++j) {
@@ -346,7 +356,7 @@ flash_fwd_f32_sm90_kernel(const float* __restrict__ q, const float* __restrict__
       wg_wait<1>();  // S of tile j is in; PV of tile j-1 may still run
       fence_regs(s);
       if (signals) mbar_arrive(k_empty(sc));
-      f32_softmax(s, m, l, alpha, scale, valid_of(j), t);
+      f32_softmax<kExp2, kPadMask>(s, m, l, alpha, scale, valid_of(j), t);
       wg_wait<0>();
       fence_regs(acc);
       fence_regs(ph);
@@ -380,7 +390,7 @@ flash_fwd_f32_sm90_kernel(const float* __restrict__ q, const float* __restrict__
       const float inv = 1.f / lsafe;
       const int row = q0 + cwarp * 16 + g + 8 * r;
       if (row >= Lq) continue;
-      if (t == 0)
+      if (kLse && t == 0)
         lse[(b * N + h) * (long long)Lq + row] =
             m[r] == -INFINITY ? -INFINITY : (m[r] + log2f(lsafe)) * 0.6931471805599453f;
       float* orow = og + (long long)row * st.ol;
@@ -395,19 +405,45 @@ flash_fwd_f32_sm90_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
-// K1 in fp32 at head-dim width kD; `scale` holds log2(e).  0 or a
-// cudaError_t.
 template <int kD>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_fwd_f32_sm90_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int Lq, int Lk, int N, int D,
+                          const FwdStrides st, float scale) {
+  f32_fwd_body<kD, true, true, true>(q, k, v, o, lse, Lq, Lk, N, D, st, scale);
+}
+
+template <int kD, bool kExp2, bool kPadMask>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_exp2_f32_sm90_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o, int Lq, int Lk,
+                           int N, int D, const FwdStrides st, float scale) {
+  f32_fwd_body<kD, kExp2, kPadMask, false>(q, k, v, o, nullptr, Lq, Lk, N, D, st, scale);
+}
+
+// K1 in fp32 at head-dim width kD (kLse; `scale` holds log2(e)), or P1 (O
+// only; `lse` unused).  0 or a cudaError_t.
+template <int kD, bool kExp2 = true, bool kPadMask = true, bool kLse = true>
 int launch_f32_fwd(const float* q, const float* k, const float* v, float* o, float* lse, int B,
                    int Lq, int Lk, int N, int D, const FwdStrides& st, float scale,
                    cudaStream_t stream) {
   constexpr int bytes = F32FwdLayout<kD>::bytes;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_sm90_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((Lq + kF32BlockM - 1) / kF32BlockM, N, B);
-  flash_fwd_f32_sm90_kernel<kD><<<grid, kF32Threads, bytes, stream>>>(q, k, v, o, lse, Lq, Lk,
-                                                                       N, D, st, scale);
+  cudaError_t err;
+  if constexpr (kLse) {
+    err = cudaFuncSetAttribute(flash_fwd_f32_sm90_kernel<kD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    flash_fwd_f32_sm90_kernel<kD><<<grid, kF32Threads, bytes, stream>>>(q, k, v, o, lse, Lq, Lk,
+                                                                         N, D, st, scale);
+  } else {
+    err = cudaFuncSetAttribute(flash_exp2_f32_sm90_kernel<kD, kExp2, kPadMask>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    flash_exp2_f32_sm90_kernel<kD, kExp2, kPadMask><<<grid, kF32Threads, bytes, stream>>>(
+        q, k, v, o, Lq, Lk, N, D, st, scale);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -127,11 +127,6 @@ struct Params {
 // The body
 // ---------------------------------------------------------------------------
 
-template <bool kExp2>
-__device__ __forceinline__ float softmax_exp(float x) {
-  return kExp2 ? ex2(x) : expf(x);
-}
-
 // S = Q K^T for one consumer: its 64 rows of Q (at qa) against a K tile.
 template <typename T, int kD>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t qa, uint32_t ka) {

@@ -185,6 +185,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// The softmax's exponential: exp2 with log2(e) folded into the scale, or
+// exp on the natural scale (P1's exp variants).
+template <bool kExp2>
+__device__ __forceinline__ float softmax_exp(float x) {
+  return kExp2 ? ex2(x) : expf(x);
+}
+
 // d (+)= A B for one k16 step.  SS: A and B K-major in shared memory, N =
 // 128 or 64.  RS: A in registers (the accumulator fragment layout), B
 // MN-major.

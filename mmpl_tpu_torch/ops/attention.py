@@ -18,7 +18,7 @@ Port of `mmpl_tpu/ops/attention.py`.  Layout is [B, L, N, D] throughout.
     body of `csrc/flash_bwd_dq_f32_sm90.cuh`.
   * `flash_attention_exp2` is P1, the exp2 probe's forward (O only, exp or
     exp2, with or without the in-kernel pad test), on K1's Hopper body in
-    bf16 / fp16 and the FMA template body of `flash_fwd.cu` in fp32;
+    bf16 / fp16 and fp32 K1's split-TF32 body in fp32;
     no path of the model runs it, `mmpl_tpu_torch.tools.exp2_probe`
     measures it against K1.
   * `frame_masked_attention` is the training self-attention under a
@@ -26,10 +26,10 @@ Port of `mmpl_tpu/ops/attention.py`.  Layout is [B, L, N, D] throughout.
     frame_mask[q_frame_ids[i], kv_frame_ids[j]]): K4 forward, K5 / K6
     backward.  Whole tiles that the mask forbids are skipped through tile
     tables built on the device (`mask_tiles`): 64x64 (`tile_table`) for
-    the fp32 K4 and K5 templates and fp32 K6, which runs as the masked
-    kernel of fp32 K3's split-TF32 body, pooled to 128x128 for the Hopper
-    K4 and K6 and to 64x128 for the Hopper K5, which run in bf16 / fp16 as
-    masked instantiations of K1's, K3's and K2's bodies.
+    the fp32 K4 template and fp32 K5 and K6, which run as the masked
+    kernels of fp32 K2's and K3's split-TF32 bodies, pooled to 128x128
+    for the Hopper K4 and K6 and to 64x128 for the Hopper K5, which run in
+    bf16 / fp16 as masked instantiations of K1's, K3's and K2's bodies.
 
 On CUDA tensors each wrapper launches its hand-written kernel or raises; on
 CPU tensors the same `autograd.Function`s run the plain versions, forward
@@ -57,7 +57,7 @@ launch_counts = {"flash_fwd": 0, "flash_masked_fwd": 0, "flash_bwd_dkv": 0,
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-#: rows of the template body's Q, K and V tiles (csrc/flash_common.cuh
+#: rows of the fp32 K4 template's Q, K and V tiles (csrc/flash_common.cuh
 #: TILE): the frame mask's tile table and P1's `mask_pad=False` contract
 #: are in these units (the Hopper body's 128-key tiles are right for any
 #: multiple of 64)
@@ -523,9 +523,9 @@ def flash_exp2_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     use_exp2: bool = True, mask_pad: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Launch P1 from `csrc/flash_fwd.cu` on CUDA tensors (bf16 / fp16 on
-    the Hopper body, fp32 on the template body); operands as
-    `flash_fwd_cuda`.  Returns O; `mask_pad=False` needs Lk a multiple of
-    64."""
+    the Hopper body, fp32 on the split-TF32 Hopper body of
+    `csrc/flash_fwd_f32_sm90.cuh`); operands as `flash_fwd_cuda`.  Returns
+    O; `mask_pad=False` needs Lk a multiple of 64."""
     what = "flash_exp2"
     _check_qkv(what, q, k, v)
     B, Lq, N, D = q.shape
@@ -552,7 +552,7 @@ def _bwd_mask_args(part: str, mask, tiles, Lq: int, Lk: int, device,
     """The mask arguments of the masked dKV (K5, `part` = "dkv") or dQ
     (K6, "dq") entry: both take their coarse table (`COARSE_TABLE`), which
     bf16 / fp16 read on the Hopper body (so F is held to SM90_MAX_FRAMES);
-    fp32 (K5's template, K6's split-TF32 body) reads the 64 x 64 one."""
+    fp32 (K5's and K6's split-TF32 bodies) reads the 64 x 64 one."""
     return _mask_args(f"flash_masked_bwd_{part}", mask, tiles, Lq, Lk,
                       device, COARSE_TABLE[part], dtype != torch.float32)
 
@@ -605,7 +605,9 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale=None, mask=None,
     """Launch the dKV kernel (K2, or K5 with `mask` and its `tiles`) from
     `csrc/flash_bwd.cu` (bf16 / fp16 K2 and K5: `csrc/flash_bwd_sm90.cuh`,
     K2 with its reduce in the same launch count when it splits the
-    queries; fp32 K2: the split-TF32 `csrc/flash_bwd_f32_sm90.cuh`).  dO is read through its strides (the same rules as q); lse
+    queries; fp32 K2 and K5: the split-TF32 `csrc/flash_bwd_f32_sm90.cuh`,
+    K5 over `tiles.t64`).  dO is read through its strides (the same rules
+    as q); lse
     and delta = rowsum(dO * O) are contiguous [B, N, Lq] fp32.  Returns
     (dk, dv), contiguous, in k's dtype."""
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)

@@ -1,15 +1,18 @@
-"""K1, K2 and K3, K4-K6, or P2 and Q, of this tree against another
+"""K1, K2 and K3, K4-K6, P1, or P2 and Q, of this tree against another
 checkout's, on one card, in turns.
 
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel bwd
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel masked
+    python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel exp2
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel int8
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --dtype float32
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel bwd \
         --dtype float32
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR \
         --kernel masked --dtype float32
+    python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR \
+        --kernel exp2 --dtype float32
 
 DIR holds another checkout of the repository (for example an earlier
 commit unpacked with `git archive`).  Its `mmpl_tpu_torch/csrc/flash_fwd.cu`
@@ -57,6 +60,16 @@ Hopper bodies, K6 before its own; `OLD_MASKED_SIGNATURES`) gets the
 last two lines say whether the Hopper kernels of each source compiled to
 the same SASS in both trees (K1, P1, K2, K3 and those of K4-K6 that both
 trees have; the others exist in one tree only).
+
+`--kernel exp2` builds the baseline's `flash_fwd.cu` and times P1's four
+variants (`call_exp2`, both trees bound by this tree's P1 signature, which
+the trees since P1 have kept) at `EXP2_SHAPES` in bf16 or, with `--dtype
+float32`, at `EXP2_F32_SHAPES` (fp32 at the tiny head dim and at K1's
+ode_self_1 shape) the same way; a variant without the pad test runs only
+where Lk is a multiple of 64.  Each row adds this tree's K1 and SDPA (its
+default backend) on the same inputs, and in fp32 the plain version's time
+(`flash_attention_exp2_plain`); the last line is `flash_fwd.cu`'s SASS
+check.
 
 `--kernel int8` builds the baseline's `int8_gemm.cu` (bound by the old
 signatures, without P2's tile width and Q's layout, when it has no
@@ -119,6 +132,20 @@ INT8_SHAPES = {
 MASKED_SHAPES = {
     "tf_self": (1, 12, 128, 1560),
 }
+#: P1: the JAX probe's shape and the few-step steady state (Lk ragged for
+#: the 64-key tile: the variants without the pad test do not run), bf16
+EXP2_SHAPES = {
+    "probe": (2, 12, 128, 11264, 14336),
+    "fewstep_hot": (1, 12, 128, 4680, 32760),
+}
+#: P1 in fp32: the tiny head dim (chip_smoke's d24_f32) and K1's ode_self_1
+EXP2_F32_SHAPES = {
+    "d24_f32": (2, 4, 24, 130, 192),
+    "ode_self_1": (1, 12, 128, 4680, 4680),
+}
+#: P1's variants: (name, use_exp2, mask_pad)
+EXP2_VARIANTS = (("exp+mask", False, True), ("exp", False, False),
+                 ("exp2+mask", True, True), ("exp2", True, False))
 #: K1, K2 and K3 in fp32, (B, N, D, Lq, Lk): the trainer's fp32 trunk (ODE
 #: regression and the distillation objectives' rollouts and critics at the
 #: 1.3B width, 21 latent frames at 60x104 in blocks of 3 frames): a block's
@@ -132,9 +159,10 @@ F32_SHAPES = {
     "ode_cross": (1, 12, 128, 4680, 512),
 }
 TABLES = {"fwd": SHAPES, "bwd": BWD_SHAPES, "masked": MASKED_SHAPES,
-          "int8": INT8_SHAPES}
+          "exp2": EXP2_SHAPES, "int8": INT8_SHAPES}
 #: the tables of --dtype float32
-F32_TABLES = {"fwd": F32_SHAPES, "bwd": F32_SHAPES, "masked": MASKED_SHAPES}
+F32_TABLES = {"fwd": F32_SHAPES, "bwd": F32_SHAPES, "masked": MASKED_SHAPES,
+              "exp2": EXP2_F32_SHAPES}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 #: H100 SXM dense bf16 and int8 tensor-core peaks and HBM rate (NVIDIA
@@ -176,13 +204,13 @@ HOPPER_INT8_SIGNATURES = {
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="K1, K2 / K3, K4-K6 or P2 / Q against another "
+        description="K1, K2 / K3, K4-K6, P1 or P2 / Q against another "
                     "checkout's")
     p.add_argument("--baseline", required=True, type=Path,
                    help="root of the other checkout")
     p.add_argument("--kernel", choices=sorted(TABLES), default="fwd",
                    help="fwd: K1; bwd: K2 and K3; masked: K4, K5 and K6; "
-                        "int8: P2 and Q")
+                        "exp2: P1; int8: P2 and Q")
     p.add_argument("--shapes", nargs="+", default=None,
                    choices=sorted({k for t in (*TABLES.values(),
                                                *F32_TABLES.values())
@@ -190,12 +218,13 @@ def parse_args(argv=None):
                    help="default: every shape of the kernel")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16",
                    help="float32: K1 or K2 / K3 at F32_SHAPES (fwd, bwd), "
-                        "K4-K6 at MASKED_SHAPES (masked)")
+                        "K4-K6 at MASKED_SHAPES (masked), P1 at "
+                        "EXP2_F32_SHAPES (exp2)")
     p.add_argument("--reps", type=int, default=10)
     args = p.parse_args(argv)
     if args.dtype == "float32" and args.kernel not in F32_TABLES:
-        p.error(f"--dtype float32 takes --kernel fwd, bwd or masked, not "
-                f"{args.kernel}")
+        p.error(f"--dtype float32 takes --kernel fwd, bwd, masked or exp2, "
+                f"not {args.kernel}")
     table = (F32_TABLES if args.dtype == "float32" else TABLES)[args.kernel]
     if args.shapes is None:
         args.shapes = list(table)
@@ -317,6 +346,30 @@ def call_k1(lib, log2e: bool, q, k, v):
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
     return o, lse
+
+
+def bind_exp2(lib) -> ctypes.CDLL:
+    """Bind P1's entry of a built `flash_fwd` library by this tree's
+    signature."""
+    lib.mmpl_flash_exp2.argtypes = _build.SIGNATURES["flash_fwd"][
+        "mmpl_flash_exp2"]
+    lib.mmpl_flash_exp2.restype = ctypes.c_int
+    return lib
+
+
+def call_exp2(lib, use_exp2: bool, mask_pad: bool, q, k, v):
+    """P1 of a built `flash_fwd` library on CUDA tensors: O."""
+    B, Lq, N, D = q.shape
+    scale = D ** -0.5 * (attn.LOG2E if use_exp2 else 1.0)
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    rc = lib.mmpl_flash_exp2(
+        attn._DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), int(use_exp2), int(mask_pad), B, Lq,
+        k.shape[1], N, D, *attn._strides(q, k, v, o), float(scale),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"P1 launch failed: CUDA error {rc}")
+    return o
 
 
 def call_bwd(lib, splits_queries: bool, part: str, q, k, v, do, lse, delta):
@@ -714,6 +767,58 @@ def run_masked(args, smi: str) -> list:
     return rows
 
 
+def run_exp2(args, smi: str) -> list:
+    lib = bind_exp2(build_baseline(args.baseline))
+    mine = bind_exp2(_build.library("flash_fwd"))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dtype = DTYPES[args.dtype]
+    f32 = dtype == torch.float32
+    rows = []
+    for label in args.shapes:
+        B, N, D, Lq, Lk = _shapes(args)[label]
+        q, k, v = (torch.randn((B, L, N, D), generator=gen, device="cuda")
+                   .to(dtype) for L in (Lq, Lk, Lk))
+        k1_ms = time_ms(lambda: call_k1(mine, True, q, k, v), args.reps)
+        sdpa_ms = time_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2)), args.reps)
+        flops = 4.0 * B * N * Lq * Lk * D
+        nbytes = q.element_size() * B * N * D * (2 * Lq + 2 * Lk)
+        for name, use_exp2, mask_pad in EXP2_VARIANTS:
+            if not mask_pad and Lk % attn.TILE:
+                continue
+            want = attn.flash_attention_exp2_plain(q, k, v, use_exp2,
+                                                   mask_pad)
+            base = lambda: call_exp2(lib, use_exp2, mask_pad, q, k, v)
+            this = lambda: call_exp2(mine, use_exp2, mask_pad, q, k, v)
+            err = lambda f: (f().float() - want.float()).abs().max().item()
+            row = {"kernel": "exp2", "dtype": args.dtype, "shape": label,
+                   "variant": name, "B": B, "N": N, "D": D, "Lq": Lq,
+                   "Lk": Lk, "baseline_max_abs_err": err(base),
+                   "this_max_abs_err": err(this)}
+            del want
+            row.update(_turns(base, this, args.reps))
+            row.update(k1_ms=k1_ms, sdpa_ms=sdpa_ms,
+                       bound_ms=_bound_ms(flops, nbytes, dtype))
+            if f32:
+                row["plain_ms"] = time_ms(
+                    lambda: attn.flash_attention_exp2_plain(
+                        q, k, v, use_exp2, mask_pad), PLAIN_REPS)
+            row["this_tflops"] = flops / min(row["this_ms"]) / 1e9
+            row["baseline_tflops"] = flops / min(row["baseline_ms"]) / 1e9
+            row["card"] = smi
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    sass = same_sass(baseline_library(args.baseline),
+                     _build._target("flash_fwd"))
+    print(json.dumps({"kernel": "exp2", "sass_of": "flash_fwd.cu",
+                      "sass_identical": len(sass["identical"]), **sass,
+                      "card": smi}), flush=True)
+    return rows
+
+
 def _ulps(got, want) -> int:
     return (got.view(torch.int16).long() - want.view(torch.int16).long()
             ).abs().max().item()
@@ -783,7 +888,7 @@ def run_int8(args, smi: str) -> list:
 def run(args) -> list:
     smi = _card()
     return {"fwd": run_fwd, "bwd": run_bwd, "masked": run_masked,
-            "int8": run_int8}[args.kernel](args, smi)
+            "exp2": run_exp2, "int8": run_int8}[args.kernel](args, smi)
 
 
 def main(argv=None) -> int:

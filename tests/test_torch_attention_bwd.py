@@ -352,3 +352,128 @@ def test_k6_walk_over_admitted_tiles_matches_the_pallas_dq():
     plain = ta.frame_masked_attention_bwd_plain(qt, kt, vt, dot, lse, delta,
                                                 ids, ids, fm)[0]
     torch.testing.assert_close(got, plain, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The walk of the fp32 K5 (the masked kernel of fp32 K2's split-TF32 body,
+# over the 64 x 64 table)
+# ---------------------------------------------------------------------------
+
+def _k5_f32_walk(q, k, v, do, lse, delta, mask, tiles, scale):
+    """dK and dV as the fp32 K5 computes them: each 64-key block walks its
+    column of `tiles.t64` (query-major), an entry two 32-query tiles (one
+    for the last entry where ceil(Lq / 32) is odd); class 0 skips both,
+    class 1 tests each pair against the frame table, class 2 none; rows
+    whose lse is -inf take +inf in its place; Q, dO, lse and delta are
+    padded with zeros to whole tiles, K and V to whole blocks, and the
+    keys past Lk get p = 0; dK and dV accumulate over 16 walked tiles,
+    then are folded into the outputs (and once at the end), so a block
+    with no admitted tile keeps dK = dV = 0."""
+    pad = torch.nn.functional.pad
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
+    q_ids, kv_ids, fm = mask
+    nt, nkb = -(-Lq // 32), -(-Lk // 64)
+    t64 = tiles.t64
+    assert t64.shape == (-(-Lq // 64), nkb)
+    rows = lambda x, L, n: pad(x.float().permute(0, 2, 1, 3),
+                               (0, 0, 0, n - L))
+    qp, dop = rows(q, Lq, 32 * nt), rows(do, Lq, 32 * nt)
+    kp, vp = rows(k, Lk, 64 * nkb), rows(v, Lk, 64 * nkb)
+    lse_in = pad(torch.where(lse == -math.inf, math.inf, lse),
+                 (0, 32 * nt - Lq))
+    dl = pad(delta, (0, 32 * nt - Lq))
+    qf = pad(q_ids.long(), (0, 32 * nt - Lq))
+    kf = pad(kv_ids.long(), (0, 64 * nkb - Lk))
+    dk, dv = torch.zeros_like(kp), torch.zeros_like(vp)
+    for kb in range(nkb):
+        c0, c1 = 64 * kb, 64 * kb + 64
+        col = t64[:, kb]
+        walk = [j for j in range(nt) if col[j // 2] != 0]
+        # the consumer's count of its steps
+        assert len(walk) == 2 * int((col != 0).sum()) - int(
+            nt % 2 == 1 and col[-1] != 0)
+        acc_k = acc_v = 0.0
+        for n, j in enumerate(walk):
+            r0, r1 = 32 * j, 32 * j + 32
+            keep = (torch.arange(c0, c1) < Lk)[:, None].expand(64, 32)
+            if col[j // 2] == 1:
+                keep = keep & fm[qf[r0:r1]][:, kf[c0:c1]].T
+            s_t = kp[:, :, c0:c1] @ qp[:, :, r0:r1].transpose(-1, -2)
+            p_t = torch.where(keep, torch.exp(
+                s_t * scale - lse_in[:, :, None, r0:r1]), 0.0)
+            dp_t = vp[:, :, c0:c1] @ dop[:, :, r0:r1].transpose(-1, -2)
+            ds_t = p_t * (dp_t - dl[:, :, None, r0:r1])
+            acc_v = acc_v + p_t @ dop[:, :, r0:r1]
+            acc_k = acc_k + ds_t @ qp[:, :, r0:r1]
+            if (n + 1) % 16 == 0 or n == len(walk) - 1:
+                dk[:, :, c0:c1] += scale * acc_k
+                dv[:, :, c0:c1] += acc_v
+                acc_k = acc_v = 0.0
+    back = lambda x: x[:, :, :Lk].permute(0, 2, 1, 3)
+    return back(dk), back(dv)
+
+
+def _k5_case(name):
+    """(frame mask, token frame ids, B, N, D) of a K5 walk case, and the
+    key blocks whose column admits no entry."""
+    if name == "blind_unseen_ragged":
+        # frames of 200 over 650 tokens: frame 1 sees nothing, frame 2 is
+        # seen by nothing (key blocks 7 and 8 lie inside it); 21 query
+        # tiles, a last key block of 10 keys
+        fm = np.tril(np.ones((4, 4), bool))
+        fm[1] = False
+        fm[:, 2] = False
+        return fm, np.repeat(np.arange(4), 200)[:650], 1, 2, 64, [7, 8]
+    # two frames of 550: every query sees frame 0, so key blocks 0-7
+    # admit all 35 query tiles, two folds and a rest
+    fm = np.array([[True, False], [True, True]])
+    return fm, np.repeat(np.arange(2), 550), 1, 2, 64, []
+
+
+@pytest.mark.parametrize("case", ["blind_unseen_ragged", "fold_in_column"])
+def test_k5_f32_walk_over_admitted_tiles_matches_the_pallas_dkv(case):
+    """The fp32 K5's arithmetic on the CPU: `_k5_f32_walk` against the JAX
+    package's K5 (`_masked_bwd_dkv_kernel`, through the masked VJP in
+    interpret mode) and the port's plain backward, on a mask with a blind
+    frame (its rows' lse is -inf), key blocks with no admitted entry
+    (exact zeros), partial and full entries, a ragged last key block and
+    an odd count of 32-query tiles; or on one whose key blocks admit more
+    than 16 tiles, so the folds fall inside a column."""
+    fm, ids, B, N, D, unseen = _k5_case(case)
+    L = ids.size
+    q, k, v, w = _arrays([(B, L, N, D)] * 4, seed=17)
+    _, vjp = jax.vjp(lambda a, b, c: j_masked(
+        a, b, c, ids, ids, fm, block_q=128, block_k=128, interpret=True),
+        *map(jnp.asarray, (q, k, v)))
+    _, dk_w, dv_w = (np.asarray(x) for x in vjp(jnp.asarray(w)))
+
+    qt, kt, vt, dot = map(torch.from_numpy, (q, k, v, w))
+    mask = ta._as_mask(ids, ids, fm, torch.device("cpu"))
+    tiles = ta.mask_tiles(*mask)
+    t64 = tiles.t64
+    nt = -(-L // 32)
+    assert nt % 2 == 1 and L % 64
+    assert [kb for kb in range(t64.shape[1]) if not t64[:, kb].any()] \
+        == unseen
+    if case == "blind_unseen_ragged":
+        assert {0, 1, 2} <= set(t64.flatten().tolist())
+    else:
+        assert (t64[:, 0] != 0).sum() * 2 - 1 > 16
+    o, lse = ta.frame_masked_attention_plain(qt, kt, vt, ids, ids, fm)
+    delta = (dot * o).sum(-1).permute(0, 2, 1).contiguous()
+    blind = ~fm[ids].any(1)
+    assert (lse[:, :, torch.from_numpy(blind)] == -math.inf).all()
+    assert blind.any() == (case == "blind_unseen_ragged")
+    dk, dv = _k5_f32_walk(qt, kt, vt, dot, lse, delta, mask, tiles,
+                          D ** -0.5)
+    for kb in unseen:
+        assert (dk[:, 64 * kb:64 * kb + 64] == 0).all()
+        assert (dv[:, 64 * kb:64 * kb + 64] == 0).all()
+    for got, want, name in ((dk, dk_w, "dk"), (dv, dv_w, "dv")):
+        np.testing.assert_allclose(got.numpy(), want, atol=5e-4, rtol=5e-4,
+                                   err_msg=name)
+    _, pk, pv = ta.frame_masked_attention_bwd_plain(qt, kt, vt, dot, lse,
+                                                    delta, ids, ids, fm)
+    torch.testing.assert_close(dk, pk, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dv, pv, atol=1e-5, rtol=1e-5)

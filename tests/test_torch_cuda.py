@@ -1,7 +1,7 @@
-"""K1-K6 (`mmpl_tpu_torch/csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`, their
-Hopper bodies `csrc/flash_fwd_sm90.cuh` and `csrc/flash_bwd_sm90.cuh`, which
-also run the bf16 / fp16 K4, K5 and K6, and the split-TF32 bodies of fp32
-K1, K2 and K3 / K6, `csrc/flash_fwd_f32_sm90.cuh`,
+"""K1-K6 and P1 (`mmpl_tpu_torch/csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`,
+their Hopper bodies `csrc/flash_fwd_sm90.cuh` and `csrc/flash_bwd_sm90.cuh`,
+which also run the bf16 / fp16 K4, K5, K6 and P1, and the split-TF32 bodies
+of fp32 K1 / P1, K2 / K5 and K3 / K6, `csrc/flash_fwd_f32_sm90.cuh`,
 `csrc/flash_bwd_f32_sm90.cuh` and `csrc/flash_bwd_dq_f32_sm90.cuh`)
 and
 the int8 kernels P2 and Q (`csrc/int8_gemm.cu`, P2's Hopper body
@@ -166,6 +166,24 @@ def test_k1_runs_the_body_of_its_type(cuda, dtype, body):
     names = _launched(lambda: ta.flash_fwd_cuda(q, k, v))
     mine = [n for n in names if port_kernel_of(n) == "flash_fwd"]
     assert len(mine) == 1 and body in mine[0], names
+
+
+@pytest.mark.parametrize("dtype,body", [
+    (torch.bfloat16, "flash_exp2_sm90_kernel"),
+    (torch.float16, "flash_exp2_sm90_kernel"),
+    (torch.float32, "flash_exp2_f32_sm90_kernel")])
+def test_p1_runs_the_body_of_its_type(cuda, dtype, body):
+    """bf16 / fp16 P1 runs the Hopper kernel, fp32 the P1 kernel of K1's
+    split-TF32 body; the profiler books both to P1."""
+    from mmpl_tpu_torch.utils.profiling import port_kernel_of
+    q, k, v = _qkv(200, 320, 64, dtype, cuda)
+    for use_exp2 in (False, True):
+        for mask_pad in (False, True):
+            names = _launched(lambda: ta.flash_exp2_cuda(q, k, v, use_exp2,
+                                                         mask_pad))
+            mine = [n for n in names if port_kernel_of(n) == "flash_exp2"]
+            assert len(mine) == 1 and body in mine[0], names
+            assert ("_f32_" in mine[0]) is (dtype == torch.float32), names
 
 
 @pytest.mark.parametrize("use_exp2", [False, True])
@@ -539,13 +557,13 @@ def test_hopper_bwd_padding_keys_stay_finite_under_a_very_negative_lse(cuda):
     (torch.float32, False, ("_f32_sm90_kernel", "_f32_sm90_kernel")),
     (torch.bfloat16, True, ("_sm90_kernel", "_sm90_kernel")),
     (torch.float16, True, ("_sm90_kernel", "_sm90_kernel")),
-    (torch.float32, True, ("flash_masked_bwd_dkv_kernel", "_f32_sm90_kernel")),
+    (torch.float32, True, ("_f32_sm90_kernel", "_f32_sm90_kernel")),
 ])
 def test_backward_runs_the_body_of_its_type(cuda, dtype, masked, bodies):
     """bf16 / fp16 K2 / K3 and K5 / K6 run the Hopper kernels (K2 with its
-    reduce where it splits, K5 never split), fp32 K2, K3 and K6 the
-    split-TF32 Hopper kernels and fp32 K5 the template; the profiler
-    attribution books each to its own counter."""
+    reduce where it splits, K5 never split), fp32 K2, K3, K5 and K6 the
+    split-TF32 Hopper kernels; the profiler attribution books each to its
+    own counter."""
     from mmpl_tpu_torch.utils.profiling import port_kernel_of
     q, k, v, do = _bwd_inputs(500, 300, 64, dtype, cuda)
     mask = _mask(500, 100, cuda, blind=False) if masked else None
@@ -690,14 +708,17 @@ def test_fp32_k1_and_k2_give_the_same_bits_on_every_call(cuda):
 # 64 x 64 table, an entry two tiles
 # ---------------------------------------------------------------------------
 
-def _f32_mask(lq, lk, cuda):
+def _f32_mask(lq, lk, cuda, unseen=False):
     """Frame ids of lq queries and lk keys in ten frames, a block-causal
-    mask over them with frame 1 blind (its rows see no key)."""
+    mask over them with frame 1 blind (its rows see no key) and, with
+    `unseen`, frame 2 seen by nothing (its keys get dK = dV = 0)."""
     from mmpl_tpu_torch.training import masks
     F = 10
     S = -(-max(lq, lk) // F)
     fm = masks.blockwise_causal_frame_mask(F, 3)
     fm[1] = False
+    if unseen:
+        fm[:, 2] = False
     ids = lambda L: torch.as_tensor(np.repeat(np.arange(F), S)[:L],
                                     dtype=torch.int32, device=cuda)
     return ids(lq), ids(lk), torch.as_tensor(fm, device=cuda)
@@ -778,6 +799,132 @@ def test_fp32_k3_and_k6_give_the_same_bits_on_every_call(cuda):
         first = call()
         for _ in range(2):
             assert torch.equal(call(), first)
+
+
+# ---------------------------------------------------------------------------
+# fp32 K5, the masked kernel of fp32 K2's split-TF32 body
+# (csrc/flash_bwd_f32_sm90.cuh): 64-key blocks walking their column of the
+# 64 x 64 table, an entry two 32-query tiles
+# ---------------------------------------------------------------------------
+
+def _f32_dkv_errors(q, k, v, do, mask):
+    """K5's dK and dV against the masked plain backward, both fed the plain
+    lse and delta: the largest and relative differences; the keys that no
+    query sees (frame 2 under `_f32_mask(..., unseen=True)`) must get
+    dK = dV = 0 exactly."""
+    tiles = ta.mask_tiles(*mask)
+    po, plse = ta.frame_masked_attention_plain(q, k, v, *mask)
+    delta = (do * po).sum(-1).permute(0, 2, 1).contiguous()
+    dk, dv = ta.flash_bwd_dkv_cuda(q, k, v, do, plse, delta, None, mask,
+                                   tiles)
+    _, pdk, pdv = ta.frame_masked_attention_bwd_plain(q, k, v, do, plse,
+                                                      delta, *mask)
+    torch.cuda.synchronize()
+    unseen = mask[1] == 2
+    assert torch.all(dk[:, unseen] == 0) and torch.all(dv[:, unseen] == 0)
+    for x, name in ((dk, "dk"), (dv, "dv")):
+        assert torch.isfinite(x).all(), name
+    return {"dk": (dk - pdk).abs().max().item(),
+            "dv": (dv - pdv).abs().max().item(),
+            "dk_rel": _rel(dk, pdk), "dv_rel": _rel(dv, pdv)}
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("d", [24, 64, 80, 128])
+@pytest.mark.parametrize("lq,lk", [(1000, 1300), (777, 777), (1, 500),
+                                   (65, 33)])
+def test_fp32_k5_on_the_tf32_body_matches_plain(cuda, lq, lk, d, strided):
+    """Ragged Lq and Lk against the 64-key block and the 32-query tile (one
+    query row; an odd count of 32-query tiles, whose last 64 x 64 entry
+    covers one), every head-dim width, contiguous operands and strided
+    views, under a mask with a blind frame and a frame that no query
+    sees."""
+    if strided:
+        q, k, v, do = _f32_views(lq, lk, d, cuda, seed=lq + d + 2)
+        assert not (q.is_contiguous() or k.is_contiguous()
+                    or do.is_contiguous())
+    else:
+        q, k, v, do = _bwd_inputs(lq, lk, d, torch.float32, cuda,
+                                  seed=lq + d + 2)
+    err = _f32_dkv_errors(q, k, v, do, _f32_mask(lq, lk, cuda, unseen=True))
+    assert max(err["dk"], err["dv"]) <= F32_TOL, err
+    assert max(err["dk_rel"], err["dv_rel"]) <= F32_REL_TOL, err
+
+
+def test_fp32_k5_padding_keys_stay_finite_under_a_very_negative_lse(cuda):
+    """K2's twin under the mask: every lse near -93, so the keys past Lk
+    (which score 0) and the pairs the mask forbids must get p = 0 by a
+    select, not exp(93) times 0 (the looser bound as K2's, for the same
+    reason)."""
+    q, k, v, do = _bwd_inputs(1000, 1300, 128, torch.float32, cuda, seed=9)
+    q[..., 0] = -1128.0
+    k[..., 0] = 1.0
+    mask = _f32_mask(1000, 1300, cuda, unseen=True)
+    _, lse = ta.frame_masked_attention_plain(q, k, v, *mask)
+    live = torch.isfinite(lse)
+    assert lse[live].max().item() < -80, lse[live].max().item()
+    err = _f32_dkv_errors(q, k, v, do, mask)
+    assert max(err["dk_rel"], err["dv_rel"]) <= 1e-3, err
+
+
+def test_fp32_k5_gives_the_same_bits_on_every_call(cuda):
+    """No atomics and no split of the query loop: each block owns its keys'
+    rows."""
+    q, k, v, do = _bwd_inputs(1000, 1300, 128, torch.float32, cuda, seed=6)
+    mask = _f32_mask(1000, 1300, cuda, unseen=True)
+    tiles = ta.mask_tiles(*mask)
+    o, lse = ta.flash_fwd_cuda(q, k, v, None, mask, tiles)
+    delta = (do * o).sum(-1).permute(0, 2, 1).contiguous()
+    call = lambda: ta.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, None, mask,
+                                         tiles)
+    first = call()
+    for _ in range(2):
+        for x, y in zip(call(), first):
+            assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# fp32 P1, the P1 kernel of fp32 K1's split-TF32 body
+# (csrc/flash_fwd_f32_sm90.cuh): exp or exp2, with or without the pad test,
+# O only
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [24, 64, 128])
+@pytest.mark.parametrize("use_exp2", [False, True])
+@pytest.mark.parametrize("mask_pad", [True, False])
+def test_fp32_p1_on_the_tf32_body_matches_plain(cuda, mask_pad, use_exp2, d):
+    """P1's four variants at a ragged Lq (1000) over Lk = 1280, a multiple
+    of 64 (so the variants without the pad test are defined), and the two
+    with the pad test at a ragged Lk (1300), against the plain version
+    within fp32 K1's bound; one launch a call."""
+    for lk in (1280,) if not mask_pad else (1280, 1300):
+        q, k, v = _qkv(1000, lk, d, torch.float32, cuda, seed=d + lk)
+        ta.reset_launch_counts()
+        got = ta.flash_exp2_cuda(q, k, v, use_exp2, mask_pad)
+        want = ta.flash_attention_exp2_plain(q, k, v, use_exp2, mask_pad)
+        torch.cuda.synchronize()
+        assert ta.launch_counts == {**dict.fromkeys(ta.launch_counts, 0),
+                                    "flash_exp2": 1}
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= F32_TOL, (lk, use_exp2)
+
+
+def test_fp32_p1_refuses_mask_pad_false_on_a_ragged_lk(cuda):
+    q, k, v = _qkv(64, 1300, 24, torch.float32, cuda)
+    ta.reset_launch_counts()
+    with pytest.raises(ValueError, match="mask_pad=False"):
+        ta.flash_exp2_cuda(q, k, v, use_exp2=True, mask_pad=False)
+    assert ta.launch_counts["flash_exp2"] == 0
+
+
+def test_fp32_p1_gives_the_same_bits_on_every_call(cuda):
+    q, k, v = _qkv(1000, 1280, 128, torch.float32, cuda, seed=7)
+    for use_exp2 in (False, True):
+        for mask_pad in (False, True):
+            first = ta.flash_exp2_cuda(q, k, v, use_exp2, mask_pad)
+            for _ in range(2):
+                assert torch.equal(
+                    ta.flash_exp2_cuda(q, k, v, use_exp2, mask_pad), first)
 
 
 # ---------------------------------------------------------------------------

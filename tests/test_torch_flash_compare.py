@@ -1,10 +1,12 @@
 """`mmpl_tpu_torch.tools.flash_compare` off the card: which scale a
 baseline checkout's K1 takes, which dKV signature its backward has, which
 masked signatures (with or without the coarse tile table) its K4, K5
-and K6 have, which P2 and Q signatures its int8 source has, what it refuses, and
-that it needs the card (its builds and times run only there)."""
+and K6 have, which P2 and Q signatures its int8 source has, how P1's entry
+is bound, what it refuses, and that it needs the card (its builds and
+times run only there)."""
 
 import pathlib
+import types
 
 import pytest
 import torch
@@ -54,6 +56,11 @@ def test_compare_needs_the_card(tmp_path, monkeypatch):
     (["--kernel", "bwd", "--dtype", "float32", "--shapes", "critic_self"],
      "bwd", ["critic_self"]),
     (["--kernel", "masked", "--dtype", "float32"], "masked", ["tf_self"]),
+    (["--kernel", "exp2"], "exp2", ["probe", "fewstep_hot"]),
+    (["--kernel", "exp2", "--dtype", "float32"], "exp2",
+     ["d24_f32", "ode_self_1"]),
+    (["--kernel", "exp2", "--dtype", "float32", "--shapes", "ode_self_1"],
+     "exp2", ["ode_self_1"]),
 ])
 def test_kernel_choice_parses_with_its_shapes(tmp_path, argv, kernel, shapes):
     args = flash_compare.parse_args(["--baseline", str(tmp_path), *argv])
@@ -65,6 +72,8 @@ def test_kernel_choice_parses_with_its_shapes(tmp_path, argv, kernel, shapes):
     ["--dtype", "float32", "--shapes", "cross"],
     ["--kernel", "masked", "--dtype", "float32", "--shapes", "critic_self"],
     ["--kernel", "int8", "--dtype", "float32"],
+    ["--kernel", "exp2", "--shapes", "tf_self"],
+    ["--kernel", "exp2", "--dtype", "float32", "--shapes", "probe"],
 ])
 def test_a_shape_of_the_other_kernel_is_refused(tmp_path, argv):
     """A shape of another kernel's (or type's) table, and fp32 for a
@@ -227,3 +236,32 @@ def test_masked_compare_needs_the_card(tmp_path, monkeypatch):
                                      "--kernel", "masked"])
     with pytest.raises(RuntimeError, match="CUDA"):
         flash_compare.run(args)
+
+
+def test_exp2_compare_needs_the_card(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = flash_compare.parse_args(["--baseline", str(tmp_path),
+                                     "--kernel", "exp2", "--dtype",
+                                     "float32"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flash_compare.run(args)
+
+
+def test_exp2_entry_is_bound_by_this_trees_signature():
+    """Both trees' P1 entries are bound by this tree's C signature (kept
+    since P1), and the variants are P1's four: exp or exp2, with or
+    without the pad test."""
+    lib = types.SimpleNamespace(mmpl_flash_exp2=types.SimpleNamespace())
+    flash_compare.bind_exp2(lib)
+    assert lib.mmpl_flash_exp2.argtypes == \
+        _build.SIGNATURES["flash_fwd"]["mmpl_flash_exp2"]
+    assert {(e, m) for _, e, m in flash_compare.EXP2_VARIANTS} == {
+        (False, True), (False, False), (True, True), (True, False)}
+    # the probe's shape and the tiny fp32 one run all four; the few-step
+    # and ode_self_1 shapes' Lk is ragged for the 64-key tile, so only the
+    # variants with the pad test run there
+    lk = {name: shape[-1] for name, shape in
+          {**flash_compare.EXP2_SHAPES,
+           **flash_compare.EXP2_F32_SHAPES}.items()}
+    assert {n for n, k in lk.items() if k % 64} == {"fewstep_hot",
+                                                    "ode_self_1"}

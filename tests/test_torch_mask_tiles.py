@@ -184,7 +184,8 @@ def test_masked_backward_arguments_carry_their_coarse_table(part, table):
 def test_hopper_masked_backward_refuses_more_frames_than_it_holds(part, dtype,
                                                                  refused):
     """bf16 / fp16 K5 and K6 hold the frame table in shared memory, up to
-    SM90_MAX_FRAMES frames; the fp32 template reads it from memory."""
+    SM90_MAX_FRAMES frames; the fp32 split-TF32 bodies read it from
+    memory."""
     F = ta.SM90_MAX_FRAMES + 1
     ids = torch.zeros(300, dtype=torch.int32)
     mask = (ids, ids, torch.ones((F, F), dtype=torch.bool))

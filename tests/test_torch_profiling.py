@@ -2,14 +2,14 @@
 and demangled, booked to the port kernel (launch counter) they belong to.
 The names are those the card's build gives K1 and K4 (the Hopper body in
 bf16 / fp16; in fp32 K1's split-TF32 Hopper body, K4's template body), P1
-(both bodies), K2/K3 (the Hopper backward in bf16 / fp16, K2's reduce
-kernel included; in fp32 the split-TF32 Hopper bodies of K2 and K3), K5
-and K6 (the Hopper dKV and dQ bodies' masked kernels in bf16 / fp16, fp32
-K6 the masked kernel of K3's split-TF32 body) and K5 (fp32: the masked
-dKV template), P2 (its Hopper body at each tile width and output type) and
-Q (the one-read body and the two-read loop); a kernel of another library
-books to nothing, no Hopper K2 / K3 kernel books to K5 or K6, and no
-Hopper kernel but K6's books to K6."""
+(the Hopper body; in fp32 the P1 kernel of K1's split-TF32 body), K2/K3
+(the Hopper backward in bf16 / fp16, K2's reduce kernel included; in fp32
+the split-TF32 Hopper bodies of K2 and K3), K5 and K6 (the Hopper dKV and
+dQ bodies' masked kernels in bf16 / fp16; in fp32 the masked kernels of
+K2's and K3's split-TF32 bodies), P2 (its Hopper body at each tile width
+and output type) and Q (the one-read body and the two-read loop); a
+kernel of another library books to nothing, no Hopper K2 / K3 kernel books
+to K5 or K6, and no Hopper kernel but K6's books to K6."""
 
 import re
 
@@ -35,8 +35,8 @@ NAMES = [
      '_ZN4mmpl4sm9022flash_exp2_sm90_kernelI6__halfLi64ELb1ELb0EEEv14CUtensorMap_stS3_S3_NS0_6ParamsE',
      'void mmpl::sm90::flash_exp2_sm90_kernel<__half, 64, true, false>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::Params)'),
     ('P1 fp32', 'flash_exp2',
-     '_ZN45_GLOBAL__N__176ec67e_12_flash_fwd_cu_c145cf2517flash_exp2_kernelIfLi64ELb1ELb1EEEvPKT_S3_S3_PS1_iiiiN4mmpl10FwdStridesEf',
-     'void (anonymous namespace)::flash_exp2_kernel<float, 64, true, true>(float const*, float const*, float const*, float*, int, int, int, int, mmpl::FwdStrides, float)'),
+     '_ZN4mmpl4sm9026flash_exp2_f32_sm90_kernelILi64ELb1ELb1EEEvPKfS3_S3_PfiiiiNS_10FwdStridesEf',
+     'void mmpl::sm90::flash_exp2_f32_sm90_kernel<64, true, true>(float const*, float const*, float const*, float*, int, int, int, int, mmpl::FwdStrides, float)'),
     ('K3', 'flash_bwd_dq',
      '_ZN4mmpl4sm9028flash_bwd_dq_f32_sm90_kernelILi128EEEvPKfS3_S3_S3_NS_10FwdStridesExxxNS0_11F32DqParamsE',
      'void mmpl::sm90::flash_bwd_dq_f32_sm90_kernel<128>(float const*, float const*, float const*, float const*, mmpl::FwdStrides, long long, long long, long long, mmpl::sm90::F32DqParams)'),
@@ -62,8 +62,8 @@ NAMES = [
      '_ZN4mmpl4sm9024flash_bwd_dq_sm90_kernelI6__halfLi64EEEv14CUtensorMap_stS3_S3_S3_NS0_9BwdParamsE',
      'void mmpl::sm90::flash_bwd_dq_sm90_kernel<__half, 64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::BwdParams)'),
     ('K5', 'flash_masked_bwd_dkv',
-     '_ZN45_GLOBAL__N__8cff8468_12_flash_bwd_cu_5aa6267527flash_masked_bwd_dkv_kernelILi128EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiiNS_7StridesEfN4mmpl9FrameMaskE',
-     'void (anonymous namespace)::flash_masked_bwd_dkv_kernel<128>(float const*, float const*, float const*, float const*, float const*, float const*, float*, float*, int, int, int, int, (anonymous namespace)::Strides, float, mmpl::FrameMask)'),
+     '_ZN4mmpl4sm9036flash_masked_bwd_dkv_f32_sm90_kernelILi128EEEvPKfS3_S3_S3_NS_10FwdStridesExxxNS0_12F32BwdParamsENS_9FrameMaskE',
+     'void mmpl::sm90::flash_masked_bwd_dkv_f32_sm90_kernel<128>(float const*, float const*, float const*, float const*, mmpl::FwdStrides, long long, long long, long long, mmpl::sm90::F32BwdParams, mmpl::FrameMask)'),
     ('K5 Hopper', 'flash_masked_bwd_dkv',
      '_ZN4mmpl4sm9032flash_masked_bwd_dkv_sm90_kernelI6__halfLi64EEEv14CUtensorMap_stS3_S3_S3_NS0_9BwdParamsENS_9FrameMaskE',
      'void mmpl::sm90::flash_masked_bwd_dkv_sm90_kernel<__half, 64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::BwdParams, mmpl::FrameMask)'),

@@ -1,4 +1,4 @@
-"""The numerics of the fp32 K1, K2 and K3 / K6 bodies
+"""The numerics of the fp32 K1 / P1, K2 / K5 and K3 / K6 bodies
 (csrc/flash_fwd_f32_sm90.cuh, csrc/flash_bwd_f32_sm90.cuh,
 csrc/flash_bwd_dq_f32_sm90.cuh): split TF32.  A plain emulation, here and
 not in the package: each operand rounded to TF32 as `cvt.rna.tf32.f32`
@@ -6,7 +6,7 @@ does (10 mantissa bits, to nearest, ties away from zero) as hi, the
 remainder rounded again as lo, and each product taken as
 a_lo b_hi + a_hi b_lo + a_hi b_hi in fp32.  The attention forward (O and
 the lse), dK / dV and dQ (also under a frame mask with a frame that sees
-nothing) computed that way are held against the JAX package's Pallas
+nothing, and for dK / dV one that nothing sees) computed that way are held against the JAX package's Pallas
 kernels in interpret mode in fp32 at 1e-5; one TF32 pass, which keeps the
 10 bits alone, misses 1e-4, the fp32 paths' tolerance, which is why the
 bodies split."""
@@ -78,12 +78,19 @@ def emulated_fwd(q, k, v, mm):
     return np.swapaxes(o, 1, 2), (m + np.log(l))[..., 0]
 
 
-def emulated_dkv(q, k, v, do, lse, delta, mm):
-    """(dK, dV) [B, L, N, D] from the saved lse and delta [B, N, Lq]."""
+def emulated_dkv(q, k, v, do, lse, delta, mm, allowed=None):
+    """(dK, dV) [B, L, N, D] from the saved lse and delta [B, N, Lq]; with
+    `allowed` ([Lq, Lk] bool, the frame mask by token), p is 0 on the pairs
+    it forbids and on rows whose lse is -inf."""
     sc = np.float32(q.shape[-1] ** -0.5)
     qh, kh, vh, doh = map(_heads, (q, k, v, do))
     s = mm(qh, np.swapaxes(kh, -1, -2)) * sc
-    p = np.exp(s - lse[..., None])
+    if allowed is None:
+        p = np.exp(s - lse[..., None])
+    else:
+        live = np.isfinite(lse)[..., None]
+        p = np.where(live & allowed,
+                     np.exp(s - np.where(live, lse[..., None], 0)), 0)
     ds = p * (mm(doh, np.swapaxes(vh, -1, -2)) - delta[..., None])
     dv = mm(np.swapaxes(p, -1, -2), doh)
     dk = sc * mm(np.swapaxes(ds, -1, -2), qh)
@@ -204,6 +211,30 @@ def test_split_tf32_masked_dq_matches_pallas():
     got = emulated_dq(q, k, v, do, lse, delta, mm3, allowed)
     assert (got[:, ids == 1] == 0).all()
     assert _max_err((got,), (want,)) <= TOL
+
+
+def test_split_tf32_masked_dkv_matches_pallas():
+    """K5's arithmetic: the masked dK / dV against the JAX package's K5
+    (`_masked_bwd_dkv_kernel`, through the masked VJP in interpret mode) on
+    a mask whose frame 1 sees nothing and whose frame 2 nothing sees, so
+    frame 2's keys get dK = dV = 0."""
+    fm = np.tril(np.ones((3, 3), bool))
+    fm[1] = False                        # frame 1 (rows 300..599) is blind
+    fm[:, 2] = False                     # frame 2 (keys 600..699) is unseen
+    ids = np.repeat(np.arange(3), 300)[:700]
+    q, k, v, do = _inputs(64, 700, 700, seed=14)
+    o_w, vjp = jax.vjp(lambda a, b, c: j_masked(
+        a, b, c, ids, ids, fm, block_q=128, block_k=128, interpret=True),
+        *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))[1:]]
+    allowed = fm[ids][:, ids]
+    lse = masked_lse(q, k, allowed)
+    assert np.isneginf(lse[:, :, ids == 1]).all()
+    delta = _heads(do * np.asarray(o_w)).sum(-1)
+    got = emulated_dkv(q, k, v, do, lse, delta, mm3, allowed)
+    for g in got:
+        assert (g[:, ids == 2] == 0).all()
+    assert _max_err(got, want) <= TOL
 
 
 @pytest.mark.parametrize("D,lq,lk", CASES)
