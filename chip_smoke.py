@@ -30,15 +30,15 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      (memory-efficient backend in fp32), with the body that ran and the
      split;
   4. kernel_masked: K4 / K5 / K6 under the fps-forcing mask at the 1.3B
-     teacher-forcing self-attention shape (42 frames x 1560 tokens), and
-     ragged shapes with a frame that sees nothing (bf16, fp16, D = 24,
+     teacher-forcing self-attention shape (42 frames x 1560 tokens; in
+     bf16, and in fp32 without SDPA), and ragged shapes with a frame that sees nothing (bf16, fp16, D = 24,
      fp32) and with whole blocks that see or are seen by nothing, against
      the plain versions and SDPA (memory-efficient backend) with the token
      mask; bf16 / fp16 K4, K5 and K6 run the masked instantiations of K1's,
      K2's and K3's Hopper bodies over the coarse tile tables (their
      admitted and partial shares reported); fp32 K5 and K6 run the masked
      kernels of fp32 K2's and K3's split-TF32 bodies over the 64 x 64
-     table, fp32 K4 the template body;
+     table, fp32 K4 the masked kernel of fp32 K1's;
   5. kernel_int8 (run before kernel_masked, whose large SDPA yardstick
      leaves the short profiler sessions that read a body without their
      records): Q (csrc/int8_gemm.cu) and P2 (the wgmma s8 + TMA body
@@ -256,8 +256,7 @@ OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 #: the TF32 tensor-core rate, the rate the fp32 bodies run their
 #: split-TF32 products at (three passes a product: they reach at most a
 #: third of it; 67e12, the FMA rate, would put a tensor-core body above
-#: 100% of its bound), fp32 K4's template body read against the same figure;
-#: HBM bytes/s
+#: 100% of its bound); HBM bytes/s
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 495e12}
 PEAK_BYTES = 3.35e12
@@ -371,10 +370,16 @@ BWD_MAIN = "tf_cross"
 #: frame 1 sees nothing; "dead" is L = 1000 in frames of 300 where frame 1
 #: sees nothing and frame 2 is seen by nothing (a 128-query block with no
 #: admitted key tile, 128-key blocks with no admitted query tile); both
-#: also in fp32 at D = 128 (fp32 K5's and K6's split-TF32 bodies, K4's
-#: template).  tf_self runs last: after its SDPA yardstick (a 4.3 GB
-#: token mask) the short profiler sessions that read the body lost every
-#: device record
+#: also in fp32 at D = 128 (the masked kernels of the split-TF32 bodies);
+#: "late" (fp32 only) is L = 1550 in frames of 100 where even frames see
+#: the frames up to their own, odd frames only frames 11-15 and frame 7
+#: nothing, so fp32 K4's rows walk up to 49 key tiles, some see their
+#: first key after two folds and blind rows pass a fold.  tf_self_f32 is
+#: tf_self in fp32, the shape mesh_tp_train's unsharded fp32 step gives
+#: fp32 K4-K6 (rows walking hundreds of tiles and many folds), without
+#: the SDPA yardstick (MASKED_NO_LIBRARY).  tf_self runs last: after its
+#: SDPA yardstick (a 4.3 GB token mask) the short profiler sessions that
+#: read the body lost every device record
 MASKED_SHAPES = [
     ("ragged_blind", 2, 12, 128, "blind", 130, torch.bfloat16),
     ("ragged_blind_f16", 2, 12, 128, "blind", 130, torch.float16),
@@ -383,9 +388,15 @@ MASKED_SHAPES = [
     ("d24_f32_blind", 2, 4, 24, "blind", 130, torch.float32),
     ("ragged_blind_f32", 2, 12, 128, "blind", 130, torch.float32),
     ("dead_blocks_f32", 2, 12, 128, "dead", 300, torch.float32),
+    ("late_fold_f32", 2, 12, 128, "late", 100, torch.float32),
+    ("tf_self_f32", 1, 12, 128, "fps", 1560, torch.float32),
     ("tf_self", 1, 12, 128, "fps", 1560, torch.bfloat16),
 ]
 MASKED_MAIN = "tf_self"
+#: rows whose SDPA yardstick is left out: its token mask would come before
+#: tf_self's body read (tools/flash_compare.py --kernel masked --dtype
+#: float32 times SDPA at this shape)
+MASKED_NO_LIBRARY = ("tf_self_f32",)
 
 #: P2 / Q shapes: (label, M, K, N, activation dtype or None, output
 #: dtype).  M = 6240, 21840, 18720: the tokens of group 0, group 1 and
@@ -583,29 +594,20 @@ def _launched(fn) -> list:
     return sorted(device_kernels(fn, BODY_CALLS))
 
 
-#: the launch counters whose fp32 calls run the split-TF32 wgmma bodies
-#: (csrc/flash_fwd_f32_sm90.cuh, csrc/flash_bwd_f32_sm90.cuh,
-#: csrc/flash_bwd_dq_f32_sm90.cuh): every one but fp32 K4's
-TF32_BODIES = ("flash_fwd", "flash_exp2", "flash_bwd_dkv", "flash_bwd_dq",
-               "flash_masked_bwd_dkv", "flash_masked_bwd_dq")
-
-
 def _body(names, counter: str, dtype) -> str:
     """Which body ran `counter`'s launch among `names`: "wgmma" (the
     `*_sm90_kernel` of csrc/flash_fwd_sm90.cuh or csrc/flash_bwd_sm90.cuh,
-    with K2's reduce kernel when the call split the queries), "tf32x3" (the
-    split-TF32 `*_f32_sm90_kernel` of csrc/flash_fwd_f32_sm90.cuh,
+    with K2's reduce kernel when the call split the queries) or "tf32x3"
+    (the split-TF32 `*_f32_sm90_kernel` of csrc/flash_fwd_f32_sm90.cuh,
     csrc/flash_bwd_f32_sm90.cuh or csrc/flash_bwd_dq_f32_sm90.cuh, one
-    kernel) or "template" (the fp32 FMA body of csrc/flash_fwd.cu, one
-    kernel).  bf16 / fp16 K1-K6 and P1 must run the first; fp32 K1, P1,
-    K2, K3, K5 and K6 the second, fp32 K4 the third."""
+    kernel).  bf16 / fp16 K1-K6 and P1 must run the first, fp32 the
+    second."""
     mine = [n for n in names if port_kernel_of(n) == counter]
     main = [n for n in mine if "_reduce_kernel" not in n]
     check(len(main) == 1 and len(mine) - len(main) <= 1, (counter, names))
-    body = ("tf32x3" if "_f32_sm90_kernel" in main[0]
-            else "wgmma" if "_sm90_kernel" in main[0] else "template")
-    want = ("wgmma" if dtype in (torch.bfloat16, torch.float16)
-            else "tf32x3" if counter in TF32_BODIES else "template")
+    check("_sm90_kernel" in main[0], (counter, names))
+    body = "tf32x3" if "_f32_sm90_kernel" in main[0] else "wgmma"
+    want = "wgmma" if dtype in (torch.bfloat16, torch.float16) else "tf32x3"
     check(body == want and (body == "wgmma" or len(mine) == 1),
           (counter, dtype, mine))
     return body
@@ -790,6 +792,12 @@ def _masked_inputs(kind, S):
     if kind == "fps":
         fm = masks.fps_forcing_frame_mask(T2V_CLEAN_STEPS)
         ids = np.repeat(np.arange(fm.shape[0]), S)
+    elif kind == "late":
+        f = np.arange(16)
+        fm = np.where((f % 2 == 0)[:, None], f[None, :] <= f[:, None],
+                      f[None, :] >= 11)
+        fm[7] = False
+        ids = np.repeat(f, S)[:1550]
     else:
         L = 1000
         fm = masks.blockwise_causal_frame_mask(-(-L // S), 3)
@@ -904,9 +912,10 @@ def phase_kernel_masked():
             row[f"{part}_tile_bound_ms"] = roofline(*attention_work(
                 part, B, N, D, L, L, dtype, admitted(table), mask_bytes),
                 dtype)[0]
-        token_mask = mask[2][mask[0].long()][:, mask[1].long()]
-        _library_times(row, q, k, v, do, token_mask)
-        del token_mask
+        if label not in MASKED_NO_LIBRARY:
+            token_mask = mask[2][mask[0].long()][:, mask[1].long()]
+            _library_times(row, q, k, v, do, token_mask)
+            del token_mask
         emit(row)
         rows[label] = row
         del q, k, v, do, o, lse, delta, tiles
@@ -5377,9 +5386,9 @@ def phase_mesh_ranks(one_process_chunks):
           "ranks": res["mesh_int8"]})
     emit({"phase": "mesh_tp_train", "transport": transport,
           "ranks": res["mesh_tp_train"]})
-    # the unsharded steps at full width: fp32 runs K4-K6 in fp32 (K5 and
-    # K6 on the split-TF32 bodies, K4 on the template), bf16 on the Hopper
-    # bodies; both ranks run theirs at once on the one card
+    # the unsharded steps at full width: fp32 runs K4-K6 on the split-TF32
+    # bodies, bf16 on the Hopper bodies; both ranks run theirs at once on
+    # the one card
     unsharded = {dt: [r["steps"][dt] for r in res["mesh_tp_train"]]
                  for dt in ("float32", "bfloat16")}
     emit({"phase": "mesh_tp_train_steps", "layers": L, "tokens": 65520,
@@ -5612,9 +5621,10 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                     for k, r in bwd.items()}))
     masked_bodies = {
         "fwd": ("K1's wgmma + TMA body, masked (flash_fwd_sm90.cuh) for "
-                "bf16 / fp16 over the 128 x 128 table, the template body "
-                "of flash_fwd.cu for fp32; entry in flash_fwd.cu",
-                sm90_src, [sm90_src, fwd_src]),
+                "bf16 / fp16 over the 128 x 128 table, K1's split-TF32 "
+                "wgmma body, masked (flash_fwd_f32_sm90.cuh), for fp32 over "
+                "the 64 x 64 table; entry in flash_fwd.cu",
+                sm90_src, [sm90_src, f32_src, fwd_src]),
         "dkv": ("K2's wgmma + TMA dKV body, masked, never split "
                 "(flash_bwd_sm90.cuh) for bf16 / fp16 over the 64 x 128 "
                 "table, K2's split-TF32 wgmma body, masked "

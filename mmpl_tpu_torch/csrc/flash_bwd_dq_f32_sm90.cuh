@@ -91,13 +91,6 @@ constexpr int kF32DqKeyTile = 32;  // keys of a tile: one 128-byte row of K^T
 // into the fp32 output
 constexpr int kF32DqFold = 16;
 
-// K6: a tile as the producer hands it over with its rows
-struct F32DqMeta {
-  int tile;                 // the 32-key tile
-  int cls;                  // 1: test each pair, 2: every pair allowed
-  int kf[kF32DqKeyTile];    // its keys' frame ids (0 past Lk)
-};
-
 template <int kD>
 struct F32DqLayout {
   static constexpr int boxes = kD / 32;
@@ -110,11 +103,12 @@ struct F32DqLayout {
   static constexpr int k = d + 2 * q_plane;           // slot R: K hi, K lo, V hi, V lo
   static constexpr int v = k + 2 * k_plane;
   static constexpr int kt = v + 2 * k_plane;          // slot C: K^T hi, K^T lo
-  static constexpr int meta = kt + 2 * k_plane;       // K6's F32DqMeta, with slot R
+  static constexpr int meta = kt + 2 * k_plane;       // K6's F32TileMeta, with slot R
   static constexpr int bar = meta + 256;
   // qd_full, r_full, r_empty, c_full, c_empty
   static constexpr int bytes = bar + 8 * 5 + 1024;    // + alignment slack
-  static_assert(sizeof(F32DqMeta) <= 256, "the tile's meta fits its room");
+  static_assert(sizeof(F32TileMeta) <= 256, "the tile's meta fits its room");
+  static_assert(kF32DqKeyTile == 32, "F32TileMeta holds a 32-key tile");
 };
 static_assert(F32DqLayout<128>::bytes <= kMaxSmem, "the fp32 K3 body fits one block an SM");
 
@@ -183,7 +177,7 @@ __device__ __forceinline__ void f32_dq_body(const float* __restrict__ q,
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* const sm = smem_raw + (base - raw);  // generic pointer to `base`
-  F32DqMeta* const meta = reinterpret_cast<F32DqMeta*>(sm + L::meta);
+  F32TileMeta* const meta = reinterpret_cast<F32TileMeta*>(sm + L::meta);
   const uint32_t qd_full = base + L::bar;
   const uint32_t r_full = qd_full + 8, r_empty = qd_full + 16;
   const uint32_t c_full = qd_full + 24, c_empty = qd_full + 32;
@@ -358,6 +352,7 @@ __device__ __forceinline__ void f32_dq_body(const float* __restrict__ q,
       wg_wait<0>();
       fence_regs(s);
       fence_regs(dp);
+      if constexpr (kMasked) __syncwarp();  // every lane has read the meta
       if (signals) mbar_arrive(r_empty);
 #pragma unroll
       for (int e = 0; e < 16; ++e) {

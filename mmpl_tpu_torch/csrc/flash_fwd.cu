@@ -1,5 +1,5 @@
 // Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
-// Three kernels, two bodies:
+// Three kernels, each on a Hopper body:
 //
 //  * K1, unmasked.  Replaces the TPU kernel `_flash_fwd_kernel`
 //    (mmpl_tpu/ops/attention.py:324, launched by `_flash_vjp_fwd_impl`):
@@ -11,8 +11,8 @@
 //    two one-hot matmuls (:716-722).  A tile that the tile table marks 0 is
 //    never loaded; one marked 2 (every frame pair allowed) skips the
 //    per-element test.  A row that sees no key gets O = 0 and lse = -inf.
-//    The Hopper body reads the table pooled to its 128 x 128 tiles, the
-//    template body (fp32) the 64 x 64 one.
+//    The bf16 / fp16 body reads the table pooled to its 128 x 128 tiles,
+//    the fp32 body the 64 x 64 one.
 //  * P1, the exp2 probe.  Replaces `_fwd_kernel` (tools/exp2_probe.py:42,
 //    launched through `variant` :85 at :95): K1 with two choices, kExp2
 //    (log2(e) folded into the scale on the host, exp2 for both alpha and p,
@@ -29,19 +29,15 @@
 //    note says what bounds it and what the design does about it).  K1 takes
 //    its scale with log2(e) folded in and returns the lse in natural log;
 //    K4's entry takes the natural scale and folds log2(e) in itself.
-//  * fp32 K1 and P1 run `flash_fwd_f32_sm90.cuh`: split TF32 on wgmma
+//  * fp32 K1, K4 and P1 run `flash_fwd_f32_sm90.cuh`: split TF32 on wgmma
 //    (three passes a product, about 21 bits of each operand), a producer
 //    warpgroup that splits Q, K and V and writes V transposed to shared
 //    memory, one consumer warpgroup of 64 query rows over 32-key stages
-//    (its note says what bounds it); P1 as its kernel with P1's choices and
-//    no lse.  fp32 is the default trunk of the trainer's ODE and
-//    distillation objectives, so its K1 runs at their shapes.
-//  * fp32 K4 runs the template body below, the last one: each of 4 warps
-//    owns 16 of a block's 64 query rows and holds its scores,
-//    probabilities and output accumulator in registers (FMA in the
-//    mma.sync m16n8k16 fragment layout of flash_common.cuh), and the block
-//    double-buffers the 64-key K/V tiles with cp.async.  It is still to be
-//    redesigned (ROADMAP.md Queue 2).
+//    (its note says what bounds it); K4 as its masked kernel, walking the
+//    32-key tiles of its row of the 64 x 64 table, and P1 as its kernel
+//    with P1's choices and no lse.  fp32 is the default trunk of the
+//    trainer's ODE and distillation objectives, so its K1 runs at their
+//    shapes.
 //
 // All keep an online softmax in fp32 (m, l, acc), round P to the input
 // type before the PV product (the fp32 split-TF32 body splits it into two TF32
@@ -60,13 +56,9 @@
 // (two products; for K4 times the admitted share of tiles) against
 // B*N*(2*Lq + 2*Lk)*D input/output elements; at the main path's shapes
 // (Lq, Lk >= 3120, D = 128) that is far above the card's ~295 FLOP/byte
-// ridge, so the tensor cores are the limit.
-//
-// The template body's block: 64 query rows of one (b, head), 4 warps.  The
-// head dim is padded to the compile-time width kD (64 or 128) with zeros
-// in shared memory (cp.async's src-size operand zero-fills the lanes past
-// D, as it does the rows past L), so every D that is a multiple of 8 up to
-// 128 works.
+// ridge, so the tensor cores are the limit.  Each body pads the head dim
+// to a compile-time width kD (64 or 128) with zeros, so every D that is a
+// multiple of 8 up to 128 works.
 
 #include "flash_common.cuh"
 #include "flash_fwd_f32_sm90.cuh"
@@ -76,182 +68,23 @@ namespace {
 
 using namespace mmpl;
 
-// Shared memory of the template body (fp32 K4): Q, two K and two V tiles,
-// and each warp's P rows.
-template <int kD>
-struct FwdSmem {
-  static constexpr size_t bytes =
-      sizeof(float) * (5 * Pitch<float, kD>::tile + TILE * Pitch<float, kD>::pld);
-};
-
-// K4 on the template body: fp32 only (bf16 / fp16 run
-// sm90::launch_masked); `scale` is the natural one.
-template <int kD>
-__global__ void __launch_bounds__(THREADS)
-flash_masked_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ o,
-                        float* __restrict__ lse, int Lq, int Lk, int N, int D,
-                        FwdStrides st, float scale, FrameMask mask) {
-  constexpr int TL = Pitch<float, kD>::tile;
-  constexpr int DT = kD / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  auto Ks = [&](int stage) { return Qs + (1 + stage) * TL; };
-  auto Vs = [&](int stage) { return Qs + (3 + stage) * TL; };
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int q0 = blockIdx.x * TILE;
-  const int h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const float* qg = q + b * st.qb + h * st.qh;
-  const float* kg = k + b * st.kb + h * st.kh;
-  const float* vg = v + b * st.vb + h * st.vh;
-
-  const int nkb = (Lk + TILE - 1) / TILE;
-  const unsigned char* trow = mask.tiles + (long long)blockIdx.x * mask.nkt;
-  // frame-table rows of this thread's two query rows (nullptr: past Lq)
-  const unsigned char* fmrow[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + warp * 16 + g + 8 * i;
-    fmrow[i] = row < Lq ? mask.fm + (long long)mask.qf[row] * mask.F : nullptr;
-  }
-
-  int kb = next_tile(trow, 0, nkb);
-  load_tile<float, kD>(Qs, qg, st.ql, q0, Lq, D);
-  if (kb < nkb) {
-    load_tile<float, kD>(Ks(0), kg, st.kl, kb * TILE, Lk, D);
-    load_tile<float, kD>(Vs(0), vg, st.vl, kb * TILE, Lk, D);
-  }
-  cp_async_commit();
-
-  float acc[DT][4] = {};                 // output rows g, g + 8
-  float m[2] = {-INFINITY, -INFINITY};   // running row max
-  float l[2] = {0.f, 0.f};               // this lane's share of the row sum
-
-  for (int stage = 0; kb < nkb; stage ^= 1) {
-    const int nxt = next_tile(trow, kb + 1, nkb);
-    if (nxt < nkb) {
-      load_tile<float, kD>(Ks(stage ^ 1), kg, st.kl, nxt * TILE, Lk, D);
-      load_tile<float, kD>(Vs(stage ^ 1), vg, st.vl, nxt * TILE, Lk, D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* Kt = Ks(stage);
-    const float* Vt = Vs(stage);
-
-    // S = Q K^T for this warp's 16 rows (raw fp32 dot products)
-    float s[8][4];
-    fma_abt<kD>(s, Qs, warp * 16, Kt, D);
-
-    // online softmax; each row's 64 scores live in the 4 lanes of a quad
-    const int kvalid = Lk - kb * TILE;
-    const bool test_pairs = trow[kb] != 2;
-    float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1);
-        bool ok = col < kvalid;
-        if (test_pairs) {
-          const unsigned char* fr = fmrow[e >> 1];
-          ok = ok && fr != nullptr && fr[mask.kf[kb * TILE + col]] != 0;
-        }
-        const float x = ok ? s[j][e] * scale : -INFINITY;
-        s[j][e] = x;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
-      }
-    }
-    float alpha[2], shift[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
-      const float m_new = fmaxf(m[i], tmax[i]);
-      // a row that has seen no allowed score shifts by 0, so alpha and its
-      // p stay 0 (the guards of attention.py:749-752)
-      shift[i] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[i] = m[i] == -INFINITY ? 0.f : expf(m[i] - shift[i]);
-      m[i] = m_new;
-    }
-    float psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - shift[e >> 1]);  // exp(-inf) = 0
-        s[j][e] = p;
-        psum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + psum[i];
-#pragma unroll
-    for (int c = 0; c < DT; ++c) {
-      acc[c][0] *= alpha[0]; acc[c][1] *= alpha[0];
-      acc[c][2] *= alpha[1]; acc[c][3] *= alpha[1];
-    }
-
-    // O += P V
-    float* Pw = reinterpret_cast<float*>(smem + sizeof(float) * 5 * TL) +
-                warp * 16 * Pitch<float, kD>::pld;
-    fma_pb<kD>(acc, s, Vt, Pw);
-    __syncthreads();  // every warp is done with this stage before it is refilled
-    kb = nxt;
-  }
-  cp_async_wait<0>();  // the Q copy when the mask admitted no tile
-
-  float* og = o + b * st.ob + h * st.oh;
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const float lsafe = l[i] == 0.f ? 1.f : l[i];
-    inv[i] = 1.f / lsafe;
-    const int row = q0 + warp * 16 + g + 8 * i;
-    if (row < Lq && t == 0)  // natural log
-      lse[(b * N + h) * (long long)Lq + row] = m[i] == -INFINITY ? -INFINITY : m[i] + logf(lsafe);
-  }
-  store_rows<float, kD>(og, st.ol, q0 + warp * 16 + g, Lq, D, acc, inv[0], inv[1]);
-}
-
-template <typename Kernel, typename... Args>
-int launch_body(Kernel kernel, size_t bytes, int B, int Lq, int N, cudaStream_t stream,
-                Args... args) {
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lq + TILE - 1) / TILE, N, B);
-  kernel<<<grid, THREADS, bytes, stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
 bool bad_head_dim(int D) { return D <= 0 || D > 128 || D % 8; }
 
-// K4 in fp32 on the template body at head-dim width kD.
-template <int kD>
-int masked_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Lq,
+// K4 in fp32 on fp32 K1's split-TF32 wgmma body, over the 64 x 64 table;
+// `scale` is the natural one.
+int masked_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Lq,
                int Lk, int N, int D, const FwdStrides& st, float scale, const FrameMask& mask,
                cudaStream_t s) {
-  return launch_body(flash_masked_fwd_kernel<kD>, FwdSmem<kD>::bytes, B, Lq, N, s,
-                     static_cast<const float*>(q), static_cast<const float*>(k),
-                     static_cast<const float*>(v), static_cast<float*>(o),
-                     static_cast<float*>(lse), Lq, Lk, N, D, st, scale, mask);
-}
-
-int masked_width(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Lq,
-                 int Lk, int N, int D, const FwdStrides& st, float scale, const FrameMask& mask,
-                 cudaStream_t s) {
-  return D <= 64 ? masked_fwd<64>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s)
-                 : masked_fwd<128>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  float* op = static_cast<float*>(o);
+  float* l = static_cast<float*>(lse);
+  const float sc = scale * sm90::kLog2e;
+  return D <= 64
+             ? sm90::launch_f32_masked_fwd<64>(qp, kp, vp, op, l, B, Lq, Lk, N, D, st, sc, mask, s)
+             : sm90::launch_f32_masked_fwd<128>(qp, kp, vp, op, l, B, Lq, Lk, N, D, st, sc, mask,
+                                                s);
 }
 
 // K4 in bf16 / fp16 on the wgmma body; `scale` is the natural one.
@@ -376,7 +209,7 @@ extern "C" int mmpl_flash_masked_fwd(int dtype, const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return masked_width(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
+      return masked_f32(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, mask, s);
     case 1:
       return masked_sm90<__nv_bfloat16>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, wide, s);
     case 2:

@@ -2,8 +2,8 @@
 // flash forward (flash_fwd_sm90.cuh: K1, K4, P1), the backward
 // (flash_bwd_sm90.cuh: K2, K3, K5, K6) and the int8 product
 // (int8_gemm_sm90.cuh: P2): mbarriers, TMA loads, wgmma and its
-// shared-memory descriptors, setmaxnreg, the masked walks' TileMeta, and
-// the host-side tensor maps.
+// shared-memory descriptors, setmaxnreg, the masked walks' TileMeta and
+// F32TileMeta, and the host-side tensor maps.
 //
 // Every operand tile lands in shared memory as [rows, 64 columns] boxes of
 // 16-bit values, 128 bytes a row, 128-byte swizzled, each box 1024-byte
@@ -44,6 +44,14 @@ struct TileMeta {
   unsigned char pad[8];
 };
 static_assert(sizeof(TileMeta) % 16 == 0, "TileMeta slots stay 16-byte aligned");
+
+// fp32 K4 and K6: one admitted 32-key tile of a masked walk over the 64 x 64
+// table, as the producer hands it over with its rows.
+struct F32TileMeta {
+  int tile;      // the 32-key tile
+  int cls;       // 1: test each pair, 2: every pair allowed
+  int kf[32];    // its keys' frame ids (0 past Lk)
+};
 
 // ---------------------------------------------------------------------------
 // mbarrier, TMA, wgmma and setmaxnreg

@@ -26,8 +26,8 @@ Port of `mmpl_tpu/ops/attention.py`.  Layout is [B, L, N, D] throughout.
     frame_mask[q_frame_ids[i], kv_frame_ids[j]]): K4 forward, K5 / K6
     backward.  Whole tiles that the mask forbids are skipped through tile
     tables built on the device (`mask_tiles`): 64x64 (`tile_table`) for
-    the fp32 K4 template and fp32 K5 and K6, which run as the masked
-    kernels of fp32 K2's and K3's split-TF32 bodies, pooled to 128x128
+    fp32 K4, K5 and K6, which run as the masked kernels of fp32 K1's,
+    K2's and K3's split-TF32 bodies, pooled to 128x128
     for the Hopper K4 and K6 and to 64x128 for the Hopper K5, which run in
     bf16 / fp16 as masked instantiations of K1's, K3's and K2's bodies.
 
@@ -57,10 +57,10 @@ launch_counts = {"flash_fwd": 0, "flash_masked_fwd": 0, "flash_bwd_dkv": 0,
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-#: rows of the fp32 K4 template's Q, K and V tiles (csrc/flash_common.cuh
-#: TILE): the frame mask's tile table and P1's `mask_pad=False` contract
-#: are in these units (the Hopper body's 128-key tiles are right for any
-#: multiple of 64)
+#: side of a tile of the frame mask's finest table, which fp32 K4-K6 walk
+#: (csrc/flash_common.cuh TILE, two of their 32-row tiles), and the unit
+#: of P1's `mask_pad=False` contract (the Hopper body's 128-key tiles are
+#: right for any multiple of 64)
 TILE = 64
 
 #: log2(e), folded into K1's scale and P1's by its exp2 variants
@@ -492,8 +492,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q [B, Lq, N, D], k/v [B, Lk, N, D]; fp32, bf16 or fp16 with D a
     multiple of 8 up to 128.  Returns (O, lse [B, N, Lq]), lse in natural
     log.  bf16 / fp16 run the Hopper body (K4 over `tiles.fwd`, up to
-    SM90_MAX_FRAMES frames); fp32 K1 the split-TF32 Hopper body, fp32 K4
-    the template body (over `tiles.t64`).
+    SM90_MAX_FRAMES frames); fp32 K1 and K4 the split-TF32 Hopper body (K4
+    over `tiles.t64`).
     K1 takes its scale with log2(e) folded in (its softmax is exp2); K4's
     entry takes the natural scale."""
     what = "flash_fwd" if mask is None else "flash_masked_fwd"

@@ -12,6 +12,8 @@ checkout's, on one card, in turns.
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR \
         --kernel masked --dtype float32
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR \
+        --kernel masked --dtype float16
+    python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR \
         --kernel exp2 --dtype float32
 
 DIR holds another checkout of the repository (for example an earlier
@@ -44,7 +46,10 @@ SDPA's under the memory-efficient backend (the one that takes fp32); the
 bound is then taken at the TF32 tensor-core rate (`PEAK_TF32`), the rate
 the fp32 wgmma bodies run their products at.  With `--kernel masked` it
 runs K4, K5 and K6 on fp32 inputs at `MASKED_SHAPES` the same way (the
-masked plain versions' times, the bound at `PEAK_TF32`).  `--kernel bwd`
+masked plain versions' times, the bound at `PEAK_TF32`): the split-TF32
+bodies' masked kernels against whatever bodies the baseline has (before
+them, the FMA template).  `--dtype float16` takes only `--kernel
+masked`: the fp16 instantiations of the Hopper K4-K6.  `--kernel bwd`
 ends, as `fwd` does, with the SASS check of its source, so the two fp32
 calls show that the bf16 / fp16 Hopper kernels of K1-K6 and P1 are
 unchanged.
@@ -163,7 +168,8 @@ TABLES = {"fwd": SHAPES, "bwd": BWD_SHAPES, "masked": MASKED_SHAPES,
 #: the tables of --dtype float32
 F32_TABLES = {"fwd": F32_SHAPES, "bwd": F32_SHAPES, "masked": MASKED_SHAPES,
               "exp2": EXP2_F32_SHAPES}
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+          "float32": torch.float32}
 
 #: H100 SXM dense bf16 and int8 tensor-core peaks and HBM rate (NVIDIA
 #: data sheet)
@@ -225,6 +231,8 @@ def parse_args(argv=None):
     if args.dtype == "float32" and args.kernel not in F32_TABLES:
         p.error(f"--dtype float32 takes --kernel fwd, bwd, masked or exp2, "
                 f"not {args.kernel}")
+    if args.dtype == "float16" and args.kernel != "masked":
+        p.error(f"--dtype float16 takes --kernel masked, not {args.kernel}")
     table = (F32_TABLES if args.dtype == "float32" else TABLES)[args.kernel]
     if args.shapes is None:
         args.shapes = list(table)

@@ -159,8 +159,7 @@ def test_hopper_k1_reads_the_fused_qkv_in_place(cuda, dtype, d):
                                         (torch.float32, "flash_fwd_f32_sm90")])
 def test_k1_runs_the_body_of_its_type(cuda, dtype, body):
     """bf16 / fp16 K1 runs the Hopper kernel, fp32 the split-TF32 Hopper
-    kernel (not the template body); the profiler attribution books each to
-    K1."""
+    kernel; the profiler attribution books each to K1."""
     from mmpl_tpu_torch.utils.profiling import port_kernel_of
     q, k, v = _qkv(200, 300, 64, dtype, cuda)
     names = _launched(lambda: ta.flash_fwd_cuda(q, k, v))
@@ -407,11 +406,12 @@ def test_masked_kernels_at_the_most_frames_the_hopper_bodies_hold(cuda,
 @pytest.mark.parametrize("dtype,body", [
     (torch.bfloat16, "flash_masked_fwd_sm90_kernel"),
     (torch.float16, "flash_masked_fwd_sm90_kernel"),
-    (torch.float32, "flash_masked_fwd_kernel"),
+    (torch.float32, "flash_masked_fwd_f32_sm90_kernel"),
 ])
 def test_masked_forward_runs_the_body_of_its_type(cuda, dtype, body):
     """bf16 / fp16 K4 runs the Hopper kernel (the masked instantiation of
-    K1's body), fp32 the template; the profiler books each to K4."""
+    K1's body), fp32 the masked kernel of fp32 K1's split-TF32 body; the
+    profiler books each to K4."""
     from mmpl_tpu_torch.utils.profiling import port_kernel_of
     q, k, v = _qkv(500, 500, 64, dtype, cuda)
     mask = _mask(500, 100, cuda)
@@ -799,6 +799,113 @@ def test_fp32_k3_and_k6_give_the_same_bits_on_every_call(cuda):
         first = call()
         for _ in range(2):
             assert torch.equal(call(), first)
+
+
+# ---------------------------------------------------------------------------
+# fp32 K4, the masked kernel of fp32 K1's split-TF32 body
+# (csrc/flash_fwd_f32_sm90.cuh): 64-query blocks walking their row of the
+# 64 x 64 table, an entry two 32-key stages
+# ---------------------------------------------------------------------------
+
+def _late_frames():
+    """(frame mask, token frame ids) in numpy: 1550 tokens in frames of
+    100, even frames see the frames up to their own, odd frames only
+    frames 11-15, frame 7 nothing.  Query block 15 (frames 9 and 10) walks
+    all 49 key tiles, and frame 9's rows see their first key at tile 34,
+    after two folds; block 12 holds frame 7's blind rows beside frame 8's,
+    which walk 30 tiles (a fold while those rows have seen nothing).  The
+    CPU model of fp32 K4 (`test_torch_attention_f32_masked.py`) walks it
+    too."""
+    f = np.arange(16)
+    fm = np.where((f % 2 == 0)[:, None], f[None, :] <= f[:, None],
+                  f[None, :] >= 11)
+    fm[7] = False
+    return fm, np.repeat(f, 100)[:1550]
+
+
+def _late_mask(cuda):
+    """`_late_frames` as the kernels take it, on the card."""
+    fm, ids = _late_frames()
+    ids = torch.as_tensor(ids, dtype=torch.int32, device=cuda)
+    return ids, ids, torch.as_tensor(fm, device=cuda)
+
+
+def _f32_k4_errors(q, k, v, mask):
+    """K4's largest O and lse differences from the masked plain version;
+    the rows that see no key must get O = 0 and lse = -inf exactly, and
+    nothing may be NaN."""
+    tiles = ta.mask_tiles(*mask)
+    o, lse = ta.flash_fwd_cuda(q, k, v, None, mask, tiles)
+    po, plse = ta.frame_masked_attention_plain(q, k, v, *mask)
+    torch.cuda.synchronize()
+    blind = ~mask[2][mask[0].long()].any(1)
+    assert torch.all(o[:, blind] == 0)
+    assert torch.all(lse[:, :, blind] == -float("inf"))
+    assert torch.equal(torch.isfinite(lse), torch.isfinite(plse))
+    assert torch.isfinite(o).all()
+    live = torch.isfinite(plse)
+    return {"o": (o - po).abs().max().item(),
+            "lse": (lse[live] - plse[live]).abs().max().item()
+            if live.any() else 0.0}
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("d", [24, 64, 80, 128])
+@pytest.mark.parametrize("lq,lk", [(1000, 1300), (777, 777), (1, 500),
+                                   (65, 33)])
+def test_fp32_k4_on_the_tf32_body_matches_plain(cuda, lq, lk, d, strided):
+    """Ragged Lq and Lk against the 64-row block and the 32-key stage (one
+    query row; a last stage of one key; an odd count of 32-key stages,
+    whose last 64 x 64 entry covers one), every head-dim width, contiguous
+    operands and strided views, under a mask with a blind frame and a
+    frame that no query sees."""
+    if strided:
+        q, k, v, _ = _f32_views(lq, lk, d, cuda, seed=lq + d + 3)
+        assert not (q.is_contiguous() or k.is_contiguous())
+    else:
+        q, k, v = _qkv(lq, lk, d, torch.float32, cuda, seed=lq + d + 3)
+    err = _f32_k4_errors(q, k, v, _f32_mask(lq, lk, cuda, unseen=True))
+    assert max(err.values()) <= F32_TOL, err
+
+
+@pytest.mark.parametrize("kind", ["dead", "fps", "late"])
+def test_fp32_k4_walks_empty_blocks_the_fps_mask_and_late_keys(cuda, kind):
+    """"dead": frames of 300 where frame 1 sees nothing, so query blocks
+    5-8 admit no tile and run only their epilogue; "fps": the fps-forcing
+    mask of the teacher-forcing step over 42 frames of 40 tokens; "late"
+    (`_late_mask`): rows whose first allowed key comes after two folds, and
+    a fold while some rows have seen no key."""
+    from mmpl_tpu_torch.core.geometry import T2V_CLEAN_STEPS
+    from mmpl_tpu_torch.training import masks
+    if kind == "dead":
+        mask = _mask(1000, 300, cuda, unseen=True)
+    elif kind == "fps":
+        fm = masks.fps_forcing_frame_mask(T2V_CLEAN_STEPS)
+        ids = torch.arange(fm.shape[0], dtype=torch.int32,
+                           device=cuda).repeat_interleave(40)
+        mask = (ids, ids, torch.as_tensor(fm, device=cuda))
+    else:
+        mask = _late_mask(cuda)
+    t64 = ta.mask_tiles(*mask).t64
+    if kind == "dead":
+        assert (t64[5:9] == 0).all()
+    if kind == "late":
+        assert (t64[15] != 0).all() and (t64[12] != 0).sum() == 15
+    L = mask[0].numel()
+    q, k, v = _qkv(L, L, 128, torch.float32, cuda, seed=L)
+    err = _f32_k4_errors(q, k, v, mask)
+    assert max(err.values()) <= F32_TOL, err
+
+
+def test_fp32_k4_gives_the_same_bits_on_every_call(cuda):
+    """No atomics and no split of the key loop: each block owns its rows."""
+    mask = _late_mask(cuda)
+    tiles = ta.mask_tiles(*mask)
+    q, k, v = _qkv(1550, 1550, 128, torch.float32, cuda, seed=7)
+    first = ta.flash_fwd_cuda(q, k, v, None, mask, tiles)
+    for _ in range(2):
+        for x, y in zip(ta.flash_fwd_cuda(q, k, v, None, mask, tiles), first):
+            assert torch.equal(x, y)
 
 
 # ---------------------------------------------------------------------------

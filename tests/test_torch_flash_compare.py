@@ -56,6 +56,7 @@ def test_compare_needs_the_card(tmp_path, monkeypatch):
     (["--kernel", "bwd", "--dtype", "float32", "--shapes", "critic_self"],
      "bwd", ["critic_self"]),
     (["--kernel", "masked", "--dtype", "float32"], "masked", ["tf_self"]),
+    (["--kernel", "masked", "--dtype", "float16"], "masked", ["tf_self"]),
     (["--kernel", "exp2"], "exp2", ["probe", "fewstep_hot"]),
     (["--kernel", "exp2", "--dtype", "float32"], "exp2",
      ["d24_f32", "ode_self_1"]),
@@ -74,10 +75,12 @@ def test_kernel_choice_parses_with_its_shapes(tmp_path, argv, kernel, shapes):
     ["--kernel", "int8", "--dtype", "float32"],
     ["--kernel", "exp2", "--shapes", "tf_self"],
     ["--kernel", "exp2", "--dtype", "float32", "--shapes", "probe"],
+    ["--kernel", "bwd", "--dtype", "float16"],
 ])
 def test_a_shape_of_the_other_kernel_is_refused(tmp_path, argv):
-    """A shape of another kernel's (or type's) table, and fp32 for a
-    kernel whose fp32 body is not compared."""
+    """A shape of another kernel's (or type's) table, fp32 for a kernel
+    whose fp32 body is not compared, and fp16 for any but the masked
+    kernels."""
     with pytest.raises(SystemExit):
         flash_compare.parse_args(["--baseline", str(tmp_path), *argv])
 

@@ -1,8 +1,9 @@
 """`utils.profiling.port_kernel_of`: the profiler's kernel names, mangled
 and demangled, booked to the port kernel (launch counter) they belong to.
 The names are those the card's build gives K1 and K4 (the Hopper body in
-bf16 / fp16; in fp32 K1's split-TF32 Hopper body, K4's template body), P1
-(the Hopper body; in fp32 the P1 kernel of K1's split-TF32 body), K2/K3
+bf16 / fp16; in fp32 K1's split-TF32 Hopper body, K4 as its masked
+kernel), P1 (the Hopper body; in fp32 the P1 kernel of K1's split-TF32
+body), K2/K3
 (the Hopper backward in bf16 / fp16, K2's reduce kernel included; in fp32
 the split-TF32 Hopper bodies of K2 and K3), K5 and K6 (the Hopper dKV and
 dQ bodies' masked kernels in bf16 / fp16; in fp32 the masked kernels of
@@ -26,8 +27,8 @@ NAMES = [
      '_ZN4mmpl4sm9025flash_fwd_f32_sm90_kernelILi128EEEvPKfS3_S3_PfS4_iiiiNS_10FwdStridesEf',
      'void mmpl::sm90::flash_fwd_f32_sm90_kernel<128>(float const*, float const*, float const*, float*, float*, int, int, int, int, mmpl::FwdStrides, float)'),
     ('K4', 'flash_masked_fwd',
-     '_ZN45_GLOBAL__N__176ec67e_12_flash_fwd_cu_c145cf2523flash_masked_fwd_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_PS2_PfiiiiN4mmpl10FwdStridesEfNS7_9FrameMaskE',
-     'void (anonymous namespace)::flash_masked_fwd_kernel<__nv_bfloat16, 128>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, int, int, int, int, mmpl::FwdStrides, float, mmpl::FrameMask)'),
+     '_ZN4mmpl4sm9032flash_masked_fwd_f32_sm90_kernelILi128EEEvPKfS3_S3_PfS4_iiiiNS_10FwdStridesEfNS_9FrameMaskE',
+     'void mmpl::sm90::flash_masked_fwd_f32_sm90_kernel<128>(float const*, float const*, float const*, float*, float*, int, int, int, int, mmpl::FwdStrides, float, mmpl::FrameMask)'),
     ('K4 Hopper', 'flash_masked_fwd',
      '_ZN4mmpl4sm9028flash_masked_fwd_sm90_kernelI13__nv_bfloat16Li128EEEv14CUtensorMap_stS3_S3_NS0_6ParamsENS_9FrameMaskE',
      'void mmpl::sm90::flash_masked_fwd_sm90_kernel<__nv_bfloat16, 128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::Params, mmpl::FrameMask)'),
