@@ -6,12 +6,16 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
   1. device and build: the card's name and power limit; nvcc builds every
      kernel from mmpl_tpu_torch/csrc;
   2. kernel: K1 (csrc/flash_fwd.cu: bf16 / fp16 on the wgmma + TMA body of
-     csrc/flash_fwd_sm90.cuh, fp32 on the split-TF32 wgmma body of
-     csrc/flash_fwd_f32_sm90.cuh) against its plain PyTorch version at the
-     1.3B main path's attention shapes and the fp32 trunk's (the trainer's
-     ODE and distillation objectives), with the
-     body that ran (read from the profiler's kernel names), kernel / plain
-     / SDPA times and the card's bound; kernel_exp2: P1
+     csrc/flash_fwd_sm90.cuh under the schedule ops/attention.fwd_schedule
+     picks, a block per 128-query block, the persistent walk or the key
+     split and its merge of csrc/flash_fwd_sched_sm90.cuh; fp32 on the
+     split-TF32 wgmma body of csrc/flash_fwd_f32_sm90.cuh) against its plain
+     PyTorch version at the 1.3B main path's attention shapes and the fp32
+     trunk's (the trainer's ODE and distillation objectives), with the
+     body and the schedule that ran (read from the profiler's kernel names),
+     kernel / plain / SDPA times (a call after a synchronise, the
+     wrapper's host time included) and device times (queued), and the
+     card's bound; kernel_exp2: P1
      (csrc/flash_fwd.cu, the exp2 probe's forward, on K1's two bodies:
      fp32 on the split-TF32 one), its four variants against
      the plain version at the probe's
@@ -452,6 +456,10 @@ TRAIN_LAUNCHES_PER_LAYER = {"flash_fwd": 2, "flash_masked_fwd": 2,
 #: perf_counter at import: every phase row carries its seconds since then
 T0 = time.perf_counter()
 
+#: K1's launches by schedule (`attn.fwd_mode_launches`) on the paths that
+#: record them: the serving window, the GAN steps
+FWD_MODES_BY_PATH = {}
+
 
 def emit(obj) -> None:
     if "phase" in obj:
@@ -594,16 +602,27 @@ def _launched(fn) -> list:
     return sorted(device_kernels(fn, BODY_CALLS))
 
 
+#: the second kernel of a launch that splits its work: K2's reduce, K1's
+#: merge
+_FOLDS = ("_reduce_kernel", "_merge_kernel")
+
+
+def _main_kernels(names, counter: str) -> list:
+    return [n for n in names if port_kernel_of(n) == counter
+            and not any(f in n for f in _FOLDS)]
+
+
 def _body(names, counter: str, dtype) -> str:
     """Which body ran `counter`'s launch among `names`: "wgmma" (the
     `*_sm90_kernel` of csrc/flash_fwd_sm90.cuh or csrc/flash_bwd_sm90.cuh,
-    with K2's reduce kernel when the call split the queries) or "tf32x3"
-    (the split-TF32 `*_f32_sm90_kernel` of csrc/flash_fwd_f32_sm90.cuh,
-    csrc/flash_bwd_f32_sm90.cuh or csrc/flash_bwd_dq_f32_sm90.cuh, one
-    kernel).  bf16 / fp16 K1-K6 and P1 must run the first, fp32 the
-    second."""
+    K1's also under its schedules of csrc/flash_fwd_sched_sm90.cuh, with
+    K2's reduce kernel when the call split the queries and K1's merge when
+    it split the keys) or "tf32x3" (the split-TF32 `*_f32_sm90_kernel` of
+    csrc/flash_fwd_f32_sm90.cuh, csrc/flash_bwd_f32_sm90.cuh or
+    csrc/flash_bwd_dq_f32_sm90.cuh, one kernel).  bf16 / fp16 K1-K6 and P1
+    must run the first, fp32 the second."""
     mine = [n for n in names if port_kernel_of(n) == counter]
-    main = [n for n in mine if "_reduce_kernel" not in n]
+    main = _main_kernels(names, counter)
     check(len(main) == 1 and len(mine) - len(main) <= 1, (counter, names))
     check("_sm90_kernel" in main[0], (counter, names))
     body = "tf32x3" if "_f32_sm90_kernel" in main[0] else "wgmma"
@@ -613,9 +632,18 @@ def _body(names, counter: str, dtype) -> str:
     return body
 
 
+def _fwd_schedule_of(names) -> str:
+    """The schedule K1's launch ran among `names` (its kernel's name)."""
+    main = _main_kernels(names, "flash_fwd")
+    check(len(main) == 1, names)
+    return next((m for m in ("persistent", "split")
+                 if f"flash_fwd_{m}_sm90_kernel" in main[0]), "grid")
+
+
 def phase_kernel():
     rows = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, B, N, D, Lq, Lk, dtype in K1_SHAPES:
         q, k, v = (torch.randn((B, L, N, D), generator=gen, device="cuda",
                                dtype=torch.float32).to(dtype)
@@ -627,10 +655,13 @@ def phase_kernel():
         torch.cuda.synchronize()
         err = (o.float() - po.float()).abs()
         lerr = (lse - plse).abs()
+        mode, splits = (("grid", 1) if dtype == torch.float32
+                        else attn.fwd_schedule(B, N, Lq, Lk, D, sms))
         row = {"phase": "kernel", "kernel": "flash_fwd", "shape": label,
                "B": B, "N": N, "D": D, "Lq": Lq, "Lk": Lk,
                "dtype": str(dtype).replace("torch.", ""),
-               "body": _body(names, "flash_fwd", dtype),
+               "body": _body(names, "flash_fwd", dtype), "mode": mode,
+               "splits": splits, "mode_ran": _fwd_schedule_of(names),
                "o_max_abs_err": err.max().item(),
                "o_mean_abs_err": err.mean().item(),
                "lse_max_abs_err": lerr.max().item(),
@@ -642,15 +673,20 @@ def phase_kernel():
         row["plain_ms"] = time_ms(lambda: attn.flash_attention_plain(q, k, v),
                                   max_reps=PLAIN_REPS[dtype])
         row["bound_ms"], row["bound_by"] = bound(B, N, D, Lq, Lk, dtype)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        # device times: calls queued behind a spin, no host time between
+        reps = QUEUED_REPS if row["ms"] < 5.0 else 3
         with _sdpa_backend(dtype):
-            row["library_ms"] = time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
-                budget_ms=budget)
+            row["library_ms"] = time_ms(sdpa, budget_ms=budget)
+            row["library_device_ms"] = queued_ms(sdpa, reps)
+        row["device_ms"] = queued_ms(lambda: attn.flash_fwd_cuda(q, k, v),
+                                     reps)
         row["tflops"] = 4.0 * B * N * Lq * Lk * D / row["ms"] / 1e9
         row["bound_share"] = row["bound_ms"] / row["ms"]
         emit(row)
         rows[label] = row
+        check(row["mode_ran"] == mode, row)
         if dtype == torch.float32:
             check(row["o_max_abs_err"] <= 1e-4, row)
             check(row["lse_max_abs_err"] <= 1e-4, row)
@@ -662,6 +698,10 @@ def phase_kernel():
         torch.cuda.empty_cache()
     return rows
 
+
+#: calls that a device time (`queued_ms`) of a K1 row queues (3 where a
+#: call takes 5 ms or more)
+QUEUED_REPS = 10
 
 #: timed calls of the plain versions at most, and the ms that a kernel's
 #: or SDPA's timing may take before it stops at 3 calls or more (fp32 at
@@ -1255,14 +1295,21 @@ def phase_window(steps: int = 4):
     pipe, cond, uncond, rows, latents, frames, _ = _run_windows(
         "window", steps)
     launches = attn.launch_counts["flash_fwd"]
+    modes = dict(attn.fwd_mode_launches)
     expected = 2 * pipe.cfg.num_layers * _window_forwards(steps)
     for row in rows:
         emit(row)
     emit({"phase": "window_total", "flash_fwd_launches": launches,
-          "expected_launches": expected,
+          "expected_launches": expected, "flash_fwd_modes": modes,
           "max_memory_allocated_gib":
               torch.cuda.max_memory_allocated() / 2**30})
     check(launches == expected, (launches, expected))
+    # the text cross-attention (half of the launches) on the persistent
+    # walk, the long self-attention on the grid, nothing split
+    check(sum(modes.values()) == launches and modes["split"] == 0
+          and modes["persistent"] >= launches // 2 and modes["grid"] > 0,
+          modes)
+    FWD_MODES_BY_PATH["window"] = modes
     return launches, pipe, cond, uncond, (rows, latents, frames)
 
 
@@ -3640,17 +3687,23 @@ def phase_distill_other():
     L, nb = SHALLOW_LAYERS, DISTILL_BLOCKS
     total = {}
 
-    def record(name, fn, expected_of):
+    def record(name, fn, expected_of, splits=0):
+        """`splits`: the K1 launches that split their keys, the register
+        token's (one query row over 32760 keys) on the GAN steps."""
         nonlocal total
         (loss, flags), seconds, counts, peak = _run_counted(fn)
+        modes = dict(attn.fwd_mode_launches)
         expected = expected_of(flags)
         row = {"phase": "distill_other", "objective": name, "layers": L,
                "flag": flags[0] if flags else None, "seconds": seconds,
                "loss": loss, "launches": counts,
-               "expected_launches": expected,
+               "expected_launches": expected, "flash_fwd_modes": modes,
                "max_memory_allocated_gib": peak}
         emit(row)
         check(counts == expected, row)
+        check(modes["split"] == splits, row)
+        if splits:
+            FWD_MODES_BY_PATH[name] = modes
         check(math.isfinite(loss), row)
         total = {k: total.get(k, 0) + counts[k] for k in counts}
 
@@ -3691,10 +3744,10 @@ def phase_distill_other():
 
     record("gan_critic", lambda: _distill_step(
         models, ("fake_score", "gan_head"), gan.gan_critic_loss, batch, ro,
-        gen, nb), gan_critic)
+        gen, nb), gan_critic, splits=3 * 3)
     record("gan_generator", lambda: _distill_step(
         models, ("generator",), gan.gan_generator_loss, batch, ro, gen, nb),
-        graded_gen(classify + trunk, classify))
+        graded_gen(classify + trunk, classify), splits=3)
     del models
     torch.cuda.empty_cache()
 
@@ -5538,7 +5591,11 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                  int8_launches, train_counts, exp2, exp2_launches,
                  path_launches, bwd_paths, int8_paths, q_modes):
     """The nine kernels at their main-path shapes: K1 at group 3 of the
-    serving window, K2 / K3 at the training cross-attention (and their
+    serving window (and under its persistent walk at the window's text
+    cross-attention and its key split at the GAN head's register token,
+    `flash_fwd_persistent` and `flash_fwd_split`, their launches those of
+    the window and of the GAN steps), K2 / K3 at the training
+    cross-attention (and their
     other shapes under `shapes`), K4-K6 at the
     training self-attention, P2 at group 3's ffn.fc1, Q at group 3's
     ffn.fc2 input and P1 (its exp2 variant without the pad test) at the
@@ -5584,9 +5641,40 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
             "train": (train_counts["flash_fwd"]
                       - path_launches.get("train_resume", 0)),
             **path_launches},
-        shapes={k: {f: r[f] for f in ("body", "ms", "plain_ms", "bound_ms",
-                                      "library_ms", "o_max_abs_err")}
+        shapes={k: {f: r[f] for f in (
+            "body", "mode", "splits", "ms", "device_ms", "plain_ms",
+            "bound_ms", "library_ms", "library_device_ms", "o_max_abs_err")}
                 for k, r in rows.items()})]
+    # K1's other schedules, each at its main shape: the persistent walk at
+    # the serving window's text cross-attention, the key split (with its
+    # merge) at the GAN head's register token
+    sched_src = "mmpl_tpu_torch/csrc/flash_fwd_sched_sm90.cuh"
+    for name, mode, at, paths in (
+            ("flash_fwd_persistent", "persistent", "cross", ("window",)),
+            ("flash_fwd_split", "split", "gan_head_q1",
+             ("gan_critic", "gan_generator"))):
+        r = rows[at]
+        by_path = {p: FWD_MODES_BY_PATH[p][mode] for p in paths}
+        out.append(_entry(
+            name, sched_src, "mmpl_tpu/ops/attention.py:324",
+            sum(by_path.values()),
+            max(x["o_max_abs_err"] for x in rows.values()
+                if x["mode"] == mode),
+            r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"],
+            r["library_ms"], at=at, sources=[sched_src, fwd_src],
+            device_ms=r["device_ms"],
+            library_device_ms=r["library_device_ms"],
+            launches_by_path=by_path,
+            kernels=([f"{name}_sm90_kernel"] + (
+                ["flash_fwd_merge_kernel"] if mode == "split" else [])),
+            note=("K1 (launch counter flash_fwd) under ops/attention."
+                  "fwd_schedule's schedule; ms is a call after a "
+                  "synchronise, the wrapper's host time included, "
+                  "device_ms the call's device time"),
+            shapes={k: {f: x[f] for f in ("splits", "ms", "device_ms",
+                                          "bound_ms", "library_ms",
+                                          "library_device_ms")}
+                    for k, x in rows.items() if x["mode"] == mode}))
     bwd_sm90_src = "mmpl_tpu_torch/csrc/flash_bwd_sm90.cuh"
     bwd_f32_src = "mmpl_tpu_torch/csrc/flash_bwd_f32_sm90.cuh"
     bwd_dq_f32_src = "mmpl_tpu_torch/csrc/flash_bwd_dq_f32_sm90.cuh"

@@ -39,6 +39,12 @@
 //    trainer's ODE and distillation objectives, so its K1 runs at their
 //    shapes.
 //
+// bf16 / fp16 K1 also runs two other schedules of its Hopper body
+// (`flash_fwd_sched_sm90.cuh`, entry `mmpl_flash_fwd_sched`, chosen by
+// ops/attention.py `fwd_schedule`): a persistent walk over the (query
+// block, head, batch) units at short keys, and a split of the keys with a
+// merge where few query blocks meet long keys.
+//
 // All keep an online softmax in fp32 (m, l, acc), round P to the input
 // type before the PV product (the fp32 split-TF32 body splits it into two TF32
 // parts), and write O in the input type and (K1, K4)
@@ -60,8 +66,11 @@
 // to a compile-time width kD (64 or 128) with zeros, so every D that is a
 // multiple of 8 up to 128 works.
 
+#include <string.h>
+
 #include "flash_common.cuh"
 #include "flash_fwd_f32_sm90.cuh"
+#include "flash_fwd_sched_sm90.cuh"
 #include "flash_fwd_sm90.cuh"
 
 namespace {
@@ -107,6 +116,43 @@ int fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse, in
              ? sm90::launch<T, 64, true, true, true>(q, k, v, o, l, B, Lq, Lk, N, D, st, scale, s)
              : sm90::launch<T, 128, true, true, true>(q, k, v, o, l, B, Lq, Lk, N, D, st, scale,
                                                       s);
+}
+
+// K1 in bf16 / fp16 under the persistent walk or the key split, at kD = 128
+// for every D (the head dim past D loads as zeros): no path runs these
+// schedules at D <= 64, and each width's instantiations cost the build
+// (chip_smoke.py's time limit counts it).
+template <typename T>
+int sched_sm90(const void* q, const void* k, const void* v, void* o, void* lse, float* ws,
+               int splits, int sms, int B, int Lq, int Lk, int N, int D, const FwdStrides& st,
+               float scale, cudaStream_t s) {
+  return sm90::launch_sched<T, 128>(q, k, v, o, static_cast<float*>(lse), ws, splits, sms, B, Lq,
+                                    Lk, N, D, st, scale, s);
+}
+
+// K1 on one grid block per 128-query block: the split-TF32 body for fp32,
+// the wgmma body for bf16 / fp16.
+int fwd_grid(int dtype, const void* q, const void* k, const void* v, void* o, void* lse, int B,
+             int Lq, int Lk, int N, int D, const FwdStrides& st, float scale, cudaStream_t s) {
+  switch (dtype) {
+    case 0:
+      return D <= 64 ? sm90::launch_f32_fwd<64>(static_cast<const float*>(q),
+                                                static_cast<const float*>(k),
+                                                static_cast<const float*>(v),
+                                                static_cast<float*>(o), static_cast<float*>(lse),
+                                                B, Lq, Lk, N, D, st, scale, s)
+                     : sm90::launch_f32_fwd<128>(static_cast<const float*>(q),
+                                                 static_cast<const float*>(k),
+                                                 static_cast<const float*>(v),
+                                                 static_cast<float*>(o), static_cast<float*>(lse),
+                                                 B, Lq, Lk, N, D, st, scale, s);
+    case 1:
+      return fwd_sm90<__nv_bfloat16>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, s);
+    case 2:
+      return fwd_sm90<__half>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // One P1 variant at one width: the split-TF32 wgmma body for fp32, the
@@ -162,26 +208,43 @@ extern "C" int mmpl_flash_fwd(int dtype, const void* q, const void* k,
                               void* stream) {
   if (bad_head_dim(D)) return (int)cudaErrorInvalidValue;
   const FwdStrides st{sqb, sql, sqh, skb, skl, skh, svb, svl, svh, sob, sol, soh};
+  return fwd_grid(dtype, q, k, v, o, lse, B, Lq, Lk, N, D, st, scale,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The scheduled K1 entry's integer arguments as ops/attention.py
+// `_sched_args` packs them, 27 int64s: a short shape's call is host-bound,
+// and 30 arguments converted one by one by ctypes cost ~8 us of it.
+struct SchedArgs {
+  long long dtype, q, k, v, o, lse, ws, mode, splits, sms, B, Lq, Lk, N, D;
+  long long sqb, sql, sqh, skb, skl, skh, svb, svl, svh, sob, sol, soh;
+};
+
+// K1 under a schedule (ops/attention.py `fwd_schedule`): mode 0 one block
+// per 128-query block (as mmpl_flash_fwd), 1 the persistent walk, 2 the
+// key split over `splits` ranges with the fp32 workspace `ws` (S * B * N *
+// Lq * (D + 1) floats) and the merge, in one call.  Modes 1 and 2 take
+// bf16 / fp16 and run on min(sms, units) blocks.  `scale` holds log2(e).
+extern "C" int mmpl_flash_fwd_sched(const void* packed, float scale, void* stream) {
+  SchedArgs a;
+  memcpy(&a, packed, sizeof a);
+  const int dtype = (int)a.dtype, mode = (int)a.mode, splits = (int)a.splits, D = (int)a.D;
+  if (bad_head_dim(D) || mode < 0 || mode > 2 || (mode == 1 && splits != 1) ||
+      (mode == 2 && splits < 2) || (mode != 0 && dtype != 1 && dtype != 2))
+    return (int)cudaErrorInvalidValue;
+  auto ptr = [](long long x) { return reinterpret_cast<void*>(static_cast<uintptr_t>(x)); };
+  const void *q = ptr(a.q), *k = ptr(a.k), *v = ptr(a.v);
+  void *o = ptr(a.o), *lse = ptr(a.lse);
+  const int B = (int)a.B, Lq = (int)a.Lq, Lk = (int)a.Lk, N = (int)a.N;
+  const FwdStrides st{a.sqb, a.sql, a.sqh, a.skb, a.skl, a.skh,
+                      a.svb, a.svl, a.svh, a.sob, a.sol, a.soh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return D <= 64 ? sm90::launch_f32_fwd<64>(static_cast<const float*>(q),
-                                                static_cast<const float*>(k),
-                                                static_cast<const float*>(v),
-                                                static_cast<float*>(o), static_cast<float*>(lse),
-                                                B, Lq, Lk, N, D, st, scale, s)
-                     : sm90::launch_f32_fwd<128>(static_cast<const float*>(q),
-                                                 static_cast<const float*>(k),
-                                                 static_cast<const float*>(v),
-                                                 static_cast<float*>(o), static_cast<float*>(lse),
-                                                 B, Lq, Lk, N, D, st, scale, s);
-    case 1:
-      return fwd_sm90<__nv_bfloat16>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, s);
-    case 2:
-      return fwd_sm90<__half>(q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (mode == 0) return fwd_grid(dtype, q, k, v, o, lse, B, Lq, Lk, N, D, st, scale, s);
+  float* ws = mode == 2 ? static_cast<float*>(ptr(a.ws)) : nullptr;
+  return dtype == 1 ? sched_sm90<__nv_bfloat16>(q, k, v, o, lse, ws, splits, (int)a.sms, B, Lq,
+                                                Lk, N, D, st, scale, s)
+                    : sched_sm90<__half>(q, k, v, o, lse, ws, splits, (int)a.sms, B, Lq, Lk,
+                                         N, D, st, scale, s);
 }
 
 // K4.  qf [Lq] / kf [Lk] int32 frame ids in [0, F); fm [F, F] uint8; tiles

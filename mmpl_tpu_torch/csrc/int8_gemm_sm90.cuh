@@ -219,10 +219,8 @@ template <> struct GemmOut<int> {
   }
 };
 
-// Named barriers of the consumers: 1 both warpgroups, 2 + c warpgroup c.
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
+// Named barriers of the consumers (bar_sync): 1 both warpgroups, 2 + c
+// warpgroup c.
 
 // The staged epilogue of one consumer: its 64 x BN accumulator, 128 bytes
 // of columns (kCols) a chunk, rounded into staging box `buf` (flipped per

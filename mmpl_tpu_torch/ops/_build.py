@@ -29,7 +29,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 #: body's coarse table, then F
 _MASK_SM90 = [_P, _P, _P, _P, _P, _I]
 
-#: C signatures, by source name.  The backward entries take their 18
+#: C signatures, by source name.  The scheduled K1 entry takes its
+#: integer arguments packed (`ops.attention._sched_args`); the backward
+#: entries take their 18
 #: strides as a pointer to a `long long` array; the unmasked dKV entry
 #: takes the fp32 workspace and the number of query splits after dK, dV;
 #: P2 takes its tile width and Q its layout and mode before the stream.
@@ -37,6 +39,7 @@ SIGNATURES = {
     "flash_fwd": {
         "mmpl_flash_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
                           + [_L] * 12 + [_F, _P],
+        "mmpl_flash_fwd_sched": [ctypes.c_char_p, _F, _P],
         "mmpl_flash_masked_fwd": [_I, _P, _P, _P, _P, _P] + _MASK_SM90
                                  + [_I] * 5 + [_L] * 12 + [_F, _P],
         "mmpl_flash_exp2": [_I, _P, _P, _P, _P, _I, _I] + [_I] * 5

@@ -8,9 +8,12 @@ Port of `mmpl_tpu/ops/attention.py`.  Layout is [B, L, N, D] throughout.
     whole frames, `models/fps_dit.py`); training's cross-attention runs it
     too.  In bf16 / fp16, K1 runs the Hopper body of
     `csrc/flash_fwd_sm90.cuh` (wgmma, TMA, a producer warpgroup and two
-    consumer warpgroups, exp2 softmax); fp32 K1 runs the split-TF32 Hopper
-    body of `csrc/flash_fwd_f32_sm90.cuh` (each operand as two TF32 parts,
-    three wgmma passes a product).  The same holds for K2 / K3: bf16 /
+    consumer warpgroups, exp2 softmax) under the schedule `fwd_schedule`
+    picks: a block per 128-query block, a persistent walk over them at
+    short keys, or a split of the keys and a merge where few query blocks
+    meet long keys (`csrc/flash_fwd_sched_sm90.cuh`); fp32 K1 runs the
+    split-TF32 Hopper body of `csrc/flash_fwd_f32_sm90.cuh` (each operand
+    as two TF32 parts, three wgmma passes a product).  The same holds for K2 / K3: bf16 /
     fp16 run the Hopper body of `csrc/flash_bwd_sm90.cuh`, whose dKV splits
     each key block's query loop over `bwd_query_splits` blocks where the key
     blocks alone would not fill the card; fp32 K2 runs the split-TF32 body
@@ -42,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import struct
 import threading
 from fractions import Fraction
 from typing import List, NamedTuple, Optional, Tuple
@@ -54,6 +58,9 @@ _count_lock = threading.Lock()
 launch_counts = {"flash_fwd": 0, "flash_masked_fwd": 0, "flash_bwd_dkv": 0,
                  "flash_bwd_dq": 0, "flash_masked_bwd_dkv": 0,
                  "flash_masked_bwd_dq": 0, "flash_exp2": 0}
+#: K1's launches (`launch_counts["flash_fwd"]`) by the schedule that ran
+#: them (`fwd_schedule`)
+fwd_mode_launches = {"grid": 0, "persistent": 0, "split": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -91,10 +98,24 @@ BWD_MAX_SPLITS = 16
 BWD_MIN_SPLIT_TILES = 4
 BWD_MAX_WORKSPACE = 64 << 20
 
+#: K1's schedules, by their code in `mmpl_flash_fwd_sched`
+#: (csrc/flash_fwd.cu), and its 128-query blocks and 128-key tiles
+#: (csrc/flash_fwd_sm90.cuh kBlockM, kBlockN)
+FWD_MODES = {"grid": 0, "persistent": 1, "split": 2}
+FWD_BLOCK = 128
+#: the persistent walk runs where a unit walks at most this many key tiles
+FWD_PERSISTENT_MAX_TILES = 32
+#: the key split's limits: splits, key tiles per split, and bytes of the
+#: fp32 workspace (each split's O and lse)
+FWD_MAX_SPLITS = 16
+FWD_MIN_SPLIT_TILES = 4
+FWD_MAX_WORKSPACE = 64 << 20
+
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, fwd_mode_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def bwd_query_splits(B: int, N: int, Lq: int, Lk: int, sms: int) -> int:
@@ -121,6 +142,60 @@ def bwd_split_rows(Lq: int, splits: int) -> List[Tuple[int, int]]:
     splits) of the T = ceil(Lq / 64), the last one ragged."""
     tiles = -(-Lq // BWD_QUERY_TILE)
     edge = lambda z: min(z * tiles // splits * BWD_QUERY_TILE, Lq)
+    return [(edge(z), edge(z + 1)) for z in range(splits)]
+
+
+@functools.lru_cache(maxsize=4096)
+def fwd_schedule(B: int, N: int, Lq: int, Lk: int, D: int,
+                 sms: int) -> Tuple[str, int]:
+    """(mode, splits) of bf16 / fp16 K1 on a card of `sms` SMs, over units
+    of 128 query rows of one (batch, head) and 128-key tiles:
+
+      * "split", s > 1 splits: where the units, B * N * ceil(Lq / 128),
+        fill at most half the card (`split_keys`: the GAN head's one
+        query row over 32760 keys, 24 units);
+      * "persistent": where a unit walks at most FWD_PERSISTENT_MAX_TILES
+        key tiles (the text and image cross-attention at 512 and 257
+        keys, the CLIP tower's 257, the i2v plan's groups 0 and 1, the
+        serving window's group 0 at 3120);
+      * "grid", one block per unit, elsewhere: the long self-attention,
+        the parent's schedule, kept as it was.
+
+    The crossovers, from `tools/flash_compare`'s device times of each
+    schedule on an H100 (PERF.md, Findings): the persistent walk ran
+    1.36-1.60x the grid at 257-512 keys (1.0x at the CLIP tower's 48
+    units) and 1.09-1.12x at 1560-3120 keys (13-25 tiles); from 110 tiles
+    on, 0.97-1.09x, no side winning.  D does not move the choice; it
+    sizes the split's workspace."""
+    if 2 * B * N * -(-Lq // FWD_BLOCK) <= sms:
+        splits = split_keys(B, N, Lq, Lk, D, sms)
+        if splits > 1:
+            return "split", splits
+    return ("persistent" if -(-Lk // FWD_BLOCK) <= FWD_PERSISTENT_MAX_TILES
+            else "grid"), 1
+
+
+def split_keys(B: int, N: int, Lq: int, Lk: int, D: int, sms: int) -> int:
+    """How many key ranges K1's units, B * N * ceil(Lq / 128), split into
+    on `sms` SMs: as many as fill the card once, sms // units, with at
+    most FWD_MAX_SPLITS, at least FWD_MIN_SPLIT_TILES of the ceil(Lk /
+    128) key tiles a split and the splits' fp32 O and lse (B * N * Lq * (D
+    + 1) floats each) within FWD_MAX_WORKSPACE; 1 where that leaves fewer
+    than two.  One wave: at the GAN head's one query row (24 units, bound
+    by the bytes of K and V) two waves of splits ran no faster than one on
+    the H100 (`tools/flash_compare` times both; PERF.md)."""
+    units = B * N * -(-Lq // FWD_BLOCK)
+    return max(1, min(sms // max(units, 1), FWD_MAX_SPLITS,
+                      -(-Lk // FWD_BLOCK) // FWD_MIN_SPLIT_TILES,
+                      FWD_MAX_WORKSPACE // max(1, B * N * Lq * (D + 1) * 4)))
+
+
+def fwd_split_keys(Lk: int, splits: int) -> List[Tuple[int, int]]:
+    """The keys [start, end) of each split, as the split kernel deals them:
+    split z takes the key tiles [z * T // splits, (z + 1) * T // splits)
+    of the T = ceil(Lk / 128), the last one ragged."""
+    tiles = -(-Lk // FWD_BLOCK)
+    edge = lambda z: min(z * tiles // splits * FWD_BLOCK, Lk)
     return [(edge(z), edge(z + 1)) for z in range(splits)]
 
 
@@ -228,6 +303,43 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (O [B, Lq, N, D] in q's dtype, lse [B, N, Lq] fp32).
     """
     return _plain_fwd(q, k, v, _scale(q, scale))
+
+
+def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, splits: int,
+                                scale: Optional[float] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of K1's key split: each range of `fwd_split_keys`
+    through `_plain_fwd`, kept as (O fp32, lse), then merged in split order
+    as the merge kernel folds them: w_z = exp(lse_z - max lse), O = sum_z
+    w_z O_z / sum_z w_z, lse = max + log sum_z w_z.  A row whose every
+    range has lse = -inf gets O = 0 and lse = -inf (no NaN).  Returns (O in
+    q's dtype, lse [B, N, Lq] fp32)."""
+    sc = _scale(q, scale)
+    out, lse = merge_splits([_plain_fwd(q.float(), k[:, a:b], v[:, a:b], sc)
+                             for a, b in fwd_split_keys(k.shape[1], splits)])
+    return out.to(q.dtype), lse
+
+
+def merge_splits(parts) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold (O fp32 [B, Lq, N, D], lse [B, N, Lq]) of key ranges in their
+    order, as the merge kernel does: O = sum_z w_z O_z * (1 / sum_z w_z)
+    with w_z = exp(lse_z - max lse), lse = max + log sum_z w_z; a range
+    with lse = -inf weighs 0, and a row whose every range has lse = -inf
+    gets O = 0 and lse = -inf.  Returns (O fp32, lse)."""
+    m = torch.stack([lse for _, lse in parts]).amax(0)        # [B, N, Lq]
+    live = m != -math.inf
+    shift = torch.where(live, m, torch.zeros_like(m))
+    total = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][0])
+    for o, lse in parts:
+        w = torch.where(live, torch.exp(lse - shift), 0.0)   # exp(-inf) = 0
+        total = total + w
+        acc = acc + w.transpose(1, 2)[..., None] * o
+    inv = torch.where(live, 1.0 / torch.where(live, total, 1.0), 0.0)
+    lse = torch.where(live, m + torch.log(torch.where(live, total, 1.0)),
+                      m)
+    return acc * inv.transpose(1, 2)[..., None], lse
 
 
 def flash_attention_bwd_plain(q, k, v, do, lse, delta, scale=None):
@@ -394,12 +506,16 @@ def mask_tiles(q_frame_ids: torch.Tensor, kv_frame_ids: torch.Tensor,
 
 def _check_operand(what: str, name: str, x: torch.Tensor,
                    dtype: torch.dtype) -> None:
+    """x [B, L, N, D]: q's dtype, a contiguous head dim, 16-byte aligned
+    with strides that are multiples of 16 bytes (written out: the short
+    shapes' calls are host-bound)."""
     if x.dtype != dtype:
         raise ValueError(f"{what}: {name} is {x.dtype}, q is {dtype}")
-    if x.stride(-1) != 1:
+    st = x.stride()
+    if st[3] != 1:
         raise ValueError(f"{what}: {name} needs a contiguous head dim")
     vec = 16 // x.element_size()
-    if x.data_ptr() % 16 or any(s % vec for s in x.stride()[:3]):
+    if x.data_ptr() % 16 or st[0] % vec or st[1] % vec or st[2] % vec:
         raise ValueError(f"{what}: {name} must be 16-byte aligned with "
                          f"strides that are multiples of {vec} elements")
 
@@ -468,17 +584,39 @@ _LAUNCH_ERRORS = {-1: "cuTensorMapEncodeTiled is not available",
                   -2: "cuTensorMapEncodeTiled refused an operand's TMA map"}
 
 
-def _launch(lib_name: str, fn: str, counter: str, device, *args) -> None:
+def _launch(lib_name: str, fn: str, counter: str, device, *args,
+            mode: Optional[str] = None) -> None:
+    """Call `fn` of `csrc/<lib_name>.cu` on `device`'s current stream (the
+    raw stream and no device switch where `device` is current: the short
+    shapes' calls are host-bound) and count the launch (K1's also by its
+    schedule `mode`)."""
     from . import _build
-    lib = _build.library(lib_name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
+    call = getattr(_build.library(lib_name), fn)
+    index = device.index
+    if index == torch.cuda.current_device():
+        rc = call(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(device):
+            rc = call(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         why = _LAUNCH_ERRORS.get(rc, f"CUDA error {rc}")
         raise RuntimeError(f"{counter} launch failed: {why}")
     with _count_lock:
         launch_counts[counter] += 1
+        if mode is not None:
+            fwd_mode_launches[mode] += 1
+
+
+def _sched_args(q, k, v, o, lse, ws, mode: str, splits: int,
+                sms: int) -> bytes:
+    """The integer arguments of `mmpl_flash_fwd_sched` (csrc/flash_fwd.cu
+    `SchedArgs`) packed as 27 int64s, one ctypes argument."""
+    B, Lq, N, D = q.shape
+    return struct.pack(
+        "27q", _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), 0 if ws is None else ws.data_ptr(),
+        FWD_MODES[mode], splits, sms, B, Lq, k.shape[1], N, D,
+        *_strides(q, k, v, o))
 
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -491,9 +629,10 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q [B, Lq, N, D], k/v [B, Lk, N, D]; fp32, bf16 or fp16 with D a
     multiple of 8 up to 128.  Returns (O, lse [B, N, Lq]), lse in natural
-    log.  bf16 / fp16 run the Hopper body (K4 over `tiles.fwd`, up to
-    SM90_MAX_FRAMES frames); fp32 K1 and K4 the split-TF32 Hopper body (K4
-    over `tiles.t64`).
+    log.  bf16 / fp16 run the Hopper body (K1 under `fwd_schedule`'s
+    schedule, with an fp32 workspace when it splits the keys; K4 over
+    `tiles.fwd`, up to SM90_MAX_FRAMES frames); fp32 K1 and K4 the
+    split-TF32 Hopper body (K4 over `tiles.t64`).
     K1 takes its scale with log2(e) folded in (its softmax is exp2); K4's
     entry takes the natural scale."""
     what = "flash_fwd" if mask is None else "flash_masked_fwd"
@@ -505,17 +644,22 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B, N, Lq), dtype=torch.float32, device=q.device)
     if Lq == 0:
         return o, lse
-    head = [_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr()]
-    tail = [B, Lq, Lk, N, D] + _strides(q, k, v, o)
     if mask is None:
-        _launch("flash_fwd", "mmpl_flash_fwd", what, q.device, *head, *tail,
-                float(scale * LOG2E))
+        sms = _sm_count(q.device.index)
+        mode, splits = (("grid", 1) if q.dtype == torch.float32
+                        else fwd_schedule(B, N, Lq, Lk, D, sms))
+        ws = (torch.empty(splits * B * N * Lq * (D + 1), dtype=torch.float32,
+                          device=q.device) if splits > 1 else None)
+        _launch("flash_fwd", "mmpl_flash_fwd_sched", what, q.device,
+                _sched_args(q, k, v, o, lse, ws, mode, splits, sms),
+                float(scale * LOG2E), mode=mode)
     else:
         margs = _mask_args(what, mask, tiles, Lq, Lk, q.device,
                            COARSE_TABLE["fwd"], q.dtype != torch.float32)
         _launch("flash_fwd", "mmpl_flash_masked_fwd", what, q.device,
-                *head, *margs, *tail, float(scale))
+                _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), lse.data_ptr(), *margs, B, Lq,
+                Lk, N, D, *_strides(q, k, v, o), float(scale))
     return o, lse
 
 

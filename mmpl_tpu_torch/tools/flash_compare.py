@@ -38,6 +38,19 @@ bound.  The card's name and power limit come first; for `fwd` a last line
 says whether each Hopper kernel (`*_sm90_kernel`) compiled to the same
 SASS in both trees (`cuobjdump -sass`).
 
+For bf16 K1 (`--kernel fwd`) this tree runs its scheduled entry
+(`call_sched`, `mmpl_flash_fwd_sched`) under `ops.attention.fwd_schedule`'s
+schedule, which each row names (`mode`, `splits`); a baseline with that
+entry runs it under the same schedule, an earlier one its
+`mmpl_flash_fwd` (one block per 128-query block).  Each row adds the same
+turns by device time (`device`: `utils.profiling.queued_ms`, calls queued
+behind a spinning kernel, so the host's time around the launches is not
+counted), SDPA's device time, and this tree's device time under every
+schedule (`modes_ms`: the grid, the persistent walk and, where the chooser
+splits the keys, its split, one fewer and twice as many and one), from
+which the chooser's thresholds were read.  `SHAPES` holds the rows where
+the parent trailed SDPA and the long rows whose time must hold.
+
 `--dtype float32` (fwd and bwd) runs K1, or K2 and K3, on fp32 inputs at
 `F32_SHAPES`, the fp32 trunk's attention in the trainer's ODE and
 distillation objectives, and adds to each row the plain version's time
@@ -107,13 +120,31 @@ from ..ops import attention as attn
 from ..ops import quant
 from ..utils.profiling import queued_ms
 
-#: (label, B, N, D, Lq, Lk) of K1: the serving window's group 1 and group 3
-#: self-attention, its text cross-attention, the few-step steady state
+#: (label, B, N, D, Lq, Lk) of K1 (chip_smoke.py K1_SHAPES): the serving
+#: window's self-attention groups and its text cross-attention, the i2v
+#: plan's group 0, the few-step steady state and its cross-attention, the
+#: teacher-forcing cross-attention, WanI2V's self, text and image
+#: attention and its CLIP tower, the bidirectional pipeline's, the
+#: critic's and the causal-diffusion block's self-attention, and the GAN
+#: head's one query row
 SHAPES = {
+    "group0_self": (2, 12, 128, 3120, 3120),
     "group1_self": (2, 12, 128, 10920, 14040),
+    "group2_self": (2, 12, 128, 9360, 20280),
     "group3_self": (2, 12, 128, 9360, 32760),
+    "i2v_group0_self": (2, 12, 128, 1560, 1560),
     "cross": (2, 12, 128, 9360, 512),
     "fewstep_self_hot": (1, 12, 128, 4680, 32760),
+    "fewstep_cross": (1, 12, 128, 4680, 512),
+    "tf_cross": (1, 12, 128, 65520, 512),
+    "i2v14b_self": (2, 40, 128, 32760, 32760),
+    "i2v14b_cross": (2, 40, 128, 32760, 512),
+    "i2v14b_img": (2, 40, 128, 32760, 257),
+    "clip_self": (1, 16, 80, 257, 257),
+    "bidir_self": (2, 12, 128, 32760, 32760),
+    "critic_self": (1, 12, 128, 32760, 32760),
+    "cd_block_self": (2, 12, 128, 4680, 32760),
+    "gan_head_q1": (2, 12, 128, 1, 32760),
 }
 #: K2 / K3: the teacher-forcing cross-attention and the few-step steady
 #: state, the self-attention shape of self-forcing training and the ring
@@ -257,6 +288,14 @@ def baseline_takes_log2e(root: Path) -> bool:
     return (baseline_csrc(root) / "flash_fwd_sm90.cuh").exists()
 
 
+def baseline_schedules_k1(root: Path) -> bool:
+    """Whether the baseline's `flash_fwd.cu` has K1's scheduled entry
+    (`mmpl_flash_fwd_sched`: the persistent walk and the key split) or only
+    `mmpl_flash_fwd` (earlier trees)."""
+    src = (baseline_csrc(root) / "flash_fwd.cu").read_text()
+    return re.search(r"mmpl_flash_fwd_sched\(", src) is not None
+
+
 def baseline_splits_queries(root: Path) -> bool:
     """Whether the baseline's dKV entry takes the workspace and the query
     split (the Hopper backward's trees) or not (earlier trees)."""
@@ -301,7 +340,9 @@ def baseline_signatures(root: Path, source: str) -> dict:
                   else OLD_MASKED_SIGNATURES[n])
               for n in sigs if n.startswith("mmpl_flash_masked")}
     if source == "flash_fwd":
-        return {"mmpl_flash_fwd": sigs["mmpl_flash_fwd"], **masked}
+        sched = ({"mmpl_flash_fwd_sched": sigs["mmpl_flash_fwd_sched"]}
+                 if baseline_schedules_k1(root) else {})
+        return {"mmpl_flash_fwd": sigs["mmpl_flash_fwd"], **sched, **masked}
     return {"mmpl_flash_bwd_dkv": (sigs["mmpl_flash_bwd_dkv"]
                                    if baseline_splits_queries(root)
                                    else OLD_DKV_SIGNATURE),
@@ -353,6 +394,23 @@ def call_k1(lib, log2e: bool, q, k, v):
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
+    return o, lse
+
+
+def call_sched(lib, mode: str, splits: int, q, k, v):
+    """K1 of a built `flash_fwd` library with `mmpl_flash_fwd_sched` under
+    the schedule `mode` (`attn.FWD_MODES`) on CUDA tensors: (O, lse)."""
+    B, Lq, N, D = q.shape
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((B, N, Lq), dtype=torch.float32, device=q.device)
+    ws = (torch.empty(splits * B * N * Lq * (D + 1), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
+    rc = lib.mmpl_flash_fwd_sched(
+        attn._sched_args(q, k, v, o, lse, ws, mode, splits,
+                         attn._sm_count(q.device.index)),
+        float(D ** -0.5 * attn.LOG2E), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 ({mode}) launch failed: CUDA error {rc}")
     return o, lse
 
 
@@ -559,30 +617,52 @@ def _efficient_sdpa():
 def run_fwd(args, smi: str) -> list:
     lib = build_baseline(args.baseline)
     log2e = baseline_takes_log2e(args.baseline)
+    scheduled = baseline_schedules_k1(args.baseline)
     mine = _build.library("flash_fwd")
     gen = torch.Generator(device="cuda").manual_seed(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dtype = DTYPES[args.dtype]
     f32 = dtype == torch.float32
+    sms = attn._sm_count(torch.cuda.current_device())
     rows = []
     for label in args.shapes:
         B, N, D, Lq, Lk = _shapes(args)[label]
         q, k, v = (torch.randn((B, L, N, D), generator=gen, device="cuda")
                    .to(dtype) for L in (Lq, Lk, Lk))
         po, _ = attn.flash_attention_plain(q, k, v)
-        base = lambda: call_k1(lib, log2e, q, k, v)
-        this = lambda: call_k1(mine, True, q, k, v)
+        mode, splits = (("grid", 1) if f32
+                        else attn.fwd_schedule(B, N, Lq, Lk, D, sms))
+        base = ((lambda: call_sched(lib, mode, splits, q, k, v)) if scheduled
+                else (lambda: call_k1(lib, log2e, q, k, v)))
+        this = lambda: call_sched(mine, mode, splits, q, k, v)
         err = lambda f: (f()[0].float() - po.float()).abs().max().item()
         row = {"kernel": "fwd", "dtype": args.dtype, "shape": label, "B": B,
-               "N": N, "D": D, "Lq": Lq, "Lk": Lk,
-               "baseline_max_abs_err": err(base),
+               "N": N, "D": D, "Lq": Lq, "Lk": Lk, "mode": mode,
+               "splits": splits, "baseline_max_abs_err": err(base),
                "this_max_abs_err": err(this)}
-        del po
         row.update(_turns(base, this, args.reps))
+        # the same turns by device time: no host time between the calls
+        row["device"] = _turns(base, this, args.reps, queued_ms)
+        if not f32:
+            # this tree under each schedule by device time, for the
+            # chooser's crossovers
+            # where the chooser splits: its split, one fewer and twice as
+            # many and one (a second wave)
+            n = splits if mode == "split" else 1
+            forced = [("grid", 1), ("persistent", 1)] + [
+                ("split", x) for x in sorted({max(2, n - 1), n, 2 * n + 1})
+                if n > 1 and x <= attn.FWD_MAX_SPLITS]
+            row["modes_ms"], row["modes_max_abs_err"] = {}, {}
+            for m, n in forced:
+                run = lambda: call_sched(mine, m, n, q, k, v)
+                row["modes_max_abs_err"][f"{m}/{n}"] = err(run)
+                row["modes_ms"][f"{m}/{n}"] = queued_ms(run, args.reps)
+        del po
+        library = lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2))
         with _efficient_sdpa() if f32 else contextlib.nullcontext():
-            row["sdpa_ms"] = time_ms(lambda: sdpa(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
-                args.reps)
+            row["sdpa_ms"] = time_ms(library, args.reps)
+            row["sdpa_device_ms"] = queued_ms(library, args.reps)
         if f32:
             row["plain_ms"] = time_ms(
                 lambda: attn.flash_attention_plain(q, k, v), PLAIN_REPS)

@@ -28,13 +28,18 @@ import torch
 
 #: the `__global__` functions of `csrc/`, by launch counter.  K1, K4, P1,
 #: K2, K3, K5 and K6 have a Hopper kernel (bf16 / fp16) and, in fp32, a
-#: split-TF32 Hopper kernel;
+#: split-TF32 Hopper kernel; bf16 / fp16 K1 also has its persistent and
+#: key-split kernels, the split's launch adding its merge (one K1 launch
+#: whatever the schedule);
 #: K2's Hopper launch adds its reduce when it splits the queries.  The
 #: masked kernels (K4-K6) are kernels of their own names.  P2 has one body;
 #: Q reads a row once, or twice beyond the rows its registers hold
 _KERNELS = {
     "flash_fwd_sm90_kernel": "flash_fwd",
     "flash_fwd_f32_sm90_kernel": "flash_fwd",
+    "flash_fwd_persistent_sm90_kernel": "flash_fwd",
+    "flash_fwd_split_sm90_kernel": "flash_fwd",
+    "flash_fwd_merge_kernel": "flash_fwd",
     "flash_masked_fwd_sm90_kernel": "flash_masked_fwd",
     "flash_masked_fwd_f32_sm90_kernel": "flash_masked_fwd",
     "flash_exp2_sm90_kernel": "flash_exp2",

@@ -154,17 +154,128 @@ def test_hopper_k1_reads_the_fused_qkv_in_place(cuda, dtype, d):
     assert o_err <= 2e-2 and lse_err <= 1e-3, (o_err, lse_err)
 
 
-@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "flash_fwd_sm90"),
-                                        (torch.float16, "flash_fwd_sm90"),
-                                        (torch.float32, "flash_fwd_f32_sm90")])
+@pytest.mark.parametrize("dtype,body", [
+    (torch.bfloat16, "flash_fwd_persistent_sm90"),
+    (torch.float16, "flash_fwd_persistent_sm90"),
+    (torch.float32, "flash_fwd_f32_sm90")])
 def test_k1_runs_the_body_of_its_type(cuda, dtype, body):
-    """bf16 / fp16 K1 runs the Hopper kernel, fp32 the split-TF32 Hopper
-    kernel; the profiler attribution books each to K1."""
+    """bf16 / fp16 K1 runs the Hopper kernel (at 300 keys its persistent
+    walk), fp32 the split-TF32 Hopper kernel; the profiler attribution
+    books each to K1."""
     from mmpl_tpu_torch.utils.profiling import port_kernel_of
     q, k, v = _qkv(200, 300, 64, dtype, cuda)
     names = _launched(lambda: ta.flash_fwd_cuda(q, k, v))
     mine = [n for n in names if port_kernel_of(n) == "flash_fwd"]
     assert len(mine) == 1 and body in mine[0], names
+
+
+# ---------------------------------------------------------------------------
+# bf16 / fp16 K1's schedules (csrc/flash_fwd_sched_sm90.cuh): the persistent
+# walk and the key split with its merge, forced through `fwd_schedule`
+# ---------------------------------------------------------------------------
+
+#: the kernel each schedule launches (the split also its merge)
+SCHEDULE_KERNELS = {"grid": "flash_fwd_sm90_kernel",
+                    "persistent": "flash_fwd_persistent_sm90_kernel",
+                    "split": "flash_fwd_split_sm90_kernel"}
+
+
+def _force(monkeypatch, mode, lk):
+    """Make K1 run `mode`: the split over min(3, key tiles) ranges."""
+    splits = min(3, -(-lk // ta.FWD_BLOCK)) if mode == "split" else 1
+    monkeypatch.setattr(ta, "fwd_schedule", lambda *a: (mode, splits))
+    return splits
+
+
+def _schedule_of(names):
+    mine = [n for n in names if "flash_fwd" in n and "merge" not in n]
+    assert len(mine) == 1, names
+    merged = any("flash_fwd_merge_kernel" in n for n in names)
+    mode = next(m for m, k in SCHEDULE_KERNELS.items() if k in mine[0])
+    assert merged is (mode == "split"), names
+    return mode
+
+
+SCHEDULE_CASES = [(mode, lq, lk, d)
+                  for mode in ("persistent", "split")
+                  for lq in (1, 7, 128, 129)
+                  for lk in (1, 127, 257, 512, 32760)
+                  for d in (24, 80, 128)
+                  if mode == "persistent" or lk > ta.FWD_BLOCK]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mode,lq,lk,d", SCHEDULE_CASES)
+def test_k1_schedules_match_plain(cuda, monkeypatch, mode, lq, lk, d, dtype):
+    """The persistent walk and the key split against the plain version at
+    the chooser's edges: one and a few query rows, a whole and a ragged
+    query block, one key, a ragged tile, 257 and 512 keys, 32760 keys,
+    head dims below 128 (the schedules pad every head dim to 128); each
+    call launches K1 once, booked to its schedule."""
+    _force(monkeypatch, mode, lk)
+    q, k, v = _qkv(lq, lk, d, dtype, cuda, seed=lq + lk + d)
+    ta.reset_launch_counts()
+    o_err, lse_err = _errors(q, k, v)
+    assert ta.launch_counts["flash_fwd"] == 1
+    assert ta.fwd_mode_launches == {**dict.fromkeys(ta.fwd_mode_launches, 0),
+                                    mode: 1}
+    tol = 2e-2 if dtype == torch.bfloat16 else 5e-3
+    assert o_err <= tol and lse_err <= 1e-3, (o_err, lse_err)
+
+
+@pytest.mark.parametrize("mode", ["persistent", "split"])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.float16, 80)])
+def test_k1_schedules_read_the_fused_qkv_in_place(cuda, monkeypatch, mode,
+                                                  dtype, d):
+    """q, k, v as views of one fused [B, L, 3 * N * D] projection."""
+    _force(monkeypatch, mode, 700)
+    qkv = torch.randn((2, 700, 3 * 4 * d), generator=torch.Generator(
+        device=cuda).manual_seed(d), device=cuda).to(dtype)
+    q, k, v = (x.unflatten(-1, (4, d)) for x in qkv.chunk(3, -1))
+    assert q.stride(1) == 3 * 4 * d
+    o_err, lse_err = _errors(q, k, v)
+    assert o_err <= 2e-2 and lse_err <= 1e-3, (o_err, lse_err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k1_split_gives_the_same_bits_on_every_call(cuda, monkeypatch,
+                                                    dtype):
+    """The merge folds the splits in a fixed order, not with atomics."""
+    _force(monkeypatch, "split", 5000)
+    q, k, v = _qkv(3, 5000, 128, dtype, cuda, seed=4)
+    first = ta.flash_fwd_cuda(q, k, v)
+    for _ in range(3):
+        for x, y in zip(ta.flash_fwd_cuda(q, k, v), first):
+            assert torch.equal(x, y)
+
+
+def test_k1_split_matches_its_plain_version(cuda, monkeypatch):
+    """The split kernels and the plain split path agree (both round P
+    and merge the same ranges in the same order)."""
+    splits = _force(monkeypatch, "split", 1000)
+    q, k, v = _qkv(130, 1000, 128, torch.bfloat16, cuda, seed=6)
+    o, lse = ta.flash_fwd_cuda(q, k, v)
+    po, plse = ta.flash_attention_split_plain(q, k, v, splits)
+    torch.cuda.synchronize()
+    assert (o.float() - po.float()).abs().max().item() <= 2e-2
+    assert (lse - plse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("B,N,lq,lk", [(2, 12, 1024, 8192),
+                                       (2, 12, 1000, 512),
+                                       (2, 12, 1, 32760)])
+def test_k1_runs_the_schedule_the_chooser_names(cuda, B, N, lq, lk):
+    """The kernel the profiler sees is the one of `fwd_schedule`'s mode
+    (on an H100: a long shape on the grid, 512 keys on the persistent
+    walk, one query row over 32760 keys split), one K1 launch a call."""
+    q, k, v = _qkv(lq, lk, 128, torch.bfloat16, cuda, B=B, N=N)
+    want, _ = ta.fwd_schedule(B, N, lq, lk, 128, ta._sm_count(cuda.index or 0))
+    ta.reset_launch_counts()
+    names = _launched(lambda: ta.flash_fwd_cuda(q, k, v))
+    assert _schedule_of(names) == want
+    calls = ta.launch_counts["flash_fwd"]
+    assert calls >= 1 and ta.fwd_mode_launches[want] == calls
 
 
 @pytest.mark.parametrize("dtype,body", [

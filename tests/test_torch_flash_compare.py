@@ -45,8 +45,23 @@ def test_compare_needs_the_card(tmp_path, monkeypatch):
         flash_compare.run(args)
 
 
+def test_the_compare_times_every_short_k1_row():
+    """The rows where the parent's K1 trailed SDPA, the main path's groups
+    and the long rows whose time must hold are all in `SHAPES`."""
+    for label in ("group0_self", "group1_self", "group2_self", "group3_self",
+                  "i2v_group0_self", "cross", "fewstep_self_hot",
+                  "fewstep_cross", "tf_cross", "i2v14b_self", "i2v14b_cross",
+                  "i2v14b_img", "clip_self", "bidir_self", "critic_self",
+                  "cd_block_self", "gan_head_q1"):
+        assert label in flash_compare.SHAPES
+    assert flash_compare.SHAPES["gan_head_q1"] == (2, 12, 128, 1, 32760)
+    assert flash_compare.SHAPES["clip_self"] == (1, 16, 80, 257, 257)
+
+
 @pytest.mark.parametrize("argv,kernel,shapes", [
     ([], "fwd", list(flash_compare.SHAPES)),
+    (["--shapes", "gan_head_q1", "i2v14b_img"], "fwd",
+     ["gan_head_q1", "i2v14b_img"]),
     (["--kernel", "bwd"], "bwd", ["tf_cross", "fewstep_self_hot"]),
     (["--kernel", "bwd", "--shapes", "tf_cross"], "bwd", ["tf_cross"]),
     (["--kernel", "int8"], "int8",
@@ -219,7 +234,8 @@ NEW_K6_ENTRY = """extern "C" int mmpl_flash_masked_bwd_dq(int dtype,
 
 def test_baseline_with_the_hopper_k6_binds_its_coarse_table(tmp_path):
     """A baseline whose K6 entry takes the coarse table (a tree with the
-    Hopper K6) has this tree's K4-K6 signatures."""
+    Hopper K6) has this tree's K4-K6 signatures (and, without K1's
+    scheduled entry, this tree's other entries but that one)."""
     root = _checkout(tmp_path, "flash_fwd.cu", "flash_bwd.cu",
                      "flash_common.cuh", "flash_fwd_sm90.cuh",
                      "flash_bwd_sm90.cuh")
@@ -230,7 +246,30 @@ def test_baseline_with_the_hopper_k6_binds_its_coarse_table(tmp_path):
     for source in ("flash_fwd", "flash_bwd"):
         assert flash_compare.baseline_signatures(root, source) == {
             n: sig for n, sig in _build.SIGNATURES[source].items()
-            if n != "mmpl_flash_exp2"}
+            if n not in ("mmpl_flash_exp2", "mmpl_flash_fwd_sched")}
+
+
+#: the scheduled K1 entry's first line in the trees that have it
+SCHED_ENTRY = """extern "C" int mmpl_flash_fwd_sched(const void* packed,
+    float scale, void* stream) {"""
+
+
+@pytest.mark.parametrize("scheduled", [False, True])
+def test_baseline_k1_schedules_follow_its_sources(tmp_path, scheduled):
+    """A baseline with `mmpl_flash_fwd_sched` is timed through it under
+    this tree's schedule (and bound by this tree's signature); one without
+    it through `mmpl_flash_fwd` alone."""
+    root = _checkout(tmp_path, "flash_fwd.cu", "flash_common.cuh",
+                     "flash_fwd_sm90.cuh")
+    csrc = root / "mmpl_tpu_torch" / "csrc"
+    (csrc / "flash_fwd.cu").write_text(
+        NEW_K4_ENTRY + ("\n" + SCHED_ENTRY if scheduled else ""))
+    assert flash_compare.baseline_schedules_k1(root) is scheduled
+    sigs = flash_compare.baseline_signatures(root, "flash_fwd")
+    assert ("mmpl_flash_fwd_sched" in sigs) is scheduled
+    if scheduled:
+        assert sigs["mmpl_flash_fwd_sched"] == \
+            _build.SIGNATURES["flash_fwd"]["mmpl_flash_fwd_sched"]
 
 
 def test_masked_compare_needs_the_card(tmp_path, monkeypatch):

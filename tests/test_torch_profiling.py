@@ -1,8 +1,8 @@
 """`utils.profiling.port_kernel_of`: the profiler's kernel names, mangled
 and demangled, booked to the port kernel (launch counter) they belong to.
 The names are those the card's build gives K1 and K4 (the Hopper body in
-bf16 / fp16; in fp32 K1's split-TF32 Hopper body, K4 as its masked
-kernel), P1 (the Hopper body; in fp32 the P1 kernel of K1's split-TF32
+bf16 / fp16, K1 also its persistent and key-split kernels and the split's
+merge; in fp32 K1's split-TF32 Hopper body, K4 as its masked kernel), P1 (the Hopper body; in fp32 the P1 kernel of K1's split-TF32
 body), K2/K3
 (the Hopper backward in bf16 / fp16, K2's reduce kernel included; in fp32
 the split-TF32 Hopper bodies of K2 and K3), K5 and K6 (the Hopper dKV and
@@ -26,6 +26,15 @@ NAMES = [
     ('K1 fp32', 'flash_fwd',
      '_ZN4mmpl4sm9025flash_fwd_f32_sm90_kernelILi128EEEvPKfS3_S3_PfS4_iiiiNS_10FwdStridesEf',
      'void mmpl::sm90::flash_fwd_f32_sm90_kernel<128>(float const*, float const*, float const*, float*, float*, int, int, int, int, mmpl::FwdStrides, float)'),
+    ('K1 persistent', 'flash_fwd',
+     '_ZN4mmpl4sm9032flash_fwd_persistent_sm90_kernelI13__nv_bfloat16Li128EEEv14CUtensorMap_stS3_S3_S3_NS0_11SchedParamsE',
+     'void mmpl::sm90::flash_fwd_persistent_sm90_kernel<__nv_bfloat16, 128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::SchedParams)'),
+    ('K1 split', 'flash_fwd',
+     '_ZN4mmpl4sm9027flash_fwd_split_sm90_kernelI6__halfLi64EEEv14CUtensorMap_stS3_S3_NS0_11SchedParamsE',
+     'void mmpl::sm90::flash_fwd_split_sm90_kernel<__half, 64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::SchedParams)'),
+    ('K1 merge', 'flash_fwd',
+     '_ZN4mmpl4sm9022flash_fwd_merge_kernelI13__nv_bfloat16EEvPKfS4_PT_Pfiiiiixxx',
+     'void mmpl::sm90::flash_fwd_merge_kernel<__nv_bfloat16>(float const*, float const*, __nv_bfloat16*, float*, int, int, int, int, int, long long, long long, long long)'),
     ('K4', 'flash_masked_fwd',
      '_ZN4mmpl4sm9032flash_masked_fwd_f32_sm90_kernelILi128EEEvPKfS3_S3_PfS4_iiiiNS_10FwdStridesEfNS_9FrameMaskE',
      'void mmpl::sm90::flash_masked_fwd_f32_sm90_kernel<128>(float const*, float const*, float const*, float*, float*, int, int, int, int, mmpl::FwdStrides, float, mmpl::FrameMask)'),
