@@ -250,7 +250,7 @@ from mmpl_tpu_torch.pipelines.fps_inference import \
 from mmpl_tpu_torch.training import masks                        # noqa: E402
 from mmpl_tpu_torch.utils.device import set_float32_precision   # noqa: E402
 from mmpl_tpu_torch.utils.profiling import (BODY_CALLS,          # noqa: E402
-                                            device_kernels,
+                                            FUSED_BWD, device_kernels,
                                             port_kernel_of, queued_ms)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -310,14 +310,16 @@ K1_SHAPES = [
 #: the fp32 trunk of the trainer's ODE regression and distillation
 #: objectives (1.3B width, 21 latent frames at 60x104 in blocks of 3): a
 #: block's 4680 queries over 1, 4 and 7 blocks of keys, the critic's and
-#: real score's 32760^2 and the text cross-attention; K1-K3 run them in
-#: fp32 (mmpl_tpu_torch/tools/flash_compare.py F32_SHAPES)
+#: real score's 32760^2, the text cross-attention and the GAN head's
+#: register token (the trainer builds the GAN objective in fp32); K1-K3
+#: run them in fp32 (mmpl_tpu_torch/tools/flash_compare.py F32_SHAPES)
 F32_SHAPES = [
     ("ode_self_1", 1, 12, 128, 4680, 4680, torch.float32),
     ("ode_self_4", 1, 12, 128, 4680, 18720, torch.float32),
     ("ode_self_7", 1, 12, 128, 4680, 32760, torch.float32),
     ("critic_self_f32", 1, 12, 128, 32760, 32760, torch.float32),
     ("ode_cross", 1, 12, 128, 4680, 512, torch.float32),
+    ("gan_head_q1_f32", 2, 12, 128, 1, 32760, torch.float32),
 ]
 K1_SHAPES += F32_SHAPES
 MAIN_SHAPE = "group3_self"
@@ -459,6 +461,11 @@ T0 = time.perf_counter()
 #: K1's launches by schedule (`attn.fwd_mode_launches`) on the paths that
 #: record them: the serving window, the GAN steps
 FWD_MODES_BY_PATH = {}
+#: K3's launches by schedule (`attn.bwd_mode_launches`; a fused launch is
+#: K2's too) on the paths that record them: the teacher-forcing steps (the
+#: cross-attention on K3's persistent walk), the GAN steps (the register
+#: token's backward fused)
+BWD_MODES_BY_PATH = {}
 
 
 def emit(obj) -> None:
@@ -503,7 +510,8 @@ def roofline(flops, nbytes, dtype):
 
 def attention_work(kind, B, N, D, Lq, Lk, dtype, share=1.0, mask_bytes=0):
     """(FLOPs, bytes) of one attention kernel: "fwd" (S, PV: 4 flops per
-    q-k-d triple), "dkv" (S, dP, dV, dK: 8) or "dq" (S, dP, dQ: 6), times
+    q-k-d triple), "dkv" (S, dP, dV, dK: 8), "dq" (S, dP, dQ: 6) or the
+    whole backward, "bwd" (S, dP, dV, dK, dQ once each: 10), times
     the share of (query, key) pairs the mask allows.  Bytes: each input
     read once and each output written once (q/k/v/dO/O/dQ/dK/dV in the
     input type, lse and delta fp32 per query row, the mask's ids and
@@ -514,6 +522,8 @@ def attention_work(kind, B, N, D, Lq, Lk, dtype, share=1.0, mask_bytes=0):
         "fwd_o": (4, 2, 2, 0),  # P1: no lse
         "dkv": (8, 2, 4, 2),    # q, dO | k, v, dk, dv | lse, delta in
         "dq": (6, 3, 2, 2),     # q, dO, dq | k, v | lse, delta in
+        # both: S, dP, dV, dK, dQ once each
+        "bwd": (10, 3, 4, 2),   # q, dO, dq | k, v, dk, dv | lse, delta in
     }[kind]
     flops = mult * B * N * Lq * Lk * D * share
     nbytes = (esize * B * N * D * (q_elems * Lq + k_elems * Lk)
@@ -632,6 +642,22 @@ def _body(names, counter: str, dtype) -> str:
     return body
 
 
+def _bwd_schedule_of(names) -> str:
+    """The schedule a whole backward call ran among `names`: "fused" (the
+    fused walk and its dQ reduce, booked to both K2 and K3, and no other
+    K2 / K3 kernel), else K3's kernel: its persistent walk or the grid."""
+    fused = [n for n in names if port_kernel_of(n) == FUSED_BWD]
+    if fused:
+        check(len(fused) == 2 and any("_reduce_kernel" in n for n in fused)
+              and not _main_kernels(names, "flash_bwd_dq")
+              and not _main_kernels(names, "flash_bwd_dkv"), names)
+        return "fused"
+    main = _main_kernels(names, "flash_bwd_dq")
+    check(len(main) == 1, names)
+    return ("persistent" if "flash_bwd_dq_persistent_sm90_kernel" in main[0]
+            else "grid")
+
+
 def _fwd_schedule_of(names) -> str:
     """The schedule K1's launch ran among `names` (its kernel's name)."""
     main = _main_kernels(names, "flash_fwd")
@@ -741,9 +767,10 @@ def _grad_errors(row, got, want, dtype, blind_rows=None):
         check(row[f"{name}_rel_err"] <= tol, (row["shape"], name, row))
 
 
-def _library_times(row, q, k, v, do, attn_mask=None):
+def _library_times(row, q, k, v, do, attn_mask=None, device_reps=0):
     """SDPA on the same inputs as the yardstick: forward, backward alone
-    (torch.autograd.grad over a kept graph: dq, dk and dv in one call) and
+    (torch.autograd.grad over a kept graph: dq, dk and dv in one call; with
+    `device_reps`, also its device time over that many queued calls) and
     forward + backward.  With `attn_mask` (the token-level bool mask) or
     fp32 inputs under the memory-efficient backend, the one that takes a
     mask with a backward, and fp32.  Where SDPA refuses the inputs the row
@@ -760,8 +787,11 @@ def _library_times(row, q, k, v, do, attn_mask=None):
             row["library_fwd_ms"] = time_ms(lambda: fwd().detach(),
                                             budget_ms=budget)
             out = fwd()
-            row["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-                out, (qt, kt, vt), dot, retain_graph=True), budget_ms=budget)
+            grad = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True)
+            row["library_bwd_ms"] = time_ms(grad, budget_ms=budget)
+            if device_reps:
+                row["library_bwd_device_ms"] = queued_ms(grad, device_reps)
             del out
             row["library_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
                 fwd(), (qt, kt, vt), dot), budget_ms=budget)
@@ -773,7 +803,11 @@ def _library_times(row, q, k, v, do, attn_mask=None):
 def phase_kernel_bwd():
     """K2 (dK, dV) and K3 (dQ) against the plain backward, with the body
     that ran each (from the profiler's kernel names) and K2's query
-    split."""
+    split; then the whole backward (`flash_bwd_cuda`, one call) under
+    `bwd_schedule`'s mode, the mode that ran (from the profiler), its
+    gradients against the plain backward (the fused walk's also against
+    its plain version) and its time beside SDPA's backward, by wall and
+    device time."""
     rows = {}
     gen = torch.Generator(device="cuda").manual_seed(1)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -792,16 +826,40 @@ def phase_kernel_bwd():
         splits = (1 if dtype == torch.float32
                   else attn.bwd_query_splits(B, N, Lq, Lk, sms))
         reduced = any("_reduce_kernel" in n for n in names)
+        mode = ("grid" if dtype == torch.float32
+                else attn.bwd_schedule(B, N, Lq, Lk, D, sms))
         row = {"phase": "kernel_bwd", "kernel": "flash_bwd_dkv+flash_bwd_dq",
                "shape": label, "B": B, "N": N, "D": D, "Lq": Lq, "Lk": Lk,
                "dtype": str(dtype).replace("torch.", ""),
                "dkv_body": _body(names, "flash_bwd_dkv", dtype),
                "dq_body": _body(names, "flash_bwd_dq", dtype),
-               "splits": splits, "reduce_ran": reduced}
+               "splits": splits, "reduce_ran": reduced, "mode": mode}
         check(reduced == (splits > 1), row)
         _grad_errors(row, (dq, dk, dv), want, dtype)
-        del dq, dk, dv, want
+        # the whole backward, one call, under its schedule (fp32 has one,
+        # the parts' bodies above: no second profiler session)
+        if dtype == torch.float32:
+            out["bwd"] = attn.flash_bwd_cuda(q, k, v, do, lse, delta)
+        else:
+            names = _launched(lambda: out.update(
+                bwd=attn.flash_bwd_cuda(q, k, v, do, lse, delta)))
+            row["mode_ran"] = _bwd_schedule_of(names)
+            check(row["mode_ran"] == mode, row)
+        whole = {"shape": label}
+        _grad_errors(whole, out["bwd"], want, dtype)
+        row.update({f"bwd_{k_}": x for k_, x in whole.items()
+                    if k_ != "shape"})
+        if mode == "fused":
+            fused = {"shape": label}
+            _grad_errors(fused, out["bwd"],
+                         attn.flash_attention_bwd_fused_plain(
+                             q, k, v, do, lse, delta), dtype)
+            row.update({f"fused_plain_{k_}": x for k_, x in fused.items()
+                        if k_ != "shape"})
+        del dq, dk, dv, want, out
         budget = BUDGET_MS[dtype]
+        whole_call = lambda: attn.flash_bwd_cuda(q, k, v, do, lse, delta)
+        row["bwd_ms"] = time_ms(whole_call, budget_ms=budget)
         row["dkv_ms"] = time_ms(
             lambda: attn.flash_bwd_dkv_cuda(q, k, v, do, lse, delta),
             budget_ms=budget)
@@ -810,14 +868,20 @@ def phase_kernel_bwd():
             budget_ms=budget)
         row["plain_ms"] = time_ms(lambda: attn.flash_attention_bwd_plain(
             q, k, v, do, lse, delta), max_reps=PLAIN_REPS[dtype])
-        for part in ("dkv", "dq"):
+        for part in ("dkv", "dq", "bwd"):
             work = attention_work(part, B, N, D, Lq, Lk, dtype)
             row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = roofline(
                 *work, dtype)
             row[f"{part}_tflops"] = work[0] / row[f"{part}_ms"] / 1e9
             row[f"{part}_bound_share"] = (row[f"{part}_bound_ms"]
                                           / row[f"{part}_ms"])
-        _library_times(row, q, k, v, do)
+        # device times: calls queued behind a spin, no host time between
+        # (one call where a call takes 50 ms or more: the host's share is
+        # nothing there)
+        reps = (QUEUED_REPS if row["bwd_ms"] < 5.0
+                else 3 if row["bwd_ms"] < 50.0 else 1)
+        row["bwd_device_ms"] = queued_ms(whole_call, reps)
+        _library_times(row, q, k, v, do, device_reps=reps)
         emit(row)
         rows[label] = row
         del q, k, v, do, o, lse, delta
@@ -1522,7 +1586,8 @@ def _profile_step(step, what: str, phase: str, top: int = 12) -> dict:
 def _by_port(kernels) -> dict:
     """Device ms of each port kernel (by launch counter) among the
     profiler's `kernels`; a Hopper-body kernel (K2's reduce included) must
-    book to K1-K6, P1, P2 or Q, never to nothing; and a masked Hopper
+    book to K1-K6 (K2 and K3's fused walk to both), P1, P2 or Q, never to
+    nothing; and a masked Hopper
     kernel to K4, K5 or K6 alone."""
     by_port = {}
     for e in kernels:
@@ -1530,7 +1595,7 @@ def _by_port(kernels) -> dict:
         if "_sm90_kernel" in e.key or "_reduce_kernel" in e.key:
             check(name in ("flash_fwd", "flash_masked_fwd", "flash_exp2",
                            "flash_bwd_dkv", "flash_masked_bwd_dkv",
-                           "flash_bwd_dq", "flash_masked_bwd_dq",
+                           "flash_bwd_dq", "flash_masked_bwd_dq", FUSED_BWD,
                            "int8_gemm", "quantize_rows"),
                   e.key)
             check(("_masked_" in e.key) == (name in (
@@ -1771,16 +1836,23 @@ def phase_train(timed_steps: int = 2):
         check(math.isfinite(row["loss"]), row)
         check(math.isfinite(row["grad_norm"]) and row["grad_norm"] > 0, row)
     counts = dict(attn.launch_counts)
+    bwd_modes = dict(attn.bwd_mode_launches)
     expected = _train_launches(cfg.num_layers, timed_steps)
     moved = max((ema.shadow[n] - p.detach()).abs().max().item()
                 for n, p in model.named_parameters())
+    # the unmasked backward is the cross-attention's (65520 queries over
+    # 512 text tokens): K3 on its persistent walk
+    want_modes = {**dict.fromkeys(bwd_modes, 0),
+                  "persistent": expected["flash_bwd_dq"]}
+    BWD_MODES_BY_PATH["train"] = bwd_modes
     emit({"phase": "train_total", "launches": counts,
-          "expected_launches": expected,
+          "expected_launches": expected, "flash_bwd_modes": bwd_modes,
           "seconds_per_step": statistics.mean(r["seconds"] for r in steps),
           "max_memory_allocated_gib":
               torch.cuda.max_memory_allocated() / 2**30,
           "ema_minus_params_max_abs": moved})
     check(counts == expected, (counts, expected))
+    check(bwd_modes == want_modes, (bwd_modes, want_modes))
     check(math.isfinite(moved) and moved > 0, moved)
     return counts, step
 
@@ -2920,10 +2992,10 @@ def phase_wan_parity(steps: int = 2):
 #: reckoning of three 1.3B models, two AdamW states and the EMA fits the
 #: 80 GB card at 30 layers) and of the phases cut to 2 layers
 DISTILL_LAYERS = 30
-#: distill_dmd's and the offload phase's depth: the DMD bundle cut to half
-#: the layers, for the script's time limit (PERF.md holds both phases'
-#: numbers at 30 layers, distill_dmd's 40.24 GiB among them)
-DMD_LAYERS = 15
+#: distill_dmd's and the offload phase's depth: the DMD bundle cut to 8 of
+#: its 30 layers, for the script's time limit (PERF.md holds both phases'
+#: numbers at 30 and 15 layers, distill_dmd's 40.24 GiB among them)
+DMD_LAYERS = 8
 #: distill_profile's depth (its session's cost grows with the launches)
 PROFILE_LAYERS = 3
 SHALLOW_LAYERS = 2
@@ -3687,23 +3759,29 @@ def phase_distill_other():
     L, nb = SHALLOW_LAYERS, DISTILL_BLOCKS
     total = {}
 
-    def record(name, fn, expected_of, splits=0):
+    def record(name, fn, expected_of, splits=0, fused=0):
         """`splits`: the K1 launches that split their keys, the register
-        token's (one query row over 32760 keys) on the GAN steps."""
+        token's (one query row over 32760 keys) on the GAN steps; `fused`:
+        its backward's launches, fused."""
         nonlocal total
         (loss, flags), seconds, counts, peak = _run_counted(fn)
         modes = dict(attn.fwd_mode_launches)
+        bwd_modes = dict(attn.bwd_mode_launches)
         expected = expected_of(flags)
         row = {"phase": "distill_other", "objective": name, "layers": L,
                "flag": flags[0] if flags else None, "seconds": seconds,
                "loss": loss, "launches": counts,
                "expected_launches": expected, "flash_fwd_modes": modes,
+               "flash_bwd_modes": bwd_modes,
                "max_memory_allocated_gib": peak}
         emit(row)
         check(counts == expected, row)
         check(modes["split"] == splits, row)
+        check(bwd_modes["fused"] == fused, row)
         if splits:
             FWD_MODES_BY_PATH[name] = modes
+        if fused:
+            BWD_MODES_BY_PATH[name] = bwd_modes
         check(math.isfinite(loss), row)
         total = {k: total.get(k, 0) + counts[k] for k in counts}
 
@@ -3744,10 +3822,10 @@ def phase_distill_other():
 
     record("gan_critic", lambda: _distill_step(
         models, ("fake_score", "gan_head"), gan.gan_critic_loss, batch, ro,
-        gen, nb), gan_critic, splits=3 * 3)
+        gen, nb), gan_critic, splits=3 * 3, fused=3 * 3)
     record("gan_generator", lambda: _distill_step(
         models, ("generator",), gan.gan_generator_loss, batch, ro, gen, nb),
-        graded_gen(classify + trunk, classify), splits=3)
+        graded_gen(classify + trunk, classify), splits=3, fused=3)
     del models
     torch.cuda.empty_cache()
 
@@ -5596,7 +5674,10 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
     `flash_fwd_persistent` and `flash_fwd_split`, their launches those of
     the window and of the GAN steps), K2 / K3 at the training
     cross-attention (and their
-    other shapes under `shapes`), K4-K6 at the
+    other shapes under `shapes`; K3's persistent walk there and the fused
+    walk of K2 and K3 with its dQ reduce at the GAN head's register token,
+    `flash_bwd_dq_persistent` and `flash_bwd_fused`, their launches those
+    of the teacher-forcing steps and of the GAN steps), K4-K6 at the
     training self-attention, P2 at group 3's ffn.fc1, Q at group 3's
     ffn.fc2 input and P1 (its exp2 variant without the pad test) at the
     probe's shape.  `launches` sums the paths each runs on (the training
@@ -5701,12 +5782,52 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
             launches_by_path={"train": train_counts[name],
                               **{p: c[name] for p, c in bwd_paths.items()}},
             shapes={k: {"body": r[f"{part}_body"], "splits": r["splits"],
-                        "ms": r[f"{part}_ms"],
+                        "mode": r["mode"], "ms": r[f"{part}_ms"],
                         "bound_ms": r[f"{part}_bound_ms"],
                         "bound_share": r[f"{part}_bound_share"],
                         "plain_ms": r["plain_ms"],
                         "library_ms": r.get("library_bwd_ms")}
                     for k, r in bwd.items()}))
+    # K2 and K3's other schedules, each at its main shape: K3's persistent
+    # walk at the teacher-forcing cross-attention (K3 alone), the fused
+    # walk with its dQ reduce at the GAN head's register token (the whole
+    # backward, one call)
+    bwd_sched_src = "mmpl_tpu_torch/csrc/flash_bwd_sched_sm90.cuh"
+    for name, mode, at, paths, part, replaces, kernels in (
+            ("flash_bwd_dq_persistent", "persistent", BWD_MAIN, ("train",),
+             "dq", "mmpl_tpu/ops/attention.py:417",
+             ["flash_bwd_dq_persistent_sm90_kernel"]),
+            ("flash_bwd_fused", "fused", "gan_head_q1",
+             ("gan_critic", "gan_generator"), "bwd",
+             "mmpl_tpu/ops/attention.py:373 and :417 (K2 and K3 where the "
+             "queries fit one 64-row tile)",
+             ["flash_bwd_fused_sm90_kernel", "flash_bwd_dq_reduce_kernel"])):
+        r = bwd[at]
+        check(r["mode"] == mode, (name, r["mode"]))
+        by_path = {p: BWD_MODES_BY_PATH[p][mode] for p in paths}
+        errs = ("dq",) if part == "dq" else ("dq", "dk", "dv")
+        out.append(_entry(
+            name, bwd_sched_src, replaces, sum(by_path.values()),
+            max(x[f"{'bwd_' if part == 'bwd' else ''}{e}_max_abs_err"]
+                for x in bwd.values() if x["mode"] == mode for e in errs),
+            r[f"{part}_ms"], r["plain_ms"], r[f"{part}_bound_ms"],
+            r[f"{part}_bound_by"], r.get("library_bwd_ms"), at=at,
+            sources=[bwd_sched_src, bwd_sm90_src, bwd_src],
+            bound_share=r[f"{part}_bound_share"],
+            bwd_ms=r["bwd_ms"], bwd_device_ms=r["bwd_device_ms"],
+            library_device_ms=r.get("library_bwd_device_ms"),
+            launches_by_path=by_path, kernels=kernels,
+            note=(("K3 alone (launch counter flash_bwd_dq) on its "
+                   "persistent walk" if part == "dq" else
+                   "K2 and K3 in one call (one launch of each counter): the "
+                   "fused walk and its dQ reduce")
+                  + "; ms is a call after a synchronise, the wrapper's host "
+                  "time included; bwd_device_ms the whole backward's device "
+                  "time beside SDPA's (library_device_ms); " + bwd_note),
+            shapes={k: {f: x.get(f) for f in (
+                "mode", "bwd_ms", "bwd_device_ms", "dq_ms", "bwd_bound_ms",
+                "library_bwd_ms", "library_bwd_device_ms")}
+                    for k, x in bwd.items() if x["mode"] == mode}))
     masked_bodies = {
         "fwd": ("K1's wgmma + TMA body, masked (flash_fwd_sm90.cuh) for "
                 "bf16 / fp16 over the 128 x 128 table, K1's split-TF32 "

@@ -14,6 +14,11 @@
 //    fp32 K3 the split-TF32 wgmma body of flash_bwd_dq_f32_sm90.cuh (K2's
 //    design turned round: Q and dO resident, 64 queries over 32-key tiles
 //    whose K and V rows and K columns two slots take in turn).
+//    bf16 / fp16 K2 and K3 also run two other schedules
+//    (`flash_bwd_sched_sm90.cuh`, entry `mmpl_flash_bwd_sched`, chosen by
+//    ops/attention.py `bwd_schedule`): a fused walk of both where the
+//    queries fit one 64-row tile (dQ's per-key-block partials summed by a
+//    deterministic reduce), and a persistent walk of K3 at short keys.
 //  * K5 / K6, the same under the frame mask: `_masked_bwd_dkv_kernel`
 //    (:783, :963) and `_masked_bwd_dq_kernel` (:821, :992).  bf16 / fp16
 //    K5 and K6 run the masked instantiations of the Hopper dKV and dQ
@@ -49,10 +54,13 @@
 // element strides with a contiguous head dim; lse and delta contiguous
 // [B, N, Lq] fp32.  64-bit offsets throughout.
 
+#include <cstring>
+
 #include "flash_common.cuh"
 #include "flash_bwd_dq_f32_sm90.cuh"
 #include "flash_bwd_f32_sm90.cuh"
 #include "flash_bwd_sm90.cuh"
+#include "flash_bwd_sched_sm90.cuh"
 
 namespace {
 
@@ -260,4 +268,87 @@ extern "C" int mmpl_flash_masked_bwd_dq(int dtype, const void* q, const void* k,
          make_mask(qf, kf, fm, tiles, F, Lk)};
   a.st = *reinterpret_cast<const Strides*>(strides);
   return masked<false>(dtype, a, coarse, strides, stream);
+}
+
+// The scheduled entry's integer arguments as ops/attention.py
+// `_bwd_sched_args` packs them, 41 int64s: a short shape's call is
+// host-bound, and 25 arguments converted one by one by ctypes cost some of
+// it.  `st`: the element strides (batch, row, head) of q, k, v, dO, dQ, dK
+// and dV (0 for an output the call does not write).
+struct BwdSchedArgs {
+  long long dtype, q, k, v, dout, lse, delta, dq, dk, dv, ws, mode, parts, splits, sms;
+  long long B, Lq, Lk, N, D;
+  long long st[21];
+};
+
+namespace {
+
+// K2 on the grid (its query split over `a.splits` blocks, `a.ws` the
+// split's partials): q, k, v and dO's strides, then dK's and dV's.
+int grid_dkv(const BwdSchedArgs& a, float scale, void* stream) {
+  auto ptr = [](long long x) { return reinterpret_cast<void*>(static_cast<uintptr_t>(x)); };
+  long long st[18];
+  memcpy(st, a.st, 12 * sizeof(long long));
+  memcpy(st + 12, a.st + 15, 6 * sizeof(long long));
+  Args g{ptr(a.q), ptr(a.k), ptr(a.v), ptr(a.dout), ptr(a.lse), ptr(a.delta), ptr(a.dk),
+         ptr(a.dv), (int)a.B, (int)a.Lq, (int)a.Lk, (int)a.N, (int)a.D, {}, scale, FrameMask{}};
+  g.st = *reinterpret_cast<const Strides*>(st);
+  return unmasked<true>((int)a.dtype, g, st, ptr(a.ws), (int)a.splits, stream);
+}
+
+}  // namespace
+
+// K2 and / or K3 under a schedule (ops/attention.py `bwd_schedule`):
+// `parts` 1 dK and dV, 2 dQ, 3 both.  Mode 0: K2 (with its query split
+// over `splits` blocks and the reduce when splits > 1, `ws` its partials)
+// and K3 on one block per key block / query block, as mmpl_flash_bwd_dkv
+// and mmpl_flash_bwd_dq; 1: K2 as in mode 0, K3 under the persistent walk;
+// 2 (parts 3, Lq <= 64): the fused walk and its dQ reduce, `ws` the fp32
+// partials (ceil(Lk / 128) * B * N * Lq * D floats).  Modes 1 and 2 take
+// bf16 / fp16 and run on min(sms, units) blocks.  `scale` is the natural
+// one.
+extern "C" int mmpl_flash_bwd_sched(const void* packed, float scale, void* stream) {
+  BwdSchedArgs a;
+  memcpy(&a, packed, sizeof a);
+  const int dtype = (int)a.dtype, mode = (int)a.mode, parts = (int)a.parts;
+  const int B = (int)a.B, Lq = (int)a.Lq, Lk = (int)a.Lk, N = (int)a.N, D = (int)a.D;
+  if (D <= 0 || D > 128 || D % 8 || mode < 0 || mode > 2 || parts < 1 || parts > 3 ||
+      (mode != 0 && dtype != 1 && dtype != 2) || (mode == 2 && (parts != 3 || a.ws == 0)))
+    return (int)cudaErrorInvalidValue;
+  auto ptr = [](long long x) { return reinterpret_cast<void*>(static_cast<uintptr_t>(x)); };
+  const void *q = ptr(a.q), *k = ptr(a.k), *v = ptr(a.v), *dout = ptr(a.dout);
+  void *dq = ptr(a.dq), *dk = ptr(a.dk), *dv = ptr(a.dv), *ws = ptr(a.ws);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode != 0 && (parts & 2)) {
+    sm90::BwdSchedParams p{static_cast<const float*>(ptr(a.lse)),
+                           static_cast<const float*>(ptr(a.delta)),
+                           mode == 2 ? static_cast<float*>(ws) : nullptr,
+                           B, N, Lq, Lk, D, 0, 0, 0, 0, scale, scale * sm90::kLog2e};
+    const int sms = (int)a.sms;
+    if (mode == 2)
+      return dtype == 1
+                 ? sm90::launch_fused<__nv_bfloat16, 128>(q, k, v, dout, dq, dk, dv, a.st, p,
+                                                          sms, s)
+                 : sm90::launch_fused<__half, 128>(q, k, v, dout, dq, dk, dv, a.st, p, sms, s);
+    if (parts & 1) {
+      // K2 first, on the grid, as in mode 0
+      const int rc = grid_dkv(a, scale, stream);
+      if (rc != 0) return rc;
+    }
+    return dtype == 1
+               ? sm90::launch_dq_persistent<__nv_bfloat16, 128>(q, k, v, dout, dq, a.st, p, sms, s)
+               : sm90::launch_dq_persistent<__half, 128>(q, k, v, dout, dq, a.st, p, sms, s);
+  }
+  if (parts & 1) {
+    const int rc = grid_dkv(a, scale, stream);
+    if (rc != 0) return rc;
+  }
+  if (!(parts & 2)) return 0;
+  // K3 on the grid: q, k, v, dO, then dQ's strides as the first output's
+  long long st[18] = {};
+  memcpy(st, a.st, 15 * sizeof(long long));
+  Args g{q, k, v, dout, ptr(a.lse), ptr(a.delta), dq, nullptr, B, Lq, Lk, N, D, {}, scale,
+         FrameMask{}};
+  g.st = *reinterpret_cast<const Strides*>(st);
+  return unmasked<false>(dtype, g, st, nullptr, 1, stream);
 }

@@ -461,13 +461,13 @@ flash_fwd_merge_kernel(const float* __restrict__ part, const float* __restrict__
 // (`done`: the devices it was for); 0 or a cudaError_t.  The call costs
 // microseconds, which a short shape's launch feels.
 constexpr int kMaxDevices = 64;
-namespace {
-// The devices each kernel was opted in on.  Internal linkage: a static in
-// a template function would be one object for every library of this
-// source in the process (flash_compare loads a baseline's beside this one).
+// The devices each kernel was opted in on.  `static`: internal linkage in
+// each library of this source.  (In an unnamed namespace, which nvcc names
+// after the source file, or as a static in a template function, it was one
+// object for every library of this source in the process: flash_compare
+// loads a baseline's beside this one, and the second skipped its opt-in.)
 template <typename T, int kD, bool kSplit>
-bool smem_ready[kMaxDevices];
-}  // namespace
+static bool smem_ready[kMaxDevices];
 
 template <typename Kernel>
 int opt_in_smem(Kernel kernel, int bytes, bool (&done)[kMaxDevices]) {

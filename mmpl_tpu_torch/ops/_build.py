@@ -29,9 +29,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 #: body's coarse table, then F
 _MASK_SM90 = [_P, _P, _P, _P, _P, _I]
 
-#: C signatures, by source name.  The scheduled K1 entry takes its
-#: integer arguments packed (`ops.attention._sched_args`); the backward
-#: entries take their 18
+#: C signatures, by source name.  The scheduled K1 and K2 / K3 entries
+#: take their integer arguments packed (`ops.attention._sched_args`,
+#: `_bwd_sched_args`); the other backward entries take their 18
 #: strides as a pointer to a `long long` array; the unmasked dKV entry
 #: takes the fp32 workspace and the number of query splits after dK, dV;
 #: P2 takes its tile width and Q its layout and mode before the stream.
@@ -48,6 +48,7 @@ SIGNATURES = {
     "flash_bwd": {
         "mmpl_flash_bwd_dkv": [_I] + [_P] * 9 + [_I] * 6 + [_P, _F, _P],
         "mmpl_flash_bwd_dq": [_I] + [_P] * 7 + [_I] * 5 + [_P, _F, _P],
+        "mmpl_flash_bwd_sched": [ctypes.c_char_p, _F, _P],
         "mmpl_flash_masked_bwd_dkv": [_I] + [_P] * 8 + _MASK_SM90 + [_I] * 5
                                      + [_P, _F, _P],
         "mmpl_flash_masked_bwd_dq": [_I] + [_P] * 7 + _MASK_SM90 + [_I] * 5

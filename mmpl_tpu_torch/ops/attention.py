@@ -16,7 +16,11 @@ Port of `mmpl_tpu/ops/attention.py`.  Layout is [B, L, N, D] throughout.
     as two TF32 parts, three wgmma passes a product).  The same holds for K2 / K3: bf16 /
     fp16 run the Hopper body of `csrc/flash_bwd_sm90.cuh`, whose dKV splits
     each key block's query loop over `bwd_query_splits` blocks where the key
-    blocks alone would not fill the card; fp32 K2 runs the split-TF32 body
+    blocks alone would not fill the card, under the schedule
+    `bwd_schedule` picks: a block per key block (K2) and per 128-query
+    block (K3), a persistent walk of K3 at short keys, or one fused walk of
+    both and a reduce of dQ's partials where the queries fit one 64-row
+    tile (`csrc/flash_bwd_sched_sm90.cuh`); fp32 K2 runs the split-TF32 body
     of `csrc/flash_bwd_f32_sm90.cuh` (never split), fp32 K3 the split-TF32
     body of `csrc/flash_bwd_dq_f32_sm90.cuh`.
   * `flash_attention_exp2` is P1, the exp2 probe's forward (O only, exp or
@@ -61,6 +65,9 @@ launch_counts = {"flash_fwd": 0, "flash_masked_fwd": 0, "flash_bwd_dkv": 0,
 #: K1's launches (`launch_counts["flash_fwd"]`) by the schedule that ran
 #: them (`fwd_schedule`)
 fwd_mode_launches = {"grid": 0, "persistent": 0, "split": 0}
+#: K3's launches (`launch_counts["flash_bwd_dq"]`) by the schedule that ran
+#: them (`bwd_schedule`); a fused launch counts one K2 launch too
+bwd_mode_launches = {"grid": 0, "persistent": 0, "fused": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -98,6 +105,21 @@ BWD_MAX_SPLITS = 16
 BWD_MIN_SPLIT_TILES = 4
 BWD_MAX_WORKSPACE = 64 << 20
 
+#: K2's and K3's schedules, by their code in `mmpl_flash_bwd_sched`
+#: (csrc/flash_bwd.cu), the parts a call computes, and K3's 128-query
+#: blocks (csrc/flash_bwd_sm90.cuh kQueryBlock)
+BWD_MODES = {"grid": 0, "persistent": 1, "fused": 2}
+BWD_PARTS = {"dkv": 1, "dq": 2, "both": 3}
+BWD_QUERY_BLOCK = 128
+#: K3's persistent walk runs where a 128-query block walks at most this
+#: many 128-key tiles
+BWD_PERSISTENT_MAX_TILES = 6
+#: bytes of the fused walk's fp32 dQ partials at most
+BWD_FUSED_MAX_WORKSPACE = 64 << 20
+#: the ranges of key blocks that the dQ reduce sums apart, then together
+#: (csrc/flash_bwd_sched_sm90.cuh kDqReduceWarps)
+BWD_REDUCE_RANGES = 32
+
 #: K1's schedules, by their code in `mmpl_flash_fwd_sched`
 #: (csrc/flash_fwd.cu), and its 128-query blocks and 128-key tiles
 #: (csrc/flash_fwd_sm90.cuh kBlockM, kBlockN)
@@ -113,7 +135,7 @@ FWD_MAX_WORKSPACE = 64 << 20
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, fwd_mode_launches):
+    for counts in (launch_counts, fwd_mode_launches, bwd_mode_launches):
         for name in counts:
             counts[name] = 0
 
@@ -173,6 +195,32 @@ def fwd_schedule(B: int, N: int, Lq: int, Lk: int, D: int,
             return "split", splits
     return ("persistent" if -(-Lk // FWD_BLOCK) <= FWD_PERSISTENT_MAX_TILES
             else "grid"), 1
+
+
+@functools.lru_cache(maxsize=4096)
+def bwd_schedule(B: int, N: int, Lq: int, Lk: int, D: int, sms: int) -> str:
+    """The schedule of bf16 / fp16 K2 and K3 on a card of `sms` SMs:
+
+      * "fused": where the queries fit one 64-row tile (Lq <=
+        BWD_QUERY_TILE), K3's blocks, B * N * ceil(Lq / 128), fill at most
+        half the card and the fp32 dQ partials, ceil(Lk / 128) * B * N * Lq
+        * D * 4 bytes, stay within BWD_FUSED_MAX_WORKSPACE (the GAN head's
+        one query row over 32760 keys): one persistent walk over the
+        (128-key block, head, batch) units computes dK, dV and each key
+        block's share of dQ, and a reduce sums the shares in a fixed order;
+      * "persistent": where a 128-query block walks at most
+        BWD_PERSISTENT_MAX_TILES 128-key tiles (the teacher-forcing and
+        score cross-attention at 512 keys): K2 as on the grid, K3 as a
+        persistent walk over the (128-query block, head, batch) units;
+      * "grid", elsewhere: K2 (with its query split) and K3 on one block
+        per key block and per query block, the parent's schedule.
+
+    D does not move the choice; it sizes the fused walk's workspace."""
+    nkb = -(-Lk // BWD_KEY_BLOCK)
+    if (Lq <= BWD_QUERY_TILE and 2 * B * N * -(-Lq // BWD_QUERY_BLOCK) <= sms
+            and nkb * B * N * Lq * D * 4 <= BWD_FUSED_MAX_WORKSPACE):
+        return "fused"
+    return "persistent" if nkb <= BWD_PERSISTENT_MAX_TILES else "grid"
 
 
 def split_keys(B: int, N: int, Lq: int, Lk: int, D: int, sms: int) -> int:
@@ -346,6 +394,51 @@ def flash_attention_bwd_plain(q, k, v, do, lse, delta, scale=None):
     """The plain version of K2 and K3: (dq, dk, dv) of softmax attention
     from the saved lse and delta = rowsum(dO * O), both [B, N, Lq] fp32."""
     return _plain_bwd(q, k, v, do, lse, delta, _scale(q, scale))
+
+
+def _dq_partials_summed(parts) -> torch.Tensor:
+    """fp32 partials of dQ, one a key block, summed as the fused walk's
+    reduce sums them: range w of BWD_REDUCE_RANGES takes the blocks [w n //
+    R, (w + 1) n // R) of the n in order from 0, then the ranges' sums are
+    added in order from 0."""
+    n, R = len(parts), BWD_REDUCE_RANGES
+    total = torch.zeros_like(parts[0])
+    for w in range(R):
+        acc = torch.zeros_like(parts[0])
+        for z in range(w * n // R, (w + 1) * n // R):
+            acc = acc + parts[z]
+        total = total + acc
+    return total
+
+
+def flash_attention_bwd_fused_plain(q, k, v, do, lse, delta, scale=None):
+    """The plain version of the fused walk of K2 and K3: (dq, dk, dv).  Each
+    128-key block's dK and dV from the plain backward's formulas, and its
+    share of dQ, dS K over its keys, kept in fp32 unscaled; the shares are
+    summed in the reduce kernel's order (`_dq_partials_summed`), then
+    scaled and rounded to q's dtype.  lse and delta are [B, N, Lq] fp32 as
+    for `flash_attention_bwd_plain`."""
+    sc = _scale(q, scale)
+    kf = k.float().permute(0, 2, 1, 3)                 # [B, N, Lk, D]
+    vf = v.float().permute(0, 2, 1, 3)
+    qf = q.float().permute(0, 2, 1, 3)                 # [B, N, Lq, D]
+    dof = do.float().permute(0, 2, 1, 3)
+    lc = lse[..., None]
+    live = lc != -math.inf
+    shift = torch.where(live, lc, torch.zeros_like(lc))
+    dks, dvs, parts = [], [], []
+    for k0 in range(0, k.shape[1], BWD_KEY_BLOCK):
+        kb = kf[:, :, k0:k0 + BWD_KEY_BLOCK]
+        vb = vf[:, :, k0:k0 + BWD_KEY_BLOCK]
+        p = torch.exp(torch.matmul(qf, kb.transpose(-1, -2)) * sc - shift)
+        p = torch.where(live, p, torch.zeros_like(p))
+        dvs.append(torch.matmul(p.transpose(-1, -2), dof))
+        ds = p * (torch.matmul(dof, vb.transpose(-1, -2)) - delta[..., None])
+        dks.append(sc * torch.matmul(ds.transpose(-1, -2), qf))
+        parts.append(torch.matmul(ds, kb))
+    dq = (_dq_partials_summed(parts) * sc).permute(0, 2, 1, 3).to(q.dtype)
+    return (dq, torch.cat(dks, 2).permute(0, 2, 1, 3).to(k.dtype),
+            torch.cat(dvs, 2).permute(0, 2, 1, 3).to(v.dtype))
 
 
 def frame_masked_attention_plain(q, k, v, q_frame_ids, kv_frame_ids,
@@ -585,11 +678,12 @@ _LAUNCH_ERRORS = {-1: "cuTensorMapEncodeTiled is not available",
 
 
 def _launch(lib_name: str, fn: str, counter: str, device, *args,
-            mode: Optional[str] = None) -> None:
+            counts=None) -> None:
     """Call `fn` of `csrc/<lib_name>.cu` on `device`'s current stream (the
     raw stream and no device switch where `device` is current: the short
-    shapes' calls are host-bound) and count the launch (K1's also by its
-    schedule `mode`)."""
+    shapes' calls are host-bound) and count the launch: `counter` in
+    `launch_counts`, or each (table, key) of `counts` (K1's also by its
+    schedule, K2 / K3's by theirs)."""
     from . import _build
     call = getattr(_build.library(lib_name), fn)
     index = device.index
@@ -602,9 +696,8 @@ def _launch(lib_name: str, fn: str, counter: str, device, *args,
         why = _LAUNCH_ERRORS.get(rc, f"CUDA error {rc}")
         raise RuntimeError(f"{counter} launch failed: {why}")
     with _count_lock:
-        launch_counts[counter] += 1
-        if mode is not None:
-            fwd_mode_launches[mode] += 1
+        for table, key in counts or ((launch_counts, counter),):
+            table[key] += 1
 
 
 def _sched_args(q, k, v, o, lse, ws, mode: str, splits: int,
@@ -652,7 +745,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           device=q.device) if splits > 1 else None)
         _launch("flash_fwd", "mmpl_flash_fwd_sched", what, q.device,
                 _sched_args(q, k, v, o, lse, ws, mode, splits, sms),
-                float(scale * LOG2E), mode=mode)
+                float(scale * LOG2E),
+                counts=((launch_counts, what), (fwd_mode_launches, mode)))
     else:
         margs = _mask_args(what, mask, tiles, Lq, Lk, q.device,
                            COARSE_TABLE["fwd"], q.dtype != torch.float32)
@@ -701,82 +795,155 @@ def _bwd_mask_args(part: str, mask, tiles, Lq: int, Lk: int, device,
                       device, COARSE_TABLE[part], dtype != torch.float32)
 
 
-def _bwd_launch(part: str, q, k, v, do, lse, delta, outs, scale, mask,
-                tiles) -> None:
-    """Launch the dKV (`part` = "dkv", outs = (dk, dv)) or dQ ("dq",
-    outs = (dq,)) kernel of `csrc/flash_bwd.cu`, masked with `mask` and its
-    `tiles` (`_bwd_mask_args`).  The unmasked bf16 / fp16 dKV takes its
-    query split (`bwd_query_splits`) and, when it splits, an fp32 workspace
-    for the partials; the masked one (K5) never splits."""
-    masked = mask is not None
-    what = "flash_masked_bwd" if masked else "flash_bwd"
+def _check_bwd(what: str, q, k, v, do, lse, delta) -> None:
     _check_qkv(what, q, k, v)
     if not do.is_cuda or do.shape != q.shape:
         raise ValueError(f"{what}: dO {tuple(do.shape)} must be a CUDA "
                          f"tensor of q's shape")
     _check_operand(what, "dO", do, q.dtype)
-    B, Lq, N, D = q.shape
-    Lk = k.shape[1]
+    B, Lq, N, _ = q.shape
     for name, x in (("lse", lse), ("delta", delta)):
         if (x.shape != (B, N, Lq) or x.dtype != torch.float32
                 or not x.is_contiguous() or x.device != q.device):
             raise ValueError(f"{what}: {name} must be contiguous fp32 "
                              f"[B, N, Lq] on {q.device}")
+
+
+def _masked_bwd_launch(part: str, q, k, v, do, lse, delta, outs, scale,
+                       mask, tiles) -> None:
+    """Launch the masked dKV (K5, `part` = "dkv", outs = (dk, dv)) or dQ
+    (K6, "dq", outs = (dq,)) kernel of `csrc/flash_bwd.cu` with `mask` and
+    its `tiles` (`_bwd_mask_args`); K5 never splits."""
+    what = "flash_masked_bwd"
+    _check_bwd(what, q, k, v, do, lse, delta)
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
     if Lq == 0:
         for x in outs:
             x.zero_()
         return
-    margs = (_bwd_mask_args(part, mask, tiles, Lq, Lk, q.device, q.dtype)
-             if masked else [])
-    split = []
-    if part == "dkv" and not masked:
-        splits = (1 if q.dtype == torch.float32 else bwd_query_splits(
-            B, N, Lq, Lk, _sm_count(q.device.index)))
-        ws = (torch.empty((2, splits, B, N, Lk, D), dtype=torch.float32,
-                          device=q.device) if splits > 1 else None)
-        split = [None if ws is None else ws.data_ptr(), splits]
+    margs = _bwd_mask_args(part, mask, tiles, Lq, Lk, q.device, q.dtype)
     ins = [_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
            do.data_ptr(), lse.data_ptr(), delta.data_ptr()]
     strides = _strides(q, k, v, do, *outs) + [0] * 3 * (2 - len(outs))
-    fn = f"mmpl_{what}_{part}"
-    _launch("flash_bwd", fn, f"{what}_{part}", q.device, *ins,
-            *(x.data_ptr() for x in outs), *split, *margs, B, Lq, Lk, N, D,
+    _launch("flash_bwd", f"mmpl_{what}_{part}", f"{what}_{part}", q.device,
+            *ins, *(x.data_ptr() for x in outs), *margs, B, Lq, Lk, N, D,
             (ctypes.c_longlong * 18)(*strides), float(_scale(q, scale)))
+
+
+def _bwd_sched_args(q, k, v, do, lse, delta, dq, dk, dv, ws, mode: str,
+                    parts: str, splits: int, sms: int) -> bytes:
+    """The integer arguments of `mmpl_flash_bwd_sched` (csrc/flash_bwd.cu
+    `BwdSchedArgs`) packed as 41 int64s, one ctypes argument; an output
+    the call does not write is 0, its strides too."""
+    B, Lq, N, D = q.shape
+    ptr = lambda x: 0 if x is None else x.data_ptr()
+    out_strides = [s for x in (dq, dk, dv)
+                   for s in ((0, 0, 0) if x is None else x.stride()[:3])]
+    return struct.pack(
+        "41q", _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        ptr(dq), ptr(dk), ptr(dv), ptr(ws), BWD_MODES[mode],
+        BWD_PARTS[parts], splits, sms, B, Lq, k.shape[1], N, D,
+        *_strides(q, k, v, do), *out_strides)
+
+
+def _bwd_sched_launch(parts: str, q, k, v, do, lse, delta, dq, dk, dv,
+                      scale) -> None:
+    """Launch K2 (`parts` = "dkv"), K3 ("dq") or both ("both") through
+    `mmpl_flash_bwd_sched` (csrc/flash_bwd.cu) under `bwd_schedule`'s mode
+    (fp32: the grid): both parts may run fused, K3 alone runs the grid or
+    its persistent walk, K2 alone the grid with its query split
+    (`bwd_query_splits`) and an fp32 workspace for the split's partials;
+    the fused walk takes one for dQ's partials."""
+    what = "flash_bwd"
+    _check_bwd(what, q, k, v, do, lse, delta)
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
+    if Lq == 0:
+        for x in (dq, dk, dv):
+            if x is not None:
+                x.zero_()
+        return
+    sms = _sm_count(q.device.index)
+    f32 = q.dtype == torch.float32
+    mode = "grid" if f32 else bwd_schedule(B, N, Lq, Lk, D, sms)
+    if (parts == "dkv" and mode != "grid") or (parts == "dq"
+                                               and mode == "fused"):
+        mode = "grid"
+    splits, ws = 1, None
+    if mode == "fused":
+        ws = torch.empty(-(-Lk // BWD_KEY_BLOCK) * B * N * Lq * D,
+                         dtype=torch.float32, device=q.device)
+    elif parts != "dq" and not f32:
+        splits = bwd_query_splits(B, N, Lq, Lk, sms)
+        if splits > 1:
+            ws = torch.empty((2, splits, B, N, Lk, D), dtype=torch.float32,
+                             device=q.device)
+    counts = []
+    if parts != "dq":
+        counts.append((launch_counts, "flash_bwd_dkv"))
+    if parts != "dkv":
+        counts += [(launch_counts, "flash_bwd_dq"), (bwd_mode_launches, mode)]
+    _launch("flash_bwd", "mmpl_flash_bwd_sched", what, q.device,
+            _bwd_sched_args(q, k, v, do, lse, delta, dq, dk, dv, ws, mode,
+                            parts, splits, sms),
+            float(_scale(q, scale)), counts=counts)
+
+
+def _like(x):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale=None, mask=None,
                        tiles=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dKV kernel (K2, or K5 with `mask` and its `tiles`) from
     `csrc/flash_bwd.cu` (bf16 / fp16 K2 and K5: `csrc/flash_bwd_sm90.cuh`,
-    K2 with its reduce in the same launch count when it splits the
-    queries; fp32 K2 and K5: the split-TF32 `csrc/flash_bwd_f32_sm90.cuh`,
-    K5 over `tiles.t64`).  dO is read through its strides (the same rules
-    as q); lse
-    and delta = rowsum(dO * O) are contiguous [B, N, Lq] fp32.  Returns
-    (dk, dv), contiguous, in k's dtype."""
-    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    _bwd_launch("dkv", q, k, v, do, lse, delta, (dk, dv), scale, mask, tiles)
+    K2 on the grid with its reduce in the same launch count when it splits
+    the queries; fp32 K2 and K5: the split-TF32
+    `csrc/flash_bwd_f32_sm90.cuh`, K5 over `tiles.t64`).  dO is read
+    through its strides (the same rules as q); lse and delta = rowsum(dO *
+    O) are contiguous [B, N, Lq] fp32.  Returns (dk, dv), contiguous, in
+    k's dtype."""
+    dk, dv = _like(k), _like(v)
+    if mask is None:
+        _bwd_sched_launch("dkv", q, k, v, do, lse, delta, None, dk, dv, scale)
+    else:
+        _masked_bwd_launch("dkv", q, k, v, do, lse, delta, (dk, dv), scale,
+                           mask, tiles)
     return dk, dv
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale=None, mask=None,
                       tiles=None) -> torch.Tensor:
     """Launch the dQ kernel (K3, or K6 with `mask` and its `tiles`) from
-    `csrc/flash_bwd.cu` (bf16 / fp16 K3 and K6: `csrc/flash_bwd_sm90.cuh`;
-    fp32 K3 and K6: the split-TF32 `csrc/flash_bwd_dq_f32_sm90.cuh`, K6 over
-    `tiles.t64`); arguments as `flash_bwd_dkv_cuda`.  Returns dq."""
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), scale, mask, tiles)
+    `csrc/flash_bwd.cu` (bf16 / fp16 K3: `csrc/flash_bwd_sm90.cuh`, or its
+    persistent walk in `csrc/flash_bwd_sched_sm90.cuh` where `bwd_schedule`
+    names it; K6: `csrc/flash_bwd_sm90.cuh`; fp32 K3 and K6: the
+    split-TF32 `csrc/flash_bwd_dq_f32_sm90.cuh`, K6 over `tiles.t64`);
+    arguments as `flash_bwd_dkv_cuda`.  Returns dq."""
+    dq = _like(q)
+    if mask is None:
+        _bwd_sched_launch("dq", q, k, v, do, lse, delta, dq, None, None, scale)
+    else:
+        _masked_bwd_launch("dq", q, k, v, do, lse, delta, (dq,), scale, mask,
+                           tiles)
     return dq
 
 
 def flash_bwd_cuda(q, k, v, do, lse, delta, scale=None, mask=None,
                    tiles=None):
-    """Both backward kernels; returns (dq, dk, dv)."""
-    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, mask, tiles)
-    return flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, mask,
-                             tiles), dk, dv
+    """Both backward kernels; returns (dq, dk, dv).  Unmasked, one call of
+    `mmpl_flash_bwd_sched` under `bwd_schedule`'s mode, which counts one
+    K2 and one K3 launch whatever the mode (the fused walk is both)."""
+    if mask is not None:
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, mask,
+                                    tiles)
+        return flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, mask,
+                                 tiles), dk, dv
+    dq, dk, dv = _like(q), _like(k), _like(v)
+    _bwd_sched_launch("both", q, k, v, do, lse, delta, dq, dk, dv, scale)
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,8 @@ checkout's, on one card, in turns.
         --kernel masked --dtype float32
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR \
         --kernel masked --dtype float16
+    python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR --kernel bwd \
+        --dtype float16
     python -m mmpl_tpu_torch.tools.flash_compare --baseline DIR \
         --kernel exp2 --dtype float32
 
@@ -51,6 +53,20 @@ splits the keys, its split, one fewer and twice as many and one), from
 which the chooser's thresholds were read.  `SHAPES` holds the rows where
 the parent trailed SDPA and the long rows whose time must hold.
 
+For K2 and K3 (`--kernel bwd`) this tree runs its scheduled entry
+(`call_bwd_sched`, `mmpl_flash_bwd_sched`) under
+`ops.attention.bwd_schedule`'s mode, which each row names (`mode`): K2
+alone on the grid against the baseline's K2, K3 alone (the grid or its
+persistent walk) against the baseline's K3, and the whole backward in one
+call (`bwd`: the fused walk and its reduce, or K2 then K3) against the
+baseline's, each by wall and device time (`*_device`), beside
+SDPA's backward by both (`sdpa_bwd_ms`, `sdpa_bwd_device_ms`) and this
+tree's whole backward under every schedule by device time (`modes_ms`),
+from which the chooser's thresholds were read.  A baseline with the
+scheduled entry runs it under the same modes; an earlier one runs its
+`mmpl_flash_bwd_dkv` and `mmpl_flash_bwd_dq` (`call_bwd`), its whole
+backward as the two calls.
+
 `--dtype float32` (fwd and bwd) runs K1, or K2 and K3, on fp32 inputs at
 `F32_SHAPES`, the fp32 trunk's attention in the trainer's ODE and
 distillation objectives, and adds to each row the plain version's time
@@ -61,8 +77,9 @@ the fp32 wgmma bodies run their products at.  With `--kernel masked` it
 runs K4, K5 and K6 on fp32 inputs at `MASKED_SHAPES` the same way (the
 masked plain versions' times, the bound at `PEAK_TF32`): the split-TF32
 bodies' masked kernels against whatever bodies the baseline has (before
-them, the FMA template).  `--dtype float16` takes only `--kernel
-masked`: the fp16 instantiations of the Hopper K4-K6.  `--kernel bwd`
+them, the FMA template).  `--dtype float16` takes `--kernel masked`
+(the fp16 instantiations of the Hopper K4-K6) or `--kernel bwd` (fp16 K2
+and K3 at `BWD_SHAPES` under their schedules).  `--kernel bwd`
 ends, as `fwd` does, with the SASS check of its source, so the two fp32
 calls show that the bf16 / fp16 Hopper kernels of K1-K6 and P1 are
 unchanged.
@@ -147,10 +164,15 @@ SHAPES = {
     "gan_head_q1": (2, 12, 128, 1, 32760),
 }
 #: K2 / K3: the teacher-forcing cross-attention and the few-step steady
-#: state, the self-attention shape of self-forcing training and the ring
+#: state, the self-attention shape of self-forcing training and the ring,
+#: the critic's and the flow objective's self-attention and text
+#: cross-attention, and the GAN head's one query row
 BWD_SHAPES = {
     "tf_cross": (1, 12, 128, 65520, 512),
     "fewstep_self_hot": (1, 12, 128, 4680, 32760),
+    "gan_head_q1": (2, 12, 128, 1, 32760),
+    "score_cross": (1, 12, 128, 32760, 512),
+    "critic_self": (1, 12, 128, 32760, 32760),
 }
 
 #: P2 and Q: (M, K, N, activations quantised by Q): the serving window's
@@ -186,13 +208,15 @@ EXP2_VARIANTS = (("exp+mask", False, True), ("exp", False, False),
 #: regression and the distillation objectives' rollouts and critics at the
 #: 1.3B width, 21 latent frames at 60x104 in blocks of 3 frames): a block's
 #: 4680 queries over 1, 4 and 7 blocks of keys, the critic's and the real
-#: score's 32760^2, and the text cross-attention
+#: score's 32760^2, the text cross-attention, and the GAN head's register
+#: token (the trainer builds the GAN objective in fp32)
 F32_SHAPES = {
     "ode_self_1": (1, 12, 128, 4680, 4680),
     "ode_self_4": (1, 12, 128, 4680, 18720),
     "ode_self_7": (1, 12, 128, 4680, 32760),
     "critic_self": (1, 12, 128, 32760, 32760),
     "ode_cross": (1, 12, 128, 4680, 512),
+    "gan_head_q1": (2, 12, 128, 1, 32760),
 }
 TABLES = {"fwd": SHAPES, "bwd": BWD_SHAPES, "masked": MASKED_SHAPES,
           "exp2": EXP2_SHAPES, "int8": INT8_SHAPES}
@@ -262,8 +286,9 @@ def parse_args(argv=None):
     if args.dtype == "float32" and args.kernel not in F32_TABLES:
         p.error(f"--dtype float32 takes --kernel fwd, bwd, masked or exp2, "
                 f"not {args.kernel}")
-    if args.dtype == "float16" and args.kernel != "masked":
-        p.error(f"--dtype float16 takes --kernel masked, not {args.kernel}")
+    if args.dtype == "float16" and args.kernel not in ("masked", "bwd"):
+        p.error(f"--dtype float16 takes --kernel masked or bwd, not "
+                f"{args.kernel}")
     table = (F32_TABLES if args.dtype == "float32" else TABLES)[args.kernel]
     if args.shapes is None:
         args.shapes = list(table)
@@ -294,6 +319,15 @@ def baseline_schedules_k1(root: Path) -> bool:
     `mmpl_flash_fwd` (earlier trees)."""
     src = (baseline_csrc(root) / "flash_fwd.cu").read_text()
     return re.search(r"mmpl_flash_fwd_sched\(", src) is not None
+
+
+def baseline_schedules_bwd(root: Path) -> bool:
+    """Whether the baseline's `flash_bwd.cu` has K2 and K3's scheduled
+    entry (`mmpl_flash_bwd_sched`: the fused walk and K3's persistent
+    walk) or only `mmpl_flash_bwd_dkv` and `mmpl_flash_bwd_dq` (earlier
+    trees)."""
+    src = (baseline_csrc(root, "flash_bwd") / "flash_bwd.cu").read_text()
+    return re.search(r"mmpl_flash_bwd_sched\(", src) is not None
 
 
 def baseline_splits_queries(root: Path) -> bool:
@@ -343,10 +377,13 @@ def baseline_signatures(root: Path, source: str) -> dict:
         sched = ({"mmpl_flash_fwd_sched": sigs["mmpl_flash_fwd_sched"]}
                  if baseline_schedules_k1(root) else {})
         return {"mmpl_flash_fwd": sigs["mmpl_flash_fwd"], **sched, **masked}
+    sched = ({"mmpl_flash_bwd_sched": sigs["mmpl_flash_bwd_sched"]}
+             if baseline_schedules_bwd(root) else {})
     return {"mmpl_flash_bwd_dkv": (sigs["mmpl_flash_bwd_dkv"]
                                    if baseline_splits_queries(root)
                                    else OLD_DKV_SIGNATURE),
-            "mmpl_flash_bwd_dq": sigs["mmpl_flash_bwd_dq"], **masked}
+            "mmpl_flash_bwd_dq": sigs["mmpl_flash_bwd_dq"], **sched,
+            **masked}
 
 
 def baseline_library(root: Path, source: str = "flash_fwd") -> Path:
@@ -464,6 +501,35 @@ def call_bwd(lib, splits_queries: bool, part: str, q, k, v, do, lse, delta):
     if rc != 0:
         raise RuntimeError(f"{part} launch failed: CUDA error {rc}")
     return outs
+
+
+def call_bwd_sched(lib, mode: str, parts: str, q, k, v, do, lse, delta):
+    """K2 and / or K3 (`parts`: "dkv", "dq" or "both") of a built
+    `flash_bwd` library through its scheduled entry (`mmpl_flash_bwd_sched`)
+    under `mode`; returns (dq, dk, dv), None for a part not computed."""
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
+    dq = (torch.empty_like(q, memory_format=torch.contiguous_format)
+          if parts != "dkv" else None)
+    dk, dv = ((torch.empty_like(x, memory_format=torch.contiguous_format)
+               for x in (k, v)) if parts != "dq" else (None, None))
+    sms = attn._sm_count(q.device.index)
+    splits, ws = 1, None
+    if mode == "fused":
+        ws = torch.empty(-(-Lk // attn.BWD_KEY_BLOCK) * B * N * Lq * D,
+                         dtype=torch.float32, device=q.device)
+    elif parts != "dq" and q.dtype != torch.float32:
+        splits = attn.bwd_query_splits(B, N, Lq, Lk, sms)
+        if splits > 1:
+            ws = torch.empty((2, splits, B, N, Lk, D), dtype=torch.float32,
+                             device=q.device)
+    rc = lib.mmpl_flash_bwd_sched(
+        attn._bwd_sched_args(q, k, v, do, lse, delta, dq, dk, dv, ws, mode,
+                             parts, splits, sms),
+        float(D ** -0.5), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{mode} {parts} launch failed: CUDA error {rc}")
+    return dq, dk, dv
 
 
 def call_masked(lib, coarse: bool, part: str, q, k, v, mask, tiles,
@@ -693,10 +759,12 @@ def _rel(got, want) -> float:
 def run_bwd(args, smi: str) -> list:
     lib = build_baseline(args.baseline, "flash_bwd")
     new = baseline_splits_queries(args.baseline)
+    scheduled = baseline_schedules_bwd(args.baseline)
     mine = _build.library("flash_bwd")
     gen = torch.Generator(device="cuda").manual_seed(1)
     dtype = DTYPES[args.dtype]
     f32 = dtype == torch.float32
+    sms = attn._sm_count(torch.cuda.current_device())
     rows = []
     for label in args.shapes:
         B, N, D, Lq, Lk = _shapes(args)[label]
@@ -709,32 +777,62 @@ def run_bwd(args, smi: str) -> list:
         want = dict(zip(("dq", "dk", "dv"), attn.flash_attention_bwd_plain(
             q, k, v, do, lse, delta)))
         args_ = (q, k, v, do, lse, delta)
+        mode = "grid" if f32 else attn.bwd_schedule(B, N, Lq, Lk, D, sms)
+        dq_mode = "grid" if mode == "fused" else mode
+        base_dkv = lambda: call_bwd(lib, new, "dkv", *args_)
+        # K2 alone (the grid), K3 alone under its schedule, and the whole
+        # backward under its schedule, of each tree: a baseline without
+        # the scheduled entry runs K3 on its grid and the whole backward
+        # as its two calls, K2 first (as its `flash_bwd_cuda`)
+        if scheduled:
+            base_dq = lambda: call_bwd_sched(lib, dq_mode, "dq", *args_)[:1]
+            base_bwd = lambda: call_bwd_sched(lib, mode, "both", *args_)
+        else:
+            base_dq = lambda: call_bwd(lib, new, "dq", *args_)
+            base_bwd = lambda: (lambda dkv: base_dq() + dkv)(base_dkv())
         calls = {
-            "dkv": (lambda: call_bwd(lib, new, "dkv", *args_),
-                    lambda: call_bwd(mine, True, "dkv", *args_)),
-            "dq": (lambda: call_bwd(lib, new, "dq", *args_),
-                   lambda: call_bwd(mine, True, "dq", *args_)),
+            "dkv": (base_dkv, lambda: call_bwd_sched(mine, "grid", "dkv",
+                                                     *args_)[1:]),
+            "dq": (base_dq, lambda: call_bwd_sched(mine, dq_mode, "dq",
+                                                   *args_)[:1]),
+            "bwd": (base_bwd,
+                    lambda: call_bwd_sched(mine, mode, "both", *args_)),
         }
         row = {"kernel": "bwd", "dtype": args.dtype, "shape": label, "B": B,
-               "N": N, "D": D, "Lq": Lq, "Lk": Lk,
+               "N": N, "D": D, "Lq": Lq, "Lk": Lk, "mode": mode,
                "splits": 1 if f32 else attn.bwd_query_splits(
-                   B, N, Lq, Lk, attn._sm_count(q.device.index))}
+                   B, N, Lq, Lk, sms)}
         for part, (base, this) in calls.items():
-            names = ("dk", "dv") if part == "dkv" else ("dq",)
+            names = {"dkv": ("dk", "dv"), "dq": ("dq",),
+                     "bwd": ("dq", "dk", "dv")}[part]
             for who, fn in (("baseline", base), ("this", this)):
                 row[f"{part}_{who}_rel_err"] = max(
                     _rel(g, want[n]) for g, n in zip(fn(), names))
             row.update({f"{part}_{k_}": x for k_, x in
                         _turns(base, this, args.reps).items()})
-            mult = 8.0 if part == "dkv" else 6.0
+            # the same turns by device time: no host time between the calls
+            row[f"{part}_device"] = _turns(base, this, args.reps, queued_ms)
+            mult, elems = {"dkv": (8.0, (2, 4)), "dq": (6.0, (3, 2)),
+                           "bwd": (10.0, (3, 4))}[part]
             flops = mult * B * N * Lq * Lk * D
-            elems = (2 * Lq + 4 * Lk) if part == "dkv" else (3 * Lq + 2 * Lk)
-            nbytes = q.element_size() * B * N * D * elems + 8 * B * N * Lq
+            nbytes = (q.element_size() * B * N * D
+                      * (elems[0] * Lq + elems[1] * Lk) + 8 * B * N * Lq)
             row[f"{part}_bound_ms"] = _bound_ms(flops, nbytes, dtype)
             row[f"{part}_this_tflops"] = (flops / min(row[f"{part}_this_ms"])
                                           / 1e9)
             row[f"{part}_baseline_tflops"] = (
                 flops / min(row[f"{part}_baseline_ms"]) / 1e9)
+        if not f32:
+            # this tree's whole backward under each schedule by device
+            # time, for the chooser's crossovers
+            row["modes_ms"], row["modes_rel_err"] = {}, {}
+            for m in ("grid", "persistent") + (
+                    ("fused",) if Lq <= attn.BWD_QUERY_TILE else ()):
+                run = lambda: call_bwd_sched(mine, m, "both", *args_)
+                row["modes_rel_err"][m] = max(
+                    _rel(g, want[n]) for g, n in zip(run(), ("dq", "dk",
+                                                             "dv")))
+                row["modes_ms"][m] = queued_ms(run, args.reps)
         del want
         if f32:
             row["plain_ms"] = time_ms(lambda: attn.flash_attention_bwd_plain(
@@ -743,9 +841,10 @@ def run_bwd(args, smi: str) -> list:
                       for x in (q, k, v))
         with _efficient_sdpa() if f32 else contextlib.nullcontext():
             out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
-            row["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-                out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
-                args.reps)
+            grad = lambda: torch.autograd.grad(
+                out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
+            row["sdpa_bwd_ms"] = time_ms(grad, args.reps)
+            row["sdpa_bwd_device_ms"] = queued_ms(grad, args.reps)
         row["card"] = smi
         print(json.dumps(row), flush=True)
         rows.append(row)

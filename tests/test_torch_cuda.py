@@ -1,6 +1,8 @@
 """K1-K6 and P1 (`mmpl_tpu_torch/csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`,
 their Hopper bodies `csrc/flash_fwd_sm90.cuh` and `csrc/flash_bwd_sm90.cuh`,
-which also run the bf16 / fp16 K4, K5, K6 and P1, and the split-TF32 bodies
+which also run the bf16 / fp16 K4, K5, K6 and P1, under their schedules
+`csrc/flash_fwd_sched_sm90.cuh` and `csrc/flash_bwd_sched_sm90.cuh`, and the
+split-TF32 bodies
 of fp32 K1 / P1, K2 / K5 and K3 / K6, `csrc/flash_fwd_f32_sm90.cuh`,
 `csrc/flash_bwd_f32_sm90.cuh` and `csrc/flash_bwd_dq_f32_sm90.cuh`)
 and
@@ -660,6 +662,147 @@ def test_hopper_bwd_padding_keys_stay_finite_under_a_very_negative_lse(cuda):
     assert lse.max().item() < -80, lse.max().item()
     _, errs = _bwd_errors(q, k, v, do)
     assert max(errs) <= 1e-2, errs
+
+
+# ---------------------------------------------------------------------------
+# K2 and K3 under their schedules (csrc/flash_bwd_sched_sm90.cuh): the fused
+# walk and its dQ reduce where the queries fit one 64-row tile, K3's
+# persistent walk at short keys
+# ---------------------------------------------------------------------------
+
+#: the kernel that computes dQ under each schedule
+BWD_SCHEDULE_KERNELS = {"grid": "flash_bwd_dq_sm90_kernel",
+                        "persistent": "flash_bwd_dq_persistent_sm90_kernel",
+                        "fused": "flash_bwd_fused_sm90_kernel"}
+
+
+def _force_bwd(monkeypatch, mode):
+    monkeypatch.setattr(ta, "bwd_schedule", lambda *a: mode)
+
+
+def _bwd_schedule_of(names):
+    """The schedule that ran among the profiler's `names`: the fused walk
+    with its reduce and no K2 / K3 kernel of the grid, or K3's grid or
+    persistent kernel beside K2's."""
+    fused = [n for n in names if "flash_bwd_fused_sm90_kernel" in n]
+    reduced = any("flash_bwd_dq_reduce_kernel" in n for n in names)
+    dq = [n for n in names if "flash_bwd_dq" in n and "reduce" not in n]
+    dkv = [n for n in names if "flash_bwd_dkv_sm90_kernel" in n]
+    if fused:
+        assert reduced and not dq and not dkv, names
+        return "fused"
+    assert len(dq) == 1 and len(dkv) == 1 and not reduced, names
+    return ("persistent" if BWD_SCHEDULE_KERNELS["persistent"] in dq[0]
+            else "grid")
+
+
+BWD_SCHEDULE_CASES = [(mode, lq, lk, d)
+                      for mode in ("fused", "persistent")
+                      for lq in (1, 7, 64, 65, 129)
+                      for lk in (1, 127, 128, 257, 512, 32760)
+                      for d in (24, 80, 128)
+                      if mode == "persistent" or lq <= ta.BWD_QUERY_TILE]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mode,lq,lk,d", BWD_SCHEDULE_CASES)
+def test_bwd_schedules_match_plain(cuda, monkeypatch, mode, lq, lk, d,
+                                   dtype):
+    """The fused walk and K3's persistent walk against the plain backward
+    at the chooser's edges: one, a few and a whole tile of query rows, a
+    ragged query block and more than one, one key, a ragged and a whole key
+    tile, 257, 512 and 32760 keys, head dims below 128 (both walks pad
+    every head dim to 128); each call counts one K2 and one K3 launch,
+    booked to its schedule.  With one key, dS = p (dP - delta) is 0 but
+    for rounding (p = 1, delta = dO . v = dP), so dQ and dK are held to a
+    bound on their size instead of a relative error."""
+    _force_bwd(monkeypatch, mode)
+    ta.reset_launch_counts()
+    got, errs = _bwd_errors(*_bwd_inputs(lq, lk, d, dtype, cuda,
+                                         seed=lq + lk + d))
+    assert ta.launch_counts["flash_bwd_dkv"] == 1
+    assert ta.launch_counts["flash_bwd_dq"] == 1
+    assert ta.bwd_mode_launches == {
+        **dict.fromkeys(ta.bwd_mode_launches, 0), mode: 1}
+    if lk == 1:
+        assert all(g.float().abs().max().item() <= 1e-3 for g in got[:2])
+        errs = errs[2:]
+    assert max(errs) <= 1e-2, errs
+
+
+@pytest.mark.parametrize("mode", ["fused", "persistent"])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.float16, 80)])
+def test_bwd_schedules_read_views_in_place(cuda, monkeypatch, mode, dtype,
+                                           d):
+    """q / k / v as views of one fused [B, L, 3 * N * D] projection and dO
+    as a strided view: against the plain version, and bit for bit against
+    the same call on contiguous copies."""
+    _force_bwd(monkeypatch, mode)
+    B, N = 2, 4
+    lq, lk = (40, 700) if mode == "fused" else (300, 700)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn((B, lq, 3 * N * d), generator=gen,
+                    device=cuda).to(dtype)[..., :N * d].unflatten(-1, (N, d))
+    kv = torch.randn((B, lk, 3 * N * d), generator=gen,
+                     device=cuda).to(dtype)
+    k, v = (x.unflatten(-1, (N, d)) for x in kv.chunk(3, -1)[1:])
+    do = torch.randn((B, lq, N, 2, d), generator=gen,
+                     device=cuda).to(dtype)[:, :, :, 1]
+    assert not (q.is_contiguous() or do.is_contiguous())
+    got, errs = _bwd_errors(q, k, v, do)
+    assert max(errs) <= 1e-2, errs
+    dense, _ = _bwd_errors(*(x.contiguous() for x in (q, k, v, do)))
+    for x, y in zip(got, dense):
+        torch.testing.assert_close(x, y, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_fused_bwd_gives_the_same_bits_on_every_call(cuda, monkeypatch,
+                                                     dtype):
+    """The reduce sums dQ's partials in a fixed order, not with atomics."""
+    _force_bwd(monkeypatch, "fused")
+    q, k, v, do = _bwd_inputs(5, 5000, 128, dtype, cuda, seed=4)
+    o, lse = ta.flash_fwd_cuda(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    first = ta.flash_bwd_cuda(q, k, v, do, lse, delta)
+    for _ in range(3):
+        for x, y in zip(ta.flash_bwd_cuda(q, k, v, do, lse, delta), first):
+            assert torch.equal(x, y)
+
+
+def test_fused_bwd_matches_its_plain_version(cuda, monkeypatch):
+    """The fused walk and its plain version agree (both round nothing
+    before the partials and sum them in the reduce's order)."""
+    _force_bwd(monkeypatch, "fused")
+    q, k, v, do = _bwd_inputs(33, 3000, 128, torch.bfloat16, cuda, seed=6)
+    o, lse = ta.flash_fwd_cuda(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    got = ta.flash_bwd_cuda(q, k, v, do, lse, delta)
+    want = ta.flash_attention_bwd_fused_plain(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-2
+
+
+@pytest.mark.parametrize("B,N,lq,lk", [(2, 12, 1000, 8192),
+                                       (1, 12, 4096, 512),
+                                       (2, 12, 1, 32760)])
+def test_bwd_runs_the_schedule_the_chooser_names(cuda, B, N, lq, lk):
+    """The kernels the profiler sees are those of `bwd_schedule`'s mode
+    (on an H100: a long shape on the grid, 512 keys on K3's persistent
+    walk, one query row over 32760 keys fused), one K2 and one K3 launch a
+    call."""
+    q, k, v, do = _bwd_inputs(lq, lk, 128, torch.bfloat16, cuda, B=B, N=N)
+    o, lse = ta.flash_fwd_cuda(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    want = ta.bwd_schedule(B, N, lq, lk, 128, ta._sm_count(cuda.index or 0))
+    ta.reset_launch_counts()
+    names = _launched(lambda: ta.flash_bwd_cuda(q, k, v, do, lse, delta))
+    assert _bwd_schedule_of(names) == want
+    calls = ta.launch_counts["flash_bwd_dq"]
+    assert calls >= 1 and ta.launch_counts["flash_bwd_dkv"] == calls
+    assert ta.bwd_mode_launches[want] == calls
 
 
 @pytest.mark.parametrize("dtype,masked,bodies", [

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from mmpl_tpu_torch.ops import _build
+from mmpl_tpu_torch.ops import attention as ta
 from mmpl_tpu_torch.tools import flash_compare
 
 
@@ -62,7 +63,9 @@ def test_the_compare_times_every_short_k1_row():
     ([], "fwd", list(flash_compare.SHAPES)),
     (["--shapes", "gan_head_q1", "i2v14b_img"], "fwd",
      ["gan_head_q1", "i2v14b_img"]),
-    (["--kernel", "bwd"], "bwd", ["tf_cross", "fewstep_self_hot"]),
+    (["--kernel", "bwd"], "bwd", ["tf_cross", "fewstep_self_hot",
+                                  "gan_head_q1", "score_cross",
+                                  "critic_self"]),
     (["--kernel", "bwd", "--shapes", "tf_cross"], "bwd", ["tf_cross"]),
     (["--kernel", "int8"], "int8",
      ["g23_fc1", "g23_fc2", "g0_o", "vae_96ch"]),
@@ -72,6 +75,8 @@ def test_the_compare_times_every_short_k1_row():
      "bwd", ["critic_self"]),
     (["--kernel", "masked", "--dtype", "float32"], "masked", ["tf_self"]),
     (["--kernel", "masked", "--dtype", "float16"], "masked", ["tf_self"]),
+    (["--kernel", "bwd", "--dtype", "float16", "--shapes", "tf_cross"],
+     "bwd", ["tf_cross"]),
     (["--kernel", "exp2"], "exp2", ["probe", "fewstep_hot"]),
     (["--kernel", "exp2", "--dtype", "float32"], "exp2",
      ["d24_f32", "ode_self_1"]),
@@ -90,12 +95,12 @@ def test_kernel_choice_parses_with_its_shapes(tmp_path, argv, kernel, shapes):
     ["--kernel", "int8", "--dtype", "float32"],
     ["--kernel", "exp2", "--shapes", "tf_self"],
     ["--kernel", "exp2", "--dtype", "float32", "--shapes", "probe"],
-    ["--kernel", "bwd", "--dtype", "float16"],
+    ["--kernel", "exp2", "--dtype", "float16"],
 ])
 def test_a_shape_of_the_other_kernel_is_refused(tmp_path, argv):
     """A shape of another kernel's (or type's) table, fp32 for a kernel
-    whose fp32 body is not compared, and fp16 for any but the masked
-    kernels."""
+    whose fp32 body is not compared, and fp16 for any but the masked and
+    backward kernels."""
     with pytest.raises(SystemExit):
         flash_compare.parse_args(["--baseline", str(tmp_path), *argv])
 
@@ -234,8 +239,8 @@ NEW_K6_ENTRY = """extern "C" int mmpl_flash_masked_bwd_dq(int dtype,
 
 def test_baseline_with_the_hopper_k6_binds_its_coarse_table(tmp_path):
     """A baseline whose K6 entry takes the coarse table (a tree with the
-    Hopper K6) has this tree's K4-K6 signatures (and, without K1's
-    scheduled entry, this tree's other entries but that one)."""
+    Hopper K6) has this tree's K4-K6 signatures (and, without K1's and K2
+    / K3's scheduled entries, this tree's other entries but those)."""
     root = _checkout(tmp_path, "flash_fwd.cu", "flash_bwd.cu",
                      "flash_common.cuh", "flash_fwd_sm90.cuh",
                      "flash_bwd_sm90.cuh")
@@ -246,7 +251,8 @@ def test_baseline_with_the_hopper_k6_binds_its_coarse_table(tmp_path):
     for source in ("flash_fwd", "flash_bwd"):
         assert flash_compare.baseline_signatures(root, source) == {
             n: sig for n, sig in _build.SIGNATURES[source].items()
-            if n not in ("mmpl_flash_exp2", "mmpl_flash_fwd_sched")}
+            if n not in ("mmpl_flash_exp2", "mmpl_flash_fwd_sched",
+                         "mmpl_flash_bwd_sched")}
 
 
 #: the scheduled K1 entry's first line in the trees that have it
@@ -270,6 +276,46 @@ def test_baseline_k1_schedules_follow_its_sources(tmp_path, scheduled):
     if scheduled:
         assert sigs["mmpl_flash_fwd_sched"] == \
             _build.SIGNATURES["flash_fwd"]["mmpl_flash_fwd_sched"]
+
+
+#: the scheduled K2 / K3 entry's first line in the trees that have it
+BWD_SCHED_ENTRY = """extern "C" int mmpl_flash_bwd_sched(const void* packed,
+    float scale, void* stream) {"""
+
+
+@pytest.mark.parametrize("scheduled", [False, True])
+def test_baseline_bwd_schedules_follow_its_sources(tmp_path, scheduled):
+    """A baseline with `mmpl_flash_bwd_sched` is timed through it under
+    this tree's schedule (and bound by this tree's signature); one without
+    it through `mmpl_flash_bwd_dkv` and `mmpl_flash_bwd_dq`."""
+    root = _checkout(tmp_path, "flash_bwd.cu", "flash_common.cuh",
+                     "flash_bwd_sm90.cuh")
+    csrc = root / "mmpl_tpu_torch" / "csrc"
+    (csrc / "flash_bwd.cu").write_text(
+        NEW_K5_ENTRY + ("\n" + BWD_SCHED_ENTRY if scheduled else ""))
+    assert flash_compare.baseline_schedules_bwd(root) is scheduled
+    sigs = flash_compare.baseline_signatures(root, "flash_bwd")
+    assert ("mmpl_flash_bwd_sched" in sigs) is scheduled
+    assert {"mmpl_flash_bwd_dkv", "mmpl_flash_bwd_dq"} <= set(sigs)
+    if scheduled:
+        assert sigs["mmpl_flash_bwd_sched"] == \
+            _build.SIGNATURES["flash_bwd"]["mmpl_flash_bwd_sched"]
+
+
+def test_the_backward_compare_times_the_schedules_rows():
+    """The GAN head's one query row (fused), the 512-key cross-attention
+    (K3's persistent walk) and the long rows (the grid) are all in
+    `BWD_SHAPES`; fp32 times the GAN head's row too."""
+    assert flash_compare.BWD_SHAPES["gan_head_q1"] == (2, 12, 128, 1, 32760)
+    assert flash_compare.BWD_SHAPES["score_cross"] == (1, 12, 128, 32760, 512)
+    assert flash_compare.BWD_SHAPES["critic_self"] == (
+        1, 12, 128, 32760, 32760)
+    assert flash_compare.F32_SHAPES["gan_head_q1"] == (2, 12, 128, 1, 32760)
+    modes = {label: ta.bwd_schedule(B, N, lq, lk, D, 132)
+             for label, (B, N, D, lq, lk) in flash_compare.BWD_SHAPES.items()}
+    assert modes == {"tf_cross": "persistent", "fewstep_self_hot": "grid",
+                     "gan_head_q1": "fused", "score_cross": "persistent",
+                     "critic_self": "grid"}
 
 
 def test_masked_compare_needs_the_card(tmp_path, monkeypatch):

@@ -5,7 +5,8 @@ bf16 / fp16, K1 also its persistent and key-split kernels and the split's
 merge; in fp32 K1's split-TF32 Hopper body, K4 as its masked kernel), P1 (the Hopper body; in fp32 the P1 kernel of K1's split-TF32
 body), K2/K3
 (the Hopper backward in bf16 / fp16, K2's reduce kernel included; in fp32
-the split-TF32 Hopper bodies of K2 and K3), K5 and K6 (the Hopper dKV and
+the split-TF32 Hopper bodies of K2 and K3; K3's persistent walk; the fused
+walk of K2 and K3 and its dQ reduce, booked to both), K5 and K6 (the Hopper dKV and
 dQ bodies' masked kernels in bf16 / fp16; in fp32 the masked kernels of
 K2's and K3's split-TF32 bodies), P2 (its Hopper body at each tile width
 and output type) and Q (the one-read body and the two-read loop); a
@@ -71,6 +72,15 @@ NAMES = [
     ('K3 Hopper fp16', 'flash_bwd_dq',
      '_ZN4mmpl4sm9024flash_bwd_dq_sm90_kernelI6__halfLi64EEEv14CUtensorMap_stS3_S3_S3_NS0_9BwdParamsE',
      'void mmpl::sm90::flash_bwd_dq_sm90_kernel<__half, 64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::BwdParams)'),
+    ('K3 persistent', 'flash_bwd_dq',
+     '_ZN4mmpl4sm9035flash_bwd_dq_persistent_sm90_kernelI6__halfLi128EEEv14CUtensorMap_stS3_S3_S3_S3_NS0_14BwdSchedParamsE',
+     'void mmpl::sm90::flash_bwd_dq_persistent_sm90_kernel<__half, 128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::BwdSchedParams)'),
+    ('K2 + K3 fused', 'flash_bwd_dkv+flash_bwd_dq',
+     '_ZN4mmpl4sm9027flash_bwd_fused_sm90_kernelI13__nv_bfloat16Li128EEEv14CUtensorMap_stS3_S3_S3_S3_S3_NS0_14BwdSchedParamsE',
+     'void mmpl::sm90::flash_bwd_fused_sm90_kernel<__nv_bfloat16, 128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::BwdSchedParams)'),
+    ('K2 + K3 dQ reduce', 'flash_bwd_dkv+flash_bwd_dq',
+     '_ZN4mmpl4sm9026flash_bwd_dq_reduce_kernelI13__nv_bfloat16EEvPKfPT_iiiiixxxf',
+     'void mmpl::sm90::flash_bwd_dq_reduce_kernel<__nv_bfloat16>(float const*, __nv_bfloat16*, int, int, int, int, int, long long, long long, long long, float)'),
     ('K5', 'flash_masked_bwd_dkv',
      '_ZN4mmpl4sm9036flash_masked_bwd_dkv_f32_sm90_kernelILi128EEEvPKfS3_S3_S3_NS_10FwdStridesExxxNS0_12F32BwdParamsENS_9FrameMaskE',
      'void mmpl::sm90::flash_masked_bwd_dkv_f32_sm90_kernel<128>(float const*, float const*, float const*, float const*, mmpl::FwdStrides, long long, long long, long long, mmpl::sm90::F32BwdParams, mmpl::FrameMask)'),
