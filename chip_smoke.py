@@ -32,7 +32,11 @@ Phases, each printing JSON lines as it goes (any failure exits non-zero):
      steady-state self-attention shape, a ragged shape, D = 24 and the
      fp32 trunk's shapes, against the plain backward and SDPA's backward
      (memory-efficient backend in fp32), with the body that ran and the
-     split;
+     split; then the whole backward in one call under `bwd_schedule`'s
+     schedule (the grid, K3's persistent walk, or the fused or ordered
+     walk of csrc/flash_bwd_sched_sm90.cuh, each walk also held against
+     its plain version), the schedule that ran and a second call bit for
+     bit;
   4. kernel_masked: K4 / K5 / K6 under the fps-forcing mask at the 1.3B
      teacher-forcing self-attention shape (42 frames x 1560 tokens; in
      bf16, and in fp32 without SDPA), and ragged shapes with a frame that sees nothing (bf16, fp16, D = 24,
@@ -461,10 +465,11 @@ T0 = time.perf_counter()
 #: K1's launches by schedule (`attn.fwd_mode_launches`) on the paths that
 #: record them: the serving window, the GAN steps
 FWD_MODES_BY_PATH = {}
-#: K3's launches by schedule (`attn.bwd_mode_launches`; a fused launch is
-#: K2's too) on the paths that record them: the teacher-forcing steps (the
-#: cross-attention on K3's persistent walk), the GAN steps (the register
-#: token's backward fused)
+#: K3's launches by schedule (`attn.bwd_mode_launches`; a fused or ordered
+#: launch is K2's too) on the paths that record them: the teacher-forcing
+#: steps (the cross-attention on K3's persistent walk), the GAN steps (the
+#: register token's backward fused), the flow and DMD steps and the ring
+#: (the self-attention's backward ordered)
 BWD_MODES_BY_PATH = {}
 
 
@@ -645,12 +650,18 @@ def _body(names, counter: str, dtype) -> str:
 def _bwd_schedule_of(names) -> str:
     """The schedule a whole backward call ran among `names`: "fused" (the
     fused walk and its dQ reduce, booked to both K2 and K3, and no other
-    K2 / K3 kernel), else K3's kernel: its persistent walk or the grid."""
+    K2 / K3 kernel) or "ordered" (the ordered walk and its dQ out kernel,
+    the same way), else K3's kernel: its persistent walk or the grid."""
     fused = [n for n in names if port_kernel_of(n) == FUSED_BWD]
     if fused:
-        check(len(fused) == 2 and any("_reduce_kernel" in n for n in fused)
-              and not _main_kernels(names, "flash_bwd_dq")
+        ordered = [n for n in fused if "flash_bwd_ordered_" in n]
+        check(len(fused) == 2 and not _main_kernels(names, "flash_bwd_dq")
               and not _main_kernels(names, "flash_bwd_dkv"), names)
+        if ordered:
+            check(len(ordered) == 2
+                  and any("_out_kernel" in n for n in ordered), names)
+            return "ordered"
+        check(any("_reduce_kernel" in n for n in fused), names)
         return "fused"
     main = _main_kernels(names, "flash_bwd_dq")
     check(len(main) == 1, names)
@@ -805,8 +816,9 @@ def phase_kernel_bwd():
     that ran each (from the profiler's kernel names) and K2's query
     split; then the whole backward (`flash_bwd_cuda`, one call) under
     `bwd_schedule`'s mode, the mode that ran (from the profiler), its
-    gradients against the plain backward (the fused walk's also against
-    its plain version) and its time beside SDPA's backward, by wall and
+    gradients against the plain backward (the fused and ordered walks' also
+    against their plain versions), whether a second call gives the same
+    bits (`repeat_equal`) and its time beside SDPA's backward, by wall and
     device time."""
     rows = {}
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -849,14 +861,22 @@ def phase_kernel_bwd():
         _grad_errors(whole, out["bwd"], want, dtype)
         row.update({f"bwd_{k_}": x for k_, x in whole.items()
                     if k_ != "shape"})
-        if mode == "fused":
-            fused = {"shape": label}
-            _grad_errors(fused, out["bwd"],
-                         attn.flash_attention_bwd_fused_plain(
-                             q, k, v, do, lse, delta), dtype)
-            row.update({f"fused_plain_{k_}": x for k_, x in fused.items()
+        plain_of = {"fused": attn.flash_attention_bwd_fused_plain,
+                    "ordered": attn.flash_attention_bwd_ordered_plain}
+        if mode in plain_of:
+            walk = {"shape": label}
+            _grad_errors(walk, out["bwd"],
+                         plain_of[mode](q, k, v, do, lse, delta), dtype)
+            row.update({f"{mode}_plain_{k_}": x for k_, x in walk.items()
                         if k_ != "shape"})
-        del dq, dk, dv, want, out
+        # the whole backward gives the same bits on every call (the
+        # split's, the fused walk's and the ordered walk's sums run in a
+        # fixed order)
+        again = attn.flash_bwd_cuda(q, k, v, do, lse, delta)
+        row["repeat_equal"] = all(torch.equal(a, b)
+                                  for a, b in zip(again, out["bwd"]))
+        check(row["repeat_equal"], row)
+        del dq, dk, dv, want, out, again
         budget = BUDGET_MS[dtype]
         whole_call = lambda: attn.flash_bwd_cuda(q, k, v, do, lse, delta)
         row["bwd_ms"] = time_ms(whole_call, budget_ms=budget)
@@ -3184,21 +3204,31 @@ def phase_train_flow(timed_steps: int = 2):
         ema.update(model)
         return loss.item()
 
-    rows = []
+    rows, modes = [], {}
     for i in range(timed_steps + 1):
         loss, seconds, counts, peak = _run_counted(step)
+        bwd_modes = dict(attn.bwd_mode_launches)
         row = {"phase": "train_flow", "step": i, "warmup": i == 0,
                "layers": cfg.num_layers, "seconds": seconds, "loss": loss,
                "grad_norm": trainer.grad_norm.item(), "launches": counts,
                "expected_launches": _k123(4 * cfg.num_layers,
                                           2 * cfg.num_layers),
+               "flash_bwd_modes": bwd_modes,
                "max_memory_allocated_gib": peak}
         emit(row)
         check(counts == row["expected_launches"], row)
+        # the self-attention's backward (32760^2) on the ordered walk, the
+        # text cross-attention's (512 keys) on K3's persistent walk
+        check(bwd_modes == {**dict.fromkeys(bwd_modes, 0),
+                            "ordered": cfg.num_layers,
+                            "persistent": cfg.num_layers}, row)
+        if i:
+            modes = {k: modes.get(k, 0) + n for k, n in bwd_modes.items()}
         check(math.isfinite(loss) and math.isfinite(row["grad_norm"])
               and row["grad_norm"] > 0, row)
         rows.append(row)
     timed = rows[1:]
+    BWD_MODES_BY_PATH["train_flow"] = modes
     return ({k: sum(r["launches"][k] for r in timed) for k in counts},
             statistics.mean(r["seconds"] for r in timed))
 
@@ -3283,12 +3313,13 @@ def phase_distill_dmd():
     L, nb = cfg.num_layers, DISTILL_BLOCKS
     n_params = sum(p.numel() for m in models.values()
                    for p in m.parameters())
-    out, total = [], {}
+    out, total, modes = [], {}, {}
     for role, keys, fn in (("critic", ("fake_score",), dist.critic_loss),
                            ("generator", ("generator",),
                             dist.dmd_generator_loss)):
         (loss, flags), seconds, counts, peak = _run_counted(
             lambda: _distill_step(models, keys, fn, batch, ro, gen, nb))
+        bwd_modes = dict(attn.bwd_mode_launches)
         if role == "critic":
             # the rollout without gradients; the fake score's forward,
             # its recomputation and its backward
@@ -3302,10 +3333,17 @@ def phase_distill_dmd():
         row = {"phase": "distill_dmd", "step": role, "layers": L,
                "params": n_params, "flag": flags[0], "seconds": seconds,
                "loss": loss, "launches": counts,
-               "expected_launches": expected,
+               "expected_launches": expected, "flash_bwd_modes": bwd_modes,
                "max_memory_allocated_gib": peak}
         emit(row)
         check(counts == expected, row)
+        # each layer's self-attention backward (a block's queries over
+        # 4680 k keys, the score's 32760^2) on the ordered walk, its text
+        # cross-attention's on K3's persistent walk
+        check(bwd_modes == {**dict.fromkeys(bwd_modes, 0),
+                            "ordered": counts["flash_bwd_dq"] // 2,
+                            "persistent": counts["flash_bwd_dq"] // 2}, row)
+        modes = {k: modes.get(k, 0) + n for k, n in bwd_modes.items()}
         check(math.isfinite(loss), row)
         out.append(row)
         total = {k: total.get(k, 0) + counts[k] for k in counts}
@@ -3332,6 +3370,7 @@ def phase_distill_dmd():
                                           for r in out),
           "params_finite_after": grads_finite, "launches": total})
     check(grads_finite, "non-finite parameters after the DMD steps")
+    BWD_MODES_BY_PATH["distill_dmd"] = modes
     return total, bundle
 
 
@@ -4358,6 +4397,7 @@ def phase_ring():
     attn.reset_launch_counts()
     attn.ring_flash_attention(*leaves, group).backward(dol)
     bwd_counts = dict(attn.launch_counts)
+    bwd_modes = dict(attn.bwd_mode_launches)
     delta_w = (do.float() * o_w.float()).sum(-1).transpose(1, 2).contiguous()
     dq_w, dk_w, dv_w = attn.flash_bwd_cuda(q, k, v, do, lse_w, delta_w)
     rel = {f"{n}_rel_err": ((unshard(x.grad).float() - w.float()).norm()
@@ -4373,6 +4413,7 @@ def phase_ring():
            "o_mean_abs_err": err.mean().item(),
            "lse_max_abs_err": (lse - lse_w).abs().max().item(), **rel,
            "fwd_launches": fwd_counts, "bwd_launches": bwd_counts,
+           "bwd_modes": bwd_modes,
            "ms": time_ms(lambda: attn._ring_fwd(ql, kl, vl, group, None)),
            "whole_k1_ms": time_ms(lambda: attn.flash_fwd_cuda(q, k, v)),
            "merge_ms": (RING - 1) * time_ms(
@@ -4395,6 +4436,10 @@ def phase_ring():
     check(all(v <= GRAD_REL_TOL[torch.bfloat16] for v in rel.values()), row)
     check(fwd_counts == _k123(RING), fwd_counts)
     check(bwd_counts == _k123(RING, RING), bwd_counts)
+    # each ring step's chunk ([8, 8190]^2 stacked) on the ordered walk
+    check(bwd_modes == {**dict.fromkeys(bwd_modes, 0), "ordered": RING},
+          bwd_modes)
+    BWD_MODES_BY_PATH["ring"] = bwd_modes
     del q, k, v, do, ql, kl, vl, dol, leaves, o_w, dq_w, dk_w, dv_w
     torch.cuda.empty_cache()
     return _k123(2 * RING, RING)
@@ -5677,7 +5722,10 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
     other shapes under `shapes`; K3's persistent walk there and the fused
     walk of K2 and K3 with its dQ reduce at the GAN head's register token,
     `flash_bwd_dq_persistent` and `flash_bwd_fused`, their launches those
-    of the teacher-forcing steps and of the GAN steps), K4-K6 at the
+    of the teacher-forcing steps and of the GAN steps; the ordered walk of
+    K2 and K3 with its dQ out kernel at the critic's self-attention,
+    `flash_bwd_ordered`, its launches those of the flow and DMD steps and
+    the ring's backward), K4-K6 at the
     training self-attention, P2 at group 3's ffn.fc1, Q at group 3's
     ffn.fc2 input and P1 (its exp2 variant without the pad test) at the
     probe's shape.  `launches` sums the paths each runs on (the training
@@ -5790,8 +5838,9 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
                     for k, r in bwd.items()}))
     # K2 and K3's other schedules, each at its main shape: K3's persistent
     # walk at the teacher-forcing cross-attention (K3 alone), the fused
-    # walk with its dQ reduce at the GAN head's register token (the whole
-    # backward, one call)
+    # walk with its dQ reduce at the GAN head's register token and the
+    # ordered walk with its dQ out kernel at the flow and critic
+    # self-attention (the whole backward, one call)
     bwd_sched_src = "mmpl_tpu_torch/csrc/flash_bwd_sched_sm90.cuh"
     for name, mode, at, paths, part, replaces, kernels in (
             ("flash_bwd_dq_persistent", "persistent", BWD_MAIN, ("train",),
@@ -5801,7 +5850,13 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
              ("gan_critic", "gan_generator"), "bwd",
              "mmpl_tpu/ops/attention.py:373 and :417 (K2 and K3 where the "
              "queries fit one 64-row tile)",
-             ["flash_bwd_fused_sm90_kernel", "flash_bwd_dq_reduce_kernel"])):
+             ["flash_bwd_fused_sm90_kernel", "flash_bwd_dq_reduce_kernel"]),
+            ("flash_bwd_ordered", "ordered", "critic_self",
+             ("train_flow", "distill_dmd", "ring"), "bwd",
+             "mmpl_tpu/ops/attention.py:373 and :417 (K2 and K3 at long "
+             "keys)",
+             ["flash_bwd_ordered_sm90_kernel",
+              "flash_bwd_ordered_out_kernel"])):
         r = bwd[at]
         check(r["mode"] == mode, (name, r["mode"]))
         by_path = {p: BWD_MODES_BY_PATH[p][mode] for p in paths}
@@ -5820,13 +5875,15 @@ def kernels_line(smi, rows, bwd, masked, int8, window_launches,
             note=(("K3 alone (launch counter flash_bwd_dq) on its "
                    "persistent walk" if part == "dq" else
                    "K2 and K3 in one call (one launch of each counter): the "
-                   "fused walk and its dQ reduce")
+                   + ("fused walk and its dQ reduce" if mode == "fused" else
+                      "ordered walk (dQ's shares added in key-block order) "
+                      "and its dQ out kernel"))
                   + "; ms is a call after a synchronise, the wrapper's host "
                   "time included; bwd_device_ms the whole backward's device "
                   "time beside SDPA's (library_device_ms); " + bwd_note),
             shapes={k: {f: x.get(f) for f in (
                 "mode", "bwd_ms", "bwd_device_ms", "dq_ms", "bwd_bound_ms",
-                "library_bwd_ms", "library_bwd_device_ms")}
+                "library_bwd_ms", "library_bwd_device_ms", "repeat_equal")}
                     for k, x in bwd.items() if x["mode"] == mode}))
     masked_bodies = {
         "fwd": ("K1's wgmma + TMA body, masked (flash_fwd_sm90.cuh) for "

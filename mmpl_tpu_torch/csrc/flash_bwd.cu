@@ -18,7 +18,9 @@
 //    (`flash_bwd_sched_sm90.cuh`, entry `mmpl_flash_bwd_sched`, chosen by
 //    ops/attention.py `bwd_schedule`): a fused walk of both where the
 //    queries fit one 64-row tile (dQ's per-key-block partials summed by a
-//    deterministic reduce), and a persistent walk of K3 at short keys.
+//    deterministic reduce), a persistent walk of K3 at short keys, and an
+//    ordered walk of both at long keys (dQ's shares added across the key
+//    blocks in key-block order, ordered by counters between the blocks).
 //  * K5 / K6, the same under the frame mask: `_masked_bwd_dkv_kernel`
 //    (:783, :963) and `_masked_bwd_dq_kernel` (:821, :992).  bf16 / fp16
 //    K5 and K6 run the masked instantiations of the Hopper dKV and dQ
@@ -271,14 +273,16 @@ extern "C" int mmpl_flash_masked_bwd_dq(int dtype, const void* q, const void* k,
 }
 
 // The scheduled entry's integer arguments as ops/attention.py
-// `_bwd_sched_args` packs them, 41 int64s: a short shape's call is
+// `_bwd_sched_args` packs them, 42 int64s: a short shape's call is
 // host-bound, and 25 arguments converted one by one by ctypes cost some of
 // it.  `st`: the element strides (batch, row, head) of q, k, v, dO, dQ, dK
-// and dV (0 for an output the call does not write).
+// and dV (0 for an output the call does not write); `cnt`: the ordered
+// walk's counters (0 for the other modes).
 struct BwdSchedArgs {
   long long dtype, q, k, v, dout, lse, delta, dq, dk, dv, ws, mode, parts, splits, sms;
   long long B, Lq, Lk, N, D;
   long long st[21];
+  long long cnt;
 };
 
 namespace {
@@ -304,21 +308,35 @@ int grid_dkv(const BwdSchedArgs& a, float scale, void* stream) {
 // and K3 on one block per key block / query block, as mmpl_flash_bwd_dkv
 // and mmpl_flash_bwd_dq; 1: K2 as in mode 0, K3 under the persistent walk;
 // 2 (parts 3, Lq <= 64): the fused walk and its dQ reduce, `ws` the fp32
-// partials (ceil(Lk / 128) * B * N * Lq * D floats).  Modes 1 and 2 take
-// bf16 / fp16 and run on min(sms, units) blocks.  `scale` is the natural
-// one.
+// partials (ceil(Lk / 128) * B * N * Lq * D floats); 3 (parts 3): the
+// ordered walk, `ws` its fp32 sums (B * N * ceil(Lq / 64) * 8192 floats)
+// and `cnt` its zeroed counters (B * N * ceil(Lq / 64) * 2 int32).  Modes
+// 1-3 take bf16 / fp16 and run on min(sms, units) blocks.  `scale` is the
+// natural one.
 extern "C" int mmpl_flash_bwd_sched(const void* packed, float scale, void* stream) {
   BwdSchedArgs a;
   memcpy(&a, packed, sizeof a);
   const int dtype = (int)a.dtype, mode = (int)a.mode, parts = (int)a.parts;
   const int B = (int)a.B, Lq = (int)a.Lq, Lk = (int)a.Lk, N = (int)a.N, D = (int)a.D;
-  if (D <= 0 || D > 128 || D % 8 || mode < 0 || mode > 2 || parts < 1 || parts > 3 ||
-      (mode != 0 && dtype != 1 && dtype != 2) || (mode == 2 && (parts != 3 || a.ws == 0)))
+  if (D <= 0 || D > 128 || D % 8 || mode < 0 || mode > 3 || parts < 1 || parts > 3 ||
+      (mode != 0 && dtype != 1 && dtype != 2) || (mode >= 2 && (parts != 3 || a.ws == 0)) ||
+      (mode == 3 && a.cnt == 0))
     return (int)cudaErrorInvalidValue;
   auto ptr = [](long long x) { return reinterpret_cast<void*>(static_cast<uintptr_t>(x)); };
   const void *q = ptr(a.q), *k = ptr(a.k), *v = ptr(a.v), *dout = ptr(a.dout);
   void *dq = ptr(a.dq), *dk = ptr(a.dk), *dv = ptr(a.dv), *ws = ptr(a.ws);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 3) {
+    sm90::OrderedParams p{static_cast<const float*>(ptr(a.lse)),
+                          static_cast<const float*>(ptr(a.delta)),
+                          static_cast<float*>(ws), static_cast<int*>(ptr(a.cnt)),
+                          B, N, Lq, Lk, D, 0, 0, 0, scale, scale * sm90::kLog2e};
+    const int sms = (int)a.sms;
+    return dtype == 1 ? sm90::launch_ordered<__nv_bfloat16, 128>(q, k, v, dout, dq, dk, dv,
+                                                                 a.st, p, sms, s)
+                      : sm90::launch_ordered<__half, 128>(q, k, v, dout, dq, dk, dv, a.st, p,
+                                                          sms, s);
+  }
   if (mode != 0 && (parts & 2)) {
     sm90::BwdSchedParams p{static_cast<const float*>(ptr(a.lse)),
                            static_cast<const float*>(ptr(a.delta)),

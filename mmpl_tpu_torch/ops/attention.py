@@ -66,8 +66,8 @@ launch_counts = {"flash_fwd": 0, "flash_masked_fwd": 0, "flash_bwd_dkv": 0,
 #: them (`fwd_schedule`)
 fwd_mode_launches = {"grid": 0, "persistent": 0, "split": 0}
 #: K3's launches (`launch_counts["flash_bwd_dq"]`) by the schedule that ran
-#: them (`bwd_schedule`); a fused launch counts one K2 launch too
-bwd_mode_launches = {"grid": 0, "persistent": 0, "fused": 0}
+#: them (`bwd_schedule`); a fused or ordered launch counts one K2 launch too
+bwd_mode_launches = {"grid": 0, "persistent": 0, "fused": 0, "ordered": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -108,7 +108,7 @@ BWD_MAX_WORKSPACE = 64 << 20
 #: K2's and K3's schedules, by their code in `mmpl_flash_bwd_sched`
 #: (csrc/flash_bwd.cu), the parts a call computes, and K3's 128-query
 #: blocks (csrc/flash_bwd_sm90.cuh kQueryBlock)
-BWD_MODES = {"grid": 0, "persistent": 1, "fused": 2}
+BWD_MODES = {"grid": 0, "persistent": 1, "fused": 2, "ordered": 3}
 BWD_PARTS = {"dkv": 1, "dq": 2, "both": 3}
 BWD_QUERY_BLOCK = 128
 #: K3's persistent walk runs where a 128-query block walks at most this
@@ -119,6 +119,17 @@ BWD_FUSED_MAX_WORKSPACE = 64 << 20
 #: the ranges of key blocks that the dQ reduce sums apart, then together
 #: (csrc/flash_bwd_sched_sm90.cuh kDqReduceWarps)
 BWD_REDUCE_RANGES = 32
+#: the ordered walk's fp32 dQ sums, floats per 64-query tile of a (batch,
+#: head): two 64 x 64 column halves (csrc/flash_bwd_sched_sm90.cuh
+#: OrderedParams::acc), and its counters per tile (one a half)
+BWD_ORDERED_TILE_FLOATS = 2 * 64 * 64
+BWD_ORDERED_TILE_COUNTERS = 2
+#: the ordered walk runs where the head dim is above this (the grid's K2
+#: and K3 run at a 64-wide head dim up to it, the walk at 128 always) and
+#: a wave's units hold at most BWD_ORDERED_MAX_CHAIN key blocks of one
+#: (batch, head), each adding after the one before
+BWD_ORDERED_MIN_D = 64
+BWD_ORDERED_MAX_CHAIN = 16
 
 #: K1's schedules, by their code in `mmpl_flash_fwd_sched`
 #: (csrc/flash_fwd.cu), and its 128-query blocks and 128-key tiles
@@ -212,15 +223,36 @@ def bwd_schedule(B: int, N: int, Lq: int, Lk: int, D: int, sms: int) -> str:
         BWD_PERSISTENT_MAX_TILES 128-key tiles (the teacher-forcing and
         score cross-attention at 512 keys): K2 as on the grid, K3 as a
         persistent walk over the (128-query block, head, batch) units;
-      * "grid", elsewhere: K2 (with its query split) and K3 on one block
-        per key block and per query block, the parent's schedule.
+      * "ordered", beyond 6 key tiles where D > BWD_ORDERED_MIN_D and a
+        wave of min(sms, units) units holds at most BWD_ORDERED_MAX_CHAIN
+        key blocks of one (batch, head) (the long self-attention: the
+        few-step rollout's 4680 x 32760, the critic's and the flow step's
+        32760^2, the ring's chunks, 1000 x 1300 at 12 heads): one
+        persistent walk over the (128-key block, head, batch) units
+        computes dK, dV and each key block's share of dQ, and the shares
+        are added into one fp32 sum in key-block order;
+      * "grid", elsewhere (D <= 64, or few heads at long keys): K2 (with
+        its query split) and K3 on one block per key block and per query
+        block, the parent's schedule; and K2 or K3 asked for alone.
 
-    D does not move the choice; it sizes the fused walk's workspace."""
+    The crossovers, from `tools/flash_compare --kernel bwd`'s device times
+    of each schedule on an H100 (PERF.md, Findings): the ordered
+    walk ran 0.81-0.89x the grid's time at 4680 x 32760, 32760^2, 2 x
+    8190^2 and 2 x 1000 x 1300 (12 heads, D = 128); it ran
+    1.44x at D = 24 (the grid's 64-wide head dim) and 1.19x at 4 heads over
+    4096 keys, where a wave holds 32 key blocks of a head, each adding
+    after the last.  The edges between (7 key tiles; 17 key blocks of a
+    head a wave) are the `keys896` and `heads8_4096` rows.  D moves the
+    choice as above; it sizes the fused walk's workspace."""
     nkb = -(-Lk // BWD_KEY_BLOCK)
     if (Lq <= BWD_QUERY_TILE and 2 * B * N * -(-Lq // BWD_QUERY_BLOCK) <= sms
             and nkb * B * N * Lq * D * 4 <= BWD_FUSED_MAX_WORKSPACE):
         return "fused"
-    return "persistent" if nkb <= BWD_PERSISTENT_MAX_TILES else "grid"
+    if nkb <= BWD_PERSISTENT_MAX_TILES:
+        return "persistent"
+    chain = min(nkb, -(-min(sms, nkb * B * N) // N))
+    return ("ordered" if D > BWD_ORDERED_MIN_D
+            and chain <= BWD_ORDERED_MAX_CHAIN else "grid")
 
 
 def split_keys(B: int, N: int, Lq: int, Lk: int, D: int, sms: int) -> int:
@@ -437,6 +469,37 @@ def flash_attention_bwd_fused_plain(q, k, v, do, lse, delta, scale=None):
         dks.append(sc * torch.matmul(ds.transpose(-1, -2), qf))
         parts.append(torch.matmul(ds, kb))
     dq = (_dq_partials_summed(parts) * sc).permute(0, 2, 1, 3).to(q.dtype)
+    return (dq, torch.cat(dks, 2).permute(0, 2, 1, 3).to(k.dtype),
+            torch.cat(dvs, 2).permute(0, 2, 1, 3).to(v.dtype))
+
+
+def flash_attention_bwd_ordered_plain(q, k, v, do, lse, delta, scale=None):
+    """The plain version of the ordered walk of K2 and K3: (dq, dk, dv).
+    Each 128-key block's dK and dV from the plain backward's formulas, and
+    its share of dQ, dS K over its keys, in fp32 unscaled; the shares added
+    into one fp32 sum in key-block order from block 0 (the walk's ordered
+    adds), then scaled and rounded to q's dtype.  lse and delta are [B, N,
+    Lq] fp32 as for `flash_attention_bwd_plain`."""
+    sc = _scale(q, scale)
+    kf = k.float().permute(0, 2, 1, 3)                 # [B, N, Lk, D]
+    vf = v.float().permute(0, 2, 1, 3)
+    qf = q.float().permute(0, 2, 1, 3)                 # [B, N, Lq, D]
+    dof = do.float().permute(0, 2, 1, 3)
+    lc = lse[..., None]
+    live = lc != -math.inf
+    shift = torch.where(live, lc, torch.zeros_like(lc))
+    dks, dvs, total = [], [], None
+    for k0 in range(0, k.shape[1], BWD_KEY_BLOCK):
+        kb = kf[:, :, k0:k0 + BWD_KEY_BLOCK]
+        vb = vf[:, :, k0:k0 + BWD_KEY_BLOCK]
+        p = torch.exp(torch.matmul(qf, kb.transpose(-1, -2)) * sc - shift)
+        p = torch.where(live, p, torch.zeros_like(p))
+        dvs.append(torch.matmul(p.transpose(-1, -2), dof))
+        ds = p * (torch.matmul(dof, vb.transpose(-1, -2)) - delta[..., None])
+        dks.append(sc * torch.matmul(ds.transpose(-1, -2), qf))
+        share = torch.matmul(ds, kb)
+        total = share if total is None else total + share
+    dq = (total * sc).permute(0, 2, 1, 3).to(q.dtype)
     return (dq, torch.cat(dks, 2).permute(0, 2, 1, 3).to(k.dtype),
             torch.cat(dvs, 2).permute(0, 2, 1, 3).to(v.dtype))
 
@@ -832,30 +895,57 @@ def _masked_bwd_launch(part: str, q, k, v, do, lse, delta, outs, scale,
 
 
 def _bwd_sched_args(q, k, v, do, lse, delta, dq, dk, dv, ws, mode: str,
-                    parts: str, splits: int, sms: int) -> bytes:
+                    parts: str, splits: int, sms: int, cnt=None) -> bytes:
     """The integer arguments of `mmpl_flash_bwd_sched` (csrc/flash_bwd.cu
-    `BwdSchedArgs`) packed as 41 int64s, one ctypes argument; an output
-    the call does not write is 0, its strides too."""
+    `BwdSchedArgs`) packed as 42 int64s, one ctypes argument; an output
+    the call does not write is 0, its strides too, and `cnt` (the ordered
+    walk's counters) 0 for the other modes."""
     B, Lq, N, D = q.shape
     ptr = lambda x: 0 if x is None else x.data_ptr()
     out_strides = [s for x in (dq, dk, dv)
                    for s in ((0, 0, 0) if x is None else x.stride()[:3])]
     return struct.pack(
-        "41q", _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+        "42q", _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         ptr(dq), ptr(dk), ptr(dv), ptr(ws), BWD_MODES[mode],
         BWD_PARTS[parts], splits, sms, B, Lq, k.shape[1], N, D,
-        *_strides(q, k, v, do), *out_strides)
+        *_strides(q, k, v, do), *out_strides, ptr(cnt))
+
+
+def bwd_workspace(mode: str, parts: str, q, k, sms: int):
+    """(splits, ws, cnt) of a scheduled K2 / K3 call: the fused walk's fp32
+    dQ partials (ceil(Lk / 128) * B * N * Lq * D floats); the ordered walk's
+    fp32 dQ sums (BWD_ORDERED_TILE_FLOATS a 64-query tile of each (batch,
+    head), no memset: the first key block stores) and its int32 counters,
+    zeros; else K2's query split (`bwd_query_splits`, bf16 / fp16 on the
+    grid with dK and dV) and its fp32 partials when it splits."""
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
+    splits, ws, cnt = 1, None, None
+    if mode == "fused":
+        ws = torch.empty(-(-Lk // BWD_KEY_BLOCK) * B * N * Lq * D,
+                         dtype=torch.float32, device=q.device)
+    elif mode == "ordered":
+        tiles = B * N * -(-Lq // BWD_QUERY_TILE)
+        ws = torch.empty(tiles * BWD_ORDERED_TILE_FLOATS, dtype=torch.float32,
+                         device=q.device)
+        cnt = torch.zeros(tiles * BWD_ORDERED_TILE_COUNTERS,
+                          dtype=torch.int32, device=q.device)
+    elif parts != "dq" and q.dtype != torch.float32:
+        splits = bwd_query_splits(B, N, Lq, Lk, sms)
+        if splits > 1:
+            ws = torch.empty((2, splits, B, N, Lk, D), dtype=torch.float32,
+                             device=q.device)
+    return splits, ws, cnt
 
 
 def _bwd_sched_launch(parts: str, q, k, v, do, lse, delta, dq, dk, dv,
                       scale) -> None:
     """Launch K2 (`parts` = "dkv"), K3 ("dq") or both ("both") through
     `mmpl_flash_bwd_sched` (csrc/flash_bwd.cu) under `bwd_schedule`'s mode
-    (fp32: the grid): both parts may run fused, K3 alone runs the grid or
-    its persistent walk, K2 alone the grid with its query split
-    (`bwd_query_splits`) and an fp32 workspace for the split's partials;
-    the fused walk takes one for dQ's partials."""
+    (fp32: the grid): both parts may run fused or ordered, K3 alone runs
+    the grid or its persistent walk, K2 alone the grid with its query split
+    (`bwd_query_splits`); `bwd_workspace` allocates what the mode takes."""
     what = "flash_bwd"
     _check_bwd(what, q, k, v, do, lse, delta)
     B, Lq, N, D = q.shape
@@ -868,18 +958,10 @@ def _bwd_sched_launch(parts: str, q, k, v, do, lse, delta, dq, dk, dv,
     sms = _sm_count(q.device.index)
     f32 = q.dtype == torch.float32
     mode = "grid" if f32 else bwd_schedule(B, N, Lq, Lk, D, sms)
-    if (parts == "dkv" and mode != "grid") or (parts == "dq"
-                                               and mode == "fused"):
+    if (parts == "dkv" and mode != "grid") or (
+            parts == "dq" and mode in ("fused", "ordered")):
         mode = "grid"
-    splits, ws = 1, None
-    if mode == "fused":
-        ws = torch.empty(-(-Lk // BWD_KEY_BLOCK) * B * N * Lq * D,
-                         dtype=torch.float32, device=q.device)
-    elif parts != "dq" and not f32:
-        splits = bwd_query_splits(B, N, Lq, Lk, sms)
-        if splits > 1:
-            ws = torch.empty((2, splits, B, N, Lk, D), dtype=torch.float32,
-                             device=q.device)
+    splits, ws, cnt = bwd_workspace(mode, parts, q, k, sms)
     counts = []
     if parts != "dq":
         counts.append((launch_counts, "flash_bwd_dkv"))
@@ -887,7 +969,7 @@ def _bwd_sched_launch(parts: str, q, k, v, do, lse, delta, dq, dk, dv,
         counts += [(launch_counts, "flash_bwd_dq"), (bwd_mode_launches, mode)]
     _launch("flash_bwd", "mmpl_flash_bwd_sched", what, q.device,
             _bwd_sched_args(q, k, v, do, lse, delta, dq, dk, dv, ws, mode,
-                            parts, splits, sms),
+                            parts, splits, sms, cnt),
             float(_scale(q, scale)), counts=counts)
 
 
@@ -935,7 +1017,8 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, scale=None, mask=None,
                    tiles=None):
     """Both backward kernels; returns (dq, dk, dv).  Unmasked, one call of
     `mmpl_flash_bwd_sched` under `bwd_schedule`'s mode, which counts one
-    K2 and one K3 launch whatever the mode (the fused walk is both)."""
+    K2 and one K3 launch whatever the mode (the fused and ordered walks are
+    both)."""
     if mask is not None:
         dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, mask,
                                     tiles)

@@ -62,8 +62,12 @@ call (`bwd`: the fused walk and its reduce, or K2 then K3) against the
 baseline's, each by wall and device time (`*_device`), beside
 SDPA's backward by both (`sdpa_bwd_ms`, `sdpa_bwd_device_ms`) and this
 tree's whole backward under every schedule by device time (`modes_ms`),
-from which the chooser's thresholds were read.  A baseline with the
-scheduled entry runs it under the same modes; an earlier one runs its
+from which the chooser's thresholds were read, and the cost of the ordered
+walk's ordering: its device time in turns against the same walk with the
+counter waits cut out (`unordered_library`, a scratch variant built from
+this tree's sources; `ordered_ms`, `unordered_ms`).  A baseline with the
+scheduled entry runs it under the same modes (the grid where this tree
+runs the ordered walk and the baseline has none); an earlier one runs its
 `mmpl_flash_bwd_dkv` and `mmpl_flash_bwd_dq` (`call_bwd`), its whole
 backward as the two calls.
 
@@ -164,15 +168,25 @@ SHAPES = {
     "gan_head_q1": (2, 12, 128, 1, 32760),
 }
 #: K2 / K3: the teacher-forcing cross-attention and the few-step steady
-#: state, the self-attention shape of self-forcing training and the ring,
-#: the critic's and the flow objective's self-attention and text
-#: cross-attention, and the GAN head's one query row
+#: state, the self-attention shape of self-forcing training, the critic's
+#: and the flow objective's self-attention and text cross-attention, the
+#: GAN head's one query row, chip_smoke.py's ragged shape and its tiny
+#: head dim, a chunk of the ring backward (ring 4 over 2 x 32760 tokens),
+#: and the ordered walk's edges: 7 key blocks (the first past K3's
+#: persistent walk), and 8 and 4 heads over 4096 keys (a wave of the walk
+#: holds 17 and 32 key blocks of a head)
 BWD_SHAPES = {
     "tf_cross": (1, 12, 128, 65520, 512),
     "fewstep_self_hot": (1, 12, 128, 4680, 32760),
     "gan_head_q1": (2, 12, 128, 1, 32760),
     "score_cross": (1, 12, 128, 32760, 512),
     "critic_self": (1, 12, 128, 32760, 32760),
+    "ragged": (2, 12, 128, 1000, 1300),
+    "d24_bf16": (2, 4, 24, 1000, 1300),
+    "ring_chunk": (2, 12, 128, 8190, 8190),
+    "keys896": (2, 12, 128, 1000, 896),
+    "heads8_4096": (1, 8, 128, 4096, 4096),
+    "heads4_4096": (1, 4, 128, 4096, 4096),
 }
 
 #: P2 and Q: (M, K, N, activations quantised by Q): the serving window's
@@ -328,6 +342,49 @@ def baseline_schedules_bwd(root: Path) -> bool:
     trees)."""
     src = (baseline_csrc(root, "flash_bwd") / "flash_bwd.cu").read_text()
     return re.search(r"mmpl_flash_bwd_sched\(", src) is not None
+
+
+def baseline_orders_bwd(root: Path) -> bool:
+    """Whether the baseline's scheduled entry has the ordered walk (mode
+    3); a baseline without it runs the grid where this tree runs it."""
+    src = baseline_csrc(root, "flash_bwd") / "flash_bwd_sched_sm90.cuh"
+    return src.exists() and "launch_ordered" in src.read_text()
+
+
+def unordered_library() -> ctypes.CDLL:
+    """This tree's `flash_bwd.cu` with the ordered walk's counter waits
+    cut out (`flash_bwd_sched_sm90.cuh`): each key block adds its share of
+    dQ as soon as it is staged, in whatever order the blocks reach it.  A
+    scratch variant built under `build/kernels/unordered-<hash>/` for the
+    cost of the ordering alone (`unordered_ms`); its dQ is not the same on
+    every call, and no path of the port runs it."""
+    src = _build.CSRC / "flash_bwd_sched_sm90.cuh"
+    text, cut = re.subn(
+        r"\n *for \(int spins = 0; ld_acquire_gpu\(p\.cnt \+ blk\) != w\.kb; "
+        r"\+\+spins\) \{\n.*?\n *\}\n", "\n", src.read_text(), flags=re.S)
+    if cut != 1:
+        raise RuntimeError("the ordered walk's counter wait was not found")
+    digest = hashlib.sha256(text.encode() + " ".join(
+        _build.NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = _build.BUILD_DIR / f"unordered-{digest}" / "flash_bwd.so"
+    if not out.exists():
+        csrc = out.parent / "csrc"
+        csrc.mkdir(parents=True, exist_ok=True)
+        for f in _build.CSRC.iterdir():
+            if f.suffix in (".cu", ".cuh"):
+                (csrc / f.name).write_bytes(f.read_bytes())
+        (csrc / src.name).write_text(text)
+        run = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                              str(out), str(csrc / "flash_bwd.cu")],
+                             capture_output=True, text=True)
+        if run.returncode:
+            raise RuntimeError(f"nvcc failed for the unordered variant:\n"
+                               f"{run.stdout}{run.stderr}")
+    lib = ctypes.CDLL(str(out))
+    lib.mmpl_flash_bwd_sched.argtypes = \
+        _build.SIGNATURES["flash_bwd"]["mmpl_flash_bwd_sched"]
+    lib.mmpl_flash_bwd_sched.restype = ctypes.c_int
+    return lib
 
 
 def baseline_splits_queries(root: Path) -> bool:
@@ -507,25 +564,16 @@ def call_bwd_sched(lib, mode: str, parts: str, q, k, v, do, lse, delta):
     """K2 and / or K3 (`parts`: "dkv", "dq" or "both") of a built
     `flash_bwd` library through its scheduled entry (`mmpl_flash_bwd_sched`)
     under `mode`; returns (dq, dk, dv), None for a part not computed."""
-    B, Lq, N, D = q.shape
-    Lk = k.shape[1]
+    D = q.shape[-1]
     dq = (torch.empty_like(q, memory_format=torch.contiguous_format)
           if parts != "dkv" else None)
     dk, dv = ((torch.empty_like(x, memory_format=torch.contiguous_format)
                for x in (k, v)) if parts != "dq" else (None, None))
     sms = attn._sm_count(q.device.index)
-    splits, ws = 1, None
-    if mode == "fused":
-        ws = torch.empty(-(-Lk // attn.BWD_KEY_BLOCK) * B * N * Lq * D,
-                         dtype=torch.float32, device=q.device)
-    elif parts != "dq" and q.dtype != torch.float32:
-        splits = attn.bwd_query_splits(B, N, Lq, Lk, sms)
-        if splits > 1:
-            ws = torch.empty((2, splits, B, N, Lk, D), dtype=torch.float32,
-                             device=q.device)
+    splits, ws, cnt = attn.bwd_workspace(mode, parts, q, k, sms)
     rc = lib.mmpl_flash_bwd_sched(
         attn._bwd_sched_args(q, k, v, do, lse, delta, dq, dk, dv, ws, mode,
-                             parts, splits, sms),
+                             parts, splits, sms, cnt),
         float(D ** -0.5), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{mode} {parts} launch failed: CUDA error {rc}")
@@ -760,10 +808,12 @@ def run_bwd(args, smi: str) -> list:
     lib = build_baseline(args.baseline, "flash_bwd")
     new = baseline_splits_queries(args.baseline)
     scheduled = baseline_schedules_bwd(args.baseline)
+    ordered = baseline_orders_bwd(args.baseline)
     mine = _build.library("flash_bwd")
     gen = torch.Generator(device="cuda").manual_seed(1)
     dtype = DTYPES[args.dtype]
     f32 = dtype == torch.float32
+    unordered = None if f32 else unordered_library()
     sms = attn._sm_count(torch.cuda.current_device())
     rows = []
     for label in args.shapes:
@@ -778,7 +828,9 @@ def run_bwd(args, smi: str) -> list:
             q, k, v, do, lse, delta)))
         args_ = (q, k, v, do, lse, delta)
         mode = "grid" if f32 else attn.bwd_schedule(B, N, Lq, Lk, D, sms)
-        dq_mode = "grid" if mode == "fused" else mode
+        dq_mode = "grid" if mode in ("fused", "ordered") else mode
+        # a baseline without the ordered walk runs the grid in its place
+        base_mode = "grid" if mode == "ordered" and not ordered else mode
         base_dkv = lambda: call_bwd(lib, new, "dkv", *args_)
         # K2 alone (the grid), K3 alone under its schedule, and the whole
         # backward under its schedule, of each tree: a baseline without
@@ -786,7 +838,7 @@ def run_bwd(args, smi: str) -> list:
         # as its two calls, K2 first (as its `flash_bwd_cuda`)
         if scheduled:
             base_dq = lambda: call_bwd_sched(lib, dq_mode, "dq", *args_)[:1]
-            base_bwd = lambda: call_bwd_sched(lib, mode, "both", *args_)
+            base_bwd = lambda: call_bwd_sched(lib, base_mode, "both", *args_)
         else:
             base_dq = lambda: call_bwd(lib, new, "dq", *args_)
             base_bwd = lambda: (lambda dkv: base_dq() + dkv)(base_dkv())
@@ -800,6 +852,7 @@ def run_bwd(args, smi: str) -> list:
         }
         row = {"kernel": "bwd", "dtype": args.dtype, "shape": label, "B": B,
                "N": N, "D": D, "Lq": Lq, "Lk": Lk, "mode": mode,
+               "baseline_mode": base_mode,
                "splits": 1 if f32 else attn.bwd_query_splits(
                    B, N, Lq, Lk, sms)}
         for part, (base, this) in calls.items():
@@ -826,13 +879,21 @@ def run_bwd(args, smi: str) -> list:
             # this tree's whole backward under each schedule by device
             # time, for the chooser's crossovers
             row["modes_ms"], row["modes_rel_err"] = {}, {}
-            for m in ("grid", "persistent") + (
+            for m in ("grid", "persistent", "ordered") + (
                     ("fused",) if Lq <= attn.BWD_QUERY_TILE else ()):
                 run = lambda: call_bwd_sched(mine, m, "both", *args_)
                 row["modes_rel_err"][m] = max(
                     _rel(g, want[n]) for g, n in zip(run(), ("dq", "dk",
                                                              "dv")))
                 row["modes_ms"][m] = queued_ms(run, args.reps)
+            # the cost of the ordering: the ordered walk against the same
+            # walk with its adds unordered (a scratch variant), in turns by
+            # device time
+            run = lambda lib_: lambda: call_bwd_sched(lib_, "ordered", "both",
+                                                      *args_)
+            t = [queued_ms(run(x), args.reps)
+                 for x in (unordered, mine, mine, unordered)]
+            row["ordered_ms"], row["unordered_ms"] = [t[1], t[2]], [t[0], t[3]]
         del want
         if f32:
             row["plain_ms"] = time_ms(lambda: attn.flash_attention_bwd_plain(

@@ -33,10 +33,12 @@ import torch
 #: whatever the schedule);
 #: K2's Hopper launch adds its reduce when it splits the queries; bf16 /
 #: fp16 K3 also has its persistent walk, and K2 and K3 their fused walk,
-#: which with its dQ reduce books to FUSED_BWD (one launch of each).  The
+#: which with its dQ reduce books to FUSED_BWD (one launch of each), and
+#: their ordered walk, which with its dQ out kernel books there too.  The
 #: masked kernels (K4-K6) are kernels of their own names.  P2 has one body;
 #: Q reads a row once, or twice beyond the rows its registers hold
-#: what the fused walk of K2 and K3 and its reduce book to: both counters
+#: what the fused and ordered walks of K2 and K3 and their second kernels
+#: book to: both counters
 FUSED_BWD = "flash_bwd_dkv+flash_bwd_dq"
 _KERNELS = {
     "flash_fwd_sm90_kernel": "flash_fwd",
@@ -57,6 +59,8 @@ _KERNELS = {
     "flash_bwd_dq_persistent_sm90_kernel": "flash_bwd_dq",
     "flash_bwd_fused_sm90_kernel": FUSED_BWD,
     "flash_bwd_dq_reduce_kernel": FUSED_BWD,
+    "flash_bwd_ordered_sm90_kernel": FUSED_BWD,
+    "flash_bwd_ordered_out_kernel": FUSED_BWD,
     "flash_masked_bwd_dq_sm90_kernel": "flash_masked_bwd_dq",
     "flash_bwd_dq_f32_sm90_kernel": "flash_bwd_dq",
     "flash_masked_bwd_dq_f32_sm90_kernel": "flash_masked_bwd_dq",
@@ -75,7 +79,7 @@ def port_kernel_of(name: str) -> Optional[str]:
     (mangled or demangled) belongs to, or None for any other kernel:
     "flash_fwd" (K1), "flash_masked_fwd" (K4), "flash_exp2" (P1),
     "flash_bwd_dkv" / "flash_masked_bwd_dkv" (K2 / K5), "flash_bwd_dq" /
-    "flash_masked_bwd_dq" (K3 / K6), FUSED_BWD (K2 and K3's fused walk),
+    "flash_masked_bwd_dq" (K3 / K6), FUSED_BWD (K2 and K3's fused and ordered walks),
     "int8_gemm" (P2), "quantize_rows" (Q)."""
     m = _KERNEL_RE.search(name)
     if m is None:

@@ -281,6 +281,63 @@ def test_split_partials_summed_in_order_match_the_pallas_dkv():
            [np.asarray(x) for x in (dq_w, dk_w, dv_w)], atol=5e-4, rtol=5e-4)
 
 
+@pytest.mark.parametrize("lq,lk,d", [(100, 300, 24), (200, 1000, 128),
+                                      (64, 129, 80), (130, 640, 64)])
+def test_ordered_plain_matches_the_pallas_dkv_and_dq(lq, lk, d):
+    """The ordered walk's arithmetic on the CPU in fp32: dK and dV of each
+    128-key block, dQ as the blocks' shares added in key-block order from
+    block 0, against the JAX package's K2 and K3 (`_flash_bwd_dkv_kernel`,
+    `_flash_bwd_dq_kernel`, interpret mode) fed the same lse and delta:
+    Lq off the 64-query tile, Lk off the 128-key block and over several
+    blocks, D = 24 and others below 128."""
+    B, N = 1, 2
+    q, do = _arrays([(B, lq, N, d)] * 2, seed=lq + d)
+    k, v = _arrays([(B, lk, N, d)] * 2, seed=lk + d)
+    qt, kt, vt, dot = map(torch.from_numpy, (q, k, v, do))
+    o, lse = ta.flash_attention_plain(qt, kt, vt)
+    delta = (dot * o).sum(-1).permute(0, 2, 1).contiguous()
+    got = ta.flash_attention_bwd_ordered_plain(qt, kt, vt, dot, lse, delta)
+    # the Pallas kernels take [B, N, Lqp, *] padded with zero rows
+    pad = -(-lq // 128) * 128 - lq
+    rows = lambda x: np.pad(x, ((0, 0), (0, 0), (0, pad), (0, 0)))
+    want = j_flash_bwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(rows(np.swapaxes(do, 1, 2))),
+        jnp.asarray(rows(lse.numpy()[..., None])),
+        jnp.asarray(rows(delta.numpy()[..., None])), d ** -0.5, 128, 128,
+        True)
+    _close([x.numpy() for x in got], [np.asarray(x) for x in want],
+           atol=5e-4, rtol=5e-4)
+
+
+def test_ordered_plain_adds_the_shares_in_key_block_order():
+    """dQ of the ordered plain version is, bit for bit, the fp32 shares
+    dS K of the 128-key blocks added one after another from block 0, then
+    scaled and rounded; dK and dV are the fused walk's, block by block."""
+    B, N, D, lq, lk = 1, 2, 32, 70, 500
+    q, do = _arrays([(B, lq, N, D)] * 2, seed=21)
+    k, v = _arrays([(B, lk, N, D)] * 2, seed=22)
+    qt, kt, vt, dot = map(torch.from_numpy, (q, k, v, do))
+    o, lse = ta.flash_attention_plain(qt, kt, vt)
+    delta = (dot * o).sum(-1).permute(0, 2, 1).contiguous()
+    dq, dk, dv = ta.flash_attention_bwd_ordered_plain(qt, kt, vt, dot, lse,
+                                                      delta)
+    sc = D ** -0.5
+    qf, dof = (x.permute(0, 2, 1, 3) for x in (qt, dot))
+    total = None
+    for k0 in range(0, lk, ta.BWD_KEY_BLOCK):
+        kb, vb = (x[:, k0:k0 + ta.BWD_KEY_BLOCK].permute(0, 2, 1, 3)
+                  for x in (kt, vt))
+        p = torch.exp(qf @ kb.transpose(-1, -2) * sc - lse[..., None])
+        ds = p * (dof @ vb.transpose(-1, -2) - delta[..., None])
+        share = ds @ kb
+        total = share if total is None else total + share
+    assert torch.equal(dq, (total * sc).permute(0, 2, 1, 3))
+    _, dk_f, dv_f = ta.flash_attention_bwd_fused_plain(qt, kt, vt, dot, lse,
+                                                       delta)
+    assert torch.equal(dk, dk_f) and torch.equal(dv, dv_f)
+
+
 # ---------------------------------------------------------------------------
 # The walk of the Hopper K6 (the masked dQ over the 128 x 128 table)
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """K2's and K3's schedules off the card: `bwd_schedule` at every bf16 / fp16
 K2 / K3 shape of `chip_smoke.py` on an H100's 132 SMs, its limits, the
-reduce's order of dQ's partials, and the fused walk's plain version
+reduce's order of dQ's partials, the fused walk's plain version
 (`flash_attention_bwd_fused_plain`: each 128-key block's dK, dV and share
 of dQ, the shares summed in the reduce's order) against the Pallas K2 and
-K3 in interpret mode."""
+K3 in interpret mode, and what each schedule's call is given
+(`bwd_workspace`, `_bwd_sched_args`)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,10 +22,10 @@ H100_SMS = 132
 BWD_SCHEDULES = [
     ("tf_cross", 1, 12, 128, 65520, 512, "persistent"),
     ("tf_cross_f16", 1, 12, 128, 65520, 512, "persistent"),
-    ("fewstep_self_hot", 1, 12, 128, 4680, 32760, "grid"),
-    ("ragged", 2, 12, 128, 1000, 1300, "grid"),
+    ("fewstep_self_hot", 1, 12, 128, 4680, 32760, "ordered"),
+    ("ragged", 2, 12, 128, 1000, 1300, "ordered"),
     ("d24_bf16", 2, 4, 24, 1000, 1300, "grid"),
-    ("critic_self", 1, 12, 128, 32760, 32760, "grid"),
+    ("critic_self", 1, 12, 128, 32760, 32760, "ordered"),
     ("score_cross", 1, 12, 128, 32760, 512, "persistent"),
     ("gan_head_q1", 2, 12, 128, 1, 32760, "fused"),
 ]
@@ -33,8 +34,9 @@ BWD_SCHEDULES = [
 @pytest.mark.parametrize("label,B,N,D,lq,lk,mode", BWD_SCHEDULES,
                          ids=[r[0] for r in BWD_SCHEDULES])
 def test_each_bwd_shape_gets_its_schedule(label, B, N, D, lq, lk, mode):
-    """The long rows on the grid, 512 keys on K3's persistent walk, one
-    query row over 32760 keys fused; the same answer from a cold cache."""
+    """The long rows at D = 128 on the ordered walk, D = 24 on the grid,
+    512 keys on K3's persistent walk, one query row over 32760 keys fused;
+    the same answer from a cold cache."""
     got = ta.bwd_schedule(B, N, lq, lk, D, H100_SMS)
     assert got == mode, got
     ta.bwd_schedule.cache_clear()
@@ -43,16 +45,68 @@ def test_each_bwd_shape_gets_its_schedule(label, B, N, D, lq, lk, mode):
 
 @pytest.mark.parametrize("B,N,lq,lk,D,want", [
     (2, 12, 64, 8192, 128, "fused"),       # a whole query tile: 48 MiB
-    (2, 12, 65, 8192, 128, "grid"),        # past one query tile
+    (2, 12, 65, 8192, 128, "ordered"),     # past one query tile
     (1, 66, 1, 32760, 128, "fused"),       # K3's 66 blocks: half the card
-    (1, 67, 1, 32760, 128, "grid"),        # more than half the card
-    (2, 12, 64, 16384, 128, "grid"),       # 96 MiB of partials: past the cap
+    (1, 67, 1, 32760, 128, "ordered"),     # more than half the card
+    (2, 12, 64, 16384, 128, "ordered"),    # 96 MiB of partials: past the cap
     (2, 12, 64, 16384, 64, "fused"),       # 48 MiB at D = 64
     (2, 12, 1000, 768, 128, "persistent"),  # 6 key tiles
-    (2, 12, 1000, 769, 128, "grid"),       # 7 key tiles
+    (2, 12, 1000, 769, 128, "ordered"),    # 7 key tiles
+    (2, 12, 1000, 769, 64, "grid"),        # the grid's 64-wide head dim
+    (2, 12, 1000, 769, 72, "ordered"),     # past it
+    (1, 8, 4096, 4096, 128, "grid"),       # a wave holds 17 blocks a head
+    (1, 9, 4096, 4096, 128, "ordered"),    # 15 blocks a head
+    (1, 4, 4096, 1024, 128, "ordered"),    # 8 blocks: the whole head
+    (2, 40, 32760, 32760, 128, "ordered"),  # i2v-14B's 40 heads
 ])
 def test_bwd_schedule_limits(B, N, lq, lk, D, want):
     assert ta.bwd_schedule(B, N, lq, lk, D, H100_SMS) == want
+
+
+@pytest.mark.parametrize("mode,parts,lq,lk,d", [
+    ("ordered", "both", 100, 300, 24), ("ordered", "both", 64, 1000, 128),
+    ("fused", "both", 3, 1000, 80), ("grid", "dkv", 4096, 200, 128),
+    ("grid", "dq", 100, 300, 24), ("persistent", "both", 100, 300, 24)])
+def test_bwd_workspace_of_each_schedule(mode, parts, lq, lk, d):
+    """The ordered walk gets its fp32 sums (two 64 x 64 halves a 64-query
+    tile of each (batch, head), left unset) and zeroed int32 counters (one
+    a half); the fused walk its partials; the grid's K2 its split's
+    partials where it splits (on a card of 6 SMs here); the others
+    nothing."""
+    B, N = 2, 3
+    q = torch.zeros((B, lq, N, d), dtype=torch.bfloat16)
+    k = torch.zeros((B, lk, N, d), dtype=torch.bfloat16)
+    splits, ws, cnt = ta.bwd_workspace(mode, parts, q, k, sms=6)
+    tiles = B * N * -(-lq // 64)
+    if mode == "ordered":
+        assert splits == 1 and ws.dtype == torch.float32
+        assert ws.numel() == tiles * 2 * 64 * 64
+        assert cnt.dtype == torch.int32 and cnt.numel() == tiles * 2
+        assert not cnt.any()
+    elif mode == "fused":
+        assert cnt is None and ws.numel() == -(-lk // 128) * B * N * lq * d
+    else:
+        assert cnt is None
+        want = ta.bwd_query_splits(B, N, lq, lk, 6) if parts != "dq" else 1
+        assert splits == want and (ws is None) == (splits == 1)
+
+
+def test_sched_args_pack_the_counters_last():
+    """42 int64s: the ordered walk's counters after the 21 strides (0 for
+    the other modes), the mode's code among them."""
+    import struct
+    q = torch.zeros((1, 70, 2, 24), dtype=torch.bfloat16)
+    k = torch.zeros((1, 300, 2, 24), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 70))
+    _, ws, cnt = ta.bwd_workspace("ordered", "both", q, k, sms=132)
+    outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(k))
+    packed = ta._bwd_sched_args(q, k, k, q, lse, lse, *outs, ws, "ordered",
+                                "both", 1, 132, cnt)
+    vals = struct.unpack("42q", packed)
+    assert vals[11] == ta.BWD_MODES["ordered"] == 3
+    assert vals[10] == ws.data_ptr() and vals[-1] == cnt.data_ptr()
+    assert struct.unpack("42q", ta._bwd_sched_args(
+        q, k, k, q, lse, lse, *outs, None, "grid", "both", 1, 132))[-1] == 0
 
 
 @pytest.mark.parametrize("n", [1, 5, 8, 9, 256])

@@ -667,13 +667,15 @@ def test_hopper_bwd_padding_keys_stay_finite_under_a_very_negative_lse(cuda):
 # ---------------------------------------------------------------------------
 # K2 and K3 under their schedules (csrc/flash_bwd_sched_sm90.cuh): the fused
 # walk and its dQ reduce where the queries fit one 64-row tile, K3's
-# persistent walk at short keys
+# persistent walk at short keys, the ordered walk and its dQ out kernel at
+# long keys
 # ---------------------------------------------------------------------------
 
 #: the kernel that computes dQ under each schedule
 BWD_SCHEDULE_KERNELS = {"grid": "flash_bwd_dq_sm90_kernel",
                         "persistent": "flash_bwd_dq_persistent_sm90_kernel",
-                        "fused": "flash_bwd_fused_sm90_kernel"}
+                        "fused": "flash_bwd_fused_sm90_kernel",
+                        "ordered": "flash_bwd_ordered_sm90_kernel"}
 
 
 def _force_bwd(monkeypatch, mode):
@@ -682,16 +684,23 @@ def _force_bwd(monkeypatch, mode):
 
 def _bwd_schedule_of(names):
     """The schedule that ran among the profiler's `names`: the fused walk
-    with its reduce and no K2 / K3 kernel of the grid, or K3's grid or
-    persistent kernel beside K2's."""
+    with its reduce, or the ordered walk with its dQ out kernel, and no
+    K2 / K3 kernel of the grid, or K3's grid or persistent kernel beside
+    K2's."""
     fused = [n for n in names if "flash_bwd_fused_sm90_kernel" in n]
+    ordered = [n for n in names if "flash_bwd_ordered_sm90_kernel" in n]
+    out = any("flash_bwd_ordered_out_kernel" in n for n in names)
     reduced = any("flash_bwd_dq_reduce_kernel" in n for n in names)
     dq = [n for n in names if "flash_bwd_dq" in n and "reduce" not in n]
     dkv = [n for n in names if "flash_bwd_dkv_sm90_kernel" in n]
     if fused:
-        assert reduced and not dq and not dkv, names
+        assert reduced and not dq and not dkv and not out, names
         return "fused"
-    assert len(dq) == 1 and len(dkv) == 1 and not reduced, names
+    if ordered:
+        assert out and not dq and not dkv and not reduced, names
+        return "ordered"
+    assert len(dq) == 1 and len(dkv) == 1 and not reduced and not out, \
+        names
     return ("persistent" if BWD_SCHEDULE_KERNELS["persistent"] in dq[0]
             else "grid")
 
@@ -730,7 +739,7 @@ def test_bwd_schedules_match_plain(cuda, monkeypatch, mode, lq, lk, d,
     assert max(errs) <= 1e-2, errs
 
 
-@pytest.mark.parametrize("mode", ["fused", "persistent"])
+@pytest.mark.parametrize("mode", ["fused", "persistent", "ordered"])
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
                                      (torch.float16, 80)])
 def test_bwd_schedules_read_views_in_place(cuda, monkeypatch, mode, dtype,
@@ -771,6 +780,80 @@ def test_fused_bwd_gives_the_same_bits_on_every_call(cuda, monkeypatch,
             assert torch.equal(x, y)
 
 
+#: (lq, lk, d) of the ordered walk: one query row and one key, ragged and
+#: whole 64-query tiles and 128-key blocks, several blocks, D = 24 / 80 /
+#: 128
+ORDERED_CASES = [(1, 1, 24), (7, 127, 80), (64, 128, 128), (65, 129, 24),
+                 (129, 257, 128), (1000, 1300, 128), (1000, 1300, 24),
+                 (300, 4000, 80), (4680, 1025, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("lq,lk,d", ORDERED_CASES)
+def test_ordered_bwd_matches_plain(cuda, monkeypatch, lq, lk, d, dtype):
+    """The ordered walk against the plain backward and its own plain
+    version (dQ's shares added in key-block order), one K2 and one K3
+    launch booked to it; with one key dS is 0 but for rounding, so dQ and
+    dK are held to a bound on their size."""
+    _force_bwd(monkeypatch, "ordered")
+    ta.reset_launch_counts()
+    q, k, v, do = _bwd_inputs(lq, lk, d, dtype, cuda, seed=lq + lk + d)
+    got, errs = _bwd_errors(q, k, v, do)
+    assert ta.launch_counts["flash_bwd_dkv"] == 1
+    assert ta.launch_counts["flash_bwd_dq"] == 1
+    assert ta.bwd_mode_launches == {
+        **dict.fromkeys(ta.bwd_mode_launches, 0), "ordered": 1}
+    o, lse = ta.flash_fwd_cuda(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    want = ta.flash_attention_bwd_ordered_plain(q, k, v, do, lse, delta)
+    if lk == 1:
+        assert all(g.float().abs().max().item() <= 1e-3 for g in got[:2])
+        got, want, errs = got[2:], want[2:], errs[2:]
+    assert max(errs) <= 1e-2, errs
+    assert max(_rel(g, w) for g, w in zip(got, want)) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_ordered_bwd_gives_the_same_bits_on_every_call(cuda, monkeypatch,
+                                                       dtype):
+    """dQ's shares are added in key-block order (counters between the
+    blocks), not as they arrive: the same bits on every call, at a shape
+    whose 1,536 units (64 key blocks x 12 heads x 2) are more than the
+    card's SMs, so that the waits cross blocks and rounds of the walk and
+    must finish."""
+    _force_bwd(monkeypatch, "ordered")
+    q, k, v, do = _bwd_inputs(1000, 8192, 128, dtype, cuda, seed=8, N=12)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert -(-8192 // ta.BWD_KEY_BLOCK) * 12 * 2 > sms
+    o, lse = ta.flash_fwd_cuda(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    first = ta.flash_bwd_cuda(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        for x, y in zip(ta.flash_bwd_cuda(q, k, v, do, lse, delta), first):
+            assert torch.equal(x, y)
+    want = ta.flash_attention_bwd_ordered_plain(q, k, v, do, lse, delta)
+    assert max(_rel(g, w) for g, w in zip(first, want)) <= 1e-2
+
+
+def test_ordered_bwd_runs_its_walk_and_the_parts_the_grid(cuda):
+    """At a long shape the profiler sees the ordered walk and its dQ out
+    kernel for the whole backward (`flash_bwd_cuda`), and K2's and K3's
+    grid kernels for the parts asked for alone."""
+    q, k, v, do = _bwd_inputs(1000, 2000, 128, torch.bfloat16, cuda, N=12)
+    assert ta.bwd_schedule(2, 12, 1000, 2000, 128,
+                           ta._sm_count(cuda.index or 0)) == "ordered"
+    o, lse = ta.flash_fwd_cuda(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    whole = _launched(lambda: ta.flash_bwd_cuda(q, k, v, do, lse, delta))
+    assert _bwd_schedule_of(whole) == "ordered"
+    dkv = _launched(lambda: ta.flash_bwd_dkv_cuda(q, k, v, do, lse, delta))
+    dq = _launched(lambda: ta.flash_bwd_dq_cuda(q, k, v, do, lse, delta))
+    assert any("flash_bwd_dkv_sm90_kernel" in n for n in dkv), dkv
+    assert any("flash_bwd_dq_sm90_kernel" in n for n in dq), dq
+    assert not any("ordered" in n for n in dkv | dq), (dkv, dq)
+
+
 def test_fused_bwd_matches_its_plain_version(cuda, monkeypatch):
     """The fused walk and its plain version agree (both round nothing
     before the partials and sum them in the reduce's order)."""
@@ -790,9 +873,9 @@ def test_fused_bwd_matches_its_plain_version(cuda, monkeypatch):
                                        (2, 12, 1, 32760)])
 def test_bwd_runs_the_schedule_the_chooser_names(cuda, B, N, lq, lk):
     """The kernels the profiler sees are those of `bwd_schedule`'s mode
-    (on an H100: a long shape on the grid, 512 keys on K3's persistent
-    walk, one query row over 32760 keys fused), one K2 and one K3 launch a
-    call."""
+    (on an H100: a long shape at 12 heads on the ordered walk, 512 keys on
+    K3's persistent walk, one query row over 32760 keys fused), one K2 and
+    one K3 launch a call."""
     q, k, v, do = _bwd_inputs(lq, lk, 128, torch.bfloat16, cuda, B=B, N=N)
     o, lse = ta.flash_fwd_cuda(q, k, v)
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()

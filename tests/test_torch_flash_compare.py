@@ -65,7 +65,9 @@ def test_the_compare_times_every_short_k1_row():
      ["gan_head_q1", "i2v14b_img"]),
     (["--kernel", "bwd"], "bwd", ["tf_cross", "fewstep_self_hot",
                                   "gan_head_q1", "score_cross",
-                                  "critic_self"]),
+                                  "critic_self", "ragged", "d24_bf16",
+                                  "ring_chunk", "keys896", "heads8_4096",
+                                  "heads4_4096"]),
     (["--kernel", "bwd", "--shapes", "tf_cross"], "bwd", ["tf_cross"]),
     (["--kernel", "int8"], "int8",
      ["g23_fc1", "g23_fc2", "g0_o", "vae_96ch"]),
@@ -304,8 +306,10 @@ def test_baseline_bwd_schedules_follow_its_sources(tmp_path, scheduled):
 
 def test_the_backward_compare_times_the_schedules_rows():
     """The GAN head's one query row (fused), the 512-key cross-attention
-    (K3's persistent walk) and the long rows (the grid) are all in
-    `BWD_SHAPES`; fp32 times the GAN head's row too."""
+    (K3's persistent walk), the long rows, the ring's chunk and 7 key
+    blocks (the ordered walk) and the tiny head dim and 8 and 4 heads over
+    4096 keys (the grid) are all in `BWD_SHAPES`; fp32 times the GAN
+    head's row too."""
     assert flash_compare.BWD_SHAPES["gan_head_q1"] == (2, 12, 128, 1, 32760)
     assert flash_compare.BWD_SHAPES["score_cross"] == (1, 12, 128, 32760, 512)
     assert flash_compare.BWD_SHAPES["critic_self"] == (
@@ -313,9 +317,12 @@ def test_the_backward_compare_times_the_schedules_rows():
     assert flash_compare.F32_SHAPES["gan_head_q1"] == (2, 12, 128, 1, 32760)
     modes = {label: ta.bwd_schedule(B, N, lq, lk, D, 132)
              for label, (B, N, D, lq, lk) in flash_compare.BWD_SHAPES.items()}
-    assert modes == {"tf_cross": "persistent", "fewstep_self_hot": "grid",
+    assert modes == {"tf_cross": "persistent", "fewstep_self_hot": "ordered",
                      "gan_head_q1": "fused", "score_cross": "persistent",
-                     "critic_self": "grid"}
+                     "critic_self": "ordered", "ragged": "ordered",
+                     "d24_bf16": "grid", "ring_chunk": "ordered",
+                     "keys896": "ordered", "heads8_4096": "grid",
+                     "heads4_4096": "grid"}
 
 
 def test_masked_compare_needs_the_card(tmp_path, monkeypatch):

@@ -81,6 +81,12 @@ NAMES = [
     ('K2 + K3 dQ reduce', 'flash_bwd_dkv+flash_bwd_dq',
      '_ZN4mmpl4sm9026flash_bwd_dq_reduce_kernelI13__nv_bfloat16EEvPKfPT_iiiiixxxf',
      'void mmpl::sm90::flash_bwd_dq_reduce_kernel<__nv_bfloat16>(float const*, __nv_bfloat16*, int, int, int, int, int, long long, long long, long long, float)'),
+    ('K2 + K3 ordered', 'flash_bwd_dkv+flash_bwd_dq',
+     '_ZN4mmpl4sm9029flash_bwd_ordered_sm90_kernelI13__nv_bfloat16Li128EEEv14CUtensorMap_stS3_S3_S3_S3_S3_NS0_13OrderedParamsE',
+     'void mmpl::sm90::flash_bwd_ordered_sm90_kernel<__nv_bfloat16, 128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, mmpl::sm90::OrderedParams)'),
+    ('K2 + K3 ordered dQ out', 'flash_bwd_dkv+flash_bwd_dq',
+     '_ZN4mmpl4sm9028flash_bwd_ordered_out_kernelI6__halfEEvPK6float4PT_iiiixxxxf',
+     'void mmpl::sm90::flash_bwd_ordered_out_kernel<__half>(float4 const*, __half*, int, int, int, int, long long, long long, long long, long long, float)'),
     ('K5', 'flash_masked_bwd_dkv',
      '_ZN4mmpl4sm9036flash_masked_bwd_dkv_f32_sm90_kernelILi128EEEvPKfS3_S3_S3_NS_10FwdStridesExxxNS0_12F32BwdParamsENS_9FrameMaskE',
      'void mmpl::sm90::flash_masked_bwd_dkv_f32_sm90_kernel<128>(float const*, float const*, float const*, float const*, mmpl::FwdStrides, long long, long long, long long, mmpl::sm90::F32BwdParams, mmpl::FrameMask)'),
